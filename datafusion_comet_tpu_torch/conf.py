@@ -1,0 +1,25 @@
+"""Session settings (port of the two ``datafusion_comet_tpu/conf.py`` keys the
+Q1/Q6 slice reads).
+
+The JAX package keeps a process-wide mutable registry; here the settings are
+one immutable object that a ``Session`` owns and passes down, so two sessions
+in one process never see each other's values.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+__all__ = ["Config"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    # comet.exec.agg.denseMaxDomain: group-by key domains at most this large
+    # (provable from dictionary / narrow-type packing) aggregate on the dense
+    # bucket path.
+    agg_dense_max_domain: int = 64
+    # comet.scan.dictionary.maxSize: string columns with at most this many
+    # distinct values are dictionary-encoded at staging (sorted dictionary +
+    # int32 codes, order-isomorphic to string order). 0 disables.
+    scan_dictionary_max_size: int = 1 << 16

@@ -1,0 +1,311 @@
+"""Columnar batches: struct-of-arrays tensors on one device (port of
+``datafusion_comet_tpu/exec/batch.py``).
+
+The layout is the JAX package's, so the two can be compared field by field:
+
+- every batch has a static capacity (a power of two); live rows are a
+  boolean ``row_mask``, and a filter flips mask bits instead of moving rows;
+- nullability is a per-column boolean ``validity`` (True = non-null);
+- strings are int32 codes into a sorted host ``StringDict``, or padded uint8
+  matrices plus int32 ``lengths`` when the dictionary would be too large;
+- a DECIMAL(p>18) column is a 1-D int64 while a recorded ``mag_bound``
+  proves its values fit, and a (cap, 2) int64 [hi, lo] i128 otherwise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from datafusion_comet_tpu_torch import types as T
+from datafusion_comet_tpu_torch.exec.dictionary import StringDict, encode_objects, encode_padded
+
+__all__ = ["ColumnVector", "Batch", "pad_capacity", "quantize_bound", "from_numpy",
+           "to_numpy", "from_arrays", "to_arrays"]
+
+_M64 = (1 << 64) - 1
+
+
+def quantize_bound(mx: int) -> int:
+    """Round a magnitude bound up to all-nines (10^k - 1), as the JAX package
+    does, so both pick the same storage from the same data."""
+    b = 9
+    while b < mx:
+        b = b * 10 + 9
+    return b
+
+
+def pad_capacity(n: int, minimum: int = 8) -> int:
+    """Round a row count up to the next power of two."""
+    cap = max(minimum, 1)
+    while cap < n:
+        cap *= 2
+    return cap
+
+
+@dataclasses.dataclass
+class ColumnVector:
+    """One column. ``data``: (cap,) fixed-width values, (cap,) int32 codes
+    when ``dictionary`` is set, (cap, w) uint8 for padded strings, or
+    (cap, 2) int64 for two-limb decimals. ``validity``: (cap,) bool.
+    ``lengths``: (cap,) int32 for padded strings, else None. ``mag_bound``:
+    for decimals, a sound host-side bound on max |unscaled value|."""
+
+    data: torch.Tensor
+    validity: torch.Tensor
+    lengths: Optional[torch.Tensor]
+    dtype: T.DataType
+    dictionary: Optional[StringDict] = None
+    mag_bound: Optional[int] = None
+
+    @property
+    def capacity(self) -> int:
+        return self.data.shape[0]
+
+    @property
+    def is_wide_storage(self) -> bool:
+        """True when this decimal column is physically two-limb (cap, 2)."""
+        return self.dtype.is_decimal and self.data.dim() == 2
+
+    @property
+    def is_dict(self) -> bool:
+        return self.dictionary is not None
+
+    def take(self, indices: torch.Tensor) -> "ColumnVector":
+        """Gather rows by in-range index (the bound does not carry over)."""
+        lengths = None if self.lengths is None else self.lengths[indices]
+        return ColumnVector(self.data[indices], self.validity[indices], lengths,
+                            self.dtype, self.dictionary)
+
+
+@dataclasses.dataclass
+class Batch:
+    """A struct-of-arrays batch: columns plus the live-row mask."""
+
+    columns: Tuple[ColumnVector, ...]
+    row_mask: torch.Tensor  # (cap,) bool
+    schema: T.Schema
+
+    @property
+    def capacity(self) -> int:
+        return self.row_mask.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.row_mask.device
+
+    def num_rows(self) -> torch.Tensor:
+        return self.row_mask.sum()
+
+    def column(self, name: str) -> ColumnVector:
+        return self.columns[self.schema.index_of(name)]
+
+    def with_mask(self, mask: torch.Tensor) -> "Batch":
+        return Batch(self.columns, mask, self.schema)
+
+    def select(self, indices: Sequence[int], schema: T.Schema) -> "Batch":
+        return Batch(tuple(self.columns[i] for i in indices), self.row_mask, schema)
+
+
+# -------------------------------------------------------------------------------------
+# host <-> device
+# -------------------------------------------------------------------------------------
+
+
+def _pad_strings_np(values: np.ndarray, max_len: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Ragged str/bytes/None object array -> padded (n, max_len) uint8 + lengths."""
+    n = len(values)
+    if n == 0:
+        return np.zeros((0, max_len), np.uint8), np.zeros((0,), np.int32)
+    encoded = [
+        (v.encode("utf-8") if isinstance(v, str) else (bytes(v) if v is not None else b""))
+        for v in values
+    ]
+    lens = np.fromiter((len(e) for e in encoded), dtype=np.int32, count=n)
+    if lens.max(initial=0) > max_len:
+        raise ValueError(f"string longer than max_len={max_len}")
+    flat = np.frombuffer(b"".join(encoded), dtype=np.uint8)
+    offsets = np.zeros(n, np.int64)
+    np.cumsum(lens[:-1], out=offsets[1:])
+    pos = np.arange(max_len, dtype=np.int64)
+    idx = np.minimum(offsets[:, None] + pos[None, :], max(len(flat) - 1, 0))
+    mat = np.zeros((n, max_len), np.uint8)
+    if len(flat):
+        mat = np.where(pos[None, :] < lens[:, None], flat[idx], 0).astype(np.uint8)
+    return mat, lens
+
+
+def _padded(a: np.ndarray, cap: int) -> np.ndarray:
+    out = np.zeros((cap,) + a.shape[1:], a.dtype)
+    out[: len(a)] = a
+    return out
+
+
+def _i128_limbs(ints, cap: int) -> np.ndarray:
+    """Python ints -> (cap, 2) int64 [hi, lo] two's-complement limbs."""
+    buf = np.zeros((cap, 2), np.int64)
+    for i, x in enumerate(ints):
+        u = x & ((1 << 128) - 1)
+        buf[i, 0] = np.uint64((u >> 64) & _M64).astype(np.int64)
+        buf[i, 1] = np.uint64(u & _M64).astype(np.int64)
+    return buf
+
+
+def from_numpy(
+    data: Dict[str, np.ndarray],
+    schema: T.Schema,
+    device: Union[str, torch.device],
+    validity: Optional[Dict[str, np.ndarray]] = None,
+    dict_max_size: int = 1 << 16,
+) -> Batch:
+    """Stage host numpy columns as a Batch on ``device``, padded to the
+    next power of two. Decimals come pre-scaled as int64. Strings may be
+    object arrays of str/bytes/None; those with at most ``dict_max_size``
+    distinct values are dictionary-encoded (0 disables)."""
+    names = schema.names
+    n = len(data[names[0]]) if names else 0
+    cap = pad_capacity(n)
+    validity = validity or {}
+    host = []  # (data, validity, lengths, dtype, dictionary, mag_bound) per column
+    for f in schema.fields:
+        v = np.asarray(data[f.name])
+        valid_np = validity.get(f.name)
+        if valid_np is None:
+            valid_np = (np.array([x is not None for x in v], dtype=bool)
+                        if v.dtype == object else np.ones(n, dtype=bool))
+        valid_pad = _padded(np.asarray(valid_np, bool), cap)
+        if f.dtype.is_binary:
+            max_len = f.dtype.byte_width
+            enc = encode_objects(v, max_len, dict_max_size) if v.dtype == object else None
+            if enc is None:
+                mat, lens = _pad_strings_np(v, max_len)
+                if v.dtype != object:
+                    enc = encode_padded(mat, lens, dict_max_size)
+            if enc is not None:
+                host.append((_padded(enc[0], cap), valid_pad, None, f.dtype, enc[1], None))
+            else:
+                host.append((_padded(mat, cap), valid_pad, _padded(lens, cap), f.dtype,
+                             None, None))
+        elif f.dtype.is_wide_decimal:
+            ints = [0 if v[i] is None else int(v[i]) for i in range(n)]
+            mx = max((abs(x) for x in ints), default=0)
+            if mx < (1 << 62):  # values fit int64: narrow storage + recorded bound
+                host.append((_padded(np.array(ints, np.int64), cap), valid_pad, None,
+                             f.dtype, None, quantize_bound(mx)))
+            else:
+                host.append((_i128_limbs(ints, cap), valid_pad, None, f.dtype, None, None))
+        else:
+            phys = f.dtype.np_dtype()
+            if v.dtype == object:
+                v = np.array([x if x is not None else 0 for x in v])
+            buf = _padded(v.astype(phys), cap)
+            bound = None
+            if f.dtype.is_decimal:
+                # the actual magnitude lets downstream arithmetic keep
+                # provably-int64 intermediates on the narrow path
+                bound = quantize_bound(int(np.abs(buf[:n]).max()) if n else 0)
+            host.append((buf, valid_pad, None, f.dtype, None, bound))
+    cols = tuple(
+        ColumnVector(_to(d, device), _to(vd, device), None if ln is None else _to(ln, device),
+                     dt, sd, mb)
+        for d, vd, ln, dt, sd, mb in host)
+    mask = np.zeros(cap, bool)
+    mask[:n] = True
+    return Batch(cols, _to(mask, device), schema)
+
+
+def _to(a: np.ndarray, device) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:  # e.g. a view of another framework's buffer
+        a = a.copy()
+    return torch.from_numpy(a).to(device)
+
+
+def to_numpy(batch: Batch) -> Dict[str, np.ndarray]:
+    """Pull a batch back to host as compacted numpy columns plus a
+    ``<name>__valid`` array each: strings as objects (None for nulls),
+    wide-typed decimals as Python ints, everything else in its dtype."""
+    mask = batch.row_mask.cpu().numpy()
+    out: Dict[str, np.ndarray] = {}
+    for f, col in zip(batch.schema.fields, batch.columns):
+        valid = col.validity.cpu().numpy()[mask]
+        data = col.data.cpu().numpy()[mask]
+        if f.dtype.is_binary:
+            raw = f.dtype.type_id == "BYTES"
+            if col.is_dict:
+                d = col.dictionary
+                dvals = np.empty(max(d.size, 1), dtype=object)
+                dvals[0] = b"" if raw else ""
+                for c in range(d.size):
+                    bs = d.value_of(c)
+                    dvals[c] = bs if raw else bs.decode("utf-8", "replace")
+                vals = dvals[np.clip(data, 0, max(d.size - 1, 0))]
+            else:
+                lens = col.lengths.cpu().numpy()[mask]
+                vals = np.empty(len(data), dtype=object)
+                for i in range(len(data)):
+                    bs = bytes(data[i, : lens[i]])
+                    vals[i] = bs if raw else bs.decode("utf-8", "replace")
+            vals[~valid] = None
+            out[f.name] = vals
+        elif f.dtype.is_wide_decimal:
+            vals = np.empty(len(data), dtype=object)
+            for i in range(len(data)):
+                if data.ndim == 2:
+                    u = ((int(data[i, 0]) & _M64) << 64) | (int(data[i, 1]) & _M64)
+                    vals[i] = u - (1 << 128) if u >= (1 << 127) else u
+                else:
+                    vals[i] = int(data[i])
+            out[f.name] = vals
+        else:
+            out[f.name] = data
+        out[f.name + "__valid"] = valid
+    return out
+
+
+# -------------------------------------------------------------------------------------
+# per-column arrays: the state a batch is made of
+# -------------------------------------------------------------------------------------
+
+ArrayDict = Dict[str, Union[np.ndarray, int, None]]
+
+
+def from_arrays(schema: T.Schema, arrays: ArrayDict,
+                device: Union[str, torch.device]) -> Batch:
+    """Build a Batch from exactly the arrays a batch is made of, as
+    ``to_arrays`` lays them out: ``row_mask``, and per column ``<name>.data``,
+    ``<name>.validity``, ``<name>.lengths``, ``<name>.dict_values``,
+    ``<name>.dict_lengths`` and ``<name>.mag_bound`` (absent or None where
+    the column has none). This is how a batch staged elsewhere, such as by
+    the JAX package, is carried over unchanged."""
+    cols = []
+    for f in schema.fields:
+        def get(key):
+            return arrays.get(f"{f.name}.{key}")
+
+        dv = get("dict_values")
+        sd = None if dv is None else StringDict(np.asarray(dv, np.uint8),
+                                                np.asarray(get("dict_lengths")))
+        lengths = get("lengths")
+        mb = get("mag_bound")
+        cols.append(ColumnVector(
+            _to(np.asarray(get("data")), device), _to(np.asarray(get("validity"), bool), device),
+            None if lengths is None else _to(np.asarray(lengths), device),
+            f.dtype, sd, None if mb is None else int(mb)))
+    return Batch(tuple(cols), _to(np.asarray(arrays["row_mask"], bool), device), schema)
+
+
+def to_arrays(batch: Batch) -> ArrayDict:
+    """The inverse of ``from_arrays``: host copies of every buffer."""
+    out: ArrayDict = {"row_mask": batch.row_mask.cpu().numpy()}
+    for f, c in zip(batch.schema.fields, batch.columns):
+        out[f"{f.name}.data"] = c.data.cpu().numpy()
+        out[f"{f.name}.validity"] = c.validity.cpu().numpy()
+        out[f"{f.name}.lengths"] = None if c.lengths is None else c.lengths.cpu().numpy()
+        out[f"{f.name}.dict_values"] = None if c.dictionary is None else c.dictionary.values
+        out[f"{f.name}.dict_lengths"] = None if c.dictionary is None else c.dictionary.lengths
+        out[f"{f.name}.mag_bound"] = c.mag_bound
+    return out

@@ -1,0 +1,311 @@
+"""Expression IR and Spark type inference (port of
+``datafusion_comet_tpu/ir/expr.py``, the subset TPC-H Q1/Q6 reach).
+
+Expressions are built unbound (column names); ``bind(expr, schema)`` resolves
+references to column indices and computes result types, including Spark's
+decimal precision/scale rules (DecimalPrecision + adjustPrecisionScale with
+precision loss allowed). Evaluation lives in exec/evaluator.py.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+from datafusion_comet_tpu_torch import types as T
+
+__all__ = [
+    "Expr", "EvalMode", "ColumnRef", "BoundRef", "Literal", "Alias", "BinaryOp",
+    "Cast", "SortOrder", "AggFunc", "AggExpr", "col", "lit", "bind",
+]
+
+
+class EvalMode:
+    """Spark evaluation modes."""
+
+    LEGACY = "LEGACY"
+    ANSI = "ANSI"
+    TRY = "TRY"
+
+
+@dataclasses.dataclass(frozen=True)
+class Expr:
+    """Base expression node; ``dtype`` is None until bound."""
+
+    def children(self) -> Tuple["Expr", ...]:
+        return ()
+
+    dtype: Optional[T.DataType] = dataclasses.field(default=None, init=False)
+
+    def alias(self, name: str) -> "Alias":
+        return Alias(self, name)
+
+    def cast(self, to: T.DataType, mode: str = EvalMode.LEGACY) -> "Cast":
+        return Cast(self, to, mode)
+
+    def __add__(self, o):
+        return BinaryOp("add", self, _e(o))
+
+    def __radd__(self, o):
+        return BinaryOp("add", _e(o), self)
+
+    def __sub__(self, o):
+        return BinaryOp("sub", self, _e(o))
+
+    def __rsub__(self, o):
+        return BinaryOp("sub", _e(o), self)
+
+    def __mul__(self, o):
+        return BinaryOp("mul", self, _e(o))
+
+    def __rmul__(self, o):
+        return BinaryOp("mul", _e(o), self)
+
+    def __truediv__(self, o):
+        return BinaryOp("div", self, _e(o))
+
+    def __eq__(self, o):  # type: ignore[override]
+        return BinaryOp("eq", self, _e(o))
+
+    def __ne__(self, o):  # type: ignore[override]
+        return BinaryOp("ne", self, _e(o))
+
+    def __lt__(self, o):
+        return BinaryOp("lt", self, _e(o))
+
+    def __le__(self, o):
+        return BinaryOp("le", self, _e(o))
+
+    def __gt__(self, o):
+        return BinaryOp("gt", self, _e(o))
+
+    def __ge__(self, o):
+        return BinaryOp("ge", self, _e(o))
+
+    def __and__(self, o):
+        return BinaryOp("and", self, _e(o))
+
+    def __or__(self, o):
+        return BinaryOp("or", self, _e(o))
+
+    def __hash__(self):
+        return object.__hash__(self)
+
+    @property
+    def name(self) -> str:
+        if isinstance(self, Alias):
+            return self.out_name
+        if isinstance(self, (ColumnRef, BoundRef)):
+            return self.col_name
+        return type(self).__name__.lower()
+
+
+def _e(v: Any) -> Expr:
+    return v if isinstance(v, Expr) else lit(v)
+
+
+def _node(cls):
+    """Frozen dataclass node with identity equality (``==`` builds exprs)."""
+    return dataclasses.dataclass(frozen=True, eq=False, repr=True)(cls)
+
+
+@_node
+class ColumnRef(Expr):
+    col_name: str
+
+
+@_node
+class BoundRef(Expr):
+    index: int
+    col_name: str
+    ref_dtype: T.DataType
+
+    def __post_init__(self):
+        object.__setattr__(self, "dtype", self.ref_dtype)
+
+
+@_node
+class Literal(Expr):
+    value: Any
+    lit_dtype: T.DataType
+
+    def __post_init__(self):
+        object.__setattr__(self, "dtype", self.lit_dtype)
+
+
+@_node
+class Alias(Expr):
+    child: Expr
+    out_name: str
+
+    def children(self):
+        return (self.child,)
+
+
+@_node
+class BinaryOp(Expr):
+    """Arithmetic add/sub/mul/div; comparison eq/ne/lt/le/gt/ge/eqns;
+    Kleene logic and/or."""
+
+    op: str
+    left: Expr
+    right: Expr
+    eval_mode: str = EvalMode.LEGACY
+
+    def children(self):
+        return (self.left, self.right)
+
+
+@_node
+class Cast(Expr):
+    child: Expr
+    to: T.DataType
+    eval_mode: str = EvalMode.LEGACY
+
+    def children(self):
+        return (self.child,)
+
+
+@dataclasses.dataclass(frozen=True)
+class SortOrder:
+    child: Expr
+    ascending: bool = True
+    nulls_first: Optional[bool] = None  # default: Spark = nulls first iff ascending
+
+    def resolved_nulls_first(self) -> bool:
+        return self.ascending if self.nulls_first is None else self.nulls_first
+
+
+class AggFunc:
+    SUM = "sum"
+    COUNT = "count"
+    AVG = "avg"
+
+
+@dataclasses.dataclass(frozen=True)
+class AggExpr:
+    """One aggregate: function + input (None for COUNT(*))."""
+
+    func: str
+    child: Optional[Expr]
+    out_name: str
+
+    def result_dtype(self) -> T.DataType:
+        cd = self.child.dtype if self.child is not None else None
+        if self.func == AggFunc.COUNT:
+            return T.INT64
+        if self.func == AggFunc.SUM:
+            if cd.is_decimal:
+                return T.decimal(min(cd.precision + 10, T.MAX_DECIMAL_PRECISION), cd.scale)
+            return T.INT64 if cd.is_integer else T.FLOAT64
+        if self.func == AggFunc.AVG:
+            if cd.is_decimal:
+                # Spark: avg = decimal(p+4, s+4) bounded
+                return T.decimal(min(cd.precision + 4, T.MAX_DECIMAL_PRECISION),
+                                 min(cd.scale + 4, T.MAX_DECIMAL_PRECISION))
+            return T.FLOAT64
+        raise NotImplementedError(f"aggregate {self.func}")
+
+
+def col(name: str) -> ColumnRef:
+    return ColumnRef(name)
+
+
+def lit(value: Any, dtype: Optional[T.DataType] = None) -> Literal:
+    if dtype is None:
+        dtype = _infer_literal_type(value)
+    if dtype.is_decimal and isinstance(value, float):
+        value = round(value * 10**dtype.scale)
+    elif dtype.is_decimal and isinstance(value, int) and dtype.scale:
+        value = value * 10**dtype.scale
+    return Literal(value, dtype)
+
+
+def _infer_literal_type(v: Any) -> T.DataType:
+    if v is None:
+        return T.NULLTYPE
+    if isinstance(v, bool):
+        return T.BOOL
+    if isinstance(v, int):
+        return T.INT32 if -(2**31) <= v < 2**31 else T.INT64
+    if isinstance(v, float):
+        return T.FLOAT64
+    if isinstance(v, str):
+        return T.string(max(len(v.encode()), 1))
+    if isinstance(v, bytes):
+        return T.binary(max(len(v), 1))
+    raise TypeError(f"cannot infer literal type for {v!r}")
+
+
+_CMP_OPS = {"eq", "ne", "lt", "le", "gt", "ge", "eqns"}
+_LOGIC_OPS = {"and", "or"}
+_ARITH_OPS = {"add", "sub", "mul", "div"}
+
+
+def _decimal_arith_type(op: str, a: T.DataType, b: T.DataType) -> T.DataType:
+    """Spark DecimalPrecision rules + adjustPrecisionScale."""
+    p1, s1, p2, s2 = a.precision, a.scale, b.precision, b.scale
+    if op in ("add", "sub"):
+        s = max(s1, s2)
+        p = max(p1 - s1, p2 - s2) + s + 1
+    elif op == "mul":
+        p, s = p1 + p2 + 1, s1 + s2
+    elif op == "div":
+        s = max(6, s1 + p2 + 1)
+        p = p1 - s1 + s2 + s
+    else:
+        raise ValueError(op)
+    return _adjust_precision_scale(p, s)
+
+
+def _adjust_precision_scale(p: int, s: int) -> T.DataType:
+    if p <= T.MAX_DECIMAL_PRECISION:
+        return T.decimal(p, s)
+    int_digits = p - s
+    min_scale = min(s, 6)
+    adjusted = max(T.MAX_DECIMAL_PRECISION - int_digits, min_scale)
+    return T.decimal(T.MAX_DECIMAL_PRECISION, adjusted)
+
+
+def _to_decimal_if_int(t: T.DataType) -> T.DataType:
+    return T.decimal_for_int(t) if t.is_integer else t
+
+
+def bind(expr: Expr, schema: T.Schema) -> Expr:
+    """Resolve column refs against ``schema`` and compute result dtypes.
+    Returns a new tree of bound nodes; the original is untouched."""
+    e = expr
+    if isinstance(e, (BoundRef, Literal)):
+        return e
+    if isinstance(e, ColumnRef):
+        i = schema.index_of(e.col_name)
+        return BoundRef(i, e.col_name, schema.fields[i].dtype)
+    if isinstance(e, Alias):
+        c = bind(e.child, schema)
+        out = Alias(c, e.out_name)
+        object.__setattr__(out, "dtype", c.dtype)
+        return out
+    if isinstance(e, BinaryOp):
+        l, r = bind(e.left, schema), bind(e.right, schema)
+        out = BinaryOp(e.op, l, r, e.eval_mode)
+        object.__setattr__(out, "dtype", _binary_result_type(e.op, l, r))
+        return out
+    if isinstance(e, Cast):
+        c = bind(e.child, schema)
+        out = Cast(c, e.to, e.eval_mode)
+        object.__setattr__(out, "dtype", e.to)
+        return out
+    raise NotImplementedError(f"bind: {type(e).__name__}")
+
+
+def _binary_result_type(op: str, l: Expr, r: Expr) -> T.DataType:
+    lt, rt = l.dtype, r.dtype
+    if op in _CMP_OPS or op in _LOGIC_OPS:
+        return T.BOOL
+    if op in _ARITH_OPS:
+        if lt.is_decimal or rt.is_decimal:
+            return _decimal_arith_type(op, _to_decimal_if_int(lt), _to_decimal_if_int(rt))
+        if op == "div" and lt.is_integer and rt.is_integer:
+            return T.FLOAT64  # Spark '/' on integers yields double
+        return T.common_type(lt, rt)
+    raise NotImplementedError(op)

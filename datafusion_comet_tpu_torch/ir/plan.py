@@ -1,0 +1,162 @@
+"""Operator plan IR (port of ``datafusion_comet_tpu/ir/plan.py``: the Scan,
+Filter, Projection, HashAggregate and Sort nodes TPC-H Q1/Q6 use).
+
+Plans are built unbound; ``bind_plan`` binds expressions bottom-up against
+child schemas and computes each node's output schema.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+from datafusion_comet_tpu_torch import types as T
+from datafusion_comet_tpu_torch.ir import expr as E
+
+__all__ = ["PlanNode", "Scan", "Filter", "Projection", "HashAggregate", "AggMode",
+           "Sort", "bind_plan"]
+
+
+class AggMode:
+    PARTIAL = "partial"
+    FINAL = "final"
+    PARTIAL_MERGE = "partial_merge"
+    SINGLE = "single"  # partial+final in one step (no exchange)
+
+
+@dataclasses.dataclass
+class PlanNode:
+    """Base plan node; ``schema`` is filled in by bind_plan."""
+
+    schema: Optional[T.Schema] = dataclasses.field(default=None, init=False)
+
+    def children(self) -> Tuple["PlanNode", ...]:
+        return ()
+
+    def filter(self, predicate: E.Expr) -> "Filter":
+        return Filter(self, predicate)
+
+    def project(self, exprs: Sequence[E.Expr]) -> "Projection":
+        return Projection(self, tuple(exprs))
+
+    def aggregate(self, group_by, aggs, mode: str = AggMode.SINGLE) -> "HashAggregate":
+        return HashAggregate(self, tuple(group_by), tuple(aggs), mode)
+
+    def sort(self, orders) -> "Sort":
+        return Sort(self, tuple(orders))
+
+
+@dataclasses.dataclass
+class Scan(PlanNode):
+    """Leaf: reads a registered table, optionally a column subset."""
+
+    table: str
+    source_schema: T.Schema
+    projection: Optional[Tuple[str, ...]] = None
+
+    def out_schema(self) -> T.Schema:
+        if self.projection is None:
+            return self.source_schema
+        return T.Schema([self.source_schema.field(n) for n in self.projection])
+
+
+@dataclasses.dataclass
+class Filter(PlanNode):
+    child: PlanNode
+    predicate: E.Expr
+
+    def children(self):
+        return (self.child,)
+
+
+@dataclasses.dataclass
+class Projection(PlanNode):
+    child: PlanNode
+    exprs: Tuple[E.Expr, ...]
+
+    def children(self):
+        return (self.child,)
+
+
+@dataclasses.dataclass
+class HashAggregate(PlanNode):
+    """Group-by aggregation. Output schema: group columns, then aggregate
+    columns (SINGLE/FINAL) or their state columns (partial modes)."""
+
+    child: PlanNode
+    group_exprs: Tuple[E.Expr, ...]
+    agg_exprs: Tuple[E.AggExpr, ...]
+    mode: str = AggMode.SINGLE
+
+    def children(self):
+        return (self.child,)
+
+
+@dataclasses.dataclass
+class Sort(PlanNode):
+    """Total sort, dead rows last."""
+
+    child: PlanNode
+    orders: Tuple[E.SortOrder, ...]
+
+    def children(self):
+        return (self.child,)
+
+
+def _expr_nullable(e: E.Expr, schema: T.Schema) -> bool:
+    """Conservative bind-time nullability: False only when provably non-null."""
+    if isinstance(e, E.Alias):
+        return _expr_nullable(e.child, schema)
+    if isinstance(e, E.BoundRef):
+        return schema.fields[e.index].nullable
+    if isinstance(e, E.Literal):
+        return e.value is None
+    return True
+
+
+def bind_plan(plan: PlanNode) -> PlanNode:
+    """Bottom-up: bind expressions against child schemas, compute output
+    schemas. Returns new nodes; Scan nodes get their schema slot filled."""
+    if isinstance(plan, Scan):
+        plan.schema = plan.out_schema()
+        return plan
+    kids = [bind_plan(c) for c in plan.children()]
+    if isinstance(plan, Filter):
+        out = Filter(kids[0], E.bind(plan.predicate, kids[0].schema))
+        out.schema = kids[0].schema
+        return out
+    if isinstance(plan, Projection):
+        child = kids[0]
+        exprs = tuple(E.bind(x, child.schema) for x in plan.exprs)
+        out = Projection(child, exprs)
+        out.schema = T.Schema(
+            [T.Field(x.name, x.dtype, _expr_nullable(x, child.schema)) for x in exprs])
+        return out
+    if isinstance(plan, HashAggregate):
+        child = kids[0]
+        if plan.mode in (AggMode.FINAL, AggMode.PARTIAL_MERGE):
+            raise NotImplementedError("merge-mode aggregates are not ported yet")
+        groups = tuple(E.bind(g, child.schema) for g in plan.group_exprs)
+        aggs = tuple(
+            dataclasses.replace(
+                a, child=E.bind(a.child, child.schema) if a.child is not None else None)
+            for a in plan.agg_exprs)
+        out = HashAggregate(child, groups, aggs, plan.mode)
+        fields = [T.Field(g.name, g.dtype, _expr_nullable(g, child.schema)) for g in groups]
+        if plan.mode == AggMode.SINGLE:
+            fields += [T.Field(a.out_name, a.result_dtype()) for a in aggs]
+        else:
+            from datafusion_comet_tpu_torch.exec.operators import aggregate as AGG
+
+            for a in aggs:
+                fields += AGG.state_fields(a)
+        out.schema = T.Schema(fields)
+        return out
+    if isinstance(plan, Sort):
+        child = kids[0]
+        orders = tuple(dataclasses.replace(o, child=E.bind(o.child, child.schema))
+                       for o in plan.orders)
+        out = Sort(child, orders)
+        out.schema = child.schema
+        return out
+    raise NotImplementedError(f"bind_plan: {type(plan).__name__}")

@@ -1,0 +1,142 @@
+"""TPC-H workload subset: the ``lineitem`` schema and generator, and the plans
+of Q1 and Q6 (port of ``datafusion_comet_tpu/models/tpch.py``).
+
+The generator is a line-for-line copy of the JAX package's, so the same
+``(sf, seed)`` gives bit-identical columns in both packages: results can be
+compared across them, and checked on a machine without JAX.
+"""
+
+from __future__ import annotations
+
+import datetime
+import zlib
+from typing import Dict
+
+import numpy as np
+
+from datafusion_comet_tpu_torch import types as T
+from datafusion_comet_tpu_torch.ir import expr as E
+from datafusion_comet_tpu_torch.ir import plan as P
+
+__all__ = ["SCHEMAS", "table_rows", "generate_table", "q1", "q6"]
+
+_dec = T.decimal
+
+SCHEMAS: Dict[str, T.Schema] = {
+    "lineitem": T.Schema(
+        [
+            T.Field("l_orderkey", T.INT64, False),
+            T.Field("l_partkey", T.INT64, False),
+            T.Field("l_suppkey", T.INT64, False),
+            T.Field("l_linenumber", T.INT32, False),
+            T.Field("l_quantity", _dec(15, 2), False),
+            T.Field("l_extendedprice", _dec(15, 2), False),
+            T.Field("l_discount", _dec(15, 2), False),
+            T.Field("l_tax", _dec(15, 2), False),
+            T.Field("l_returnflag", T.string(1), False),
+            T.Field("l_linestatus", T.string(1), False),
+            T.Field("l_shipdate", T.DATE, False),
+            T.Field("l_commitdate", T.DATE, False),
+            T.Field("l_receiptdate", T.DATE, False),
+            T.Field("l_shipmode", T.string(10), False),
+        ]
+    ),
+}
+
+_SHIPMODES = ["REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB"]
+
+
+def _d(datestr: str) -> int:
+    """'yyyy-mm-dd' → days since epoch."""
+    return (datetime.date.fromisoformat(datestr) - datetime.date(1970, 1, 1)).days
+
+
+def table_rows(name: str, sf: float) -> int:
+    base = {
+        "lineitem": 6_000_000,
+        "orders": 1_500_000,
+        "customer": 150_000,
+        "supplier": 10_000,
+        "part": 200_000,
+        "partsupp": 800_000,
+        "nation": 25,
+        "region": 5,
+    }[name]
+    if name in ("nation", "region"):
+        return base
+    return max(int(base * sf), 1)
+
+
+def generate_table(name: str, sf: float, seed: int = 19920401) -> Dict[str, np.ndarray]:
+    """Deterministic TPC-H-shaped ``lineitem`` (value ranges per the spec).
+    Decimals come pre-scaled as int64 (the engine's physical form)."""
+    if name != "lineitem":
+        raise KeyError(name)
+    n = table_rows(name, sf)
+    rng = np.random.default_rng(seed + zlib.crc32(name.encode()) % (2**31))
+    norders = table_rows("orders", sf)
+    per = rng.integers(1, 8, norders)
+    per = per[: max(1, int(n / per.mean()))]
+    okeys = np.repeat(np.arange(1, len(per) + 1, dtype=np.int64) * 4 - 3, per)[:n]
+    n = len(okeys)
+    linenum = np.concatenate([np.arange(1, c + 1) for c in per])[:n].astype(np.int32)
+    qty = rng.integers(1, 51, n).astype(np.int64) * 100  # decimal(15,2)
+    price = rng.integers(90000, 10500001, n).astype(np.int64)
+    disc = rng.integers(0, 11, n).astype(np.int64)  # 0.00-0.10
+    tax = rng.integers(0, 9, n).astype(np.int64)
+    ship = (_d("1992-01-02") + rng.integers(0, 2526, n)).astype(np.int32)
+    return {
+        "l_orderkey": okeys,
+        "l_partkey": rng.integers(1, table_rows("part", sf) + 1, n).astype(np.int64),
+        "l_suppkey": rng.integers(1, table_rows("supplier", sf) + 1, n).astype(np.int64),
+        "l_linenumber": linenum,
+        "l_quantity": qty,
+        "l_extendedprice": price,
+        "l_discount": disc,
+        "l_tax": tax,
+        "l_returnflag": np.array(["A", "N", "R"], object)[rng.integers(0, 3, n)],
+        "l_linestatus": np.array(["F", "O"], object)[rng.integers(0, 2, n)],
+        "l_shipdate": ship,
+        "l_commitdate": (ship + rng.integers(-30, 31, n)).astype(np.int32),
+        "l_receiptdate": (ship + rng.integers(1, 31, n)).astype(np.int32),
+        "l_shipmode": np.array(_SHIPMODES, object)[rng.integers(0, 7, n)],
+    }
+
+
+def _date_lit(datestr: str) -> E.Literal:
+    return E.lit(_d(datestr), T.DATE)
+
+
+def q1() -> P.PlanNode:
+    """Pricing summary report: filter + 8-aggregate group-by + sort."""
+    l = P.Scan("lineitem", SCHEMAS["lineitem"])
+    disc_price = E.col("l_extendedprice") * (E.lit(1).cast(_dec(10, 0)) - E.col("l_discount"))
+    charge = disc_price * (E.lit(1).cast(_dec(10, 0)) + E.col("l_tax"))
+    agg = l.filter(E.col("l_shipdate") <= _date_lit("1998-09-02")).aggregate(
+        [E.col("l_returnflag"), E.col("l_linestatus")],
+        [
+            E.AggExpr("sum", E.col("l_quantity"), "sum_qty"),
+            E.AggExpr("sum", E.col("l_extendedprice"), "sum_base_price"),
+            E.AggExpr("sum", disc_price, "sum_disc_price"),
+            E.AggExpr("sum", charge, "sum_charge"),
+            E.AggExpr("avg", E.col("l_quantity"), "avg_qty"),
+            E.AggExpr("avg", E.col("l_extendedprice"), "avg_price"),
+            E.AggExpr("avg", E.col("l_discount"), "avg_disc"),
+            E.AggExpr("count", None, "count_order"),
+        ],
+    )
+    return agg.sort([E.SortOrder(E.col("l_returnflag")), E.SortOrder(E.col("l_linestatus"))])
+
+
+def q6() -> P.PlanNode:
+    """Forecasting revenue change: filter + ungrouped sum."""
+    l = P.Scan("lineitem", SCHEMAS["lineitem"])
+    pred = (
+        (E.col("l_shipdate") >= _date_lit("1994-01-01"))
+        & (E.col("l_shipdate") < _date_lit("1995-01-01"))
+        & (E.col("l_discount") >= E.lit(0.05, _dec(15, 2)))
+        & (E.col("l_discount") <= E.lit(0.07, _dec(15, 2)))
+        & (E.col("l_quantity") < E.lit(24, _dec(15, 2)))
+    )
+    return l.filter(pred).aggregate(
+        [], [E.AggExpr("sum", E.col("l_extendedprice") * E.col("l_discount"), "revenue")])

@@ -5,19 +5,26 @@ On a machine with one NVIDIA card, from the root of a checkout:
 
     python3 chip_smoke.py            # TPC-H SF1
     python3 chip_smoke.py --sf 10    # another scale
-    python3 chip_smoke.py --profile  # add a torch.profiler breakdown of Q1
+    python3 chip_smoke.py --profile  # add torch.profiler breakdowns of Q1 and Q12's grace run
 
 Phases, one JSON line each:
   1. device: the card's name, count, and nvidia-smi's name and power limit;
-  2. build: compiles the CUDA kernels from csrc/ with nvcc;
+  2. build: compiles the CUDA sources in csrc/ with nvcc, one process each,
+     all started together;
   3. kernels: holds bucket_count and bucket_sum against their plain PyTorch
      versions, exactly, on the card, at Q1's SF1 shape and at edge shapes;
      times kernel, plain version and one library call at Q1's shape,
      with L2 flushed before each timed run;
-  4. q1, q6: runs each query through the port's Session, checks the result
-     against an exact integer oracle written with numpy alone, and reports
-     warm time, rows/s, peak device memory and the kernel launch counts of
-     one run with the counts zeroed just before it.
+  4. q1, q6, q12: runs each query through the port's Session, checks the
+     result against an exact integer oracle written with numpy alone, and
+     reports warm time, peak device memory and the kernel launch counts of
+     one run with the counts zeroed just before it. Q12 runs twice: directly,
+     and under a Config(memory_fraction) that makes the engine split its
+     join into K = 16 hash partitions (the grace join);
+  5. partition: holds partition_sort against its plain version, exactly, at
+     the shapes Q12's grace run gave it, at the TPU kernel's probe shape
+     (tile-local) and at edge shapes; times kernel, plain version and
+     torch.sort at Q12's shapes, with L2 flushed.
 Then a {"kernels": [...]} line, nvidia-smi's line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero. The
 script imports no JAX; without a card, or without the package beside it, it
@@ -27,6 +34,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import statistics
 import subprocess
@@ -42,8 +50,15 @@ ROOT = Path(__file__).resolve().parent
 REPLACES = {
     "bucket_count": "datafusion_comet_tpu/exec/pallas_kernels.py:43",
     "bucket_sum": "datafusion_comet_tpu/exec/pallas_kernels.py:84",
+    "partition_sort": "benchmarks/pallas_scatter_probe.py:62",
 }
-SOURCE = "datafusion_comet_tpu_torch/csrc/bucket_kernels.cu"
+SOURCES = {
+    "bucket_count": "datafusion_comet_tpu_torch/csrc/bucket_kernels.cu",
+    "bucket_sum": "datafusion_comet_tpu_torch/csrc/bucket_kernels.cu",
+    "partition_sort": "datafusion_comet_tpu_torch/csrc/partition_kernels.cu",
+}
+KERNELS = tuple(REPLACES)
+GRACE_K = 16  # the partition count the grace run of Q12 is sized to
 
 
 def emit(obj) -> None:
@@ -242,65 +257,169 @@ def check_q1(out, expect) -> None:
                 raise AssertionError(f"q1 row {i} {col}: got {got}, expected {want}")
 
 
-def query_phase(sf: float, reps: int, profile: bool):
+def oracle_q12(li, od, lo: int, hi: int):
+    """Q12 with numpy alone: the filter, the join through np.searchsorted on
+    the unique o_orderkey, and per ship mode the counts of high- and
+    low-priority lines. Returns [(mode, high, low)] in mode order."""
+    sm = li["l_shipmode"]
+    m = (((sm == "MAIL") | (sm == "SHIP")) & (li["l_commitdate"] < li["l_receiptdate"])
+         & (li["l_shipdate"] < li["l_commitdate"]) & (li["l_receiptdate"] >= lo)
+         & (li["l_receiptdate"] < hi))
+    okeys = od["o_orderkey"]
+    order = np.argsort(okeys, kind="stable")
+    sk = okeys[order]
+    if len(np.unique(sk)) != len(sk):
+        raise AssertionError("o_orderkey is not unique")
+    keys = li["l_orderkey"][m]
+    pos = np.clip(np.searchsorted(sk, keys), 0, len(sk) - 1)
+    found = sk[pos] == keys
+    prio = od["o_orderpriority"][order][pos[found]]
+    mode = sm[m][found]
+    high = (prio == "1-URGENT") | (prio == "2-HIGH")
+    return [(md, int((high & (mode == md)).sum()), int((~high & (mode == md)).sum()))
+            for md in sorted(set(mode.tolist()))]
+
+
+def check_q12(out, expect, what: str) -> None:
+    got = [(out["l_shipmode"][i], int(out["high_line_count"][i]), int(out["low_line_count"][i]))
+           for i in range(len(out["l_shipmode"]))]
+    valid = all(out[c + "__valid"].all() for c in ("l_shipmode", "high_line_count",
+                                                    "low_line_count"))
+    if got != expect or not valid:
+        raise AssertionError(f"{what}: got {got}, expected {expect}")
+
+
+def grace_fraction(sess, plan, K: int = GRACE_K):
+    """The Config(memory_fraction) under which the session splits ``plan``'s
+    join into K partitions (K >= 8), from the port's own estimate: the
+    engine doubles K from 2 until K x budget / 2 covers the join's peak
+    estimate jpeak, so a budget of 3 x jpeak / K, inside [2 jpeak / K,
+    4 jpeak / K), stops it at K. Returns (fraction, jpeak)."""
+    from datafusion_comet_tpu_torch.exec.memory import device_budget_bytes, plan_peak_bytes
+    from datafusion_comet_tpu_torch.ir import plan as P
+    from datafusion_comet_tpu_torch.ir.pruning import prune_columns
+
+    node = P.bind_plan(prune_columns(plan))
+    while not isinstance(node, P.HashJoin):
+        node = node.children()[0]
+    jpeak = plan_peak_bytes(node, max(sess.tables[t].capacity for t in P.scan_tables(node)))
+    return 3 * jpeak / K / device_budget_bytes(sess.device, 1.0), jpeak
+
+
+def _zero_counts(K) -> None:
+    for name in KERNELS:
+        getattr(K, name).launches = 0
+
+
+def _counts(K):
+    return {name: getattr(K, name).launches for name in KERNELS}
+
+
+def run_query(sess, plan, reps: int):
+    """One run with the launch counts zeroed just before it and read just
+    after, then ``reps`` warm runs. Returns (first output, launches,
+    first-run s, warm ms list, peak bytes)."""
     import torch
     from datafusion_comet_tpu_torch.exec import kernels as K
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(K)
+    t0 = time.perf_counter()
+    out = sess.collect(plan)
+    first_s = time.perf_counter() - t0
+    launches = _counts(K)
+    peak = torch.cuda.max_memory_allocated()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        sess.collect(plan)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, launches, first_s, times, peak
+
+
+def query_phase(sf: float, reps: int, profile: bool):
+    import torch
+    from datafusion_comet_tpu_torch.conf import Config
     from datafusion_comet_tpu_torch.exec.engine import Session
     from datafusion_comet_tpu_torch.models import tpch
 
-    t0 = time.perf_counter()
-    data = tpch.generate_table("lineitem", sf)
-    gen_s = time.perf_counter() - t0
-    n_rows = len(data["l_orderkey"])
-    sess = Session()  # the card, the default device
-    t0 = time.perf_counter()
-    sess.register_numpy("lineitem", data, tpch.SCHEMAS["lineitem"])
-    torch.cuda.synchronize()
-    stage_s = time.perf_counter() - t0
-    emit({"phase": "stage", "sf": sf, "rows": n_rows,
-          "capacity": sess.tables["lineitem"].capacity,
-          "generate_s": gen_s, "stage_s": stage_s})
-    results, launches = {}, {}
-    for q in ("q1", "q6"):
-        plan = getattr(tpch, q)()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        K.bucket_count.launches = 0
-        K.bucket_sum.launches = 0
+    data, gen_s = {}, {}
+    for t in ("lineitem", "orders"):
         t0 = time.perf_counter()
-        out = sess.collect(plan)
-        first_s = time.perf_counter() - t0
-        launches[q] = {"bucket_count": K.bucket_count.launches,
-                       "bucket_sum": K.bucket_sum.launches}
-        peak = torch.cuda.max_memory_allocated()
+        data[t] = tpch.generate_table(t, sf)
+        gen_s[t] = time.perf_counter() - t0
+    sess = Session()  # the card, the default device
+    stage_s = {}
+    for t in ("lineitem", "orders"):
+        t0 = time.perf_counter()
+        sess.register_numpy(t, data[t], tpch.SCHEMAS[t])
+        torch.cuda.synchronize()
+        stage_s[t] = time.perf_counter() - t0
+    n_rows = len(data["lineitem"]["l_orderkey"])
+    emit({"phase": "stage", "sf": sf, "rows": {t: len(next(iter(d.values())))
+                                               for t, d in data.items()},
+          "capacity": {t: b.capacity for t, b in sess.tables.items()},
+          "generate_s": gen_s, "stage_s": stage_s})
+    launches = {}
+    for q in ("q1", "q6"):
+        out, launches[q], first_s, times, peak = run_query(sess, getattr(tpch, q)(), reps)
         if q == "q1":
-            check_q1(out, oracle_q1(data, tpch._d("1998-09-02")))
-            if min(launches[q].values()) == 0:
-                raise AssertionError(f"q1 did not launch both kernels: {launches[q]}")
+            check_q1(out, oracle_q1(data["lineitem"], tpch._d("1998-09-02")))
+            need = ("bucket_count", "bucket_sum")
         else:
-            want = oracle_q6(data, tpch._d("1994-01-01"), tpch._d("1995-01-01"))
+            want = oracle_q6(data["lineitem"], tpch._d("1994-01-01"), tpch._d("1995-01-01"))
             if int(out["revenue"][0]) != want or not out["revenue__valid"][0]:
                 raise AssertionError(f"q6: got {out['revenue'][0]}, expected {want}")
-            if launches[q]["bucket_sum"] == 0:
-                raise AssertionError(f"q6 did not launch bucket_sum: {launches[q]}")
-        times = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            sess.collect(plan)
-            times.append((time.perf_counter() - t0) * 1e3)
+            need = ("bucket_sum",)
+        if min(launches[q][k] for k in need) == 0:
+            raise AssertionError(f"{q} did not launch {need}: {launches[q]}")
         warm_ms = statistics.median(times)
-        results[q] = {"phase": q, "sf": sf, "rows": n_rows, "correct": True,
-                      "first_run_s": first_s, "warm_ms": warm_ms, "warm_ms_all": times,
-                      "rows_per_s": n_rows / (warm_ms / 1e3), "peak_mem_bytes": peak,
-                      "launches": launches[q]}
-        emit(results[q])
+        emit({"phase": q, "sf": sf, "rows": n_rows, "correct": True, "first_run_s": first_s,
+              "warm_ms": warm_ms, "warm_ms_all": times, "rows_per_s": n_rows / (warm_ms / 1e3),
+              "peak_mem_bytes": peak, "launches": launches[q]})
     if profile:
-        emit(profile_q1(sess, tpch.q1()))
-    return launches
+        emit(profile_run(sess, tpch.q1(), "profile_q1"))
+
+    # Q12 directly, then through the grace join on a second session over the
+    # same device tables, under a memory fraction sized for K = 16
+    expect = oracle_q12(data["lineitem"], data["orders"], tpch._d("1994-01-01"),
+                        tpch._d("1995-01-01"))
+    fraction, jpeak = grace_fraction(sess, tpch.q12())
+    grace = Session(conf=Config(memory_fraction=fraction))
+    for t, b in sess.tables.items():
+        grace.register_batch(t, b)
+    q12 = {}
+    for run, s in (("direct", sess), ("grace", grace)):
+        out, launches[f"q12_{run}"], first_s, times, peak = run_query(s, tpch.q12(), reps)
+        check_q12(out, expect, f"q12 {run}")
+        got = launches[f"q12_{run}"]
+        # both runs compact the join's output with the partition sort
+        if min(got.values()) == 0:
+            raise AssertionError(f"q12 {run} did not launch every kernel: {got}")
+        q12[run] = {"first_run_s": first_s, "warm_ms": statistics.median(times),
+                    "warm_ms_all": times, "peak_mem_bytes": peak, "launches": got}
+    if grace.grace_runners and not sess.grace_runners:
+        r = grace.grace_runners[0]
+    else:
+        raise AssertionError("q12: the grace run did not partition, or the direct run did")
+    if r.K != GRACE_K or r.downstream[0] != "partial":
+        raise AssertionError(f"q12 grace: K={r.K} mode={r.downstream[0]}, "
+                             f"expected K={GRACE_K} partial")
+    sizes = {side: {"capacity": int(cap), "rows": int(sz.sum()), "min": int(sz.min()),
+                    "max": int(sz.max())}
+             for side, cap, sz in zip(("lineitem", "orders"), r.capacities, r.sizes)}
+    emit({"phase": "q12", "sf": sf, "correct": True, "result": expect,
+          "memory_fraction": fraction, "budget_bytes": grace.budget_bytes(),
+          "join_peak_estimate_bytes": jpeak, "K": r.K, "mode": r.downstream[0],
+          "pair_retries": r.retries, "partitions": sizes, **q12})
+    if profile:
+        emit(profile_run(grace, tpch.q12(), "profile_q12_grace"))
+    return launches, sizes
 
 
-def profile_q1(sess, plan):
-    """Device time by kernel over one warm Q1 run (torch.profiler)."""
+def profile_run(sess, plan, phase: str):
+    """Device time by kernel over one warm run (torch.profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -312,17 +431,102 @@ def profile_q1(sess, plan):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only (kernels, memcpy, memset): a CPU op's device
-    # time is the sum of the kernels it launched, which are listed as well
-    rows = sorted(((ev.self_device_time_total, ev.key, ev.count) for ev in prof.key_averages()
+    # time is the sum of the kernels it launched, which are listed as well.
+    # The grace runner's spans (grace.*) may also appear on the device side as
+    # annotations covering its kernels; they are not kernels.
+    events = prof.key_averages()
+    rows = sorted(((ev.self_device_time_total, ev.key, ev.count) for ev in events
                    if ev.device_type == torch.autograd.DeviceType.CUDA
-                   and ev.self_device_time_total), reverse=True)
+                   and ev.self_device_time_total and not ev.key.startswith("grace.")),
+                  reverse=True)
     if not rows:
-        raise AssertionError("torch.profiler recorded no device activity for Q1")
+        raise AssertionError(f"torch.profiler recorded no device activity for {phase}")
     busy_ms = sum(r[0] for r in rows) / 1e3
-    return {"phase": "profile_q1", "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    part_ms = sum(r[0] for r in rows if "partition_" in r[1]) / 1e3
+    # host time inside each phase of the grace runner, from its spans
+    spans = {ev.key: ev.cpu_time_total / 1e3 for ev in events
+             if ev.device_type == torch.autograd.DeviceType.CPU and ev.key.startswith("grace.")}
+    return {"phase": phase, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": (1 - busy_ms / wall_ms) if wall_ms else None,
+            "partition_kernel_ms": part_ms, "grace_span_host_ms": spans,
             "top": [{"kernel": k[:90], "device_ms": us / 1e3, "calls": c}
                     for us, k, c in rows[:12]]}
+
+
+# ---- phase 5: the partition sort against its plain version ---------------------------
+
+
+def partition_phase(sizes, reps: int, seed: int):
+    """partition_sort against partition_sort_plain, exactly, at the shapes of
+    Q12's grace run (each side's capacity, its live rows spread over K = 16
+    codes and the rest dead), at the TPU kernel's probe shape in tile-local
+    mode, and at edge shapes; then timing at Q12's shapes."""
+    import torch
+    from datafusion_comet_tpu_torch.exec import kernels as K
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(seed)
+
+    def codes_for(n: int, live: int, k: int):
+        c = np.full(n, k, np.int32)
+        c[:live] = rng.integers(0, k, live)
+        return torch.from_numpy(rng.permutation(c) if live < n else c).to(dev)
+
+    cases = [(f"q12_{side}", codes_for(v["capacity"], v["rows"], GRACE_K), GRACE_K, False)
+             for side, v in sizes.items()]
+    probe_n = 1 << 23  # pallas_scatter_probe.py's default N, K = 16, tile 512
+    cases += [
+        ("probe_tile_local", codes_for(probe_n, probe_n, 16), 16, True),
+        ("k1", codes_for(1_000_003, 900_000, 1), 1, False),
+        ("k64_ragged", codes_for(1_000_003, 950_000, 64), 64, False),
+        ("k128_local_ragged", codes_for(70_001, 70_001, 128), 128, True),
+        ("all_dead", codes_for(65_537, 0, 16), 16, False),
+        ("one_row", codes_for(1, 1, 16), 16, False),
+    ]
+    checked = []
+    max_err = 0
+    for name, codes, k, local in cases:
+        perm, counts = K.partition_sort(codes, k, local=local)
+        want_perm, want_counts = K.partition_sort_plain(codes, k, local=local)
+        torch.cuda.synchronize()
+        err = max(int((perm.long() - want_perm.long()).abs().max()) if len(perm) else 0,
+                  int((counts.long() - want_counts.long()).abs().max()) if counts.numel() else 0)
+        max_err = max(max_err, err)
+        if err or perm.shape != want_perm.shape or counts.shape != want_counts.shape:
+            raise AssertionError(f"partition_sort != plain on {name}: max abs err {err}")
+        checked.append({"case": name, "n": int(codes.shape[0]), "K": k, "local": local,
+                        "dead": int((codes == k).sum())})
+    try:
+        K.partition_sort(torch.tensor([0, 17, 3], dtype=torch.int32, device=dev), 16)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("partition_sort accepted a code outside [0, K]")
+
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    timing = {}
+    for name, codes, k, local in cases[:len(sizes)] + [cases[len(sizes)]]:
+        n = int(codes.shape[0])
+        t = -(-n // K.PARTITION_TILE)
+        counts = torch.empty(t, k + 1, dtype=torch.int32, device=dev)
+        perm = torch.empty(n, dtype=torch.int32, device=dev)
+        bad = torch.zeros(1, dtype=torch.int64, device=dev)
+
+        def run(codes=codes, k=k, local=local, counts=counts, bad=bad, perm=perm):
+            K._launch_partition(codes, k, local, counts, bad, perm)
+
+        timing[name] = {
+            "shape": f"n={n} K={k} {'local' if local else 'global'}",
+            "ms": cuda_ms(run, reps, flush=flush),
+            "plain_ms": cuda_ms(lambda: K.partition_sort_plain(codes, k, local), reps,
+                                flush=flush),
+            "library_ms": cuda_ms(lambda: torch.sort(codes, stable=True), reps, flush=flush),
+            # each input read once, each output written once: the codes,
+            # the permutation and the (tile, code) counts
+            "bound_ms": (4 * n + 4 * n + 4 * t * (k + 1)) / HBM_BYTES_PER_S * 1e3,
+            "max_abs_err": max_err,
+        }
+    return checked, timing
 
 
 def main(argv=None) -> int:
@@ -330,7 +534,8 @@ def main(argv=None) -> int:
     ap.add_argument("--sf", type=float, default=1.0, help="TPC-H scale factor (default 1)")
     ap.add_argument("--reps", type=int, default=25, help="timed warm runs per measurement")
     ap.add_argument("--seed", type=int, default=7, help="seed of the kernel-phase inputs")
-    ap.add_argument("--profile", action="store_true", help="add a profiled Q1 run")
+    ap.add_argument("--profile", action="store_true",
+                    help="add profiled runs of Q1 and of Q12's grace run")
     args = ap.parse_args(argv)
 
     import torch
@@ -351,25 +556,34 @@ def main(argv=None) -> int:
           "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    log = _build.build("bucket_kernels")
+    sources = sorted({Path(src).stem for src in SOURCES.values()})
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        logs = dict(zip(sources, pool.map(_build.build, sources)))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": [ln.strip() for ln in log.splitlines() if "registers" in ln or "smem" in ln]})
+          "ptxas": {name: [ln.strip() for ln in log.splitlines()
+                           if "registers" in ln or "smem" in ln] for name, log in logs.items()}})
 
     checked, timing = kernel_phase(args.sf, args.reps, args.seed)
     emit({"phase": "kernels", "checked_exact": checked, "timing": timing})
 
-    launches = query_phase(args.sf, max(3, args.reps // 5), args.profile)
+    launches, sizes = query_phase(args.sf, max(3, args.reps // 5), args.profile)
+
+    pchecked, ptiming = partition_phase(sizes, args.reps, args.seed)
+    emit({"phase": "partition", "checked_exact": pchecked, "timing": ptiming})
+    timing["partition_sort"] = dict(ptiming["q12_orders"], other_shapes={
+        k: v for k, v in ptiming.items() if k != "q12_orders"})
 
     kernels = []
-    for name in ("bucket_count", "bucket_sum"):
+    for name in KERNELS:
         t = timing[name]
+        per_query = {q: launches[q][name] for q in launches}
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-            "launches": launches["q1"][name] + launches["q6"][name],
-            "launches_q1": launches["q1"][name], "launches_q6": launches["q6"][name],
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": sum(per_query.values()), "launches_by_query": per_query,
             "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": "bytes", "library_ms": t["library_ms"],
-            "shape": t["shape"],
+            "shape": t["shape"], **({"other_shapes": t["other_shapes"]}
+                                    if "other_shapes" in t else {}),
         })
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -1,5 +1,6 @@
-"""Build the port's CUDA source (``csrc/bucket_kernels.cu``) with nvcc into a
-shared library with a plain C interface, and load it with ctypes.
+"""Build the port's CUDA sources (``csrc/bucket_kernels.cu``,
+``csrc/partition_kernels.cu``) with nvcc, each into a shared library with a
+plain C interface, and load them with ctypes.
 
 The first use on a machine with the CUDA toolkit compiles; later uses load
 the library keyed by a digest of the source and the flags, from ``_build/``
@@ -40,7 +41,7 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str = "bucket_kernels") -> str:
+def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless its library exists. Returns nvcc's
     output (ptxas register and shared-memory use), "" when nothing was
     built; raises with that output when nvcc fails."""

@@ -24,7 +24,7 @@ from datafusion_comet_tpu_torch import types as T
 from datafusion_comet_tpu_torch.exec.dictionary import StringDict, encode_objects, encode_padded
 
 __all__ = ["ColumnVector", "Batch", "pad_capacity", "quantize_bound", "from_numpy",
-           "to_numpy", "from_arrays", "to_arrays"]
+           "to_numpy", "from_arrays", "to_arrays", "concat_batches"]
 
 _M64 = (1 << 64) - 1
 
@@ -108,6 +108,41 @@ class Batch:
 
     def select(self, indices: Sequence[int], schema: T.Schema) -> "Batch":
         return Batch(tuple(self.columns[i] for i in indices), self.row_mask, schema)
+
+    def take(self, indices: torch.Tensor, mask: torch.Tensor,
+             schema: Optional[T.Schema] = None) -> "Batch":
+        """Gather rows by in-range index under a new live-row mask."""
+        return Batch(tuple(c.take(indices) for c in self.columns), mask, schema or self.schema)
+
+
+def _concat_column(cvs: Sequence[ColumnVector], dtype: T.DataType) -> ColumnVector:
+    """Row-concatenate one column across batches. Dictionary codes stay codes
+    when every piece carries the same dictionary; decimals of mixed storage
+    widen to two limbs; padded strings pad to the widest. Bounds are dropped,
+    as in the JAX package's union."""
+    if any(c.is_dict for c in cvs):
+        if not all(c.is_dict and c.dictionary == cvs[0].dictionary for c in cvs):
+            raise NotImplementedError("concatenating columns of different dictionaries "
+                                      "needs a decode, which is not ported yet")
+        return ColumnVector(torch.cat([c.data for c in cvs]), torch.cat([c.validity for c in cvs]),
+                            None, dtype, cvs[0].dictionary)
+    datas = [c.data for c in cvs]
+    if dtype.is_decimal and len({d.dim() for d in datas}) > 1:
+        from datafusion_comet_tpu_torch.exec import decimal_wide as DW
+
+        datas = [d if d.dim() == 2 else DW.pack(DW.lift(c)) for d, c in zip(datas, cvs)]
+    if dtype.is_binary:
+        w = max(d.shape[1] for d in datas)
+        datas = [torch.nn.functional.pad(d, (0, w - d.shape[1])) for d in datas]
+    lengths = None if cvs[0].lengths is None else torch.cat([c.lengths for c in cvs])
+    return ColumnVector(torch.cat(datas), torch.cat([c.validity for c in cvs]), lengths, dtype)
+
+
+def concat_batches(batches: Sequence[Batch], schema: T.Schema) -> Batch:
+    """Row-concatenate batches of one schema (the union of grace pieces)."""
+    cols = tuple(_concat_column([b.columns[i] for b in batches], f.dtype)
+                 for i, f in enumerate(schema.fields))
+    return Batch(cols, torch.cat([b.row_mask for b in batches]), schema)
 
 
 # -------------------------------------------------------------------------------------

@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["StringDict", "encode_padded", "encode_objects"]
+__all__ = ["StringDict", "union_ranks", "encode_padded", "encode_objects"]
 
 
 class StringDict:
@@ -66,6 +66,15 @@ class StringDict:
 
     def value_of(self, code: int) -> bytes:
         return self._key_list()[code]
+
+
+def union_ranks(a: StringDict, b: StringDict) -> Tuple[np.ndarray, np.ndarray]:
+    """Each dictionary's codes mapped to ranks in the sorted union of both,
+    so codes of two tables' dictionaries compare as plain int32 keys."""
+    ka, kb = a._key_list(), b._key_list()
+    pos = {v: i for i, v in enumerate(sorted(set(ka) | set(kb)))}
+    return (np.fromiter((pos[v] for v in ka), np.int32, len(ka)),
+            np.fromiter((pos[v] for v in kb), np.int32, len(kb)))
 
 
 def encode_padded(

@@ -1,45 +1,71 @@
 """Query engine: a bound plan tree executed operator by operator over
 device-resident tables (port of the ``Session`` subset of
-``datafusion_comet_tpu/exec/engine.py`` that TPC-H Q1/Q6 reach).
+``datafusion_comet_tpu/exec/engine.py`` that TPC-H Q1, Q6 and Q12 reach).
 
-PyTorch runs eagerly, so there is no whole-plan compile: ``compile`` binds
-and prunes the plan and returns a function over the registered tables.
-Data enters once per table (``register_numpy``) and leaves once at
-``collect``; everything between stays on the session's device.
+PyTorch runs eagerly, so there is no whole-plan compile: ``execute`` binds
+and prunes the plan, fits it to the memory budget, and runs it. Data enters
+once per table (``register_numpy``) and leaves once at ``collect``;
+everything between stays on the session's device.
+
+Two loops wrap a run, as in the JAX package:
+- the join-overflow retry: a join whose probe rows have more matches than
+  its fan-out K, or a compaction that overflows, flags the run, which then
+  re-runs with K and the growth scale four times larger, at most
+  ``join.MAX_JOIN_RETRIES`` times (then JoinOverflowError);
+- the memory budget (``_budget_plan``): while a plan's resident-bytes
+  estimate is over ``device_budget_bytes`` (the card's memory times
+  ``Config.memory_fraction``), an over-budget join runs hash-partitioned
+  (exec/grace.py) and its result, or the aggregate above it, comes back as a
+  temporary table.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Tuple, Union
+import copy
+import dataclasses
+import itertools
+import warnings
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from datafusion_comet_tpu_torch import types as T
 from datafusion_comet_tpu_torch.conf import Config
-from datafusion_comet_tpu_torch.exec.batch import Batch, from_numpy, to_numpy
+from datafusion_comet_tpu_torch.exec import grace as G
+from datafusion_comet_tpu_torch.exec.batch import Batch, from_numpy, pad_capacity, to_numpy
 from datafusion_comet_tpu_torch.exec.evaluator import EvalContext
+from datafusion_comet_tpu_torch.exec.memory import device_budget_bytes, plan_peak_bytes
 from datafusion_comet_tpu_torch.exec.operators import aggregate as AGG
 from datafusion_comet_tpu_torch.exec.operators import basic as B
+from datafusion_comet_tpu_torch.exec.operators import join as J
+from datafusion_comet_tpu_torch.exec.streaming import pseudo_scan
 from datafusion_comet_tpu_torch.ir import plan as P
 from datafusion_comet_tpu_torch.ir.pruning import prune_columns
 
-__all__ = ["Session", "run_plan", "QueryExecutionError"]
+__all__ = ["Session", "run_plan", "QueryExecutionError", "JoinOverflowError"]
 
 
 class QueryExecutionError(RuntimeError):
     """An ANSI-mode runtime error raised by the query (Spark's SparkError)."""
 
 
-def run_plan(plan: P.PlanNode, tables: Dict[str, Batch], ctx: EvalContext,
-             conf: Config) -> Batch:
-    """Execute a bound plan over registered tables."""
+class JoinOverflowError(RuntimeError):
+    """A join still overflowed its fan-out after every retry."""
+
+
+def run_plan(plan: P.PlanNode, tables: Dict[str, Batch], ctx: EvalContext, conf: Config,
+             fanout: int) -> Batch:
+    """Execute a bound plan over registered tables. ``fanout`` is the
+    joins' K; their overflow flags go to ``ctx.overflow_flags``."""
     if isinstance(plan, P.Scan):
         b = tables[plan.table]
         if plan.projection is not None:
             b = b.select([b.schema.index_of(n) for n in plan.projection], plan.schema)
         return b
-    child = run_plan(plan.children()[0], tables, ctx, conf)
+    if isinstance(plan, P.HashJoin):
+        return _exec_hash_join(plan, tables, ctx, conf, fanout)
+    child = run_plan(plan.children()[0], tables, ctx, conf, fanout)
     if isinstance(plan, P.Filter):
         return B.filter_op(child, plan.predicate, ctx)
     if isinstance(plan, P.Projection):
@@ -52,11 +78,84 @@ def run_plan(plan: P.PlanNode, tables: Dict[str, Batch], ctx: EvalContext,
     raise NotImplementedError(f"run_plan: {type(plan).__name__}")
 
 
+def _exec_hash_join(plan: P.HashJoin, tables, ctx, conf, fanout) -> Batch:
+    """The join's (probe x K) pair block, compacted to twice the larger
+    input's capacity times the growth scale: chained joins then stay linear
+    in capacity instead of multiplying their K's."""
+    left = run_plan(plan.left, tables, ctx, conf, fanout)
+    right = run_plan(plan.right, tables, ctx, conf, fanout)
+    out, ovf = J.hash_join(left, right, plan.left_keys, plan.right_keys, plan.join_type,
+                           plan.build_side, plan.schema, plan.condition,
+                           max_build_matches=fanout, ctx=ctx)
+    ctx.overflow_flags.append(ovf)
+    grow = max(2, fanout // 2) * ctx.agg_scale
+    target = pad_capacity(max(left.capacity, right.capacity) * grow)
+    if target < out.capacity:
+        out, covf = B.compact_batch(out, target)
+        ctx.overflow_flags.append(covf)
+    return out
+
+
+# -------------------------------------------------------------------------------------
+# plan rewriting
+# -------------------------------------------------------------------------------------
+
+
+def replace_child_pure(plan: P.PlanNode, old: P.PlanNode, new: P.PlanNode) -> P.PlanNode:
+    """A shallow copy of ``plan`` with its child ``old`` replaced: the
+    caller's tree stays as it was."""
+    cp = copy.copy(plan)
+    for f in dataclasses.fields(cp):
+        v = getattr(cp, f.name, None)
+        if v is old:
+            setattr(cp, f.name, new)
+        elif isinstance(v, tuple) and any(x is old for x in v):
+            setattr(cp, f.name, tuple(new if x is old else x for x in v))
+    return cp
+
+
+def replace_child_pure_deep(plan: P.PlanNode, old: P.PlanNode, new: P.PlanNode) -> P.PlanNode:
+    """``old`` replaced by ``new`` anywhere in the tree, copying the path."""
+    if plan is old:
+        return new
+    out = plan
+    for c in plan.children():
+        repl = replace_child_pure_deep(c, old, new)
+        if repl is not c:
+            out = replace_child_pure(out, c, repl)
+    return out
+
+
+def has_stream_agg(plan: P.PlanNode, tables) -> bool:
+    """Whether the JAX package would run an aggregate of the plan tiled
+    over the budget: a SINGLE HashAggregate over filters and projections of
+    one resident table."""
+
+    def subtree_scan(p) -> Optional[str]:
+        if isinstance(p, P.Scan):
+            return p.table
+        if not isinstance(p, (P.Filter, P.Projection)):
+            return None
+        return subtree_scan(p.children()[0])
+
+    if (isinstance(plan, P.HashAggregate) and plan.mode == P.AggMode.SINGLE
+            and subtree_scan(plan.child) in tables):
+        return True
+    return any(has_stream_agg(c, tables) for c in plan.children())
+
+
+# -------------------------------------------------------------------------------------
+# Session
+# -------------------------------------------------------------------------------------
+
+
 class Session:
     """Table registry + plan executor on one device.
 
     ``device`` defaults to ``"cuda"``: without a card that raises, and a
-    caller that means the CPU passes ``device="cpu"``."""
+    caller that means the CPU passes ``device="cpu"``. ``grace_runners``
+    holds the grace joins of the last ``execute`` (K, mode, partition
+    sizes)."""
 
     def __init__(self, device: Union[str, torch.device, None] = None,
                  conf: Optional[Config] = None):
@@ -69,6 +168,8 @@ class Session:
                 self.device = torch.device("cuda", torch.cuda.current_device())
         self.conf = conf or Config()
         self.tables: Dict[str, Batch] = {}
+        self.grace_runners: List[G.GraceJoinRunner] = []
+        self._ids = itertools.count()
 
     def register_batch(self, name: str, batch: Batch) -> None:
         if batch.device != self.device:
@@ -81,30 +182,109 @@ class Session:
         kw.setdefault("dict_max_size", self.conf.scan_dictionary_max_size)
         self.tables[name] = from_numpy(data, schema, self.device, **kw)
 
-    def compile(self, plan: P.PlanNode
-                ) -> Tuple[P.PlanNode, Callable[[Dict[str, Batch]], Batch]]:
-        """Prune + bind a plan; returns (bound plan, fn(tables) -> batch).
-        ``fn`` raises QueryExecutionError when a flag of the error side
-        channel fired: an ANSI error, or a kernel's bucket code out of range.
-
-        The dense aggregate has no static capacity to overflow, so there is
-        no re-plan loop; it comes with the sorted aggregate path."""
-        bound = P.bind_plan(prune_columns(plan))
-
-        def fn(tables: Dict[str, Batch]) -> Batch:
-            errs: List[Tuple[torch.Tensor, str]] = []
-            out = run_plan(bound, tables, EvalContext(errors=errs), self.conf)
-            if errs:  # every flag of the query in one device-to-host read
-                hit = torch.stack([f.any() for f, _ in errs]).tolist()
-                fired = [m for (_, m), h in zip(errs, hit) if h]
-                if fired:
-                    raise QueryExecutionError("; ".join(dict.fromkeys(fired)))
-            return out
-
-        return bound, fn
+    def budget_bytes(self) -> int:
+        return device_budget_bytes(self.device, self.conf.memory_fraction)
 
     def execute(self, plan: P.PlanNode) -> Batch:
-        return self.compile(plan)[1](self.tables)
+        """Bind and prune (unless ``plan`` is bound), fit the plan to the
+        memory budget, and run it with the join-overflow retry. Raises
+        QueryExecutionError when a flag of the error side channel fired: an
+        ANSI error, or a kernel's code out of range."""
+        bound = plan if plan.schema is not None else P.bind_plan(prune_columns(plan))
+        self.grace_runners = []
+        temp_names: List[str] = []
+        try:
+            return self._run_subtree(bound, temp_names)
+        finally:
+            for n in temp_names:  # free the temporary tables
+                self.tables.pop(n, None)
 
     def collect(self, plan: P.PlanNode) -> Dict[str, np.ndarray]:
         return to_numpy(self.execute(plan))
+
+    # -- running -------------------------------------------------------------------
+    def _run_subtree(self, plan: P.PlanNode, temp_names: List[str]) -> Batch:
+        return self._execute_retry(self._budget_plan(plan, temp_names))
+
+    def _execute_retry(self, plan: P.PlanNode) -> Batch:
+        fanout, scale = J.JOIN_FANOUT, 1
+        for _ in range(J.MAX_JOIN_RETRIES):
+            out, overflowed = self._run_once(plan, fanout, scale)
+            if not overflowed:
+                return out
+            fanout *= 4
+            scale *= 4
+        raise JoinOverflowError(f"join fan-out exceeded after {J.MAX_JOIN_RETRIES} retries")
+
+    def _run_once(self, plan: P.PlanNode, fanout: int, scale: int,
+                  tables: Optional[Dict[str, Batch]] = None) -> Tuple[Batch, bool]:
+        """One run of a bound plan: (result, whether a capacity overflowed).
+        Every error and overflow flag of the run is read in one
+        device-to-host copy at its end."""
+        errs: List[Tuple[torch.Tensor, str]] = []
+        ctx = EvalContext(errors=errs, overflow_flags=[], agg_scale=scale)
+        out = run_plan(plan, self.tables if tables is None else tables, ctx, self.conf, fanout)
+        flags = [f for f, _ in errs] + ctx.overflow_flags
+        if not flags:
+            return out, False
+        hit = torch.stack([f.any() for f in flags]).tolist()
+        fired = [m for (_, m), h in zip(errs, hit) if h]
+        if fired:
+            raise QueryExecutionError("; ".join(dict.fromkeys(fired)))
+        return out, any(hit[len(errs):])
+
+    def _aqe_shrink(self, b: Batch) -> Batch:
+        """Compact a batch to twice its live rows (at least 1024, a power of
+        two) when that cuts its capacity at least four times: one host read
+        of the live count. Bounds and dictionaries carry over."""
+        target = pad_capacity(max(2 * int(b.num_rows()), 1024))
+        if target * 4 > b.capacity:
+            return b
+        perm = B.live_first_perm(b.row_mask)[:target]
+        cols = tuple(dataclasses.replace(
+            c, data=c.data[perm], validity=c.validity[perm],
+            lengths=None if c.lengths is None else c.lengths[perm]) for c in b.columns)
+        return Batch(cols, b.row_mask[perm], b.schema)
+
+    # -- the memory budget ---------------------------------------------------------
+    def _budget_plan(self, stage: P.PlanNode, temp_names: List[str]) -> P.PlanNode:
+        """While the stage's peak estimate is over the budget, run an
+        over-budget join hash-partitioned (GraceJoinRunner) and splice its
+        result back in as a temporary-table scan. A stage over budget with
+        no such join proceeds with a warning (the estimate is
+        conservative)."""
+        for _ in range(16):  # each pass peels one over-budget join
+            caps = [self.tables[t].capacity for t in P.scan_tables(stage) if t in self.tables]
+            if not caps:
+                break
+            budget = self.budget_bytes()
+            peak = plan_peak_bytes(stage, max(caps))
+            if peak <= budget:
+                break
+            if has_stream_agg(stage, self.tables):
+                raise NotImplementedError(
+                    "the plan is over the memory budget and its aggregate would run tiled "
+                    "(a streaming aggregate), which is not ported yet")
+            gj = G.find_grace_join(stage, self.tables, budget)
+            if gj is None:
+                warnings.warn(f"stage peak estimate {peak >> 20} MiB exceeds the memory budget "
+                              f"{budget >> 20} MiB and has no partitionable join; proceeding")
+                break
+            jpeak = plan_peak_bytes(gj, max(self.tables[t].capacity for t in P.scan_tables(gj)
+                                            if t in self.tables))
+            K = 2
+            while K * (budget // 2) < jpeak and K < G.GRACE_MAX_PARTITIONS:
+                K *= 2
+            ds = G.plan_grace_downstream(stage, gj)
+            runner = G.GraceJoinRunner(self, gj, K, temp_names, stage=stage, downstream=ds)
+            temp_names.append(runner.tmp)
+            runner()
+            self.grace_runners.append(runner)
+            scan = pseudo_scan(runner.tmp, runner.out_schema)
+            if ds is None:
+                stage = replace_child_pure_deep(stage, gj, scan)
+            elif ds[0] == "partial":
+                stage = replace_child_pure_deep(stage, ds[1], scan)
+            else:  # local: the whole stage ran inside each pair
+                stage = scan
+        return stage

@@ -1,5 +1,6 @@
 """Expression evaluator: bound expression IR -> tensor ops over a Batch
-(port of ``datafusion_comet_tpu/exec/evaluator.py``, the TPC-H Q1/Q6 subset).
+(port of ``datafusion_comet_tpu/exec/evaluator.py``, the TPC-H Q1/Q6/Q12
+subset, and Spark's murmur3 over integer columns for hash partitioning).
 
 Spark semantics kept from the JAX package:
 - three-valued logic through validity vectors, Kleene AND/OR;
@@ -26,7 +27,8 @@ from datafusion_comet_tpu_torch.exec.batch import Batch, ColumnVector, quantize_
 from datafusion_comet_tpu_torch.ir import expr as E
 from datafusion_comet_tpu_torch.utils import int128
 
-__all__ = ["EvalContext", "evaluate", "evaluate_predicate"]
+__all__ = ["EvalContext", "evaluate", "evaluate_predicate", "murmur3_hash_i32",
+           "murmur3_hash_i64", "murmur3_column"]
 
 
 @dataclasses.dataclass
@@ -36,6 +38,11 @@ class EvalContext:
     errors: Optional[List[Tuple[torch.Tensor, str]]] = None
     # live-row mask of the batch being evaluated: errors on dead rows don't fire
     row_mask: Optional[torch.Tensor] = None
+    # capacity-overflow flags (a join's fan-out, a compaction), read by the
+    # session's re-plan loop; None outside a query
+    overflow_flags: Optional[List[torch.Tensor]] = None
+    # the re-plan loop's growth factor for capacities chosen from estimates
+    agg_scale: int = 1
 
     def record_error(self, flags: torch.Tensor, message: str) -> None:
         if self.errors is not None:
@@ -74,6 +81,10 @@ def _ev(e: E.Expr, b: Batch, ctx: EvalContext) -> ColumnVector:
         return _binary(e, b, ctx)
     if isinstance(e, E.Cast):
         return _cast(_ev(e.child, b, ctx), e.child.dtype, e.to, e.eval_mode, ctx)
+    if isinstance(e, E.CaseWhen):
+        return _case_when(e, b, ctx)
+    if isinstance(e, E.InList):
+        return _in_list(e, b, ctx)
     raise NotImplementedError(f"evaluate: {type(e).__name__}")
 
 
@@ -423,3 +434,115 @@ def _cast_wide_decimal(cv: ColumnVector, frm: T.DataType, to: T.DataType, mode: 
     if to.is_wide_decimal and eff >= _NARROW_LIMIT:
         return ColumnVector(DW.pack(p), validity, None, to)
     return _with_bound(ColumnVector(p[1], validity, None, to), eff)
+
+
+# -------------------------------------------------------------------------------------
+# conditionals
+# -------------------------------------------------------------------------------------
+
+
+def _case_when(e: E.CaseWhen, b: Batch, ctx: EvalContext) -> ColumnVector:
+    """Branches apply in reverse over the ELSE value, so the first true
+    condition wins; a null condition counts as false."""
+    out_t = e.dtype
+    if out_t.is_binary:
+        raise NotImplementedError("CASE WHEN with a string result is not ported yet")
+    if e.else_value is not None:
+        result = _coerce(_ev(e.else_value, b, ctx), out_t)
+    else:
+        result = _literal(E.Literal(None, out_t), b.capacity, b.device)
+    for cond, value in reversed(e.branches):
+        c = _ev(cond, b, ctx)
+        v = _coerce(_ev(value, b, ctx), out_t)
+        if out_t.is_decimal and v.is_wide_storage != result.is_wide_storage:
+            # one branch narrow by its bound, the other two-limb: widen both
+            v = ColumnVector(DW.pack(DW.lift(v)), v.validity, None, out_t)
+            result = ColumnVector(DW.pack(DW.lift(result)), result.validity, None, out_t)
+        take = c.validity & c.data.bool()
+        sel = take[:, None] if v.data.dim() == 2 else take
+        result = ColumnVector(torch.where(sel, v.data, result.data),
+                              torch.where(take, v.validity, result.validity), None, out_t)
+    return result
+
+
+def _in_list(e: E.InList, b: Batch, ctx: EvalContext) -> ColumnVector:
+    """An OR of equalities (Kleene: a null element makes a miss null)."""
+    acc: Optional[ColumnVector] = None
+    for v in e.values:
+        node = E.BinaryOp("eq", e.child, v)
+        object.__setattr__(node, "dtype", T.BOOL)
+        eq = _binary(node, b, ctx)
+        acc = eq if acc is None else _kleene("or", acc, eq)
+    if e.negated:
+        return ColumnVector(~acc.data.bool(), acc.validity, None, T.BOOL)
+    return acc
+
+
+# -------------------------------------------------------------------------------------
+# Spark murmur3 (Murmur3_x86_32 hashInt / hashLong, seed carried column to column)
+# -------------------------------------------------------------------------------------
+# Each 32-bit word lives in the low half of an int64 as an unsigned value, so
+# shifts are logical and no product can overflow: a multiply by a 32-bit
+# constant splits it into 16-bit halves.
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
+
+
+def _rotl32(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def _mix_k1(k1: torch.Tensor) -> torch.Tensor:
+    return _mul32(_rotl32(_mul32(k1, 0xCC9E2D51), 15), 0x1B873593)
+
+
+def _mix_h1(h1: torch.Tensor, k1: torch.Tensor) -> torch.Tensor:
+    return (_rotl32(h1 ^ k1, 13) * 5 + 0xE6546B64) & _M32
+
+
+def _fmix(h1: torch.Tensor, length: int) -> torch.Tensor:
+    h1 = h1 ^ length
+    h1 = _mul32(h1 ^ (h1 >> 16), 0x85EBCA6B)
+    h1 = _mul32(h1 ^ (h1 >> 13), 0xC2B2AE35)
+    return h1 ^ (h1 >> 16)
+
+
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    return x.long() & _M32
+
+
+def _i32(h: torch.Tensor) -> torch.Tensor:
+    return torch.where(h >= (1 << 31), h - (1 << 32), h).int()
+
+
+def murmur3_hash_i32(value: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """Spark hashInt: int32 hashes of int32 values under int32 seeds."""
+    return _i32(_fmix(_mix_h1(_u32(seed), _mix_k1(_u32(value))), 4))
+
+
+def murmur3_hash_i64(value: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """Spark hashLong: the low 32-bit half first, then the high half."""
+    v = value.long()
+    h1 = _mix_h1(_u32(seed), _mix_k1(v & _M32))
+    h1 = _mix_h1(h1, _mix_k1((v >> 32) & _M32))
+    return _i32(_fmix(h1, 8))
+
+
+def murmur3_column(cv: ColumnVector, seed: torch.Tensor) -> torch.Tensor:
+    """Hash one column into the running int32 seed; a null leaves the seed
+    unchanged (Spark)."""
+    dt = cv.dtype
+    if dt.type_id in ("INT8", "INT16", "INT32", "DATE") or dt.is_boolean:
+        h = murmur3_hash_i32(cv.data.int(), seed)
+    elif dt.type_id in ("INT64", "TIMESTAMP"):
+        h = murmur3_hash_i64(cv.data, seed)
+    elif dt.is_binary:
+        raise NotImplementedError("murmur3 of string keys is not ported yet")
+    else:
+        raise NotImplementedError(f"murmur3 for {dt!r} is not ported yet")
+    return torch.where(cv.validity, h, seed)

@@ -1,0 +1,337 @@
+"""Grace (hash-partitioned) join execution (port of
+``datafusion_comet_tpu/exec/grace.py``).
+
+When a join's resident-bytes estimate is over the device budget
+(exec/memory.py), the engine splits it into K hash partitions: both inputs
+are partition-sorted by Spark's murmur3 of the join keys mod K (the stable
+partition sort ``partition_sort``, a CUDA kernel on the card), and the join
+then runs K times, once per pair of partitions, at about 1/K of the size:
+partition k of one side can only match partition k of the other. Partitions
+stay on the device as slices of a permutation; each pair gathers its rows
+straight from the inputs. The pair outputs are compacted and unioned, or,
+when an aggregate sits above the join, each pair emits PARTIAL aggregate
+states and one FINAL aggregate merges them.
+
+Partition sizes are read on the host after the partition sort (K + 1
+starts per side), so every pair's capacity is exact. The JAX package
+compiles and caches each piece; here everything runs eagerly on every call.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from datafusion_comet_tpu_torch import types as T
+from datafusion_comet_tpu_torch.exec import kernels as KN
+from datafusion_comet_tpu_torch.exec.batch import Batch, ColumnVector, concat_batches, pad_capacity
+from datafusion_comet_tpu_torch.exec.evaluator import EvalContext, evaluate, murmur3_column
+from datafusion_comet_tpu_torch.exec.memory import plan_peak_bytes
+from datafusion_comet_tpu_torch.exec.operators import join as J
+from datafusion_comet_tpu_torch.exec.streaming import dead_batch, partial_schema, pseudo_scan
+from datafusion_comet_tpu_torch.ir import expr as E
+from datafusion_comet_tpu_torch.ir import plan as P
+
+__all__ = ["GraceJoinRunner", "find_grace_join", "plan_grace_downstream", "partition_perm",
+           "hash_pids", "grace_key_cast", "GRACE_MAX_PARTITIONS"]
+
+GRACE_MAX_PARTITIONS = 64
+
+_INT_IDS = ("INT8", "INT16", "INT32", "INT64")
+
+
+def grace_key_cast(ldt: T.DataType, rdt: T.DataType) -> Optional[T.DataType]:
+    """The common hash type of one join-key pair (None: hash as they are),
+    or ValueError when both sides cannot hash equal keys alike: integer
+    keys of mixed widths hash as INT64; floats and decimals are refused, and
+    so are strings while their murmur3 is not ported (the join then runs
+    directly, over the budget, where the JAX package partitions it)."""
+    for dt in (ldt, rdt):
+        if not (dt.type_id in _INT_IDS or dt.type_id in ("DATE", "TIMESTAMP")
+                or dt.is_boolean):
+            raise ValueError(f"grace join: unhashable key dtype {dt.type_id}")
+    if ldt.type_id == rdt.type_id:
+        return None
+    if ldt.type_id in _INT_IDS and rdt.type_id in _INT_IDS:
+        return T.INT64
+    raise ValueError(f"grace join: mixed key dtypes {ldt.type_id}/{rdt.type_id}")
+
+
+def hash_pids(batch: Batch, keys: Sequence[E.Expr], casts, K: int,
+              ctx: Optional[EvalContext] = None) -> torch.Tensor:
+    """Partition id per row: murmur3 (seed 42) over the key columns, then
+    Spark's pmod by K, the scheme of Spark's hash partitioner."""
+    h = torch.full((batch.capacity,), 42, dtype=torch.int32, device=batch.device)
+    for kexpr, tgt in zip(keys, casts):
+        cv = evaluate(kexpr, batch, ctx)
+        if tgt is not None and cv.dtype.type_id != tgt.type_id:
+            cv = ColumnVector(cv.data.long(), cv.validity, None, tgt)
+        h = murmur3_column(cv, h)
+    return torch.remainder(h, K).int()  # the divisor's sign: pmod for K > 0
+
+
+def partition_perm(batch: Batch, pids: torch.Tensor, K: int,
+                   errors: Optional[List[Tuple[torch.Tensor, str]]] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(perm, starts): perm orders the rows by partition id, stably, dead
+    rows last; partition k is perm[starts[k]:starts[k+1]]."""
+    key = torch.where(batch.row_mask, pids, K).int()
+    perm, counts = KN.partition_sort(key, K, errors=errors)
+    sizes = counts.long().sum(0)[:K]
+    return perm, torch.cat([sizes.new_zeros(1), sizes.cumsum(0)])
+
+
+def _extract(b: Batch, perm: torch.Tensor, start: int, end: int, cap: int) -> Batch:
+    """Partition rows [start, end) of ``perm`` gathered straight from ``b``
+    into a ``cap``-row batch."""
+    pos = start + torch.arange(cap, device=b.device)
+    idx = perm[pos.clamp(max=b.capacity - 1)].long()
+    return b.take(idx, (pos < end) & b.row_mask[idx])
+
+
+def find_grace_join(stage: P.PlanNode, tables, budget: int) -> Optional[P.HashJoin]:
+    """Topmost HashJoin whose subtree estimate exceeds twice the budget (the
+    estimate sums every operator's output, so a margin keeps estimate noise
+    from partitioning) and whose keys hash alike on both sides."""
+
+    def walk(p) -> Optional[P.HashJoin]:
+        if isinstance(p, P.HashJoin) and p.join_type != P.JoinType.LEFT_ANTI_NULL_AWARE:
+            caps = [tables[t].capacity for t in P.scan_tables(p) if t in tables]
+            if caps and plan_peak_bytes(p, max(caps)) > 2 * budget:
+                try:
+                    for lk, rk in zip(p.left_keys, p.right_keys):
+                        grace_key_cast(lk.dtype, rk.dtype)
+                except ValueError:
+                    pass
+                else:
+                    return p
+        for c in p.children():
+            hit = walk(c)
+            if hit is not None:
+                return hit
+        return None
+
+    return walk(stage)
+
+
+def _src_name(e: E.Expr):
+    while isinstance(e, (E.Alias, E.Cast)):
+        e = e.child
+    if isinstance(e, (E.ColumnRef, E.BoundRef)):
+        return e.col_name
+    return None
+
+
+def plan_grace_downstream(stage: P.PlanNode, gj: P.HashJoin):
+    """Whether the stage's operators above the join can run inside each
+    pair instead of over the union of the pairs' outputs:
+
+    * ("local", A): the one SINGLE HashAggregate A groups by a join key, so
+      its groups are partition-local and the whole stage runs per pair; the
+      union of the pair outputs is the stage output. (The JAX package also
+      allows a top-K Sort root here; the port's Sort has no fetch.)
+    * ("partial", A): any other grouping: each pair emits A's PARTIAL states
+      and a FINAL aggregate merges them.
+    * None: no pushdown; the pair join outputs are unioned.
+    """
+    chain: List[P.PlanNode] = []
+    node = stage
+    while node is not gj:
+        kids = node.children()
+        if len(kids) != 1:
+            return None  # another join above gj
+        chain.append(node)
+        node = kids[0]
+    aggs = [n for n in chain if isinstance(n, P.HashAggregate)]
+    if len(aggs) != 1 or aggs[0].mode != P.AggMode.SINGLE:
+        return None
+    A = aggs[0]
+    ai = chain.index(A)
+    if not all(isinstance(n, (P.Filter, P.Projection)) for n in chain[ai + 1:]):
+        return None
+    above = chain[:ai]
+
+    def at_join(name):
+        """A group key's source column name at the join output."""
+        cur = name
+        for n in chain[ai + 1:]:
+            if isinstance(n, P.Projection):
+                src = None
+                for x in n.exprs:
+                    if x.name == cur:
+                        src = _src_name(x)
+                if src is None:
+                    return None
+                cur = src
+        return cur
+
+    keynames = {nm for nm in (_src_name(k) for k in list(gj.left_keys) + list(gj.right_keys))
+                if nm}
+    local = False
+    for g in A.group_exprs:
+        nm = _src_name(g)
+        nm = at_join(nm) if nm else None
+        if nm and nm in keynames:
+            local = True
+            break
+    if local and all(isinstance(n, (P.Filter, P.Projection)) for n in above):
+        return ("local", A)
+    try:  # every aggregate function needs partial states
+        partial_schema(A)
+    except NotImplementedError:
+        return None
+    return ("partial", A)  # the port's estimate of A's groups is 2^16, under 2^20
+
+
+class GraceJoinRunner:
+    """Runs one HashJoin hash-partitioned into K pairs and registers the
+    result (the union, or the FINAL aggregate of the pairs' partial states)
+    as the temporary table ``tmp``. Calling it again re-runs all of it."""
+
+    def __init__(self, session, join: P.HashJoin, K: int, temp_names: List[str],
+                 stage: Optional[P.PlanNode] = None, downstream=None):
+        self.session = session
+        self.join = join
+        self.K = K
+        self.stage = stage
+        self.downstream = downstream  # None | ("local" | "partial", aggregate node)
+        sid = next(session._ids)
+        self.tmp = f"__grace{sid}"
+        self.gl = f"__gracel{sid}"
+        self.gr = f"__gracer{sid}"
+        self.temp_names = temp_names
+        if downstream is None:
+            self.out_schema = join.schema
+        elif downstream[0] == "local":
+            self.out_schema = stage.schema
+        else:
+            self.out_schema = downstream[1].schema
+        self.template = self._build_template()
+        # what the last run saw: each side's capacity and partition sizes,
+        # and the pair retries
+        self.capacities: Optional[Tuple[int, int]] = None
+        self.sizes: Optional[Tuple[np.ndarray, np.ndarray]] = None
+        self.retries = 0
+
+    def _mini_plan(self) -> P.HashJoin:
+        """The join over two temporary tables holding one pair."""
+        j = self.join
+        mini = P.HashJoin(pseudo_scan(self.gl, j.left.schema), pseudo_scan(self.gr, j.right.schema),
+                          j.left_keys, j.right_keys, j.join_type, j.build_side, j.condition)
+        mini.schema = j.schema
+        return mini
+
+    def _build_template(self) -> P.PlanNode:
+        """Each pair's plan: the mini join alone, the whole stage over it
+        (local), or the aggregate's PARTIAL run over it (partial)."""
+        from datafusion_comet_tpu_torch.exec.engine import replace_child_pure_deep
+
+        mini = self._mini_plan()
+        if self.downstream is None:
+            return mini
+        mode, A = self.downstream
+        if mode == "local":
+            return replace_child_pure_deep(self.stage, self.join, mini)
+        child = mini if A.child is self.join else replace_child_pure_deep(A.child, self.join, mini)
+        partial = P.HashAggregate(child, A.group_exprs, A.agg_exprs, P.AggMode.PARTIAL)
+        partial.schema = partial_schema(A)
+        return partial
+
+    def _finish(self, union: Batch) -> Batch:
+        """After the union: nothing (plain and local modes), or the FINAL
+        aggregate of the partial states."""
+        if self.downstream is None or self.downstream[0] == "local":
+            return union
+        _, A = self.downstream
+        groups = tuple(E.bind(E.col(g.name), self.template.schema) for g in A.group_exprs)
+        node = P.HashAggregate(pseudo_scan("__acc", union.schema), groups, A.agg_exprs,
+                               P.AggMode.FINAL)
+        node.schema = A.schema
+        s = self.session
+        return s._run_once(node, J.JOIN_FANOUT, 1, {"__acc": union})[0]
+
+    def __call__(self) -> None:
+        # the spans name the runner's phases in a torch.profiler trace; with
+        # no profiler running each costs about a microsecond
+        s = self.session
+        j = self.join
+        K = self.K
+        with record_function("grace.inputs"):
+            left = s._aqe_shrink(s._run_subtree(j.left, self.temp_names))
+            right = s._aqe_shrink(s._run_subtree(j.right, self.temp_names))
+        with record_function("grace.partition"):
+            perm_l, perm_r, sl, sr = self._partition(left, right)
+        sizes_l, sizes_r = np.diff(sl), np.diff(sr)
+        self.capacities = (left.capacity, right.capacity)
+        self.sizes = (sizes_l, sizes_r)
+        with record_function("grace.pairs"):
+            outs = self._run_pairs(left, right, perm_l, perm_r, sl, sr)
+        with record_function("grace.finish"):
+            live = [o for o in outs if o is not None]
+            if not live:
+                s.tables[self.tmp] = dead_batch(self.out_schema, 8, s.device)
+                return
+            union = live[0] if len(live) == 1 else concat_batches(live, self.template.schema)
+            s.tables[self.tmp] = self._finish(union)
+
+    def _partition(self, left: Batch, right: Batch):
+        """Partition-sort both sides: (perm_l, perm_r, starts_l, starts_r),
+        the K + 1 starts read with every error flag in one host read."""
+        j, K = self.join, self.K
+        casts = [grace_key_cast(lk.dtype, rk.dtype) for lk, rk in zip(j.left_keys, j.right_keys)]
+        errs: List[Tuple[torch.Tensor, str]] = []
+        ctx = EvalContext(errors=errs)
+        perm_l, starts_l = partition_perm(left, hash_pids(left, j.left_keys, casts, K, ctx), K, errs)
+        perm_r, starts_r = partition_perm(right, hash_pids(right, j.right_keys, casts, K, ctx), K,
+                                          errs)
+        host = torch.cat([starts_l, starts_r] + [f.any().long().view(1) for f, _ in errs]).tolist()
+        fired = [m for (_, m), hit in zip(errs, host[2 * K + 2:]) if hit]
+        if fired:
+            from datafusion_comet_tpu_torch.exec.engine import QueryExecutionError
+
+            raise QueryExecutionError("; ".join(dict.fromkeys(fired)))
+        return perm_l, perm_r, np.array(host[:K + 1]), np.array(host[K + 1:2 * K + 2])
+
+    def _run_pairs(self, left: Batch, right: Batch, perm_l: torch.Tensor, perm_r: torch.Tensor,
+                   sl: np.ndarray, sr: np.ndarray) -> List[Optional[Batch]]:
+        """Each non-empty pair's output, with the pair retry: a pair whose
+        join overflowed runs again with the fan-out four times larger."""
+        s, K = self.session, self.K
+        sizes_l, sizes_r = self.sizes
+        outs: List[Optional[Batch]] = [None] * K
+        fanout, scale = J.JOIN_FANOUT, 1
+        # partial mode always runs pair 0, so an ungrouped aggregate still
+        # emits its one row
+        force_k0 = self.downstream is not None and self.downstream[0] == "partial"
+        self.retries = 0
+        for _ in range(J.MAX_JOIN_RETRIES):
+            overflowed = False
+            for k in range(K):
+                if outs[k] is not None or (sizes_l[k] == 0 and sizes_r[k] == 0
+                                           and not (force_k0 and k == 0)):
+                    continue
+                cap_l = pad_capacity(max(int(sizes_l[k]), 8))
+                cap_r = pad_capacity(max(int(sizes_r[k]), 8))
+                s.tables[self.gl] = _extract(left, perm_l, int(sl[k]), int(sl[k + 1]), cap_l)
+                s.tables[self.gr] = _extract(right, perm_r, int(sr[k]), int(sr[k + 1]), cap_r)
+                out, ovf = s._run_once(self.template, fanout, scale)
+                if ovf:
+                    overflowed = True
+                    continue
+                outs[k] = s._aqe_shrink(out)
+            if not overflowed:
+                break
+            fanout *= 4
+            scale *= 4
+            self.retries += 1
+        else:
+            from datafusion_comet_tpu_torch.exec.engine import JoinOverflowError
+
+            raise JoinOverflowError(
+                f"grace join fan-out exceeded after {J.MAX_JOIN_RETRIES} retries")
+        s.tables.pop(self.gl, None)
+        s.tables.pop(self.gr, None)
+        return outs

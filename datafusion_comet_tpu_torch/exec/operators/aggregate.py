@@ -1,6 +1,8 @@
 """Hash aggregate, dense bucket path (port of
 ``datafusion_comet_tpu/exec/operators/aggregate.py``: _try_pack_keys,
-hash_aggregate, _bucket_aggregate, _input_agg, _decimal_sum, _finalize).
+hash_aggregate, _bucket_aggregate, _input_agg, _merge_agg, _decimal_sum,
+_finalize), in every mode: SINGLE and PARTIAL aggregate input rows, FINAL and
+PARTIAL_MERGE merge the state columns PARTIAL emits (``state_fields``).
 
 When the group keys pack into a small perfect-hash domain (dictionary codes,
 bools, int8; at most ``agg_dense_max_domain`` buckets) the packed key IS the
@@ -95,8 +97,6 @@ def hash_aggregate(
     dense_max_domain: int = 64,
 ) -> Batch:
     ctx = ctx or EvalContext()
-    if mode not in (AggMode.SINGLE, AggMode.PARTIAL):
-        raise NotImplementedError("merge-mode aggregates are not ported yet")
     key_cols = [evaluate(g, batch, ctx) for g in group_exprs]
     if not key_cols:
         seg = torch.where(batch.row_mask, 0, 1).int()
@@ -125,10 +125,16 @@ def _bucket_aggregate(batch: Batch, key_cols, agg_exprs, mode: str, packed,
     else:
         group_mask = torch.ones(1, dtype=torch.bool, device=batch.device)
     out_cols: List[ColumnVector] = [kc.take(first_orig) for kc in key_cols]
+    merging = mode in (AggMode.FINAL, AggMode.PARTIAL_MERGE)
     for a in agg_exprs:
-        vals = _input_agg(a, batch, seg, n_buckets, group_mask, ctx)
-        if mode == AggMode.SINGLE:
-            out_cols.append(_finalize(a, vals, cap))
+        if merging:
+            vals = _merge_agg(a, batch, seg, n_buckets, group_mask, ctx)
+        else:
+            vals = _input_agg(a, batch, seg, n_buckets, group_mask, ctx)
+        if mode in (AggMode.SINGLE, AggMode.FINAL):
+            # merged counts are sums of counts: the input capacity bounds
+            # them only when rows are aggregated directly
+            out_cols.append(_finalize(a, vals, None if merging else cap))
         else:
             out_cols.extend(vals)
     return Batch(tuple(out_cols), group_mask, out_schema)
@@ -188,9 +194,42 @@ def _input_agg(a: E.AggExpr, batch: Batch, seg: torch.Tensor, m: int,
     raise NotImplementedError(f"aggregate {a.func}")
 
 
-def _finalize(a: E.AggExpr, vals: List[ColumnVector], rows: int) -> ColumnVector:
-    """State columns -> result column. ``rows``: the input capacity, which
-    bounds every count."""
+def _merge_agg(a: E.AggExpr, batch: Batch, seg: torch.Tensor, m: int,
+               group_mask: torch.Tensor, ctx: EvalContext) -> List[ColumnVector]:
+    """Merge PARTIAL state columns per bucket into the same states: counts
+    and sums add on the bucket kernels; a sum state is null where no input
+    state of its group was valid."""
+    sts = [batch.column(f.name) for f in state_fields(a)]
+    live = batch.row_mask
+
+    def added(cv: ColumnVector) -> torch.Tensor:
+        return K.bucket_sum(seg, torch.where(cv.validity & live, cv.data, 0).long(), m,
+                            ctx.errors)
+
+    if a.func == E.AggFunc.COUNT:
+        return [ColumnVector(added(sts[0]), group_mask, None, T.INT64)]
+    st = sts[0]
+    valid = st.validity & live
+    s, sb, over = _decimal_sum(st, st.data, valid, seg, m, st.dtype, ctx.errors)
+    if a.func == E.AggFunc.SUM:
+        has = (_count(valid, seg, m, ctx.errors) > 0) & group_mask
+    elif a.func == E.AggFunc.AVG:
+        cnt = added(sts[1])
+        has = (cnt > 0) & group_mask
+    else:
+        raise NotImplementedError(f"merging aggregate {a.func}")
+    if over is not None:
+        has = has & ~over
+    state = ColumnVector(s, has, None, st.dtype,
+                         mag_bound=quantize_bound(sb) if sb is not None else None)
+    if a.func == E.AggFunc.SUM:
+        return [state]
+    return [state, ColumnVector(cnt, group_mask, None, T.INT64)]
+
+
+def _finalize(a: E.AggExpr, vals: List[ColumnVector], rows: Optional[int]) -> ColumnVector:
+    """State columns -> result column. ``rows``: a bound on every count (the
+    input capacity when aggregating rows), or None."""
     rt = a.result_dtype()
     if a.func in (E.AggFunc.COUNT, E.AggFunc.SUM):
         return vals[0]

@@ -1,5 +1,5 @@
 """Expression IR and Spark type inference (port of
-``datafusion_comet_tpu/ir/expr.py``, the subset TPC-H Q1/Q6 reach).
+``datafusion_comet_tpu/ir/expr.py``, the subset TPC-H Q1, Q6 and Q12 reach).
 
 Expressions are built unbound (column names); ``bind(expr, schema)`` resolves
 references to column indices and computes result types, including Spark's
@@ -16,7 +16,7 @@ from datafusion_comet_tpu_torch import types as T
 
 __all__ = [
     "Expr", "EvalMode", "ColumnRef", "BoundRef", "Literal", "Alias", "BinaryOp",
-    "Cast", "SortOrder", "AggFunc", "AggExpr", "col", "lit", "bind",
+    "Cast", "CaseWhen", "InList", "SortOrder", "AggFunc", "AggExpr", "col", "lit", "bind",
 ]
 
 
@@ -91,6 +91,9 @@ class Expr:
     def __hash__(self):
         return object.__hash__(self)
 
+    def isin(self, *values) -> "InList":
+        return InList(self, tuple(_e(v) for v in values))
+
     @property
     def name(self) -> str:
         if isinstance(self, Alias):
@@ -164,6 +167,34 @@ class Cast(Expr):
 
     def children(self):
         return (self.child,)
+
+
+@_node
+class CaseWhen(Expr):
+    """CASE WHEN c1 THEN v1 ... [ELSE e] END; the first true branch wins."""
+
+    branches: Tuple[Tuple[Expr, Expr], ...]  # (condition, value)
+    else_value: Optional[Expr]
+
+    def children(self):
+        out = []
+        for c, v in self.branches:
+            out += [c, v]
+        if self.else_value is not None:
+            out.append(self.else_value)
+        return tuple(out)
+
+
+@_node
+class InList(Expr):
+    """child IN (v1, ...): an OR of equalities, with SQL null logic."""
+
+    child: Expr
+    values: Tuple[Expr, ...]
+    negated: bool = False
+
+    def children(self):
+        return (self.child,) + self.values
 
 
 @dataclasses.dataclass(frozen=True)
@@ -294,6 +325,21 @@ def bind(expr: Expr, schema: T.Schema) -> Expr:
         c = bind(e.child, schema)
         out = Cast(c, e.to, e.eval_mode)
         object.__setattr__(out, "dtype", e.to)
+        return out
+    if isinstance(e, CaseWhen):
+        branches = tuple((bind(c, schema), bind(v, schema)) for c, v in e.branches)
+        else_v = bind(e.else_value, schema) if e.else_value is not None else None
+        dt = branches[0][1].dtype
+        for _, v in branches[1:]:
+            dt = T.common_type(dt, v.dtype)
+        if else_v is not None:
+            dt = T.common_type(dt, else_v.dtype)
+        out = CaseWhen(branches, else_v)
+        object.__setattr__(out, "dtype", dt)
+        return out
+    if isinstance(e, InList):
+        out = InList(bind(e.child, schema), tuple(bind(v, schema) for v in e.values), e.negated)
+        object.__setattr__(out, "dtype", T.BOOL)
         return out
     raise NotImplementedError(f"bind: {type(e).__name__}")
 

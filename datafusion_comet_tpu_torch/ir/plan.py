@@ -1,5 +1,6 @@
 """Operator plan IR (port of ``datafusion_comet_tpu/ir/plan.py``: the Scan,
-Filter, Projection, HashAggregate and Sort nodes TPC-H Q1/Q6 use).
+Filter, Projection, HashAggregate, Sort and HashJoin nodes TPC-H Q1, Q6 and
+Q12 use).
 
 Plans are built unbound; ``bind_plan`` binds expressions bottom-up against
 child schemas and computes each node's output schema.
@@ -8,13 +9,26 @@ child schemas and computes each node's output schema.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 from datafusion_comet_tpu_torch import types as T
 from datafusion_comet_tpu_torch.ir import expr as E
 
 __all__ = ["PlanNode", "Scan", "Filter", "Projection", "HashAggregate", "AggMode",
-           "Sort", "bind_plan"]
+           "Sort", "HashJoin", "JoinType", "bind_plan", "scan_tables"]
+
+
+class JoinType:
+    """Join types of the IR; the executor runs INNER and raises on the rest."""
+
+    INNER = "inner"
+    LEFT = "left"
+    RIGHT = "right"
+    FULL = "full"
+    LEFT_SEMI = "left_semi"
+    LEFT_ANTI = "left_anti"
+    LEFT_ANTI_NULL_AWARE = "left_anti_null_aware"
+    EXISTENCE = "existence"
 
 
 class AggMode:
@@ -103,6 +117,31 @@ class Sort(PlanNode):
         return (self.child,)
 
 
+@dataclasses.dataclass
+class HashJoin(PlanNode):
+    """Equi-join; ``build_side`` names the input that is sorted and searched,
+    the other is probed. Output schema: left fields then right fields."""
+
+    left: PlanNode
+    right: PlanNode
+    left_keys: Tuple[E.Expr, ...]
+    right_keys: Tuple[E.Expr, ...]
+    join_type: str = JoinType.INNER
+    build_side: str = "right"  # left|right
+    condition: Optional[E.Expr] = None  # extra non-equi filter over the pair
+
+    def children(self):
+        return (self.left, self.right)
+
+
+def _join_out_schema(ls: T.Schema, rs: T.Schema, join_type: str) -> T.Schema:
+    if join_type in (JoinType.LEFT_SEMI, JoinType.LEFT_ANTI, JoinType.LEFT_ANTI_NULL_AWARE):
+        return ls
+    if join_type == JoinType.EXISTENCE:
+        return T.Schema(list(ls.fields) + [T.Field("exists", T.BOOL)])
+    return T.Schema(list(ls.fields) + list(rs.fields))
+
+
 def _expr_nullable(e: E.Expr, schema: T.Schema) -> bool:
     """Conservative bind-time nullability: False only when provably non-null."""
     if isinstance(e, E.Alias):
@@ -134,16 +173,19 @@ def bind_plan(plan: PlanNode) -> PlanNode:
         return out
     if isinstance(plan, HashAggregate):
         child = kids[0]
-        if plan.mode in (AggMode.FINAL, AggMode.PARTIAL_MERGE):
-            raise NotImplementedError("merge-mode aggregates are not ported yet")
         groups = tuple(E.bind(g, child.schema) for g in plan.group_exprs)
-        aggs = tuple(
-            dataclasses.replace(
-                a, child=E.bind(a.child, child.schema) if a.child is not None else None)
-            for a in plan.agg_exprs)
+        if plan.mode in (AggMode.FINAL, AggMode.PARTIAL_MERGE):
+            # the merge reads state columns by name; the aggregates stay bound
+            # against the partial stage's input, which types their results
+            aggs = plan.agg_exprs
+        else:
+            aggs = tuple(
+                dataclasses.replace(
+                    a, child=E.bind(a.child, child.schema) if a.child is not None else None)
+                for a in plan.agg_exprs)
         out = HashAggregate(child, groups, aggs, plan.mode)
         fields = [T.Field(g.name, g.dtype, _expr_nullable(g, child.schema)) for g in groups]
-        if plan.mode == AggMode.SINGLE:
+        if plan.mode in (AggMode.SINGLE, AggMode.FINAL):
             fields += [T.Field(a.out_name, a.result_dtype()) for a in aggs]
         else:
             from datafusion_comet_tpu_torch.exec.operators import aggregate as AGG
@@ -159,4 +201,21 @@ def bind_plan(plan: PlanNode) -> PlanNode:
         out = Sort(child, orders)
         out.schema = child.schema
         return out
+    if isinstance(plan, HashJoin):
+        left, right = kids
+        lkeys = tuple(E.bind(k, left.schema) for k in plan.left_keys)
+        rkeys = tuple(E.bind(k, right.schema) for k in plan.right_keys)
+        pair = T.Schema(list(left.schema.fields) + list(right.schema.fields))
+        cond = E.bind(plan.condition, pair) if plan.condition is not None else None
+        out = HashJoin(left, right, lkeys, rkeys, plan.join_type, plan.build_side, cond)
+        out.schema = _join_out_schema(left.schema, right.schema, plan.join_type)
+        return out
     raise NotImplementedError(f"bind_plan: {type(plan).__name__}")
+
+
+def scan_tables(plan: PlanNode) -> List[str]:
+    """The tables a plan's Scans read, in tree order."""
+    out = [plan.table] if isinstance(plan, Scan) else []
+    for c in plan.children():
+        out.extend(scan_tables(c))
+    return out

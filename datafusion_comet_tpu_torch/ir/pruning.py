@@ -1,5 +1,5 @@
 """Column pruning (port of ``datafusion_comet_tpu/ir/pruning.py`` for the
-nodes of ir/plan.py): walk the UNBOUND plan top-down with the set of columns
+nodes of ir/plan.py, joins included): walk the UNBOUND plan top-down with the set of columns
 each node must produce and narrow every Scan to the columns it must read.
 """
 
@@ -48,6 +48,10 @@ def prune_columns(plan: P.PlanNode, required: Optional[Set[str]] = ALL) -> P.Pla
         return P.Filter(prune_columns(plan.child, ALL if required is ALL else need),
                         plan.predicate)
     if isinstance(plan, P.HashAggregate):
+        if plan.mode in (P.AggMode.FINAL, P.AggMode.PARTIAL_MERGE):
+            # a merge reads state columns by name: nothing to prune below it
+            return P.HashAggregate(prune_columns(plan.child, ALL), plan.group_exprs,
+                                   plan.agg_exprs, plan.mode)
         need = set()
         for g in plan.group_exprs:
             _expr_refs(g, need)
@@ -61,4 +65,39 @@ def prune_columns(plan: P.PlanNode, required: Optional[Set[str]] = ALL) -> P.Pla
             for o in plan.orders:
                 _expr_refs(o.child, need)
         return P.Sort(prune_columns(plan.child, need), plan.orders)
+    if isinstance(plan, P.HashJoin):
+        lneed: Optional[Set[str]] = None if required is ALL else set()
+        rneed: Optional[Set[str]] = None if required is ALL else set()
+        if required is not ALL:
+            lnames, rnames = _subtree_columns(plan.left), _subtree_columns(plan.right)
+            lneed |= required & lnames
+            rneed |= required & rnames
+            for k in plan.left_keys:
+                _expr_refs(k, lneed)
+            for k in plan.right_keys:
+                _expr_refs(k, rneed)
+            if plan.condition is not None:
+                cond: Set[str] = set()
+                _expr_refs(plan.condition, cond)
+                lneed |= cond & lnames
+                rneed |= cond & rnames
+        return P.HashJoin(prune_columns(plan.left, lneed), prune_columns(plan.right, rneed),
+                          plan.left_keys, plan.right_keys, plan.join_type, plan.build_side,
+                          plan.condition)
     raise NotImplementedError(f"prune_columns: {type(plan).__name__}")
+
+
+def _subtree_columns(plan: P.PlanNode) -> Set[str]:
+    """Every column name a subtree can output (before binding)."""
+    if isinstance(plan, P.Scan):
+        return set(plan.projection or [f.name for f in plan.source_schema.fields])
+    if isinstance(plan, P.Projection):
+        return {x.name for x in plan.exprs}
+    if isinstance(plan, P.HashAggregate):
+        # partial modes emit state columns prefixed by the output name
+        return ({g.name for g in plan.group_exprs} | {a.out_name for a in plan.agg_exprs}
+                | {f"{a.out_name}__{s}" for a in plan.agg_exprs for s in ("sum", "count")})
+    out: Set[str] = set()
+    for c in plan.children():
+        out |= _subtree_columns(c)
+    return out

@@ -1,5 +1,6 @@
-"""TPC-H workload subset: the ``lineitem`` schema and generator, and the plans
-of Q1 and Q6 (port of ``datafusion_comet_tpu/models/tpch.py``).
+"""TPC-H workload subset: the ``lineitem`` and ``orders`` schemas and
+generators, and the plans of Q1, Q6 and Q12 (port of
+``datafusion_comet_tpu/models/tpch.py``).
 
 The generator is a line-for-line copy of the JAX package's, so the same
 ``(sf, seed)`` gives bit-identical columns in both packages: results can be
@@ -18,7 +19,7 @@ from datafusion_comet_tpu_torch import types as T
 from datafusion_comet_tpu_torch.ir import expr as E
 from datafusion_comet_tpu_torch.ir import plan as P
 
-__all__ = ["SCHEMAS", "table_rows", "generate_table", "q1", "q6"]
+__all__ = ["SCHEMAS", "table_rows", "generate_table", "q1", "q6", "q12"]
 
 _dec = T.decimal
 
@@ -41,9 +42,21 @@ SCHEMAS: Dict[str, T.Schema] = {
             T.Field("l_shipmode", T.string(10), False),
         ]
     ),
+    "orders": T.Schema(
+        [
+            T.Field("o_orderkey", T.INT64, False),
+            T.Field("o_custkey", T.INT64, False),
+            T.Field("o_orderstatus", T.string(1), False),
+            T.Field("o_totalprice", _dec(15, 2), False),
+            T.Field("o_orderdate", T.DATE, False),
+            T.Field("o_orderpriority", T.string(15), False),
+            T.Field("o_shippriority", T.INT32, False),
+        ]
+    ),
 }
 
 _SHIPMODES = ["REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB"]
+_PRIORITIES = ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECI", "5-LOW"]
 
 
 def _d(datestr: str) -> int:
@@ -68,12 +81,30 @@ def table_rows(name: str, sf: float) -> int:
 
 
 def generate_table(name: str, sf: float, seed: int = 19920401) -> Dict[str, np.ndarray]:
-    """Deterministic TPC-H-shaped ``lineitem`` (value ranges per the spec).
-    Decimals come pre-scaled as int64 (the engine's physical form)."""
-    if name != "lineitem":
+    """Deterministic TPC-H-shaped ``lineitem`` or ``orders`` (value ranges
+    per the spec). Decimals come pre-scaled as int64 (the engine's physical
+    form)."""
+    if name not in ("lineitem", "orders"):
         raise KeyError(name)
     n = table_rows(name, sf)
     rng = np.random.default_rng(seed + zlib.crc32(name.encode()) % (2**31))
+    if name == "orders":
+        ok = np.arange(1, n + 1, dtype=np.int64) * 4 - 3  # sparse keys like dbgen
+        # custkeys divisible by 3 place no orders (the spec): a dense index
+        # over the valid keys 1, 2, 4, 5, 7, 8, ... expanded
+        ncust = table_rows("customer", sf)
+        m = ncust - ncust // 3
+        i = rng.integers(0, m, n)
+        custkey = 3 * (i // 2) + 1 + (i % 2)
+        return {
+            "o_orderkey": ok,
+            "o_custkey": custkey.astype(np.int64),
+            "o_orderstatus": np.array(["F", "O", "P"], object)[rng.integers(0, 3, n)],
+            "o_totalprice": rng.integers(85700, 55558485, n).astype(np.int64),
+            "o_orderdate": (_d("1992-01-01") + rng.integers(0, 2406, n)).astype(np.int32),
+            "o_orderpriority": np.array(_PRIORITIES, object)[rng.integers(0, 5, n)],
+            "o_shippriority": np.zeros(n, np.int32),
+        }
     norders = table_rows("orders", sf)
     per = rng.integers(1, 8, norders)
     per = per[: max(1, int(n / per.mean()))]
@@ -140,3 +171,28 @@ def q6() -> P.PlanNode:
     )
     return l.filter(pred).aggregate(
         [], [E.AggExpr("sum", E.col("l_extendedprice") * E.col("l_discount"), "revenue")])
+
+
+def q12() -> P.PlanNode:
+    """Shipping modes and order priority: join + conditional counts."""
+    o = P.Scan("orders", SCHEMAS["orders"])
+    l = P.Scan("lineitem", SCHEMAS["lineitem"]).filter(
+        (E.col("l_shipmode").isin("MAIL", "SHIP"))
+        & (E.col("l_commitdate") < E.col("l_receiptdate"))
+        & (E.col("l_shipdate") < E.col("l_commitdate"))
+        & (E.col("l_receiptdate") >= _date_lit("1994-01-01"))
+        & (E.col("l_receiptdate") < _date_lit("1995-01-01"))
+    )
+    j = P.HashJoin(l, o, (E.col("l_orderkey"),), (E.col("o_orderkey"),), P.JoinType.INNER,
+                   "right")
+    urgent = (E.col("o_orderpriority") == E.lit("1-URGENT")) | (
+        E.col("o_orderpriority") == E.lit("2-HIGH"))
+    other = (E.col("o_orderpriority") != E.lit("1-URGENT")) & (
+        E.col("o_orderpriority") != E.lit("2-HIGH"))
+    high = E.CaseWhen(((urgent, E.lit(1)),), E.lit(0))
+    low = E.CaseWhen(((other, E.lit(1)),), E.lit(0))
+    agg = j.aggregate(
+        [E.col("l_shipmode")],
+        [E.AggExpr("sum", high, "high_line_count"), E.AggExpr("sum", low, "low_line_count")],
+    )
+    return agg.sort([E.SortOrder(E.col("l_shipmode"))])

@@ -7,7 +7,8 @@ Physical mapping, the same as the JAX package so both hold identical buffers:
 - DECIMAL(p<=18, s) is a scaled int64; wider decimals are a scaled int64
   while their values provably fit ("narrow storage") and a (rows, 2) int64
   [hi, lo] two's-complement i128 otherwise (``is_wide_decimal``);
-- DATE is int32 days since the Unix epoch;
+- DATE is int32 days since the Unix epoch, TIMESTAMP int64 microseconds
+  since it (UTC);
 - STRING/BYTES are fixed-capacity padded uint8 matrices plus int32 lengths,
   or int32 codes into a sorted host dictionary (exec/dictionary.py).
 
@@ -23,7 +24,7 @@ import numpy as np
 
 __all__ = [
     "DataType", "BOOL", "INT8", "INT16", "INT32", "INT64", "FLOAT32", "FLOAT64",
-    "DATE", "NULLTYPE", "string", "binary", "decimal", "Field", "Schema",
+    "DATE", "TIMESTAMP", "NULLTYPE", "string", "binary", "decimal", "Field", "Schema",
     "common_type", "MAX_DECIMAL_PRECISION",
 ]
 
@@ -37,7 +38,7 @@ MAX_INT64_DECIMAL_PRECISION = 18
 _NP_DTYPES = {
     "BOOL": np.bool_, "INT8": np.int8, "INT16": np.int16, "INT32": np.int32,
     "INT64": np.int64, "FLOAT": np.float32, "DOUBLE": np.float64,
-    "DATE": np.int32, "NULL": np.int8, "DECIMAL": np.int64,
+    "DATE": np.int32, "TIMESTAMP": np.int64, "NULL": np.int8, "DECIMAL": np.int64,
     "STRING": np.uint8, "BYTES": np.uint8,
 }
 
@@ -113,6 +114,7 @@ INT64 = DataType("INT64")
 FLOAT32 = DataType("FLOAT")
 FLOAT64 = DataType("DOUBLE")
 DATE = DataType("DATE")
+TIMESTAMP = DataType("TIMESTAMP")
 NULLTYPE = DataType("NULL")
 
 

@@ -1,5 +1,6 @@
 """PyTorch port on the card: the CUDA kernels against their plain versions,
-and Q1/Q6 on the card against the same queries on the CPU. Marked ``cuda``;
+and Q1, Q6 and Q12 (directly and through the grace join) on the card against
+the same queries on the CPU. Marked ``cuda``;
 without a card every test here skips. This file imports no JAX, so it runs
 on a machine without it (tests/conftest.py imports JAX, hence --noconftest):
 
@@ -10,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+from datafusion_comet_tpu_torch.conf import Config
 from datafusion_comet_tpu_torch.exec import kernels as K
 from datafusion_comet_tpu_torch.exec.engine import Session
 from datafusion_comet_tpu_torch.models import tpch
@@ -66,3 +69,54 @@ def test_queries_on_card_equal_cpu(dev, q):
     assert list(got) == list(want)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("n,parts,dead,local", [
+    (2_097_152, 16, 0.3, False), (1_000_003, 1, 0.1, False), (1_000_003, 64, 0.0, False),
+    (70_001, 128, 0.2, True), (1 << 20, 16, 0.0, True), (65_537, 16, 1.0, False), (1, 3, 0.0, False)])
+def test_partition_sort_equals_plain(dev, n, parts, dead, local):
+    rng = np.random.default_rng(n + parts)
+    codes = np.where(rng.random(n) < dead, parts, rng.integers(0, parts, n)).astype(np.int32)
+    codes = torch.from_numpy(codes).to(dev)
+    before = K.partition_sort.launches
+    perm, counts = K.partition_sort(codes, parts, local=local)
+    assert K.partition_sort.launches == before + 2  # the count pass and the scatter pass
+    want_perm, want_counts = K.partition_sort_plain(codes, parts, local=local)
+    assert torch.equal(perm, want_perm) and torch.equal(counts, want_counts)
+    torch.cuda.synchronize()
+
+
+def test_partition_sort_raises_and_defers_bad_codes(dev):
+    codes = torch.tensor([0, 17, 2], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        K.partition_sort(codes, 16)
+    errs = []
+    K.partition_sort(codes, 16, errors=errs)
+    assert [bool(f.any()) for f, _ in errs] == [True]
+    assert "outside [0, 16]" in errs[0][1]
+
+
+def test_q12_on_card_equals_cpu_direct_and_grace(dev):
+    data = {t: tpch.generate_table(t, 0.01) for t in ("lineitem", "orders")}
+    cpu = Session(device="cpu")
+    for t, d in data.items():
+        cpu.register_numpy(t, d, tpch.SCHEMAS[t])
+    want = cpu.collect(tpch.q12())
+    fraction, _ = chip_smoke.grace_fraction(cpu, tpch.q12(), 16)
+    for grace, conf in ((False, Config()),
+                        (True, Config(memory_fraction=fraction * 4 * 2**30
+                                      / torch.cuda.get_device_properties(dev).total_memory))):
+        gpu = Session(conf=conf)
+        for t, d in data.items():
+            gpu.register_numpy(t, d, tpch.SCHEMAS[t])
+        for name in ("bucket_count", "bucket_sum", "partition_sort"):
+            getattr(K, name).launches = 0
+        got = gpu.collect(tpch.q12())
+        assert K.bucket_count.launches > 0 and K.bucket_sum.launches > 0
+        # the join's compaction runs the partition sort, the grace run also
+        # its partitioning
+        assert K.partition_sort.launches > 0 and bool(gpu.grace_runners) == grace
+        assert list(got) == list(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert gpu.grace_runners[0].K == 16

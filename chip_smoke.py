@@ -10,17 +10,22 @@ On a machine with one NVIDIA card, from the root of a checkout:
 Phases, one JSON line each:
   1. device: the card's name, count, and nvidia-smi's name and power limit;
   2. build: compiles the CUDA sources in csrc/ with nvcc, one process each,
-     all started together;
+     all started together, and prints ptxas's registers, shared memory and
+     spills for each kernel (each bucket-kernel layout apart);
   3. kernels: holds bucket_count and bucket_sum against their plain PyTorch
-     versions, exactly, on the card, at Q1's SF1 shape and at edge shapes;
-     times kernel, plain version and one library call at Q1's shape,
-     with L2 flushed before each timed run;
+     versions, exactly, on the card, at Q1's shape and at every layout
+     boundary of kernels.bucket_layout, ragged and misaligned inputs
+     included; times wrapper, plain version and one library call at Q1's
+     shape (the sum at four lanes and at one), with L2 flushed before each
+     timed run (tools/bucket_times.py's timing);
   4. q1, q6, q12: runs each query through the port's Session, checks the
      result against an exact integer oracle written with numpy alone, and
      reports warm time, peak device memory and the kernel launch counts of
-     one run with the counts zeroed just before it. Q12 runs twice: directly,
-     and under a Config(memory_fraction) that makes the engine split its
-     join into K = 16 hash partitions (the grace join);
+     one run with the counts zeroed just before it. Q12 runs twice:
+     directly, and under a Config(memory_fraction) that makes the engine
+     split its join into K = 16 hash partitions (the grace join);
+  grace_pair_kernels: times both bucket kernels at the grace run's pair
+     shape (a pair's block, B = 16, its mean live rows);
   5. partition: holds partition_sort against its plain version, exactly, at
      the shapes Q12's grace run gave it, at the TPU kernel's probe shape
      (tile-local) and at edge shapes; times kernel, plain version and
@@ -36,6 +41,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -44,8 +50,6 @@ from pathlib import Path
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
-L2_FLUSH_BYTES = 256 << 20  # over five times the H100's 50 MB L2
 ROOT = Path(__file__).resolve().parent
 REPLACES = {
     "bucket_count": "datafusion_comet_tpu/exec/pallas_kernels.py:43",
@@ -65,28 +69,53 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, reps: int, warm: int = 3, flush=None) -> float:
-    """Median device time of ``fn`` over ``reps`` warm runs, CUDA events.
-    ``flush`` (a device buffer larger than L2) is rewritten before each
-    timed run, outside the events, so ``fn`` reads its inputs from memory."""
-    import torch
-
-    for _ in range(warm):
-        fn()
-    pairs = []
-    for _ in range(reps):
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        if flush is not None:
-            flush.add_(1)
-        e0.record()
-        fn()
-        e1.record()
-        pairs.append((e0, e1))
-    torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in pairs)
-
-
 # ---- phase 3: kernels against their plain versions -----------------------------------
+
+
+def ptxas_by_kernel(log: str):
+    """nvcc's ptxas line (registers, static shared memory, spills) for each
+    kernel in a build log, the bucket kernels named by their layout."""
+    from datafusion_comet_tpu_torch.exec import kernels as K
+
+    out, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            fn = m.group(1)
+            v = re.search(r"bucket_kernelILi(\d+)E", fn)
+            fn = f"bucket_kernel<{K.LAYOUTS[int(v.group(1))]}>" if v else fn
+        elif fn and ("registers" in ln or "spill" in ln):
+            out.setdefault(fn, []).append(ln.split(":", 1)[-1].strip())
+    return out
+
+
+def time_buckets(K, codes, vals, B: int, reps: int, flush,
+                 which=("bucket_count", "bucket_sum")):
+    """Wrapper, plain and library times of bucket_count over ``codes`` and of
+    bucket_sum over (k, n) ``vals`` (those named in ``which``), with each
+    one's byte bound and layout."""
+    import torch
+    from datafusion_comet_tpu_torch.tools import bucket_times as BT
+
+    dev = codes.device
+    k = int(vals.shape[0])
+    codes_l = codes.long()
+    res = BT.time_wrappers(K, codes, vals, B, reps, flush, which)
+    for name, r in res.items():
+        lay = K.bucket_layout(k if name == "bucket_sum" else 0, B)
+        r.update(layout=lay.name, smem_bytes=lay.smem_bytes, lanes_per_launch=lay.lanes,
+                 blocks=K.grid_for(lay, int(codes.shape[0]), K._most_blocks(lay, dev.index or 0)))
+        if name == "bucket_sum":
+            r["plain_ms"] = BT.cuda_ms(lambda: K.bucket_sum_plain(codes, vals, B), reps,
+                                       flush=flush)
+            r["library_ms"] = BT.cuda_ms(
+                lambda: torch.zeros(k, B + 1, dtype=torch.int64, device=dev)
+                .index_add_(1, codes_l, vals), reps, flush=flush)
+        else:
+            r["plain_ms"] = BT.cuda_ms(lambda: K.bucket_count_plain(codes, B), reps, flush=flush)
+            r["library_ms"] = BT.cuda_ms(lambda: torch.bincount(codes, minlength=B + 1), reps,
+                                         flush=flush)
+    return res
 
 
 def kernel_phase(sf: float, reps: int, seed: int):
@@ -94,6 +123,7 @@ def kernel_phase(sf: float, reps: int, seed: int):
     from datafusion_comet_tpu_torch.exec import kernels as K
     from datafusion_comet_tpu_torch.exec.batch import pad_capacity
     from datafusion_comet_tpu_torch.models import tpch
+    from datafusion_comet_tpu_torch.tools import bucket_times as BT
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(seed)
@@ -101,33 +131,50 @@ def kernel_phase(sf: float, reps: int, seed: int):
     def cuda(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    # Q1's shape: the staged capacity, 64 buckets, six live (returnflag x
-    # linestatus), ~1.5% of live rows filtered out, padding rows dead
+    def full(shape):  # full-range int64, so the kernels' carries are exercised
+        return rng.integers(-(1 << 63), (1 << 63) - 1, shape, dtype=np.int64)
+
     rows = tpch.table_rows("lineitem", sf)
-    cap = pad_capacity(rows)
-    live_buckets = np.array([9, 10, 17, 18, 25, 26], np.int32)
-    q1_codes = np.full(cap, 64, np.int32)
-    q1_codes[:rows] = live_buckets[rng.integers(0, 6, rows)]
-    q1_codes[:rows][rng.random(rows) < 0.015] = 64
-    lanes = np.stack([rng.integers(0, 1 << 32, cap) for _ in range(3)]
-                     + [rng.integers(-(1 << 20), 1 << 20, cap)]).astype(np.int64)
-    odd = 1_000_003  # not a multiple of the block
+    q1_codes, lanes = BT.q1_inputs(pad_capacity(rows), rows, rng)
+    odd = 1_000_003  # not a multiple of 4 or of a block's rows
+
+    def uniform(n, B):
+        return rng.integers(0, B + 1, n).astype(np.int32)
+
+    # (name, codes, B, values, offset): offset > 0 passes codes and values
+    # as views that start that many elements into a larger tensor
     cases = [
-        ("q1_sf", q1_codes, 64, lanes),
-        ("q1_sf_one_lane", q1_codes, 64, lanes[0]),
+        ("q1_sf", q1_codes, 64, lanes, 0),
+        ("q1_sf_one_lane", q1_codes, 64, lanes[0], 0),
         ("b1", rng.integers(0, 2, odd).astype(np.int32), 1,
-         rng.integers(-(1 << 40), 1 << 40, odd)),
-        ("b4096", rng.integers(0, 4097, odd).astype(np.int32), 4096,
-         rng.integers(-(1 << 40), 1 << 40, (2, odd))),
+         rng.integers(-(1 << 40), 1 << 40, odd), 0),
+        # the largest B of count_private, and of sum_replicated at four lanes
+        # (both exactly 232,448 shared bytes), then the first B past them
+        ("b227_k4", uniform(odd, 227), 227, full((4, odd)), 0),
+        ("b228_k4", uniform(odd, 228), 228, full((4, odd)), 0),
+        ("b908_k2", uniform(odd, 908), 908, full((2, odd)), 0),
+        ("b909", uniform(odd, 909), 909, full(odd), 0),
+        ("b4096", uniform(odd, 4096), 4096, full((2, odd)), 0),
+        # odd n: lane 1 of the values starts 8- but not 16-byte aligned
+        ("odd_n_k3", uniform(odd, 64), 64, full((3, odd)), 0),
+        # codes not 16-byte aligned: three rows before the first vector
+        ("offset1", uniform(odd, 64), 64, full((2, odd)), 1),
+        ("offset1_b4096", uniform(65_538, 4096), 4096, full(65_538), 1),
+        ("n3", uniform(3, 16), 16, full((2, 3)), 1),
+        ("skewed_b4096", rng.choice(np.array([5, 6, 4095, 4096], np.int32), odd), 4096,
+         full((2, odd)), 0),
         ("all_dead", np.full(65_537, 64, np.int32), 64,
-         rng.integers(-(1 << 40), 1 << 40, 65_537)),
-        ("pm2_62", rng.integers(0, 65, odd).astype(np.int32), 64,
-         np.where(rng.random(odd) < 0.5, -(1 << 62), 1 << 62).astype(np.int64)),
+         rng.integers(-(1 << 40), 1 << 40, 65_537), 0),
+        ("pm2_62", uniform(odd, 64), 64,
+         np.where(rng.random(odd) < 0.5, -(1 << 62), 1 << 62).astype(np.int64), 0),
     ]
     checked = []
     max_err = {"bucket_count": 0, "bucket_sum": 0}
-    for name, codes_np, B, vals_np in cases:
+    for name, codes_np, B, vals_np, off in cases:
         codes, vals = cuda(codes_np), cuda(vals_np.astype(np.int64))
+        if off:
+            codes = torch.cat([codes[:off], codes])[off:]
+            vals = torch.cat([vals[..., :off], vals], -1)[..., off:]
         got = {"bucket_count": (K.bucket_count(codes, B), K.bucket_count_plain(codes, B)),
                "bucket_sum": (K.bucket_sum(codes, vals, B), K.bucket_sum_plain(codes, vals, B))}
         torch.cuda.synchronize()
@@ -138,8 +185,10 @@ def kernel_phase(sf: float, reps: int, seed: int):
             max_err[kname] = max(max_err[kname], err)
             if err:
                 raise AssertionError(f"{kname} != plain on {name}: max abs err {err}")
-        checked.append({"case": name, "n": int(codes.shape[0]), "B": B,
-                        "lanes": int(vals.shape[0]) if vals.dim() == 2 else 1})
+        k = int(vals.shape[0]) if vals.dim() == 2 else 1
+        checked.append({"case": name, "n": int(codes.shape[0]), "B": B, "lanes": k,
+                        "codes_offset_bytes": codes.data_ptr() % 16,
+                        "layouts": [K.bucket_layout(0, B).name, K.bucket_layout(k, B).name]})
     bad = cuda(np.array([0, 65, 3], np.int32))
     try:
         K.bucket_count(bad, 64)
@@ -148,51 +197,35 @@ def kernel_phase(sf: float, reps: int, seed: int):
     else:
         raise AssertionError("bucket_count accepted a code outside [0, B]")
 
-    # timing at Q1's shape: count over all rows; sum over the four i128 lanes
+    # timing at Q1's shape: count over all rows; sum over the four i128
+    # lanes and over one lane. SF1's codes (34 MB) fit the H100's 50 MB L2:
+    # a larger buffer is rewritten before each run to evict them
+    flush = torch.zeros(BT.L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
     codes, vals = cuda(q1_codes), cuda(lanes)
-    n, B, k = cap, 64, lanes.shape[0]
-    out_c = torch.zeros(B, dtype=torch.int64, device=dev)
-    out_s = torch.zeros(k, B, dtype=torch.int64, device=dev)
-    bad = torch.zeros(1, dtype=torch.int64, device=dev)
-
-    def run_count():
-        out_c.zero_()
-        bad.zero_()
-        K._launch_count(codes, B, out_c, bad)
-
-    def run_sum():
-        out_s.zero_()
-        bad.zero_()
-        K._launch_sum(codes, vals, B, out_s, bad)
-
-    codes_l = codes.long()
-    live = int((q1_codes < B).sum())  # the sum kernel reads values of live rows only
-    # SF1's codes (34 MB) fit the H100's 50 MB L2: evict them before each run
-    flush = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
-
-    def t(fn):
-        return cuda_ms(fn, reps, flush=flush)
-
-    timing = {
-        "bucket_count": {
-            "shape": f"n={n} B={B}",
-            "ms": t(run_count),
-            "plain_ms": t(lambda: K.bucket_count_plain(codes, B)),
-            "library_ms": t(lambda: torch.bincount(codes, minlength=B + 1)),
-            "bound_ms": (4 * n + 8 * B) / HBM_BYTES_PER_S * 1e3,
-        },
-        "bucket_sum": {
-            "shape": f"n={n} B={B} lanes={k}",
-            "ms": t(run_sum),
-            "plain_ms": t(lambda: K.bucket_sum_plain(codes, vals, B)),
-            "library_ms": t(lambda: torch.zeros(k, B + 1, dtype=torch.int64, device=dev)
-                            .index_add_(1, codes_l, vals)),
-            "bound_ms": (4 * n + 8 * k * live + 8 * k * B) / HBM_BYTES_PER_S * 1e3,
-        },
-    }
-    for kname in timing:
+    timing = time_buckets(K, codes, vals, 64, reps, flush)
+    timing["bucket_sum_one_lane"] = time_buckets(K, codes, vals[:1], 64, reps, flush,
+                                                 ("bucket_sum",))["bucket_sum"]
+    for kname in ("bucket_count", "bucket_sum"):
         timing[kname]["max_abs_err"] = max_err[kname]
     return checked, timing
+
+
+def pair_phase(sizes, reps: int, seed: int):
+    """Both bucket kernels at the shape of the grace run's pairs: the pair
+    block (lineitem, the probe side, padded, times the join's fan-out),
+    Q12's 16 buckets, the pairs' mean live rows."""
+    import torch
+    from datafusion_comet_tpu_torch.exec import kernels as K
+    from datafusion_comet_tpu_torch.exec.batch import pad_capacity
+    from datafusion_comet_tpu_torch.exec.operators.join import JOIN_FANOUT
+    from datafusion_comet_tpu_torch.tools import bucket_times as BT
+
+    probe = sizes["lineitem"]
+    n = pad_capacity(max(probe["max"], 8)) * JOIN_FANOUT
+    codes, vals = (torch.from_numpy(a).cuda() for a in BT.pair_inputs(
+        n, probe["rows"] // GRACE_K, np.random.default_rng(seed)))
+    flush = torch.zeros(BT.L2_FLUSH_BYTES // 4, dtype=torch.int32, device=codes.device)
+    return time_buckets(K, codes, vals, BT.PAIR_BUCKETS, reps, flush)
 
 
 # ---- phase 4: Q1 and Q6 through the Session, against a numpy oracle ------------------
@@ -463,6 +496,7 @@ def partition_phase(sizes, reps: int, seed: int):
     mode, and at edge shapes; then timing at Q12's shapes."""
     import torch
     from datafusion_comet_tpu_torch.exec import kernels as K
+    from datafusion_comet_tpu_torch.tools import bucket_times as BT
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(seed)
@@ -503,7 +537,7 @@ def partition_phase(sizes, reps: int, seed: int):
     else:
         raise AssertionError("partition_sort accepted a code outside [0, K]")
 
-    flush = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    flush = torch.zeros(BT.L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
     timing = {}
     for name, codes, k, local in cases[:len(sizes)] + [cases[len(sizes)]]:
         n = int(codes.shape[0])
@@ -517,13 +551,14 @@ def partition_phase(sizes, reps: int, seed: int):
 
         timing[name] = {
             "shape": f"n={n} K={k} {'local' if local else 'global'}",
-            "ms": cuda_ms(run, reps, flush=flush),
-            "plain_ms": cuda_ms(lambda: K.partition_sort_plain(codes, k, local), reps,
-                                flush=flush),
-            "library_ms": cuda_ms(lambda: torch.sort(codes, stable=True), reps, flush=flush),
+            "ms": BT.cuda_ms(run, reps, flush=flush),
+            "plain_ms": BT.cuda_ms(lambda: K.partition_sort_plain(codes, k, local), reps,
+                                   flush=flush),
+            "library_ms": BT.cuda_ms(lambda: torch.sort(codes, stable=True), reps,
+                                     flush=flush),
             # each input read once, each output written once: the codes,
             # the permutation and the (tile, code) counts
-            "bound_ms": (4 * n + 4 * n + 4 * t * (k + 1)) / HBM_BYTES_PER_S * 1e3,
+            "bound_ms": (4 * n + 4 * n + 4 * t * (k + 1)) / BT.HBM_BYTES_PER_S * 1e3,
             "max_abs_err": max_err,
         }
     return checked, timing
@@ -558,15 +593,19 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     sources = sorted({Path(src).stem for src in SOURCES.values()})
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-        logs = dict(zip(sources, pool.map(_build.build, sources)))
+        logs = list(pool.map(_build.build, sources))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": {name: [ln.strip() for ln in log.splitlines()
-                           if "registers" in ln or "smem" in ln] for name, log in logs.items()}})
+          "ptxas": {name: ptxas_by_kernel(log) for name, log in zip(sources, logs)}})
 
     checked, timing = kernel_phase(args.sf, args.reps, args.seed)
     emit({"phase": "kernels", "checked_exact": checked, "timing": timing})
 
     launches, sizes = query_phase(args.sf, max(3, args.reps // 5), args.profile)
+    pair = pair_phase(sizes, args.reps, args.seed)
+    emit({"phase": "grace_pair_kernels", "timing": pair})
+    timing["bucket_count"]["other_shapes"] = {"grace_pair": pair["bucket_count"]}
+    timing["bucket_sum"]["other_shapes"] = {"one_lane": timing.pop("bucket_sum_one_lane"),
+                                            "grace_pair": pair["bucket_sum"]}
 
     pchecked, ptiming = partition_phase(sizes, args.reps, args.seed)
     emit({"phase": "partition", "checked_exact": pchecked, "timing": ptiming})

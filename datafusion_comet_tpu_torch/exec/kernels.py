@@ -33,47 +33,105 @@ bytes per live row and lane of values for bucket_sum, and writes 8 bytes per
 bin. At Q1's SF1 shape (n = 8,388,608 rows, 5.9M of them live, B = 64) that
 is 33.6 MB, 10 us, for a count and about 223 MB, 67 us, for a four-lane sum.
 
-Design: blocks run in parallel with nothing carried between them, so each
-keeps a private u64 histogram (k * B bins) in shared memory, fills it with
-shared atomics over a grid-stride loop, and flushes each nonzero bin with
-one global atomic into an output the wrapper zeroes. u64 addition wraps mod
-2^64, so sums are exact two's-complement int64 at any n; there is no float
-anywhere. One launch serves k lanes of values given as (k, n). Rows of one
-bucket contend on one shared address (Q1 has 6 live buckets of 64), so the
-kernels are bound by same-address shared atomics rather than bandwidth;
-warp aggregation (``__match_any_sync``) is the next step.
+Design. Blocks run in parallel with nothing carried between them, so each
+keeps private bins in shared memory and flushes each nonzero bin with one
+global u64 atomic into an output the wrapper zeroes; u64 addition wraps mod
+2^64, so sums are exact two's-complement int64 at any n, with no float
+anywhere. The first design kept one u64 histogram per block and did a
+64-bit shared atomicAdd per row and lane: on sm_90a that is a
+compare-and-swap loop, and Q1's rows fall on 6 of 64 buckets, so every
+warp spun on the same few words (7% and 22% of the byte bounds on an H100).
+The kernels now use only native 32-bit shared atomics and never put two
+lanes of a warp on one word where the domain is small. ``bucket_layout(k,
+B)`` picks, from the shape alone:
+
+- ``count_private`` (count, B <= 227): per-thread u32 counters, bin-major
+  with the thread minor, incremented with a plain ``++``; B KB at 256
+  threads.
+- ``count_shared`` (count, B >= 228): one u32 histogram per block, each
+  warp's equal codes grouped by ``__match_any_sync`` and added once.
+- ``sum_replicated`` (sums, k * B <= 908 per launch): 32 lane copies of
+  the bins, each a u32 lo and hi word; the lo add returns the old word and
+  its carry goes into the hi add. k * B * 256 bytes; more lanes than fit
+  go to further launches.
+- ``sum_shared`` (sums, B >= 909): one lo/hi histogram per block, an
+  atomic pair per live row and lane.
+
+Codes are read as 16-byte vectors with the unaligned head and the ragged
+tail taken row by row; values only for live rows, and not at all by a warp
+whose tile holds no live row. The grid is what the layout's occupancy allows
+on every SM, but no more blocks than give each at least one tile a warp and
+as many code bytes as it holds shared bytes, so small inputs (the grace
+join's pairs) do not pay to zero and flush many blocks.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Optional, Tuple
+import math
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
 from datafusion_comet_tpu_torch.exec import _build
 
 __all__ = ["bucket_count", "bucket_sum", "bucket_count_plain", "bucket_sum_plain",
-           "MAX_BUCKETS", "partition_sort", "partition_sort_plain", "PARTITION_TILE",
-           "MAX_PARTS"]
+           "bucket_layout", "BucketLayout", "grid_for", "zeroed_outputs", "MAX_BUCKETS",
+           "SMEM_MAX", "partition_sort",
+           "partition_sort_plain", "PARTITION_TILE", "MAX_PARTS"]
 
 MAX_BUCKETS = 4096
-_MAX_BINS = 6144  # kMaxBins in the .cu: k * B + 1 shared u64 bins per block
+SMEM_MAX = 232_448  # kSmemMax in the .cu: the H100's opt-in shared memory per block
+_THREADS = 256  # kThreads in the .cu
+_TILE_ROWS = 512  # rows a warp takes per tile: 32 lanes x 4 vectors x 4 codes
+# the kernel variants, in the order of the .cu's Layout enum
+LAYOUTS = ("count_private", "count_shared", "sum_replicated", "sum_shared")
+
+
+class BucketLayout(NamedTuple):
+    """One launch's kernel variant (a name of ``LAYOUTS``), its threads a
+    block, its dynamic shared bytes a block, and the value lanes it takes
+    (0 for a count)."""
+    name: str
+    threads: int
+    smem_bytes: int
+    lanes: int
+
+
+def _round16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def bucket_layout(k: int, num_buckets: int) -> BucketLayout:
+    """The kernel variant for k value lanes (0: a count) over B buckets,
+    chosen from the shape alone. A sum whose lanes do not all fit one
+    block's shared memory takes ``lanes`` per launch."""
+    B = num_buckets
+    if k == 0:
+        if 4 * B * _THREADS <= SMEM_MAX:
+            return BucketLayout("count_private", _THREADS, 4 * B * _THREADS, 0)
+        return BucketLayout("count_shared", _THREADS, _round16(4 * B), 0)
+    if 8 * B * 32 <= SMEM_MAX:
+        lanes = min(k, SMEM_MAX // (8 * B * 32))
+        return BucketLayout("sum_replicated", _THREADS, 8 * lanes * B * 32, lanes)
+    lanes = min(k, SMEM_MAX // (8 * B))
+    return BucketLayout("sum_shared", _THREADS, _round16(8 * lanes * B), lanes)
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("bucket_kernels")
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.bucket_count_launch.argtypes = [p, i64, i32, p, p, p]
-    lib.bucket_count_launch.restype = i32
-    lib.bucket_sum_launch.argtypes = [p, p, i64, i32, i32, p, p, p]
-    lib.bucket_sum_launch.restype = i32
-    lib.bucket_kernels_max_bins.argtypes = []
-    lib.bucket_kernels_max_bins.restype = i32
-    if lib.bucket_kernels_max_bins() != _MAX_BINS:
-        raise RuntimeError("bucket_kernels.cu and kernels.py disagree on the bin limit")
+    lib.bucket_launch.argtypes = [i32, p, p, i64, i32, i32, i32, i32, p, p, p]
+    lib.bucket_launch.restype = i32
+    lib.bucket_blocks_per_sm.argtypes = [i32, i32, ctypes.POINTER(i32)]
+    lib.bucket_blocks_per_sm.restype = i32
+    for name in ("bucket_kernels_smem_max", "bucket_kernels_threads"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i32
+    if (lib.bucket_kernels_smem_max(), lib.bucket_kernels_threads()) != (SMEM_MAX, _THREADS):
+        raise RuntimeError("bucket_kernels.cu and kernels.py disagree on shared bytes or threads")
     return lib
 
 
@@ -100,31 +158,59 @@ def _raise(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
 
 
-def _launch_count(codes: torch.Tensor, num_buckets: int, out: torch.Tensor,
-                  bad: torch.Tensor) -> None:
-    """One kernel launch on the current stream into zeroed ``out`` (B,) and
-    ``bad`` (1,) int64; no checks, no count."""
-    stream = torch.cuda.current_stream(codes.device).cuda_stream
-    _raise(_lib().bucket_count_launch(codes.data_ptr(), codes.shape[0], num_buckets,
-                                      out.data_ptr(), bad.data_ptr(), stream), "bucket_count")
+@functools.lru_cache(maxsize=None)
+def _most_blocks(layout: BucketLayout, device: int) -> int:
+    """Blocks of ``layout`` resident on the whole card at once."""
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _raise(_lib().bucket_blocks_per_sm(LAYOUTS.index(layout.name), layout.smem_bytes,
+                                           ctypes.byref(per_sm)), f"{layout.name} occupancy")
+    if per_sm.value < 1:
+        raise RuntimeError(f"{layout} fits no SM")
+    return per_sm.value * torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _launch_sum(codes: torch.Tensor, values: torch.Tensor, num_buckets: int,
-                out: torch.Tensor, bad: torch.Tensor) -> int:
-    """Kernel launches for contiguous (k, n) values into zeroed ``out``
-    (k, B): as many lanes per launch as fit the block's shared bins.
-    Returns the number of launches; no checks, no count."""
-    k, n = values.shape
-    per = max(1, (_MAX_BINS - 1) // num_buckets)
+def grid_for(layout: BucketLayout, n: int, most_blocks: int) -> int:
+    """Blocks for n rows: as many as fit the card at once (``most_blocks``),
+    but no more than give each block one tile a warp and at least as many
+    code bytes (4 a row) as it zeroes and flushes of shared memory."""
+    tile_rows = _TILE_ROWS * layout.threads // 32  # one tile for each warp of a block
+    grid = max(1, min(most_blocks, -(-n // max(tile_rows, layout.smem_bytes // 4))))
+    # u32 counters and shared words: no block may see 2^32 rows
+    if (-(-n // (grid * tile_rows)) + 1) * tile_rows >= 1 << 32:
+        raise ValueError(f"{n} rows over {grid} blocks overflow the kernels' u32 counters")
+    return grid
+
+
+@functools.lru_cache(maxsize=1024)
+def _launch_plan(k: int, num_buckets: int, n: int, device: int) -> Tuple[int, int, int]:
+    """(variant, shared bytes, blocks) of one launch over n rows and k
+    lanes (0: a count), from the shape alone; cached, so that a call's host
+    path does one lookup."""
+    lay = bucket_layout(k, num_buckets)
+    return LAYOUTS.index(lay.name), lay.smem_bytes, grid_for(lay, n, _most_blocks(lay, device))
+
+
+def _launch(codes: torch.Tensor, values: Optional[torch.Tensor], k: int, num_buckets: int,
+            out: torch.Tensor, bad: torch.Tensor, what: str) -> None:
+    """One kernel launch on the current stream over the k lanes of
+    contiguous ``values`` (None for a count) into zeroed ``out`` and
+    ``bad``; k lanes must fit one launch. No checks, no count."""
+    n = codes.shape[0]
+    variant, smem, grid = _launch_plan(k, num_buckets, n, codes.device.index or 0)
     stream = torch.cuda.current_stream(codes.device).cuda_stream
-    launches = 0
-    for j in range(0, k, per):
-        kk = min(per, k - j)
-        _raise(_lib().bucket_sum_launch(codes.data_ptr(), values[j].data_ptr(), n, kk,
-                                        num_buckets, out[j].data_ptr(), bad.data_ptr(),
-                                        stream), "bucket_sum")
-        launches += 1
-    return launches
+    _raise(_lib().bucket_launch(variant, codes.data_ptr(),
+                                None if values is None else values.data_ptr(), n, k,
+                                num_buckets, smem, grid, out.data_ptr(), bad.data_ptr(),
+                                stream), what)
+
+
+def zeroed_outputs(shape: Tuple[int, ...], device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A zeroed int64 output of ``shape`` and the zeroed bad-code flag (1,),
+    as views of one buffer: one memset a call instead of two."""
+    size = math.prod(shape)
+    buf = torch.zeros(size + 1, dtype=torch.int64, device=device)
+    return buf[:size].view(shape), buf[size:]
 
 
 def _report_bad(bad: torch.Tensor, num_buckets: int,
@@ -162,10 +248,9 @@ def bucket_count(codes: torch.Tensor, num_buckets: int,
         return bucket_count_plain(codes, num_buckets)
     _on_card(codes)
     codes = codes.contiguous()
-    out = torch.zeros(num_buckets, dtype=torch.int64, device=codes.device)
-    bad = torch.zeros(1, dtype=torch.int64, device=codes.device)
+    out, bad = zeroed_outputs((num_buckets,), codes.device)
     if codes.shape[0]:
-        _launch_count(codes, num_buckets, out, bad)
+        _launch(codes, None, 0, num_buckets, out, bad, "bucket_count")
         bucket_count.launches += 1
     _report_bad(bad, num_buckets, errors)
     return out
@@ -177,8 +262,8 @@ bucket_count.launches = 0
 def bucket_sum(codes: torch.Tensor, values: torch.Tensor, num_buckets: int,
                errors: Optional[List[Tuple[torch.Tensor, str]]] = None) -> torch.Tensor:
     """Exact per-bucket int64 sums (mod 2^64, as int64 addition wraps):
-    values (n,) -> (B,), or (k, n) -> (k, B) with one launch for all k
-    lanes while k * B + 1 <= 6144."""
+    values (n,) -> (B,), or (k, n) -> (k, B) with one launch for as many
+    lanes as ``bucket_layout(k, B)`` takes (all four of Q1's at B = 64)."""
     _check(codes, num_buckets)
     if values.dtype != torch.int64 or values.dim() not in (1, 2) \
             or values.shape[-1] != codes.shape[0]:
@@ -190,10 +275,13 @@ def bucket_sum(codes: torch.Tensor, values: torch.Tensor, num_buckets: int,
     _on_card(codes, values)
     v = (values if values.dim() == 2 else values[None]).contiguous()
     codes = codes.contiguous()
-    out = torch.zeros(v.shape[0], num_buckets, dtype=torch.int64, device=codes.device)
-    bad = torch.zeros(1, dtype=torch.int64, device=codes.device)
-    if codes.shape[0] and v.shape[0]:
-        bucket_sum.launches += _launch_sum(codes, v, num_buckets, out, bad)
+    out, bad = zeroed_outputs((v.shape[0], num_buckets), codes.device)
+    k = v.shape[0]
+    if codes.shape[0] and k:
+        per = bucket_layout(k, num_buckets).lanes  # more lanes go to further launches
+        for j in range(0, k, per):
+            _launch(codes, v[j], min(per, k - j), num_buckets, out[j], bad, "bucket_sum")
+            bucket_sum.launches += 1
     _report_bad(bad, num_buckets, errors)
     return out if values.dim() == 2 else out[0]
 

@@ -7,6 +7,8 @@ on a machine without it (tests/conftest.py imports JAX, hence --noconftest):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -36,6 +38,33 @@ def test_kernels_equal_plain_versions(dev, n, B, lanes):
     vals = torch.from_numpy(rng.integers(-(2**63), 2**63 - 1, shape, dtype=np.int64)).to(dev)
     assert torch.equal(K.bucket_count(codes, B), K.bucket_count_plain(codes, B))
     assert torch.equal(K.bucket_sum(codes, vals, B), K.bucket_sum_plain(codes, vals, B))
+    torch.cuda.synchronize()
+
+
+# every layout boundary of kernels.bucket_layout (227/228 for counts, 908/909
+# and four lanes at 227/228 for sums), B = 4096, n % 4 != 0, codes (and one
+# lane of values) that start off a 16-byte boundary, odd n with three lanes
+# (lane 1 only 8-byte aligned), fewer rows than a vector, all rows dead
+@pytest.mark.parametrize("n,B,lanes,offset,dead", [
+    (1_000_003, 227, 4, 0, 0.1), (1_000_003, 228, 4, 0, 0.1), (100_003, 908, 2, 0, 0.0),
+    (100_003, 909, 1, 1, 0.0), (300_001, 4096, 2, 1, 0.2), (300_001, 64, 3, 0, 0.3),
+    (300_002, 64, 2, 1, 0.0), (300_003, 64, 2, 3, 0.0), (300_001, 64, 1, 1, 0.05),
+    (3, 16, 2, 1, 0.0), (70_001, 16, 1, 0, 1.0)])
+def test_kernels_equal_plain_at_layout_boundaries(dev, n, B, lanes, offset, dead):
+    rng = np.random.default_rng(n + B + offset)
+    codes = np.where(rng.random(n + offset) < dead, B, rng.integers(0, B, n + offset))
+    codes = torch.from_numpy(codes.astype(np.int32)).to(dev)[offset:]
+    vals = torch.from_numpy(rng.integers(-(2**63), 2**63 - 1, (lanes, n + offset),
+                                         dtype=np.int64)).to(dev)[:, offset:]
+    if lanes == 1:  # one lane stays a view, so its values start off 16 bytes too
+        vals = vals[0]
+    assert codes.data_ptr() % 16 == 4 * offset % 16
+    before = (K.bucket_count.launches, K.bucket_sum.launches)
+    assert torch.equal(K.bucket_count(codes, B), K.bucket_count_plain(codes, B))
+    assert torch.equal(K.bucket_sum(codes, vals, B), K.bucket_sum_plain(codes, vals, B))
+    per = K.bucket_layout(lanes, B).lanes
+    assert (K.bucket_count.launches, K.bucket_sum.launches) == (before[0] + 1,
+                                                                before[1] - (-lanes // per))
     torch.cuda.synchronize()
 
 
@@ -120,3 +149,18 @@ def test_q12_on_card_equals_cpu_direct_and_grace(dev):
         for k in want:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     assert gpu.grace_runners[0].K == 16
+
+
+def test_bucket_times_script_on_card(dev, capsys):
+    """tools/bucket_times.py times every shape through the public wrappers."""
+    from datafusion_comet_tpu_torch.tools import bucket_times as BT
+
+    assert BT.main(["--sf", "0.1", "--reps", "2"]) == 0
+    head, *rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert "nvidia_smi" in head
+    assert [(r["case"], r["kernel"]) for r in rows] == [
+        ("q1", "bucket_count"), ("q1", "bucket_sum"), ("q1_one_lane", "bucket_sum"),
+        ("pair_16384", "bucket_count"), ("pair_16384", "bucket_sum"),
+        ("pair_262144", "bucket_count"), ("pair_262144", "bucket_sum"),
+        ("b500_k4", "bucket_sum")]
+    assert all(r["ms"] > 0 and r["host_us"] > 0 and r["bound_ms"] > 0 for r in rows)

@@ -143,3 +143,100 @@ def test_plain_path_counts_no_launches():
     K.bucket_count(codes, 3)
     K.bucket_sum(codes, torch.ones(3, dtype=torch.int64), 3)
     assert (K.bucket_count.launches, K.bucket_sum.launches) == before
+
+
+# The kernel variant each shape takes, chosen in Python from (k, B) alone:
+# (k value lanes, 0 for a count; B) -> (variant, threads, shared bytes, lanes
+# a launch). 227 and 908 are the largest B of the per-thread count layout and
+# of the lane-replicated sum layout; 228 and 909 the first past them.
+@pytest.mark.parametrize("k,B,want", [
+    (0, 1, ("count_private", 256, 1024, 0)),
+    (0, 16, ("count_private", 256, 16384, 0)),
+    (0, 64, ("count_private", 256, 65536, 0)),
+    (0, 227, ("count_private", 256, 232_448, 0)),
+    (0, 228, ("count_shared", 256, 912, 0)),
+    (0, 4096, ("count_shared", 256, 16384, 0)),
+    (1, 1, ("sum_replicated", 256, 256, 1)),
+    (1, 16, ("sum_replicated", 256, 4096, 1)),
+    (1, 64, ("sum_replicated", 256, 16384, 1)),
+    (4, 64, ("sum_replicated", 256, 65536, 4)),
+    (4, 227, ("sum_replicated", 256, 232_448, 4)),
+    (4, 228, ("sum_replicated", 256, 175_104, 3)),
+    (1, 908, ("sum_replicated", 256, 232_448, 1)),
+    (2, 908, ("sum_replicated", 256, 232_448, 1)),
+    (1, 909, ("sum_shared", 256, 7280, 1)),
+    (2, 4096, ("sum_shared", 256, 65536, 2)),
+    (16, 4096, ("sum_shared", 256, 229_376, 7)),
+])
+def test_bucket_layout_choice(k, B, want):
+    assert tuple(K.bucket_layout(k, B)) == want
+
+
+@pytest.mark.parametrize("k", [0, 1, 2, 4])
+@pytest.mark.parametrize("B", [1, 16, 64, 227, 228, 908, 909, 4096])
+def test_bucket_layout_fits_one_block(k, B):
+    """Every choice fits the H100's 232,448 shared bytes a block, holds what
+    its variant needs for its lanes, and takes every lane in launches of
+    ``lanes`` each."""
+    lay = K.bucket_layout(k, B)
+    assert lay.name in K.LAYOUTS and lay.threads == 256
+    assert 0 < lay.smem_bytes <= K.SMEM_MAX == 232_448 and lay.smem_bytes % 16 == 0
+    need = {"count_private": 4 * B * 256, "count_shared": 4 * B,
+            "sum_replicated": 8 * lay.lanes * B * 32, "sum_shared": 8 * lay.lanes * B}
+    assert lay.smem_bytes >= need[lay.name]
+    if k == 0:
+        assert lay.lanes == 0 and lay.name.startswith("count_")
+        assert (lay.name == "count_private") == (B <= 227)
+    else:
+        assert 1 <= lay.lanes <= k and lay.name.startswith("sum_")
+        assert (lay.name == "sum_replicated") == (B <= 908)
+        # the last, partial launch takes the same variant at fewer lanes
+        rest = k % lay.lanes or lay.lanes
+        assert K.bucket_layout(rest, B)[:2] == lay[:2]
+
+
+@pytest.mark.parametrize("n,B,k,most,want", [
+    (16_384, 16, 0, 1056, 4),       # the grace join's pairs at SF1: one tile a warp
+    (262_144, 16, 1, 1056, 64),
+    (8_388_608, 64, 0, 396, 396),   # Q1 at SF1: as many as fit the card
+    (8_388_608, 64, 4, 396, 396),
+    (100, 4096, 2, 400, 1),
+    (1, 1, 0, 1056, 1),
+])
+def test_bucket_grid(n, B, k, most, want):
+    assert K.grid_for(K.bucket_layout(k, B), n, most) == want
+
+
+def test_bucket_grid_refuses_u32_overflow():
+    with pytest.raises(ValueError, match="u32"):
+        K.grid_for(K.bucket_layout(0, 64), 1 << 42, 2)
+
+
+@pytest.mark.parametrize("shape", [(1,), (64,), (4, 64), (0, 3)])
+def test_zeroed_outputs_share_one_buffer(shape):
+    """The wrappers zero a kernel's output and its bad-code flag with one
+    memset: both are views of one int64 buffer, the flag last."""
+    out, bad = K.zeroed_outputs(shape, "cpu")
+    assert out.shape == shape and bad.shape == (1,) and out.is_contiguous()
+    assert out._base is bad._base and out._base.numel() == out.numel() + 1
+    assert not out.any() and not bad.any()
+    assert bad.data_ptr() == out._base.data_ptr() + 8 * out.numel()
+
+
+def test_bucket_times_inputs():
+    """The timing script's inputs (tools/bucket_times.py): Q1's codes put the
+    padding and ~1.5% of the rows on the dead code and the rest on six
+    buckets; a grace pair's block has one live row every JOIN_FANOUT slots,
+    in Q12's two ship modes."""
+    from datafusion_comet_tpu_torch.tools import bucket_times as BT
+
+    rng = np.random.default_rng(0)
+    codes, lanes = BT.q1_inputs(4096, 3000, rng)
+    assert codes.dtype == np.int32 and lanes.dtype == np.int64 and lanes.shape == (4, 4096)
+    assert (codes[3000:] == 64).all() and 0 < (codes[:3000] == 64).sum() < 150
+    assert set(np.unique(codes[:3000])) <= {9, 10, 17, 18, 25, 26, 64}
+    codes, vals = BT.pair_inputs(16_384, 3_653, rng)
+    live = np.flatnonzero(codes < BT.PAIR_BUCKETS)
+    assert len(live) == 3_653 and (live % 4 == 0).all() and vals.shape == (1, 16_384)
+    assert set(codes[live].tolist()) <= set(BT.Q12_MODES)
+    assert int(K.bucket_count(torch.from_numpy(codes), BT.PAIR_BUCKETS).sum()) == 3_653

@@ -26,10 +26,18 @@ Phases, one JSON line each:
      split its join into K = 16 hash partitions (the grace join);
   grace_pair_kernels: times both bucket kernels at the grace run's pair
      shape (a pair's block, B = 16, its mean live rows);
-  5. partition: holds partition_sort against its plain version, exactly, at
-     the shapes Q12's grace run gave it, at the TPU kernel's probe shape
-     (tile-local) and at edge shapes; times kernel, plain version and
-     torch.sort at Q12's shapes, with L2 flushed.
+  5. partition: holds B3 against its plain versions, exactly: the
+     payload-moving partition_columns at every B3 call of Q12's runs (the
+     grace run's input shrink and its two sides, Q12 direct's compaction of
+     the join's pair block), each on the codes the query gave it (logged by
+     one extra run of each query) with random columns of the call's types
+     and widths; at the TPU kernel's probe shape (n = 2^23, four int64
+     columns, tile-local) and at every row width on misaligned inputs; the
+     permutation-only partition_sort at Q12's sides, the probe shape and
+     edge shapes. Times the wrapper (device ms and host µs a call), its
+     plain version and the library composition (torch.sort + one
+     index_select a column) at the query and probe shapes, with L2 flushed,
+     beside the byte bound. The q12 lines list every B3 call's n.
 Then a {"kernels": [...]} line, nvidia-smi's line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero. The
 script imports no JAX; without a card, or without the package beside it, it
@@ -62,6 +70,9 @@ SOURCES = {
     "partition_sort": "datafusion_comet_tpu_torch/csrc/partition_kernels.cu",
 }
 KERNELS = tuple(REPLACES)
+# the public wrappers whose launches are each TPU kernel's
+WRAPPERS = {"bucket_count": ("bucket_count",), "bucket_sum": ("bucket_sum",),
+            "partition_sort": ("partition_sort", "partition_columns")}
 GRACE_K = 16  # the partition count the grace run of Q12 is sized to
 
 
@@ -324,34 +335,37 @@ def check_q12(out, expect, what: str) -> None:
 
 def grace_fraction(sess, plan, K: int = GRACE_K):
     """The Config(memory_fraction) under which the session splits ``plan``'s
-    join into K partitions (K >= 8), from the port's own estimate: the
-    engine doubles K from 2 until K x budget / 2 covers the join's peak
-    estimate jpeak, so a budget of 3 x jpeak / K, inside [2 jpeak / K,
-    4 jpeak / K), stops it at K. Returns (fraction, jpeak)."""
-    from datafusion_comet_tpu_torch.exec.memory import device_budget_bytes, plan_peak_bytes
-    from datafusion_comet_tpu_torch.ir import plan as P
-    from datafusion_comet_tpu_torch.ir.pruning import prune_columns
+    join into K partitions, and the join's peak estimate: (fraction,
+    jpeak), from tools/query_times.py."""
+    from datafusion_comet_tpu_torch.tools import query_times as QT
 
-    node = P.bind_plan(prune_columns(plan))
-    while not isinstance(node, P.HashJoin):
-        node = node.children()[0]
-    jpeak = plan_peak_bytes(node, max(sess.tables[t].capacity for t in P.scan_tables(node)))
-    return 3 * jpeak / K / device_budget_bytes(sess.device, 1.0), jpeak
+    return QT.grace_fraction(sess, plan, K)
 
 
 def _zero_counts(K) -> None:
-    for name in KERNELS:
-        getattr(K, name).launches = 0
+    for names in WRAPPERS.values():
+        for w in names:
+            getattr(K, w).launches = 0
 
 
 def _counts(K):
-    return {name: getattr(K, name).launches for name in KERNELS}
+    return {name: sum(getattr(K, w).launches for w in names) for name, names in WRAPPERS.items()}
+
+
+def b3_call_shapes(log):
+    """The B3 calls of one run, from partition_columns' log: n, K, limit,
+    codes type, each tensor's dtype and row shape, and the code totals."""
+    return [{"n": c["n"], "K": c["K"], "local": c["local"], "limit": c["limit"],
+             "codes": c["codes"], "tensors": c["tensors"],
+             "sizes": c["sizes"].tolist() if not c["local"] else None} for c in log]
 
 
 def run_query(sess, plan, reps: int):
     """One run with the launch counts zeroed just before it and read just
-    after, then ``reps`` warm runs. Returns (first output, launches,
-    first-run s, warm ms list, peak bytes)."""
+    after, ``reps`` warm runs, then one run that logs each B3 call with a
+    copy of its codes (apart, so that the copies touch no measured run).
+    Returns (first output, launches, first-run s, warm ms list, peak bytes,
+    the B3 log)."""
     import torch
     from datafusion_comet_tpu_torch.exec import kernels as K
 
@@ -368,7 +382,10 @@ def run_query(sess, plan, reps: int):
         t0 = time.perf_counter()
         sess.collect(plan)
         times.append((time.perf_counter() - t0) * 1e3)
-    return out, launches, first_s, times, peak
+    K.partition_columns.log = []
+    sess.collect(plan)
+    log, K.partition_columns.log = K.partition_columns.log, None
+    return out, launches, first_s, times, peak, log
 
 
 def query_phase(sf: float, reps: int, profile: bool):
@@ -394,9 +411,10 @@ def query_phase(sf: float, reps: int, profile: bool):
                                                for t, d in data.items()},
           "capacity": {t: b.capacity for t, b in sess.tables.items()},
           "generate_s": gen_s, "stage_s": stage_s})
-    launches = {}
+    launches, b3_calls = {}, {}
     for q in ("q1", "q6"):
-        out, launches[q], first_s, times, peak = run_query(sess, getattr(tpch, q)(), reps)
+        out, launches[q], first_s, times, peak, b3_calls[q] = run_query(sess, getattr(tpch, q)(),
+                                                                        reps)
         if q == "q1":
             check_q1(out, oracle_q1(data["lineitem"], tpch._d("1998-09-02")))
             need = ("bucket_count", "bucket_sum")
@@ -410,7 +428,8 @@ def query_phase(sf: float, reps: int, profile: bool):
         warm_ms = statistics.median(times)
         emit({"phase": q, "sf": sf, "rows": n_rows, "correct": True, "first_run_s": first_s,
               "warm_ms": warm_ms, "warm_ms_all": times, "rows_per_s": n_rows / (warm_ms / 1e3),
-              "peak_mem_bytes": peak, "launches": launches[q]})
+              "peak_mem_bytes": peak, "launches": launches[q],
+              "b3_call_n": [c["n"] for c in b3_calls[q]]})
     if profile:
         emit(profile_run(sess, tpch.q1(), "profile_q1"))
 
@@ -424,14 +443,17 @@ def query_phase(sf: float, reps: int, profile: bool):
         grace.register_batch(t, b)
     q12 = {}
     for run, s in (("direct", sess), ("grace", grace)):
-        out, launches[f"q12_{run}"], first_s, times, peak = run_query(s, tpch.q12(), reps)
+        out, launches[f"q12_{run}"], first_s, times, peak, b3_calls[f"q12_{run}"] = run_query(
+            s, tpch.q12(), reps)
         check_q12(out, expect, f"q12 {run}")
         got = launches[f"q12_{run}"]
         # both runs compact the join's output with the partition sort
         if min(got.values()) == 0:
             raise AssertionError(f"q12 {run} did not launch every kernel: {got}")
         q12[run] = {"first_run_s": first_s, "warm_ms": statistics.median(times),
-                    "warm_ms_all": times, "peak_mem_bytes": peak, "launches": got}
+                    "warm_ms_all": times, "peak_mem_bytes": peak, "launches": got,
+                    "b3_call_n": [c["n"] for c in b3_calls[f"q12_{run}"]],
+                    "b3_calls": b3_call_shapes(b3_calls[f"q12_{run}"])}
     if grace.grace_runners and not sess.grace_runners:
         r = grace.grace_runners[0]
     else:
@@ -448,77 +470,228 @@ def query_phase(sf: float, reps: int, profile: bool):
           "pair_retries": r.retries, "partitions": sizes, **q12})
     if profile:
         emit(profile_run(grace, tpch.q12(), "profile_q12_grace"))
-    return launches, sizes
+    return launches, sizes, b3_calls
 
 
 def profile_run(sess, plan, phase: str):
-    """Device time by kernel over one warm run (torch.profiler)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    """Device time by kernel over one warm run (torch.profiler), from
+    tools/query_times.py: busy and idle share, index gathers, scatter_reduce
+    and partition kernels apart, the top kernels, the grace spans' host ms.
+    Only device-side events count: a CPU op's device time is the sum of the
+    kernels it launched, and the grace spans are annotations, not kernels."""
+    from datafusion_comet_tpu_torch.tools import query_times as QT
 
-    sess.collect(plan)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sess.collect(plan)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only (kernels, memcpy, memset): a CPU op's device
-    # time is the sum of the kernels it launched, which are listed as well.
-    # The grace runner's spans (grace.*) may also appear on the device side as
-    # annotations covering its kernels; they are not kernels.
-    events = prof.key_averages()
-    rows = sorted(((ev.self_device_time_total, ev.key, ev.count) for ev in events
-                   if ev.device_type == torch.autograd.DeviceType.CUDA
-                   and ev.self_device_time_total and not ev.key.startswith("grace.")),
-                  reverse=True)
-    if not rows:
+    out = QT.profile(sess, plan)
+    if not out["device_busy_ms"]:
         raise AssertionError(f"torch.profiler recorded no device activity for {phase}")
-    busy_ms = sum(r[0] for r in rows) / 1e3
-    part_ms = sum(r[0] for r in rows if "partition_" in r[1]) / 1e3
-    # host time inside each phase of the grace runner, from its spans
-    spans = {ev.key: ev.cpu_time_total / 1e3 for ev in events
-             if ev.device_type == torch.autograd.DeviceType.CPU and ev.key.startswith("grace.")}
-    return {"phase": phase, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "device_idle_share": (1 - busy_ms / wall_ms) if wall_ms else None,
-            "partition_kernel_ms": part_ms, "grace_span_host_ms": spans,
-            "top": [{"kernel": k[:90], "device_ms": us / 1e3, "calls": c}
-                    for us, k, c in rows[:12]]}
+    return {"phase": phase, **out}
 
 
 # ---- phase 5: the partition sort against its plain version ---------------------------
 
 
-def partition_phase(sizes, reps: int, seed: int):
-    """partition_sort against partition_sort_plain, exactly, at the shapes of
-    Q12's grace run (each side's capacity, its live rows spread over K = 16
-    codes and the rest dead), at the TPU kernel's probe shape in tile-local
-    mode, and at edge shapes; then timing at Q12's shapes."""
+def call_inputs(call, gen, dev):
+    """Inputs of one logged B3 call: the codes the query gave it (so the
+    live rows sit where the query put them) and a random tensor of each of
+    the call's tensors' dtype and row shape (the kernel's work does not
+    depend on the payload's values)."""
+    n = call["n"]
+    return call["code_values"], [random_tensor(dt, (n,) + tuple(row), gen, dev)
+                                 for dt, row in call["tensors"]]
+
+
+def random_tensor(dtype: str, shape, gen, dev):
+    import torch
+
+    dt = getattr(torch, dtype)
+    if dt == torch.bool:
+        return torch.rand(shape, device=dev, generator=gen) < 0.5
+    if dt.is_floating_point:
+        return torch.rand(shape, device=dev, generator=gen).to(dt)
+    info = torch.iinfo(dt)
+    return torch.randint(info.min, info.max, shape, dtype=dt, device=dev, generator=gen)
+
+
+def b3_bound_ms(codes, tensors, rows_out: int, k: int) -> float:
+    """Least time for one call at the H100's memory rate: the codes read
+    once, each moved row of each tensor read once and written once, the
+    code totals written."""
+    from datafusion_comet_tpu_torch.tools import bucket_times as BT
+
+    n = int(codes.shape[0])
+    row_bytes = sum(t.numel() // max(n, 1) * t.element_size() for t in tensors)
+    nbytes = codes.element_size() * n + 2 * row_bytes * rows_out + 8 * (k + 1)
+    return nbytes / BT.HBM_BYTES_PER_S * 1e3
+
+
+def time_payload(K, codes, k: int, tensors, local: bool, limit, reps: int, flush):
+    """Wrapper, plain and library times of one partition_columns shape."""
+    import torch
+    from datafusion_comet_tpu_torch.tools import bucket_times as BT
+
+    n = int(codes.shape[0])
+    rows = n if limit is None else min(limit, n)
+    # the library composition: one stable sort of the codes (the mask as
+    # bytes, descending: live rows first), then one index_select a tensor
+    key = codes.view(torch.uint8) if codes.dtype == torch.bool else codes
+
+    def library():
+        perm = torch.sort(key, stable=True, descending=codes.dtype == torch.bool).indices[:rows]
+        return [t.index_select(0, perm) for t in tensors]
+
+    def wrapper():
+        return K.partition_columns(codes, k, tensors, local=local, limit=limit, errors=[])
+
+    t = -(-n // K.PARTITION_TILE)
+    return {
+        "shape": f"n={n} K={k} {'local' if local else 'global'} limit={limit} "
+                 f"tensors={[(str(x.dtype), tuple(x.shape[1:])) for x in tensors]}",
+        "ms": BT.cuda_ms(wrapper, reps, flush=flush),
+        "host_us": BT.host_us(wrapper),
+        "plain_ms": BT.cuda_ms(lambda: K.partition_columns_plain(codes, k, tensors, local, limit),
+                               reps, flush=flush),
+        "library_ms": BT.cuda_ms(library, reps, flush=flush),
+        "bound_ms": b3_bound_ms(codes, tensors, rows, k),
+        # the bound of the permutation-only contract: codes in,
+        # int32 indices and the (tile, code) counts out
+        "perm_bound_ms": (codes.element_size() * n + 4 * n + 4 * t * (k + 1))
+        / BT.HBM_BYTES_PER_S * 1e3,
+    }
+
+
+def _words(t):
+    """``t`` as int64 values of its 4-byte words (its bytes for 1-byte
+    types), so that a difference of two such views cannot wrap."""
+    import torch
+
+    t = t.contiguous()
+    if t.element_size() == 1:
+        return t.view(torch.uint8).long()
+    return t.view(torch.int32).long() if t.element_size() == 8 else t.long()
+
+
+def check_payload(K, name, codes, k, tensors, local=False, limit=None):
+    """partition_columns against its plain version, exactly: the case's
+    record and its max abs error, over the sizes and every output's 4-byte
+    words (bytes for 1-byte types). Raises unless it is 0."""
+    outs, sizes = K.partition_columns(codes, k, tensors, local=local, limit=limit)
+    want, want_sizes = K.partition_columns_plain(codes, k, tensors, local, limit)
+    pairs = [(sizes, want_sizes)] + list(zip(outs, want))
+    if any(o.dtype != w.dtype or o.shape != w.shape for o, w in pairs):
+        raise AssertionError(f"partition_columns != plain on {name}: dtypes or shapes differ")
+    err = max(int((_words(o) - _words(w)).abs().max()) if o.numel() else 0 for o, w in pairs)
+    if err:
+        raise AssertionError(f"partition_columns != plain on {name}: max abs err {err}")
+    n = int(codes.shape[0])
+    return {"case": name, "n": n, "K": k, "local": local, "limit": limit,
+            "codes": str(codes.dtype), "codes_offset_bytes": codes.data_ptr() % 16,
+            "row_bytes": [t.numel() // max(n, 1) * t.element_size() for t in tensors]}, err
+
+
+def b3_call_names(calls):
+    """Each distinct B3 call of Q12's two runs, named by run, place in the
+    run and kind: [(name, call)], a repeated shape once."""
+    out, seen = [], set()
+    for run in ("q12_grace", "q12_direct"):
+        for i, c in enumerate(calls[run]):
+            shape = (c["n"], c["K"], c["local"], c["limit"], c["codes"], tuple(c["tensors"]))
+            if shape not in seen:
+                seen.add(shape)
+                kind = "compact" if c["codes"] == "bool" else f"k{c['K']}"
+                out.append((f"{run}_{i}_{kind}", c))
+    return out
+
+
+def partition_phase(sizes, calls, reps: int, seed: int):
+    """B3 against its plain versions, exactly, then timed. Payload-moving
+    (partition_columns): every B3 call of Q12's direct and grace runs, on
+    the codes the query gave it, the TPU kernel's probe shape in tile-local
+    mode, and every row width on misaligned inputs. Permutation-only
+    (partition_sort): the grace sides' shapes (each side's capacity, its
+    live rows spread over K = 16 codes), the probe shape and edge shapes.
+    Returns (cases, timing by shape, the name of the grace run's largest
+    K = 16 call)."""
     import torch
     from datafusion_comet_tpu_torch.exec import kernels as K
     from datafusion_comet_tpu_torch.tools import bucket_times as BT
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    flush = torch.zeros(BT.L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
 
+    # -- payload-moving: the queries' calls --------------------------------------------
+    shapes = b3_call_names(calls)
+    sides = [(c["n"], name) for name, c in shapes
+             if name.startswith("q12_grace") and c["K"] == GRACE_K]
+    if len(sides) != 2:
+        raise AssertionError(f"q12 grace made {len(sides)} partitions of K={GRACE_K}")
+    checked, timing, max_err = [], {}, 0
+    for name, call in shapes:
+        codes, tensors = call_inputs(call, gen, dev)
+        rec, err = check_payload(K, name, codes, call["K"], tensors, call["local"],
+                                 call["limit"])
+        checked.append(rec)
+        max_err = max(max_err, err)
+        timing[name] = time_payload(K, codes, call["K"], tensors, call["local"], call["limit"],
+                                    reps, flush)
+        del codes, tensors, call["code_values"]
+        torch.cuda.empty_cache()
+    probe_n = 1 << 23  # pallas_scatter_probe.py's default N, K = 16, tile 512
+    codes = torch.randint(0, 16, (probe_n,), dtype=torch.int32, device=dev, generator=gen)
+    limbs = [random_tensor("int64", (probe_n,), gen, dev) for _ in range(4)]
+    rec, err = check_payload(K, "probe_tile_local", codes, 16, limbs, local=True)
+    checked.append(rec)
+    max_err = max(max_err, err)
+    timing["probe_tile_local"] = time_payload(K, codes, 16, limbs, True, None, reps, flush)
+    # every row width (1, 4, 8, 16 and 25 bytes, and 6: 2-byte words), codes
+    # and tensors starting one element off their allocation, ragged n
+    odd = 1_000_003
+    widths = [("bool", ()), ("int32", ()), ("int64", ()), ("int64", (2,)), ("uint8", (25,)),
+              ("uint8", (6,))]
+    off = [random_tensor(dt, (odd + 1,) + row, gen, dev)[1:] for dt, row in widths]
+    for name, k, dead, limit in (("widths_k16_offset1", 16, 0.3, None),
+                                 ("widths_k64_offset1", 64, 0.1, None),
+                                 ("widths_k1_limit", 1, 0.5, 262_144)):
+        c = np.where(rng.random(odd + 1) < dead, k, rng.integers(0, k, odd + 1)).astype(np.int32)
+        rec, err = check_payload(K, name, torch.from_numpy(c).to(dev)[1:], k, off, limit=limit)
+        checked.append(rec)
+        max_err = max(max_err, err)
+    mask = (torch.rand(odd + 1, device=dev, generator=gen) < 0.3)[1:]
+    dead = torch.full((65_537,), 16, dtype=torch.int32, device=dev)
+    for rec, err in (
+            check_payload(K, "widths_mask_limit_offset1", mask, 1, off, limit=262_144),
+            check_payload(K, "all_dead", dead, 16, [random_tensor("int64", (65_537,), gen, dev)]),
+            check_payload(K, "one_row", torch.zeros(1, dtype=torch.int32, device=dev), 16,
+                          [random_tensor("int64", (1, 2), gen, dev)])):
+        checked.append(rec)
+        max_err = max(max_err, err)
+    try:
+        K.partition_columns(torch.tensor([0, 17, 3], dtype=torch.int32, device=dev), 16, [])
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("partition_columns accepted a code outside [0, K]")
+    del codes, limbs, off, mask
+    torch.cuda.empty_cache()
+
+    # -- permutation-only: partition_sort ----------------------------------------------
     def codes_for(n: int, live: int, k: int):
         c = np.full(n, k, np.int32)
         c[:live] = rng.integers(0, k, live)
         return torch.from_numpy(rng.permutation(c) if live < n else c).to(dev)
 
-    cases = [(f"q12_{side}", codes_for(v["capacity"], v["rows"], GRACE_K), GRACE_K, False)
+    cases = [(f"perm_q12_{side}", codes_for(v["capacity"], v["rows"], GRACE_K), GRACE_K, False)
              for side, v in sizes.items()]
-    probe_n = 1 << 23  # pallas_scatter_probe.py's default N, K = 16, tile 512
     cases += [
-        ("probe_tile_local", codes_for(probe_n, probe_n, 16), 16, True),
-        ("k1", codes_for(1_000_003, 900_000, 1), 1, False),
-        ("k64_ragged", codes_for(1_000_003, 950_000, 64), 64, False),
-        ("k128_local_ragged", codes_for(70_001, 70_001, 128), 128, True),
-        ("all_dead", codes_for(65_537, 0, 16), 16, False),
-        ("one_row", codes_for(1, 1, 16), 16, False),
+        ("perm_probe_tile_local", codes_for(probe_n, probe_n, 16), 16, True),
+        ("perm_k1", codes_for(1_000_003, 900_000, 1), 1, False),
+        ("perm_k64_ragged", codes_for(1_000_003, 950_000, 64), 64, False),
+        ("perm_k128_local_ragged", codes_for(70_001, 70_001, 128), 128, True),
+        ("perm_all_dead", codes_for(65_537, 0, 16), 16, False),
+        ("perm_one_row", codes_for(1, 1, 16), 16, False),
     ]
-    checked = []
-    max_err = 0
     for name, codes, k, local in cases:
         perm, counts = K.partition_sort(codes, k, local=local)
         want_perm, want_counts = K.partition_sort_plain(codes, k, local=local)
@@ -536,32 +709,21 @@ def partition_phase(sizes, reps: int, seed: int):
         pass
     else:
         raise AssertionError("partition_sort accepted a code outside [0, K]")
-
-    flush = torch.zeros(BT.L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
-    timing = {}
-    for name, codes, k, local in cases[:len(sizes)] + [cases[len(sizes)]]:
+    for name, codes, k, local in cases[:len(sizes)]:
         n = int(codes.shape[0])
         t = -(-n // K.PARTITION_TILE)
-        counts = torch.empty(t, k + 1, dtype=torch.int32, device=dev)
-        perm = torch.empty(n, dtype=torch.int32, device=dev)
-        bad = torch.zeros(1, dtype=torch.int64, device=dev)
-
-        def run(codes=codes, k=k, local=local, counts=counts, bad=bad, perm=perm):
-            K._launch_partition(codes, k, local, counts, bad, perm)
-
         timing[name] = {
-            "shape": f"n={n} K={k} {'local' if local else 'global'}",
-            "ms": BT.cuda_ms(run, reps, flush=flush),
+            "shape": f"n={n} K={k} {'local' if local else 'global'} permutation only",
+            "ms": BT.cuda_ms(lambda: K.partition_sort(codes, k, local=local, errors=[]), reps,
+                             flush=flush),
             "plain_ms": BT.cuda_ms(lambda: K.partition_sort_plain(codes, k, local), reps,
                                    flush=flush),
-            "library_ms": BT.cuda_ms(lambda: torch.sort(codes, stable=True), reps,
-                                     flush=flush),
-            # each input read once, each output written once: the codes,
-            # the permutation and the (tile, code) counts
+            "library_ms": BT.cuda_ms(lambda: torch.sort(codes, stable=True), reps, flush=flush),
             "bound_ms": (4 * n + 4 * n + 4 * t * (k + 1)) / BT.HBM_BYTES_PER_S * 1e3,
-            "max_abs_err": max_err,
         }
-    return checked, timing
+    for r in timing.values():
+        r["max_abs_err"] = max_err
+    return checked, timing, max(sides)[1]
 
 
 def main(argv=None) -> int:
@@ -600,17 +762,20 @@ def main(argv=None) -> int:
     checked, timing = kernel_phase(args.sf, args.reps, args.seed)
     emit({"phase": "kernels", "checked_exact": checked, "timing": timing})
 
-    launches, sizes = query_phase(args.sf, max(3, args.reps // 5), args.profile)
+    launches, sizes, b3_calls = query_phase(args.sf, max(3, args.reps // 5), args.profile)
     pair = pair_phase(sizes, args.reps, args.seed)
     emit({"phase": "grace_pair_kernels", "timing": pair})
     timing["bucket_count"]["other_shapes"] = {"grace_pair": pair["bucket_count"]}
     timing["bucket_sum"]["other_shapes"] = {"one_lane": timing.pop("bucket_sum_one_lane"),
                                             "grace_pair": pair["bucket_sum"]}
 
-    pchecked, ptiming = partition_phase(sizes, args.reps, args.seed)
+    pchecked, ptiming, head = partition_phase(sizes, b3_calls, args.reps, args.seed)
     emit({"phase": "partition", "checked_exact": pchecked, "timing": ptiming})
-    timing["partition_sort"] = dict(ptiming["q12_orders"], other_shapes={
-        k: v for k, v in ptiming.items() if k != "q12_orders"})
+    # the kernels line: one bound a shape (the perm-only bound stays in the
+    # partition line)
+    ptiming = {k: {a: b for a, b in v.items() if a != "perm_bound_ms"}
+               for k, v in ptiming.items()}
+    timing["partition_sort"] = dict(ptiming.pop(head), other_shapes=ptiming)
 
     kernels = []
     for name in KERNELS:
@@ -621,8 +786,8 @@ def main(argv=None) -> int:
             "launches": sum(per_query.values()), "launches_by_query": per_query,
             "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": "bytes", "library_ms": t["library_ms"],
-            "shape": t["shape"], **({"other_shapes": t["other_shapes"]}
-                                    if "other_shapes" in t else {}),
+            "shape": t["shape"], **({"host_us": t["host_us"]} if "host_us" in t else {}),
+            **({"other_shapes": t["other_shapes"]} if "other_shapes" in t else {}),
         })
     emit({"kernels": kernels})
     print(smi, flush=True)

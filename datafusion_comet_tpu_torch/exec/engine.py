@@ -240,11 +240,7 @@ class Session:
         target = pad_capacity(max(2 * int(b.num_rows()), 1024))
         if target * 4 > b.capacity:
             return b
-        perm = B.live_first_perm(b.row_mask)[:target]
-        cols = tuple(dataclasses.replace(
-            c, data=c.data[perm], validity=c.validity[perm],
-            lengths=None if c.lengths is None else c.lengths[perm]) for c in b.columns)
-        return Batch(cols, b.row_mask[perm], b.schema)
+        return B.compact_batch(b, target, keep_bounds=True)[0]
 
     # -- the memory budget ---------------------------------------------------------
     def _budget_plan(self, stage: P.PlanNode, temp_names: List[str]) -> P.PlanNode:

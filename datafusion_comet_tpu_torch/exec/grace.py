@@ -4,11 +4,12 @@
 When a join's resident-bytes estimate is over the device budget
 (exec/memory.py), the engine splits it into K hash partitions: both inputs
 are partition-sorted by Spark's murmur3 of the join keys mod K (the stable
-partition sort ``partition_sort``, a CUDA kernel on the card), and the join
-then runs K times, once per pair of partitions, at about 1/K of the size:
-partition k of one side can only match partition k of the other. Partitions
-stay on the device as slices of a permutation; each pair gathers its rows
-straight from the inputs. The pair outputs are compacted and unioned, or,
+partition ``kernels.partition_columns``, a CUDA kernel on the card, moves
+every column of a side into partition order in one pass), and the join then
+runs K times, once per pair of partitions, at about 1/K of the size:
+partition k of one side can only match partition k of the other. Each pair's
+rows are slices of the two sorted sides, which replace the unsorted ones as
+soon as they are made. The pair outputs are compacted and unioned, or,
 when an aggregate sits above the join, each pair emits PARTIAL aggregate
 states and one FINAL aggregate merges them.
 
@@ -19,6 +20,7 @@ compiles and caches each piece; here everything runs eagerly on every call.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -26,16 +28,16 @@ import torch
 from torch.profiler import record_function
 
 from datafusion_comet_tpu_torch import types as T
-from datafusion_comet_tpu_torch.exec import kernels as KN
 from datafusion_comet_tpu_torch.exec.batch import Batch, ColumnVector, concat_batches, pad_capacity
 from datafusion_comet_tpu_torch.exec.evaluator import EvalContext, evaluate, murmur3_column
 from datafusion_comet_tpu_torch.exec.memory import plan_peak_bytes
+from datafusion_comet_tpu_torch.exec.operators import basic as BASIC
 from datafusion_comet_tpu_torch.exec.operators import join as J
 from datafusion_comet_tpu_torch.exec.streaming import dead_batch, partial_schema, pseudo_scan
 from datafusion_comet_tpu_torch.ir import expr as E
 from datafusion_comet_tpu_torch.ir import plan as P
 
-__all__ = ["GraceJoinRunner", "find_grace_join", "plan_grace_downstream", "partition_perm",
+__all__ = ["GraceJoinRunner", "find_grace_join", "plan_grace_downstream", "partition_sort",
            "hash_pids", "grace_key_cast", "GRACE_MAX_PARTITIONS"]
 
 GRACE_MAX_PARTITIONS = 64
@@ -73,23 +75,33 @@ def hash_pids(batch: Batch, keys: Sequence[E.Expr], casts, K: int,
     return torch.remainder(h, K).int()  # the divisor's sign: pmod for K > 0
 
 
-def partition_perm(batch: Batch, pids: torch.Tensor, K: int,
+def partition_sort(batch: Batch, pids: torch.Tensor, K: int,
                    errors: Optional[List[Tuple[torch.Tensor, str]]] = None
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(perm, starts): perm orders the rows by partition id, stably, dead
-    rows last; partition k is perm[starts[k]:starts[k+1]]."""
+                   ) -> Tuple[Batch, torch.Tensor]:
+    """(sorted batch, starts int64 (K + 1,)): the rows ordered by partition
+    id, stably, dead rows last, every column and the row mask moved by one
+    call of the partition kernel; partition k is rows [starts[k],
+    starts[k+1]). Bounds do not carry over, as in the JAX package."""
     key = torch.where(batch.row_mask, pids, K).int()
-    perm, counts = KN.partition_sort(key, K, errors=errors)
-    sizes = counts.long().sum(0)[:K]
-    return perm, torch.cat([sizes.new_zeros(1), sizes.cumsum(0)])
+    out, sizes = BASIC.partition_batch(batch, key, K, errors=errors)
+    return out, torch.cat([sizes.new_zeros(1), sizes[:K].cumsum(0)])
 
 
-def _extract(b: Batch, perm: torch.Tensor, start: int, end: int, cap: int) -> Batch:
-    """Partition rows [start, end) of ``perm`` gathered straight from ``b``
-    into a ``cap``-row batch."""
-    pos = start + torch.arange(cap, device=b.device)
-    idx = perm[pos.clamp(max=b.capacity - 1)].long()
-    return b.take(idx, (pos < end) & b.row_mask[idx])
+def _extract(b: Batch, start: int, end: int, cap: int) -> Batch:
+    """Partition rows [start, end) of the partition-sorted ``b`` as a
+    ``cap``-row batch: a slice of every column, padded with dead rows where
+    ``b`` ends first."""
+    stop = min(start + cap, b.capacity)
+    pad = cap - (stop - start)
+
+    def cut(t: torch.Tensor) -> torch.Tensor:
+        t = t[start:stop]
+        return torch.cat([t, t.new_zeros((pad,) + tuple(t.shape[1:]))]) if pad else t
+
+    cols = tuple(dataclasses.replace(c, data=cut(c.data), validity=cut(c.validity),
+                                     lengths=None if c.lengths is None else cut(c.lengths))
+                 for c in b.columns)
+    return Batch(cols, torch.arange(cap, device=b.device) < end - start, b.schema)
 
 
 def find_grace_join(stage: P.PlanNode, tables, budget: int) -> Optional[P.HashJoin]:
@@ -260,15 +272,14 @@ class GraceJoinRunner:
         j = self.join
         K = self.K
         with record_function("grace.inputs"):
-            left = s._aqe_shrink(s._run_subtree(j.left, self.temp_names))
-            right = s._aqe_shrink(s._run_subtree(j.right, self.temp_names))
+            sides = [s._aqe_shrink(s._run_subtree(side, self.temp_names))
+                     for side in (j.left, j.right)]
+        self.capacities = (sides[0].capacity, sides[1].capacity)
         with record_function("grace.partition"):
-            perm_l, perm_r, sl, sr = self._partition(left, right)
-        sizes_l, sizes_r = np.diff(sl), np.diff(sr)
-        self.capacities = (left.capacity, right.capacity)
-        self.sizes = (sizes_l, sizes_r)
+            left, right, sl, sr = self._partition(sides)
+        self.sizes = (np.diff(sl), np.diff(sr))
         with record_function("grace.pairs"):
-            outs = self._run_pairs(left, right, perm_l, perm_r, sl, sr)
+            outs = self._run_pairs(left, right, sl, sr)
         with record_function("grace.finish"):
             live = [o for o in outs if o is not None]
             if not live:
@@ -277,26 +288,31 @@ class GraceJoinRunner:
             union = live[0] if len(live) == 1 else concat_batches(live, self.template.schema)
             s.tables[self.tmp] = self._finish(union)
 
-    def _partition(self, left: Batch, right: Batch):
-        """Partition-sort both sides: (perm_l, perm_r, starts_l, starts_r),
-        the K + 1 starts read with every error flag in one host read."""
+    def _partition(self, sides: List[Batch]):
+        """Partition-sort both sides, taking each out of ``sides`` so that
+        its unsorted copy is freed once the sorted one exists: (left, right,
+        starts_l, starts_r), the K + 1 starts read with every error flag in
+        one host read."""
         j, K = self.join, self.K
         casts = [grace_key_cast(lk.dtype, rk.dtype) for lk, rk in zip(j.left_keys, j.right_keys)]
         errs: List[Tuple[torch.Tensor, str]] = []
         ctx = EvalContext(errors=errs)
-        perm_l, starts_l = partition_perm(left, hash_pids(left, j.left_keys, casts, K, ctx), K, errs)
-        perm_r, starts_r = partition_perm(right, hash_pids(right, j.right_keys, casts, K, ctx), K,
-                                          errs)
+        out = []
+        for keys in (j.left_keys, j.right_keys):
+            b = sides.pop(0)
+            out.append(partition_sort(b, hash_pids(b, keys, casts, K, ctx), K, errs))
+            del b
+        (left, starts_l), (right, starts_r) = out
         host = torch.cat([starts_l, starts_r] + [f.any().long().view(1) for f, _ in errs]).tolist()
         fired = [m for (_, m), hit in zip(errs, host[2 * K + 2:]) if hit]
         if fired:
             from datafusion_comet_tpu_torch.exec.engine import QueryExecutionError
 
             raise QueryExecutionError("; ".join(dict.fromkeys(fired)))
-        return perm_l, perm_r, np.array(host[:K + 1]), np.array(host[K + 1:2 * K + 2])
+        return left, right, np.array(host[:K + 1]), np.array(host[K + 1:2 * K + 2])
 
-    def _run_pairs(self, left: Batch, right: Batch, perm_l: torch.Tensor, perm_r: torch.Tensor,
-                   sl: np.ndarray, sr: np.ndarray) -> List[Optional[Batch]]:
+    def _run_pairs(self, left: Batch, right: Batch, sl: np.ndarray, sr: np.ndarray
+                   ) -> List[Optional[Batch]]:
         """Each non-empty pair's output, with the pair retry: a pair whose
         join overflowed runs again with the fan-out four times larger."""
         s, K = self.session, self.K
@@ -315,8 +331,8 @@ class GraceJoinRunner:
                     continue
                 cap_l = pad_capacity(max(int(sizes_l[k]), 8))
                 cap_r = pad_capacity(max(int(sizes_r[k]), 8))
-                s.tables[self.gl] = _extract(left, perm_l, int(sl[k]), int(sl[k + 1]), cap_l)
-                s.tables[self.gr] = _extract(right, perm_r, int(sr[k]), int(sr[k + 1]), cap_r)
+                s.tables[self.gl] = _extract(left, int(sl[k]), int(sl[k + 1]), cap_l)
+                s.tables[self.gr] = _extract(right, int(sr[k]), int(sr[k + 1]), cap_r)
                 out, ovf = s._run_once(self.template, fanout, scale)
                 if ovf:
                     overflowed = True

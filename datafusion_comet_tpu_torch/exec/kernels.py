@@ -2,15 +2,17 @@
 per-bucket counts and exact int64 sums over int32 bucket codes
 (``csrc/bucket_kernels.cu``), which the dense aggregate runs on, port of
 ``datafusion_comet_tpu/exec/pallas_kernels.py``; and the stable partition
-sort (``csrc/partition_kernels.cu``), which the grace join partitions with,
-port of ``benchmarks/pallas_scatter_probe.py::tile_partition_sort_pallas``.
-Part one below is the bucket kernels, part two the partition sort.
+(``csrc/partition_kernels.cu``), which moves rows with their payload into
+partition order for the grace join and every compaction, port of
+``benchmarks/pallas_scatter_probe.py::tile_partition_sort_pallas``.
+Part one below is the bucket kernels, part two the partition.
 
-Contract of both: ``codes`` int32 (n,) in [0, B] with 1 <= B <= 4096; code
-== B marks a dead row (padding or filtered out) and is dropped; a code
-outside [0, B] raises. A CPU tensor goes to the plain PyTorch version, a
-CUDA tensor launches the kernel or raises: there is no fallback. Each
-wrapper counts its launches in ``<wrapper>.launches``.
+Contract of the bucket kernels: ``codes`` int32 (n,) in [0, B] with 1 <=
+B <= 4096; code == B marks a dead row (padding or filtered out) and is
+dropped; a code outside [0, B] raises. For every wrapper, a CPU tensor goes
+to the plain PyTorch version, a CUDA tensor launches the kernel or raises:
+there is no fallback. Each wrapper counts its launches in
+``<wrapper>.launches``.
 
 On the card the kernel flags codes outside [0, B] in a device scalar.
 Given ``errors`` (a query's ``EvalContext.errors``), the wrapper appends
@@ -70,7 +72,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -78,8 +80,9 @@ from datafusion_comet_tpu_torch.exec import _build
 
 __all__ = ["bucket_count", "bucket_sum", "bucket_count_plain", "bucket_sum_plain",
            "bucket_layout", "BucketLayout", "grid_for", "zeroed_outputs", "MAX_BUCKETS",
-           "SMEM_MAX", "partition_sort",
-           "partition_sort_plain", "PARTITION_TILE", "MAX_PARTS"]
+           "SMEM_MAX", "partition_columns", "partition_columns_plain", "partition_sort",
+           "partition_sort_plain", "partition_grid", "PARTITION_TILE", "B3_TILE", "MAX_PARTS",
+           "MAX_COLUMNS"]
 
 MAX_BUCKETS = 4096
 SMEM_MAX = 232_448  # kSmemMax in the .cu: the H100's opt-in shared memory per block
@@ -290,115 +293,250 @@ bucket_sum.launches = 0
 
 
 # =====================================================================================
-# Part two: the stable partition sort
+# Part two: the stable partition (B3), payload included
 # =====================================================================================
 #
-# partition_sort replaces benchmarks/pallas_scatter_probe.py::kernel, launched by
-# tile_partition_sort_pallas (pallas_call at :93), and the lax.sort of (key,
-# iota) in the JAX grace join's partition_perm. Contract: codes int32 (n,) in
-# [0, K] with 1 <= K <= 128; code K marks a dead row. Output: perm int32 (n,)
-# of row indices and counts int32 (T, K+1), one row per tile of 512 rows
-# (the last tile may be ragged). Two destination rules share one kernel:
-#   - global: perm is the stable sort of the rows by code, dead rows last
-#     (bit for bit the JAX package's lax.sort((key, iota)) permutation);
-#   - local: each tile's rows ordered by code, stably, in the tile's own
+# partition_columns and partition_sort replace benchmarks/pallas_scatter_probe.py::
+# kernel, launched by tile_partition_sort_pallas (pallas_call at :93), and the
+# lax.sort of (key, iota, payload) in the JAX package's grace.partition_sort and
+# compact_batch. Contract: codes int32 (n,) in [0, K] with 1 <= K <= 128, code K
+# marking a dead row, or, for K = 1, the bool row mask itself (live rows code 0).
+# Two destination rules share one kernel:
+#   - global: the stable sort of the rows by code, dead rows last (bit for bit
+#     the JAX package's lax.sort with iota as the tie-break); a ``limit`` keeps
+#     the first ``limit`` rows of that order and writes nothing past them;
+#   - local: each 512-row tile's rows ordered by code, stably, in the tile's own
 #     slots (the TPU kernel's contract, whose counts are counts[:, :K]).
-# A code outside [0, K] raises; on the card it is flagged as for the bucket
-# kernels (sorted as dead meanwhile).
+# partition_columns moves the given tensors' rows (any dtype, any row width)
+# into that order and returns the per-code totals (global) or the per-tile
+# counts (local); partition_sort returns the permutation and the per-tile
+# counts. A code outside [0, K] raises; on the card it is flagged as for the
+# bucket kernels (sorted as dead meanwhile).
 #
 # On the TPU each 512-row tile became a one-hot (tile, 128) f32 matrix;
-# triangular matmuls took the prefix sums (Mosaic has no cumsum) and a
-# (tile, tile) one-hot permutation matmul moved 16-bit limb planes of the
-# payload. None of that is carried over. Here pass 1 (one block per tile)
-# counts codes in shared memory; the cross-tile scan of the small (T, K+1)
-# count matrix into first destinations runs as torch.cumsum; pass 2 gives
-# each row its stable rank among equal codes in its tile (__match_any_sync
-# within a warp, an exclusive scan of per-warp counts across the 16 warps)
-# and writes its index to perm. Payload moves afterwards by gathers.
+# triangular matmuls took the prefix sums (Mosaic has no cumsum) and a (tile,
+# tile) one-hot permutation matmul moved 16-bit limb planes of the payload.
+# Here (csrc/partition_kernels.cu) a global call is two launches with nothing
+# between them: a count pass over a persistent grid, whose last block scans the
+# (K+1, blocks) count matrix on the card, and a scatter pass that ranks each
+# 1024-row tile stably (__match_any_sync, warp-private histograms), copies the
+# columns' rows into shared memory with cp.async, a group of columns at a time,
+# and writes them out in destination order, as runs of one code. A local call
+# is the scatter pass alone. Nothing is gathered afterwards.
 #
 # Bound on an H100 (3.35 TB/s), each input read once and each output written
-# once: 4 bytes of code in and 4 of index out a row, plus the count matrix;
-# at Q12's SF10 orders side (n = 16,777,216, K = 16) 136 MB, 0.041 ms. The
-# kernel reads the codes twice, 12 bytes a row.
+# once: 4 bytes of code a row (1 for a mask), each moved row's bytes read and
+# written, and the totals. At Q12's SF10 orders side (n = 16,777,216, K = 16,
+# five tensors of 15 bytes a row in all) 570 MB, 0.170 ms; at Q12 direct's
+# SF10 compaction (n = 268,435,456, a limit of 134,217,728 rows, 44 bytes a
+# row) 12.1 GB, 3.61 ms.
 
-PARTITION_TILE = 512  # kTile in the .cu: rows per tile, threads per block
+PARTITION_TILE = 512  # kLocalTile in the .cu: the TPU kernel's tile, one row of counts
+B3_TILE = 1024  # kTile in the .cu: rows a block ranks at once
 MAX_PARTS = 128
+MAX_COLUMNS = 64  # kMaxCols in the .cu: tensors one call moves
 
 
 @functools.lru_cache(maxsize=None)
 def _plib() -> ctypes.CDLL:
     lib = _build.load("partition_kernels")
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.partition_count_launch.argtypes = [p, i64, i32, p, p, p]
-    lib.partition_count_launch.restype = i32
-    lib.partition_scatter_launch.argtypes = [p, i64, i32, p, p, p]
-    lib.partition_scatter_launch.restype = i32
-    for name in ("partition_kernels_tile", "partition_kernels_max_parts"):
+    lib.b3_launch.argtypes = [p, i32, i64, i32, i32, i64, i32, i32, p, p, p, p, p, p, i32,
+                              ctypes.POINTER(p), ctypes.POINTER(p), ctypes.POINTER(i64),
+                              ctypes.POINTER(i32), p]
+    lib.b3_launch.restype = i32
+    lib.b3_blocks_per_sm.argtypes = [ctypes.POINTER(i32)]
+    lib.b3_blocks_per_sm.restype = i32
+    for name in ("b3_tile", "b3_max_parts", "b3_max_columns"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i32
-    if (lib.partition_kernels_tile(), lib.partition_kernels_max_parts()) != (PARTITION_TILE,
-                                                                            MAX_PARTS):
-        raise RuntimeError("partition_kernels.cu and kernels.py disagree on tile or parts")
+    if (lib.b3_tile(), lib.b3_max_parts(), lib.b3_max_columns()) != (B3_TILE, MAX_PARTS,
+                                                                    MAX_COLUMNS):
+        raise RuntimeError("partition_kernels.cu and kernels.py disagree on tile, parts or columns")
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _b3_most_blocks(device: int) -> int:
+    """Scatter-pass blocks resident on the whole card at once."""
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _raise(_plib().b3_blocks_per_sm(ctypes.byref(per_sm)), "partition occupancy")
+    if per_sm.value < 1:
+        raise RuntimeError("the partition kernel fits no SM")
+    return per_sm.value * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def partition_grid(n: int, most_blocks: int) -> Tuple[int, int]:
+    """(blocks, tiles a block) of one call over n >= 1 rows: each block takes
+    a contiguous run of 1024-row tiles, as many blocks as fit the card at
+    once, and none without a tile. Block b's rows are [b * tiles * 1024,
+    (b + 1) * tiles * 1024)."""
+    tiles = -(-n // B3_TILE)
+    per = -(-tiles // max(1, min(most_blocks, tiles)))
+    return -(-tiles // per), per
 
 
 def _check_parts(codes: torch.Tensor, num_parts: int) -> None:
     if not 1 <= num_parts <= MAX_PARTS:
         raise ValueError(f"num_parts={num_parts} outside [1, {MAX_PARTS}]")
-    if codes.dtype != torch.int32 or codes.dim() != 1:
-        raise TypeError(f"codes must be 1-D int32, got {codes.dtype} {tuple(codes.shape)}")
+    if codes.dim() != 1 or codes.dtype not in (torch.int32, torch.bool):
+        raise TypeError(f"codes must be 1-D int32 (or a bool row mask), got {codes.dtype} "
+                        f"{tuple(codes.shape)}")
+    if codes.dtype == torch.bool and num_parts != 1:
+        raise ValueError("a bool row mask partitions into num_parts=1 (live rows, then dead)")
     if codes.shape[0] >= 1 << 31:
-        raise ValueError("partition_sort takes fewer than 2^31 rows (int32 indices)")
+        raise ValueError("the partition takes fewer than 2^31 rows (int32 indices)")
+    if codes.device.type == "cpu" and codes.dtype == torch.int32 and codes.numel() and (
+            int(codes.min()) < 0 or int(codes.max()) > num_parts):
+        raise ValueError(f"partition codes outside [0, {num_parts}]")
 
 
-def partition_base(counts: torch.Tensor, local: bool) -> torch.Tensor:
-    """First destination of each (tile, code) run: int32 (T, K+1), one
-    exclusive prefix sum over the count matrix read in destination order.
-    Global: code-major, so a run starts after every row of a smaller code
-    and the rows of its code in earlier tiles. Local: tile-major, so it
-    starts after the earlier tiles (512 rows each) and its tile's rows of
-    smaller codes. (A cumsum down the 17 columns of a (T, 17) matrix runs
-    one thread per column on the card: 3 ms at T = 32,768.)"""
-    c = counts.long() if local else counts.long().t()
-    flat = c.reshape(-1)
-    first = (flat.cumsum(0) - flat).view(c.shape)
-    return (first if local else first.t()).int().contiguous()
+def _sort_key(codes: torch.Tensor, num_parts: int, local: bool) -> torch.Tensor:
+    """The key whose stable sort is the partition order: the code (a mask's
+    live rows 0, dead 1), or (local) tile x (K + 1) + code."""
+    key = (~codes).long() if codes.dtype == torch.bool else codes.long()
+    if local:
+        key = key + torch.arange(codes.shape[0], device=codes.device) // PARTITION_TILE * (
+            num_parts + 1)
+    return key
+
+
+def _tile_counts_plain(key: torch.Tensor, num_parts: int) -> torch.Tensor:
+    t, nb = -(-key.shape[0] // PARTITION_TILE), num_parts + 1
+    return torch.bincount(key, minlength=t * nb).view(t, nb).int()
+
+
+def partition_columns_plain(codes: torch.Tensor, num_parts: int, tensors: Sequence[torch.Tensor],
+                            local: bool = False, limit: Optional[int] = None
+                            ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Plain PyTorch version of partition_columns (any device): one stable
+    sort of the key, then one index_select per tensor."""
+    key = _sort_key(codes, num_parts, local)
+    counts = (_tile_counts_plain(key, num_parts) if local
+              else torch.bincount(key, minlength=num_parts + 1))
+    perm = torch.sort(key, stable=True).indices
+    if limit is not None:
+        perm = perm[:limit]
+    return [t.index_select(0, perm) for t in tensors], counts
+
+
+def _word_bytes(width: int, *ptrs: int) -> int:
+    """The widest word (16, 8, 4, 2 or 1 bytes) that divides a row's width
+    and aligns every pointer."""
+    for w in (16, 8, 4, 2):
+        if width % w == 0 and all(p % w == 0 for p in ptrs):
+            return w
+    return 1
+
+
+def _launch_b3(codes: torch.Tensor, num_parts: int, ins: Sequence[torch.Tensor],
+               outs: Sequence[torch.Tensor], local: bool, limit: int, aux: torch.Tensor,
+               perm: Optional[torch.Tensor], tile_counts: Optional[torch.Tensor]) -> None:
+    """Both passes (the scatter pass alone when ``local``) on the current
+    stream, over n >= 1 rows, into zeroed ``aux`` (K + 1 totals, the bad
+    flag, the last block's ticket); no checks, no count."""
+    n = codes.shape[0]
+    dev = codes.device
+    blocks, per = partition_grid(n, _b3_most_blocks(dev.index or 0))
+    cnt = torch.empty((num_parts + 1) * blocks, dtype=torch.int32, device=dev)
+    moved = [(i, o) for i, o in zip(ins, outs) if i.numel()]
+    k = len(moved)
+    words, word_bytes = [], []
+    for i, o in moved:
+        width = i.numel() // n * i.element_size()
+        w = _word_bytes(width, i.data_ptr(), o.data_ptr())
+        words.append(width // w)
+        word_bytes.append(w)
+    p = ctypes.c_void_p
+    k8 = aux.element_size()
+    _raise(_plib().b3_launch(
+        codes.data_ptr(), int(codes.dtype == torch.bool), n, num_parts, int(local), limit, blocks,
+        per, cnt.data_ptr(), aux.data_ptr(), aux.data_ptr() + k8 * (num_parts + 1),
+        aux.data_ptr() + k8 * (num_parts + 2), None if perm is None else perm.data_ptr(),
+        None if tile_counts is None else tile_counts.data_ptr(), k,
+        (p * k)(*[i.data_ptr() for i, _ in moved]), (p * k)(*[o.data_ptr() for _, o in moved]),
+        (ctypes.c_longlong * k)(*words), (ctypes.c_int * k)(*word_bytes),
+        torch.cuda.current_stream(dev).cuda_stream), "partition")
+
+
+def _partition_columns_card(codes: torch.Tensor, num_parts: int, tensors: Sequence[torch.Tensor],
+                            local: bool, limit: Optional[int],
+                            errors: Optional[List[Tuple[torch.Tensor, str]]]
+                            ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    _on_card(codes, *tensors)
+    codes = codes.contiguous()
+    tensors = [t.contiguous() for t in tensors]
+    n = codes.shape[0]
+    rows = n if limit is None else max(0, min(limit, n))
+    outs = [torch.empty((rows,) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
+            for t in tensors]
+    aux = torch.zeros(num_parts + 3, dtype=torch.int64, device=codes.device)
+    tile_counts = (torch.empty(-(-n // PARTITION_TILE), num_parts + 1, dtype=torch.int32,
+                               device=codes.device) if local else None)
+    if n:
+        _launch_b3(codes, num_parts, tensors, outs, local, rows, aux, None, tile_counts)
+        partition_columns.launches += 1 if local else 2  # the count pass, the scatter pass
+    if codes.dtype == torch.int32:
+        _report_bad(aux[num_parts + 1:num_parts + 2], num_parts, errors, "partition")
+    return outs, tile_counts if local else aux[:num_parts + 1]
+
+
+def partition_columns(codes: torch.Tensor, num_parts: int, tensors: Sequence[torch.Tensor],
+                      local: bool = False, limit: Optional[int] = None,
+                      errors: Optional[List[Tuple[torch.Tensor, str]]] = None
+                      ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """The rows of each tensor (n, ...) in partition order: (reordered
+    tensors, sizes). Global: sizes are the int64 (K + 1,) rows of each code,
+    dead rows (code K) included, and ``limit`` keeps the first ``limit`` rows
+    of the order. Local: sizes are the int32 (T, K + 1) counts of each 512-row
+    tile. At most 64 tensors a call."""
+    _check_parts(codes, num_parts)
+    n = codes.shape[0]
+    if local and limit is not None:
+        raise ValueError("a limit applies to the global order only")
+    if len(tensors) > MAX_COLUMNS:
+        raise ValueError(f"{len(tensors)} tensors, more than {MAX_COLUMNS} a call")
+    for t in tensors:
+        if t.dim() == 0 or t.shape[0] != n:
+            raise ValueError(f"a tensor of shape {tuple(t.shape)} has not the codes' {n} rows")
+    if codes.device.type == "cpu":
+        outs, sizes = partition_columns_plain(codes, num_parts, tensors, local, limit)
+    else:
+        outs, sizes = _partition_columns_card(codes, num_parts, tensors, local, limit, errors)
+    if partition_columns.log is not None:
+        partition_columns.log.append({
+            "n": n, "K": num_parts, "local": local, "limit": limit,
+            "codes": str(codes.dtype).replace("torch.", ""),
+            "tensors": [(str(t.dtype).replace("torch.", ""), tuple(t.shape[1:])) for t in tensors],
+            "sizes": sizes, "code_values": codes.clone()})
+    return outs, sizes
+
+
+partition_columns.launches = 0
+# None, or a list that gets each call's shape, its sizes tensor and a copy of
+# its codes (chip_smoke.py reads it around one run of a query, apart from the
+# runs it times)
+partition_columns.log = None
 
 
 def partition_sort_plain(codes: torch.Tensor, num_parts: int, local: bool = False
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of partition_sort (any device): per-tile
     bincount and one stable sort."""
-    n, nb = codes.shape[0], num_parts + 1
-    tile = torch.arange(n, device=codes.device) // PARTITION_TILE
-    t = -(-n // PARTITION_TILE)
-    counts = torch.bincount(tile * nb + codes.long(), minlength=t * nb).view(t, nb).int()
-    key = tile * nb + codes.long() if local else codes
+    key = _sort_key(codes, num_parts, local)
+    counts = _tile_counts_plain(key if local else _sort_key(codes, num_parts, True), num_parts)
     return torch.sort(key, stable=True).indices.int(), counts
-
-
-def _launch_partition(codes: torch.Tensor, num_parts: int, local: bool, counts: torch.Tensor,
-                      bad: torch.Tensor, perm: torch.Tensor) -> None:
-    """Both passes on the current stream; no checks, no count."""
-    lib = _plib()
-    n = codes.shape[0]
-    stream = torch.cuda.current_stream(codes.device).cuda_stream
-    _raise(lib.partition_count_launch(codes.data_ptr(), n, num_parts, counts.data_ptr(),
-                                      bad.data_ptr(), stream), "partition_sort count pass")
-    base = partition_base(counts, local)
-    _raise(lib.partition_scatter_launch(codes.data_ptr(), n, num_parts, base.data_ptr(),
-                                        perm.data_ptr(), stream), "partition_sort scatter pass")
 
 
 def partition_sort(codes: torch.Tensor, num_parts: int, local: bool = False,
                    errors: Optional[List[Tuple[torch.Tensor, str]]] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(perm int32 (n,), counts int32 (T, K+1)): the stable sort of rows by
-    code, across the whole input or (``local``) inside each 512-row tile."""
+    code, across the whole input or (``local``) inside each 512-row tile,
+    with the counts of each 512-row tile; no payload moves."""
     _check_parts(codes, num_parts)
     if codes.device.type == "cpu":
-        if codes.numel() and (int(codes.min()) < 0 or int(codes.max()) > num_parts):
-            raise ValueError(f"partition codes outside [0, {num_parts}]")
         return partition_sort_plain(codes, num_parts, local)
     _on_card(codes)
     codes = codes.contiguous()
@@ -406,11 +544,12 @@ def partition_sort(codes: torch.Tensor, num_parts: int, local: bool = False,
     counts = torch.empty(-(-n // PARTITION_TILE), num_parts + 1, dtype=torch.int32,
                          device=codes.device)
     perm = torch.empty(n, dtype=torch.int32, device=codes.device)
-    bad = torch.zeros(1, dtype=torch.int64, device=codes.device)
+    aux = torch.zeros(num_parts + 3, dtype=torch.int64, device=codes.device)
     if n:
-        _launch_partition(codes, num_parts, local, counts, bad, perm)
-        partition_sort.launches += 2  # the count pass and the scatter pass
-    _report_bad(bad, num_parts, errors, "partition")
+        _launch_b3(codes, num_parts, (), (), local, n, aux, perm, counts)
+        partition_sort.launches += 1 if local else 2
+    if codes.dtype == torch.int32:
+        _report_bad(aux[num_parts + 1:num_parts + 2], num_parts, errors, "partition")
     return perm, counts
 
 

@@ -9,7 +9,8 @@ front-packed and the mask is a prefix.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -20,7 +21,7 @@ from datafusion_comet_tpu_torch.exec.batch import Batch, ColumnVector
 from datafusion_comet_tpu_torch.exec.evaluator import EvalContext, evaluate, evaluate_predicate
 from datafusion_comet_tpu_torch.ir import expr as E
 
-__all__ = ["filter_op", "project_op", "sort_op", "live_first_perm", "compact_batch"]
+__all__ = ["filter_op", "project_op", "sort_op", "partition_batch", "compact_batch"]
 
 
 def filter_op(batch: Batch, predicate: E.Expr, ctx: Optional[EvalContext] = None) -> Batch:
@@ -49,20 +50,36 @@ def sort_op(batch: Batch, orders: Sequence[E.SortOrder],
     return Batch(cols, mask, batch.schema)
 
 
-def live_first_perm(mask: torch.Tensor) -> torch.Tensor:
-    """The stable permutation that puts live rows first, both halves in row
-    order: the partition sort with one partition and dead rows as its dead
-    code. Codes 0 and 1 are in range by construction, so the kernel's range
-    flag is left unread (no host sync)."""
-    perm, _ = KN.partition_sort(torch.where(mask, 0, 1).int(), 1, errors=[])
-    return perm.long()
+def partition_batch(batch: Batch, codes: torch.Tensor, num_parts: int,
+                    limit: Optional[int] = None, keep_bounds: bool = False,
+                    errors: Optional[List[Tuple[torch.Tensor, str]]] = None
+                    ) -> Tuple[Batch, torch.Tensor]:
+    """The row mask and every column buffer of ``batch`` moved into the
+    stable partition order of ``codes`` by one call of the partition kernel
+    (``kernels.partition_columns``, global mode): (batch, the int64 rows of
+    each code). Bounds do not carry over, as in the JAX package, unless
+    ``keep_bounds``."""
+    tensors = [batch.row_mask]
+    for c in batch.columns:
+        tensors += [c.data, c.validity] + ([] if c.lengths is None else [c.lengths])
+    outs, sizes = KN.partition_columns(codes, num_parts, tensors, limit=limit, errors=errors)
+    moved = iter(outs[1:])
+    cols = []
+    for c in batch.columns:
+        data, validity = next(moved), next(moved)
+        lengths = None if c.lengths is None else next(moved)
+        cols.append(dataclasses.replace(c, data=data, validity=validity, lengths=lengths,
+                                        mag_bound=c.mag_bound if keep_bounds else None))
+    return Batch(tuple(cols), outs[0], batch.schema), sizes
 
 
-def compact_batch(batch: Batch, new_cap: int) -> Tuple[Batch, torch.Tensor]:
-    """Pack live rows to the front and cut the capacity to ``new_cap``.
-    Returns (compacted batch, overflow flag: the live rows did not fit).
-    Bounds do not carry over, as in the JAX package."""
+def compact_batch(batch: Batch, new_cap: int, keep_bounds: bool = False
+                  ) -> Tuple[Batch, torch.Tensor]:
+    """Pack live rows to the front and cut the capacity to ``new_cap``: one
+    partition by the row mask (live rows first, both halves in row order)
+    that writes only the first ``new_cap`` rows. Returns (compacted batch,
+    overflow flag: the live rows did not fit)."""
     if new_cap >= batch.capacity:
         return batch, torch.zeros((), dtype=torch.bool, device=batch.device)
-    perm = live_first_perm(batch.row_mask)[:new_cap]
-    return batch.take(perm, batch.row_mask[perm]), batch.row_mask.sum() > new_cap
+    out, sizes = partition_batch(batch, batch.row_mask, 1, new_cap, keep_bounds)
+    return out, sizes[0] > new_cap

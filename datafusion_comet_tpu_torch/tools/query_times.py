@@ -1,0 +1,151 @@
+#!/usr/bin/env python3
+"""Warm latency, peak device memory and (with ``--profile``) device-time
+breakdowns of TPC-H Q1, Q6 and Q12 (directly, and through the grace join at
+K = 16) for the port in any checkout. Each checkout runs in its own process,
+so two of them can be compared in turns on one card:
+
+    python3 datafusion_comet_tpu_torch/tools/query_times.py [--tree DIR] [--sf 1] [--profile]
+
+DIR (default: the checkout holding this file) goes first on sys.path, and
+only the port's public entry points are called (``Session``, ``Config``,
+``models.tpch``, ``exec.memory``). One JSON line per query: the median and
+every one of ``--reps`` warm runs (host clock, each ending in a device
+sync), and the peak device memory of one run. With ``--profile``, one
+torch.profiler run of Q12 direct and one of Q12 grace: wall ms, device busy
+ms and idle share, the device ms of index gathers (advanced indexing and
+index_select kernels), of scatter_reduce, of the partition kernels (B3), the
+top kernels, and the host ms of the grace runner's spans.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+GRACE_K = 16
+# kernel-name fragments of each device-time class of the profile
+CLASSES = {
+    "index_gather": ("index_elementwise_kernel", "vectorized_gather_kernel", "indexSelect"),
+    "scatter_reduce": ("_scatter_gather_elementwise_kernel",),
+    "partition": ("b3_", "partition_"),
+}
+
+
+def grace_fraction(sess, plan, K: int = GRACE_K):
+    """(fraction, jpeak): the Config(memory_fraction) under which the
+    session splits the plan's join into K partitions (K >= 8), and the
+    join's peak estimate jpeak. The engine doubles K from 2 until K x
+    budget / 2 covers jpeak, so a budget of 3 x jpeak / K, inside
+    [2 jpeak / K, 4 jpeak / K), stops it at K."""
+    from datafusion_comet_tpu_torch.exec.memory import device_budget_bytes, plan_peak_bytes
+    from datafusion_comet_tpu_torch.ir import plan as P
+    from datafusion_comet_tpu_torch.ir.pruning import prune_columns
+
+    node = P.bind_plan(prune_columns(plan))
+    while not isinstance(node, P.HashJoin):
+        node = node.children()[0]
+    jpeak = plan_peak_bytes(node, max(sess.tables[t].capacity for t in P.scan_tables(node)))
+    return 3 * jpeak / K / device_budget_bytes(sess.device, 1.0), jpeak
+
+
+def warm_times(sess, plan, reps: int):
+    """(median ms, all ms, peak bytes of one run) after one warm-up run."""
+    import torch
+
+    sess.collect(plan)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        sess.collect(plan)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times, torch.cuda.max_memory_allocated()
+
+
+def profile(sess, plan):
+    """One warm run under torch.profiler: wall, busy, idle share, device ms
+    by class (CLASSES), the top 12 kernels and the grace spans' host ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    sess.collect(plan)
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sess.collect(plan)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    rows = sorted(((ev.self_device_time_total / 1e3, ev.key, ev.count) for ev in events
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and ev.self_device_time_total and not ev.key.startswith("grace.")),
+                  reverse=True)
+    busy = sum(r[0] for r in rows)
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy,
+           "device_idle_share": 1 - busy / wall_ms if wall_ms else None}
+    for name, frags in CLASSES.items():
+        hit = [r for r in rows if any(f in r[1] for f in frags)]
+        out[f"{name}_ms"] = sum(r[0] for r in hit)
+        out[f"{name}_calls"] = sum(r[2] for r in hit)
+    out["grace_span_host_ms"] = {ev.key: ev.cpu_time_total / 1e3 for ev in events
+                                 if ev.device_type == torch.autograd.DeviceType.CPU
+                                 and ev.key.startswith("grace.")}
+    out["top"] = [{"kernel": k[:90], "device_ms": ms, "calls": c} for ms, k, c in rows[:12]]
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", type=Path, default=Path(__file__).resolve().parents[2],
+                    help="the checkout whose port is timed (default: this one)")
+    ap.add_argument("--sf", type=float, default=1.0, help="TPC-H scale factor")
+    ap.add_argument("--reps", type=int, default=7, help="warm runs per query")
+    ap.add_argument("--profile", action="store_true", help="add profiles of Q12's two runs")
+    args = ap.parse_args(argv)
+    tree = args.tree.resolve()
+    sys.path.insert(0, str(tree))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("query_times: no CUDA card visible", file=sys.stderr)
+        return 2
+    from datafusion_comet_tpu_torch.conf import Config
+    from datafusion_comet_tpu_torch.exec.engine import Session
+    from datafusion_comet_tpu_torch.models import tpch
+
+    if not Path(tpch.__file__).resolve().is_relative_to(tree):
+        raise RuntimeError(f"imported {tpch.__file__}, not the port in {tree}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(json.dumps({"tree": str(tree), "sf": args.sf, "nvidia_smi": smi}), flush=True)
+    sess = Session()
+    for t in ("lineitem", "orders"):
+        sess.register_numpy(t, tpch.generate_table(t, args.sf), tpch.SCHEMAS[t])
+    grace = Session(conf=Config(memory_fraction=grace_fraction(sess, tpch.q12())[0]))
+    for t, b in sess.tables.items():
+        grace.register_batch(t, b)
+    runs = [("q1", sess, tpch.q1()), ("q6", sess, tpch.q6()), ("q12_direct", sess, tpch.q12()),
+            ("q12_grace", grace, tpch.q12())]
+    for name, s, plan in runs:
+        ms, times, peak = warm_times(s, plan, args.reps)
+        line = {"query": name, "warm_ms": ms, "warm_ms_all": times, "peak_mem_bytes": peak}
+        if name == "q12_grace":
+            r = grace.grace_runners[0]
+            line.update(K=r.K, mode=r.downstream[0], sizes=[x.tolist() for x in r.sizes])
+        print(json.dumps(line), flush=True)
+    if args.profile:
+        for name, s, plan in runs[2:]:
+            print(json.dumps({"profile": name, **profile(s, plan)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -109,7 +109,8 @@ def test_partition_sort_equals_plain(dev, n, parts, dead, local):
     codes = torch.from_numpy(codes).to(dev)
     before = K.partition_sort.launches
     perm, counts = K.partition_sort(codes, parts, local=local)
-    assert K.partition_sort.launches == before + 2  # the count pass and the scatter pass
+    # the count pass and the scatter pass; tile-local mode the scatter pass alone
+    assert K.partition_sort.launches == before + (1 if local else 2)
     want_perm, want_counts = K.partition_sort_plain(codes, parts, local=local)
     assert torch.equal(perm, want_perm) and torch.equal(counts, want_counts)
     torch.cuda.synchronize()
@@ -125,6 +126,62 @@ def test_partition_sort_raises_and_defers_bad_codes(dev):
     assert "outside [0, 16]" in errs[0][1]
 
 
+def _payload(rng, n: int, offset: int):
+    """One tensor of each row width the queries move, each starting
+    ``offset`` elements into a larger one (misaligned for offset > 0): bool
+    (1 byte), int32 (4), int64 (8), two-limb decimal (16), f32 limb planes
+    (16), padded strings of width 25 and 6 (words of 1 and 2 bytes)."""
+    def cut(a):
+        return torch.from_numpy(a).cuda()[offset:]
+
+    m = n + offset
+    return [cut(rng.random(m) < 0.5),
+            cut(rng.integers(-2**31, 2**31, m).astype(np.int32)),
+            cut(rng.integers(-2**63, 2**63 - 1, m, dtype=np.int64)),
+            cut(rng.integers(-2**63, 2**63 - 1, (m, 2), dtype=np.int64)),
+            cut(rng.integers(0, 1 << 16, (m, 4)).astype(np.float32)),
+            cut(rng.integers(0, 256, (m, 25)).astype(np.uint8)),
+            cut(rng.integers(0, 256, (m, 6)).astype(np.uint8))]
+
+
+# (n, K, dead share, local, limit, offset, codes as the bool row mask)
+@pytest.mark.parametrize("n,parts,dead,local,limit,offset,mask", [
+    (1_000_003, 16, 0.3, False, None, 0, False), (1_000_003, 16, 0.3, False, None, 1, False),
+    (300_001, 64, 0.1, False, None, 3, False), (70_001, 128, 0.2, True, None, 0, False),
+    (1 << 20, 16, 0.0, True, None, 1, False), (1_000_003, 1, 0.6, False, 262_144, 0, True),
+    (1_000_003, 1, 0.9, False, 262_144, 1, True), (1_000_003, 1, 0.5, False, 500_000, 0, False),
+    (65_537, 16, 1.0, False, None, 0, False), (1, 16, 0.0, False, None, 0, False),
+    (1, 1, 0.0, False, 1, 0, True), (3, 4, 0.0, True, None, 1, False)])
+def test_partition_columns_equals_plain(dev, n, parts, dead, local, limit, offset, mask):
+    rng = np.random.default_rng(n + parts + offset)
+    codes = np.where(rng.random(n + offset) < dead, parts, rng.integers(0, parts, n + offset))
+    codes = torch.from_numpy(codes.astype(np.int32)).to(dev)
+    codes = (codes == 0)[offset:] if mask else codes[offset:]
+    tensors = _payload(rng, n, offset)
+    before = K.partition_columns.launches
+    outs, sizes = K.partition_columns(codes, parts, tensors, local=local, limit=limit)
+    assert K.partition_columns.launches == before + (1 if local else 2)
+    want, want_sizes = K.partition_columns_plain(codes, parts, tensors, local, limit)
+    torch.cuda.synchronize()
+    assert sizes.dtype == want_sizes.dtype and torch.equal(sizes, want_sizes)
+    for o, w in zip(outs, want):
+        assert o.dtype == w.dtype and torch.equal(o, w)
+
+
+def test_partition_columns_raises_and_defers_bad_codes(dev):
+    codes = torch.tensor([0, 17, 2, -1], dtype=torch.int32, device=dev)
+    vals = torch.arange(4, device=dev)
+    with pytest.raises(ValueError, match=r"outside \[0, 16\]"):
+        K.partition_columns(codes, 16, [vals])
+    errs = []
+    (got,), sizes = K.partition_columns(codes, 16, [vals], errors=errs)
+    assert [bool(f.any()) for f, _ in errs] == [True]
+    # bad codes are sorted as dead meanwhile
+    assert got.tolist() == [0, 2, 1, 3] and sizes[16] == 2
+    with pytest.raises(ValueError):
+        K.partition_columns(codes, 16, [vals], local=True)
+
+
 def test_q12_on_card_equals_cpu_direct_and_grace(dev):
     data = {t: tpch.generate_table(t, 0.01) for t in ("lineitem", "orders")}
     cpu = Session(device="cpu")
@@ -138,13 +195,14 @@ def test_q12_on_card_equals_cpu_direct_and_grace(dev):
         gpu = Session(conf=conf)
         for t, d in data.items():
             gpu.register_numpy(t, d, tpch.SCHEMAS[t])
-        for name in ("bucket_count", "bucket_sum", "partition_sort"):
+        for name in ("bucket_count", "bucket_sum", "partition_sort", "partition_columns"):
             getattr(K, name).launches = 0
         got = gpu.collect(tpch.q12())
         assert K.bucket_count.launches > 0 and K.bucket_sum.launches > 0
-        # the join's compaction runs the partition sort, the grace run also
-        # its partitioning
-        assert K.partition_sort.launches > 0 and bool(gpu.grace_runners) == grace
+        # the join's compaction runs the partition, the grace run also its
+        # partitioning; neither makes a permutation
+        assert K.partition_columns.launches > 0 and K.partition_sort.launches == 0
+        assert bool(gpu.grace_runners) == grace
         assert list(got) == list(want)
         for k in want:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
@@ -164,3 +222,17 @@ def test_bucket_times_script_on_card(dev, capsys):
         ("pair_262144", "bucket_count"), ("pair_262144", "bucket_sum"),
         ("b500_k4", "bucket_sum")]
     assert all(r["ms"] > 0 and r["host_us"] > 0 and r["bound_ms"] > 0 for r in rows)
+
+
+def test_query_times_script_on_card(dev, capsys):
+    """tools/query_times.py runs every query of both trees' comparison and
+    profiles Q12's two runs, with the grace run at K = 16."""
+    from datafusion_comet_tpu_torch.tools import query_times as QT
+
+    assert QT.main(["--sf", "0.01", "--reps", "2", "--profile"]) == 0
+    head, *rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert "nvidia_smi" in head
+    assert [r.get("query") or r["profile"] for r in rows] == [
+        "q1", "q6", "q12_direct", "q12_grace", "q12_direct", "q12_grace"]
+    assert rows[3]["K"] == 16 and rows[3]["mode"] == "partial"
+    assert all(r["device_busy_ms"] > 0 and r["partition_calls"] > 0 for r in rows[4:])

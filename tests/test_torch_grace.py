@@ -13,8 +13,10 @@ import contextlib
 import dataclasses
 import warnings
 
+import jax
 import numpy as np
 import pytest
+import torch
 
 import chip_smoke
 from datafusion_comet_tpu import types as JT
@@ -22,6 +24,7 @@ from datafusion_comet_tpu.conf import CONF, MEMORY_FRACTION
 from datafusion_comet_tpu.exec import batch as JB
 from datafusion_comet_tpu.exec import grace as JG
 from datafusion_comet_tpu.exec.engine import Session as JaxSession
+from datafusion_comet_tpu.exec.evaluator import EvalContext as JEvalContext
 from datafusion_comet_tpu.exec.operators import aggregate as JAGG
 from datafusion_comet_tpu.ir import expr as JE
 from datafusion_comet_tpu.ir import plan as JP
@@ -29,6 +32,7 @@ from datafusion_comet_tpu.models import tpch as JTPCH
 from datafusion_comet_tpu_torch import types as PT
 from datafusion_comet_tpu_torch.conf import Config
 from datafusion_comet_tpu_torch.exec import batch as PB
+from datafusion_comet_tpu_torch.exec import grace as PG
 from datafusion_comet_tpu_torch.exec.engine import Session
 from datafusion_comet_tpu_torch.exec.operators import aggregate as PAGG
 from datafusion_comet_tpu_torch.ir import expr as PE
@@ -51,15 +55,47 @@ def jax_fraction(fraction: float):
         CONF.set("comet.memory.fraction", old)
 
 
+class _Seen(list):
+    """(K, mode) of each JAX grace join that ran; ``sizes``: the partition
+    sizes of its two sides, one (left, right) pair a run."""
+
+    def __init__(self):
+        super().__init__()
+        self.sizes = []
+
+
 @pytest.fixture
 def jax_spy(monkeypatch):
-    """Records (K, mode) of every JAX grace join that runs."""
-    seen = []
+    """Records (K, mode) and the partition sizes of every JAX grace join
+    that runs. The sizes come from the runner's own partition functions,
+    built as the runner builds them, which record the starts they return."""
+    seen = _Seen()
 
     class Spy(JG.GraceJoinRunner):
         def __init__(self, session, join, K, temp_names, stage=None, downstream=None):
             seen.append((K, downstream[0] if downstream else None))
             super().__init__(session, join, K, temp_names, stage, downstream)
+            casts = [JG.grace_key_cast(lk.dtype, rk.dtype)
+                     for lk, rk in zip(join.left_keys, join.right_keys)]
+            run = []
+
+            def recording(keys):
+                @jax.jit
+                def part(b):
+                    return JG.partition_perm(b, JG._hash_pids(b, keys, casts, K, JEvalContext()),
+                                             K)
+
+                def call(b):
+                    perm, starts = part(b)
+                    run.append(np.diff(np.asarray(starts)))
+                    if len(run) == 2:
+                        seen.sizes.append(tuple(run))
+                        run.clear()
+                    return perm, starts
+
+                return call
+
+            self._part_l, self._part_r = recording(join.left_keys), recording(join.right_keys)
 
     monkeypatch.setattr(JG, "GraceJoinRunner", Spy)
     return seen
@@ -134,6 +170,9 @@ def test_q12_direct_and_grace_match_jax(q12_data, jax_spy, K):
     with jax_fraction(fraction):
         got_jax_grace = js.collect(JTPCH.q12())
     assert jax_spy == [(K, "partial")]
+    # both packages cut both sides into the same partitions
+    for got_sizes, want_sizes in zip(runner.sizes, jax_spy.sizes[0]):
+        np.testing.assert_array_equal(got_sizes, want_sizes)
     for got in (got_direct, got_grace, got_jax_grace):
         _assert_same(want_jax, got)
 
@@ -242,6 +281,61 @@ def test_fact_dim_grace_matches_jax(jax_spy, how, dup, key_type, mode):
         _assert_same(want, got)
         _assert_same(want, got_jax)
         _assert_same(want, direct.collect(plan))
+
+
+def test_grace_with_a_fully_live_side_pads_its_last_pairs(jax_spy):
+    """A fact side with no dead rows (4096 rows, capacity 4096): the last
+    pairs' capacities run past the sorted side's end, so their slices are
+    padded with dead rows; the result and the partition sizes equal JAX's."""
+    ptables = _fact_dim(PT, seed=3)
+    jtables = _fact_dim(JT, seed=3)
+    for t in (ptables, jtables):
+        data = t["fact"][0]
+        for c in data:
+            data[c] = data[c][:4096]
+        t["fact"] = (data, t["fact"][1], {"v": t["fact"][2]["v"][:4096]})
+    plan = _join(PT, PP, PE, ptables)
+    fraction, _ = chip_smoke.grace_fraction(_port_session(ptables), plan, 16)
+    grace = _port_session(ptables, fraction)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        got = grace.collect(plan)
+    (runner,) = grace.grace_runners
+    assert runner.capacities[0] == 4096 and runner.K == 16
+    sizes = runner.sizes[0]
+    starts = np.concatenate([[0], np.cumsum(sizes)])
+    caps = [PB.pad_capacity(max(int(x), 8)) for x in sizes]
+    assert any(st + cap > 4096 for st, cap in zip(starts, caps))
+    js = _jax_session(jtables)
+    with jax_fraction(fraction):
+        got_jax = js.collect(_join(JT, JP, JE, jtables))
+    assert jax_spy == [(16, "partial")]
+    np.testing.assert_array_equal(sizes, jax_spy.sizes[0][0])
+    _assert_same(got_jax, got)
+
+
+@pytest.mark.parametrize("start,end,cap", [(0, 5, 8), (5, 12, 8), (12, 16, 8), (14, 16, 16),
+                                           (16, 16, 8)])
+def test_extract_is_a_slice_padded_past_the_end(start, end, cap):
+    """A pair's batch is rows [start, start + cap) of the sorted side, live
+    below ``end``; where the side ends first, dead zero rows fill it."""
+    rng = np.random.default_rng(cap + start)
+    data = {"k": rng.integers(0, 9, 16).astype(np.int64),
+            "s": np.array([f"v{j}" for j in rng.integers(0, 99, 16)], object)}
+    b = PB.from_numpy(data, PT.Schema([PT.Field("k", PT.INT64), PT.Field("s", PT.string(3))]),
+                      "cpu", validity={"k": rng.random(16) > 0.3}, dict_max_size=0)
+    sub = PG._extract(b, start, end, cap)
+    assert sub.capacity == cap
+    np.testing.assert_array_equal(sub.row_mask.numpy(), np.arange(cap) < end - start)
+    m = min(cap, 16 - start)
+    for got, src in zip(sub.columns, b.columns):
+        assert (got.lengths is None) == (src.lengths is None)
+        for g, t in ((got.data, src.data), (got.validity, src.validity),
+                     (got.lengths, src.lengths)):
+            if t is None:
+                continue
+            assert g.shape == (cap,) + tuple(t.shape[1:]) and g.dtype == t.dtype
+            assert torch.equal(g[:m], t[start:start + m]) and not g[m:].any()
 
 
 def test_grace_with_no_match_emits_one_ungrouped_row():

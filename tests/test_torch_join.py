@@ -12,12 +12,15 @@ import torch
 from datafusion_comet_tpu import types as JT
 from datafusion_comet_tpu.exec import batch as JB
 from datafusion_comet_tpu.exec.engine import Session as JaxSession
+from datafusion_comet_tpu.exec.engine import _shrink_apply
+from datafusion_comet_tpu.exec.operators import basic as JBASIC
 from datafusion_comet_tpu.exec.operators import join as JJ
 from datafusion_comet_tpu.ir import expr as JE
 from datafusion_comet_tpu.ir import plan as JP
 from datafusion_comet_tpu_torch import types as PT
 from datafusion_comet_tpu_torch.exec import batch as PB
 from datafusion_comet_tpu_torch.exec.engine import JoinOverflowError, Session
+from datafusion_comet_tpu_torch.exec.operators import basic as PBASIC
 from datafusion_comet_tpu_torch.exec.operators import join as PJ
 from datafusion_comet_tpu_torch.ir import expr as PE
 from datafusion_comet_tpu_torch.ir import plan as PP
@@ -113,6 +116,60 @@ def test_overflow_flag_when_matches_exceed_k():
             "inner", "right", schema)
     assert bool(PJ.hash_join(*args, max_build_matches=4)[1])
     assert not bool(PJ.hash_join(*args, max_build_matches=8)[1])
+
+
+@pytest.mark.parametrize("new_cap", [128, 512, 1024])
+def test_pair_block_compaction_matches_jax(new_cap):
+    """The join's (probe x K) pair block compacted as the session compacts
+    it (one pass of the partition kernel with one part and a limit): live
+    rows first in their order, the overflow flag when they do not fit, and
+    the same rows as JAX compact_batch over the JAX join's block."""
+    jl, jr, pl, pr = _stage(7)
+    out = {}
+    for M, E, join, basic, l, r in ((JT, JE, JJ, JBASIC, jl, jr), (PT, PE, PJ, PBASIC, pl, pr)):
+        schema = M.Schema(list(l.schema.fields) + list(r.schema.fields))
+        b, _ = join.hash_join(l, r, [E.bind(E.col("fk"), l.schema)],
+                              [E.bind(E.col("pk"), r.schema)], "inner", "right", schema,
+                              max_build_matches=4)
+        c, ovf = basic.compact_batch(b, new_cap)
+        out[M] = (b, c, bool(ovf))
+    b, c, ovf = out[PT]
+    live = int(b.num_rows())
+    assert b.capacity > new_cap and ovf == (live > new_cap) == out[JT][2]
+    assert c.capacity == new_cap and int(c.num_rows()) == min(live, new_cap)
+    mask = b.row_mask.numpy()
+    for src, got in zip(b.columns, c.columns):
+        np.testing.assert_array_equal(got.data.numpy()[:min(live, new_cap)],
+                                      src.data.numpy()[mask][:new_cap])
+    if not ovf:
+        assert _rows(PB.to_numpy(c)) == _rows(JB.to_numpy(out[JT][1]))
+
+
+def test_aqe_shrink_matches_jax_shrink():
+    """The session's stage-boundary shrink (twice the live rows, when that
+    cuts the capacity four times) equals the JAX package's _shrink_apply,
+    every buffer, dictionaries and magnitude bounds included."""
+    fact, _, fvalid, _, _ = _tables(13)
+    jf, _ = _schemas(JT)
+    pf, _ = _schemas(PT)
+    keep = np.random.default_rng(13).random(8192) < 0.05
+    # the fact table's 900 rows repeated out to 8192, about 5% of them live
+    data = {k: np.concatenate([v, v[:1].repeat(8192 - len(v))]) for k, v in fact.items()}
+    valid = {k: np.concatenate([v, np.zeros(8192 - len(v), bool)]) for k, v in fvalid.items()}
+    jb = JB.from_numpy(data, jf, validity=valid)
+    jb = jb.with_mask(jnp.asarray(keep))
+    pb = PB.from_numpy(data, pf, "cpu", validity=valid)
+    pb = pb.with_mask(torch.from_numpy(keep))
+    target = PB.pad_capacity(max(2 * int(keep.sum()), 1024))
+    assert target * 4 <= pb.capacity
+    got = Session(device="cpu")._aqe_shrink(pb)
+    want = _shrink_apply(jb, target)
+    assert got.capacity == want.capacity == target
+    np.testing.assert_array_equal(got.row_mask.numpy(), np.asarray(want.row_mask))
+    for g, w in zip(got.columns, want.columns):
+        np.testing.assert_array_equal(g.data.numpy(), np.asarray(w.data))
+        np.testing.assert_array_equal(g.validity.numpy(), np.asarray(w.validity))
+        assert g.mag_bound == w.mag_bound and (g.dictionary is None) == (w.dictionary is None)
 
 
 def test_other_join_types_raise():

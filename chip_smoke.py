@@ -5,7 +5,7 @@ On a machine with one NVIDIA card, from the root of a checkout:
 
     python3 chip_smoke.py            # TPC-H SF1
     python3 chip_smoke.py --sf 10    # another scale
-    python3 chip_smoke.py --profile  # add torch.profiler breakdowns of Q1 and Q12's grace run
+    python3 chip_smoke.py --profile  # add torch.profiler breakdowns of Q1, Q12 grace and Q3
 
 Phases, one JSON line each:
   1. device: the card's name, count, and nvidia-smi's name and power limit;
@@ -18,26 +18,29 @@ Phases, one JSON line each:
      included; times wrapper, plain version and one library call at Q1's
      shape (the sum at four lanes and at one), with L2 flushed before each
      timed run (tools/bucket_times.py's timing);
-  4. q1, q6, q12: runs each query through the port's Session, checks the
-     result against an exact integer oracle written with numpy alone, and
-     reports warm time, peak device memory and the kernel launch counts of
-     one run with the counts zeroed just before it. Q12 runs twice:
+  4. q1, q6, q12, q3: runs each query through the port's Session, checks
+     the result against an exact integer oracle written with numpy alone,
+     and reports warm time, peak device memory and the kernel launch counts
+     of one run with the counts zeroed just before it. Q12 and Q3 run twice:
      directly, and under a Config(memory_fraction) that makes the engine
-     split its join into K = 16 hash partitions (the grace join);
+     split the (top) join into K = 16 hash partitions (the grace join; Q3's
+     aggregate then runs inside each pair, its local mode); Q3's lines add
+     its stages and group count;
   grace_pair_kernels: times both bucket kernels at the grace run's pair
      shape (a pair's block, B = 16, its mean live rows);
   5. partition: holds B3 against its plain versions, exactly: the
-     payload-moving partition_columns at every B3 call of Q12's runs (the
-     grace run's input shrink and its two sides, Q12 direct's compaction of
-     the join's pair block), each on the codes the query gave it (logged by
-     one extra run of each query) with random columns of the call's types
-     and widths; at the TPU kernel's probe shape (n = 2^23, four int64
+     payload-moving partition_columns at every distinct B3 call of Q12's and
+     Q3's runs (the grace runs' input shrinks, sides and per-pair shrinks,
+     the direct runs' compactions of each join's pair block), each on the
+     codes the query gave it (logged by one extra run of each query) with
+     random columns of the call's types and widths; at the TPU kernel's
+     probe shape (n = 2^23, four int64
      columns, tile-local) and at every row width on misaligned inputs; the
      permutation-only partition_sort at Q12's sides, the probe shape and
      edge shapes. Times the wrapper (device ms and host µs a call), its
      plain version and the library composition (torch.sort + one
      index_select a column) at the query and probe shapes, with L2 flushed,
-     beside the byte bound. The q12 lines list every B3 call's n.
+     beside the byte bound. The q12 and q3 lines list every B3 call's n.
 Then a {"kernels": [...]} line, nvidia-smi's line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero. The
 script imports no JAX; without a card, or without the package beside it, it
@@ -73,7 +76,8 @@ KERNELS = tuple(REPLACES)
 # the public wrappers whose launches are each TPU kernel's
 WRAPPERS = {"bucket_count": ("bucket_count",), "bucket_sum": ("bucket_sum",),
             "partition_sort": ("partition_sort", "partition_columns")}
-GRACE_K = 16  # the partition count the grace run of Q12 is sized to
+GRACE_K = 16  # the partition count the grace runs of Q12 and Q3 are sized to
+TABLES = ("lineitem", "orders", "customer")
 
 
 def emit(obj) -> None:
@@ -333,6 +337,53 @@ def check_q12(out, expect, what: str) -> None:
         raise AssertionError(f"{what}: got {got}, expected {expect}")
 
 
+def oracle_q3(li, od, cu, cut: int):
+    """Q3 with numpy alone: customers of segment BUILDING, their orders
+    before ``cut`` (joined by np.searchsorted on the unique c_custkey), the
+    lines shipped after it (joined on the unique o_orderkey), revenue per
+    order summed exactly in int64 (at most 7 lines of at most 1.05e9 at
+    scale 4), and the top 10 by revenue descending, then order date, then
+    order key (the aggregate's key order, which decides the engine's ties).
+    Returns ([(l_orderkey, revenue, o_orderdate, o_shippriority)], the
+    number of groups)."""
+    def lookup(keys, probe):
+        """Index into ``keys`` (sorted, unique) of each probe key, and found."""
+        if not len(keys):
+            return np.zeros(len(probe), np.int64), np.zeros(len(probe), bool)
+        pos = np.clip(np.searchsorted(keys, probe), 0, len(keys) - 1)
+        return pos, keys[pos] == probe
+
+    ckeys = np.sort(cu["c_custkey"][cu["c_mktsegment"] == "BUILDING"])
+    if len(np.unique(ckeys)) != len(ckeys) or len(np.unique(od["o_orderkey"])) != len(
+            od["o_orderkey"]):
+        raise AssertionError("c_custkey or o_orderkey is not unique")
+    om = od["o_orderdate"] < cut
+    _, hit = lookup(ckeys, od["o_custkey"][om])
+    okey, odate, oprio = (od[c][om][hit] for c in ("o_orderkey", "o_orderdate",
+                                                   "o_shippriority"))
+    order = np.argsort(okey, kind="stable")
+    okey, odate, oprio = okey[order], odate[order], oprio[order]
+    lm = li["l_shipdate"] > cut
+    pos, found = lookup(okey, li["l_orderkey"][lm])
+    line_rev = li["l_extendedprice"][lm][found] * (100 - li["l_discount"][lm][found])
+    rev = np.zeros(len(okey), np.int64)
+    np.add.at(rev, pos[found], line_rev)
+    has = np.zeros(len(okey), bool)
+    has[pos[found]] = True
+    okey, odate, oprio, rev = okey[has], odate[has], oprio[has], rev[has]
+    top = np.lexsort((okey, odate, -rev))[:10]
+    return [(int(okey[i]), int(rev[i]), int(odate[i]), int(oprio[i])) for i in top], int(
+        has.sum())
+
+
+def check_q3(out, expect, what: str) -> None:
+    want, _ = expect
+    cols = ("l_orderkey", "revenue", "o_orderdate", "o_shippriority")
+    got = [tuple(int(out[c][i]) for c in cols) for i in range(len(out["l_orderkey"]))]
+    if got != want or not all(out[c + "__valid"].all() for c in cols):
+        raise AssertionError(f"{what}: got {got}, expected {want}")
+
+
 def grace_fraction(sess, plan, K: int = GRACE_K):
     """The Config(memory_fraction) under which the session splits ``plan``'s
     join into K partitions, and the join's peak estimate: (fraction,
@@ -390,18 +441,17 @@ def run_query(sess, plan, reps: int):
 
 def query_phase(sf: float, reps: int, profile: bool):
     import torch
-    from datafusion_comet_tpu_torch.conf import Config
     from datafusion_comet_tpu_torch.exec.engine import Session
     from datafusion_comet_tpu_torch.models import tpch
 
     data, gen_s = {}, {}
-    for t in ("lineitem", "orders"):
+    for t in TABLES:
         t0 = time.perf_counter()
         data[t] = tpch.generate_table(t, sf)
         gen_s[t] = time.perf_counter() - t0
     sess = Session()  # the card, the default device
     stage_s = {}
-    for t in ("lineitem", "orders"):
+    for t in TABLES:
         t0 = time.perf_counter()
         sess.register_numpy(t, data[t], tpch.SCHEMAS[t])
         torch.cuda.synchronize()
@@ -438,9 +488,7 @@ def query_phase(sf: float, reps: int, profile: bool):
     expect = oracle_q12(data["lineitem"], data["orders"], tpch._d("1994-01-01"),
                         tpch._d("1995-01-01"))
     fraction, jpeak = grace_fraction(sess, tpch.q12())
-    grace = Session(conf=Config(memory_fraction=fraction))
-    for t, b in sess.tables.items():
-        grace.register_batch(t, b)
+    grace = grace_session(sess, fraction)
     q12 = {}
     for run, s in (("direct", sess), ("grace", grace)):
         out, launches[f"q12_{run}"], first_s, times, peak, b3_calls[f"q12_{run}"] = run_query(
@@ -470,7 +518,70 @@ def query_phase(sf: float, reps: int, profile: bool):
           "pair_retries": r.retries, "partitions": sizes, **q12})
     if profile:
         emit(profile_run(grace, tpch.q12(), "profile_q12_grace"))
+    del grace
+    q3_phase(sess, data, sf, reps, profile, launches, b3_calls)
     return launches, sizes, b3_calls
+
+
+def grace_session(sess, fraction: float):
+    """A session over the same device tables and statistics whose memory
+    budget is ``fraction`` of the card."""
+    from datafusion_comet_tpu_torch.conf import Config
+    from datafusion_comet_tpu_torch.exec.engine import Session
+
+    grace = Session(conf=Config(memory_fraction=fraction))
+    for t, b in sess.tables.items():
+        grace.register_batch(t, b)
+    grace.stats.update(sess.stats)
+    return grace
+
+
+def q3_phase(sess, data, sf: float, reps: int, profile: bool, launches, b3_calls) -> None:
+    """Q3 directly and under a budget that makes the engine split its top
+    join into K = 16 pairs, each running the whole aggregate stage (local
+    mode): checked against the numpy oracle, timed, its launches counted."""
+    from datafusion_comet_tpu_torch.exec.memory import plan_peak_bytes
+    from datafusion_comet_tpu_torch.models import tpch
+
+    expect = oracle_q3(data["lineitem"], data["orders"], data["customer"], tpch._d("1995-03-15"))
+    fraction, jpeak = grace_fraction(sess, tpch.q3())
+    grace = grace_session(sess, fraction)
+    runs = {}
+    for run, s in (("direct", sess), ("grace", grace)):
+        key = f"q3_{run}"
+        out, launches[key], first_s, times, peak, b3_calls[key] = run_query(s, tpch.q3(), reps)
+        check_q3(out, expect, key)
+        # both runs compact the joins' pair blocks with B3; no dense aggregate
+        if launches[key]["partition_sort"] == 0:
+            raise AssertionError(f"{key} did not launch B3: {launches[key]}")
+        agg_stage = s.stages[0][1]
+        runs[run] = {
+            "first_run_s": first_s, "warm_ms": statistics.median(times), "warm_ms_all": times,
+            "peak_mem_bytes": peak, "launches": launches[key],
+            "stages": [[n, type(p).__name__] for n, p in s.stages],
+            "max_groups": agg_stage.max_groups,
+            "stage_peak_estimate_bytes": plan_peak_bytes(
+                agg_stage, max(s.tables[t].capacity for t in TABLES)),
+            "partitioned": bool(s.grace_runners),
+            "b3_call_n": [c["n"] for c in b3_calls[key]],
+            "b3_calls": b3_call_shapes(b3_calls[key])}
+    if len(grace.grace_runners) != 1:
+        raise AssertionError(f"q3 grace: {len(grace.grace_runners)} grace joins, expected 1")
+    r = grace.grace_runners[0]
+    if r.K != GRACE_K or r.downstream[0] != "local":
+        raise AssertionError(f"q3 grace: K={r.K} mode={r.downstream and r.downstream[0]}, "
+                             f"expected K={GRACE_K} local")
+    sizes = {side: {"capacity": int(cap), "rows": int(sz.sum()), "min": int(sz.min()),
+                    "max": int(sz.max()), "sizes": sz.tolist()}
+             for side, cap, sz in zip(("lineitem", "orders_customer"), r.capacities, r.sizes)}
+    emit({"phase": "q3", "sf": sf, "correct": True, "result": expect[0], "groups": expect[1],
+          "budget_bytes": sess.budget_bytes(), "memory_fraction": fraction,
+          "grace_budget_bytes": grace.budget_bytes(), "join_peak_estimate_bytes": jpeak,
+          "K": r.K, "mode": r.downstream[0], "pair_retries": r.retries, "partitions": sizes,
+          **runs})
+    if profile:
+        emit(profile_run(sess, tpch.q3(), "profile_q3_direct"))
+        emit(profile_run(grace, tpch.q3(), "profile_q3_grace"))
 
 
 def profile_run(sess, plan, phase: str):
@@ -589,10 +700,10 @@ def check_payload(K, name, codes, k, tensors, local=False, limit=None):
 
 
 def b3_call_names(calls):
-    """Each distinct B3 call of Q12's two runs, named by run, place in the
-    run and kind: [(name, call)], a repeated shape once."""
+    """Each distinct B3 call of Q12's and Q3's runs, named by run, place in
+    the run and kind: [(name, call)], a repeated shape once."""
     out, seen = [], set()
-    for run in ("q12_grace", "q12_direct"):
+    for run in ("q12_grace", "q12_direct", "q3_grace", "q3_direct"):
         for i, c in enumerate(calls[run]):
             shape = (c["n"], c["K"], c["local"], c["limit"], c["codes"], tuple(c["tensors"]))
             if shape not in seen:
@@ -604,7 +715,8 @@ def b3_call_names(calls):
 
 def partition_phase(sizes, calls, reps: int, seed: int):
     """B3 against its plain versions, exactly, then timed. Payload-moving
-    (partition_columns): every B3 call of Q12's direct and grace runs, on
+    (partition_columns): every distinct B3 call of Q12's and Q3's direct
+    and grace runs, on
     the codes the query gave it, the TPU kernel's probe shape in tile-local
     mode, and every row width on misaligned inputs. Permutation-only
     (partition_sort): the grace sides' shapes (each side's capacity, its
@@ -732,7 +844,7 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=25, help="timed warm runs per measurement")
     ap.add_argument("--seed", type=int, default=7, help="seed of the kernel-phase inputs")
     ap.add_argument("--profile", action="store_true",
-                    help="add profiled runs of Q1 and of Q12's grace run")
+                    help="add profiled runs of Q1, of Q12's grace run and of Q3's two runs")
     args = ap.parse_args(argv)
 
     import torch

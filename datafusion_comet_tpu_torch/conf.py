@@ -1,5 +1,5 @@
 """Session settings (port of the ``datafusion_comet_tpu/conf.py`` keys the
-Q1/Q6/Q12 slice reads).
+Q1/Q6/Q12/Q3 slices read).
 
 The JAX package keeps a process-wide mutable registry; here the settings are
 one immutable object that a ``Session`` owns and passes down, so two sessions
@@ -27,3 +27,11 @@ class Config:
     # plan into. A plan whose resident-bytes estimate is over it runs its
     # join hash-partitioned (the grace join).
     memory_fraction: float = 0.8
+    # comet.exec.stage.maxJoinsPerProgram: a plan with more joins than this
+    # runs as several stages, each join-carrying child its own stage whose
+    # result becomes a temporary table. 0 disables the split.
+    stage_max_joins: int = 2
+    # comet.exec.stage.maxHeavyOpsPerProgram: beyond the join budget, a stage
+    # with more heavy operators (joins, sorts, grouping aggregates) than this
+    # is cut below a Sort or grouping HashAggregate. 0 disables the split.
+    stage_max_heavy_ops: int = 3

@@ -1,22 +1,37 @@
 """Query engine: a bound plan tree executed operator by operator over
 device-resident tables (port of the ``Session`` subset of
-``datafusion_comet_tpu/exec/engine.py`` that TPC-H Q1, Q6 and Q12 reach).
+``datafusion_comet_tpu/exec/engine.py`` that TPC-H Q1, Q6, Q12 and Q3 reach).
 
-PyTorch runs eagerly, so there is no whole-plan compile: ``execute`` binds
-and prunes the plan, fits it to the memory budget, and runs it. Data enters
-once per table (``register_numpy``) and leaves once at ``collect``;
-everything between stays on the session's device.
+PyTorch runs eagerly, so there is no whole-plan compile. ``execute`` binds
+and prunes the plan, fills each aggregate's group capacity from the tables'
+statistics (exec/stats.py, collected by ``register_numpy``), splits the plan
+into stages, and runs them in order. Data enters once per table and leaves
+once at ``collect``; everything between stays on the session's device.
 
-Two loops wrap a run, as in the JAX package:
-- the join-overflow retry: a join whose probe rows have more matches than
-  its fan-out K, or a compaction that overflows, flags the run, which then
-  re-runs with K and the growth scale four times larger, at most
-  ``join.MAX_JOIN_RETRIES`` times (then JoinOverflowError);
+Stages (``_plan_stages``, as the JAX package splits them): a plan with more
+joins than ``Config.stage_max_joins`` puts its join-heaviest children into
+stages of their own (``_split_stages``), and a stage with more heavy
+operators (joins, sorts, grouping aggregates) than
+``Config.stage_max_heavy_ops`` is cut below a Sort or grouping aggregate
+(``_split_heavy``). Each named stage's result is compacted to its live rows
+(``_aqe_shrink``) and read by the next stage as a temporary table: so Q3's
+top-K sorts the aggregate's live groups, not its input's capacity. The JAX
+package splits to bound compile time; here the split changes which
+capacities the later operators run at. Its runtime filters
+(``inject_runtime_filters``) and join reorderings (``_apply_orderings``)
+are not ported: they change no result of the four queries.
+
+Two loops wrap a stage's run, as in the JAX package:
+- the overflow retry: a join whose probe rows have more matches than its
+  fan-out K, an aggregate with more groups than its capacity, or a
+  compaction that overflows, flags the run, which then re-runs with K and
+  the growth scale four times larger, at most ``join.MAX_JOIN_RETRIES``
+  times (then JoinOverflowError);
 - the memory budget (``_budget_plan``): while a plan's resident-bytes
   estimate is over ``device_budget_bytes`` (the card's memory times
   ``Config.memory_fraction``), an over-budget join runs hash-partitioned
-  (exec/grace.py) and its result, or the aggregate above it, comes back as a
-  temporary table.
+  (exec/grace.py) and its result, the aggregate above it, or the whole
+  stage comes back as a temporary table.
 """
 
 from __future__ import annotations
@@ -39,6 +54,8 @@ from datafusion_comet_tpu_torch.exec.memory import device_budget_bytes, plan_pea
 from datafusion_comet_tpu_torch.exec.operators import aggregate as AGG
 from datafusion_comet_tpu_torch.exec.operators import basic as B
 from datafusion_comet_tpu_torch.exec.operators import join as J
+from datafusion_comet_tpu_torch.exec.stats import (DEFAULT_MAX_GROUPS, TableStats, collect_stats,
+                                                  derive_capacities)
 from datafusion_comet_tpu_torch.exec.streaming import pseudo_scan
 from datafusion_comet_tpu_torch.ir import plan as P
 from datafusion_comet_tpu_torch.ir.pruning import prune_columns
@@ -51,7 +68,8 @@ class QueryExecutionError(RuntimeError):
 
 
 class JoinOverflowError(RuntimeError):
-    """A join still overflowed its fan-out after every retry."""
+    """A join's fan-out or an aggregate's group capacity still overflowed
+    after every retry."""
 
 
 def run_plan(plan: P.PlanNode, tables: Dict[str, Batch], ctx: EvalContext, conf: Config,
@@ -72,9 +90,13 @@ def run_plan(plan: P.PlanNode, tables: Dict[str, Batch], ctx: EvalContext, conf:
         return B.project_op(child, plan.exprs, plan.schema, ctx)
     if isinstance(plan, P.HashAggregate):
         return AGG.hash_aggregate(child, plan.group_exprs, plan.agg_exprs, plan.mode,
-                                  plan.schema, ctx, conf.agg_dense_max_domain)
+                                  plan.schema, ctx, conf.agg_dense_max_domain,
+                                  plan.max_groups or DEFAULT_MAX_GROUPS,
+                                  plan.group_key_ranges)
     if isinstance(plan, P.Sort):
-        return B.sort_op(child, plan.orders, ctx)
+        return B.sort_op(child, plan.orders, plan.fetch, plan.skip, ctx)
+    if isinstance(plan, P.Limit):
+        return B.limit_op(child, plan.limit, plan.offset)
     raise NotImplementedError(f"run_plan: {type(plan).__name__}")
 
 
@@ -126,6 +148,17 @@ def replace_child_pure_deep(plan: P.PlanNode, old: P.PlanNode, new: P.PlanNode) 
     return out
 
 
+def _count_joins(plan: P.PlanNode) -> int:
+    return int(isinstance(plan, P.HashJoin)) + sum(_count_joins(c) for c in plan.children())
+
+
+def _count_heavy(plan: P.PlanNode) -> int:
+    """Joins, sorts and grouping aggregates in a subtree."""
+    own = isinstance(plan, (P.HashJoin, P.Sort)) or (
+        isinstance(plan, P.HashAggregate) and bool(plan.group_exprs))
+    return int(own) + sum(_count_heavy(c) for c in plan.children())
+
+
 def has_stream_agg(plan: P.PlanNode, tables) -> bool:
     """Whether the JAX package would run an aggregate of the plan tiled
     over the budget: a SINGLE HashAggregate over filters and projections of
@@ -153,9 +186,12 @@ class Session:
     """Table registry + plan executor on one device.
 
     ``device`` defaults to ``"cuda"``: without a card that raises, and a
-    caller that means the CPU passes ``device="cpu"``. ``grace_runners``
-    holds the grace joins of the last ``execute`` (K, mode, partition
-    sizes)."""
+    caller that means the CPU passes ``device="cpu"``. ``stats`` holds each
+    table's statistics (``register_numpy`` collects them; a table registered
+    as a batch has none, and its aggregates take the default capacities).
+    Of the last ``execute``: ``stages`` holds its (temporary table name or
+    None, bound subplan) stages in run order, ``grace_runners`` its grace
+    joins (K, mode, partition sizes)."""
 
     def __init__(self, device: Union[str, torch.device, None] = None,
                  conf: Optional[Config] = None):
@@ -168,6 +204,8 @@ class Session:
                 self.device = torch.device("cuda", torch.cuda.current_device())
         self.conf = conf or Config()
         self.tables: Dict[str, Batch] = {}
+        self.stats: Dict[str, TableStats] = {}
+        self.stages: List[Tuple[Optional[str], P.PlanNode]] = []
         self.grace_runners: List[G.GraceJoinRunner] = []
         self._ids = itertools.count()
 
@@ -178,23 +216,31 @@ class Session:
 
     def register_numpy(self, name: str, data: Dict[str, np.ndarray], schema: T.Schema,
                        **kw) -> None:
-        """Stage host columns on the session's device (see batch.from_numpy)."""
+        """Stage host columns on the session's device (see batch.from_numpy)
+        and collect their statistics."""
         kw.setdefault("dict_max_size", self.conf.scan_dictionary_max_size)
+        self.stats[name] = collect_stats(data, schema)
         self.tables[name] = from_numpy(data, schema, self.device, **kw)
 
     def budget_bytes(self) -> int:
         return device_budget_bytes(self.device, self.conf.memory_fraction)
 
     def execute(self, plan: P.PlanNode) -> Batch:
-        """Bind and prune (unless ``plan`` is bound), fit the plan to the
-        memory budget, and run it with the join-overflow retry. Raises
-        QueryExecutionError when a flag of the error side channel fired: an
-        ANSI error, or a kernel's code out of range."""
-        bound = plan if plan.schema is not None else P.bind_plan(prune_columns(plan))
+        """Plan the stages (``_plan_stages``) and run them in order, each
+        fitted to the memory budget and run with the overflow retry; a named
+        stage's result, compacted, is the temporary table the next stages
+        read. Raises QueryExecutionError when a flag of the error side
+        channel fired: an ANSI error, or a kernel's code out of range."""
+        self.stages = self._plan_stages(plan)
         self.grace_runners = []
-        temp_names: List[str] = []
+        temp_names: List[str] = [n for n, _ in self.stages if n]
+        out = None
         try:
-            return self._run_subtree(bound, temp_names)
+            for name, sub in self.stages:
+                out = self._run_subtree(sub, temp_names)
+                if name:
+                    self.tables[name] = self._aqe_shrink(out)
+            return out
         finally:
             for n in temp_names:  # free the temporary tables
                 self.tables.pop(n, None)
@@ -202,19 +248,82 @@ class Session:
     def collect(self, plan: P.PlanNode) -> Dict[str, np.ndarray]:
         return to_numpy(self.execute(plan))
 
+    # -- stages --------------------------------------------------------------------
+    def _plan_stages(self, plan: P.PlanNode) -> List[Tuple[Optional[str], P.PlanNode]]:
+        """Bind and prune (unless ``plan`` is bound), fill the aggregates'
+        capacities from statistics, and split: [(temporary table name,
+        subplan)] in run order, the last one (None, the query's root)."""
+        bound = plan if plan.schema is not None else P.bind_plan(prune_columns(plan))
+        derive_capacities(bound, self.stats)
+        stages: List[Tuple[Optional[str], P.PlanNode]] = []
+        root = bound
+        max_joins = self.conf.stage_max_joins
+        if max_joins and _count_joins(bound) > max_joins:
+            root = self._split_stages(bound, max_joins, stages)
+        stages.append((None, root))
+        if not self.conf.stage_max_heavy_ops:
+            return stages
+        out: List[Tuple[Optional[str], P.PlanNode]] = []
+        for name, sub in stages:
+            pre: List[Tuple[Optional[str], P.PlanNode]] = []
+            sub = self._split_heavy(sub, self.conf.stage_max_heavy_ops, pre)
+            out.extend(pre)
+            out.append((name, sub))
+        return out
+
+    def _stage(self, child: P.PlanNode, stages) -> P.Scan:
+        """``child`` as a stage of its own: the scan that reads its result."""
+        name = f"__stage{next(self._ids)}"
+        stages.append((name, child))
+        return pseudo_scan(name, child.schema)
+
+    def _split_stages(self, plan: P.PlanNode, max_joins: int, stages) -> P.PlanNode:
+        """Bottom-up: where a node's stage would hold more than ``max_joins``
+        joins, its join-heaviest children become stages of their own until
+        it fits. The caller's tree is not changed."""
+        for old in plan.children():
+            new = self._split_stages(old, max_joins, stages)
+            if new is not old:
+                plan = replace_child_pure(plan, old, new)
+        total = sum(_count_joins(k) for k in plan.children()) + int(isinstance(plan, P.HashJoin))
+        for child in sorted(plan.children(), key=_count_joins, reverse=True):
+            if total <= max_joins or _count_joins(child) == 0:
+                break
+            plan = replace_child_pure(plan, child, self._stage(child, stages))
+            total -= _count_joins(child)
+        return plan
+
+    def _split_heavy(self, plan: P.PlanNode, max_heavy: int, stages) -> P.PlanNode:
+        """Bottom-up: while a stage holds more than ``max_heavy`` heavy
+        operators, the child of a Sort or grouping aggregate that holds one
+        becomes a stage of its own."""
+        for old in plan.children():
+            new = self._split_heavy(old, max_heavy, stages)
+            if new is not old:
+                plan = replace_child_pure(plan, old, new)
+        if _count_heavy(plan) > max_heavy and isinstance(plan, (P.Sort, P.HashAggregate)):
+            child = plan.children()[0]
+            if not isinstance(child, P.Scan) and _count_heavy(child) >= 1:
+                plan = replace_child_pure(plan, child, self._stage(child, stages))
+        return plan
+
     # -- running -------------------------------------------------------------------
     def _run_subtree(self, plan: P.PlanNode, temp_names: List[str]) -> Batch:
         return self._execute_retry(self._budget_plan(plan, temp_names))
 
-    def _execute_retry(self, plan: P.PlanNode) -> Batch:
+    def _execute_retry(self, plan: P.PlanNode,
+                       tables: Optional[Dict[str, Batch]] = None) -> Batch:
+        """Run ``plan``, again with the joins' fan-out and the growth scale
+        four times larger while a capacity overflows."""
         fanout, scale = J.JOIN_FANOUT, 1
         for _ in range(J.MAX_JOIN_RETRIES):
-            out, overflowed = self._run_once(plan, fanout, scale)
+            out, overflowed = self._run_once(plan, fanout, scale, tables)
             if not overflowed:
                 return out
             fanout *= 4
             scale *= 4
-        raise JoinOverflowError(f"join fan-out exceeded after {J.MAX_JOIN_RETRIES} retries")
+        raise JoinOverflowError(
+            f"a join's fan-out or an aggregate's groups exceeded after {J.MAX_JOIN_RETRIES} retries")
 
     def _run_once(self, plan: P.PlanNode, fanout: int, scale: int,
                   tables: Optional[Dict[str, Batch]] = None) -> Tuple[Batch, bool]:
@@ -236,7 +345,9 @@ class Session:
     def _aqe_shrink(self, b: Batch) -> Batch:
         """Compact a batch to twice its live rows (at least 1024, a power of
         two) when that cuts its capacity at least four times: one host read
-        of the live count. Bounds and dictionaries carry over."""
+        of the live count. Bounds and dictionaries carry over. (The JAX
+        package skips a moderate shrink of a very large batch to save a
+        compile; here nothing is compiled, so every such shrink runs.)"""
         target = pad_capacity(max(2 * int(b.num_rows()), 1024))
         if target * 4 > b.capacity:
             return b
@@ -281,6 +392,11 @@ class Session:
                 stage = replace_child_pure_deep(stage, gj, scan)
             elif ds[0] == "partial":
                 stage = replace_child_pure_deep(stage, ds[1], scan)
+            elif isinstance(stage, P.Sort):
+                # local under a top-K root: each pair ran the stage, its own
+                # top-K included; the sort (order, fetch and skip) runs again
+                # over the union of the pairs' top-Ks
+                stage = replace_child_pure(stage, stage.child, scan)
             else:  # local: the whole stage ran inside each pair
                 stage = scan
         return stage

@@ -9,9 +9,11 @@ every column of a side into partition order in one pass), and the join then
 runs K times, once per pair of partitions, at about 1/K of the size:
 partition k of one side can only match partition k of the other. Each pair's
 rows are slices of the two sorted sides, which replace the unsorted ones as
-soon as they are made. The pair outputs are compacted and unioned, or,
-when an aggregate sits above the join, each pair emits PARTIAL aggregate
-states and one FINAL aggregate merges them.
+soon as they are made. The pair outputs are compacted and unioned; when an
+aggregate sits above the join, either each pair runs the whole stage (its
+groups are partition-local, possibly under a top-K root) or each pair emits
+PARTIAL aggregate states and one FINAL aggregate merges them
+(``plan_grace_downstream``).
 
 Partition sizes are read on the host after the partition sort (K + 1
 starts per side), so every pair's capacity is exact. The JAX package
@@ -33,6 +35,7 @@ from datafusion_comet_tpu_torch.exec.evaluator import EvalContext, evaluate, mur
 from datafusion_comet_tpu_torch.exec.memory import plan_peak_bytes
 from datafusion_comet_tpu_torch.exec.operators import basic as BASIC
 from datafusion_comet_tpu_torch.exec.operators import join as J
+from datafusion_comet_tpu_torch.exec.stats import DEFAULT_MAX_GROUPS
 from datafusion_comet_tpu_torch.exec.streaming import dead_batch, partial_schema, pseudo_scan
 from datafusion_comet_tpu_torch.ir import expr as E
 from datafusion_comet_tpu_torch.ir import plan as P
@@ -142,11 +145,14 @@ def plan_grace_downstream(stage: P.PlanNode, gj: P.HashJoin):
     pair instead of over the union of the pairs' outputs:
 
     * ("local", A): the one SINGLE HashAggregate A groups by a join key, so
-      its groups are partition-local and the whole stage runs per pair; the
-      union of the pair outputs is the stage output. (The JAX package also
-      allows a top-K Sort root here; the port's Sort has no fetch.)
+      its groups are partition-local and the whole stage runs per pair. Only
+      filters and projections may sit above A, or a top-K Sort root over
+      them (``root_sort_ok``): then each pair keeps its own top-K and the
+      sort runs again over the union; else the union of the pair outputs is
+      the stage output.
     * ("partial", A): any other grouping: each pair emits A's PARTIAL states
-      and a FINAL aggregate merges them.
+      and a FINAL aggregate merges them, unless A may hold more than 2^20
+      groups (K pairs of such partials would be the join's size again).
     * None: no pushdown; the pair join outputs are unioned.
     """
     chain: List[P.PlanNode] = []
@@ -189,13 +195,18 @@ def plan_grace_downstream(stage: P.PlanNode, gj: P.HashJoin):
         if nm and nm in keynames:
             local = True
             break
-    if local and all(isinstance(n, (P.Filter, P.Projection)) for n in above):
+    root_sort_ok = (isinstance(stage, P.Sort) and bool(stage.fetch)
+                    and all(isinstance(n, (P.Filter, P.Projection)) for n in above[1:]))
+    chain_ok = all(isinstance(n, (P.Filter, P.Projection)) for n in above)
+    if local and (root_sort_ok or chain_ok):
         return ("local", A)
     try:  # every aggregate function needs partial states
         partial_schema(A)
     except NotImplementedError:
         return None
-    return ("partial", A)  # the port's estimate of A's groups is 2^16, under 2^20
+    if (A.max_groups or DEFAULT_MAX_GROUPS) > (1 << 20):
+        return None
+    return ("partial", A)
 
 
 class GraceJoinRunner:
@@ -221,7 +232,7 @@ class GraceJoinRunner:
             self.out_schema = stage.schema
         else:
             self.out_schema = downstream[1].schema
-        self.template = self._build_template()
+        self.template: Optional[P.PlanNode] = None  # each pair's plan, set by a run
         # what the last run saw: each side's capacity and partition sizes,
         # and the pair retries
         self.capacities: Optional[Tuple[int, int]] = None
@@ -236,34 +247,48 @@ class GraceJoinRunner:
         mini.schema = j.schema
         return mini
 
-    def _build_template(self) -> P.PlanNode:
+    def _build_template(self, pair_bound: int) -> P.PlanNode:
         """Each pair's plan: the mini join alone, the whole stage over it
-        (local), or the aggregate's PARTIAL run over it (partial)."""
+        (local), or the aggregate's PARTIAL run over it (partial). Its
+        aggregate holds at most ``pair_bound`` groups (twice the largest
+        partition, padded); under a top-K root each pair keeps skip + fetch
+        rows, and the skip applies to the union."""
         from datafusion_comet_tpu_torch.exec.engine import replace_child_pure_deep
 
         mini = self._mini_plan()
         if self.downstream is None:
             return mini
         mode, A = self.downstream
+        max_groups = min(A.max_groups or pair_bound, pair_bound)
         if mode == "local":
-            return replace_child_pure_deep(self.stage, self.join, mini)
+            stage = replace_child_pure_deep(self.stage, self.join, mini)  # copies the path
+            agg = stage
+            while not isinstance(agg, P.HashAggregate):
+                agg = agg.children()[0]
+            agg.max_groups = max_groups
+            if isinstance(stage, P.Sort) and stage.skip:
+                stage.fetch = (stage.fetch or 0) + stage.skip
+                stage.skip = 0
+            return stage
         child = mini if A.child is self.join else replace_child_pure_deep(A.child, self.join, mini)
-        partial = P.HashAggregate(child, A.group_exprs, A.agg_exprs, P.AggMode.PARTIAL)
+        partial = P.HashAggregate(child, A.group_exprs, A.agg_exprs, P.AggMode.PARTIAL,
+                                  max_groups, A.group_key_ranges)
         partial.schema = partial_schema(A)
         return partial
 
     def _finish(self, union: Batch) -> Batch:
         """After the union: nothing (plain and local modes), or the FINAL
-        aggregate of the partial states."""
+        aggregate of the partial states at A's group capacity, on whichever
+        path its keys take, re-run four times larger while its groups
+        overflow."""
         if self.downstream is None or self.downstream[0] == "local":
             return union
         _, A = self.downstream
         groups = tuple(E.bind(E.col(g.name), self.template.schema) for g in A.group_exprs)
         node = P.HashAggregate(pseudo_scan("__acc", union.schema), groups, A.agg_exprs,
-                               P.AggMode.FINAL)
+                               P.AggMode.FINAL, A.max_groups, A.group_key_ranges)
         node.schema = A.schema
-        s = self.session
-        return s._run_once(node, J.JOIN_FANOUT, 1, {"__acc": union})[0]
+        return self.session._execute_retry(node, {"__acc": union})
 
     def __call__(self) -> None:
         # the spans name the runner's phases in a torch.profiler trace; with
@@ -278,6 +303,8 @@ class GraceJoinRunner:
         with record_function("grace.partition"):
             left, right, sl, sr = self._partition(sides)
         self.sizes = (np.diff(sl), np.diff(sr))
+        self.template = self._build_template(pad_capacity(
+            2 * max(int(self.sizes[0].max(initial=0)), int(self.sizes[1].max(initial=0)), 8)))
         with record_function("grace.pairs"):
             outs = self._run_pairs(left, right, sl, sr)
         with record_function("grace.finish"):

@@ -15,6 +15,7 @@ import torch
 
 from datafusion_comet_tpu_torch import types as T
 from datafusion_comet_tpu_torch.exec.operators.join import JOIN_FANOUT
+from datafusion_comet_tpu_torch.exec.stats import DEFAULT_MAX_GROUPS
 from datafusion_comet_tpu_torch.ir import plan as P
 
 __all__ = ["batch_bytes", "plan_peak_bytes", "device_budget_bytes"]
@@ -39,8 +40,8 @@ def batch_bytes(schema: T.Schema, capacity: int) -> int:
 def plan_peak_bytes(plan: P.PlanNode, capacity: int) -> int:
     """Upper bound on resident bytes while running ``plan`` over inputs of
     ``capacity`` rows: the sum of every operator's output batch. An
-    aggregate counts at most 2^16 groups (the port has no stats-derived
-    group capacity) and a join its first fan-out's rows per input row."""
+    aggregate counts its ``max_groups`` (2^16 where statistics gave none)
+    and a join its first fan-out's rows per input row."""
     total = 0
     stack = [plan]
     while stack:
@@ -48,7 +49,7 @@ def plan_peak_bytes(plan: P.PlanNode, capacity: int) -> int:
         stack.extend(node.children())
         cap = capacity
         if isinstance(node, P.HashAggregate):
-            cap = min(1 << 16, capacity)
+            cap = min(node.max_groups or DEFAULT_MAX_GROUPS, capacity)
         elif isinstance(node, P.HashJoin):
             cap = capacity * JOIN_FANOUT
         if node.schema is not None:

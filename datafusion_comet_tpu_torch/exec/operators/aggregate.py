@@ -1,34 +1,59 @@
-"""Hash aggregate, dense bucket path (port of
+"""Hash aggregate: SUM, COUNT and AVG in every mode (port of
 ``datafusion_comet_tpu/exec/operators/aggregate.py``: _try_pack_keys,
-hash_aggregate, _bucket_aggregate, _input_agg, _merge_agg, _decimal_sum,
-_finalize), in every mode: SINGLE and PARTIAL aggregate input rows, FINAL and
-PARTIAL_MERGE merge the state columns PARTIAL emits (``state_fields``).
+_pack_sort_limbs, _segments, _seg_bounds, _seg_sum, hash_aggregate,
+_sorted_aggregate, _compact_groups, _bucket_aggregate, _input_agg,
+_merge_agg, _decimal_sum, _finalize). SINGLE and PARTIAL aggregate input
+rows; FINAL and PARTIAL_MERGE merge the state columns PARTIAL emits
+(``state_fields``). The other aggregate functions (MIN, MAX, FIRST, LAST
+and the rest) are not ported and raise NotImplementedError.
 
-When the group keys pack into a small perfect-hash domain (dictionary codes,
-bools, int8; at most ``agg_dense_max_domain`` buckets) the packed key IS the
-bucket id: no row sort, no capacity hint, one pass per aggregate input.
-Every per-bucket reduction runs on the hand-written kernels of
-exec/kernels.py: sums on ``bucket_sum``, counts, presence and has-a-value
-masks on ``bucket_count``. Dead rows carry bucket id == B and are dropped.
+Two paths, chosen as the JAX package chooses them:
 
-An ungrouped aggregate goes through the same path with one bucket: live
-rows get id 0, dead rows id 1, and its one output row is always live, so it
-emits exactly one row even over empty input (sum null, count 0). The JAX
-package sorts there (_segments); the result is the same. Larger key domains
-take the JAX package's sorted path, which is not ported yet.
+- **Dense.** When the group keys pack into a small perfect-hash domain
+  (dictionary codes, bools, int8; at most ``agg_dense_max_domain`` buckets)
+  the packed key IS the bucket id: no row sort, one pass per aggregate
+  input. Every per-bucket reduction runs on the hand-written kernels of
+  exec/kernels.py: sums on ``bucket_sum``, counts, presence and has-a-value
+  masks on ``bucket_count``. Dead rows carry bucket id == B and are dropped.
+  Where ``max_groups`` is below the bucket count, the live buckets are
+  compacted to it in key order. An ungrouped aggregate goes through the same
+  path with one bucket; its one output row is always live, so it emits
+  exactly one row even over empty input (sum null, count 0). The JAX package
+  sorts there; the result is the same.
+- **Sorted.** Any other key set: the keys pack into one or two int64 sort
+  limbs where each key's range is known (``_pack_sort_limbs``: dictionary
+  codes, bools, int8, and integers and dates with a statistics range), else
+  into the generic null-flag-and-value limbs (sortkeys.grouping_limbs). The
+  dead-row flag goes into bit 62 of the first limb, one stable
+  ``torch.sort`` (a lexsort over several limbs) orders the rows, and every
+  aggregate input, evaluated once on the unsorted batch, is gathered once
+  through the permutation (the TPU carries payloads through ``lax.sort``
+  because a gather is slow there; on a GPU one ``index_select`` a column is
+  the plain idiom). Group ids come from the key changes; each group's
+  [start, end) from a binary search below 2^16 groups and from a scatter of
+  each group's first row above; sums are one int64 cumulative sum and its
+  difference at the bounds (wide sums: one per 32-bit lane, exact below 2^31
+  rows). The output holds ``max_groups`` rows, groups in key order; more
+  groups than that flag an overflow, and the session re-runs with the
+  capacity four times larger.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from datafusion_comet_tpu_torch import types as T
 from datafusion_comet_tpu_torch.exec import decimal_wide as DW
 from datafusion_comet_tpu_torch.exec import kernels as K
+from datafusion_comet_tpu_torch.exec import sortkeys
 from datafusion_comet_tpu_torch.exec.batch import Batch, ColumnVector, quantize_bound
 from datafusion_comet_tpu_torch.exec.evaluator import EvalContext, _NARROW_LIMIT, _dec_bound, evaluate
+from datafusion_comet_tpu_torch.exec.operators.basic import compact_batch
+from datafusion_comet_tpu_torch.exec.stats import DEFAULT_MAX_GROUPS
 from datafusion_comet_tpu_torch.ir import expr as E
 from datafusion_comet_tpu_torch.ir.plan import AggMode
 from datafusion_comet_tpu_torch.utils import int128
@@ -36,6 +61,9 @@ from datafusion_comet_tpu_torch.utils import int128
 __all__ = ["state_fields", "hash_aggregate"]
 
 _PACK_BITS_CAP = 24  # packed keys: at most 2^24 distinct codes
+_BUCKET_DOMAIN, _BUCKET_ROWS = 1 << 16, 1 << 18  # see keep_bounds in hash_aggregate
+_SEARCH_GROUPS = 1 << 16  # _seg_bounds: binary search below, a scatter at and above
+_DEAD_BIT = 62  # _pack_sort_limbs fills bits 0..61 of a limb; bit 62 marks dead rows
 
 
 def _sum_state_dtype(a: E.AggExpr) -> T.DataType:
@@ -87,6 +115,83 @@ def _try_pack_keys(key_cols: Sequence[ColumnVector]):
     return seg, 1 << total_bits
 
 
+def _pack_sort_limbs(key_cols: Sequence[ColumnVector], key_ranges
+                     ) -> Optional[List[torch.Tensor]]:
+    """All group keys packed into as few int64 sort limbs as fit, 62 bits a
+    limb, in grouping_limbs' order (per key a null flag, nulls last, then the
+    value: dictionary codes, bools, int8 offset by 128, integers and dates
+    offset by their statistics range). None when a key has no such encoding."""
+    key_ranges = key_ranges or (None,) * len(key_cols)
+    limbs: List[torch.Tensor] = []
+    acc, bits_used = None, 0
+    for cv, rng in zip(key_cols, key_ranges):
+        dt = cv.dtype
+        if dt.is_boolean:
+            enc, b = cv.data.long(), 1
+        elif cv.is_dict:
+            k = cv.dictionary.size
+            enc, b = cv.data.clamp(0, max(k - 1, 0)).long(), max((max(k - 1, 0)).bit_length(), 1)
+        elif dt.type_id == "INT8":
+            enc, b = cv.data.long() + 128, 8
+        elif (dt.is_integer or dt.type_id == "DATE") and rng is not None:
+            lo, hi = rng
+            span = hi - lo
+            if span < 0 or span >= (1 << 62):
+                return None
+            enc, b = cv.data.long().clamp(lo, hi) - lo, max(span.bit_length(), 1)
+        else:
+            return None
+        enc = torch.where(cv.validity, enc, 0)
+        b += 1  # the null flag, above the value
+        if bits_used + b > 62:
+            limbs.append(acc)
+            acc, bits_used = None, 0
+        piece = ((~cv.validity).long() << (b - 1)) | enc
+        acc = piece if acc is None else (acc << b) | piece
+        bits_used += b
+    if acc is not None:
+        limbs.append(acc)
+    return limbs
+
+
+class _Buckets:
+    """Per-bucket reductions on the bucket kernels (the dense path): ``seg``
+    the int32 bucket id of each row, dead rows ``m``."""
+
+    def __init__(self, seg: torch.Tensor, m: int, errors):
+        self.seg, self.m, self.errors = seg, m, errors
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """int64 (n,) or (k, n) values, zero where not summed -> (m,) or (k, m)."""
+        return K.bucket_sum(self.seg, x, self.m, self.errors)
+
+    def count(self, valid: torch.Tensor) -> torch.Tensor:
+        return K.bucket_count(torch.where(valid, self.seg, self.m).int(), self.m, self.errors)
+
+
+class _Segments:
+    """Per-group reductions over rows sorted by group (the sorted path):
+    each group's rows are [starts[g], ends[g]); a sum is the difference of a
+    cumulative sum at the two ends, exact mod 2^64."""
+
+    def __init__(self, starts: torch.Tensor, ends: torch.Tensor):
+        self.starts, self.ends = starts, ends
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """int64 (n,) or (k, n) -> (m,) or (k, m). The k rows are summed as
+        one 1-D scan with a zero in front (a scan along the last dimension
+        of a (k, n) tensor is one slow block a row on a GPU); the offsets of
+        earlier rows cancel in each difference."""
+        n = x.shape[-1]
+        acc = torch.cumsum(x.reshape(-1), 0)
+        acc = torch.cat([acc.new_zeros(1), acc])
+        base = torch.arange(0, x.numel(), n, device=x.device).view(-1, 1) if x.dim() == 2 else 0
+        return acc[base + self.ends] - acc[base + self.starts]
+
+    def count(self, valid: torch.Tensor) -> torch.Tensor:
+        return self.sum(valid.int()).long()
+
+
 def hash_aggregate(
     batch: Batch,
     group_exprs: Sequence[E.Expr],
@@ -95,18 +200,150 @@ def hash_aggregate(
     out_schema: T.Schema,
     ctx: Optional[EvalContext] = None,
     dense_max_domain: int = 64,
+    max_groups: int = DEFAULT_MAX_GROUPS,
+    key_ranges=None,
 ) -> Batch:
+    """Group ``batch`` by ``group_exprs``. ``max_groups``: the output's group
+    capacity, times the session's growth scale and at most the input
+    capacity; ``key_ranges``: per key an exact (min, max) or None."""
     ctx = ctx or EvalContext()
+    max_groups = min(max_groups * max(ctx.agg_scale, 1), batch.capacity)
     key_cols = [evaluate(g, batch, ctx) for g in group_exprs]
     if not key_cols:
         seg = torch.where(batch.row_mask, 0, 1).int()
         return _bucket_aggregate(batch, key_cols, agg_exprs, mode, (seg, 1), out_schema, ctx)
     packed = _try_pack_keys(key_cols)
-    if packed is None or packed[1] > max(dense_max_domain, 0):
-        raise NotImplementedError(
-            "group keys outside the dense bucket domain need the sorted aggregate path, "
-            "which is not ported yet")
-    return _bucket_aggregate(batch, key_cols, agg_exprs, mode, packed, out_schema, ctx)
+    if packed is not None and packed[1] <= max(dense_max_domain, 0):
+        out = _bucket_aggregate(batch, key_cols, agg_exprs, mode, packed, out_schema, ctx)
+        if out.capacity > max_groups:
+            # the live buckets, in key order, packed into max_groups rows
+            out, ovf = compact_batch(out, max_groups)
+            if ctx.overflow_flags is not None:
+                ctx.overflow_flags.append(ovf)
+        return out
+    # a packed dictionary key too wide for the dense path still sorts as
+    # one int32 limb
+    key_limbs = ([packed[0]] if packed is not None
+                 else _pack_sort_limbs(key_cols, key_ranges))
+    # the JAX package aggregates a packed domain up to 2^16 over at most 2^18
+    # rows on its bucket path, which keeps the inputs' magnitude bounds: the
+    # sums' storage then follows them
+    keep_bounds = (packed is not None and packed[1] <= _BUCKET_DOMAIN
+                   and batch.capacity <= _BUCKET_ROWS)
+    return _sorted_aggregate(batch, key_cols, key_limbs, agg_exprs, mode, max_groups,
+                             out_schema, ctx, keep_bounds)
+
+
+def _sort_groups(key_cols, key_limbs, row_mask: torch.Tensor):
+    """(perm, sorted row mask, key-change flags): rows by group key, stably,
+    dead rows last (the flag in bit 62 of the first limb), and True at each
+    group's first sorted row."""
+    limbs = key_limbs if key_limbs is not None else sortkeys.grouping_limbs(key_cols)
+    lead = limbs[0].long() | ((~row_mask).long() << _DEAD_BIT)
+    if len(limbs) == 1:
+        sorted_lead, perm = torch.sort(lead, stable=True)
+        sorted_limbs = [sorted_lead]
+        sorted_mask = sorted_lead < (1 << _DEAD_BIT)
+    else:
+        perm = sortkeys.lexsort([lead] + list(limbs[1:]))
+        sorted_limbs = [lead[perm]] + [l[perm] for l in limbs[1:]]
+        sorted_mask = row_mask[perm]
+    changed = torch.zeros_like(sorted_mask)
+    changed[:1] = True
+    for s in sorted_limbs:
+        changed[1:] |= s[1:] != s[:-1]
+    return perm, sorted_mask, changed & sorted_mask
+
+
+def _seg_bounds(seg: torch.Tensor, changed: torch.Tensor, num_groups: torch.Tensor,
+                n_live: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[start, end) of each of m groups in the sorted rows (an empty group:
+    start == end == n). ``seg``: nondecreasing group id per sorted row, m on
+    dead rows. Below 2^16 groups two binary searches (m x log n); above,
+    each group's first row scattered to its slot (a scatter-min, as each
+    group has one first row) and its end the next group's start."""
+    n = seg.shape[0]
+    if m < _SEARCH_GROUPS:
+        gids = torch.arange(m, dtype=seg.dtype, device=seg.device)
+        return (torch.searchsorted(seg, gids, side="left"),
+                torch.searchsorted(seg, gids, side="right"))
+    rows = torch.arange(n, device=seg.device)
+    starts = torch.full((m + 1,), n, dtype=torch.int64, device=seg.device)
+    starts.scatter_(0, torch.where(changed, seg, m), rows)
+    starts[m] = n  # the sink took the other rows' writes: an empty last slot ends at n
+    gids = torch.arange(m, device=seg.device)
+    ends = torch.where(gids == num_groups - 1, n_live, starts[1:])
+    return starts[:m], ends
+
+
+def _sorted_aggregate(batch: Batch, key_cols, key_limbs, agg_exprs, mode: str,
+                      max_groups: int, out_schema: T.Schema, ctx: EvalContext,
+                      keep_bounds: bool = False) -> Batch:
+    """The sorted path: see the module docstring. Output capacity
+    ``max_groups``, groups in key order. The sorted inputs drop their
+    magnitude bounds, as the JAX package's sorted payloads do, unless
+    ``keep_bounds``."""
+    cap = batch.capacity
+    merging = mode in (AggMode.FINAL, AggMode.PARTIAL_MERGE)
+    # every aggregate input evaluated once, on the unsorted batch
+    pre: List[ColumnVector] = []
+    names: List[str] = []
+    exprs: List[E.Expr] = []  # alive while their ids key index_of
+    index_of: Dict[int, int] = {}
+
+    def add(ex: Optional[E.Expr], name: Optional[str] = None) -> None:
+        if ex is None or id(ex) in index_of or isinstance(ex, E.Literal):
+            return
+        index_of[id(ex)] = len(pre)
+        exprs.append(ex)
+        pre.append(evaluate(ex, batch, ctx))
+        names.append(name or f"__agg_in_{len(pre) - 1}")
+
+    if merging:
+        for a in agg_exprs:
+            for fld in state_fields(a):
+                if fld.name not in names:
+                    i = batch.schema.index_of(fld.name)
+                    add(E.BoundRef(i, fld.name, batch.schema.fields[i].dtype), fld.name)
+    else:
+        for a in agg_exprs:
+            add(a.child)
+    with record_function("aggregate.sort"):
+        perm, sorted_mask, changed = _sort_groups(key_cols, key_limbs, batch.row_mask)
+        synth_cols = tuple(dataclasses.replace(cv.take(perm), mag_bound=cv.mag_bound)
+                           if keep_bounds else cv.take(perm) for cv in pre)
+    synth = Batch(synth_cols, sorted_mask,
+                  T.Schema([T.Field(nm, c.dtype) for nm, c in zip(names, synth_cols)]))
+    num_groups = changed.sum()
+    seg = torch.cumsum(changed, 0) - 1
+    # rows of groups past the capacity go with the dead rows: the overflow
+    # flag re-runs the query, and seg stays sorted meanwhile
+    seg = torch.where(sorted_mask, seg.clamp(max=max_groups), max_groups)
+    if ctx.overflow_flags is not None and max_groups < cap:
+        ctx.overflow_flags.append(num_groups > max_groups)
+    group_mask = torch.arange(max_groups, device=batch.device) < num_groups
+    starts, ends = _seg_bounds(seg, changed, num_groups, sorted_mask.sum(), max_groups)
+    red = _Segments(starts, ends)
+    first_orig = perm[torch.where(group_mask, starts.clamp(0, cap - 1), 0)]
+    out_cols: List[ColumnVector] = [kc.take(first_orig) for kc in key_cols]
+
+    def ref(ex: Optional[E.Expr]) -> Optional[E.Expr]:
+        if ex is None or isinstance(ex, E.Literal):
+            return ex
+        i = index_of[id(ex)]
+        return E.BoundRef(i, names[i], pre[i].dtype)
+
+    for a in agg_exprs:
+        if merging:
+            vals = _merge_agg(a, synth, red, group_mask, ctx)
+        else:
+            vals = _input_agg(dataclasses.replace(a, child=ref(a.child)), synth, red,
+                              group_mask, ctx)
+        if mode in (AggMode.SINGLE, AggMode.FINAL):
+            out_cols.append(_finalize(a, vals, None if merging else cap))
+        else:
+            out_cols.extend(vals)
+    return Batch(tuple(out_cols), group_mask, out_schema)
 
 
 def _bucket_aggregate(batch: Batch, key_cols, agg_exprs, mode: str, packed,
@@ -126,11 +363,12 @@ def _bucket_aggregate(batch: Batch, key_cols, agg_exprs, mode: str, packed,
         group_mask = torch.ones(1, dtype=torch.bool, device=batch.device)
     out_cols: List[ColumnVector] = [kc.take(first_orig) for kc in key_cols]
     merging = mode in (AggMode.FINAL, AggMode.PARTIAL_MERGE)
+    red = _Buckets(seg, n_buckets, ctx.errors)
     for a in agg_exprs:
         if merging:
-            vals = _merge_agg(a, batch, seg, n_buckets, group_mask, ctx)
+            vals = _merge_agg(a, batch, red, group_mask, ctx)
         else:
-            vals = _input_agg(a, batch, seg, n_buckets, group_mask, ctx)
+            vals = _input_agg(a, batch, red, group_mask, ctx)
         if mode in (AggMode.SINGLE, AggMode.FINAL):
             # merged counts are sums of counts: the input capacity bounds
             # them only when rows are aggregated directly
@@ -140,23 +378,17 @@ def _bucket_aggregate(batch: Batch, key_cols, agg_exprs, mode: str, packed,
     return Batch(tuple(out_cols), group_mask, out_schema)
 
 
-def _count(valid: torch.Tensor, seg: torch.Tensor, m: int, errors) -> torch.Tensor:
-    """Per-bucket count of rows where ``valid`` (dead rows already carry m)."""
-    return K.bucket_count(torch.where(valid, seg, m).int(), m, errors)
-
-
-def _decimal_sum(cv: ColumnVector, x: torch.Tensor, valid: torch.Tensor, seg: torch.Tensor,
-                 m: int, st: T.DataType, errors):
-    """Per-bucket sum into state type ``st``: (state data, sum bound or None,
+def _decimal_sum(cv: ColumnVector, x: torch.Tensor, valid: torch.Tensor, red,
+                 st: T.DataType):
+    """Per-group sum into state type ``st``: (state data, sum bound or None,
     overflow mask or None). A wide-typed sum whose sound bound (max|value| x
     rows) reaches int64 splits each value into four 32-bit lanes, sums all
-    four in one launch and recombines them per bucket."""
+    four at once and recombines them per group."""
     if st.is_decimal and st.is_wide_decimal:
         sb = _dec_bound(cv, cv.dtype if cv.dtype.is_decimal else st) * x.shape[0]
         if cv.is_wide_storage or sb >= _NARROW_LIMIT:
             p = DW.pair(x) if x.dim() == 2 else int128.from_i64(x.long())
-            lanes = torch.stack([torch.where(valid, lane, 0) for lane in DW.decompose4(p)])
-            sums = K.bucket_sum(seg, lanes, m, errors)
+            sums = red.sum(torch.stack([torch.where(valid, lane, 0) for lane in DW.decompose4(p)]))
             packed = DW.pack(DW.recombine4(*sums))
             # Spark nulls decimal sums that overflow the 38-digit state: the
             # exact check catches 10^38..2^127, an f64 estimate of the lane
@@ -164,24 +396,26 @@ def _decimal_sum(cv: ColumnVector, x: torch.Tensor, valid: torch.Tensor, seg: to
             est = sum(s.double() * 2.0 ** (32 * i) for i, s in enumerate(sums))
             over = DW.overflow_check(DW.pair(packed), st.precision) | (est.abs() >= 1.5e38)
             return packed, None, over
-        return K.bucket_sum(seg, torch.where(valid, x, 0).long(), m, errors), sb, None
+        return red.sum(torch.where(valid, x, 0).long()), sb, None
     if st.is_floating:
-        raise NotImplementedError("floating-point SUM needs a float bucket kernel (not ported)")
-    return K.bucket_sum(seg, torch.where(valid, x, 0).long(), m, errors), None, None
+        raise NotImplementedError("floating-point SUM is not ported yet")
+    return red.sum(torch.where(valid, x, 0).long()), None, None
 
 
-def _input_agg(a: E.AggExpr, batch: Batch, seg: torch.Tensor, m: int,
-               group_mask: torch.Tensor, ctx: EvalContext) -> List[ColumnVector]:
+def _input_agg(a: E.AggExpr, batch: Batch, red, group_mask: torch.Tensor,
+               ctx: EvalContext) -> List[ColumnVector]:
     active = batch.row_mask
     if a.func == E.AggFunc.COUNT and a.child is None:  # COUNT(*)
-        return [ColumnVector(_count(active, seg, m, ctx.errors), group_mask, None, T.INT64)]
+        return [ColumnVector(red.count(active), group_mask, None, T.INT64)]
     cv = evaluate(a.child, batch, ctx)
     valid = cv.validity & active
     if a.func == E.AggFunc.COUNT:
-        return [ColumnVector(_count(valid, seg, m, ctx.errors), group_mask, None, T.INT64)]
+        return [ColumnVector(red.count(valid), group_mask, None, T.INT64)]
+    if a.func not in (E.AggFunc.SUM, E.AggFunc.AVG):
+        raise NotImplementedError(f"aggregate {a.func} is not ported yet")
     st = _sum_state_dtype(a)
-    s, sb, over = _decimal_sum(cv, cv.data, valid, seg, m, st, ctx.errors)
-    cnt = _count(valid, seg, m, ctx.errors)
+    s, sb, over = _decimal_sum(cv, cv.data, valid, red, st)
+    cnt = red.count(valid)
     has = (cnt > 0) & group_mask
     if over is not None:
         has = has & ~over
@@ -189,35 +423,32 @@ def _input_agg(a: E.AggExpr, batch: Batch, seg: torch.Tensor, m: int,
     state = ColumnVector(s, has, None, st, mag_bound=bound)
     if a.func == E.AggFunc.SUM:
         return [state]
-    if a.func == E.AggFunc.AVG:
-        return [state, ColumnVector(cnt, group_mask, None, T.INT64)]
-    raise NotImplementedError(f"aggregate {a.func}")
+    return [state, ColumnVector(cnt, group_mask, None, T.INT64)]
 
 
-def _merge_agg(a: E.AggExpr, batch: Batch, seg: torch.Tensor, m: int,
-               group_mask: torch.Tensor, ctx: EvalContext) -> List[ColumnVector]:
-    """Merge PARTIAL state columns per bucket into the same states: counts
-    and sums add on the bucket kernels; a sum state is null where no input
-    state of its group was valid."""
+def _merge_agg(a: E.AggExpr, batch: Batch, red, group_mask: torch.Tensor,
+               ctx: EvalContext) -> List[ColumnVector]:
+    """Merge PARTIAL state columns per group into the same states: counts
+    and sums add; a sum state is null where no input state of its group was
+    valid."""
     sts = [batch.column(f.name) for f in state_fields(a)]
     live = batch.row_mask
 
     def added(cv: ColumnVector) -> torch.Tensor:
-        return K.bucket_sum(seg, torch.where(cv.validity & live, cv.data, 0).long(), m,
-                            ctx.errors)
+        return red.sum(torch.where(cv.validity & live, cv.data, 0).long())
 
     if a.func == E.AggFunc.COUNT:
         return [ColumnVector(added(sts[0]), group_mask, None, T.INT64)]
     st = sts[0]
     valid = st.validity & live
-    s, sb, over = _decimal_sum(st, st.data, valid, seg, m, st.dtype, ctx.errors)
+    s, sb, over = _decimal_sum(st, st.data, valid, red, st.dtype)
     if a.func == E.AggFunc.SUM:
-        has = (_count(valid, seg, m, ctx.errors) > 0) & group_mask
+        has = (red.count(valid) > 0) & group_mask
     elif a.func == E.AggFunc.AVG:
         cnt = added(sts[1])
         has = (cnt > 0) & group_mask
     else:
-        raise NotImplementedError(f"merging aggregate {a.func}")
+        raise NotImplementedError(f"merging aggregate {a.func} is not ported yet")
     if over is not None:
         has = has & ~over
     state = ColumnVector(s, has, None, st.dtype,

@@ -1,10 +1,11 @@
-"""Row-preserving operators: filter, project, sort, and the compaction that
-packs live rows into a smaller capacity (port of
-``datafusion_comet_tpu/exec/operators/basic.py:37-137``).
+"""Row-preserving operators: filter, project, sort (with top-K), limit, and
+the compaction that packs live rows into a smaller capacity (port of
+``datafusion_comet_tpu/exec/operators/basic.py:37-145``).
 
 A filter flips mask bits (no dynamic shapes); a sort is one stable
 multi-limb lexsort with dead rows last, after which live rows are
-front-packed and the mask is a prefix.
+front-packed and the mask is a prefix; its fetch and skip, and a limit,
+narrow the mask.
 """
 
 from __future__ import annotations
@@ -17,11 +18,12 @@ import torch
 from datafusion_comet_tpu_torch import types as T
 from datafusion_comet_tpu_torch.exec import kernels as KN
 from datafusion_comet_tpu_torch.exec import sortkeys
-from datafusion_comet_tpu_torch.exec.batch import Batch, ColumnVector
+from datafusion_comet_tpu_torch.exec.batch import Batch, pad_capacity
 from datafusion_comet_tpu_torch.exec.evaluator import EvalContext, evaluate, evaluate_predicate
 from datafusion_comet_tpu_torch.ir import expr as E
 
-__all__ = ["filter_op", "project_op", "sort_op", "partition_batch", "compact_batch"]
+__all__ = ["filter_op", "project_op", "sort_op", "limit_op", "partition_batch",
+           "compact_batch"]
 
 
 def filter_op(batch: Batch, predicate: E.Expr, ctx: Optional[EvalContext] = None) -> Batch:
@@ -33,21 +35,33 @@ def project_op(batch: Batch, exprs: Sequence[E.Expr], out_schema: T.Schema,
     return Batch(tuple(evaluate(x, batch, ctx) for x in exprs), batch.row_mask, out_schema)
 
 
-def sort_op(batch: Batch, orders: Sequence[E.SortOrder],
-            ctx: Optional[EvalContext] = None) -> Batch:
-    """Total sort, live rows first. Sorted columns drop their magnitude
-    bounds, as in the JAX package."""
+def sort_op(batch: Batch, orders: Sequence[E.SortOrder], fetch: Optional[int] = None,
+            skip: int = 0, ctx: Optional[EvalContext] = None) -> Batch:
+    """Total sort, live rows first; then only the sorted rows [skip, skip +
+    fetch) stay live (a top-K: the whole sort, then the mask, as in the JAX
+    package, so ties keep the stable sort's order). Sorted columns drop
+    their magnitude bounds, as in the JAX package."""
     limbs = [(~batch.row_mask).int()]
     for o in orders:
         cv = evaluate(o.child, batch, ctx)
         limbs += sortkeys.order_limbs(cv, o.ascending, o.resolved_nulls_first())
     perm = sortkeys.lexsort(limbs)
-    cols = tuple(
-        ColumnVector(c.data[perm], c.validity[perm],
-                     None if c.lengths is None else c.lengths[perm], c.dtype, c.dictionary)
-        for c in batch.columns)
-    mask = torch.arange(batch.capacity, device=batch.device) < batch.num_rows()
+    if fetch is not None:
+        # live rows are front-packed: none past skip + fetch stays live, so
+        # the output keeps only those rows (padded)
+        perm = perm[:min(batch.capacity, pad_capacity(skip + fetch))]
+    cols = tuple(c.take(perm) for c in batch.columns)
+    pos = torch.arange(perm.shape[0], device=batch.device)
+    mask = (pos < batch.num_rows()) & (pos >= skip)
+    if fetch is not None:
+        mask &= pos < skip + fetch
     return Batch(cols, mask, batch.schema)
+
+
+def limit_op(batch: Batch, limit: int, offset: int = 0) -> Batch:
+    """The live rows [offset, offset + limit), in their order."""
+    rank = torch.cumsum(batch.row_mask, 0) - 1
+    return batch.with_mask(batch.row_mask & (rank >= offset) & (rank < offset + limit))
 
 
 def partition_batch(batch: Batch, codes: torch.Tensor, num_parts: int,

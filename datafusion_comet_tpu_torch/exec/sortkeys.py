@@ -13,7 +13,7 @@ import torch
 
 from datafusion_comet_tpu_torch.exec.batch import ColumnVector
 
-__all__ = ["column_limbs", "order_limbs", "lexsort"]
+__all__ = ["column_limbs", "order_limbs", "grouping_limbs", "lexsort"]
 
 
 def column_limbs(cv: ColumnVector) -> List[torch.Tensor]:
@@ -41,6 +41,16 @@ def order_limbs(cv: ColumnVector, ascending: bool, nulls_first: bool) -> List[to
         vals = [~v for v in vals]  # bitwise not reverses signed order limb-wise
     null_rank = torch.where(cv.validity, 1, 0 if nulls_first else 2).int()
     return [null_rank] + vals
+
+
+def grouping_limbs(cols: Sequence[ColumnVector]) -> List[torch.Tensor]:
+    """GROUP BY limbs: per key a null flag (nulls last, all in one group)
+    then its value limbs, zero on null rows."""
+    out: List[torch.Tensor] = []
+    for cv in cols:
+        out.append((~cv.validity).int())
+        out.extend(torch.where(cv.validity, v, 0) for v in column_limbs(cv))
+    return out
 
 
 def lexsort(limbs: Sequence[torch.Tensor]) -> torch.Tensor:

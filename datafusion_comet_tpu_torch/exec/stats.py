@@ -1,0 +1,273 @@
+"""Table statistics and the group capacities derived from them (port of the
+subset of ``datafusion_comet_tpu/exec/stats.py`` that TPC-H Q1, Q6, Q12 and
+Q3 reach: ``collect_stats`` :42, ``derive_capacities`` :129, ``_walk`` :220
+over Scan, Filter, Projection, HashJoin, HashAggregate, Sort and Limit,
+``_column_range`` :167, ``_source_column`` :480, ``_pad`` :490).
+
+``collect_stats`` sketches each registered table on the host: its rows, a
+distinct-count estimate per column (exact up to 65,536 rows, else from a
+seeded sample) and the exact (min, max) of each integer and date column.
+``derive_capacities`` walks a bound plan bottom-up with (row estimate,
+{column: distinct estimate}) and fills each aggregate's ``max_groups`` (the
+estimate twice over, a power of two, at least 1024) and its
+``group_key_ranges``. An estimate that is too small costs a re-run: the
+aggregate flags the overflow and the session runs again with the capacity
+four times larger.
+
+The JAX package's walk also leaves hints on joins and filters (build side,
+fan-out, output rows) for probes the port does not have; the port computes
+the same row and distinct estimates and sets no hint.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+
+from datafusion_comet_tpu_torch import types as T
+from datafusion_comet_tpu_torch.ir import expr as E
+from datafusion_comet_tpu_torch.ir import plan as P
+
+__all__ = ["TableStats", "collect_stats", "derive_capacities", "DEFAULT_MAX_GROUPS"]
+
+DEFAULT_MAX_GROUPS = 1 << 16
+_SAMPLE = 65536
+_RANGE_SELECTIVITY = 0.4
+_FILTER_SELECTIVITY = 0.5
+
+
+@dataclasses.dataclass
+class TableStats:
+    rows: int
+    ndv: Dict[str, int]  # per-column distinct-count estimate
+    # exact (min, max) of each integer and date column
+    ranges: Dict[str, Tuple[int, int]] = dataclasses.field(default_factory=dict)
+
+
+def collect_stats(data: Dict[str, np.ndarray], schema: T.Schema) -> TableStats:
+    """Rows, distinct-count estimates and integer ranges of host columns.
+    Beyond 65,536 rows a seeded sample's distinct count is scaled up by
+    inverting the coupon collector's expectation."""
+    n = len(next(iter(data.values()))) if data else 0
+    ndv: Dict[str, int] = {}
+    ranges: Dict[str, Tuple[int, int]] = {}
+    for f in schema.fields:
+        col = data.get(f.name)
+        if col is None or n == 0:
+            continue
+        arr = np.asarray(col)
+        if arr.ndim != 1:
+            continue
+        if n <= _SAMPLE:
+            sample = arr
+        else:
+            sample = arr[np.random.default_rng(0).choice(n, _SAMPLE, replace=False)]
+        try:
+            u = len(np.unique(sample[~_null_mask(sample)])) or 1
+        except TypeError:  # an unorderable mix of objects
+            ndv[f.name] = min(n, DEFAULT_MAX_GROUPS)
+        else:
+            ndv[f.name] = max(u, 1) if n <= _SAMPLE else _invert_coupon(u, _SAMPLE, n)
+        if (f.dtype.is_integer or f.dtype.type_id == "DATE") and np.issubdtype(arr.dtype,
+                                                                               np.integer):
+            ranges[f.name] = (int(arr.min()), int(arr.max()))
+    return TableStats(rows=n, ndv=ndv, ranges=ranges)
+
+
+def _invert_coupon(u: int, s: int, n: int) -> int:
+    """Distinct-count estimate of an n-row column whose size-s sample shows
+    u distinct values: the d with E[u] = d (1 - (1 - 1/d)^s), by bisection."""
+    if u >= s:  # every sampled row distinct: a mostly unique column
+        return n
+    lo, hi = u, n
+    for _ in range(60):
+        if hi - lo <= max(1, lo // 1000):
+            break
+        d = (lo + hi) / 2
+        exp_u = d * (1.0 - math.exp(s * math.log1p(-1.0 / d)))
+        if exp_u < u:
+            lo = d
+        else:
+            hi = d
+    return max(int((lo + hi) / 2), 1)
+
+
+def _null_mask(arr: np.ndarray) -> np.ndarray:
+    if arr.dtype == object:
+        return np.array([v is None for v in arr], dtype=bool)
+    return np.zeros(len(arr), bool)
+
+
+def derive_capacities(plan: P.PlanNode, stats: Dict[str, TableStats]) -> None:
+    """Fill, in place, every aggregate's ``max_groups`` that is None with
+    min(product of its keys' distinct estimates, its input row estimate)
+    padded, and its ``group_key_ranges`` where a key's source column has a
+    known range. Distinct estimates are the base tables' (filters never
+    shrink them, so they stay upper bounds); each use caps them by the row
+    estimate."""
+    _walk(plan, stats)
+
+
+def _conjuncts(e: E.Expr):
+    if isinstance(e, E.BinaryOp) and e.op == "and":
+        return _conjuncts(e.left) + _conjuncts(e.right)
+    return [e]
+
+
+def _pred_selectivity(pred: E.Expr, ndv: Dict[str, int]) -> float:
+    """Per conjunct: equality 1/ndv, IN-list k/ndv, a range 0.4, anything
+    else 0.5 (System R's defaults)."""
+    sel = 1.0
+    for c in _conjuncts(pred):
+        if isinstance(c, E.BinaryOp) and c.op == "or":
+            sel *= min(_pred_selectivity(c.left, ndv) + _pred_selectivity(c.right, ndv), 1.0)
+            continue
+        if isinstance(c, E.BinaryOp):
+            col = _source_column(c.left) or _source_column(c.right)
+            if c.op == "eq" and col and col in ndv:
+                sel *= 1.0 / max(ndv[col], 1)
+            elif c.op in ("lt", "le", "gt", "ge"):
+                sel *= _RANGE_SELECTIVITY
+            else:
+                sel *= _FILTER_SELECTIVITY
+        elif isinstance(c, E.InList):
+            col = _source_column(c.child)
+            k = len(c.values)
+            sel *= min(k / max(ndv.get(col, 10), 1), 1.0) if col else _FILTER_SELECTIVITY
+        else:
+            sel *= _FILTER_SELECTIVITY
+    return max(sel, 1e-6)
+
+
+def _column_range(plan: P.PlanNode, name: str, stats: Dict[str, TableStats]):
+    """Exact (min, max) of a named column in a subtree, following renames
+    (projections, group keys) down to the Scans; None when scans disagree.
+    Filters and joins only remove values, so the base range bounds them."""
+    hits = []
+
+    def walk(p, nm):
+        if isinstance(p, P.Scan):
+            st = stats.get(p.table)
+            if st is not None and nm in st.ranges and any(
+                    f.name == nm for f in p.out_schema().fields):
+                hits.append(st.ranges[nm])
+            return
+        if isinstance(p, (P.Projection, P.HashAggregate)):
+            exprs = p.exprs if isinstance(p, P.Projection) else p.group_exprs
+            for e in exprs:
+                if e.name == nm:
+                    src = _source_column(e)
+                    if src:
+                        walk(p.child, src)
+                    return
+            return  # computed values have no source range
+        for c in p.children():
+            walk(c, nm)
+
+    walk(plan, name)
+    return hits[0] if len(set(hits)) == 1 else None
+
+
+def _walk(plan: P.PlanNode, stats: Dict[str, TableStats]) -> Tuple[int, Dict[str, int]]:
+    """(row estimate, {output column: base distinct estimate})."""
+    if isinstance(plan, P.Scan):
+        st = stats.get(plan.table)
+        if st is None:
+            return DEFAULT_MAX_GROUPS, {}
+        names = [f.name for f in plan.out_schema().fields]
+        return max(st.rows, 1), {k: v for k, v in st.ndv.items() if k in names}
+
+    kids = [_walk(c, stats) for c in plan.children()]
+
+    if isinstance(plan, P.Filter):
+        rows, ndv = kids[0]
+        return max(int(rows * _pred_selectivity(plan.predicate, ndv)), 1), ndv
+
+    if isinstance(plan, P.Projection):
+        rows, ndv = kids[0]
+        out: Dict[str, int] = {}
+        for e in plan.exprs:
+            src = _source_column(e)
+            if src is not None and src in ndv:
+                out[e.name] = ndv[src]
+        return rows, out
+
+    if isinstance(plan, P.HashJoin):
+        # INNER, the one join type the executor runs; the JAX walk's
+        # estimates for the others come with those join types
+        (lr, ln), (rr, rn) = kids
+        lk = [_source_column(k) for k in plan.left_keys]
+        rk = [_source_column(k) for k in plan.right_keys]
+        # foreign key to primary key: the smaller side thins the larger by
+        # its rows over its key's distinct count, and caps the larger
+        # side's key's distinct count
+        rows = max(lr, rr)
+        ndv = {**rn, **ln}
+        if rr <= lr and rk and rk[0] in rn:
+            rows = max(int(lr * min(1.0, rr / max(rn[rk[0]], 1))), 1)
+            if lk and lk[0]:
+                ndv[lk[0]] = min(ndv.get(lk[0], rr), rr)
+        elif lr < rr and lk and lk[0] in ln:
+            rows = max(int(rr * min(1.0, lr / max(ln[lk[0]], 1))), 1)
+            if rk and rk[0]:
+                ndv[rk[0]] = min(ndv.get(rk[0], lr), lr)
+        return rows, ndv
+
+    if isinstance(plan, P.HashAggregate):
+        rows, ndv = kids[0]
+        est, known = 1, True
+        for g in plan.group_exprs:
+            src = _source_column(g)
+            if src is not None and src in ndv:
+                est *= max(min(ndv[src], rows), 1)
+            else:
+                known = False
+        if not plan.group_exprs:
+            groups = 1
+        elif known:
+            groups = min(est, rows)
+        elif est > 1:
+            groups = min(est * DEFAULT_MAX_GROUPS, rows)
+        else:
+            groups = min(DEFAULT_MAX_GROUPS, rows)
+        if plan.max_groups is None:
+            plan.max_groups = _pad(groups)
+        if plan.group_exprs and plan.group_key_ranges is None:
+            krs = []
+            for g in plan.group_exprs:
+                src = _source_column(g)
+                krs.append(_column_range(plan.child, src, stats) if src else None)
+            if any(r is not None for r in krs):
+                plan.group_key_ranges = tuple(krs)
+        out = {}
+        for g in plan.group_exprs:
+            src = _source_column(g)
+            out[g.name] = min(ndv.get(src, groups), groups) if src else groups
+        return max(groups, 1), out
+
+    if isinstance(plan, (P.Sort, P.Limit)):
+        rows, ndv = kids[0]
+        cut = plan.fetch if isinstance(plan, P.Sort) else plan.limit
+        if cut is not None:
+            rows = min(rows, cut)
+        return rows, {k: min(v, rows) for k, v in ndv.items()}
+
+    raise NotImplementedError(f"derive_capacities: {type(plan).__name__}")
+
+
+def _source_column(e: E.Expr) -> Optional[str]:
+    """The column name under aliases and casts, or None for a computed expr."""
+    while isinstance(e, (E.Alias, E.Cast)):
+        e = e.child
+    if isinstance(e, (E.BoundRef, E.ColumnRef)):
+        return e.col_name
+    return None
+
+
+def _pad(groups: int) -> int:
+    """Twice the estimate, the next power of two, at least 1024."""
+    target = max(groups * 2, 1024)
+    return 1 << max(int(math.ceil(math.log2(target))), 0)

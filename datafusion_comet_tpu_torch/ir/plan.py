@@ -1,6 +1,6 @@
 """Operator plan IR (port of ``datafusion_comet_tpu/ir/plan.py``: the Scan,
-Filter, Projection, HashAggregate, Sort and HashJoin nodes TPC-H Q1, Q6 and
-Q12 use).
+Filter, Projection, HashAggregate, Sort, Limit and HashJoin nodes TPC-H Q1,
+Q6, Q12 and Q3 use).
 
 Plans are built unbound; ``bind_plan`` binds expressions bottom-up against
 child schemas and computes each node's output schema.
@@ -15,7 +15,7 @@ from datafusion_comet_tpu_torch import types as T
 from datafusion_comet_tpu_torch.ir import expr as E
 
 __all__ = ["PlanNode", "Scan", "Filter", "Projection", "HashAggregate", "AggMode",
-           "Sort", "HashJoin", "JoinType", "bind_plan", "scan_tables"]
+           "Sort", "Limit", "HashJoin", "JoinType", "bind_plan", "scan_tables"]
 
 
 class JoinType:
@@ -56,8 +56,11 @@ class PlanNode:
     def aggregate(self, group_by, aggs, mode: str = AggMode.SINGLE) -> "HashAggregate":
         return HashAggregate(self, tuple(group_by), tuple(aggs), mode)
 
-    def sort(self, orders) -> "Sort":
-        return Sort(self, tuple(orders))
+    def sort(self, orders, fetch: Optional[int] = None) -> "Sort":
+        return Sort(self, tuple(orders), fetch)
+
+    def limit(self, n: int, offset: int = 0) -> "Limit":
+        return Limit(self, n, offset)
 
 
 @dataclasses.dataclass
@@ -95,12 +98,20 @@ class Projection(PlanNode):
 @dataclasses.dataclass
 class HashAggregate(PlanNode):
     """Group-by aggregation. Output schema: group columns, then aggregate
-    columns (SINGLE/FINAL) or their state columns (partial modes)."""
+    columns (SINGLE/FINAL) or their state columns (partial modes).
+
+    ``max_groups``: the output's group capacity (None: derived from table
+    statistics, exec/stats.py; a run with more groups re-runs with it four
+    times larger). ``group_key_ranges``: per group key, the exact (min, max)
+    of its source column where statistics know it, so the keys pack into
+    few sort limbs."""
 
     child: PlanNode
     group_exprs: Tuple[E.Expr, ...]
     agg_exprs: Tuple[E.AggExpr, ...]
     mode: str = AggMode.SINGLE
+    max_groups: Optional[int] = None
+    group_key_ranges: Optional[Tuple[Optional[Tuple[int, int]], ...]] = None
 
     def children(self):
         return (self.child,)
@@ -108,10 +119,25 @@ class HashAggregate(PlanNode):
 
 @dataclasses.dataclass
 class Sort(PlanNode):
-    """Total sort, dead rows last."""
+    """Total sort, dead rows last; ``fetch`` keeps the first rows of the
+    order (top-K) after ``skip`` of them."""
 
     child: PlanNode
     orders: Tuple[E.SortOrder, ...]
+    fetch: Optional[int] = None
+    skip: int = 0
+
+    def children(self):
+        return (self.child,)
+
+
+@dataclasses.dataclass
+class Limit(PlanNode):
+    """The live rows [offset, offset + limit), in order."""
+
+    child: PlanNode
+    limit: int
+    offset: int = 0
 
     def children(self):
         return (self.child,)
@@ -183,7 +209,8 @@ def bind_plan(plan: PlanNode) -> PlanNode:
                 dataclasses.replace(
                     a, child=E.bind(a.child, child.schema) if a.child is not None else None)
                 for a in plan.agg_exprs)
-        out = HashAggregate(child, groups, aggs, plan.mode)
+        out = HashAggregate(child, groups, aggs, plan.mode, plan.max_groups,
+                            plan.group_key_ranges)
         fields = [T.Field(g.name, g.dtype, _expr_nullable(g, child.schema)) for g in groups]
         if plan.mode in (AggMode.SINGLE, AggMode.FINAL):
             fields += [T.Field(a.out_name, a.result_dtype()) for a in aggs]
@@ -198,8 +225,12 @@ def bind_plan(plan: PlanNode) -> PlanNode:
         child = kids[0]
         orders = tuple(dataclasses.replace(o, child=E.bind(o.child, child.schema))
                        for o in plan.orders)
-        out = Sort(child, orders)
+        out = Sort(child, orders, plan.fetch, plan.skip)
         out.schema = child.schema
+        return out
+    if isinstance(plan, Limit):
+        out = Limit(kids[0], plan.limit, plan.offset)
+        out.schema = kids[0].schema
         return out
     if isinstance(plan, HashJoin):
         left, right = kids

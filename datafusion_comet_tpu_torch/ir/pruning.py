@@ -51,20 +51,24 @@ def prune_columns(plan: P.PlanNode, required: Optional[Set[str]] = ALL) -> P.Pla
         if plan.mode in (P.AggMode.FINAL, P.AggMode.PARTIAL_MERGE):
             # a merge reads state columns by name: nothing to prune below it
             return P.HashAggregate(prune_columns(plan.child, ALL), plan.group_exprs,
-                                   plan.agg_exprs, plan.mode)
+                                   plan.agg_exprs, plan.mode, plan.max_groups,
+                                   plan.group_key_ranges)
         need = set()
         for g in plan.group_exprs:
             _expr_refs(g, need)
         for a in plan.agg_exprs:
             _expr_refs(a.child, need)
         return P.HashAggregate(prune_columns(plan.child, need), plan.group_exprs,
-                               plan.agg_exprs, plan.mode)
+                               plan.agg_exprs, plan.mode, plan.max_groups,
+                               plan.group_key_ranges)
     if isinstance(plan, P.Sort):
         need = None if required is ALL else set(required)
         if need is not None:
             for o in plan.orders:
                 _expr_refs(o.child, need)
-        return P.Sort(prune_columns(plan.child, need), plan.orders)
+        return P.Sort(prune_columns(plan.child, need), plan.orders, plan.fetch, plan.skip)
+    if isinstance(plan, P.Limit):
+        return P.Limit(prune_columns(plan.child, required), plan.limit, plan.offset)
     if isinstance(plan, P.HashJoin):
         lneed: Optional[Set[str]] = None if required is ALL else set()
         rneed: Optional[Set[str]] = None if required is ALL else set()

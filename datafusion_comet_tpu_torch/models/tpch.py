@@ -1,5 +1,5 @@
-"""TPC-H workload subset: the ``lineitem`` and ``orders`` schemas and
-generators, and the plans of Q1, Q6 and Q12 (port of
+"""TPC-H workload subset: the ``lineitem``, ``orders`` and ``customer``
+schemas and generators, and the plans of Q1, Q6, Q12 and Q3 (port of
 ``datafusion_comet_tpu/models/tpch.py``).
 
 The generator is a line-for-line copy of the JAX package's, so the same
@@ -19,7 +19,7 @@ from datafusion_comet_tpu_torch import types as T
 from datafusion_comet_tpu_torch.ir import expr as E
 from datafusion_comet_tpu_torch.ir import plan as P
 
-__all__ = ["SCHEMAS", "table_rows", "generate_table", "q1", "q6", "q12"]
+__all__ = ["SCHEMAS", "table_rows", "generate_table", "q1", "q3", "q6", "q12"]
 
 _dec = T.decimal
 
@@ -53,10 +53,21 @@ SCHEMAS: Dict[str, T.Schema] = {
             T.Field("o_shippriority", T.INT32, False),
         ]
     ),
+    "customer": T.Schema(
+        [
+            T.Field("c_custkey", T.INT64, False),
+            T.Field("c_name", T.string(25), False),
+            T.Field("c_nationkey", T.INT64, False),
+            T.Field("c_acctbal", _dec(15, 2), False),
+            T.Field("c_mktsegment", T.string(10), False),
+            T.Field("c_phone", T.string(15), False),
+        ]
+    ),
 }
 
 _SHIPMODES = ["REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB"]
 _PRIORITIES = ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECI", "5-LOW"]
+_SEGMENTS = ["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD"]
 
 
 def _d(datestr: str) -> int:
@@ -81,13 +92,29 @@ def table_rows(name: str, sf: float) -> int:
 
 
 def generate_table(name: str, sf: float, seed: int = 19920401) -> Dict[str, np.ndarray]:
-    """Deterministic TPC-H-shaped ``lineitem`` or ``orders`` (value ranges
-    per the spec). Decimals come pre-scaled as int64 (the engine's physical
-    form)."""
-    if name not in ("lineitem", "orders"):
+    """Deterministic TPC-H-shaped ``lineitem``, ``orders`` or ``customer``
+    (value ranges per the spec). Decimals come pre-scaled as int64 (the
+    engine's physical form)."""
+    if name not in ("lineitem", "orders", "customer"):
         raise KeyError(name)
     n = table_rows(name, sf)
     rng = np.random.default_rng(seed + zlib.crc32(name.encode()) % (2**31))
+    if name == "customer":
+        ck = np.arange(1, n + 1, dtype=np.int64)
+        nk = rng.integers(0, 25, n).astype(np.int64)
+        return {
+            "c_custkey": ck,
+            "c_name": np.array([f"Customer#{k:09d}" for k in ck], object),
+            "c_nationkey": nk,
+            "c_acctbal": rng.integers(-99999, 999999, n).astype(np.int64),
+            "c_mktsegment": np.array(_SEGMENTS, object)[rng.integers(0, 5, n)],
+            # one rng call per value: the calls set the stream, as in the
+            # JAX package's generator
+            "c_phone": np.array(
+                [f"{10 + k}-{rng.integers(100,999)}-{rng.integers(100,999)}-{rng.integers(1000,9999)}" for k in nk],
+                object,
+            ),
+        }
     if name == "orders":
         ok = np.arange(1, n + 1, dtype=np.int64) * 4 - 3  # sparse keys like dbgen
         # custkeys divisible by 3 place no orders (the spec): a dense index
@@ -171,6 +198,33 @@ def q6() -> P.PlanNode:
     )
     return l.filter(pred).aggregate(
         [], [E.AggExpr("sum", E.col("l_extendedprice") * E.col("l_discount"), "revenue")])
+
+
+def q3() -> P.PlanNode:
+    """Shipping priority: 3-way join, group, top-10 by revenue."""
+    c = P.Scan("customer", SCHEMAS["customer"]).filter(
+        E.col("c_mktsegment") == E.lit("BUILDING")
+    )
+    o = P.Scan("orders", SCHEMAS["orders"]).filter(
+        E.col("o_orderdate") < _date_lit("1995-03-15")
+    )
+    l = P.Scan("lineitem", SCHEMAS["lineitem"]).filter(
+        E.col("l_shipdate") > _date_lit("1995-03-15")
+    )
+    co = P.HashJoin(o, c, (E.col("o_custkey"),), (E.col("c_custkey"),), P.JoinType.INNER, "right")
+    col_ = P.HashJoin(l, co, (E.col("l_orderkey"),), (E.col("o_orderkey"),), P.JoinType.INNER,
+                      "right")
+    revenue = E.col("l_extendedprice") * (E.lit(1).cast(_dec(10, 0)) - E.col("l_discount"))
+    agg = col_.aggregate(
+        [E.col("l_orderkey"), E.col("o_orderdate"), E.col("o_shippriority")],
+        [E.AggExpr("sum", revenue, "revenue")],
+    )
+    return agg.sort(
+        [E.SortOrder(E.col("revenue"), ascending=False), E.SortOrder(E.col("o_orderdate"))],
+        fetch=10,
+    ).project(
+        [E.col("l_orderkey"), E.col("revenue"), E.col("o_orderdate"), E.col("o_shippriority")]
+    )
 
 
 def q12() -> P.PlanNode:

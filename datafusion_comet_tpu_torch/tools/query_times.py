@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Warm latency, peak device memory and (with ``--profile``) device-time
-breakdowns of TPC-H Q1, Q6 and Q12 (directly, and through the grace join at
-K = 16) for the port in any checkout. Each checkout runs in its own process,
-so two of them can be compared in turns on one card:
+breakdowns of TPC-H Q1, Q6, Q12 and Q3 (Q12 and Q3 directly, and through the
+grace join at K = 16) for the port in any checkout; a checkout whose port
+has no Q3 runs the others. Each checkout runs in its own process, so two of
+them can be compared in turns on one card:
 
     python3 datafusion_comet_tpu_torch/tools/query_times.py [--tree DIR] [--sf 1] [--profile]
 
@@ -11,10 +12,12 @@ only the port's public entry points are called (``Session``, ``Config``,
 ``models.tpch``, ``exec.memory``). One JSON line per query: the median and
 every one of ``--reps`` warm runs (host clock, each ending in a device
 sync), and the peak device memory of one run. With ``--profile``, one
-torch.profiler run of Q12 direct and one of Q12 grace: wall ms, device busy
+torch.profiler run of each of Q12's and Q3's two runs: wall ms, device busy
 ms and idle share, the device ms of index gathers (advanced indexing and
-index_select kernels), of scatter_reduce, of the partition kernels (B3), the
-top kernels, and the host ms of the grace runner's spans.
+index_select kernels), of scatter_reduce, of the partition kernels (B3), of
+sort kernels, the top kernels, the host ms of the grace runner's spans, and
+the host and device ms of the sorted aggregate's ``aggregate.sort`` span
+(its sort and gathers).
 """
 
 from __future__ import annotations
@@ -33,7 +36,9 @@ CLASSES = {
     "index_gather": ("index_elementwise_kernel", "vectorized_gather_kernel", "indexSelect"),
     "scatter_reduce": ("_scatter_gather_elementwise_kernel",),
     "partition": ("b3_", "partition_"),
+    "sort": ("RadixSort", "radixSort", "bitonicSort", "sortKeyValue"),
 }
+SPANS = ("grace.", "aggregate.")  # the port's record_function spans
 
 
 def grace_fraction(sess, plan, K: int = GRACE_K):
@@ -71,7 +76,9 @@ def warm_times(sess, plan, reps: int):
 
 def profile(sess, plan):
     """One warm run under torch.profiler: wall, busy, idle share, device ms
-    by class (CLASSES), the top 12 kernels and the grace spans' host ms."""
+    by class (CLASSES), the top 12 kernels, the grace spans' host ms and the
+    aggregate.sort span's host ms and device ms (its extent on the device's
+    timeline, where the profiler records one)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -85,7 +92,7 @@ def profile(sess, plan):
     events = prof.key_averages()
     rows = sorted(((ev.self_device_time_total / 1e3, ev.key, ev.count) for ev in events
                    if ev.device_type == torch.autograd.DeviceType.CUDA
-                   and ev.self_device_time_total and not ev.key.startswith("grace.")),
+                   and ev.self_device_time_total and not ev.key.startswith(SPANS)),
                   reverse=True)
     busy = sum(r[0] for r in rows)
     out = {"wall_ms": wall_ms, "device_busy_ms": busy,
@@ -97,6 +104,12 @@ def profile(sess, plan):
     out["grace_span_host_ms"] = {ev.key: ev.cpu_time_total / 1e3 for ev in events
                                  if ev.device_type == torch.autograd.DeviceType.CPU
                                  and ev.key.startswith("grace.")}
+    for ev in events:
+        if ev.key == "aggregate.sort":
+            side = "host" if ev.device_type == torch.autograd.DeviceType.CPU else "device"
+            t = ev.cpu_time_total if side == "host" else ev.self_device_time_total
+            out[f"aggregate_sort_{side}_ms"] = t / 1e3
+            out["aggregate_sort_calls"] = ev.count
     out["top"] = [{"kernel": k[:90], "device_ms": ms, "calls": c} for ms, k, c in rows[:12]]
     return out
 
@@ -107,7 +120,8 @@ def main(argv=None) -> int:
                     help="the checkout whose port is timed (default: this one)")
     ap.add_argument("--sf", type=float, default=1.0, help="TPC-H scale factor")
     ap.add_argument("--reps", type=int, default=7, help="warm runs per query")
-    ap.add_argument("--profile", action="store_true", help="add profiles of Q12's two runs")
+    ap.add_argument("--profile", action="store_true",
+                    help="add profiles of Q12's and Q3's two runs")
     args = ap.parse_args(argv)
     tree = args.tree.resolve()
     sys.path.insert(0, str(tree))
@@ -126,19 +140,28 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({"tree": str(tree), "sf": args.sf, "nvidia_smi": smi}), flush=True)
+    has_q3 = hasattr(tpch, "q3")
     sess = Session()
-    for t in ("lineitem", "orders"):
+    for t in ("lineitem", "orders") + (("customer",) if has_q3 else ()):
         sess.register_numpy(t, tpch.generate_table(t, args.sf), tpch.SCHEMAS[t])
-    grace = Session(conf=Config(memory_fraction=grace_fraction(sess, tpch.q12())[0]))
-    for t, b in sess.tables.items():
-        grace.register_batch(t, b)
+
+    def grace_session(plan):
+        s = Session(conf=Config(memory_fraction=grace_fraction(sess, plan)[0]))
+        for t, b in sess.tables.items():
+            s.register_batch(t, b)
+        if hasattr(sess, "stats"):
+            s.stats.update(sess.stats)
+        return s
+
     runs = [("q1", sess, tpch.q1()), ("q6", sess, tpch.q6()), ("q12_direct", sess, tpch.q12()),
-            ("q12_grace", grace, tpch.q12())]
+            ("q12_grace", grace_session(tpch.q12()), tpch.q12())]
+    if has_q3:
+        runs += [("q3_direct", sess, tpch.q3()), ("q3_grace", grace_session(tpch.q3()), tpch.q3())]
     for name, s, plan in runs:
         ms, times, peak = warm_times(s, plan, args.reps)
         line = {"query": name, "warm_ms": ms, "warm_ms_all": times, "peak_mem_bytes": peak}
-        if name == "q12_grace":
-            r = grace.grace_runners[0]
+        if name.endswith("_grace"):
+            r = s.grace_runners[0]
             line.update(K=r.K, mode=r.downstream[0], sizes=[x.tolist() for x in r.sizes])
         print(json.dumps(line), flush=True)
     if args.profile:

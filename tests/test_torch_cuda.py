@@ -1,6 +1,6 @@
 """PyTorch port on the card: the CUDA kernels against their plain versions,
-and Q1, Q6 and Q12 (directly and through the grace join) on the card against
-the same queries on the CPU. Marked ``cuda``;
+and Q1, Q6, Q12 and Q3 (the last two directly and through the grace join) on
+the card against the same queries on the CPU. Marked ``cuda``;
 without a card every test here skips. This file imports no JAX, so it runs
 on a machine without it (tests/conftest.py imports JAX, hence --noconftest):
 
@@ -209,6 +209,51 @@ def test_q12_on_card_equals_cpu_direct_and_grace(dev):
     assert gpu.grace_runners[0].K == 16
 
 
+def test_two_limb_take_on_card_keeps_every_bit_pattern(dev):
+    """The 16-byte-element gather of wide decimal rows copies bits on the
+    card too: NaN payloads of the float view included."""
+    from datafusion_comet_tpu_torch.exec.batch import _take_rows
+
+    rng = np.random.default_rng(16)
+    words = rng.integers(-2**63, 2**63 - 1, (1_000_003, 2), dtype=np.int64)
+    words[:3] = [[0x7FF0000000000001, -1], [-0x0008000000000000, 0x7FF8000000000001],
+                 [0x7FF0000000000000, -0x0010000000000000]]
+    idx = torch.from_numpy(rng.integers(0, len(words), 2_000_000))
+    want = torch.from_numpy(words)[idx]
+    assert torch.equal(_take_rows(torch.from_numpy(words).to(dev), idx.to(dev)).cpu(), want)
+
+
+def test_q3_on_card_equals_cpu_direct_and_grace(dev):
+    """Q3 (two joins, the sorted aggregate as its own stage, the top-K) on
+    the card equals the CPU run, directly and with the aggregate stage run
+    inside each of the grace join's K = 16 pairs (local mode)."""
+    data = {t: tpch.generate_table(t, 0.01) for t in ("lineitem", "orders", "customer")}
+    cpu = Session(device="cpu")
+    for t, d in data.items():
+        cpu.register_numpy(t, d, tpch.SCHEMAS[t])
+    want = cpu.collect(tpch.q3())
+    fraction, _ = chip_smoke.grace_fraction(cpu, tpch.q3(), 16)
+    for grace, conf in ((False, Config()),
+                        (True, Config(memory_fraction=fraction * 4 * 2**30
+                                      / torch.cuda.get_device_properties(dev).total_memory))):
+        gpu = Session(conf=conf)
+        for t, d in data.items():
+            gpu.register_numpy(t, d, tpch.SCHEMAS[t])
+        K.partition_columns.launches = 0
+        got = gpu.collect(tpch.q3())
+        assert K.partition_columns.launches > 0
+        assert [n is None for n, _ in gpu.stages] == [False, True]
+        assert bool(gpu.grace_runners) == grace
+        assert list(got) == list(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    r = gpu.grace_runners[0]
+    assert (r.K, r.downstream[0]) == (16, "local")
+    chip_smoke.check_q3(got, chip_smoke.oracle_q3(data["lineitem"], data["orders"],
+                                                  data["customer"], tpch._d("1995-03-15")),
+                        "card grace")
+
+
 def test_bucket_times_script_on_card(dev, capsys):
     """tools/bucket_times.py times every shape through the public wrappers."""
     from datafusion_comet_tpu_torch.tools import bucket_times as BT
@@ -226,13 +271,15 @@ def test_bucket_times_script_on_card(dev, capsys):
 
 def test_query_times_script_on_card(dev, capsys):
     """tools/query_times.py runs every query of both trees' comparison and
-    profiles Q12's two runs, with the grace run at K = 16."""
+    profiles Q12's and Q3's two runs, with the grace runs at K = 16."""
     from datafusion_comet_tpu_torch.tools import query_times as QT
 
     assert QT.main(["--sf", "0.01", "--reps", "2", "--profile"]) == 0
     head, *rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
     assert "nvidia_smi" in head
-    assert [r.get("query") or r["profile"] for r in rows] == [
-        "q1", "q6", "q12_direct", "q12_grace", "q12_direct", "q12_grace"]
+    runs = ["q12_direct", "q12_grace", "q3_direct", "q3_grace"]
+    assert [r.get("query") or r["profile"] for r in rows] == ["q1", "q6"] + runs + runs
     assert rows[3]["K"] == 16 and rows[3]["mode"] == "partial"
-    assert all(r["device_busy_ms"] > 0 and r["partition_calls"] > 0 for r in rows[4:])
+    assert rows[5]["K"] == 16 and rows[5]["mode"] == "local"
+    assert all(r["device_busy_ms"] > 0 and r["partition_calls"] > 0 for r in rows[6:])
+    assert all(r["aggregate_sort_calls"] > 0 for r in rows[8:])

@@ -177,6 +177,100 @@ def test_q12_direct_and_grace_match_jax(q12_data, jax_spy, K):
         _assert_same(want_jax, got)
 
 
+# ---- TPC-H Q3: local mode at the aggregate stage's root -----------------------------
+
+
+@pytest.fixture(scope="module")
+def q3_data():
+    return {t: tpch.generate_table(t, SF) for t in ("lineitem", "orders", "customer")}
+
+
+def test_q3_direct_and_grace_match_jax(q3_data, jax_spy):
+    """Q3's aggregate stage groups by l_orderkey, the top join's key: under
+    the budget both packages run the whole stage inside each of K = 16
+    pairs (local mode) with the same partition sizes, and every run equals
+    the JAX Session's result and the numpy oracle."""
+    direct = _port_session(_tpch_tables(q3_data, PT))
+    got_direct = direct.collect(tpch.q3())
+    assert direct.grace_runners == []
+    fraction, _ = chip_smoke.grace_fraction(direct, tpch.q3(), 16)
+    grace = _port_session(_tpch_tables(q3_data, PT), fraction)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        got_grace = grace.collect(tpch.q3())
+    (runner,) = grace.grace_runners
+    assert (runner.K, runner.downstream[0]) == (16, "local")
+    assert [n is None for n, _ in grace.stages] == [False, True]
+    js = _jax_session(_tpch_tables(q3_data, JT))
+    want = js.collect(JTPCH.q3())
+    with jax_fraction(fraction):
+        got_jax_grace = js.collect(JTPCH.q3())
+    assert jax_spy == [(16, "local")]
+    for got_sizes, want_sizes in zip(runner.sizes, jax_spy.sizes[0]):
+        np.testing.assert_array_equal(got_sizes, want_sizes)
+    for got in (got_direct, got_grace, got_jax_grace):
+        _assert_same(want, got)
+    oracle = chip_smoke.oracle_q3(q3_data["lineitem"], q3_data["orders"], q3_data["customer"],
+                                  tpch._d("1995-03-15"))
+    chip_smoke.check_q3(got_grace, oracle, "port grace")
+
+
+def _top_k(M, P, E, tables, fetch, skip):
+    """tests/test_grace_join.py's Q3 shape: Sort(fetch, skip) over an
+    aggregate grouped by the join key and a dim column."""
+    j = P.HashJoin(P.Scan("fact", tables["fact"][1]), P.Scan("dim", tables["dim"][1]),
+                   (E.col("fk"),), (E.col("pk"),), P.JoinType.INNER, "right")
+    agg = j.aggregate([E.col("fk"), E.col("w")],
+                      [E.AggExpr("sum", E.col("v"), "rev"), E.AggExpr("count", E.col("x"), "n")])
+    s = agg.sort([E.SortOrder(E.col("rev"), ascending=False), E.SortOrder(E.col("fk"))],
+                 fetch=fetch)
+    s.skip = skip
+    return s
+
+
+@pytest.mark.parametrize("fetch,skip", [(10, 0), (7, 5)])
+def test_local_mode_under_a_top_k_root_matches_jax(jax_spy, fetch, skip):
+    """Local mode under a top-K Sort root: each pair keeps its own skip +
+    fetch rows, the sort (order, fetch and skip) runs again over the union;
+    equal to the direct runs and to the JAX package's grace run."""
+    ptables, jtables = _fact_dim(PT), _fact_dim(JT)
+    js = _jax_session(jtables)
+    want = js.collect(_top_k(JT, JP, JE, jtables, fetch, skip))
+    plan = _top_k(PT, PP, PE, ptables, fetch, skip)
+    direct = _port_session(ptables)
+    fraction, _ = chip_smoke.grace_fraction(direct, plan, 16)
+    grace = _port_session(ptables, fraction)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        got = grace.collect(plan)
+    (runner,) = grace.grace_runners
+    assert (runner.K, runner.downstream[0]) == (16, "local")
+    assert isinstance(runner.template, PP.Sort)
+    assert (runner.template.fetch, runner.template.skip) == (fetch + skip, 0)
+    with jax_fraction(fraction):
+        got_jax = js.collect(_top_k(JT, JP, JE, jtables, fetch, skip))
+    assert jax_spy == [(16, "local")]
+    assert len(got["fk"]) == fetch
+    for g in (got, direct.collect(plan), got_jax):
+        _assert_same(want, g)
+
+
+def test_partial_mode_refused_past_2_20_groups():
+    """An aggregate not grouped by the join key whose group capacity is
+    over 2^20: K pairs of such partial states would be the join's size
+    again, so neither package pushes it into the pairs; at 2^20 both do."""
+    for groups, want in ((1 << 21, None), (1 << 20, "partial")):
+        modes = []
+        for M, P, E, G in ((JT, JP, JE, JG), (PT, PP, PE, PG)):
+            tables = _fact_dim(M)
+            agg = _join(M, P, E, tables).child  # grouped by dim.g
+            agg.max_groups = groups
+            bound = P.bind_plan(agg)
+            ds = G.plan_grace_downstream(bound, bound.child)
+            modes.append(ds and ds[0])
+        assert modes == [want, want]
+
+
 def test_q12_string_predicates():
     """!= and IN on dictionary-coded strings compare codes."""
     data = {"p": np.array(["1-URGENT", "2-HIGH", "3-MEDIUM", None, "5-LOW"], object)}

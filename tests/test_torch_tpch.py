@@ -1,8 +1,10 @@
-"""PyTorch port, the slice end to end: TPC-H Q1 and Q6 through the port's
-``Session`` on the CPU against the JAX ``Session`` on the same generated data
-(SF 0.01), and against the exact integer oracle chip_smoke.py checks the
-card with. Also: the port imports no JAX and nothing of the JAX package, and
-its Session refuses to start without a card unless asked for the CPU."""
+"""PyTorch port, the slices end to end: TPC-H Q1, Q6 and Q3 through the
+port's ``Session`` on the CPU against the JAX ``Session`` on the same
+generated data (Q1/Q6 at SF 0.01, Q3 at SF 0.001 and 0.01), and against the
+exact integer oracles chip_smoke.py checks the card with. The ``customer``
+table stages as the JAX package stages it. Also: the port imports no JAX and
+nothing of the JAX package, and its Session refuses to start without a card
+unless asked for the CPU."""
 
 import ast
 import os
@@ -15,8 +17,10 @@ import pytest
 import torch
 
 import chip_smoke
+from datafusion_comet_tpu.exec import batch as JB
 from datafusion_comet_tpu.exec.engine import Session as JaxSession
 from datafusion_comet_tpu.models import tpch as JTPCH
+from datafusion_comet_tpu_torch.exec import batch as PB
 from datafusion_comet_tpu_torch.exec import kernels as K
 from datafusion_comet_tpu_torch.exec.engine import QueryExecutionError, Session
 from datafusion_comet_tpu_torch.ir import expr as PE
@@ -78,6 +82,74 @@ def test_bound_schemas_match_jax():
                  "sum_charge: decimal(38,6)", "avg_qty: decimal(19,6)", "count_order: int64"):
         assert part in q1
     assert "revenue: decimal(38,4)" in repr(PP.bind_plan(tpch.q6()).schema)
+
+
+Q3_TABLES = ("lineitem", "orders", "customer")
+
+
+@pytest.fixture(scope="module", params=[0.001, 0.01], ids=["sf0.001", "sf0.01"])
+def q3_sessions(request):
+    """(JAX session, port session, data) over lineitem, orders and customer."""
+    d = {t: tpch.generate_table(t, request.param) for t in Q3_TABLES}
+    js, ps = JaxSession(), Session(device="cpu")
+    for t in Q3_TABLES:
+        js.register_numpy(t, d[t], JTPCH.SCHEMAS[t])
+        ps.register_numpy(t, d[t], tpch.SCHEMAS[t])
+    return js, ps, d
+
+
+def test_q3_matches_jax_session(q3_sessions):
+    js, ps, _ = q3_sessions
+    jout = js.collect(JTPCH.q3())
+    pout = ps.collect(tpch.q3())
+    assert list(jout) == list(pout)
+    for k in jout:
+        assert jout[k].dtype == pout[k].dtype, k
+        np.testing.assert_array_equal(jout[k], pout[k], err_msg=k)
+    assert len(pout["revenue"]) == 10
+    # the aggregate ran as its own stage, the top-K over its result
+    assert [n is None for n, _ in ps.stages] == [False, True]
+
+
+def test_q3_matches_integer_oracle(q3_sessions):
+    _, ps, d = q3_sessions
+    want = chip_smoke.oracle_q3(d["lineitem"], d["orders"], d["customer"],
+                                tpch._d("1995-03-15"))
+    chip_smoke.check_q3(ps.collect(tpch.q3()), want, "port")
+
+
+def test_q3_bound_schema_matches_jax():
+    from datafusion_comet_tpu.ir import plan as JP
+
+    assert repr(PP.bind_plan(tpch.q3()).schema) == repr(JP.bind_plan(JTPCH.q3()).schema)
+
+
+@pytest.mark.parametrize("dict_max_size", [None, 1000])
+def test_customer_stages_as_jax(dict_max_size):
+    """Same generated columns, same staging: c_mktsegment dictionary-coded,
+    c_name and c_phone padded strings once their distinct values pass the
+    dictionary limit (as at SF 1 and up), else coded too."""
+    d = tpch.generate_table("customer", 0.01)
+    want_d = JTPCH.generate_table("customer", 0.01)
+    for k in want_d:
+        assert want_d[k].dtype == d[k].dtype, k
+        np.testing.assert_array_equal(want_d[k], d[k], err_msg=k)
+    kw = {} if dict_max_size is None else {"dict_max_size": dict_max_size}
+    jb = JB.from_numpy(want_d, JTPCH.SCHEMAS["customer"], **kw)
+    pb = PB.from_numpy(d, tpch.SCHEMAS["customer"], "cpu", **kw)
+    assert jb.capacity == pb.capacity == 2048
+    coded = {f.name: c.is_dict for f, c in zip(pb.schema.fields, pb.columns)}
+    assert coded["c_mktsegment"] and coded["c_name"] == coded["c_phone"] == (
+        dict_max_size is None)
+    for f, jc, pc in zip(pb.schema.fields, jb.columns, pb.columns):
+        assert jc.is_dict == pc.is_dict, f.name
+        assert jc.mag_bound == pc.mag_bound, f.name
+        for a, b in ((jc.data, pc.data), (jc.validity, pc.validity), (jc.lengths, pc.lengths)):
+            assert (a is None) == (b is None), f.name
+            if a is not None:
+                np.testing.assert_array_equal(np.asarray(a), b.numpy(), err_msg=f.name)
+        if pc.is_dict:
+            np.testing.assert_array_equal(jc.dictionary.values, pc.dictionary.values)
 
 
 def test_q6_over_no_rows_gives_one_null_row():

@@ -5,7 +5,7 @@ On a machine with one NVIDIA card, from the root of a checkout:
 
     python3 chip_smoke.py            # TPC-H SF1
     python3 chip_smoke.py --sf 10    # another scale
-    python3 chip_smoke.py --profile  # add torch.profiler breakdowns of Q1, Q12 grace and Q3
+    python3 chip_smoke.py --profile  # add torch.profiler breakdowns of Q1, Q12 grace, Q3, Q4, Q15
 
 Phases, one JSON line each:
   1. device: the card's name, count, and nvidia-smi's name and power limit;
@@ -26,12 +26,20 @@ Phases, one JSON line each:
      split the (top) join into K = 16 hash partitions (the grace join; Q3's
      aggregate then runs inside each pair, its local mode); Q3's lines add
      its stages and group count;
+  q4, q15: Q4 (orders LEFT_SEMI lineitem, COUNT(*) per priority on the
+     dense path) directly and through the grace join (K = 16, partial
+     mode), then a LEFT_SEMI whose output the engine compacts (lineitem
+     against the orders of one day); Q15 (revenue per supplier, its MAX, a
+     LEFT_SEMI join on the decimal revenue, an INNER join with supplier)
+     directly. Each against a numpy oracle, with Q3's fields plus the
+     membership path each semi join took (bitmap or sorted);
   grace_pair_kernels: times both bucket kernels at the grace run's pair
      shape (a pair's block, B = 16, its mean live rows);
   5. partition: holds B3 against its plain versions, exactly: the
-     payload-moving partition_columns at every distinct B3 call of Q12's and
-     Q3's runs (the grace runs' input shrinks, sides and per-pair shrinks,
-     the direct runs' compactions of each join's pair block), each on the
+     payload-moving partition_columns at every distinct B3 call of Q12's,
+     Q3's, Q4's and Q15's runs (the grace runs' input shrinks, sides and
+     per-pair shrinks, the direct runs' compactions of each join's pair
+     block, the semi output's compaction, Q15's stage shrink), each on the
      codes the query gave it (logged by one extra run of each query) with
      random columns of the call's types and widths; at the TPU kernel's
      probe shape (n = 2^23, four int64
@@ -40,7 +48,9 @@ Phases, one JSON line each:
      edge shapes. Times the wrapper (device ms and host µs a call), its
      plain version and the library composition (torch.sort + one
      index_select a column) at the query and probe shapes, with L2 flushed,
-     beside the byte bound. The q12 and q3 lines list every B3 call's n.
+     beside the byte bound. The query lines list every B3 call's n;
+  dense_minmax: the dense aggregate's MIN/MAX reduction at Q1's shape
+     against one scatter into a slot a group, equal, both timed.
 Then a {"kernels": [...]} line, nvidia-smi's line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero. The
 script imports no JAX; without a card, or without the package beside it, it
@@ -76,8 +86,8 @@ KERNELS = tuple(REPLACES)
 # the public wrappers whose launches are each TPU kernel's
 WRAPPERS = {"bucket_count": ("bucket_count",), "bucket_sum": ("bucket_sum",),
             "partition_sort": ("partition_sort", "partition_columns")}
-GRACE_K = 16  # the partition count the grace runs of Q12 and Q3 are sized to
-TABLES = ("lineitem", "orders", "customer")
+GRACE_K = 16  # the partition count the grace runs of Q12, Q3 and Q4 are sized to
+TABLES = ("lineitem", "orders", "customer", "supplier")
 
 
 def emit(obj) -> None:
@@ -384,6 +394,48 @@ def check_q3(out, expect, what: str) -> None:
         raise AssertionError(f"{what}: got {got}, expected {want}")
 
 
+def oracle_q4(li, od, lo: int, hi: int):
+    """Q4 with numpy alone: the orders of [lo, hi), those whose key is among
+    the keys of lines committed before received (np.isin), counted per
+    priority. Returns [(priority, count)] in priority order."""
+    om = (od["o_orderdate"] >= lo) & (od["o_orderdate"] < hi)
+    late = li["l_orderkey"][li["l_commitdate"] < li["l_receiptdate"]]
+    prio = od["o_orderpriority"][om][np.isin(od["o_orderkey"][om], late)]
+    return [(p, int((prio == p).sum())) for p in sorted(set(prio.tolist()))]
+
+
+def check_q4(out, expect, what: str) -> None:
+    got = [(out["o_orderpriority"][i], int(out["order_count"][i]))
+           for i in range(len(out["o_orderpriority"]))]
+    valid = out["o_orderpriority__valid"].all() and out["order_count__valid"].all()
+    if got != expect or not valid:
+        raise AssertionError(f"{what}: got {got}, expected {expect}")
+
+
+def oracle_q15(li, su, lo: int, hi: int):
+    """Q15 with numpy alone: each supplier's revenue over the lines shipped
+    in [lo, hi), summed exactly in int64 (scale 4, at most 1.05e9 a line),
+    the largest, and every supplier that reaches it, joined to ``supplier``
+    by key. Returns [(s_suppkey, s_name, total_revenue)] by key."""
+    m = (li["l_shipdate"] >= lo) & (li["l_shipdate"] < hi)
+    keys, inv = np.unique(li["l_suppkey"][m], return_inverse=True)
+    total = np.zeros(len(keys), np.int64)
+    np.add.at(total, inv, li["l_extendedprice"][m] * (100 - li["l_discount"][m]))
+    best = int(total.max())
+    top = keys[total == best]
+    sel = np.isin(su["s_suppkey"], top)
+    names = dict(zip(su["s_suppkey"][sel].tolist(), su["s_name"][sel]))
+    return [(k, names[k], best) for k in sorted(top.tolist()) if k in names]
+
+
+def check_q15(out, expect, what: str) -> None:
+    cols = ("s_suppkey", "s_name", "total_revenue")
+    got = [(int(out["s_suppkey"][i]), out["s_name"][i], int(out["total_revenue"][i]))
+           for i in range(len(out["s_suppkey"]))]
+    if got != expect or not all(out[c + "__valid"].all() for c in cols):
+        raise AssertionError(f"{what}: got {got}, expected {expect}")
+
+
 def grace_fraction(sess, plan, K: int = GRACE_K):
     """The Config(memory_fraction) under which the session splits ``plan``'s
     join into K partitions, and the join's peak estimate: (fraction,
@@ -416,17 +468,20 @@ def run_query(sess, plan, reps: int):
     after, ``reps`` warm runs, then one run that logs each B3 call with a
     copy of its codes (apart, so that the copies touch no measured run).
     Returns (first output, launches, first-run s, warm ms list, peak bytes,
-    the B3 log)."""
+    the B3 log, the semi-like joins of the first run by membership path)."""
     import torch
     from datafusion_comet_tpu_torch.exec import kernels as K
+    from datafusion_comet_tpu_torch.exec.operators.join import hash_join
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_counts(K)
+    semi = dict(hash_join.semi_paths)
     t0 = time.perf_counter()
     out = sess.collect(plan)
     first_s = time.perf_counter() - t0
     launches = _counts(K)
+    semi = {path: n - semi[path] for path, n in hash_join.semi_paths.items()}
     peak = torch.cuda.max_memory_allocated()
     times = []
     for _ in range(reps):
@@ -436,7 +491,7 @@ def run_query(sess, plan, reps: int):
     K.partition_columns.log = []
     sess.collect(plan)
     log, K.partition_columns.log = K.partition_columns.log, None
-    return out, launches, first_s, times, peak, log
+    return out, launches, first_s, times, peak, log, semi
 
 
 def query_phase(sf: float, reps: int, profile: bool):
@@ -463,8 +518,8 @@ def query_phase(sf: float, reps: int, profile: bool):
           "generate_s": gen_s, "stage_s": stage_s})
     launches, b3_calls = {}, {}
     for q in ("q1", "q6"):
-        out, launches[q], first_s, times, peak, b3_calls[q] = run_query(sess, getattr(tpch, q)(),
-                                                                        reps)
+        out, launches[q], first_s, times, peak, b3_calls[q], _ = run_query(
+            sess, getattr(tpch, q)(), reps)
         if q == "q1":
             check_q1(out, oracle_q1(data["lineitem"], tpch._d("1998-09-02")))
             need = ("bucket_count", "bucket_sum")
@@ -491,7 +546,7 @@ def query_phase(sf: float, reps: int, profile: bool):
     grace = grace_session(sess, fraction)
     q12 = {}
     for run, s in (("direct", sess), ("grace", grace)):
-        out, launches[f"q12_{run}"], first_s, times, peak, b3_calls[f"q12_{run}"] = run_query(
+        out, launches[f"q12_{run}"], first_s, times, peak, b3_calls[f"q12_{run}"], _ = run_query(
             s, tpch.q12(), reps)
         check_q12(out, expect, f"q12 {run}")
         got = launches[f"q12_{run}"]
@@ -520,6 +575,8 @@ def query_phase(sf: float, reps: int, profile: bool):
         emit(profile_run(grace, tpch.q12(), "profile_q12_grace"))
     del grace
     q3_phase(sess, data, sf, reps, profile, launches, b3_calls)
+    q4_phase(sess, data, sf, reps, profile, launches, b3_calls)
+    q15_phase(sess, data, sf, reps, profile, launches, b3_calls)
     return launches, sizes, b3_calls
 
 
@@ -549,7 +606,8 @@ def q3_phase(sess, data, sf: float, reps: int, profile: bool, launches, b3_calls
     runs = {}
     for run, s in (("direct", sess), ("grace", grace)):
         key = f"q3_{run}"
-        out, launches[key], first_s, times, peak, b3_calls[key] = run_query(s, tpch.q3(), reps)
+        out, launches[key], first_s, times, peak, b3_calls[key], _ = run_query(s, tpch.q3(),
+                                                                              reps)
         check_q3(out, expect, key)
         # both runs compact the joins' pair blocks with B3; no dense aggregate
         if launches[key]["partition_sort"] == 0:
@@ -582,6 +640,181 @@ def q3_phase(sess, data, sf: float, reps: int, profile: bool, launches, b3_calls
     if profile:
         emit(profile_run(sess, tpch.q3(), "profile_q3_direct"))
         emit(profile_run(grace, tpch.q3(), "profile_q3_grace"))
+
+
+def semi_compact_plan(day: int):
+    """``lineitem`` LEFT_SEMI the orders of one day, counted by return flag:
+    the join's row estimate is far below the lineitem's capacity, so the
+    engine compacts the semi output (the >= 8x rule), one B3 call."""
+    from datafusion_comet_tpu_torch import types as T
+    from datafusion_comet_tpu_torch.ir import expr as E
+    from datafusion_comet_tpu_torch.ir import plan as P
+    from datafusion_comet_tpu_torch.models import tpch
+
+    o = P.Scan("orders", tpch.SCHEMAS["orders"]).filter(
+        E.col("o_orderdate") == E.lit(day, T.DATE))
+    j = P.HashJoin(P.Scan("lineitem", tpch.SCHEMAS["lineitem"]), o, (E.col("l_orderkey"),),
+                   (E.col("o_orderkey"),), P.JoinType.LEFT_SEMI, "right")
+    return j.aggregate([E.col("l_returnflag")], [E.AggExpr("count", None, "n")]).sort(
+        [E.SortOrder(E.col("l_returnflag"))])
+
+
+def _query_run(s, key, first_s, times, peak, launches, b3_calls, semi):
+    """The fields of one run in a query line: as Q3's, plus the semi-like
+    joins of the counted run by membership path."""
+    return {"first_run_s": first_s, "warm_ms": statistics.median(times), "warm_ms_all": times,
+            "peak_mem_bytes": peak, "launches": launches[key],
+            "stages": [[n, type(p).__name__] for n, p in s.stages],
+            "partitioned": bool(s.grace_runners), "semi_paths": semi,
+            "b3_call_n": [c["n"] for c in b3_calls[key]],
+            "b3_calls": b3_call_shapes(b3_calls[key])}
+
+
+def q4_phase(sess, data, sf: float, reps: int, profile: bool, launches, b3_calls) -> None:
+    """Q4 (``orders`` LEFT_SEMI ``lineitem``, COUNT(*) per priority on the
+    dense path) directly and under a budget that makes the engine split the
+    semi join into K = 16 pairs (partial mode: each pair a PARTIAL
+    aggregate, one FINAL), then a semi join whose output the engine
+    compacts: each checked against a numpy oracle, timed, its launches
+    counted, and the membership path of its semi joins reported (the bitmap
+    where the build key's span is at most 2^24: o_orderkey spans 6M at SF1,
+    60M at SF10)."""
+    from datafusion_comet_tpu_torch.models import tpch
+
+    li, od = data["lineitem"], data["orders"]
+    expect = oracle_q4(li, od, tpch._d("1993-07-01"), tpch._d("1993-10-01"))
+    fraction, jpeak = grace_fraction(sess, tpch.q4())
+    grace = grace_session(sess, fraction)
+    runs = {}
+    for run, s, key in (("direct", sess, "q4"), ("grace", grace, "q4_grace")):
+        out, launches[key], first_s, times, peak, b3_calls[key], semi = run_query(
+            s, tpch.q4(), reps)
+        check_q4(out, expect, key)
+        need = ("bucket_count",) + (("partition_sort",) if run == "grace" else ())
+        if min(launches[key][k] for k in need) == 0:
+            raise AssertionError(f"{key} did not launch {need}: {launches[key]}")
+        if sum(semi.values()) == 0:
+            raise AssertionError(f"{key} ran no semi join: {semi}")
+        runs[run] = _query_run(s, key, first_s, times, peak, launches, b3_calls, semi)
+        runs[run]["max_groups"] = [a.max_groups for a in _plan_nodes(s.stages, "HashAggregate")]
+        runs[run]["joins"] = [[j.join_type, j.build_key_range, j.out_rows_hint]
+                              for j in _plan_nodes(s.stages, "HashJoin")]
+    if len(grace.grace_runners) != 1 or sess.grace_runners:
+        raise AssertionError("q4: the grace run did not partition, or the direct run did")
+    r = grace.grace_runners[0]
+    if r.K != GRACE_K or r.downstream[0] != "partial":
+        raise AssertionError(f"q4 grace: K={r.K} mode={r.downstream and r.downstream[0]}, "
+                             f"expected K={GRACE_K} partial")
+    sizes = {side: {"capacity": int(cap), "rows": int(sz.sum()), "min": int(sz.min()),
+                    "max": int(sz.max()), "sizes": sz.tolist()}
+             for side, cap, sz in zip(("orders", "lineitem"), r.capacities, r.sizes)}
+    # the semi-output compaction, on the orders of the busiest day
+    day = int(np.bincount(od["o_orderdate"]).argmax())
+    keep = np.isin(li["l_orderkey"], od["o_orderkey"][od["o_orderdate"] == day])
+    flags = li["l_returnflag"][keep]
+    want = [(f, int((flags == f).sum())) for f in sorted(set(flags.tolist()))]
+    key = "q4_semi_compact"
+    out, launches[key], first_s, times, peak, b3_calls[key], semi = run_query(
+        sess, semi_compact_plan(day), reps)
+    got = [(out["l_returnflag"][i], int(out["n"][i])) for i in range(len(out["n"]))]
+    if got != want or not out["n__valid"].all():
+        raise AssertionError(f"{key}: got {got}, expected {want}")
+    if not any(c["codes"] == "bool" for c in b3_calls[key]):
+        raise AssertionError(f"{key}: the semi output was not compacted")
+    runs["semi_compact"] = dict(_query_run(sess, key, first_s, times, peak, launches, b3_calls,
+                                           semi), day=day, result=want)
+    emit({"phase": "q4", "sf": sf, "correct": True, "result": expect,
+          "memory_fraction": fraction, "grace_budget_bytes": grace.budget_bytes(),
+          "join_peak_estimate_bytes": jpeak, "K": r.K, "mode": r.downstream[0],
+          "pair_retries": r.retries, "partitions": sizes, **runs})
+    if profile:
+        emit(profile_run(sess, tpch.q4(), "profile_q4_direct"))
+        emit(profile_run(grace, tpch.q4(), "profile_q4_grace"))
+
+
+def q15_phase(sess, data, sf: float, reps: int, profile: bool, launches, b3_calls) -> None:
+    """Q15 (per-supplier revenue, its ungrouped MAX, a LEFT_SEMI join on the
+    decimal revenue, an INNER join with ``supplier``, a sort): checked
+    against the numpy oracle, timed, its launches counted."""
+    from datafusion_comet_tpu_torch.models import tpch
+
+    expect = oracle_q15(data["lineitem"], data["supplier"], tpch._d("1996-01-01"),
+                        tpch._d("1996-04-01"))
+    out, launches["q15"], first_s, times, peak, b3_calls["q15"], semi = run_query(
+        sess, tpch.q15(), reps)
+    check_q15(out, expect, "q15")
+    # the MAX's presence on B1, the stage boundary's shrink on B3
+    if min(launches["q15"][k] for k in ("bucket_count", "partition_sort")) == 0:
+        raise AssertionError(f"q15 did not launch B1 and B3: {launches['q15']}")
+    if semi["sorted"] == 0:
+        raise AssertionError(f"q15 ran no semi join on the sorted path: {semi}")
+    run = _query_run(sess, "q15", first_s, times, peak, launches, b3_calls, semi)
+    top = sess.stages[0][1]  # stage 0: supplier INNER JOIN (revenue LEFT_SEMI max)
+    # the semi join's two key sides, each run alone: limbs of their storage
+    semi_join = top.right
+    emit({"phase": "q15", "sf": sf, "correct": True, "result": expect,
+          "key_storage_limbs": [sess.execute(side).columns[-1].data.dim()
+                                for side in (semi_join.left, semi_join.right)],
+          **run})
+    if profile:
+        emit(profile_run(sess, tpch.q15(), "profile_q15"))
+
+
+def _plan_nodes(stages, kind: str):
+    """Every node of a type (by class name) in a stage list's plans."""
+    out, stack = [], [p for _, p in stages]
+    while stack:
+        node = stack.pop()
+        out += [node] if type(node).__name__ == kind else []
+        stack.extend(node.children())
+    return out
+
+
+def minmax_phase(sf: float, reps: int, seed: int):
+    """The dense path's MIN/MAX reduction (aggregate._minmax_reduce: each
+    group's rows spread over up to 1024 lanes of scatter-min slots, then a
+    min over the lanes) at Q1's shape (64 buckets, the lineitem capacity,
+    Q1's codes) against one scatter-min into 65 slots, the plain form that
+    funnels a group's rows into one address: equal, and both timed on the
+    card (L2 rewritten before each run). Also MAX, and one group (an
+    ungrouped MIN)."""
+    import torch
+    from datafusion_comet_tpu_torch.exec.batch import pad_capacity
+    from datafusion_comet_tpu_torch.exec.operators import aggregate as AGG
+    from datafusion_comet_tpu_torch.models import tpch
+    from datafusion_comet_tpu_torch.tools import bucket_times as BT
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(seed)
+    rows = tpch.table_rows("lineitem", sf)
+    codes_np, _ = BT.q1_inputs(pad_capacity(rows), rows, rng)
+    flush = torch.zeros(BT.L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    out = {}
+    for name, m, is_min in (("min_b64", 64, True), ("max_b64", 64, False),
+                            ("min_b1", 1, True)):
+        codes = torch.from_numpy(codes_np if m == 64 else np.where(codes_np < 64, 0, 1)
+                                 .astype(np.int32)).to(dev)
+        n = int(codes.shape[0])
+        x = torch.randint(-(1 << 62), 1 << 62, (n,), dtype=torch.int64, device=dev)
+        info = torch.iinfo(torch.int64)
+
+        def one_address():
+            t = torch.full((m + 1,), info.max if is_min else info.min, dtype=torch.int64,
+                           device=dev)
+            return t.scatter_reduce_(0, codes.long(), x, "amin" if is_min else "amax")[:m]
+
+        got = AGG._minmax_reduce(x, codes, m, is_min)
+        want = one_address()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"dense {name}: the lane reduction != one scatter")
+        out[name] = {
+            "n": n, "buckets": m, "max_abs_err": 0,
+            "ms": BT.cuda_ms(lambda: AGG._minmax_reduce(x, codes, m, is_min), reps, flush=flush),
+            "one_address_ms": BT.cuda_ms(one_address, reps, flush=flush),
+            # codes and values read once, m results written
+            "bound_ms": (4 * n + 8 * n + 8 * m) / BT.HBM_BYTES_PER_S * 1e3}
+    return out
 
 
 def profile_run(sess, plan, phase: str):
@@ -700,10 +933,11 @@ def check_payload(K, name, codes, k, tensors, local=False, limit=None):
 
 
 def b3_call_names(calls):
-    """Each distinct B3 call of Q12's and Q3's runs, named by run, place in
-    the run and kind: [(name, call)], a repeated shape once."""
+    """Each distinct B3 call of Q12's, Q3's, Q4's and Q15's runs, named by
+    run, place in the run and kind: [(name, call)], a repeated shape once."""
     out, seen = [], set()
-    for run in ("q12_grace", "q12_direct", "q3_grace", "q3_direct"):
+    for run in ("q12_grace", "q12_direct", "q3_grace", "q3_direct", "q4_grace", "q4",
+                "q4_semi_compact", "q15"):
         for i, c in enumerate(calls[run]):
             shape = (c["n"], c["K"], c["local"], c["limit"], c["codes"], tuple(c["tensors"]))
             if shape not in seen:
@@ -844,7 +1078,8 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=25, help="timed warm runs per measurement")
     ap.add_argument("--seed", type=int, default=7, help="seed of the kernel-phase inputs")
     ap.add_argument("--profile", action="store_true",
-                    help="add profiled runs of Q1, of Q12's grace run and of Q3's two runs")
+                    help="add profiled runs of Q1, of Q12's grace run, of Q3's and Q4's two "
+                         "runs and of Q15")
     args = ap.parse_args(argv)
 
     import torch
@@ -883,6 +1118,7 @@ def main(argv=None) -> int:
 
     pchecked, ptiming, head = partition_phase(sizes, b3_calls, args.reps, args.seed)
     emit({"phase": "partition", "checked_exact": pchecked, "timing": ptiming})
+    emit({"phase": "dense_minmax", "timing": minmax_phase(args.sf, args.reps, args.seed)})
     # the kernels line: one bound a shape (the perm-only bound stays in the
     # partition line)
     ptiming = {k: {a: b for a, b in v.items() if a != "perm_bound_ms"}

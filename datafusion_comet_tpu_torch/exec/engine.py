@@ -1,6 +1,7 @@
 """Query engine: a bound plan tree executed operator by operator over
 device-resident tables (port of the ``Session`` subset of
-``datafusion_comet_tpu/exec/engine.py`` that TPC-H Q1, Q6, Q12 and Q3 reach).
+``datafusion_comet_tpu/exec/engine.py`` that TPC-H Q1, Q3, Q4, Q6, Q12 and
+Q15 reach).
 
 PyTorch runs eagerly, so there is no whole-plan compile. ``execute`` binds
 and prunes the plan, fills each aggregate's group capacity from the tables'
@@ -19,7 +20,7 @@ top-K sorts the aggregate's live groups, not its input's capacity. The JAX
 package splits to bound compile time; here the split changes which
 capacities the later operators run at. Its runtime filters
 (``inject_runtime_filters``) and join reorderings (``_apply_orderings``)
-are not ported: they change no result of the four queries.
+are not ported: they change no result of the six queries.
 
 Two loops wrap a stage's run, as in the JAX package:
 - the overflow retry: a join whose probe rows have more matches than its
@@ -63,6 +64,11 @@ from datafusion_comet_tpu_torch.ir.pruning import prune_columns
 __all__ = ["Session", "run_plan", "QueryExecutionError", "JoinOverflowError"]
 
 
+# a semi or anti join's output is compacted to this many times its row
+# estimate (the JAX package's margin for estimates from statistics)
+_SEMI_MARGIN = 4
+
+
 class QueryExecutionError(RuntimeError):
     """An ANSI-mode runtime error raised by the query (Spark's SparkError)."""
 
@@ -101,14 +107,29 @@ def run_plan(plan: P.PlanNode, tables: Dict[str, Batch], ctx: EvalContext, conf:
 
 
 def _exec_hash_join(plan: P.HashJoin, tables, ctx, conf, fanout) -> Batch:
-    """The join's (probe x K) pair block, compacted to twice the larger
+    """An INNER join's (probe x K) pair block, compacted to twice the larger
     input's capacity times the growth scale: chained joins then stay linear
-    in capacity instead of multiplying their K's."""
+    in capacity instead of multiplying their K's. A semi-like join's output
+    keeps the probe's capacity with a thinned mask; with an output-row
+    estimate it is compacted to a margin over the estimate (4x, grown by the
+    retry loop) when that cuts its capacity at least 8x, so the operators
+    above run at the post-join size (JAX ``engine.py:223-238``)."""
     left = run_plan(plan.left, tables, ctx, conf, fanout)
     right = run_plan(plan.right, tables, ctx, conf, fanout)
     out, ovf = J.hash_join(left, right, plan.left_keys, plan.right_keys, plan.join_type,
                            plan.build_side, plan.schema, plan.condition,
-                           max_build_matches=fanout, ctx=ctx)
+                           max_build_matches=fanout, ctx=ctx,
+                           build_key_range=plan.build_key_range)
+    if plan.join_type in J.SEMI_LIKE:
+        est = plan.out_rows_hint
+        if est and plan.join_type != P.JoinType.EXISTENCE:
+            # the JAX package's margin is 2 where a runtime filter's exact
+            # key set gave the estimate; runtime filters are not ported
+            target = pad_capacity(max(_SEMI_MARGIN * est, 1024) * ctx.agg_scale)
+            if target * 8 <= out.capacity:
+                out, covf = B.compact_batch(out, target)
+                ctx.overflow_flags.append(covf)
+        return out
     ctx.overflow_flags.append(ovf)
     grow = max(2, fanout // 2) * ctx.agg_scale
     target = pad_capacity(max(left.capacity, right.capacity) * grow)

@@ -240,10 +240,14 @@ class GraceJoinRunner:
         self.retries = 0
 
     def _mini_plan(self) -> P.HashJoin:
-        """The join over two temporary tables holding one pair."""
+        """The join over two temporary tables holding one pair, with the
+        join's build-key range and a K-th of its row estimate (at least
+        2048), as in the JAX package."""
         j = self.join
+        est = max(j.out_rows_hint // self.K, 2048) if j.out_rows_hint else None
         mini = P.HashJoin(pseudo_scan(self.gl, j.left.schema), pseudo_scan(self.gr, j.right.schema),
-                          j.left_keys, j.right_keys, j.join_type, j.build_side, j.condition)
+                          j.left_keys, j.right_keys, j.join_type, j.build_side, j.condition,
+                          j.build_key_range, est)
         mini.schema = j.schema
         return mini
 

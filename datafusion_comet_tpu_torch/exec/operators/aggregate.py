@@ -1,25 +1,30 @@
-"""Hash aggregate: SUM, COUNT and AVG in every mode (port of
+"""Hash aggregate: SUM, COUNT, AVG, MIN and MAX in every mode (port of
 ``datafusion_comet_tpu/exec/operators/aggregate.py``: _try_pack_keys,
 _pack_sort_limbs, _segments, _seg_bounds, _seg_sum, hash_aggregate,
 _sorted_aggregate, _compact_groups, _bucket_aggregate, _input_agg,
-_merge_agg, _decimal_sum, _finalize). SINGLE and PARTIAL aggregate input
-rows; FINAL and PARTIAL_MERGE merge the state columns PARTIAL emits
-(``state_fields``). The other aggregate functions (MIN, MAX, FIRST, LAST
-and the rest) are not ported and raise NotImplementedError.
+_limb_minmax, _merge_agg, _decimal_sum, _finalize). SINGLE and PARTIAL
+aggregate input rows; FINAL and PARTIAL_MERGE merge the state columns
+PARTIAL emits (``state_fields``). MIN and MAX take integers, dates and
+decimals (narrow and two-limb); strings, floats and bools, and the other
+aggregate functions (FIRST, LAST and the rest), are not ported and raise
+NotImplementedError.
 
 Two paths, chosen as the JAX package chooses them:
 
 - **Dense.** When the group keys pack into a small perfect-hash domain
   (dictionary codes, bools, int8; at most ``agg_dense_max_domain`` buckets)
   the packed key IS the bucket id: no row sort, one pass per aggregate
-  input. Every per-bucket reduction runs on the hand-written kernels of
+  input. Every per-bucket sum and count runs on the hand-written kernels of
   exec/kernels.py: sums on ``bucket_sum``, counts, presence and has-a-value
-  masks on ``bucket_count``. Dead rows carry bucket id == B and are dropped.
+  masks on ``bucket_count``; MIN, MAX and each bucket's first row (which
+  gives its key values) on ``_minmax_reduce`` below. Dead rows carry bucket
+  id == B and are dropped.
   Where ``max_groups`` is below the bucket count, the live buckets are
   compacted to it in key order. An ungrouped aggregate goes through the same
   path with one bucket; its one output row is always live, so it emits
   exactly one row even over empty input (sum null, count 0). The JAX package
-  sorts there; the result is the same.
+  sorts there; the result is the same (its sorted inputs have no magnitude
+  bound, so an ungrouped MIN or MAX carries none either).
 - **Sorted.** Any other key set: the keys pack into one or two int64 sort
   limbs where each key's range is known (``_pack_sort_limbs``: dictionary
   codes, bools, int8, and integers and dates with a statistics range), else
@@ -36,6 +41,14 @@ Two paths, chosen as the JAX package chooses them:
   rows). The output holds ``max_groups`` rows, groups in key order; more
   groups than that flag an overflow, and the session re-runs with the
   capacity four times larger.
+
+MIN and MAX of a one-limb value fill invalid rows with the type's identity
+and reduce per group (``_minmax_reduce``): a scatter-min or -max, spread
+over up to 1024 lanes a group (row i updates lane i mod lanes) so that no
+address takes every row of a group, then a min or max over the lanes. A
+two-limb decimal runs the JAX package's limb tournament: reduce the high
+limb, keep the rows that reach it, reduce the low limb among them, and
+gather the lowest such row.
 """
 
 from __future__ import annotations
@@ -64,6 +77,9 @@ _PACK_BITS_CAP = 24  # packed keys: at most 2^24 distinct codes
 _BUCKET_DOMAIN, _BUCKET_ROWS = 1 << 16, 1 << 18  # see keep_bounds in hash_aggregate
 _SEARCH_GROUPS = 1 << 16  # _seg_bounds: binary search below, a scatter at and above
 _DEAD_BIT = 62  # _pack_sort_limbs fills bits 0..61 of a limb; bit 62 marks dead rows
+_MINMAX_LANES = 1024  # lanes a group of _minmax_reduce, at most
+_MINMAX_SLOTS = 1 << 22  # partial results of _minmax_reduce, at most
+_MINMAX = (E.AggFunc.MIN, E.AggFunc.MAX)
 
 
 def _sum_state_dtype(a: E.AggExpr) -> T.DataType:
@@ -83,6 +99,8 @@ def state_fields(a: E.AggExpr) -> List[T.Field]:
     if a.func == E.AggFunc.AVG:
         return [T.Field(f"{o}__sum", _sum_state_dtype(a)),
                 T.Field(f"{o}__count", T.INT64, nullable=False)]
+    if a.func in _MINMAX:
+        return [T.Field(f"{o}__val", a.child.dtype)]
     raise NotImplementedError(f"state_fields: {a.func}")
 
 
@@ -154,12 +172,33 @@ def _pack_sort_limbs(key_cols: Sequence[ColumnVector], key_ranges
     return limbs
 
 
+def _minmax_reduce(x: torch.Tensor, seg: torch.Tensor, m: int, is_min: bool) -> torch.Tensor:
+    """Per-group min or max of ``x`` (n,) over group ids ``seg`` in [0, m]
+    (m: dead rows): (m,), the type's identity for a group with no row. The
+    rows scatter into (m + 1) x lanes partial slots, row i into lane i mod
+    lanes of its group, so a group's rows update up to 1024 addresses
+    instead of one; a min or max over the lanes finishes."""
+    n = x.shape[0]
+    info = torch.iinfo(x.dtype)
+    ident = info.max if is_min else info.min
+    lanes = 1
+    while lanes * 2 <= min(_MINMAX_LANES, _MINMAX_SLOTS // (m + 1), max(n, 1)):
+        lanes *= 2
+    idx = torch.arange(n, device=x.device).bitwise_and_(lanes - 1).add_(seg, alpha=lanes)
+    part = torch.full(((m + 1) * lanes,), ident, dtype=x.dtype, device=x.device)
+    part.scatter_reduce_(0, idx, x, "amin" if is_min else "amax")
+    part = part.view(m + 1, lanes)[:m]
+    return part.amin(1) if is_min else part.amax(1)
+
+
 class _Buckets:
     """Per-bucket reductions on the bucket kernels (the dense path): ``seg``
-    the int32 bucket id of each row, dead rows ``m``."""
+    the int32 bucket id of each row, dead rows ``m``. ``keep_bounds``: a
+    MIN or MAX carries its input's magnitude bound (False when ungrouped,
+    where the JAX package's sorted inputs have none)."""
 
-    def __init__(self, seg: torch.Tensor, m: int, errors):
-        self.seg, self.m, self.errors = seg, m, errors
+    def __init__(self, seg: torch.Tensor, m: int, errors, keep_bounds: bool = True):
+        self.seg, self.m, self.errors, self.keep_bounds = seg, m, errors, keep_bounds
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         """int64 (n,) or (k, n) values, zero where not summed -> (m,) or (k, m)."""
@@ -168,14 +207,20 @@ class _Buckets:
     def count(self, valid: torch.Tensor) -> torch.Tensor:
         return K.bucket_count(torch.where(valid, self.seg, self.m).int(), self.m, self.errors)
 
+    def minmax(self, x: torch.Tensor, is_min: bool) -> torch.Tensor:
+        return _minmax_reduce(x, self.seg, self.m, is_min)
+
 
 class _Segments:
     """Per-group reductions over rows sorted by group (the sorted path):
-    each group's rows are [starts[g], ends[g]); a sum is the difference of a
+    each group's rows are [starts[g], ends[g]), ``seg`` the group id of
+    each sorted row (m on dead rows); a sum is the difference of a
     cumulative sum at the two ends, exact mod 2^64."""
 
-    def __init__(self, starts: torch.Tensor, ends: torch.Tensor):
-        self.starts, self.ends = starts, ends
+    keep_bounds = True  # the sorted inputs hold the JAX package's bounds already
+
+    def __init__(self, starts: torch.Tensor, ends: torch.Tensor, seg: torch.Tensor):
+        self.starts, self.ends, self.seg, self.m = starts, ends, seg, starts.shape[0]
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         """int64 (n,) or (k, n) -> (m,) or (k, m). The k rows are summed as
@@ -190,6 +235,9 @@ class _Segments:
 
     def count(self, valid: torch.Tensor) -> torch.Tensor:
         return self.sum(valid.int()).long()
+
+    def minmax(self, x: torch.Tensor, is_min: bool) -> torch.Tensor:
+        return _minmax_reduce(x, self.seg, self.m, is_min)
 
 
 def hash_aggregate(
@@ -323,7 +371,7 @@ def _sorted_aggregate(batch: Batch, key_cols, key_limbs, agg_exprs, mode: str,
         ctx.overflow_flags.append(num_groups > max_groups)
     group_mask = torch.arange(max_groups, device=batch.device) < num_groups
     starts, ends = _seg_bounds(seg, changed, num_groups, sorted_mask.sum(), max_groups)
-    red = _Segments(starts, ends)
+    red = _Segments(starts, ends, seg)
     first_orig = perm[torch.where(group_mask, starts.clamp(0, cap - 1), 0)]
     out_cols: List[ColumnVector] = [kc.take(first_orig) for kc in key_cols]
 
@@ -355,15 +403,14 @@ def _bucket_aggregate(batch: Batch, key_cols, agg_exprs, mode: str, packed,
     seg = torch.where(batch.row_mask, seg_raw, n_buckets).int()
     if key_cols:
         group_mask = K.bucket_count(seg, n_buckets, ctx.errors) > 0
-        # a representative row per bucket, to gather its key values
-        first = torch.full((n_buckets + 1,), cap, dtype=torch.int64, device=batch.device)
-        first.scatter_reduce_(0, seg.long(), torch.arange(cap, device=batch.device), "amin")
-        first_orig = torch.where(group_mask, first[:n_buckets].clamp(0, cap - 1), 0)
+        # a representative row per bucket (its first), to gather its key values
+        first = _minmax_reduce(torch.arange(cap, device=batch.device), seg, n_buckets, True)
+        first_orig = torch.where(group_mask, first.clamp(0, cap - 1), 0)
     else:
         group_mask = torch.ones(1, dtype=torch.bool, device=batch.device)
     out_cols: List[ColumnVector] = [kc.take(first_orig) for kc in key_cols]
     merging = mode in (AggMode.FINAL, AggMode.PARTIAL_MERGE)
-    red = _Buckets(seg, n_buckets, ctx.errors)
+    red = _Buckets(seg, n_buckets, ctx.errors, keep_bounds=bool(key_cols))
     for a in agg_exprs:
         if merging:
             vals = _merge_agg(a, batch, red, group_mask, ctx)
@@ -411,6 +458,8 @@ def _input_agg(a: E.AggExpr, batch: Batch, red, group_mask: torch.Tensor,
     valid = cv.validity & active
     if a.func == E.AggFunc.COUNT:
         return [ColumnVector(red.count(valid), group_mask, None, T.INT64)]
+    if a.func in _MINMAX:
+        return [_minmax(a.func == E.AggFunc.MIN, cv, valid, red, group_mask)]
     if a.func not in (E.AggFunc.SUM, E.AggFunc.AVG):
         raise NotImplementedError(f"aggregate {a.func} is not ported yet")
     st = _sum_state_dtype(a)
@@ -426,13 +475,53 @@ def _input_agg(a: E.AggExpr, batch: Batch, red, group_mask: torch.Tensor,
     return [state, ColumnVector(cnt, group_mask, None, T.INT64)]
 
 
+def _minmax(is_min: bool, cv: ColumnVector, valid: torch.Tensor, red,
+            group_mask: torch.Tensor) -> ColumnVector:
+    """MIN or MAX of ``cv`` over its ``valid`` rows per group, null where a
+    group has none. One limb: the values, the identity where invalid,
+    reduced per group; the result is one of the inputs, so the input's
+    bound carries over. Two limbs: the limb tournament (``_limb_minmax``)."""
+    dt = cv.dtype
+    if dt.is_binary or dt.is_floating or dt.is_boolean:
+        raise NotImplementedError(f"MIN/MAX of {dt.type_id} is not ported yet")
+    has = (red.count(valid) > 0) & group_mask
+    if cv.is_wide_storage:
+        return _limb_minmax(is_min, cv, valid, red, has)
+    info = torch.iinfo(cv.data.dtype)
+    x = torch.where(valid, cv.data, info.max if is_min else info.min)
+    return ColumnVector(red.minmax(x, is_min), has, None, dt,
+                        mag_bound=cv.mag_bound if red.keep_bounds else None)
+
+
+def _limb_minmax(is_min: bool, cv: ColumnVector, valid: torch.Tensor, red,
+                 has: torch.Tensor) -> ColumnVector:
+    """MIN or MAX over two-limb decimals: reduce the high limb (signed), keep
+    the rows that reach their group's best, reduce the low limb (sign bit
+    flipped, so signed order is unsigned order) among those, and gather
+    each group's lowest row that is still in (row n - 1 for an empty
+    group). No bound carries over, as in the JAX package."""
+    n = valid.shape[0]
+    ident = (1 << 63) - 1 if is_min else -(1 << 63)
+    alive = valid
+    for limb in sortkeys.column_limbs(cv):
+        best = red.minmax(torch.where(alive, limb, ident), is_min)
+        per_row = torch.cat([best, best.new_zeros(1)])[red.seg.long().clamp(max=red.m)]
+        alive = alive & (limb == per_row)
+    rows = torch.arange(n, device=valid.device)
+    win = red.minmax(torch.where(alive, rows, n), True).clamp(0, max(n - 1, 0))
+    return ColumnVector(cv.take(win).data, has, None, cv.dtype)
+
+
 def _merge_agg(a: E.AggExpr, batch: Batch, red, group_mask: torch.Tensor,
                ctx: EvalContext) -> List[ColumnVector]:
     """Merge PARTIAL state columns per group into the same states: counts
     and sums add; a sum state is null where no input state of its group was
-    valid."""
+    valid; MIN and MAX reduce their states as they reduce input rows."""
     sts = [batch.column(f.name) for f in state_fields(a)]
     live = batch.row_mask
+    if a.func in _MINMAX:
+        return [_minmax(a.func == E.AggFunc.MIN, sts[0], sts[0].validity & live, red,
+                        group_mask)]
 
     def added(cv: ColumnVector) -> torch.Tensor:
         return red.sum(torch.where(cv.validity & live, cv.data, 0).long())
@@ -462,7 +551,7 @@ def _finalize(a: E.AggExpr, vals: List[ColumnVector], rows: Optional[int]) -> Co
     """State columns -> result column. ``rows``: a bound on every count (the
     input capacity when aggregating rows), or None."""
     rt = a.result_dtype()
-    if a.func in (E.AggFunc.COUNT, E.AggFunc.SUM):
+    if a.func in (E.AggFunc.COUNT, E.AggFunc.SUM) + _MINMAX:
         return vals[0]
     s, cnt = vals
     if not rt.is_decimal:

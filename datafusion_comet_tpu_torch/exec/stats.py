@@ -1,8 +1,8 @@
 """Table statistics and the group capacities derived from them (port of the
-subset of ``datafusion_comet_tpu/exec/stats.py`` that TPC-H Q1, Q6, Q12 and
-Q3 reach: ``collect_stats`` :42, ``derive_capacities`` :129, ``_walk`` :220
-over Scan, Filter, Projection, HashJoin, HashAggregate, Sort and Limit,
-``_column_range`` :167, ``_source_column`` :480, ``_pad`` :490).
+subset of ``datafusion_comet_tpu/exec/stats.py`` that TPC-H Q1, Q3, Q4, Q6,
+Q12 and Q15 reach: ``collect_stats`` :42, ``derive_capacities`` :129,
+``_walk`` :220 over Scan, Filter, Projection, HashJoin, HashAggregate, Sort
+and Limit, ``_column_range`` :167, ``_source_column`` :480, ``_pad`` :490).
 
 ``collect_stats`` sketches each registered table on the host: its rows, a
 distinct-count estimate per column (exact up to 65,536 rows, else from a
@@ -14,9 +14,14 @@ estimate twice over, a power of two, at least 1024) and its
 aggregate flags the overflow and the session runs again with the capacity
 four times larger.
 
-The JAX package's walk also leaves hints on joins and filters (build side,
-fan-out, output rows) for probes the port does not have; the port computes
-the same row and distinct estimates and sets no hint.
+On semi, anti and existence joins the walk leaves the JAX package's two
+hints (:251-305): ``build_key_range``, the exact range of a single build
+key, and for LEFT_SEMI ``out_rows_hint``, the probe rows times the share of
+the probe key's distinct values the build side can hold. The JAX walk's
+hints on INNER joins and filters (build side, fan-out, key packing, output
+rows) feed probes the port does not have, and its condition-column ranges
+serve semi joins with a condition, which the port does not run; the port
+computes the same row and distinct estimates and sets none of those.
 """
 
 from __future__ import annotations
@@ -105,7 +110,8 @@ def derive_capacities(plan: P.PlanNode, stats: Dict[str, TableStats]) -> None:
     """Fill, in place, every aggregate's ``max_groups`` that is None with
     min(product of its keys' distinct estimates, its input row estimate)
     padded, and its ``group_key_ranges`` where a key's source column has a
-    known range. Distinct estimates are the base tables' (filters never
+    known range; and each semi-like join's ``build_key_range`` and
+    ``out_rows_hint`` that is None. Distinct estimates are the base tables' (filters never
     shrink them, so they stay upper bounds); each use caps them by the row
     estimate."""
     _walk(plan, stats)
@@ -196,9 +202,22 @@ def _walk(plan: P.PlanNode, stats: Dict[str, TableStats]) -> Tuple[int, Dict[str
         return rows, out
 
     if isinstance(plan, P.HashJoin):
-        # INNER, the one join type the executor runs; the JAX walk's
-        # estimates for the others come with those join types
         (lr, ln), (rr, rn) = kids
+        if plan.join_type in _SEMI_LIKE:
+            _set_build_range(plan, stats)
+            lk0 = _source_column(plan.left_keys[0]) if plan.left_keys else None
+            if plan.join_type == P.JoinType.LEFT_SEMI and lk0 and lk0 in ln:
+                # the probe rows that survive: lr x (build rows / probe-key
+                # distinct values); it sizes the engine's semi-output
+                # compaction (the >= 8x rule: a mild overestimate costs nothing)
+                est = max(int(lr * min(1.0, rr / max(ln[lk0], 1))), 1)
+                if plan.out_rows_hint is None:
+                    plan.out_rows_hint = est
+                ln = dict(ln)
+                ln[lk0] = min(ln[lk0], max(rr, 1))
+                return est, ln
+            return lr, ln
+        # INNER (the outer joins are not run by the executor)
         lk = [_source_column(k) for k in plan.left_keys]
         rk = [_source_column(k) for k in plan.right_keys]
         # foreign key to primary key: the smaller side thins the larger by
@@ -256,6 +275,24 @@ def _walk(plan: P.PlanNode, stats: Dict[str, TableStats]) -> Tuple[int, Dict[str
         return rows, {k: min(v, rows) for k, v in ndv.items()}
 
     raise NotImplementedError(f"derive_capacities: {type(plan).__name__}")
+
+
+_SEMI_LIKE = (P.JoinType.LEFT_SEMI, P.JoinType.LEFT_ANTI, P.JoinType.LEFT_ANTI_NULL_AWARE,
+              P.JoinType.EXISTENCE)
+
+
+def _set_build_range(plan: P.HashJoin, stats: Dict[str, TableStats]) -> None:
+    """The exact (min, max) of a single build key, from its source column's
+    statistics: it lets the join test membership in a bitmap over the key's
+    span instead of sorting the build side."""
+    if len(plan.right_keys) != 1 or plan.build_key_range is not None:
+        return
+    left = plan.build_side == "left"
+    bkey = _source_column((plan.left_keys if left else plan.right_keys)[0])
+    if bkey:
+        r = _column_range(plan.left if left else plan.right, bkey, stats)
+        if r is not None:
+            plan.build_key_range = r
 
 
 def _source_column(e: E.Expr) -> Optional[str]:

@@ -211,6 +211,8 @@ class AggFunc:
     SUM = "sum"
     COUNT = "count"
     AVG = "avg"
+    MIN = "min"
+    MAX = "max"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -235,6 +237,8 @@ class AggExpr:
                 return T.decimal(min(cd.precision + 4, T.MAX_DECIMAL_PRECISION),
                                  min(cd.scale + 4, T.MAX_DECIMAL_PRECISION))
             return T.FLOAT64
+        if self.func in (AggFunc.MIN, AggFunc.MAX):
+            return cd
         raise NotImplementedError(f"aggregate {self.func}")
 
 

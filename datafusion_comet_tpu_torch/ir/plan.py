@@ -1,6 +1,6 @@
 """Operator plan IR (port of ``datafusion_comet_tpu/ir/plan.py``: the Scan,
 Filter, Projection, HashAggregate, Sort, Limit and HashJoin nodes TPC-H Q1,
-Q6, Q12 and Q3 use).
+Q3, Q4, Q6, Q12 and Q15 use).
 
 Plans are built unbound; ``bind_plan`` binds expressions bottom-up against
 child schemas and computes each node's output schema.
@@ -19,7 +19,8 @@ __all__ = ["PlanNode", "Scan", "Filter", "Projection", "HashAggregate", "AggMode
 
 
 class JoinType:
-    """Join types of the IR; the executor runs INNER and raises on the rest."""
+    """Join types of the IR; the executor runs INNER, LEFT_SEMI, LEFT_ANTI
+    and EXISTENCE and raises on the rest."""
 
     INNER = "inner"
     LEFT = "left"
@@ -146,7 +147,15 @@ class Limit(PlanNode):
 @dataclasses.dataclass
 class HashJoin(PlanNode):
     """Equi-join; ``build_side`` names the input that is sorted and searched,
-    the other is probed. Output schema: left fields then right fields."""
+    the other is probed. Output schema: left fields then right fields (the
+    left fields alone for semi and anti joins, plus ``exists`` for
+    EXISTENCE).
+
+    Planner attributes, filled from statistics (exec/stats.py) where None:
+    ``build_key_range``, the exact (min, max) of a single build key, which
+    lets a semi-like join test membership in a bitmap over that span;
+    ``out_rows_hint``, the estimated output rows, which sizes the
+    compaction of a semi or anti join's output."""
 
     left: PlanNode
     right: PlanNode
@@ -155,6 +164,8 @@ class HashJoin(PlanNode):
     join_type: str = JoinType.INNER
     build_side: str = "right"  # left|right
     condition: Optional[E.Expr] = None  # extra non-equi filter over the pair
+    build_key_range: Optional[Tuple[int, int]] = None
+    out_rows_hint: Optional[int] = None
 
     def children(self):
         return (self.left, self.right)
@@ -238,7 +249,8 @@ def bind_plan(plan: PlanNode) -> PlanNode:
         rkeys = tuple(E.bind(k, right.schema) for k in plan.right_keys)
         pair = T.Schema(list(left.schema.fields) + list(right.schema.fields))
         cond = E.bind(plan.condition, pair) if plan.condition is not None else None
-        out = HashJoin(left, right, lkeys, rkeys, plan.join_type, plan.build_side, cond)
+        out = HashJoin(left, right, lkeys, rkeys, plan.join_type, plan.build_side, cond,
+                       plan.build_key_range, plan.out_rows_hint)
         out.schema = _join_out_schema(left.schema, right.schema, plan.join_type)
         return out
     raise NotImplementedError(f"bind_plan: {type(plan).__name__}")

@@ -87,7 +87,7 @@ def prune_columns(plan: P.PlanNode, required: Optional[Set[str]] = ALL) -> P.Pla
                 rneed |= cond & rnames
         return P.HashJoin(prune_columns(plan.left, lneed), prune_columns(plan.right, rneed),
                           plan.left_keys, plan.right_keys, plan.join_type, plan.build_side,
-                          plan.condition)
+                          plan.condition, plan.build_key_range, plan.out_rows_hint)
     raise NotImplementedError(f"prune_columns: {type(plan).__name__}")
 
 
@@ -100,7 +100,8 @@ def _subtree_columns(plan: P.PlanNode) -> Set[str]:
     if isinstance(plan, P.HashAggregate):
         # partial modes emit state columns prefixed by the output name
         return ({g.name for g in plan.group_exprs} | {a.out_name for a in plan.agg_exprs}
-                | {f"{a.out_name}__{s}" for a in plan.agg_exprs for s in ("sum", "count")})
+                | {f"{a.out_name}__{s}" for a in plan.agg_exprs
+                   for s in ("sum", "count", "val")})
     out: Set[str] = set()
     for c in plan.children():
         out |= _subtree_columns(c)

@@ -1,6 +1,6 @@
-"""TPC-H workload subset: the ``lineitem``, ``orders`` and ``customer``
-schemas and generators, and the plans of Q1, Q6, Q12 and Q3 (port of
-``datafusion_comet_tpu/models/tpch.py``).
+"""TPC-H workload subset: the ``lineitem``, ``orders``, ``customer`` and
+``supplier`` schemas and generators, and the plans of Q1, Q3, Q4, Q6, Q12
+and Q15 (port of ``datafusion_comet_tpu/models/tpch.py``).
 
 The generator is a line-for-line copy of the JAX package's, so the same
 ``(sf, seed)`` gives bit-identical columns in both packages: results can be
@@ -19,7 +19,7 @@ from datafusion_comet_tpu_torch import types as T
 from datafusion_comet_tpu_torch.ir import expr as E
 from datafusion_comet_tpu_torch.ir import plan as P
 
-__all__ = ["SCHEMAS", "table_rows", "generate_table", "q1", "q3", "q6", "q12"]
+__all__ = ["SCHEMAS", "table_rows", "generate_table", "q1", "q3", "q4", "q6", "q12", "q15"]
 
 _dec = T.decimal
 
@@ -63,6 +63,15 @@ SCHEMAS: Dict[str, T.Schema] = {
             T.Field("c_phone", T.string(15), False),
         ]
     ),
+    "supplier": T.Schema(
+        [
+            T.Field("s_suppkey", T.INT64, False),
+            T.Field("s_name", T.string(25), False),
+            T.Field("s_nationkey", T.INT64, False),
+            T.Field("s_acctbal", _dec(15, 2), False),
+            T.Field("s_comment", T.string(60), False),
+        ]
+    ),
 }
 
 _SHIPMODES = ["REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB"]
@@ -92,10 +101,10 @@ def table_rows(name: str, sf: float) -> int:
 
 
 def generate_table(name: str, sf: float, seed: int = 19920401) -> Dict[str, np.ndarray]:
-    """Deterministic TPC-H-shaped ``lineitem``, ``orders`` or ``customer``
-    (value ranges per the spec). Decimals come pre-scaled as int64 (the
-    engine's physical form)."""
-    if name not in ("lineitem", "orders", "customer"):
+    """Deterministic TPC-H-shaped ``lineitem``, ``orders``, ``customer`` or
+    ``supplier`` (value ranges per the spec). Decimals come pre-scaled as
+    int64 (the engine's physical form)."""
+    if name not in ("lineitem", "orders", "customer", "supplier"):
         raise KeyError(name)
     n = table_rows(name, sf)
     rng = np.random.default_rng(seed + zlib.crc32(name.encode()) % (2**31))
@@ -112,6 +121,22 @@ def generate_table(name: str, sf: float, seed: int = 19920401) -> Dict[str, np.n
             # JAX package's generator
             "c_phone": np.array(
                 [f"{10 + k}-{rng.integers(100,999)}-{rng.integers(100,999)}-{rng.integers(1000,9999)}" for k in nk],
+                object,
+            ),
+        }
+    if name == "supplier":
+        sk = np.arange(1, n + 1, dtype=np.int64)
+        complaints = rng.random(n) < 0.01
+        return {
+            "s_suppkey": sk,
+            "s_name": np.array([f"Supplier#{k:09d}" for k in sk], object),
+            "s_nationkey": rng.integers(0, 25, n).astype(np.int64),
+            "s_acctbal": rng.integers(-99999, 999999, n).astype(np.int64),
+            "s_comment": np.array(
+                [
+                    ("blithely Customer ironic Complaints sleep" if c else "quickly bold deposits nag")
+                    for c in complaints
+                ],
                 object,
             ),
         }
@@ -224,6 +249,42 @@ def q3() -> P.PlanNode:
         fetch=10,
     ).project(
         [E.col("l_orderkey"), E.col("revenue"), E.col("o_orderdate"), E.col("o_shippriority")]
+    )
+
+
+def q4() -> P.PlanNode:
+    """Order priority checking: EXISTS -> left-semi join + group-by."""
+    o = P.Scan("orders", SCHEMAS["orders"]).filter(
+        (E.col("o_orderdate") >= _date_lit("1993-07-01"))
+        & (E.col("o_orderdate") < _date_lit("1993-10-01"))
+    )
+    l = P.Scan("lineitem", SCHEMAS["lineitem"]).filter(
+        E.col("l_commitdate") < E.col("l_receiptdate")
+    )
+    semi = P.HashJoin(
+        o, l, (E.col("o_orderkey"),), (E.col("l_orderkey"),), P.JoinType.LEFT_SEMI, "right"
+    )
+    agg = semi.aggregate([E.col("o_orderpriority")], [E.AggExpr("count", None, "order_count")])
+    return agg.sort([E.SortOrder(E.col("o_orderpriority"))])
+
+
+def q15() -> P.PlanNode:
+    """Top supplier: revenue view + join on max revenue."""
+    l = P.Scan("lineitem", SCHEMAS["lineitem"]).filter(
+        (E.col("l_shipdate") >= _date_lit("1996-01-01"))
+        & (E.col("l_shipdate") < _date_lit("1996-04-01"))
+    )
+    rev = E.col("l_extendedprice") * (E.lit(1).cast(_dec(10, 0)) - E.col("l_discount"))
+    revenue = l.aggregate([E.col("l_suppkey")], [E.AggExpr("sum", rev, "total_revenue")])
+    maxrev = revenue.aggregate([], [E.AggExpr("max", E.col("total_revenue"), "max_revenue")])
+    top = P.HashJoin(
+        revenue, maxrev, (E.col("total_revenue"),), (E.col("max_revenue"),),
+        P.JoinType.LEFT_SEMI, "right",
+    )
+    s = P.Scan("supplier", SCHEMAS["supplier"])
+    j = P.HashJoin(s, top, (E.col("s_suppkey"),), (E.col("l_suppkey"),), P.JoinType.INNER, "right")
+    return j.sort([E.SortOrder(E.col("s_suppkey"))]).project(
+        [E.col("s_suppkey"), E.col("s_name"), E.col("total_revenue")]
     )
 
 

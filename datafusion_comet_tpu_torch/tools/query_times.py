@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Warm latency, peak device memory and (with ``--profile``) device-time
-breakdowns of TPC-H Q1, Q6, Q12 and Q3 (Q12 and Q3 directly, and through the
-grace join at K = 16) for the port in any checkout; a checkout whose port
-has no Q3 runs the others. Each checkout runs in its own process, so two of
-them can be compared in turns on one card:
+breakdowns of TPC-H Q1, Q6, Q12, Q3, Q4 and Q15 (Q12, Q3 and Q4 directly,
+and through the grace join at K = 16) for the port in any checkout; a
+checkout whose port lacks Q3, or Q4 and Q15, runs the others. Each checkout
+runs in its own process, so two of them can be compared in turns on one
+card:
 
     python3 datafusion_comet_tpu_torch/tools/query_times.py [--tree DIR] [--sf 1] [--profile]
 
@@ -12,7 +13,7 @@ only the port's public entry points are called (``Session``, ``Config``,
 ``models.tpch``, ``exec.memory``). One JSON line per query: the median and
 every one of ``--reps`` warm runs (host clock, each ending in a device
 sync), and the peak device memory of one run. With ``--profile``, one
-torch.profiler run of each of Q12's and Q3's two runs: wall ms, device busy
+torch.profiler run of each run but Q1's and Q6's: wall ms, device busy
 ms and idle share, the device ms of index gathers (advanced indexing and
 index_select kernels), of scatter_reduce, of the partition kernels (B3), of
 sort kernels, the top kernels, the host ms of the grace runner's spans, and
@@ -121,7 +122,7 @@ def main(argv=None) -> int:
     ap.add_argument("--sf", type=float, default=1.0, help="TPC-H scale factor")
     ap.add_argument("--reps", type=int, default=7, help="warm runs per query")
     ap.add_argument("--profile", action="store_true",
-                    help="add profiles of Q12's and Q3's two runs")
+                    help="add profiles of every run but Q1's and Q6's")
     args = ap.parse_args(argv)
     tree = args.tree.resolve()
     sys.path.insert(0, str(tree))
@@ -140,9 +141,10 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({"tree": str(tree), "sf": args.sf, "nvidia_smi": smi}), flush=True)
-    has_q3 = hasattr(tpch, "q3")
+    has_q3, has_q4 = hasattr(tpch, "q3"), hasattr(tpch, "q4")
     sess = Session()
-    for t in ("lineitem", "orders") + (("customer",) if has_q3 else ()):
+    for t in (("lineitem", "orders") + (("customer",) if has_q3 else ())
+              + (("supplier",) if has_q4 else ())):
         sess.register_numpy(t, tpch.generate_table(t, args.sf), tpch.SCHEMAS[t])
 
     def grace_session(plan):
@@ -157,6 +159,9 @@ def main(argv=None) -> int:
             ("q12_grace", grace_session(tpch.q12()), tpch.q12())]
     if has_q3:
         runs += [("q3_direct", sess, tpch.q3()), ("q3_grace", grace_session(tpch.q3()), tpch.q3())]
+    if has_q4:
+        runs += [("q4_direct", sess, tpch.q4()), ("q4_grace", grace_session(tpch.q4()), tpch.q4()),
+                 ("q15", sess, tpch.q15())]
     for name, s, plan in runs:
         ms, times, peak = warm_times(s, plan, args.reps)
         line = {"query": name, "warm_ms": ms, "warm_ms_all": times, "peak_mem_bytes": peak}

@@ -1,6 +1,8 @@
 """PyTorch port on the card: the CUDA kernels against their plain versions,
-and Q1, Q6, Q12 and Q3 (the last two directly and through the grace join) on
-the card against the same queries on the CPU. Marked ``cuda``;
+Q1, Q6, Q12, Q3 and Q4 (the last three directly and through the grace join;
+Q4 on both semi-join membership paths) and Q15 on the card against the same
+queries on the CPU, and the dense path's MIN/MAX on the card against the
+CPU. Marked ``cuda``;
 without a card every test here skips. This file imports no JAX, so it runs
 on a machine without it (tests/conftest.py imports JAX, hence --noconftest):
 
@@ -271,15 +273,100 @@ def test_bucket_times_script_on_card(dev, capsys):
 
 def test_query_times_script_on_card(dev, capsys):
     """tools/query_times.py runs every query of both trees' comparison and
-    profiles Q12's and Q3's two runs, with the grace runs at K = 16."""
+    profiles every run but Q1's and Q6's, with the grace runs at K = 16."""
     from datafusion_comet_tpu_torch.tools import query_times as QT
 
     assert QT.main(["--sf", "0.01", "--reps", "2", "--profile"]) == 0
     head, *rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
     assert "nvidia_smi" in head
-    runs = ["q12_direct", "q12_grace", "q3_direct", "q3_grace"]
+    runs = ["q12_direct", "q12_grace", "q3_direct", "q3_grace", "q4_direct", "q4_grace", "q15"]
     assert [r.get("query") or r["profile"] for r in rows] == ["q1", "q6"] + runs + runs
     assert rows[3]["K"] == 16 and rows[3]["mode"] == "partial"
     assert rows[5]["K"] == 16 and rows[5]["mode"] == "local"
-    assert all(r["device_busy_ms"] > 0 and r["partition_calls"] > 0 for r in rows[6:])
-    assert all(r["aggregate_sort_calls"] > 0 for r in rows[8:])
+    assert rows[7]["K"] == 16 and rows[7]["mode"] == "partial"
+    profiles = dict(zip(runs, rows[9:]))
+    assert all(r["device_busy_ms"] > 0 for r in profiles.values())
+    # at SF 0.01 neither Q4 direct nor Q15 calls B3 (nothing to compact 4x)
+    assert all(profiles[q]["partition_calls"] > 0 for q in runs if q not in ("q4_direct", "q15"))
+    assert all(profiles[q]["aggregate_sort_calls"] > 0 for q in ("q3_direct", "q3_grace"))
+
+
+def _sessions(dev, tables, conf=None):
+    data = {t: tpch.generate_table(t, 0.01) for t in tables}
+    cpu, gpu = Session(device="cpu"), Session(conf=conf)
+    for s in (cpu, gpu):
+        for t, d in data.items():
+            s.register_numpy(t, d, tpch.SCHEMAS[t])
+    return data, cpu, gpu
+
+
+def _same(got, want):
+    assert list(got) == list(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("path", ["bitmap", "sorted"])
+def test_q4_on_card_equals_cpu_and_oracle(dev, path):
+    """Q4 on the card: with statistics the bitmap, without the lineitem's
+    the sorted build; equal to the CPU run and the numpy oracle; its
+    COUNT(*) on B1."""
+    from datafusion_comet_tpu_torch.exec.operators.join import hash_join
+
+    data, cpu, gpu = _sessions(dev, ("lineitem", "orders"))
+    if path == "sorted":
+        del cpu.stats["lineitem"], gpu.stats["lineitem"]
+    before = hash_join.semi_paths[path]
+    K.bucket_count.launches = 0
+    got = gpu.collect(tpch.q4())
+    assert hash_join.semi_paths[path] == before + 1 and K.bucket_count.launches > 0
+    _same(got, cpu.collect(tpch.q4()))
+    chip_smoke.check_q4(got, chip_smoke.oracle_q4(data["lineitem"], data["orders"],
+                                                  tpch._d("1993-07-01"), tpch._d("1993-10-01")),
+                        "card")
+
+
+def test_q4_grace_on_card_equals_cpu(dev):
+    """Q4 under the budget that picks K = 16: PARTIAL dense aggregates in
+    the pairs, one FINAL; B3 partitions both sides."""
+    _, cpu, _ = _sessions(dev, ("lineitem", "orders"))
+    fraction, _ = chip_smoke.grace_fraction(cpu, tpch.q4(), 16)
+    conf = Config(memory_fraction=fraction * 4 * 2**30
+                  / torch.cuda.get_device_properties(dev).total_memory)
+    _, _, gpu = _sessions(dev, ("lineitem", "orders"), conf)
+    K.partition_columns.launches = K.bucket_count.launches = 0
+    got = gpu.collect(tpch.q4())
+    assert K.partition_columns.launches > 0 and K.bucket_count.launches > 0
+    r = gpu.grace_runners[0]
+    assert (r.K, r.downstream[0]) == (16, "partial")
+    _same(got, cpu.collect(tpch.q4()))
+
+
+def test_q15_on_card_equals_cpu_and_oracle(dev):
+    data, cpu, gpu = _sessions(dev, ("lineitem", "supplier"))
+    K.bucket_count.launches = 0
+    got = gpu.collect(tpch.q15())
+    assert K.bucket_count.launches > 0  # the MAX's presence
+    _same(got, cpu.collect(tpch.q15()))
+    chip_smoke.check_q15(got, chip_smoke.oracle_q15(data["lineitem"], data["supplier"],
+                                                    tpch._d("1996-01-01"),
+                                                    tpch._d("1996-04-01")), "card")
+
+
+@pytest.mark.parametrize("m", [1, 64, 1 << 20])
+@pytest.mark.parametrize("is_min", [True, False])
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+def test_dense_minmax_on_card_equals_cpu(dev, m, is_min, dtype):
+    """The lane-spread MIN/MAX reduction on the card equals the CPU's,
+    groups with no row (the identity) and one heavy group included."""
+    from datafusion_comet_tpu_torch.exec.operators.aggregate import _minmax_reduce
+
+    rng = np.random.default_rng(m)
+    n = 8_388_608
+    seg = torch.from_numpy(np.where(rng.random(n) < 0.5, min(m - 1, 3),
+                                    rng.integers(0, m + 1, n)).astype(np.int32))
+    info = torch.iinfo(dtype)
+    x = torch.from_numpy(rng.integers(info.min, info.max, n)).to(dtype)
+    want = _minmax_reduce(x, seg, m, is_min)
+    got = _minmax_reduce(x.to(dev), seg.to(dev), m, is_min)
+    assert torch.equal(got.cpu(), want)

@@ -1,8 +1,10 @@
 """PyTorch port, the slices end to end: TPC-H Q1, Q6 and Q3 through the
 port's ``Session`` on the CPU against the JAX ``Session`` on the same
 generated data (Q1/Q6 at SF 0.01, Q3 at SF 0.001 and 0.01), and against the
-exact integer oracles chip_smoke.py checks the card with. The ``customer``
-table stages as the JAX package stages it. Also: the port imports no JAX and
+exact integer oracles chip_smoke.py checks the card with (Q4 and Q15 in
+test_torch_semi.py and test_torch_minmax.py; here Q15 with padded supplier
+names). The ``customer`` and ``supplier`` tables stage as the JAX package
+stages them. Also: the port imports no JAX and
 nothing of the JAX package, and its Session refuses to start without a card
 unless asked for the CPU."""
 
@@ -150,6 +152,60 @@ def test_customer_stages_as_jax(dict_max_size):
                 np.testing.assert_array_equal(np.asarray(a), b.numpy(), err_msg=f.name)
         if pc.is_dict:
             np.testing.assert_array_equal(jc.dictionary.values, pc.dictionary.values)
+
+
+@pytest.mark.parametrize("dict_max_size", [None, 50])
+def test_supplier_stages_as_jax(dict_max_size):
+    """Same generated columns, same staging: s_name and s_comment padded
+    strings once their distinct values pass the dictionary limit (s_name at
+    SF 10, or here past a limit of 50), else dictionary-coded."""
+    d = tpch.generate_table("supplier", 0.01)
+    want_d = JTPCH.generate_table("supplier", 0.01)
+    assert list(want_d) == list(d)
+    for k in want_d:
+        assert want_d[k].dtype == d[k].dtype, k
+        np.testing.assert_array_equal(want_d[k], d[k], err_msg=k)
+    kw = {} if dict_max_size is None else {"dict_max_size": dict_max_size}
+    jb = JB.from_numpy(want_d, JTPCH.SCHEMAS["supplier"], **kw)
+    pb = PB.from_numpy(d, tpch.SCHEMAS["supplier"], "cpu", **kw)
+    assert jb.capacity == pb.capacity == 128
+    coded = {f.name: c.is_dict for f, c in zip(pb.schema.fields, pb.columns)}
+    assert coded["s_comment"] and coded["s_name"] == (dict_max_size is None)
+    for f, jc, pc in zip(pb.schema.fields, jb.columns, pb.columns):
+        assert jc.is_dict == pc.is_dict, f.name
+        assert jc.mag_bound == pc.mag_bound, f.name
+        for a, b in ((jc.data, pc.data), (jc.validity, pc.validity), (jc.lengths, pc.lengths)):
+            assert (a is None) == (b is None), f.name
+            if a is not None:
+                np.testing.assert_array_equal(np.asarray(a), b.numpy(), err_msg=f.name)
+        if pc.is_dict:
+            np.testing.assert_array_equal(jc.dictionary.values, pc.dictionary.values)
+
+
+@pytest.mark.parametrize("q", ["q4", "q15"])
+def test_q4_q15_bound_schemas_match_jax(q):
+    from datafusion_comet_tpu.ir import plan as JP
+
+    assert repr(PP.bind_plan(getattr(tpch, q)()).schema) == repr(
+        JP.bind_plan(getattr(JTPCH, q)()).schema)
+
+
+def test_q15_with_padded_supplier_names():
+    """s_name as a padded string column (past the dictionary limit, as at
+    SF 10): the INNER join repeats and the sort gathers its byte rows."""
+    d = {t: tpch.generate_table(t, 0.01) for t in ("lineitem", "supplier")}
+    js, ps = JaxSession(), Session(device="cpu")
+    for t in d:
+        js.register_numpy(t, d[t], JTPCH.SCHEMAS[t], dict_max_size=50)
+        ps.register_numpy(t, d[t], tpch.SCHEMAS[t], dict_max_size=50)
+    assert not ps.tables["supplier"].column("s_name").is_dict
+    want, got = js.collect(JTPCH.q15()), ps.collect(tpch.q15())
+    assert list(want) == list(got)
+    for k in want:
+        np.testing.assert_array_equal(want[k], got[k], err_msg=k)
+    chip_smoke.check_q15(got, chip_smoke.oracle_q15(d["lineitem"], d["supplier"],
+                                                    tpch._d("1996-01-01"),
+                                                    tpch._d("1996-04-01")), "port")
 
 
 def test_q6_over_no_rows_gives_one_null_row():

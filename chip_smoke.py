@@ -5,7 +5,8 @@ On a machine with one NVIDIA card, from the root of a checkout:
 
     python3 chip_smoke.py            # TPC-H SF1
     python3 chip_smoke.py --sf 10    # another scale
-    python3 chip_smoke.py --profile  # add torch.profiler breakdowns of Q1, Q12 grace, Q3, Q4, Q15
+    python3 chip_smoke.py --profile  # add torch.profiler breakdowns of Q1, Q12 grace, Q3, Q4,
+                                     # Q15, Q5
 
 Phases, one JSON line each:
   1. device: the card's name, count, and nvidia-smi's name and power limit;
@@ -33,13 +34,23 @@ Phases, one JSON line each:
      LEFT_SEMI join on the decimal revenue, an INNER join with supplier)
      directly. Each against a numpy oracle, with Q3's fields plus the
      membership path each semi join took (bitmap or sorted);
+  q5: Q5 (five INNER joins over six tables, one on two packed keys,
+     revenue per nation on the dense path) directly and through the grace
+     join (its first join at K = 16), against a numpy oracle, each run
+     launching B1 and B2, the grace run B3, with Q4's fields plus its
+     grace joins.
+     Every query line carries its joins' ``hints`` (per INNER join: build
+     side, K, unique build, key packing, compacted-list rows and the path
+     taken: dense_unique, sorted_unique, pair_list or block) and its
+     ``attempts`` and ``retries`` (the stage runs, and those that
+     overflowed and ran again);
   grace_pair_kernels: times both bucket kernels at the grace run's pair
      shape (a pair's block, B = 16, its mean live rows);
   5. partition: holds B3 against its plain versions, exactly: the
      payload-moving partition_columns at every distinct B3 call of Q12's,
-     Q3's, Q4's and Q15's runs (the grace runs' input shrinks, sides and
-     per-pair shrinks, the direct runs' compactions of each join's pair
-     block, the semi output's compaction, Q15's stage shrink), each on the
+     Q3's, Q4's, Q15's, Q6's and Q5's runs (the grace runs' input shrinks,
+     sides and per-pair shrinks, the filter shrinks, the semi output's
+     compaction, the stage shrinks), each on the
      codes the query gave it (logged by one extra run of each query) with
      random columns of the call's types and widths; at the TPU kernel's
      probe shape (n = 2^23, four int64
@@ -86,8 +97,8 @@ KERNELS = tuple(REPLACES)
 # the public wrappers whose launches are each TPU kernel's
 WRAPPERS = {"bucket_count": ("bucket_count",), "bucket_sum": ("bucket_sum",),
             "partition_sort": ("partition_sort", "partition_columns")}
-GRACE_K = 16  # the partition count the grace runs of Q12, Q3 and Q4 are sized to
-TABLES = ("lineitem", "orders", "customer", "supplier")
+GRACE_K = 16  # the partition count the grace runs of Q12, Q3, Q4 and Q5 are sized to
+TABLES = ("lineitem", "orders", "customer", "supplier", "nation", "region")
 
 
 def emit(obj) -> None:
@@ -436,6 +447,57 @@ def check_q15(out, expect, what: str) -> None:
         raise AssertionError(f"{what}: got {got}, expected {expect}")
 
 
+def _lookup(keys, probe):
+    """Index into ``keys`` (sorted, unique) of each probe key, and found."""
+    if not len(keys):
+        return np.zeros(len(probe), np.int64), np.zeros(len(probe), bool)
+    pos = np.clip(np.searchsorted(keys, probe), 0, len(keys) - 1)
+    return pos, keys[pos] == probe
+
+
+def _by_key(table, key: str, *cols):
+    """``table``'s ``key`` column sorted (it must be unique) and ``cols`` in
+    its order."""
+    order = np.argsort(table[key], kind="stable")
+    keys = table[key][order]
+    if len(np.unique(keys)) != len(keys):
+        raise AssertionError(f"{key} is not unique")
+    return (keys,) + tuple(table[c][order] for c in cols)
+
+
+def oracle_q5(li, od, cu, su, na, re, lo: int, hi: int):
+    """Q5 with numpy alone: the nations of region ASIA, their suppliers, the
+    orders of [lo, hi) with their customers, and the lines whose supplier
+    and customer are of one such nation (each join by np.searchsorted on
+    the unique key), revenue per nation summed exactly in int64 (scale 4,
+    at most 1.05e9 a line). Returns [(n_name, revenue)] by revenue
+    descending, then name."""
+    asia = re["r_regionkey"][re["r_name"] == "ASIA"]
+    nkeys, nnames, nreg = _by_key(na, "n_nationkey", "n_name", "n_regionkey")
+    skeys, snat = _by_key(su, "s_suppkey", "s_nationkey")
+    ckeys, cnat = _by_key(cu, "c_custkey", "c_nationkey")
+    om = (od["o_orderdate"] >= lo) & (od["o_orderdate"] < hi)
+    okeys, ocust = _by_key({k: od[k][om] for k in ("o_orderkey", "o_custkey")},
+                           "o_orderkey", "o_custkey")
+    opos, ofound = _lookup(okeys, li["l_orderkey"])
+    cpos, cfound = _lookup(ckeys, ocust[opos])
+    spos, sfound = _lookup(skeys, li["l_suppkey"])
+    nat = snat[spos]
+    npos, nfound = _lookup(nkeys, nat)
+    m = (ofound & cfound & sfound & nfound & (cnat[cpos] == nat)
+         & np.isin(nreg[npos], asia))
+    rev = li["l_extendedprice"][m] * (100 - li["l_discount"][m])
+    names = nnames[npos[m]]
+    out = [(n, int(rev[names == n].sum())) for n in sorted(set(names.tolist()))]
+    return sorted(out, key=lambda r: (-r[1], r[0]))
+
+
+def check_q5(out, expect, what: str) -> None:
+    got = [(out["n_name"][i], int(out["revenue"][i])) for i in range(len(out["n_name"]))]
+    if got != expect or not (out["n_name__valid"].all() and out["revenue__valid"].all()):
+        raise AssertionError(f"{what}: got {got}, expected {expect}")
+
+
 def grace_fraction(sess, plan, K: int = GRACE_K):
     """The Config(memory_fraction) under which the session splits ``plan``'s
     join into K partitions, and the join's peak estimate: (fraction,
@@ -461,6 +523,23 @@ def b3_call_shapes(log):
     return [{"n": c["n"], "K": c["K"], "local": c["local"], "limit": c["limit"],
              "codes": c["codes"], "tensors": c["tensors"],
              "sizes": c["sizes"].tolist() if not c["local"] else None} for c in log]
+
+
+def run_record(sess):
+    """The join hints and retries of a session's last run: ``hints``, per
+    INNER join of each stage's last attempt, its build side, K, unique
+    build, key packing, compacted-list rows and path (dense_unique,
+    sorted_unique, pair_list or block); ``pair_hints``, the distinct ones of
+    the grace pairs; ``attempts``, per stage run its growth scale,
+    unique_join_ok and whether it overflowed; ``retries``, the stage runs
+    that overflowed."""
+    stage = [r for r in sess.runs if r["where"] == "stage"]
+    pairs = {json.dumps(j, sort_keys=True) for r in sess.runs
+             if r["where"] == "pair" and not r["overflowed"] for j in r["joins"]}
+    return {"hints": [j for r in stage if not r["overflowed"] for j in r["joins"]],
+            "pair_hints": [json.loads(j) for j in sorted(pairs)],
+            "attempts": [[r["scale"], r["unique_join_ok"], r["overflowed"]] for r in stage],
+            "retries": sum(r["overflowed"] for r in stage)}
 
 
 def run_query(sess, plan, reps: int):
@@ -534,7 +613,7 @@ def query_phase(sf: float, reps: int, profile: bool):
         emit({"phase": q, "sf": sf, "rows": n_rows, "correct": True, "first_run_s": first_s,
               "warm_ms": warm_ms, "warm_ms_all": times, "rows_per_s": n_rows / (warm_ms / 1e3),
               "peak_mem_bytes": peak, "launches": launches[q],
-              "b3_call_n": [c["n"] for c in b3_calls[q]]})
+              "b3_call_n": [c["n"] for c in b3_calls[q]], **run_record(sess)})
     if profile:
         emit(profile_run(sess, tpch.q1(), "profile_q1"))
 
@@ -550,13 +629,15 @@ def query_phase(sf: float, reps: int, profile: bool):
             s, tpch.q12(), reps)
         check_q12(out, expect, f"q12 {run}")
         got = launches[f"q12_{run}"]
-        # both runs compact the join's output with the partition sort
+        # the direct run shrinks the filtered lineitem (the filter's row
+        # estimate is under an eighth of its capacity), the grace run
+        # partitions both sides, both with the partition sort
         if min(got.values()) == 0:
             raise AssertionError(f"q12 {run} did not launch every kernel: {got}")
         q12[run] = {"first_run_s": first_s, "warm_ms": statistics.median(times),
                     "warm_ms_all": times, "peak_mem_bytes": peak, "launches": got,
                     "b3_call_n": [c["n"] for c in b3_calls[f"q12_{run}"]],
-                    "b3_calls": b3_call_shapes(b3_calls[f"q12_{run}"])}
+                    "b3_calls": b3_call_shapes(b3_calls[f"q12_{run}"]), **run_record(s)}
     if grace.grace_runners and not sess.grace_runners:
         r = grace.grace_runners[0]
     else:
@@ -577,6 +658,7 @@ def query_phase(sf: float, reps: int, profile: bool):
     q3_phase(sess, data, sf, reps, profile, launches, b3_calls)
     q4_phase(sess, data, sf, reps, profile, launches, b3_calls)
     q15_phase(sess, data, sf, reps, profile, launches, b3_calls)
+    q5_phase(sess, data, sf, reps, profile, launches, b3_calls)
     return launches, sizes, b3_calls
 
 
@@ -609,8 +691,10 @@ def q3_phase(sess, data, sf: float, reps: int, profile: bool, launches, b3_calls
         out, launches[key], first_s, times, peak, b3_calls[key], _ = run_query(s, tpch.q3(),
                                                                               reps)
         check_q3(out, expect, key)
-        # both runs compact the joins' pair blocks with B3; no dense aggregate
-        if launches[key]["partition_sort"] == 0:
+        # the grace run partitions with B3; the direct run's joins are
+        # unique builds, which need no compaction, and its aggregate is the
+        # sorted one: no kernel of the port
+        if run == "grace" and launches[key]["partition_sort"] == 0:
             raise AssertionError(f"{key} did not launch B3: {launches[key]}")
         agg_stage = s.stages[0][1]
         runs[run] = {
@@ -622,7 +706,7 @@ def q3_phase(sess, data, sf: float, reps: int, profile: bool, launches, b3_calls
                 agg_stage, max(s.tables[t].capacity for t in TABLES)),
             "partitioned": bool(s.grace_runners),
             "b3_call_n": [c["n"] for c in b3_calls[key]],
-            "b3_calls": b3_call_shapes(b3_calls[key])}
+            "b3_calls": b3_call_shapes(b3_calls[key]), **run_record(s)}
     if len(grace.grace_runners) != 1:
         raise AssertionError(f"q3 grace: {len(grace.grace_runners)} grace joins, expected 1")
     r = grace.grace_runners[0]
@@ -667,7 +751,7 @@ def _query_run(s, key, first_s, times, peak, launches, b3_calls, semi):
             "stages": [[n, type(p).__name__] for n, p in s.stages],
             "partitioned": bool(s.grace_runners), "semi_paths": semi,
             "b3_call_n": [c["n"] for c in b3_calls[key]],
-            "b3_calls": b3_call_shapes(b3_calls[key])}
+            "b3_calls": b3_call_shapes(b3_calls[key]), **run_record(s)}
 
 
 def q4_phase(sess, data, sf: float, reps: int, profile: bool, launches, b3_calls) -> None:
@@ -743,9 +827,10 @@ def q15_phase(sess, data, sf: float, reps: int, profile: bool, launches, b3_call
     out, launches["q15"], first_s, times, peak, b3_calls["q15"], semi = run_query(
         sess, tpch.q15(), reps)
     check_q15(out, expect, "q15")
-    # the MAX's presence on B1, the stage boundary's shrink on B3
-    if min(launches["q15"][k] for k in ("bucket_count", "partition_sort")) == 0:
-        raise AssertionError(f"q15 did not launch B1 and B3: {launches['q15']}")
+    # the MAX's presence on B1 (B3 shrinks the stage boundary where the
+    # join's output is four times its live rows: SF1 and up)
+    if launches["q15"]["bucket_count"] == 0:
+        raise AssertionError(f"q15 did not launch B1: {launches['q15']}")
     if semi["sorted"] == 0:
         raise AssertionError(f"q15 ran no semi join on the sorted path: {semi}")
     run = _query_run(sess, "q15", first_s, times, peak, launches, b3_calls, semi)
@@ -758,6 +843,45 @@ def q15_phase(sess, data, sf: float, reps: int, profile: bool, launches, b3_call
           **run})
     if profile:
         emit(profile_run(sess, tpch.q15(), "profile_q15"))
+
+
+def q5_phase(sess, data, sf: float, reps: int, profile: bool, launches, b3_calls) -> None:
+    """Q5 (five INNER joins over six tables, one on two packed keys, revenue
+    per nation on the dense path) directly and under a budget that makes
+    the engine split its first join (lineitem, orders, customer) into K =
+    16 pairs: each checked against the numpy oracle, timed, its launches
+    counted (B1 and B2 for the aggregate in both runs; B3 partitions in the
+    grace run, and in the direct run shrinks the first stage's output where
+    that is four times its live rows, at SF1 but not at SF10), its joins'
+    hints and retries reported."""
+    from datafusion_comet_tpu_torch.models import tpch
+
+    expect = oracle_q5(*(data[t] for t in TABLES), tpch._d("1994-01-01"), tpch._d("1995-01-01"))
+    fraction, jpeak = grace_fraction(sess, tpch.q5())
+    grace = grace_session(sess, fraction)
+    runs = {}
+    for run, s, key in (("direct", sess, "q5_direct"), ("grace", grace, "q5_grace")):
+        out, launches[key], first_s, times, peak, b3_calls[key], semi = run_query(
+            s, tpch.q5(), reps)
+        check_q5(out, expect, key)
+        need = ("bucket_count", "bucket_sum") + (("partition_sort",) if run == "grace" else ())
+        if min(launches[key][k] for k in need) == 0:
+            raise AssertionError(f"{key} did not launch {need}: {launches[key]}")
+        runs[run] = _query_run(s, key, first_s, times, peak, launches, b3_calls, semi)
+        runs[run]["grace_runners"] = [
+            {"K": r.K, "mode": r.downstream and r.downstream[0], "pair_retries": r.retries,
+             "capacities": list(r.capacities),
+             "sizes": [{"rows": int(sz.sum()), "min": int(sz.min()), "max": int(sz.max())}
+                       for sz in r.sizes]} for r in s.grace_runners]
+    if sess.grace_runners or not any(r.K == GRACE_K for r in grace.grace_runners):
+        raise AssertionError(f"q5: the direct run partitioned, or no grace join of K={GRACE_K}: "
+                             f"{runs['grace']['grace_runners']}")
+    emit({"phase": "q5", "sf": sf, "correct": True, "result": expect,
+          "memory_fraction": fraction, "grace_budget_bytes": grace.budget_bytes(),
+          "join_peak_estimate_bytes": jpeak, **runs})
+    if profile:
+        emit(profile_run(sess, tpch.q5(), "profile_q5_direct"))
+        emit(profile_run(grace, tpch.q5(), "profile_q5_grace"))
 
 
 def _plan_nodes(stages, kind: str):
@@ -933,11 +1057,12 @@ def check_payload(K, name, codes, k, tensors, local=False, limit=None):
 
 
 def b3_call_names(calls):
-    """Each distinct B3 call of Q12's, Q3's, Q4's and Q15's runs, named by
-    run, place in the run and kind: [(name, call)], a repeated shape once."""
+    """Each distinct B3 call of Q12's, Q3's, Q4's, Q15's, Q6's and Q5's runs,
+    named by run, place in the run and kind: [(name, call)], a repeated
+    shape once."""
     out, seen = [], set()
     for run in ("q12_grace", "q12_direct", "q3_grace", "q3_direct", "q4_grace", "q4",
-                "q4_semi_compact", "q15"):
+                "q4_semi_compact", "q15", "q6", "q5_grace", "q5_direct"):
         for i, c in enumerate(calls[run]):
             shape = (c["n"], c["K"], c["local"], c["limit"], c["codes"], tuple(c["tensors"]))
             if shape not in seen:
@@ -949,9 +1074,8 @@ def b3_call_names(calls):
 
 def partition_phase(sizes, calls, reps: int, seed: int):
     """B3 against its plain versions, exactly, then timed. Payload-moving
-    (partition_columns): every distinct B3 call of Q12's and Q3's direct
-    and grace runs, on
-    the codes the query gave it, the TPU kernel's probe shape in tile-local
+    (partition_columns): every distinct B3 call of the queries' runs
+    (``b3_call_names``), on the codes the query gave it, the TPU kernel's probe shape in tile-local
     mode, and every row width on misaligned inputs. Permutation-only
     (partition_sort): the grace sides' shapes (each side's capacity, its
     live rows spread over K = 16 codes), the probe shape and edge shapes.
@@ -1078,8 +1202,8 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=25, help="timed warm runs per measurement")
     ap.add_argument("--seed", type=int, default=7, help="seed of the kernel-phase inputs")
     ap.add_argument("--profile", action="store_true",
-                    help="add profiled runs of Q1, of Q12's grace run, of Q3's and Q4's two "
-                         "runs and of Q15")
+                    help="add profiled runs of Q1, of Q12's grace run, of Q3's, Q4's and "
+                         "Q5's two runs and of Q15")
     args = ap.parse_args(argv)
 
     import torch

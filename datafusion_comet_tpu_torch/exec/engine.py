@@ -1,7 +1,7 @@
 """Query engine: a bound plan tree executed operator by operator over
 device-resident tables (port of the ``Session`` subset of
-``datafusion_comet_tpu/exec/engine.py`` that TPC-H Q1, Q3, Q4, Q6, Q12 and
-Q15 reach).
+``datafusion_comet_tpu/exec/engine.py`` that TPC-H Q1, Q3, Q4, Q5, Q6, Q12
+and Q15 reach).
 
 PyTorch runs eagerly, so there is no whole-plan compile. ``execute`` binds
 and prunes the plan, fills each aggregate's group capacity from the tables'
@@ -20,14 +20,22 @@ top-K sorts the aggregate's live groups, not its input's capacity. The JAX
 package splits to bound compile time; here the split changes which
 capacities the later operators run at. Its runtime filters
 (``inject_runtime_filters``) and join reorderings (``_apply_orderings``)
-are not ported: they change no result of the six queries.
+are not ported: they change no result of the seven queries.
+
+The operators read the planner's hints (exec/stats.py) as the JAX package
+does: a filter estimated to keep under an eighth of its capacity is
+compacted to a margin over its estimate, and each join takes its K,
+unique-build, key-packing and compacted-list capacity from its hints
+(``_exec_hash_join``).
 
 Two loops wrap a stage's run, as in the JAX package:
 - the overflow retry: a join whose probe rows have more matches than its
-  fan-out K, an aggregate with more groups than its capacity, or a
-  compaction that overflows, flags the run, which then re-runs with K and
-  the growth scale four times larger, at most ``join.MAX_JOIN_RETRIES``
-  times (then JoinOverflowError);
+  fan-out K, a unique build with a repeated key, a packed key out of its
+  range, a compacted pair list or filter shrink too small, an aggregate
+  with more groups than its capacity, or a compaction that overflows,
+  flags the run, which then re-runs with K and the growth scale four times
+  larger and without the unique-build and key-packing hints, at most
+  ``join.MAX_JOIN_RETRIES`` times (then JoinOverflowError);
 - the memory budget (``_budget_plan``): while a plan's resident-bytes
   estimate is over ``device_budget_bytes`` (the card's memory times
   ``Config.memory_fraction``), an over-budget join runs hash-partitioned
@@ -91,7 +99,17 @@ def run_plan(plan: P.PlanNode, tables: Dict[str, Batch], ctx: EvalContext, conf:
         return _exec_hash_join(plan, tables, ctx, conf, fanout)
     child = run_plan(plan.children()[0], tables, ctx, conf, fanout)
     if isinstance(plan, P.Filter):
-        return B.filter_op(child, plan.predicate, ctx)
+        out = B.filter_op(child, plan.predicate, ctx)
+        # a filter estimated to keep under an eighth of its capacity is
+        # compacted to 4x its estimate (grown by the retry loop), so the
+        # operators above run at the estimate (JAX ``engine.py:103-119``)
+        est = plan.out_rows_hint
+        if est:
+            target = pad_capacity(max(4 * est, 1024) * ctx.agg_scale)
+            if target * 8 <= out.capacity:
+                out, covf = B.compact_batch(out, target)
+                ctx.overflow_flags.append(covf)
+        return out
     if isinstance(plan, P.Projection):
         return B.project_op(child, plan.exprs, plan.schema, ctx)
     if isinstance(plan, P.HashAggregate):
@@ -107,19 +125,36 @@ def run_plan(plan: P.PlanNode, tables: Dict[str, Batch], ctx: EvalContext, conf:
 
 
 def _exec_hash_join(plan: P.HashJoin, tables, ctx, conf, fanout) -> Batch:
-    """An INNER join's (probe x K) pair block, compacted to twice the larger
-    input's capacity times the growth scale: chained joins then stay linear
+    """A join with its planner hints (JAX ``engine.py:185-247``): K is the
+    join's ``fanout_hint`` times the growth scale (at most 256), else the
+    session's fan-out; an INNER join with a row estimate lays its pairs out
+    in a compacted list of twice the estimate (at least 4096, times the
+    growth scale, at most 64x the larger input's capacity); the unique-build
+    and key-packing hints hold on a plan's first run only. An INNER join's
+    output is compacted to the larger input's capacity times max(2, K / 2)
+    (times the growth scale without a hint): chained joins then stay linear
     in capacity instead of multiplying their K's. A semi-like join's output
     keeps the probe's capacity with a thinned mask; with an output-row
     estimate it is compacted to a margin over the estimate (4x, grown by the
     retry loop) when that cuts its capacity at least 8x, so the operators
-    above run at the post-join size (JAX ``engine.py:223-238``)."""
+    above run at the post-join size."""
     left = run_plan(plan.left, tables, ctx, conf, fanout)
     right = run_plan(plan.right, tables, ctx, conf, fanout)
+    hint = plan.fanout_hint
+    k = min(hint * ctx.agg_scale, 256) if hint else fanout
+    compact_rows = None
+    if plan.out_rows_hint and plan.join_type not in J.SEMI_LIKE:
+        # the scale multiplies outside the floor, so a tiny wrong estimate
+        # still grows on every retry
+        lim = max(left.capacity, right.capacity) * 64
+        compact_rows = pad_capacity(min(max(2 * plan.out_rows_hint, 4096) * ctx.agg_scale, lim))
     out, ovf = J.hash_join(left, right, plan.left_keys, plan.right_keys, plan.join_type,
                            plan.build_side, plan.schema, plan.condition,
-                           max_build_matches=fanout, ctx=ctx,
-                           build_key_range=plan.build_key_range)
+                           max_build_matches=k, ctx=ctx,
+                           build_key_range=plan.build_key_range,
+                           unique_build=bool(plan.unique_build_hint) and ctx.unique_join_ok,
+                           key_pack=plan.key_pack if ctx.unique_join_ok else None,
+                           compact_rows=compact_rows)
     if plan.join_type in J.SEMI_LIKE:
         est = plan.out_rows_hint
         if est and plan.join_type != P.JoinType.EXISTENCE:
@@ -131,7 +166,7 @@ def _exec_hash_join(plan: P.HashJoin, tables, ctx, conf, fanout) -> Batch:
                 ctx.overflow_flags.append(covf)
         return out
     ctx.overflow_flags.append(ovf)
-    grow = max(2, fanout // 2) * ctx.agg_scale
+    grow = max(2, k // 2) * (1 if hint else ctx.agg_scale)
     target = pad_capacity(max(left.capacity, right.capacity) * grow)
     if target < out.capacity:
         out, covf = B.compact_batch(out, target)
@@ -228,6 +263,10 @@ class Session:
         self.stats: Dict[str, TableStats] = {}
         self.stages: List[Tuple[Optional[str], P.PlanNode]] = []
         self.grace_runners: List[G.GraceJoinRunner] = []
+        # every run of the last ``execute``: where it ran ("stage" or a grace
+        # "pair"), its attempt, growth scale, unique_join_ok, whether it
+        # overflowed, and its INNER joins' paths
+        self.runs: List[dict] = []
         self._ids = itertools.count()
 
     def register_batch(self, name: str, batch: Batch) -> None:
@@ -254,6 +293,7 @@ class Session:
         channel fired: an ANSI error, or a kernel's code out of range."""
         self.stages = self._plan_stages(plan)
         self.grace_runners = []
+        self.runs = []
         temp_names: List[str] = [n for n, _ in self.stages if n]
         out = None
         try:
@@ -335,10 +375,12 @@ class Session:
     def _execute_retry(self, plan: P.PlanNode,
                        tables: Optional[Dict[str, Batch]] = None) -> Batch:
         """Run ``plan``, again with the joins' fan-out and the growth scale
-        four times larger while a capacity overflows."""
+        four times larger while a capacity overflows; the joins' unique-build
+        and key-packing hints hold on the first attempt only."""
         fanout, scale = J.JOIN_FANOUT, 1
-        for _ in range(J.MAX_JOIN_RETRIES):
-            out, overflowed = self._run_once(plan, fanout, scale, tables)
+        for attempt in range(J.MAX_JOIN_RETRIES):
+            out, overflowed = self._run_once(plan, fanout, scale, tables,
+                                             unique_join_ok=attempt == 0, where="stage")
             if not overflowed:
                 return out
             fanout *= 4
@@ -347,21 +389,24 @@ class Session:
             f"a join's fan-out or an aggregate's groups exceeded after {J.MAX_JOIN_RETRIES} retries")
 
     def _run_once(self, plan: P.PlanNode, fanout: int, scale: int,
-                  tables: Optional[Dict[str, Batch]] = None) -> Tuple[Batch, bool]:
+                  tables: Optional[Dict[str, Batch]] = None, unique_join_ok: bool = True,
+                  where: str = "stage") -> Tuple[Batch, bool]:
         """One run of a bound plan: (result, whether a capacity overflowed).
         Every error and overflow flag of the run is read in one
         device-to-host copy at its end."""
         errs: List[Tuple[torch.Tensor, str]] = []
-        ctx = EvalContext(errors=errs, overflow_flags=[], agg_scale=scale)
+        ctx = EvalContext(errors=errs, overflow_flags=[], agg_scale=scale,
+                          unique_join_ok=unique_join_ok, join_log=[])
         out = run_plan(plan, self.tables if tables is None else tables, ctx, self.conf, fanout)
         flags = [f for f, _ in errs] + ctx.overflow_flags
-        if not flags:
-            return out, False
-        hit = torch.stack([f.any() for f in flags]).tolist()
+        hit = torch.stack([f.any() for f in flags]).tolist() if flags else []
         fired = [m for (_, m), h in zip(errs, hit) if h]
         if fired:
             raise QueryExecutionError("; ".join(dict.fromkeys(fired)))
-        return out, any(hit[len(errs):])
+        overflowed = any(hit[len(errs):])
+        self.runs.append({"where": where, "scale": scale, "unique_join_ok": unique_join_ok,
+                          "overflowed": overflowed, "joins": ctx.join_log})
+        return out, overflowed
 
     def _aqe_shrink(self, b: Batch) -> Batch:
         """Compact a batch to twice its live rows (at least 1024, a power of

@@ -43,6 +43,12 @@ class EvalContext:
     overflow_flags: Optional[List[torch.Tensor]] = None
     # the re-plan loop's growth factor for capacities chosen from estimates
     agg_scale: int = 1
+    # whether the joins may take their statistics' unique-build and
+    # key-packing hints: true on a plan's first run only, so a hint that
+    # proved wrong (its flag fired) is not taken again
+    unique_join_ok: bool = True
+    # where a list: each INNER join's path and hints, in run order
+    join_log: Optional[list] = None
 
     def record_error(self, flags: torch.Tensor, message: str) -> None:
         if self.errors is not None:

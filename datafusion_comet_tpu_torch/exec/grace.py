@@ -241,13 +241,14 @@ class GraceJoinRunner:
 
     def _mini_plan(self) -> P.HashJoin:
         """The join over two temporary tables holding one pair, with the
-        join's build-key range and a K-th of its row estimate (at least
-        2048), as in the JAX package."""
+        join's hints (build-key range, fan-out, unique build, key packing)
+        and a K-th of its row estimate (at least 2048), as in the JAX
+        package."""
         j = self.join
         est = max(j.out_rows_hint // self.K, 2048) if j.out_rows_hint else None
         mini = P.HashJoin(pseudo_scan(self.gl, j.left.schema), pseudo_scan(self.gr, j.right.schema),
                           j.left_keys, j.right_keys, j.join_type, j.build_side, j.condition,
-                          j.build_key_range, est)
+                          j.build_key_range, est, j.fanout_hint, j.unique_build_hint, j.key_pack)
         mini.schema = j.schema
         return mini
 
@@ -345,7 +346,9 @@ class GraceJoinRunner:
     def _run_pairs(self, left: Batch, right: Batch, sl: np.ndarray, sr: np.ndarray
                    ) -> List[Optional[Batch]]:
         """Each non-empty pair's output, with the pair retry: a pair whose
-        join overflowed runs again with the fan-out four times larger."""
+        join overflowed runs again with the fan-out and the growth scale
+        four times larger, and without the unique-build and key-packing
+        hints."""
         s, K = self.session, self.K
         sizes_l, sizes_r = self.sizes
         outs: List[Optional[Batch]] = [None] * K
@@ -364,7 +367,8 @@ class GraceJoinRunner:
                 cap_r = pad_capacity(max(int(sizes_r[k]), 8))
                 s.tables[self.gl] = _extract(left, int(sl[k]), int(sl[k + 1]), cap_l)
                 s.tables[self.gr] = _extract(right, int(sr[k]), int(sr[k + 1]), cap_r)
-                out, ovf = s._run_once(self.template, fanout, scale)
+                out, ovf = s._run_once(self.template, fanout, scale,
+                                       unique_join_ok=scale == 1, where="pair")
                 if ovf:
                     overflowed = True
                     continue

@@ -449,6 +449,22 @@ def _decimal_sum(cv: ColumnVector, x: torch.Tensor, valid: torch.Tensor, red,
     return red.sum(torch.where(valid, x, 0).long()), None, None
 
 
+def _unbounded_storage(s: torch.Tensor, sb: Optional[int], cv: ColumnVector,
+                       st: T.DataType, red) -> Tuple[torch.Tensor, Optional[int]]:
+    """An ungrouped sum state in the storage the JAX package gives it: there
+    its inputs are sorted, which drops their magnitude bounds, so its sum's
+    bound is the input type's times the rows, and a wide-typed state at or
+    over the int64 limit is two-limb with no bound. The sum itself stays the
+    exact narrow one of the bucket kernel; only its storage widens."""
+    if red.keep_bounds or not (st.is_decimal and st.is_wide_decimal) or s.dim() != 1:
+        return s, sb
+    bound = _dec_bound(dataclasses.replace(cv, mag_bound=None),
+                       cv.dtype if cv.dtype.is_decimal else st) * red.seg.shape[0]
+    if bound >= _NARROW_LIMIT:
+        return DW.pack(int128.from_i64(s)), None
+    return s, bound
+
+
 def _input_agg(a: E.AggExpr, batch: Batch, red, group_mask: torch.Tensor,
                ctx: EvalContext) -> List[ColumnVector]:
     active = batch.row_mask
@@ -464,6 +480,7 @@ def _input_agg(a: E.AggExpr, batch: Batch, red, group_mask: torch.Tensor,
         raise NotImplementedError(f"aggregate {a.func} is not ported yet")
     st = _sum_state_dtype(a)
     s, sb, over = _decimal_sum(cv, cv.data, valid, red, st)
+    s, sb = _unbounded_storage(s, sb, cv, st, red)
     cnt = red.count(valid)
     has = (cnt > 0) & group_mask
     if over is not None:
@@ -531,6 +548,7 @@ def _merge_agg(a: E.AggExpr, batch: Batch, red, group_mask: torch.Tensor,
     st = sts[0]
     valid = st.validity & live
     s, sb, over = _decimal_sum(st, st.data, valid, red, st.dtype)
+    s, sb = _unbounded_storage(s, sb, st, st.dtype, red)
     if a.func == E.AggFunc.SUM:
         has = (red.count(valid) > 0) & group_mask
     elif a.func == E.AggFunc.AVG:

@@ -1,14 +1,42 @@
 """Hash join: INNER, and the semi-like LEFT_SEMI, LEFT_ANTI and EXISTENCE
 (port of ``datafusion_comet_tpu/exec/operators/join.py::hash_join``, :354;
-the sorted-build path :626-660 and :740-756, the dense-bitmap membership
-path :433-466, ``_key_limbs`` :45 and ``_harmonize_keys`` :56).
+the key packing :400-419, the unique build :551-581, the compacted pair
+list :586-614, the sorted-build path :626-660 and :740-756, the
+dense-bitmap membership path :433-466, ``_key_limbs`` :45 and
+``_harmonize_keys`` :56).
 
 The build side is sorted once by (has no valid key, key limbs); every probe
 row finds its run of equal build keys with two binary searches
-(``torch.searchsorted``). An INNER join lays its matches out as a (probe x
-K) pair block: row p*K + j pairs probe row p with its j-th build match. A
-probe row with more than K matches raises the overflow flag and the session
-re-plans with a larger K. Null keys never match (Spark's NullEqualsNothing).
+(``torch.searchsorted``). Null keys never match (Spark's
+NullEqualsNothing). An INNER join lays its matches out on one of four
+paths, which the planner's hints select (exec/stats.py, exec/engine.py):
+
+- **unique build, dense**: the build keys are hinted unique and the single
+  integer or date build key has an exact range of span at most 2^24. The
+  build rows' positions and counts are scattered into span + 1 slots (slot
+  ``span`` is a sink no probe reads); each probe row finds its match with
+  one gather. No sort.
+- **unique build, sorted**: hinted unique, any other key. Each probe row
+  takes the first row of its run.
+  Both unique paths emit one pair slot per probe row, at the probe's
+  capacity, and raise the overflow flag where a valid build key repeats:
+  the session then re-runs without the hint.
+- **compacted pair list** (``compact_rows``, from the join's row
+  estimate): the match counts' exclusive cumulative sum gives each probe
+  row its first output slot; each of the ``compact_rows`` slots finds its
+  probe row by a binary search in the cumulative sum and its build row at
+  the run's start plus its offset. Pairs come out by probe row, then by
+  build row within a key. More pairs than slots raise the flag. No
+  (probe x K) block exists.
+- **pair block**: row p*K + j pairs probe row p with its j-th build match;
+  a probe row with more than K matches raises the flag and the session
+  re-plans with a larger K.
+
+A multi-key join with ``key_pack`` (per key, the (min, max) over both
+sides) packs the key tuple into one int64, (k1 - lo1) + (k2 - lo2) x span1
++ ...; a valid key outside its range raises the flag and the retry runs
+without packing. Without it, several key limbs collapse into one by their
+dense rank over both sides (``_one_limb``).
 
 A semi-like join keeps the probe (left) side and needs only whether each
 probe row has a match: LEFT_SEMI keeps the rows that do, LEFT_ANTI the rows
@@ -23,10 +51,10 @@ this path when a probe row has more than K matches (its unused pair block
 is cut off) and re-runs with a larger K; the port raises none, and the
 results are the same.
 
-The JAX package runs these paths outside any Pallas kernel; its default
-carry-range probe and its stats-driven INNER variants (dense key ranges,
-packed keys, compacted pair lists), null-aware anti joins and semi-like
-joins with a condition are not ported.
+The JAX package runs these paths outside any Pallas kernel. Its carry-range
+probe (a concatenated sort of both sides) is replaced here by the binary
+searches, which give each probe row the same run in the same order; its
+null-aware anti joins and semi-like joins with a condition are not ported.
 """
 
 from __future__ import annotations
@@ -103,6 +131,31 @@ def _one_limb(blimbs: List[torch.Tensor], plimbs: List[torch.Tensor]
     return rank[:nb], rank[nb:]
 
 
+def _packable(cols: Sequence[ColumnVector], key_pack) -> bool:
+    """Whether ``key_pack`` applies: one range per key, and every key an
+    integer or date without dictionary codes."""
+    return key_pack is not None and len(key_pack) == len(cols) // 2 and all(
+        not c.is_dict and (c.dtype.is_integer or c.dtype.type_id == "DATE") for c in cols)
+
+
+def _pack(cols: Sequence[ColumnVector], key_pack
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(packed int64 key, all-keys-valid, valid but out of range): each key
+    clamped into its range, offset by its minimum and scaled by the spans
+    of the keys before it."""
+    acc = torch.zeros(cols[0].data.shape[0], dtype=torch.int64, device=cols[0].data.device)
+    oor = torch.zeros_like(acc, dtype=torch.bool)
+    valid = cols[0].validity
+    stride = 1
+    for cv, (lo, hi) in zip(cols, key_pack):
+        valid = valid & cv.validity
+        k = cv.data.long()
+        oor = oor | (k < lo) | (k > hi)
+        acc = acc + (k.clamp(lo, hi) - lo) * stride
+        stride *= hi - lo + 1
+    return acc, valid, oor & valid
+
+
 def _repeat(cv: ColumnVector, k: int) -> ColumnVector:
     """Each row k times in a row (probe row p fills pair rows p*K .. p*K+K-1)."""
     rep = (lambda a: None if a is None else a.repeat_interleave(k, dim=0))
@@ -137,34 +190,110 @@ def _bitmap_member(bkey: torch.Tensor, bvalid: torch.Tensor, pkey: torch.Tensor,
     return table[torch.where(in_rng, pk, span)] & pvalid & in_rng
 
 
-def _sorted_matches(bkey: torch.Tensor, bvalid: torch.Tensor, pkey: torch.Tensor,
-                    pvalid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(build permutation, start of each probe row's run in it, run length):
-    build rows with a valid key first, by key; the rest get the largest key
-    so the sorted sequence stays ordered, and every search is clamped to
-    the valid build rows. Invalid probe rows count 0."""
+def _dense_unique(bkey: torch.Tensor, bvalid: torch.Tensor, pkey: torch.Tensor,
+                  pvalid: torch.Tensor, key_range
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(build row of each probe row, matched, duplicate flag) over the
+    build key's exact span: each valid build row's position + 1 and a count
+    scattered into its key's slot (slot ``span`` sinks the rest), one
+    gather for the probe. A slot counted twice is a duplicate key."""
+    lo = int(key_range[0])
+    span = int(key_range[1]) - lo + 1
+    bcap = bkey.shape[0]
+    bk = bkey.long() - lo
+    bslot = torch.where(bvalid & (bk >= 0) & (bk < span), bk, span)
+    pos = torch.arange(1, bcap + 1, device=bkey.device)
+    tpos = torch.zeros(span + 1, dtype=torch.int64, device=bkey.device).scatter_reduce_(
+        0, bslot, pos, "amax")
+    dup = (torch.bincount(bslot, minlength=span + 1)[:span] > 1).any()
+    pk = pkey.long() - lo
+    in_rng = (pk >= 0) & (pk < span)
+    hit = tpos[torch.where(in_rng & pvalid, pk, span)]
+    matched = (hit > 0) & in_rng & pvalid
+    return (hit - 1).clamp(0, max(bcap - 1, 0)), matched, dup
+
+
+def _sorted_build(bkey: torch.Tensor, bvalid: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(build permutation, sorted keys, valid build rows): rows with a
+    valid key first, by key; the rest get the largest key so the sorted
+    sequence stays ordered."""
     bperm = sortkeys.lexsort([(~bvalid).int(), bkey])
-    n_build = bvalid.sum()
     sorted_key = torch.where(bvalid[bperm], bkey[bperm], _I64_MAX).contiguous()
+    return bperm, sorted_key, bvalid.sum()
+
+
+def _sorted_matches(bkey: torch.Tensor, bvalid: torch.Tensor, pkey: torch.Tensor,
+                    pvalid: torch.Tensor, sorted_build=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(build permutation, start of each probe row's run in it, run length):
+    every search is clamped to the valid build rows. Invalid probe rows
+    count 0."""
+    bperm, sorted_key, n_build = sorted_build or _sorted_build(bkey, bvalid)
     pk = pkey.contiguous()
     lo = torch.minimum(torch.searchsorted(sorted_key, pk, side="left"), n_build)
     hi = torch.minimum(torch.searchsorted(sorted_key, pk, side="right"), n_build)
     return bperm, lo, torch.where(pvalid, hi - lo, 0)
 
 
+def _sorted_unique(bkey: torch.Tensor, bvalid: torch.Tensor, pkey: torch.Tensor,
+                   pvalid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(build row of each probe row, matched, duplicate flag) on the sorted
+    build: each probe row takes the first row of its run; two equal valid
+    keys next to each other in the sorted build are a duplicate."""
+    sb = _sorted_build(bkey, bvalid)
+    bperm, sorted_key, n_build = sb
+    vs = torch.arange(bkey.shape[0], device=bkey.device) < n_build
+    dup = ((sorted_key[1:] == sorted_key[:-1]) & vs[1:]).any()
+    _, lo, count = _sorted_matches(bkey, bvalid, pkey, pvalid, sb)
+    return bperm[lo.clamp(0, max(bkey.shape[0] - 1, 0))], count > 0, dup
+
+
+def _pair_list(bperm: torch.Tensor, lo: torch.Tensor, count: torch.Tensor, rows: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(probe row, build row and liveness of each of ``rows`` pair slots,
+    overflow): probe row p owns the slots [off[p], off[p] + count[p]), off
+    the exclusive cumulative sum of the counts; a slot finds its probe row
+    as the first whose inclusive sum passes it, and its build row at its
+    offset into the probe row's run."""
+    csum = count.long().cumsum(0)
+    total = csum[-1] if csum.shape[0] else csum.new_zeros(())
+    slot = torch.arange(rows, device=count.device)
+    p = torch.searchsorted(csum, slot, right=True).clamp(max=max(count.shape[0] - 1, 0))
+    j = slot - (csum[p] - count[p])
+    b = bperm[(lo[p] + j).clamp(0, max(bperm.shape[0] - 1, 0))]
+    return p, b, slot < total, total > rows
+
+
+def _pair_block(bperm: torch.Tensor, lo: torch.Tensor, count: torch.Tensor, K: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(build row and liveness of each (probe x K) block row): row p*K + j
+    is probe row p's j-th match."""
+    pcap = count.shape[0]
+    j = torch.arange(K, device=count.device).repeat(pcap)
+    live = j < count.clamp(max=K).repeat_interleave(K)
+    return bperm[(lo.repeat_interleave(K) + j).clamp(0, max(bperm.shape[0] - 1, 0))], live
+
+
 def hash_join(left: Batch, right: Batch, left_keys: Sequence[E.Expr],
               right_keys: Sequence[E.Expr], join_type: str, build_side: str,
               out_schema: T.Schema, condition: Optional[E.Expr] = None,
               max_build_matches: int = 4, ctx: Optional[EvalContext] = None,
-              build_key_range: Optional[Tuple[int, int]] = None
-              ) -> Tuple[Batch, torch.Tensor]:
-    """Returns (joined batch, overflow flag). INNER: the (probe x K) pair
-    block, and the flag set where some probe row had more than K =
-    ``max_build_matches`` matches, so the result is incomplete and the
-    caller must re-run with a larger K. Semi-like: the probe's columns at
-    its capacity (EXISTENCE adds ``exists``), and a flag never set.
+              build_key_range: Optional[Tuple[int, int]] = None, unique_build: bool = False,
+              key_pack: Optional[Tuple[Tuple[int, int], ...]] = None,
+              compact_rows: Optional[int] = None) -> Tuple[Batch, torch.Tensor]:
+    """Returns (joined batch, overflow flag). INNER: the pairs on the path
+    the arguments select (module docstring), and the flag set where the
+    result is incomplete (a probe row with more than K =
+    ``max_build_matches`` matches in the block, more pairs than
+    ``compact_rows``, a repeated key under ``unique_build``, a key outside
+    ``key_pack``), so the caller must re-run with larger capacities and no
+    hints. Semi-like: the probe's columns at its capacity (EXISTENCE adds
+    ``exists``), and a flag set only by ``key_pack``.
     ``build_key_range``: the exact (min, max) of a single build key, which
-    lets a semi-like join use the membership bitmap."""
+    lets a semi-like join use the membership bitmap and a unique build the
+    dense table. Each INNER run appends its arguments and path to
+    ``ctx.join_log`` where that is a list."""
     semi = join_type in SEMI_LIKE
     if join_type != JoinType.INNER and not semi:
         raise NotImplementedError(f"{join_type} joins are not ported yet")
@@ -177,15 +306,24 @@ def hash_join(left: Batch, right: Batch, left_keys: Sequence[E.Expr],
     else:
         build, probe, build_keys, probe_keys = right, left, right_keys, left_keys
     K = max_build_matches
-    bcap, pcap, dev = build.capacity, probe.capacity, probe.device
+    pcap, dev = probe.capacity, probe.device
 
     bcols, pcols = _harmonize_keys([evaluate(k, build, ctx) for k in build_keys],
                                    [evaluate(k, probe, ctx) for k in probe_keys])
-    blimbs, bvalid = _key_limbs(bcols)
-    plimbs, pvalid = _key_limbs(pcols)
+    pack_oor = None
+    if _packable(bcols + pcols, key_pack):
+        bkey, bvalid, boor = _pack(bcols, key_pack)
+        pkey, pvalid, poor = _pack(pcols, key_pack)
+        pack_oor = (boor & build.row_mask).any() | (poor & probe.row_mask).any()
+        blimbs, plimbs = [bkey], [pkey]
+    else:
+        blimbs, bvalid = _key_limbs(bcols)
+        plimbs, pvalid = _key_limbs(pcols)
     bvalid = bvalid & build.row_mask
     pvalid = pvalid & probe.row_mask
-    no_overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    # a semi-like join's flag: only a packed key out of its range raises it
+    semi_flag = (pack_oor if pack_oor is not None
+                 else torch.zeros((), dtype=torch.bool, device=dev))
 
     if semi:
         if _bitmap_ok(bcols, pcols, build_key_range):
@@ -196,20 +334,39 @@ def hash_join(left: Batch, right: Batch, left_keys: Sequence[E.Expr],
             bkey, pkey = _one_limb(blimbs, plimbs)
             hit = _sorted_matches(bkey, bvalid, pkey, pvalid)[2] > 0
         if join_type == JoinType.LEFT_SEMI:
-            return Batch(probe.columns, probe.row_mask & hit, out_schema), no_overflow
+            return Batch(probe.columns, probe.row_mask & hit, out_schema), semi_flag
         if join_type == JoinType.LEFT_ANTI:
-            return Batch(probe.columns, probe.row_mask & ~hit, out_schema), no_overflow
+            return Batch(probe.columns, probe.row_mask & ~hit, out_schema), semi_flag
         exists = ColumnVector(hit, torch.ones(pcap, dtype=torch.bool, device=dev), None, T.BOOL)
-        return Batch(tuple(probe.columns) + (exists,), probe.row_mask, out_schema), no_overflow
+        return Batch(tuple(probe.columns) + (exists,), probe.row_mask, out_schema), semi_flag
 
     bkey, pkey = _one_limb(blimbs, plimbs)
-    bperm, lo, count = _sorted_matches(bkey, bvalid, pkey, pvalid)
-    overflow = (count > K).any()
-
-    j = torch.arange(K, device=dev).repeat(pcap)
-    pair_valid = j < count.clamp(max=K).repeat_interleave(K)
-    b_idx = bperm[(lo.repeat_interleave(K) + j).clamp(0, max(bcap - 1, 0))]
-    probe_cols = [_repeat(c, K) for c in probe.columns]
+    if unique_build:
+        if _bitmap_ok(bcols, pcols, build_key_range):
+            path = "dense_unique"
+            b_idx, pair_valid, overflow = _dense_unique(bcols[0].data, bvalid, pcols[0].data,
+                                                        pvalid, build_key_range)
+        else:
+            path = "sorted_unique"
+            b_idx, pair_valid, overflow = _sorted_unique(bkey, bvalid, pkey, pvalid)
+        probe_cols = list(probe.columns)
+    else:
+        bperm, lo, count = _sorted_matches(bkey, bvalid, pkey, pvalid)
+        if compact_rows is not None:
+            path = "pair_list"
+            p_idx, b_idx, pair_valid, overflow = _pair_list(bperm, lo, count, compact_rows)
+            probe_cols = [c.take(p_idx) for c in probe.columns]
+        else:
+            path = "block"
+            b_idx, pair_valid = _pair_block(bperm, lo, count, K)
+            overflow = (count > K).any()
+            probe_cols = [_repeat(c, K) for c in probe.columns]
+    if pack_oor is not None:
+        overflow = overflow | pack_oor
+    if ctx.join_log is not None:
+        ctx.join_log.append({"build": build_side, "K": K, "unique": unique_build,
+                             "pack": pack_oor is not None, "compact_rows": compact_rows,
+                             "path": path})
     build_cols = [c.take(b_idx) for c in build.columns]
     if build_side == "left":
         pair_cols, pair_fields = build_cols + probe_cols, build.schema.fields + probe.schema.fields

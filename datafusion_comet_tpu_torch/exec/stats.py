@@ -1,6 +1,6 @@
 """Table statistics and the group capacities derived from them (port of the
-subset of ``datafusion_comet_tpu/exec/stats.py`` that TPC-H Q1, Q3, Q4, Q6,
-Q12 and Q15 reach: ``collect_stats`` :42, ``derive_capacities`` :129,
+subset of ``datafusion_comet_tpu/exec/stats.py`` that TPC-H Q1, Q3, Q4, Q5,
+Q6, Q12 and Q15 reach: ``collect_stats`` :42, ``derive_capacities`` :129,
 ``_walk`` :220 over Scan, Filter, Projection, HashJoin, HashAggregate, Sort
 and Limit, ``_column_range`` :167, ``_source_column`` :480, ``_pad`` :490).
 
@@ -14,14 +14,27 @@ estimate twice over, a power of two, at least 1024) and its
 aggregate flags the overflow and the session runs again with the capacity
 four times larger.
 
-On semi, anti and existence joins the walk leaves the JAX package's two
-hints (:251-305): ``build_key_range``, the exact range of a single build
-key, and for LEFT_SEMI ``out_rows_hint``, the probe rows times the share of
-the probe key's distinct values the build side can hold. The JAX walk's
-hints on INNER joins and filters (build side, fan-out, key packing, output
-rows) feed probes the port does not have, and its condition-column ranges
-serve semi joins with a condition, which the port does not run; the port
-computes the same row and distinct estimates and sets none of those.
+The walk also leaves the JAX package's planner hints on the nodes, where
+a hint is None (a hint set already wins):
+
+- a Filter's ``out_rows_hint``, its row estimate (:231-236), from which the
+  engine compacts a filter that keeps under an eighth of its capacity;
+- on a semi, anti or existence join (:251-305) ``build_key_range``, the
+  exact range of a single build key, and for LEFT_SEMI ``out_rows_hint``,
+  the probe rows times the share of the probe key's distinct values the
+  build side can hold;
+- on an INNER join (:306-404): the build side moves to the left input when
+  that is at most half the right's estimate; then ``build_key_range``
+  (after the swap), ``unique_build_hint`` where the build key's distinct
+  estimate is at least 0.8 x the build rows, ``key_pack`` where every key
+  of a multi-key join has a range on both sides (their union, the spans'
+  product under 2^62), ``fanout_hint`` (twice the build rows over the
+  build keys' distinct product, a power of two in [2, 256]) and
+  ``out_rows_hint``, the foreign-key-to-primary-key estimate: the smaller
+  side thins the larger by its rows over its key's distinct count.
+
+The JAX walk's condition-column ranges serve semi joins with a condition,
+which the port does not run.
 """
 
 from __future__ import annotations
@@ -110,10 +123,9 @@ def derive_capacities(plan: P.PlanNode, stats: Dict[str, TableStats]) -> None:
     """Fill, in place, every aggregate's ``max_groups`` that is None with
     min(product of its keys' distinct estimates, its input row estimate)
     padded, and its ``group_key_ranges`` where a key's source column has a
-    known range; and each semi-like join's ``build_key_range`` and
-    ``out_rows_hint`` that is None. Distinct estimates are the base tables' (filters never
-    shrink them, so they stay upper bounds); each use caps them by the row
-    estimate."""
+    known range; and the filters' and joins' hints (the module docstring).
+    Distinct estimates are the base tables' (filters never shrink them, so
+    they stay upper bounds); each use caps them by the row estimate."""
     _walk(plan, stats)
 
 
@@ -190,7 +202,10 @@ def _walk(plan: P.PlanNode, stats: Dict[str, TableStats]) -> Tuple[int, Dict[str
 
     if isinstance(plan, P.Filter):
         rows, ndv = kids[0]
-        return max(int(rows * _pred_selectivity(plan.predicate, ndv)), 1), ndv
+        rows = max(int(rows * _pred_selectivity(plan.predicate, ndv)), 1)
+        if plan.out_rows_hint is None:
+            plan.out_rows_hint = rows
+        return rows, ndv
 
     if isinstance(plan, P.Projection):
         rows, ndv = kids[0]
@@ -220,6 +235,12 @@ def _walk(plan: P.PlanNode, stats: Dict[str, TableStats]) -> Tuple[int, Dict[str
         # INNER (the outer joins are not run by the executor)
         lk = [_source_column(k) for k in plan.left_keys]
         rk = [_source_column(k) for k in plan.right_keys]
+        # the build goes to the smaller input, with a 2x margin against
+        # noisy estimates
+        if plan.build_side == "right" and lr * 2 <= rr:
+            plan.build_side = "left"
+        _set_build_range(plan, stats)
+        _set_inner_hints(plan, stats, (lr, ln, lk), (rr, rn, rk))
         # foreign key to primary key: the smaller side thins the larger by
         # its rows over its key's distinct count, and caps the larger
         # side's key's distinct count
@@ -233,6 +254,10 @@ def _walk(plan: P.PlanNode, stats: Dict[str, TableStats]) -> Tuple[int, Dict[str
             rows = max(int(rr * min(1.0, lr / max(ln[lk[0]], 1))), 1)
             if rk and rk[0]:
                 ndv[rk[0]] = min(ndv.get(rk[0], lr), lr)
+        if plan.out_rows_hint is None:
+            plan.out_rows_hint = rows
+        else:  # a hint set already wins, and the estimates above follow it
+            rows = max(int(plan.out_rows_hint), 1)
         return rows, ndv
 
     if isinstance(plan, P.HashAggregate):
@@ -293,6 +318,52 @@ def _set_build_range(plan: P.HashJoin, stats: Dict[str, TableStats]) -> None:
         r = _column_range(plan.left if left else plan.right, bkey, stats)
         if r is not None:
             plan.build_key_range = r
+
+
+def _set_inner_hints(plan: P.HashJoin, stats: Dict[str, TableStats], left, right) -> None:
+    """An INNER join's ``unique_build_hint``, ``key_pack`` and
+    ``fanout_hint`` from each side's (row estimate, distinct estimates,
+    key source columns)."""
+    (lr, ln, lk), (rr, rn, rk) = left, right
+    build_left = plan.build_side == "left"
+    # a primary-key-like build side: a wrong hint is caught by the join's
+    # duplicate-key flag, and the retry runs the general path
+    if len(plan.right_keys) == 1 and not build_left and rk[0] in rn:
+        if rn[rk[0]] >= int(0.8 * rr):
+            plan.unique_build_hint = True
+    elif len(plan.left_keys) == 1 and build_left and lk and lk[0] in ln:
+        if ln[lk[0]] >= int(0.8 * lr):
+            plan.unique_build_hint = True
+    # a key tuple of integer columns with known ranges packs injectively
+    # into one int64: the ranges are merged over both sides, so both pack
+    # alike; a value outside them at run time raises the overflow flag
+    if len(plan.left_keys) > 1 and plan.key_pack is None and lk and rk and all(lk) and all(rk):
+        spans = []
+        prod = 1
+        for a, b in zip(lk, rk):
+            ra = _column_range(plan.left, a, stats)
+            rb = _column_range(plan.right, b, stats)
+            if ra is None or rb is None:
+                spans = None
+                break
+            lo, hi = min(ra[0], rb[0]), max(ra[1], rb[1])
+            spans.append((lo, hi))
+            prod *= hi - lo + 1
+            if prod >= 1 << 62:
+                spans = None
+                break
+        if spans:
+            plan.key_pack = tuple(spans)
+    # expected matches per probe row: build rows over the build keys'
+    # distinct product, with a 2x margin
+    if plan.fanout_hint is None:
+        b_rows, b_ndv, b_keys = (lr, ln, lk) if build_left else (rr, rn, rk)
+        if b_keys and all(k in b_ndv for k in b_keys if k) and all(b_keys):
+            ndv_prod = 1
+            for k in b_keys:
+                ndv_prod = min(ndv_prod * max(b_ndv[k], 1), max(b_rows, 1))
+            matches = max(b_rows / max(ndv_prod, 1), 1.0)
+            plan.fanout_hint = int(min(max(2, 1 << math.ceil(math.log2(2.0 * matches))), 256))
 
 
 def _source_column(e: E.Expr) -> Optional[str]:

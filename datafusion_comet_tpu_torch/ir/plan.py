@@ -1,6 +1,6 @@
 """Operator plan IR (port of ``datafusion_comet_tpu/ir/plan.py``: the Scan,
 Filter, Projection, HashAggregate, Sort, Limit and HashJoin nodes TPC-H Q1,
-Q3, Q4, Q6, Q12 and Q15 use).
+Q3, Q4, Q5, Q6, Q12 and Q15 use).
 
 Plans are built unbound; ``bind_plan`` binds expressions bottom-up against
 child schemas and computes each node's output schema.
@@ -80,8 +80,13 @@ class Scan(PlanNode):
 
 @dataclasses.dataclass
 class Filter(PlanNode):
+    """``out_rows_hint``: the estimated rows that pass (exec/stats.py); a
+    filter that keeps under an eighth of its input's capacity is compacted
+    to a margin over it."""
+
     child: PlanNode
     predicate: E.Expr
+    out_rows_hint: Optional[int] = None
 
     def children(self):
         return (self.child,)
@@ -153,9 +158,14 @@ class HashJoin(PlanNode):
 
     Planner attributes, filled from statistics (exec/stats.py) where None:
     ``build_key_range``, the exact (min, max) of a single build key, which
-    lets a semi-like join test membership in a bitmap over that span;
-    ``out_rows_hint``, the estimated output rows, which sizes the
-    compaction of a semi or anti join's output."""
+    lets a semi-like join test membership in a bitmap and a unique INNER
+    build a position table over that span; ``out_rows_hint``, the estimated
+    output rows, which sizes the compaction of a semi or anti join's output
+    and an INNER join's compacted pair list; ``fanout_hint``, an INNER
+    join's first K (build matches per probe row); ``unique_build_hint``,
+    that the build keys look unique (one match per probe row at most);
+    ``key_pack``, per key of a multi-key join the (min, max) over both
+    sides, which packs the key tuple into one int64."""
 
     left: PlanNode
     right: PlanNode
@@ -166,6 +176,9 @@ class HashJoin(PlanNode):
     condition: Optional[E.Expr] = None  # extra non-equi filter over the pair
     build_key_range: Optional[Tuple[int, int]] = None
     out_rows_hint: Optional[int] = None
+    fanout_hint: Optional[int] = None
+    unique_build_hint: Optional[bool] = None
+    key_pack: Optional[Tuple[Tuple[int, int], ...]] = None
 
     def children(self):
         return (self.left, self.right)
@@ -198,7 +211,7 @@ def bind_plan(plan: PlanNode) -> PlanNode:
         return plan
     kids = [bind_plan(c) for c in plan.children()]
     if isinstance(plan, Filter):
-        out = Filter(kids[0], E.bind(plan.predicate, kids[0].schema))
+        out = Filter(kids[0], E.bind(plan.predicate, kids[0].schema), plan.out_rows_hint)
         out.schema = kids[0].schema
         return out
     if isinstance(plan, Projection):
@@ -250,7 +263,8 @@ def bind_plan(plan: PlanNode) -> PlanNode:
         pair = T.Schema(list(left.schema.fields) + list(right.schema.fields))
         cond = E.bind(plan.condition, pair) if plan.condition is not None else None
         out = HashJoin(left, right, lkeys, rkeys, plan.join_type, plan.build_side, cond,
-                       plan.build_key_range, plan.out_rows_hint)
+                       plan.build_key_range, plan.out_rows_hint, plan.fanout_hint,
+                       plan.unique_build_hint, plan.key_pack)
         out.schema = _join_out_schema(left.schema, right.schema, plan.join_type)
         return out
     raise NotImplementedError(f"bind_plan: {type(plan).__name__}")

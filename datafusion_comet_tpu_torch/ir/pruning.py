@@ -46,7 +46,7 @@ def prune_columns(plan: P.PlanNode, required: Optional[Set[str]] = ALL) -> P.Pla
         need = set() if required is ALL else set(required)
         _expr_refs(plan.predicate, need)
         return P.Filter(prune_columns(plan.child, ALL if required is ALL else need),
-                        plan.predicate)
+                        plan.predicate, plan.out_rows_hint)
     if isinstance(plan, P.HashAggregate):
         if plan.mode in (P.AggMode.FINAL, P.AggMode.PARTIAL_MERGE):
             # a merge reads state columns by name: nothing to prune below it
@@ -87,7 +87,8 @@ def prune_columns(plan: P.PlanNode, required: Optional[Set[str]] = ALL) -> P.Pla
                 rneed |= cond & rnames
         return P.HashJoin(prune_columns(plan.left, lneed), prune_columns(plan.right, rneed),
                           plan.left_keys, plan.right_keys, plan.join_type, plan.build_side,
-                          plan.condition, plan.build_key_range, plan.out_rows_hint)
+                          plan.condition, plan.build_key_range, plan.out_rows_hint,
+                          plan.fanout_hint, plan.unique_build_hint, plan.key_pack)
     raise NotImplementedError(f"prune_columns: {type(plan).__name__}")
 
 

@@ -1,6 +1,7 @@
-"""TPC-H workload subset: the ``lineitem``, ``orders``, ``customer`` and
-``supplier`` schemas and generators, and the plans of Q1, Q3, Q4, Q6, Q12
-and Q15 (port of ``datafusion_comet_tpu/models/tpch.py``).
+"""TPC-H workload subset: the ``lineitem``, ``orders``, ``customer``,
+``supplier``, ``nation`` and ``region`` schemas and generators, and the
+plans of Q1, Q3, Q4, Q5, Q6, Q12 and Q15 (port of
+``datafusion_comet_tpu/models/tpch.py``).
 
 The generator is a line-for-line copy of the JAX package's, so the same
 ``(sf, seed)`` gives bit-identical columns in both packages: results can be
@@ -19,7 +20,8 @@ from datafusion_comet_tpu_torch import types as T
 from datafusion_comet_tpu_torch.ir import expr as E
 from datafusion_comet_tpu_torch.ir import plan as P
 
-__all__ = ["SCHEMAS", "table_rows", "generate_table", "q1", "q3", "q4", "q6", "q12", "q15"]
+__all__ = ["SCHEMAS", "table_rows", "generate_table", "generate_tables", "q1", "q3", "q4", "q5",
+           "q6", "q12", "q15"]
 
 _dec = T.decimal
 
@@ -72,7 +74,29 @@ SCHEMAS: Dict[str, T.Schema] = {
             T.Field("s_comment", T.string(60), False),
         ]
     ),
+    "nation": T.Schema(
+        [
+            T.Field("n_nationkey", T.INT64, False),
+            T.Field("n_name", T.string(25), False),
+            T.Field("n_regionkey", T.INT64, False),
+        ]
+    ),
+    "region": T.Schema(
+        [
+            T.Field("r_regionkey", T.INT64, False),
+            T.Field("r_name", T.string(25), False),
+        ]
+    ),
 }
+
+_NATIONS = [
+    "ALGERIA", "ARGENTINA", "BRAZIL", "CANADA", "EGYPT", "ETHIOPIA", "FRANCE",
+    "GERMANY", "INDIA", "INDONESIA", "IRAN", "IRAQ", "JAPAN", "JORDAN", "KENYA",
+    "MOROCCO", "MOZAMBIQUE", "PERU", "CHINA", "ROMANIA", "SAUDI ARABIA",
+    "VIETNAM", "RUSSIA", "UNITED KINGDOM", "UNITED STATES",
+]
+_NATION_REGION = [0, 1, 1, 1, 4, 0, 3, 3, 2, 2, 4, 4, 2, 4, 0, 0, 0, 1, 2, 3, 4, 2, 3, 3, 1]
+_REGIONS = ["AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST"]
 
 _SHIPMODES = ["REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB"]
 _PRIORITIES = ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECI", "5-LOW"]
@@ -101,13 +125,24 @@ def table_rows(name: str, sf: float) -> int:
 
 
 def generate_table(name: str, sf: float, seed: int = 19920401) -> Dict[str, np.ndarray]:
-    """Deterministic TPC-H-shaped ``lineitem``, ``orders``, ``customer`` or
-    ``supplier`` (value ranges per the spec). Decimals come pre-scaled as
-    int64 (the engine's physical form)."""
-    if name not in ("lineitem", "orders", "customer", "supplier"):
+    """Deterministic TPC-H-shaped ``lineitem``, ``orders``, ``customer``,
+    ``supplier``, ``nation`` or ``region`` (value ranges per the spec).
+    Decimals come pre-scaled as int64 (the engine's physical form)."""
+    if name not in SCHEMAS:
         raise KeyError(name)
     n = table_rows(name, sf)
     rng = np.random.default_rng(seed + zlib.crc32(name.encode()) % (2**31))
+    if name == "region":
+        return {
+            "r_regionkey": np.arange(5, dtype=np.int64),
+            "r_name": np.array(_REGIONS, object),
+        }
+    if name == "nation":
+        return {
+            "n_nationkey": np.arange(25, dtype=np.int64),
+            "n_name": np.array(_NATIONS, object),
+            "n_regionkey": np.array(_NATION_REGION, np.int64),
+        }
     if name == "customer":
         ck = np.arange(1, n + 1, dtype=np.int64)
         nk = rng.integers(0, 25, n).astype(np.int64)
@@ -186,6 +221,10 @@ def generate_table(name: str, sf: float, seed: int = 19920401) -> Dict[str, np.n
     }
 
 
+def generate_tables(names, sf: float, seed: int = 19920401) -> Dict[str, Dict[str, np.ndarray]]:
+    return {n: generate_table(n, sf, seed) for n in names}
+
+
 def _date_lit(datestr: str) -> E.Literal:
     return E.lit(_d(datestr), T.DATE)
 
@@ -250,6 +289,37 @@ def q3() -> P.PlanNode:
     ).project(
         [E.col("l_orderkey"), E.col("revenue"), E.col("o_orderdate"), E.col("o_shippriority")]
     )
+
+
+def q5() -> P.PlanNode:
+    """Local supplier volume: 6-way join, group by nation name."""
+    r = P.Scan("region", SCHEMAS["region"]).filter(E.col("r_name") == E.lit("ASIA"))
+    n = P.Scan("nation", SCHEMAS["nation"])
+    nr = P.HashJoin(n, r, (E.col("n_regionkey"),), (E.col("r_regionkey"),), P.JoinType.INNER, "right")
+    s = P.Scan("supplier", SCHEMAS["supplier"])
+    sn = P.HashJoin(s, nr, (E.col("s_nationkey"),), (E.col("n_nationkey"),), P.JoinType.INNER, "right")
+    c = P.Scan("customer", SCHEMAS["customer"])
+    o = P.Scan("orders", SCHEMAS["orders"]).filter(
+        (E.col("o_orderdate") >= _date_lit("1994-01-01"))
+        & (E.col("o_orderdate") < _date_lit("1995-01-01"))
+    )
+    l = P.Scan("lineitem", SCHEMAS["lineitem"])
+    lo = P.HashJoin(l, o, (E.col("l_orderkey"),), (E.col("o_orderkey"),), P.JoinType.INNER, "right")
+    loc = P.HashJoin(
+        lo, c, (E.col("o_custkey"),), (E.col("c_custkey"),), P.JoinType.INNER, "right"
+    )
+    # join on (l_suppkey = s_suppkey AND c_nationkey = s_nationkey)
+    locs = P.HashJoin(
+        loc,
+        sn,
+        (E.col("l_suppkey"), E.col("c_nationkey")),
+        (E.col("s_suppkey"), E.col("s_nationkey")),
+        P.JoinType.INNER,
+        "right",
+    )
+    revenue = E.col("l_extendedprice") * (E.lit(1).cast(_dec(10, 0)) - E.col("l_discount"))
+    agg = locs.aggregate([E.col("n_name")], [E.AggExpr("sum", revenue, "revenue")])
+    return agg.sort([E.SortOrder(E.col("revenue"), ascending=False)])
 
 
 def q4() -> P.PlanNode:

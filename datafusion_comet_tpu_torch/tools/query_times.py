@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
-"""Warm latency, peak device memory and (with ``--profile``) device-time
-breakdowns of TPC-H Q1, Q6, Q12, Q3, Q4 and Q15 (Q12, Q3 and Q4 directly,
-and through the grace join at K = 16) for the port in any checkout; a
-checkout whose port lacks Q3, or Q4 and Q15, runs the others. Each checkout
-runs in its own process, so two of them can be compared in turns on one
-card:
+"""Warm latency, peak device memory, kernel launches, retries and (with
+``--profile``) device-time breakdowns of TPC-H Q1, Q6, Q12, Q3, Q4, Q15 and
+Q5 (Q12, Q3, Q4 and Q5 directly, and through the grace join at K = 16) for
+the port in any checkout; a checkout whose port lacks Q3, Q4 and Q15, or
+Q5, runs the others. Each checkout runs in its own process, so two of them
+can be compared in turns on one card:
 
     python3 datafusion_comet_tpu_torch/tools/query_times.py [--tree DIR] [--sf 1] [--profile]
 
 DIR (default: the checkout holding this file) goes first on sys.path, and
 only the port's public entry points are called (``Session``, ``Config``,
-``models.tpch``, ``exec.memory``). One JSON line per query: the median and
-every one of ``--reps`` warm runs (host clock, each ending in a device
-sync), and the peak device memory of one run. With ``--profile``, one
-torch.profiler run of each run but Q1's and Q6's: wall ms, device busy
-ms and idle share, the device ms of index gathers (advanced indexing and
+``models.tpch``, ``exec.memory``, the kernel wrappers' launch counts). One
+JSON line per query: the median and every one of ``--reps`` warm runs
+(host clock, each ending in a device sync), the peak device memory of one
+run, and of one run the launches of each kernel wrapper and the retries
+(the plan runs that overflowed a capacity and ran again, grace pairs
+included). With ``--profile``, one torch.profiler run of each run: wall
+ms, device busy ms and idle share, the device ms of index gathers (advanced indexing and
 index_select kernels), of scatter_reduce, of the partition kernels (B3), of
 sort kernels, the top kernels, the host ms of the grace runner's spans, and
 the host and device ms of the sorted aggregate's ``aggregate.sort`` span
@@ -44,19 +46,49 @@ SPANS = ("grace.", "aggregate.")  # the port's record_function spans
 
 def grace_fraction(sess, plan, K: int = GRACE_K):
     """(fraction, jpeak): the Config(memory_fraction) under which the
-    session splits the plan's join into K partitions (K >= 8), and the
-    join's peak estimate jpeak. The engine doubles K from 2 until K x
-    budget / 2 covers jpeak, so a budget of 3 x jpeak / K, inside
-    [2 jpeak / K, 4 jpeak / K), stops it at K."""
+    session splits the plan's first join into K partitions (K >= 8), and
+    that join's peak estimate jpeak. The join is the topmost of the first
+    stage that holds one (Q5's first stage joins lineitem, orders and
+    customer). The engine doubles K from 2 until K x budget / 2 covers
+    jpeak, so a budget of 3 x jpeak / K, inside [2 jpeak / K, 4 jpeak / K),
+    stops it at K."""
     from datafusion_comet_tpu_torch.exec.memory import device_budget_bytes, plan_peak_bytes
     from datafusion_comet_tpu_torch.ir import plan as P
-    from datafusion_comet_tpu_torch.ir.pruning import prune_columns
 
-    node = P.bind_plan(prune_columns(plan))
-    while not isinstance(node, P.HashJoin):
-        node = node.children()[0]
+    def top_join(node):
+        while node is not None and not isinstance(node, P.HashJoin):
+            node = node.children()[0] if node.children() else None
+        return node
+
+    node = next(j for j in (top_join(sub) for _, sub in sess._plan_stages(plan)) if j)
     jpeak = plan_peak_bytes(node, max(sess.tables[t].capacity for t in P.scan_tables(node)))
     return 3 * jpeak / K / device_budget_bytes(sess.device, 1.0), jpeak
+
+
+WRAPPERS = ("bucket_count", "bucket_sum", "partition_columns", "partition_sort")
+
+
+def launches_and_retries(sess, plan):
+    """Of one run: each kernel wrapper's launches, and the runs of a plan
+    (a stage or a grace pair) that overflowed and ran again."""
+    from datafusion_comet_tpu_torch.exec import kernels as K
+
+    runs = []
+    run_once = sess._run_once
+
+    def counted(*a, **kw):
+        out = run_once(*a, **kw)
+        runs.append(bool(out[1]))
+        return out
+
+    sess._run_once = counted
+    for w in WRAPPERS:
+        getattr(K, w).launches = 0
+    try:
+        sess.collect(plan)
+    finally:
+        del sess._run_once
+    return {w: getattr(K, w).launches for w in WRAPPERS}, sum(runs)
 
 
 def warm_times(sess, plan, reps: int):
@@ -122,7 +154,7 @@ def main(argv=None) -> int:
     ap.add_argument("--sf", type=float, default=1.0, help="TPC-H scale factor")
     ap.add_argument("--reps", type=int, default=7, help="warm runs per query")
     ap.add_argument("--profile", action="store_true",
-                    help="add profiles of every run but Q1's and Q6's")
+                    help="add a profile of every run")
     args = ap.parse_args(argv)
     tree = args.tree.resolve()
     sys.path.insert(0, str(tree))
@@ -141,10 +173,10 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({"tree": str(tree), "sf": args.sf, "nvidia_smi": smi}), flush=True)
-    has_q3, has_q4 = hasattr(tpch, "q3"), hasattr(tpch, "q4")
+    has_q3, has_q4, has_q5 = hasattr(tpch, "q3"), hasattr(tpch, "q4"), hasattr(tpch, "q5")
     sess = Session()
     for t in (("lineitem", "orders") + (("customer",) if has_q3 else ())
-              + (("supplier",) if has_q4 else ())):
+              + (("supplier",) if has_q4 else ()) + (("nation", "region") if has_q5 else ())):
         sess.register_numpy(t, tpch.generate_table(t, args.sf), tpch.SCHEMAS[t])
 
     def grace_session(plan):
@@ -162,15 +194,23 @@ def main(argv=None) -> int:
     if has_q4:
         runs += [("q4_direct", sess, tpch.q4()), ("q4_grace", grace_session(tpch.q4()), tpch.q4()),
                  ("q15", sess, tpch.q15())]
+    if has_q5:
+        runs += [("q5_direct", sess, tpch.q5()), ("q5_grace", grace_session(tpch.q5()), tpch.q5())]
     for name, s, plan in runs:
         ms, times, peak = warm_times(s, plan, args.reps)
-        line = {"query": name, "warm_ms": ms, "warm_ms_all": times, "peak_mem_bytes": peak}
+        launches, retries = launches_and_retries(s, plan)
+        line = {"query": name, "warm_ms": ms, "warm_ms_all": times, "peak_mem_bytes": peak,
+                "launches": launches, "retries": retries}
         if name.endswith("_grace"):
+            # the first runner to finish, and every runner's K and mode
             r = s.grace_runners[0]
-            line.update(K=r.K, mode=r.downstream[0], sizes=[x.tolist() for x in r.sizes])
+            line.update(K=r.K, mode=r.downstream and r.downstream[0],
+                        sizes=[x.tolist() for x in r.sizes],
+                        grace=[{"K": g.K, "mode": g.downstream and g.downstream[0]}
+                               for g in s.grace_runners])
         print(json.dumps(line), flush=True)
     if args.profile:
-        for name, s, plan in runs[2:]:
+        for name, s, plan in runs:
             print(json.dumps({"profile": name, **profile(s, plan)}), flush=True)
     return 0
 

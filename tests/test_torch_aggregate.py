@@ -189,7 +189,7 @@ def test_ungrouped_aggregate(keep):
              "none": lambda m: np.zeros(len(m), bool)}
     jout, pout = _run_both((), mask_fn=masks[keep])
     assert pout.capacity == 1 and bool(pout.row_mask[0])
-    _same_result(jout, pout, storage=False)
+    _same_result(jout, pout)
     if keep == "none":
         pn = PB.to_numpy(pout)
         assert not pn["sum_v__valid"][0] and pn["count_star"][0] == 0

@@ -1,8 +1,8 @@
 """PyTorch port on the card: the CUDA kernels against their plain versions,
-Q1, Q6, Q12, Q3 and Q4 (the last three directly and through the grace join;
-Q4 on both semi-join membership paths) and Q15 on the card against the same
-queries on the CPU, and the dense path's MIN/MAX on the card against the
-CPU. Marked ``cuda``;
+Q1, Q6, Q12, Q3, Q4 and Q5 (the last four directly and through the grace
+join; Q4 on both semi-join membership paths) and Q15 on the card against
+the same queries on the CPU, and the dense path's MIN/MAX on the card
+against the CPU. Marked ``cuda``;
 without a card every test here skips. This file imports no JAX, so it runs
 on a machine without it (tests/conftest.py imports JAX, hence --noconftest):
 
@@ -201,8 +201,8 @@ def test_q12_on_card_equals_cpu_direct_and_grace(dev):
             getattr(K, name).launches = 0
         got = gpu.collect(tpch.q12())
         assert K.bucket_count.launches > 0 and K.bucket_sum.launches > 0
-        # the join's compaction runs the partition, the grace run also its
-        # partitioning; neither makes a permutation
+        # the filter shrink of the lineitem runs the partition, the grace
+        # run also its partitioning; neither makes a permutation
         assert K.partition_columns.launches > 0 and K.partition_sort.launches == 0
         assert bool(gpu.grace_runners) == grace
         assert list(got) == list(want)
@@ -243,7 +243,9 @@ def test_q3_on_card_equals_cpu_direct_and_grace(dev):
             gpu.register_numpy(t, d, tpch.SCHEMAS[t])
         K.partition_columns.launches = 0
         got = gpu.collect(tpch.q3())
-        assert K.partition_columns.launches > 0
+        # the grace run partitions; the direct run's joins are unique
+        # builds, whose output needs no compaction
+        assert (K.partition_columns.launches > 0) == grace
         assert [n is None for n, _ in gpu.stages] == [False, True]
         assert bool(gpu.grace_runners) == grace
         assert list(got) == list(want)
@@ -273,21 +275,28 @@ def test_bucket_times_script_on_card(dev, capsys):
 
 def test_query_times_script_on_card(dev, capsys):
     """tools/query_times.py runs every query of both trees' comparison and
-    profiles every run but Q1's and Q6's, with the grace runs at K = 16."""
+    profiles every run, with the grace runs at K = 16."""
     from datafusion_comet_tpu_torch.tools import query_times as QT
 
     assert QT.main(["--sf", "0.01", "--reps", "2", "--profile"]) == 0
     head, *rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
     assert "nvidia_smi" in head
-    runs = ["q12_direct", "q12_grace", "q3_direct", "q3_grace", "q4_direct", "q4_grace", "q15"]
-    assert [r.get("query") or r["profile"] for r in rows] == ["q1", "q6"] + runs + runs
+    runs = ["q12_direct", "q12_grace", "q3_direct", "q3_grace", "q4_direct", "q4_grace", "q15",
+            "q5_direct", "q5_grace"]
+    names = ["q1", "q6"] + runs
+    assert [r.get("query") or r["profile"] for r in rows] == names + names
     assert rows[3]["K"] == 16 and rows[3]["mode"] == "partial"
     assert rows[5]["K"] == 16 and rows[5]["mode"] == "local"
     assert rows[7]["K"] == 16 and rows[7]["mode"] == "partial"
-    profiles = dict(zip(runs, rows[9:]))
+    assert 16 in [r["K"] for r in rows[10]["grace"]]
+    assert rows[2]["retries"] == 1  # Q12 direct: the unique-build hint is wrong
+    assert rows[0]["launches"]["bucket_sum"] > 0
+    profiles = dict(zip(names, rows[11:]))
     assert all(r["device_busy_ms"] > 0 for r in profiles.values())
-    # at SF 0.01 neither Q4 direct nor Q15 calls B3 (nothing to compact 4x)
-    assert all(profiles[q]["partition_calls"] > 0 for q in runs if q not in ("q4_direct", "q15"))
+    # at SF 0.01 Q3 direct, Q4 direct, Q15 and Q5 direct call no B3: their
+    # joins are unique builds or semi joins, and nothing shrinks 4x
+    assert all(profiles[q]["partition_calls"] > 0 for q in runs
+               if q not in ("q3_direct", "q4_direct", "q15", "q5_direct"))
     assert all(profiles[q]["aggregate_sort_calls"] > 0 for q in ("q3_direct", "q3_grace"))
 
 
@@ -351,6 +360,34 @@ def test_q15_on_card_equals_cpu_and_oracle(dev):
     chip_smoke.check_q15(got, chip_smoke.oracle_q15(data["lineitem"], data["supplier"],
                                                     tpch._d("1996-01-01"),
                                                     tpch._d("1996-04-01")), "card")
+
+
+def test_q5_on_card_equals_cpu_direct_and_grace(dev):
+    """Q5 on the card equals the CPU run and the numpy oracle, directly (its
+    revenue per nation on B1 and B2) and with its first join partitioned
+    into K = 16 (B3 partitions)."""
+    names = ("lineitem", "orders", "customer", "supplier", "nation", "region")
+    data, cpu, _ = _sessions(dev, names)
+    want = cpu.collect(tpch.q5())
+    chip_smoke.check_q5(want, chip_smoke.oracle_q5(*(data[t] for t in names),
+                                                   tpch._d("1994-01-01"), tpch._d("1995-01-01")),
+                        "cpu")
+    fraction, _ = chip_smoke.grace_fraction(cpu, tpch.q5(), 16)
+    for grace, conf in ((False, Config()),
+                        (True, Config(memory_fraction=fraction * 4 * 2**30
+                                      / torch.cuda.get_device_properties(dev).total_memory))):
+        _, _, gpu = _sessions(dev, names, conf)
+        for name in ("bucket_count", "bucket_sum", "partition_columns"):
+            getattr(K, name).launches = 0
+        got = gpu.collect(tpch.q5())
+        assert K.bucket_count.launches > 0 and K.bucket_sum.launches > 0
+        assert (K.partition_columns.launches > 0) == grace
+        assert bool(gpu.grace_runners) == grace
+        _same(got, want)
+        if not grace:
+            assert [j["path"] for r in gpu.runs for j in r["joins"]] == (
+                ["dense_unique"] * 4 + ["pair_list"])
+    assert 16 in [r.K for r in gpu.grace_runners]
 
 
 @pytest.mark.parametrize("m", [1, 64, 1 << 20])

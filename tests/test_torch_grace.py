@@ -11,7 +11,9 @@ dense aggregate, exactly against the JAX package:
 
 import contextlib
 import dataclasses
+import math
 import warnings
+from typing import List
 
 import jax
 import numpy as np
@@ -57,11 +59,17 @@ def jax_fraction(fraction: float):
 
 class _Seen(list):
     """(K, mode) of each JAX grace join that ran; ``sizes``: the partition
-    sizes of its two sides, one (left, right) pair a run."""
+    sizes of its two sides, one (left, right) pair a run; ``runners``: the
+    runners themselves."""
 
     def __init__(self):
         super().__init__()
         self.sizes = []
+        self.runners = []
+
+    def pair_retries(self) -> List[int]:
+        """Each runner's pair retries: its growth scale is 4 to their power."""
+        return [round(math.log(r._scale, 4)) for r in self.runners]
 
 
 @pytest.fixture
@@ -74,6 +82,7 @@ def jax_spy(monkeypatch):
     class Spy(JG.GraceJoinRunner):
         def __init__(self, session, join, K, temp_names, stage=None, downstream=None):
             seen.append((K, downstream[0] if downstream else None))
+            seen.runners.append(self)
             super().__init__(session, join, K, temp_names, stage, downstream)
             casts = [JG.grace_key_cast(lk.dtype, rk.dtype)
                      for lk, rk in zip(join.left_keys, join.right_keys)]
@@ -340,7 +349,7 @@ def _rows(out):
 
 @pytest.mark.parametrize("how,dup,key_type,mode", [
     ("agg", 1, "INT64", "partial"),
-    ("agg", 6, "INT64", "partial"),  # pairs overflow K = 4 and re-run
+    ("agg", 6, "INT64", "partial"),  # K = 16 from the statistics: no pair re-runs
     ("ungrouped", 1, "INT64", "partial"),
     ("local", 1, "INT8", "local"),
     ("agg", 1, "TIMESTAMP", "partial"),
@@ -362,10 +371,10 @@ def test_fact_dim_grace_matches_jax(jax_spy, how, dup, key_type, mode):
         got = grace.collect(plan)
     (runner,) = grace.grace_runners
     assert (runner.K, runner.downstream and runner.downstream[0]) == (16, mode)
-    assert (runner.retries > 0) == (dup > 4)
     with jax_fraction(fraction):
         got_jax = js.collect(_join(JT, JP, JE, jtables, how))
     assert jax_spy == [(16, mode)]
+    assert jax_spy.pair_retries() == [runner.retries] == [0]
     if how in ("plain", "local"):  # no sort: the union keeps partition order
         assert _rows(got) == _rows(want) == _rows(got_jax)
         assert _rows(direct.collect(plan)) == _rows(want)

@@ -17,6 +17,7 @@ from datafusion_comet_tpu.exec.operators import basic as JBASIC
 from datafusion_comet_tpu.exec.operators import join as JJ
 from datafusion_comet_tpu.ir import expr as JE
 from datafusion_comet_tpu.ir import plan as JP
+from datafusion_comet_tpu.ir import pruning as JPRUNE
 from datafusion_comet_tpu_torch import types as PT
 from datafusion_comet_tpu_torch.exec import batch as PB
 from datafusion_comet_tpu_torch.exec.engine import JoinOverflowError, Session
@@ -24,6 +25,7 @@ from datafusion_comet_tpu_torch.exec.operators import basic as PBASIC
 from datafusion_comet_tpu_torch.exec.operators import join as PJ
 from datafusion_comet_tpu_torch.ir import expr as PE
 from datafusion_comet_tpu_torch.ir import plan as PP
+from datafusion_comet_tpu_torch.ir import pruning as PPRUNE
 
 
 def _tables(seed: int, dup: int = 3):
@@ -182,13 +184,19 @@ def test_other_join_types_raise():
 def _session_plan(M, P, E, fact_schema, dim_schema):
     j = P.HashJoin(P.Scan("fact", fact_schema), P.Scan("dim", dim_schema), (E.col("fk"),),
                    (E.col("pk"),), P.JoinType.INNER, "right")
-    return j.project([E.col("x"), E.col("w")])
+    prune = JPRUNE if M is JT else PPRUNE
+    bound = P.bind_plan(prune.prune_columns(j.project([E.col("x"), E.col("w")])))
+    # a wrong hint set on the bound plan wins over the statistics
+    bound.child.unique_build_hint = True
+    return bound
 
 
 @pytest.mark.parametrize("dup", [6, 20])
 def test_session_retry_gives_full_answer_beyond_fanout(dup, monkeypatch):
-    """Duplicate build keys beyond K = 4: the run overflows, re-runs with K
-    = 16 (and 64), and returns every pair, as the JAX session does."""
+    """Duplicate build keys under a unique-build hint: the first run (one
+    match a probe row) raises the duplicate flag, the retry runs the
+    compacted pair list without the hint and returns every pair, as the
+    JAX session does; with one run allowed the query fails."""
     fact, dim, fvalid, dvalid, _ = _tables(5, dup)
     jf, jd = _schemas(JT)
     pf, pd = _schemas(PT)
@@ -202,6 +210,9 @@ def test_session_retry_gives_full_answer_beyond_fanout(dup, monkeypatch):
     got = _rows(ps.collect(_session_plan(PT, PP, PE, pf, pd)))
     assert len(got) > 100 and got == want
     assert max(np.unique(dim["pk"], return_counts=True)[1]) == dup
+    assert [(r["scale"], r["unique_join_ok"], r["overflowed"], r["joins"][0]["path"])
+            for r in ps.runs] == [(1, True, True, "dense_unique"),
+                                  (4, False, False, "pair_list")]
     monkeypatch.setattr(PJ, "MAX_JOIN_RETRIES", 1)
     one_try = Session(device="cpu")
     one_try.register_numpy("fact", fact, pf, validity=fvalid)

@@ -361,9 +361,10 @@ def _compacted_semi(M, P, E, day):
 
 
 def test_semi_output_compaction_matches_jax(q4_data):
-    """The 8x rule fires: one B3 call compacts the semi output to 1024 rows
-    (4 x the estimate, at least 1024); the answer equals the JAX Session's
-    and numpy's, and the join's hints equal the JAX package's."""
+    """The 8x rule fires twice: one B3 call compacts the one day's orders
+    (the filter's estimate) to 1024 rows, one the semi output (4 x the
+    estimate, at least 1024); the answer equals the JAX Session's and
+    numpy's, and the join's hints equal the JAX package's."""
     day = int(np.bincount(q4_data["orders"]["o_orderdate"]).argmax())
     js, ps = _sessions(q4_data, ("lineitem", "orders"))
     K.partition_columns.log = []
@@ -372,8 +373,9 @@ def test_semi_output_compaction_matches_jax(q4_data):
         log = K.partition_columns.log
     finally:
         K.partition_columns.log = None
-    assert [(c["K"], c["limit"]) for c in log] == [(1, 1024)]
-    assert log[0]["n"] == ps.tables["lineitem"].capacity
+    assert [(c["K"], c["limit"]) for c in log] == [(1, 1024), (1, 1024)]
+    assert [c["n"] for c in log] == [ps.tables["orders"].capacity,
+                                     ps.tables["lineitem"].capacity]
     _assert_same(js.collect(_compacted_semi(JT, JP, JE, day)), got)
     assert _hints(ps.stages, PP) == _hints(js._plan_stages(_compacted_semi(JT, JP, JE, day)), JP)
     li, od = q4_data["lineitem"], q4_data["orders"]

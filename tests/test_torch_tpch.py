@@ -49,13 +49,22 @@ def sessions(data):
 
 @pytest.mark.parametrize("q", ["q1", "q6"])
 def test_matches_jax_session(sessions, q):
+    """Values; for Q6 also the output's storage (narrow or two-limb) and
+    magnitude bound: its ungrouped revenue is two-limb with no bound in both
+    packages."""
     js, ps = sessions
-    jout = js.collect(getattr(JTPCH, q)())
-    pout = ps.collect(getattr(tpch, q)())
+    jb = js.execute(getattr(JTPCH, q)())
+    pb = ps.execute(getattr(tpch, q)())
+    jout, pout = JB.to_numpy(jb), PB.to_numpy(pb)
     assert list(jout) == list(pout)
     for k in jout:
         assert jout[k].dtype == pout[k].dtype, k
         np.testing.assert_array_equal(jout[k], pout[k], err_msg=k)
+    if q == "q6":
+        for jc, pc, f in zip(jb.columns, pb.columns, pb.schema.fields):
+            assert np.asarray(jc.data).ndim == pc.data.dim(), f.name
+            assert jc.mag_bound == pc.mag_bound, f.name
+        assert pb.columns[0].data.dim() == 2 and pb.columns[0].mag_bound is None
 
 
 def test_q1_matches_integer_oracle(sessions, data):

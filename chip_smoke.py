@@ -6,7 +6,7 @@ On a machine with one NVIDIA card, from the root of a checkout:
     python3 chip_smoke.py            # TPC-H SF1
     python3 chip_smoke.py --sf 10    # another scale
     python3 chip_smoke.py --profile  # add torch.profiler breakdowns of Q1, Q12 grace, Q3, Q4,
-                                     # Q15, Q5
+                                     # Q15, Q5, Q10, Q18
 
 Phases, one JSON line each:
   1. device: the card's name, count, and nvidia-smi's name and power limit;
@@ -38,7 +38,17 @@ Phases, one JSON line each:
      revenue per nation on the dense path) directly and through the grace
      join (its first join at K = 16), against a numpy oracle, each run
      launching B1 and B2, the grace run B3, with Q4's fields plus its
-     grace joins.
+     grace joins;
+  q10, q18: Q10 (three INNER joins, grouped by c_custkey, c_name, c_acctbal
+     and n_name, a top-20) and Q18 (the per-order quantity sums over 300, a
+     LEFT_SEMI join against them, a five-key aggregate with c_name, a
+     top-100) directly and through the grace join (K = 16; Q18's per-order
+     aggregate runs tiled first), against numpy oracles, with Q5's fields
+     plus the tiled aggregates and the sort limbs of the grouping aggregate
+     (c_name is padded from SF1 up: four int64 limbs);
+  padded (at SF1, or the smaller --sf): Q1, Q3, Q4, Q5 and Q12 over tables
+     staged with every string padded (no dictionary codes), against the
+     same oracles.
      Every query line carries its joins' ``hints`` (per INNER join: build
      side, K, unique build, key packing, compacted-list rows and the path
      taken: dense_unique, sorted_unique, pair_list or block) and its
@@ -48,7 +58,8 @@ Phases, one JSON line each:
      shape (a pair's block, B = 16, its mean live rows);
   5. partition: holds B3 against its plain versions, exactly: the
      payload-moving partition_columns at every distinct B3 call of Q12's,
-     Q3's, Q4's, Q15's, Q6's and Q5's runs (the grace runs' input shrinks,
+     Q3's, Q4's, Q15's, Q6's, Q5's, Q10's, Q18's and the padded phase's
+     runs (Q18's grace calls move c_name's 25-byte rows; the grace runs' input shrinks,
      sides and per-pair shrinks, the filter shrinks, the semi output's
      compaction, the stage shrinks), each on the
      codes the query gave it (logged by one extra run of each query) with
@@ -97,7 +108,7 @@ KERNELS = tuple(REPLACES)
 # the public wrappers whose launches are each TPU kernel's
 WRAPPERS = {"bucket_count": ("bucket_count",), "bucket_sum": ("bucket_sum",),
             "partition_sort": ("partition_sort", "partition_columns")}
-GRACE_K = 16  # the partition count the grace runs of Q12, Q3, Q4 and Q5 are sized to
+GRACE_K = 16  # the partition count the grace runs of Q12, Q3, Q4, Q5, Q10 and Q18 are sized to
 TABLES = ("lineitem", "orders", "customer", "supplier", "nation", "region")
 
 
@@ -498,6 +509,72 @@ def check_q5(out, expect, what: str) -> None:
         raise AssertionError(f"{what}: got {got}, expected {expect}")
 
 
+def oracle_q10(li, od, cu, na, lo: int, hi: int):
+    """Q10 with numpy alone: the returned lines (flag R) of the orders of
+    [lo, hi), joined to their orders, customers and nations by
+    np.searchsorted on the unique keys, revenue per customer summed exactly
+    in int64 (scale 4, at most 1.05e9 a line), the top 20 by revenue
+    descending, then customer key (the aggregate's key order, which decides
+    the engine's ties). Returns [(c_custkey, c_name, c_acctbal, n_name,
+    revenue)]."""
+    okeys, ocust, odate = _by_key(od, "o_orderkey", "o_custkey", "o_orderdate")
+    ckeys, cname, cbal, cnat = _by_key(cu, "c_custkey", "c_name", "c_acctbal", "c_nationkey")
+    nkeys, nname = _by_key(na, "n_nationkey", "n_name")
+    lm = li["l_returnflag"] == "R"
+    opos, ofound = _lookup(okeys, li["l_orderkey"][lm])
+    ofound &= (odate[opos] >= lo) & (odate[opos] < hi)
+    cpos, cfound = _lookup(ckeys, ocust[opos])
+    npos, nfound = _lookup(nkeys, cnat[cpos])
+    m = ofound & cfound & nfound
+    rev = li["l_extendedprice"][lm][m] * (100 - li["l_discount"][lm][m])
+    cust, inv = np.unique(cpos[m], return_inverse=True)
+    total = np.zeros(len(cust), np.int64)
+    np.add.at(total, inv, rev)
+    nat = nname[_lookup(nkeys, cnat[cust])[0]]
+    top = np.lexsort((ckeys[cust], -total))[:20]
+    return [(int(ckeys[cust[i]]), cname[cust[i]], int(cbal[cust[i]]), nat[i], int(total[i]))
+            for i in top]
+
+
+def check_q10(out, expect, what: str) -> None:
+    cols = ("c_custkey", "c_name", "c_acctbal", "n_name", "revenue")
+    got = [tuple(out[c][i] if c in ("c_name", "n_name") else int(out[c][i]) for c in cols)
+           for i in range(len(out["c_custkey"]))]
+    if got != expect or not all(out[c + "__valid"].all() for c in cols):
+        raise AssertionError(f"{what}: got {got}, expected {expect}")
+
+
+def oracle_q18(li, od, cu, min_qty: int = 300):
+    """Q18 with numpy alone: the orders whose lines' quantities sum past
+    ``min_qty`` (scale 0; the sums are exact int64 at scale 2), with their
+    customers (np.searchsorted on the unique c_custkey), the top 100 by
+    total price descending, then order date, then customer name, customer
+    key and order key (the aggregate's key order, which decides the
+    engine's ties). Returns [(c_name, c_custkey, o_orderkey, o_orderdate,
+    o_totalprice, sum_qty)]."""
+    keys, inv = np.unique(li["l_orderkey"], return_inverse=True)
+    qty = np.zeros(len(keys), np.int64)
+    np.add.at(qty, inv, li["l_quantity"])
+    big = qty > min_qty * 100
+    okeys, ocust, odate, oprice = _by_key(od, "o_orderkey", "o_custkey", "o_orderdate",
+                                          "o_totalprice")
+    opos, ofound = _lookup(okeys, keys[big])
+    ckeys, cname = _by_key(cu, "c_custkey", "c_name")
+    cpos, cfound = _lookup(ckeys, ocust[opos])
+    m = ofound & cfound
+    rows = [(cname[c], int(ckeys[c]), int(okeys[o]), int(odate[o]), int(oprice[o]), int(q))
+            for o, c, q in zip(opos[m], cpos[m], qty[big][m])]
+    return sorted(rows, key=lambda r: (-r[4], r[3], r[0].encode(), r[1], r[2]))[:100]
+
+
+def check_q18(out, expect, what: str) -> None:
+    cols = ("c_name", "c_custkey", "o_orderkey", "o_orderdate", "o_totalprice", "sum_qty")
+    got = [tuple(out[c][i] if c == "c_name" else int(out[c][i]) for c in cols)
+           for i in range(len(out["c_custkey"]))]
+    if got != expect or not all(out[c + "__valid"].all() for c in cols):
+        raise AssertionError(f"{what}: got {got}, expected {expect}")
+
+
 def grace_fraction(sess, plan, K: int = GRACE_K):
     """The Config(memory_fraction) under which the session splits ``plan``'s
     join into K partitions, and the join's peak estimate: (fraction,
@@ -659,6 +736,8 @@ def query_phase(sf: float, reps: int, profile: bool):
     q4_phase(sess, data, sf, reps, profile, launches, b3_calls)
     q15_phase(sess, data, sf, reps, profile, launches, b3_calls)
     q5_phase(sess, data, sf, reps, profile, launches, b3_calls)
+    for q in ("q10", "q18"):
+        q10_q18_phase(q, sess, data, sf, reps, profile, launches, b3_calls)
     return launches, sizes, b3_calls
 
 
@@ -884,6 +963,124 @@ def q5_phase(sess, data, sf: float, reps: int, profile: bool, launches, b3_calls
         emit(profile_run(grace, tpch.q5(), "profile_q5_grace"))
 
 
+def _grace_record(s):
+    """Each grace join of a session's last run (in the order they finished)
+    and each tiled aggregate."""
+    return {"grace_runners": [
+        {"K": r.K, "mode": r.downstream and r.downstream[0], "pair_retries": r.retries,
+         "capacities": list(r.capacities),
+         "sizes": [{"rows": int(sz.sum()), "min": int(sz.min()), "max": int(sz.max())}
+                   for sz in r.sizes]} for r in s.grace_runners],
+        "tiled": [list(t) for t in s.tiled]}
+
+
+def agg_sort_limbs(sess, plan) -> dict:
+    """The sort limbs the root stage's grouping aggregate takes, rebuilt as
+    ``aggregate.hash_aggregate`` picks them (one packed int32 limb, packed
+    int64 limbs, or a null flag and the value limbs per key) from its key
+    columns as the query's output holds them (the storage of its input):
+    {"keys", "limbs", "limb_dtypes"}."""
+    from datafusion_comet_tpu_torch.exec import sortkeys
+    from datafusion_comet_tpu_torch.exec.operators import aggregate as AGG
+
+    (agg,) = [a for a in _plan_nodes(sess.stages[-1:], "HashAggregate") if a.group_exprs]
+    out = sess.execute(plan)
+    keys = [out.columns[out.schema.index_of(g.name)] for g in agg.group_exprs]
+    packed = AGG._try_pack_keys(keys)
+    limbs = ([packed[0]] if packed is not None
+             else AGG._pack_sort_limbs(keys, agg.group_key_ranges)
+             or sortkeys.grouping_limbs(keys))
+    return {"keys": [g.name for g in agg.group_exprs], "limbs": len(limbs),
+            "limb_dtypes": sorted({str(x.dtype) for x in limbs})}
+
+
+def q10_q18_phase(q: str, sess, data, sf: float, reps: int, profile: bool, launches,
+                  b3_calls) -> None:
+    """Q10 (three INNER joins, grouped by c_custkey, c_name, c_acctbal and
+    n_name, a top-20) or Q18 (a HAVING filter over the per-order sums, a
+    LEFT_SEMI join against it, two INNER joins, a five-key aggregate with
+    c_name, a top-100) directly and under a budget that makes the engine
+    split its first join into K = 16 pairs (Q18's per-order aggregate then
+    runs tiled first): each checked against its numpy oracle, timed, its
+    launches counted (B3 partitions in the grace run), its stages, hints,
+    attempts, grace joins and tiled aggregates, and the sort limbs of its
+    grouping aggregate reported."""
+    from datafusion_comet_tpu_torch.models import tpch
+
+    li, od, cu = data["lineitem"], data["orders"], data["customer"]
+    if q == "q10":
+        expect = oracle_q10(li, od, cu, data["nation"], tpch._d("1993-10-01"),
+                            tpch._d("1994-01-01"))
+        check, plan = check_q10, tpch.q10
+    else:
+        expect, check, plan = oracle_q18(li, od, cu), check_q18, tpch.q18
+    fraction, jpeak = grace_fraction(sess, plan())
+    grace = grace_session(sess, fraction)
+    runs = {}
+    for run, s in (("direct", sess), ("grace", grace)):
+        key = f"{q}_{run}"
+        out, launches[key], first_s, times, peak, b3_calls[key], semi = run_query(
+            s, plan(), reps)
+        check(out, expect, key)
+        if run == "grace" and launches[key]["partition_sort"] == 0:
+            raise AssertionError(f"{key} did not launch B3: {launches[key]}")
+        runs[run] = dict(_query_run(s, key, first_s, times, peak, launches, b3_calls, semi),
+                         **_grace_record(s), sort_limbs=agg_sort_limbs(s, plan()))
+    if sess.grace_runners or not any(r.K == GRACE_K for r in grace.grace_runners):
+        raise AssertionError(f"{q}: the direct run partitioned, or no grace join of K={GRACE_K}: "
+                             f"{runs['grace']['grace_runners']}")
+    c_name = sess.tables["customer"].column("c_name")
+    emit({"phase": q, "sf": sf, "correct": True, "rows": len(expect), "result": expect[:5],
+          "c_name_padded": not c_name.is_dict, "memory_fraction": fraction,
+          "grace_budget_bytes": grace.budget_bytes(), "join_peak_estimate_bytes": jpeak,
+          **runs})
+    if profile:
+        emit(profile_run(sess, plan(), f"profile_{q}_direct"))
+        emit(profile_run(grace, plan(), f"profile_{q}_grace"))
+
+
+def padded_phase(sf: float, reps: int, launches, b3_calls) -> None:
+    """Q1, Q3, Q4, Q5 and Q12 over tables staged with every string padded
+    (``Config(scan_dictionary_max_size=0)``: no dictionary codes; Q1 groups
+    by the padded one-byte flags on the sorted path), each against its
+    numpy oracle, timed, its launches counted."""
+    import torch
+    from datafusion_comet_tpu_torch.conf import Config
+    from datafusion_comet_tpu_torch.exec.engine import Session
+    from datafusion_comet_tpu_torch.models import tpch
+
+    data = tpch.generate_tables(TABLES, sf)
+    sess = Session(conf=Config(scan_dictionary_max_size=0))
+    t0 = time.perf_counter()
+    for t in TABLES:
+        sess.register_numpy(t, data[t], tpch.SCHEMAS[t])
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    if any(c.is_dict for b in sess.tables.values() for c in b.columns):
+        raise AssertionError("padded: a string column was dictionary-coded")
+    li, od, cu = data["lineitem"], data["orders"], data["customer"]
+    checks = {
+        "q1": lambda out: check_q1(out, oracle_q1(li, tpch._d("1998-09-02"))),
+        "q3": lambda out: check_q3(out, oracle_q3(li, od, cu, tpch._d("1995-03-15")),
+                                   "padded q3"),
+        "q4": lambda out: check_q4(out, oracle_q4(li, od, tpch._d("1993-07-01"),
+                                                  tpch._d("1993-10-01")), "padded q4"),
+        "q5": lambda out: check_q5(out, oracle_q5(*(data[t] for t in TABLES),
+                                                  tpch._d("1994-01-01"),
+                                                  tpch._d("1995-01-01")), "padded q5"),
+        "q12": lambda out: check_q12(out, oracle_q12(li, od, tpch._d("1994-01-01"),
+                                                     tpch._d("1995-01-01")), "padded q12"),
+    }
+    runs = {}
+    for q, check in checks.items():
+        key = f"padded_{q}"
+        out, launches[key], first_s, times, peak, b3_calls[key], semi = run_query(
+            sess, getattr(tpch, q)(), reps)
+        check(out)
+        runs[q] = _query_run(sess, key, first_s, times, peak, launches, b3_calls, semi)
+    emit({"phase": "padded", "sf": sf, "correct": True, "stage_s": stage_s, **runs})
+
+
 def _plan_nodes(stages, kind: str):
     """Every node of a type (by class name) in a stage list's plans."""
     out, stack = [], [p for _, p in stages]
@@ -1057,12 +1254,15 @@ def check_payload(K, name, codes, k, tensors, local=False, limit=None):
 
 
 def b3_call_names(calls):
-    """Each distinct B3 call of Q12's, Q3's, Q4's, Q15's, Q6's and Q5's runs,
-    named by run, place in the run and kind: [(name, call)], a repeated
-    shape once."""
+    """Each distinct B3 call of Q12's, Q3's, Q4's, Q15's, Q6's, Q5's, Q10's
+    and Q18's runs (Q18's grace calls move c_name's 25-byte rows), then of
+    the padded phase's, named by run, place in the run and kind: [(name,
+    call)], a repeated shape once."""
     out, seen = [], set()
-    for run in ("q12_grace", "q12_direct", "q3_grace", "q3_direct", "q4_grace", "q4",
-                "q4_semi_compact", "q15", "q6", "q5_grace", "q5_direct"):
+    first = ("q12_grace", "q12_direct", "q3_grace", "q3_direct", "q4_grace", "q4",
+             "q4_semi_compact", "q15", "q6", "q5_grace", "q5_direct", "q18_grace", "q18_direct",
+             "q10_grace", "q10_direct")
+    for run in first + tuple(sorted(set(calls) - set(first))):
         for i, c in enumerate(calls[run]):
             shape = (c["n"], c["K"], c["local"], c["limit"], c["codes"], tuple(c["tensors"]))
             if shape not in seen:
@@ -1202,8 +1402,8 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=25, help="timed warm runs per measurement")
     ap.add_argument("--seed", type=int, default=7, help="seed of the kernel-phase inputs")
     ap.add_argument("--profile", action="store_true",
-                    help="add profiled runs of Q1, of Q12's grace run, of Q3's, Q4's and "
-                         "Q5's two runs and of Q15")
+                    help="add profiled runs of Q1, of Q12's grace run, of Q3's, Q4's, Q5's, "
+                         "Q10's and Q18's two runs and of Q15")
     args = ap.parse_args(argv)
 
     import torch
@@ -1234,6 +1434,8 @@ def main(argv=None) -> int:
     emit({"phase": "kernels", "checked_exact": checked, "timing": timing})
 
     launches, sizes, b3_calls = query_phase(args.sf, max(3, args.reps // 5), args.profile)
+    if args.sf <= 1:  # the padded phase runs at SF1 (or the smaller scale asked for)
+        padded_phase(args.sf, max(3, args.reps // 5), launches, b3_calls)
     pair = pair_phase(sizes, args.reps, args.seed)
     emit({"phase": "grace_pair_kernels", "timing": pair})
     timing["bucket_count"]["other_shapes"] = {"grace_pair": pair["bucket_count"]}

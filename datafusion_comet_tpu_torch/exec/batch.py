@@ -74,6 +74,25 @@ class ColumnVector:
     def is_dict(self) -> bool:
         return self.dictionary is not None
 
+    def decode(self) -> "ColumnVector":
+        """A dictionary column in the padded layout ((cap, w) bytes at the
+        type's width plus lengths), by one gather from the dictionary's
+        device copy; any other column as it is."""
+        if self.dictionary is None:
+            return self
+        mat, lens = self.dictionary.decode_arrays(self.data, self.dtype.byte_width)
+        return ColumnVector(mat, self.validity, lens, self.dtype)
+
+    def unify_encoding(self, *others: "ColumnVector") -> list:
+        """For operations that merge rows of several columns: codes stay
+        codes only where every column carries the same dictionary; else
+        the dictionary columns are decoded."""
+        cvs = (self,) + others
+        dicts = {cv.dictionary for cv in cvs if cv.dictionary is not None}
+        if len(dicts) == 1 and all(cv.is_dict for cv in cvs):
+            return list(cvs)
+        return [cv.decode() for cv in cvs]
+
     def take(self, indices: torch.Tensor) -> "ColumnVector":
         """Gather rows by in-range index (the bound does not carry over)."""
         lengths = None if self.lengths is None else self.lengths[indices]
@@ -124,16 +143,21 @@ class Batch:
         """Gather rows by in-range index under a new live-row mask."""
         return Batch(tuple(c.take(indices) for c in self.columns), mask, schema or self.schema)
 
+    def decode_dicts(self) -> "Batch":
+        """Every dictionary column in the padded layout."""
+        if not any(c.is_dict for c in self.columns):
+            return self
+        return Batch(tuple(c.decode() for c in self.columns), self.row_mask, self.schema)
+
 
 def _concat_column(cvs: Sequence[ColumnVector], dtype: T.DataType) -> ColumnVector:
     """Row-concatenate one column across batches. Dictionary codes stay codes
-    when every piece carries the same dictionary; decimals of mixed storage
-    widen to two limbs; padded strings pad to the widest. Bounds are dropped,
-    as in the JAX package's union."""
-    if any(c.is_dict for c in cvs):
-        if not all(c.is_dict and c.dictionary == cvs[0].dictionary for c in cvs):
-            raise NotImplementedError("concatenating columns of different dictionaries "
-                                      "needs a decode, which is not ported yet")
+    when every piece carries the same dictionary, else they are decoded
+    (``unify_encoding``); decimals of mixed storage widen to two limbs;
+    padded strings pad to the widest. Bounds are dropped, as in the JAX
+    package's union."""
+    cvs = cvs[0].unify_encoding(*cvs[1:])
+    if cvs[0].is_dict:
         return ColumnVector(torch.cat([c.data for c in cvs]), torch.cat([c.validity for c in cvs]),
                             None, dtype, cvs[0].dictionary)
     datas = [c.data for c in cvs]

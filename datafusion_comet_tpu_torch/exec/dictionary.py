@@ -6,7 +6,10 @@ against string literals become int32 code compares (the literal's rank is a
 host constant), group-by keys have a provably tiny domain (the dense bucket
 path), and a sort key is one int32 limb. The dictionary is sorted by unsigned
 byte order, shorter prefix first, so codes are order-isomorphic to string
-order.
+order. Where bytes are needed (a comparison of two different dictionaries,
+a dictionary against a padded column, murmur3, a join against a padded key)
+``decode_arrays`` turns codes into the padded layout with one gather from a
+device copy of the dictionary, made once per device and width.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import hashlib
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 __all__ = ["StringDict", "union_ranks", "encode_padded", "encode_objects"]
 
@@ -24,7 +28,7 @@ class StringDict:
     """An immutable sorted string dictionary: values (K, w) uint8 zero-padded
     plus lengths (K,) int32. Equal by content digest."""
 
-    __slots__ = ("values", "lengths", "_digest", "_keys")
+    __slots__ = ("values", "lengths", "_digest", "_keys", "_on_device")
 
     def __init__(self, values: np.ndarray, lengths: np.ndarray):
         assert values.ndim == 2 and values.dtype == np.uint8
@@ -36,6 +40,7 @@ class StringDict:
         h.update(str(values.shape).encode())
         self._digest = h.digest()
         self._keys: Optional[list] = None  # lazy: sorted list of bytes
+        self._on_device: dict = {}  # (device, width) -> (values, lengths) tensors
 
     def __hash__(self) -> int:
         return hash(self._digest)
@@ -66,6 +71,33 @@ class StringDict:
 
     def value_of(self, code: int) -> bytes:
         return self._key_list()[code]
+
+    def device_arrays(self, device: torch.device, width: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(values (max(K, 1), width) uint8, lengths (max(K, 1),) int32) on
+        ``device``, cut or zero-padded to ``width``: copied once, then reused
+        by every decode (the JAX package's copy is a trace-time constant)."""
+        key = (str(device), width)
+        hit = self._on_device.get(key)
+        if hit is None:
+            vals = np.zeros((max(self.size, 1), width), np.uint8)
+            cw = min(width, self.width)
+            vals[: self.size, :cw] = self.values[:, :cw]
+            lens = np.zeros(max(self.size, 1), np.int32)
+            lens[: self.size] = self.lengths
+            hit = (torch.from_numpy(vals).to(device), torch.from_numpy(lens).to(device))
+            self._on_device[key] = hit
+        return hit
+
+    def decode_arrays(self, codes: torch.Tensor, target_width: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """codes (cap,) int32 -> (mat (cap, w) uint8, lens (cap,) int32):
+        one gather of each from the device copy (an empty dictionary gives
+        zeros); codes out of range are clamped, as in the JAX package."""
+        w = target_width or self.width
+        vals, lens = self.device_arrays(codes.device, w)
+        idx = codes.long().clamp(0, max(self.size - 1, 0))
+        return vals[idx], lens[idx]
 
 
 def union_ranks(a: StringDict, b: StringDict) -> Tuple[np.ndarray, np.ndarray]:

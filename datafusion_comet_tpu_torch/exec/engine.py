@@ -1,7 +1,7 @@
 """Query engine: a bound plan tree executed operator by operator over
 device-resident tables (port of the ``Session`` subset of
-``datafusion_comet_tpu/exec/engine.py`` that TPC-H Q1, Q3, Q4, Q5, Q6, Q12
-and Q15 reach).
+``datafusion_comet_tpu/exec/engine.py`` that TPC-H Q1, Q3, Q4, Q5, Q6, Q10,
+Q12, Q15 and Q18 reach).
 
 PyTorch runs eagerly, so there is no whole-plan compile. ``execute`` binds
 and prunes the plan, fills each aggregate's group capacity from the tables'
@@ -18,9 +18,14 @@ operators (joins, sorts, grouping aggregates) than
 (``_aqe_shrink``) and read by the next stage as a temporary table: so Q3's
 top-K sorts the aggregate's live groups, not its input's capacity. The JAX
 package splits to bound compile time; here the split changes which
-capacities the later operators run at. Its runtime filters
-(``inject_runtime_filters``) and join reorderings (``_apply_orderings``)
-are not ported: they change no result of the seven queries.
+capacities the later operators run at. Before the split, a Sort over an
+aggregate already ordered by its keys is dropped (``apply_orderings``, the
+Sort branch of the JAX package's ``_apply_orderings``): Q1, Q4 and Q12 end
+in their aggregate, which keeps its outputs' magnitude bounds as the JAX
+package's does. The JAX package's runtime filters
+(``inject_runtime_filters``) and its merge-join half of
+``_apply_orderings`` are not ported: they change no result of the ported
+queries.
 
 The operators read the planner's hints (exec/stats.py) as the JAX package
 does: a filter estimated to keep under an eighth of its capacity is
@@ -38,8 +43,9 @@ Two loops wrap a stage's run, as in the JAX package:
   ``join.MAX_JOIN_RETRIES`` times (then JoinOverflowError);
 - the memory budget (``_budget_plan``): while a plan's resident-bytes
   estimate is over ``device_budget_bytes`` (the card's memory times
-  ``Config.memory_fraction``), an over-budget join runs hash-partitioned
-  (exec/grace.py) and its result, the aggregate above it, or the whole
+  ``Config.memory_fraction``), a SINGLE aggregate over one table runs tiled
+  (exec/streaming.py), else an over-budget join runs hash-partitioned
+  (exec/grace.py), and its result, the aggregate above it, or the whole
   stage comes back as a temporary table.
 """
 
@@ -53,20 +59,23 @@ from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from datafusion_comet_tpu_torch import types as T
 from datafusion_comet_tpu_torch.conf import Config
 from datafusion_comet_tpu_torch.exec import grace as G
 from datafusion_comet_tpu_torch.exec.batch import Batch, from_numpy, pad_capacity, to_numpy
 from datafusion_comet_tpu_torch.exec.evaluator import EvalContext
-from datafusion_comet_tpu_torch.exec.memory import device_budget_bytes, plan_peak_bytes
+from datafusion_comet_tpu_torch.exec.memory import (device_budget_bytes, plan_peak_bytes,
+                                                   plan_tiles)
 from datafusion_comet_tpu_torch.exec.operators import aggregate as AGG
 from datafusion_comet_tpu_torch.exec.operators import basic as B
 from datafusion_comet_tpu_torch.exec.operators import join as J
 from datafusion_comet_tpu_torch.exec.stats import (DEFAULT_MAX_GROUPS, TableStats, collect_stats,
                                                   derive_capacities)
-from datafusion_comet_tpu_torch.exec.streaming import pseudo_scan
+from datafusion_comet_tpu_torch.exec.streaming import TiledAggregator, pseudo_scan, slice_tiles
 from datafusion_comet_tpu_torch.ir import plan as P
+from datafusion_comet_tpu_torch.ir.ordering import order_key_name, ordering_satisfies, out_ordering
 from datafusion_comet_tpu_torch.ir.pruning import prune_columns
 
 __all__ = ["Session", "run_plan", "QueryExecutionError", "JoinOverflowError"]
@@ -204,6 +213,33 @@ def replace_child_pure_deep(plan: P.PlanNode, old: P.PlanNode, new: P.PlanNode) 
     return out
 
 
+def apply_orderings(plan: P.PlanNode) -> P.PlanNode:
+    """A copy of the bound plan in which every Sort whose child already
+    delivers its order (ir/ordering.py) is gone: replaced by its child, or
+    by a Limit where it has a fetch or a skip (JAX ``engine.py:1386``, its
+    Sort branch). The caller's tree is not changed."""
+    for old in plan.children():
+        new = apply_orderings(old)
+        if new is not old:
+            plan = replace_child_pure(plan, old, new)
+    if not isinstance(plan, P.Sort):
+        return plan
+    child = plan.child
+    want = []
+    for o in plan.orders:
+        name = order_key_name(o.child, child.schema)
+        if name is None:
+            return plan
+        want.append((name, o.ascending, o.resolved_nulls_first()))
+    if not ordering_satisfies(out_ordering(child), want):
+        return plan
+    if plan.fetch is None and not plan.skip:
+        return child
+    out = P.Limit(child, plan.fetch or (1 << 62), plan.skip)
+    out.schema = child.schema
+    return out
+
+
 def _count_joins(plan: P.PlanNode) -> int:
     return int(isinstance(plan, P.HashJoin)) + sum(_count_joins(c) for c in plan.children())
 
@@ -215,10 +251,12 @@ def _count_heavy(plan: P.PlanNode) -> int:
     return int(own) + sum(_count_heavy(c) for c in plan.children())
 
 
-def has_stream_agg(plan: P.PlanNode, tables) -> bool:
-    """Whether the JAX package would run an aggregate of the plan tiled
-    over the budget: a SINGLE HashAggregate over filters and projections of
-    one resident table."""
+def find_stream_agg(plan: P.PlanNode, tables) -> Optional[Tuple[P.HashAggregate, str]]:
+    """The aggregate the JAX package would run tiled over the budget
+    (JAX ``engine.py:1455``): a SINGLE HashAggregate over filters and
+    projections of one resident table, the one over the largest table;
+    (aggregate, table) or None."""
+    best = None
 
     def subtree_scan(p) -> Optional[str]:
         if isinstance(p, P.Scan):
@@ -227,10 +265,19 @@ def has_stream_agg(plan: P.PlanNode, tables) -> bool:
             return None
         return subtree_scan(p.children()[0])
 
-    if (isinstance(plan, P.HashAggregate) and plan.mode == P.AggMode.SINGLE
-            and subtree_scan(plan.child) in tables):
-        return True
-    return any(has_stream_agg(c, tables) for c in plan.children())
+    def walk(p) -> None:
+        nonlocal best
+        if isinstance(p, P.HashAggregate) and p.mode == P.AggMode.SINGLE:
+            t = subtree_scan(p.child)
+            if t is not None and t in tables:
+                if best is None or tables[t].capacity > best[2]:
+                    best = (p, t, tables[t].capacity)
+                return
+        for c in p.children():
+            walk(c)
+
+    walk(plan)
+    return (best[0], best[1]) if best else None
 
 
 # -------------------------------------------------------------------------------------
@@ -247,7 +294,8 @@ class Session:
     as a batch has none, and its aggregates take the default capacities).
     Of the last ``execute``: ``stages`` holds its (temporary table name or
     None, bound subplan) stages in run order, ``grace_runners`` its grace
-    joins (K, mode, partition sizes)."""
+    joins (K, mode, partition sizes), ``tiled`` its tiled aggregates
+    (table, tiles)."""
 
     def __init__(self, device: Union[str, torch.device, None] = None,
                  conf: Optional[Config] = None):
@@ -263,6 +311,7 @@ class Session:
         self.stats: Dict[str, TableStats] = {}
         self.stages: List[Tuple[Optional[str], P.PlanNode]] = []
         self.grace_runners: List[G.GraceJoinRunner] = []
+        self.tiled: List[Tuple[str, int]] = []  # (table, tiles) of each tiled aggregate
         # every run of the last ``execute``: where it ran ("stage" or a grace
         # "pair"), its attempt, growth scale, unique_join_ok, whether it
         # overflowed, and its INNER joins' paths
@@ -293,6 +342,7 @@ class Session:
         channel fired: an ANSI error, or a kernel's code out of range."""
         self.stages = self._plan_stages(plan)
         self.grace_runners = []
+        self.tiled = []
         self.runs = []
         temp_names: List[str] = [n for n, _ in self.stages if n]
         out = None
@@ -312,10 +362,12 @@ class Session:
     # -- stages --------------------------------------------------------------------
     def _plan_stages(self, plan: P.PlanNode) -> List[Tuple[Optional[str], P.PlanNode]]:
         """Bind and prune (unless ``plan`` is bound), fill the aggregates'
-        capacities from statistics, and split: [(temporary table name,
+        capacities from statistics, drop the Sorts their input already
+        satisfies (``apply_orderings``), and split: [(temporary table name,
         subplan)] in run order, the last one (None, the query's root)."""
         bound = plan if plan.schema is not None else P.bind_plan(prune_columns(plan))
         derive_capacities(bound, self.stats)
+        bound = apply_orderings(bound)
         stages: List[Tuple[Optional[str], P.PlanNode]] = []
         root = bound
         max_joins = self.conf.stage_max_joins
@@ -420,13 +472,32 @@ class Session:
         return B.compact_batch(b, target, keep_bounds=True)[0]
 
     # -- the memory budget ---------------------------------------------------------
+    def _tiled_rewrite(self, stage: P.PlanNode, agg: P.HashAggregate, table: str,
+                       budget: int, temp_names: List[str]) -> P.PlanNode:
+        """Run ``agg`` tiled over ``table`` (exec/streaming.py), at the
+        JAX package's tile count (``plan_tiles`` snapped to a power of two,
+        at most an eighth of the capacity), register its result as a
+        temporary table and put a scan of it in the aggregate's place."""
+        batch = self.tables[table]
+        tiles = max(plan_tiles(agg, batch.capacity, budget), 1)
+        tiles = min(1 << max(int(tiles - 1).bit_length(), 0), max(batch.capacity // 8, 1))
+        tmp = f"__budget{next(self._ids)}"
+        temp_names.append(tmp)
+        with record_function("tiled.aggregate"):
+            self.tables[tmp] = TiledAggregator(agg, table, self.conf).run(
+                slice_tiles(batch, max(batch.capacity // tiles, 8)))
+        self.tiled.append((table, tiles))
+        scan = pseudo_scan(tmp, self.tables[tmp].schema)
+        return scan if agg is stage else replace_child_pure_deep(stage, agg, scan)
+
     def _budget_plan(self, stage: P.PlanNode, temp_names: List[str]) -> P.PlanNode:
-        """While the stage's peak estimate is over the budget, run an
-        over-budget join hash-partitioned (GraceJoinRunner) and splice its
-        result back in as a temporary-table scan. A stage over budget with
-        no such join proceeds with a warning (the estimate is
-        conservative)."""
-        for _ in range(16):  # each pass peels one over-budget join
+        """While the stage's peak estimate is over the budget, run a
+        SINGLE aggregate over one table tiled (``_tiled_rewrite``), else an
+        over-budget join hash-partitioned (GraceJoinRunner), and splice its
+        result back in as a temporary-table scan, in the JAX package's
+        order. A stage over budget with neither proceeds with a warning
+        (the estimate is conservative)."""
+        for _ in range(16):  # each pass peels one over-budget subtree
             caps = [self.tables[t].capacity for t in P.scan_tables(stage) if t in self.tables]
             if not caps:
                 break
@@ -434,10 +505,10 @@ class Session:
             peak = plan_peak_bytes(stage, max(caps))
             if peak <= budget:
                 break
-            if has_stream_agg(stage, self.tables):
-                raise NotImplementedError(
-                    "the plan is over the memory budget and its aggregate would run tiled "
-                    "(a streaming aggregate), which is not ported yet")
+            target = find_stream_agg(stage, self.tables)
+            if target is not None:
+                stage = self._tiled_rewrite(stage, *target, budget, temp_names)
+                continue
             gj = G.find_grace_join(stage, self.tables, budget)
             if gj is None:
                 warnings.warn(f"stage peak estimate {peak >> 20} MiB exceeds the memory budget "

@@ -1,12 +1,16 @@
 """Expression evaluator: bound expression IR -> tensor ops over a Batch
-(port of ``datafusion_comet_tpu/exec/evaluator.py``, the TPC-H Q1/Q6/Q12
-subset, and Spark's murmur3 over integer columns for hash partitioning).
+(port of ``datafusion_comet_tpu/exec/evaluator.py``, the subset the ported
+TPC-H queries reach, and Spark's murmur3 over integer and string columns
+for hash partitioning).
 
 Spark semantics kept from the JAX package:
 - three-valued logic through validity vectors, Kleene AND/OR;
 - decimal arithmetic on scaled int64 while host-side magnitude bounds prove
   it exact, exact i128 (exec/decimal_wide.py) otherwise, HALF_UP rescaling;
-- dictionary-coded strings compare against literals as code ranges;
+- dictionary-coded strings compare against literals as code ranges, with
+  each other as codes when they share a dictionary; anything else decodes
+  (``_dedict``) and compares padded bytes as unsigned, the zero padding
+  giving the shorter-prefix rule;
 - LEGACY/ANSI/TRY modes with an error side channel in ``EvalContext``.
 
 The storage choice (narrow int64 or two-limb i128) follows the same bounds
@@ -28,7 +32,7 @@ from datafusion_comet_tpu_torch.ir import expr as E
 from datafusion_comet_tpu_torch.utils import int128
 
 __all__ = ["EvalContext", "evaluate", "evaluate_predicate", "murmur3_hash_i32",
-           "murmur3_hash_i64", "murmur3_column"]
+           "murmur3_hash_i64", "murmur3_hash_bytes", "murmur3_column"]
 
 
 @dataclasses.dataclass
@@ -114,10 +118,11 @@ def _literal(e: E.Literal, cap: int, device) -> ColumnVector:
         return ColumnVector(torch.zeros(shape, dtype=_torch_dtype(dt), device=device), ~ones,
                             None, dt)
     if dt.is_binary:
+        # one padded row on the device, broadcast to every row (a view)
         raw = e.value.encode("utf-8") if isinstance(e.value, str) else bytes(e.value)
-        mat = np.zeros((cap, dt.byte_width), np.uint8)
-        mat[:, : len(raw)] = np.frombuffer(raw, np.uint8)
-        return ColumnVector(torch.from_numpy(mat).to(device), ones,
+        row = np.zeros(dt.byte_width, np.uint8)
+        row[: len(raw)] = np.frombuffer(raw, np.uint8)
+        return ColumnVector(torch.from_numpy(row).to(device).expand(cap, dt.byte_width), ones,
                             torch.full((cap,), len(raw), dtype=torch.int32, device=device), dt)
     if dt.is_wide_decimal:
         v = int(e.value)
@@ -199,18 +204,29 @@ def _binary(e: E.BinaryOp, b: Batch, ctx: EvalContext) -> ColumnVector:
     if op in ("and", "or"):
         return _kleene(op, _ev(e.left, b, ctx), _ev(e.right, b, ctx))
     if op in ("eq", "ne", "lt", "le", "gt", "ge", "eqns"):
-        # dictionary fast path: codes against a host-side literal rank
-        for lit_side, col_side, flip in ((e.right, e.left, False), (e.left, e.right, True)):
-            if (isinstance(lit_side, E.Literal) and lit_side.dtype.is_binary
-                    and lit_side.value is not None):
-                cv = _ev(col_side, b, ctx)
-                if cv.is_dict:
-                    return _dict_code_compare(op, cv, lit_side.value, flip)
-        return _compare(op, _ev(e.left, b, ctx), _ev(e.right, b, ctx))
+        # dictionary fast path: codes against a host-side literal rank; the
+        # column side is evaluated once either way
+        l = r = None
+        if _binary_literal(e.right):
+            l = _ev(e.left, b, ctx)
+            if l.is_dict:
+                return _dict_code_compare(op, l, e.right.value, False)
+        elif _binary_literal(e.left):
+            r = _ev(e.right, b, ctx)
+            if r.is_dict:
+                return _dict_code_compare(op, r, e.left.value, True)
+        l = l if l is not None else _ev(e.left, b, ctx)
+        r = r if r is not None else _ev(e.right, b, ctx)
+        return _compare(op, l, r)
     l, r = _ev(e.left, b, ctx), _ev(e.right, b, ctx)
     if op in ("add", "sub", "mul", "div"):
         return _arith(e, l, r, ctx)
     raise NotImplementedError(op)
+
+
+def _binary_literal(e: E.Expr) -> bool:
+    return isinstance(e, E.Literal) and e.dtype is not None and e.dtype.is_binary \
+        and e.value is not None
 
 
 def _kleene(op: str, l: ColumnVector, r: ColumnVector) -> ColumnVector:
@@ -243,14 +259,43 @@ def _dict_code_compare(op: str, cv: ColumnVector, value, flip: bool) -> ColumnVe
     return ColumnVector(data, cv.validity, None, T.BOOL)
 
 
+def _dedict(cv: ColumnVector) -> ColumnVector:
+    return cv.decode() if cv.is_dict else cv
+
+
+def _pad_width(mat: torch.Tensor, w: int) -> torch.Tensor:
+    return mat if mat.shape[1] == w else torch.nn.functional.pad(mat, (0, w - mat.shape[1]))
+
+
+def _string_eq(l: ColumnVector, r: ColumnVector) -> torch.Tensor:
+    """Equal bytes (the narrower side zero-padded) and equal lengths."""
+    w = max(l.data.shape[1], r.data.shape[1])
+    return (_pad_width(l.data, w) == _pad_width(r.data, w)).all(1) & (l.lengths == r.lengths)
+
+
+def _string_lt(l: ColumnVector, r: ColumnVector) -> torch.Tensor:
+    """Unsigned byte order: the first differing byte decides; with none,
+    the shorter string is the smaller (the zero padding encodes the
+    shorter-prefix rule)."""
+    w = max(l.data.shape[1], r.data.shape[1])
+    ld, rd = _pad_width(l.data, w), _pad_width(r.data, w)
+    diff = ld != rd
+    first = diff.to(torch.uint8).argmax(1, keepdim=True)
+    lb, rb = ld.gather(1, first)[:, 0], rd.gather(1, first)[:, 0]
+    return torch.where(diff.any(1), lb < rb, l.lengths < r.lengths)
+
+
 def _compare(op: str, l: ColumnVector, r: ColumnVector) -> ColumnVector:
     if l.is_dict or r.is_dict:
         if l.is_dict and r.is_dict and l.dictionary == r.dictionary:
+            # one sorted dictionary: code order is string order
             return _compare_result(op, l.data == r.data, l.data < r.data, l, r)
-        raise NotImplementedError("comparing decoded strings is not ported yet")
+        l, r = _dedict(l), _dedict(r)
     lt_, rt_ = l.dtype, r.dtype
     if lt_.is_binary or rt_.is_binary:
-        raise NotImplementedError("comparing padded strings is not ported yet")
+        # the byte order only where the operator reads it
+        lt = _string_lt(l, r) if op in ("lt", "le", "gt", "ge") else None
+        return _compare_result(op, _string_eq(l, r), lt, l, r)
     if lt_.is_decimal or rt_.is_decimal:
         ldt = lt_ if lt_.is_decimal else T.decimal_for_int(lt_)
         rdt = rt_ if rt_.is_decimal else T.decimal_for_int(rt_)
@@ -272,13 +317,17 @@ def _compare(op: str, l: ColumnVector, r: ColumnVector) -> ColumnVector:
     return _compare_result(op, ld == rd, ld < rd, l, r)
 
 
-def _compare_result(op: str, eq: torch.Tensor, lt: torch.Tensor, l: ColumnVector,
+def _compare_result(op: str, eq: torch.Tensor, lt: Optional[torch.Tensor], l: ColumnVector,
                     r: ColumnVector) -> ColumnVector:
+    """The comparison ``op`` from equality and less-than (which eq, ne and
+    eqns do not read: None there)."""
     both = l.validity & r.validity
     if op == "eqns":
         data = torch.where(both, eq, l.validity == r.validity)
         return ColumnVector(data, torch.ones_like(both), None, T.BOOL)
-    data = {"eq": eq, "ne": ~eq, "lt": lt, "le": lt | eq, "gt": ~(lt | eq), "ge": ~lt}[op]
+    if op in ("eq", "ne"):
+        return ColumnVector(eq if op == "eq" else ~eq, both, None, T.BOOL)
+    data = {"lt": lt, "le": lt | eq, "gt": ~(lt | eq), "ge": ~lt}[op]
     return ColumnVector(data, both, None, T.BOOL)
 
 
@@ -403,10 +452,20 @@ def _cast_bound(cv: ColumnVector, frm: T.DataType, to: T.DataType) -> int:
 
 def _cast(cv: ColumnVector, frm: T.DataType, to: T.DataType, mode: str,
           ctx: EvalContext) -> ColumnVector:
-    """Integer/decimal subset of the Spark cast matrix."""
+    """Integer, decimal and string-to-string subset of the Spark cast
+    matrix."""
     if frm == to:
         return cv
+    if frm.type_id == "NULL":
+        return _literal(E.Literal(None, to), cv.capacity, cv.data.device)
     validity = cv.validity
+    if to.is_binary and frm.is_binary:
+        # to another width: cut or zero-padded bytes, lengths capped (the
+        # JAX package casts a dictionary's entries and gathers them back,
+        # which gives the decoded rows cast)
+        cv, w = _dedict(cv), to.byte_width
+        data = cv.data[:, :w] if cv.data.shape[1] >= w else _pad_width(cv.data, w)
+        return ColumnVector(data, validity, cv.lengths.clamp(max=w), to)
     if to.is_integer and frm.is_integer and T.common_type(frm, to) == to:  # widening
         return ColumnVector(cv.data.to(_torch_dtype(to)), validity, None, to)
     if to.is_decimal and (frm.is_decimal or frm.is_integer or frm.is_boolean):
@@ -449,26 +508,34 @@ def _cast_wide_decimal(cv: ColumnVector, frm: T.DataType, to: T.DataType, mode: 
 
 def _case_when(e: E.CaseWhen, b: Batch, ctx: EvalContext) -> ColumnVector:
     """Branches apply in reverse over the ELSE value, so the first true
-    condition wins; a null condition counts as false."""
+    condition wins; a null condition counts as false. A string result is
+    padded bytes and lengths (dictionary branches are decoded, as in the
+    JAX package), the narrower branches zero-padded to the widest."""
     out_t = e.dtype
-    if out_t.is_binary:
-        raise NotImplementedError("CASE WHEN with a string result is not ported yet")
     if e.else_value is not None:
         result = _coerce(_ev(e.else_value, b, ctx), out_t)
     else:
         result = _literal(E.Literal(None, out_t), b.capacity, b.device)
+    result = _dedict(result)
     for cond, value in reversed(e.branches):
         c = _ev(cond, b, ctx)
-        v = _coerce(_ev(value, b, ctx), out_t)
+        v = _dedict(_coerce(_ev(value, b, ctx), out_t))
         if out_t.is_decimal and v.is_wide_storage != result.is_wide_storage:
             # one branch narrow by its bound, the other two-limb: widen both
             v = ColumnVector(DW.pack(DW.lift(v)), v.validity, None, out_t)
             result = ColumnVector(DW.pack(DW.lift(result)), result.validity, None, out_t)
         take = c.validity & c.data.bool()
-        sel = take[:, None] if v.data.dim() == 2 else take
-        result = ColumnVector(torch.where(sel, v.data, result.data),
-                              torch.where(take, v.validity, result.validity), None, out_t)
+        lengths = (torch.where(take, v.lengths, result.lengths) if out_t.is_binary else None)
+        result = ColumnVector(_select_cv(take, v, result),
+                              torch.where(take, v.validity, result.validity), lengths, out_t)
     return result
+
+
+def _select_cv(take: torch.Tensor, a: ColumnVector, b: ColumnVector) -> torch.Tensor:
+    if a.data.dim() == 2:
+        w = max(a.data.shape[1], b.data.shape[1])
+        return torch.where(take[:, None], _pad_width(a.data, w), _pad_width(b.data, w))
+    return torch.where(take, a.data, b.data)
 
 
 def _in_list(e: E.InList, b: Batch, ctx: EvalContext) -> ColumnVector:
@@ -485,7 +552,8 @@ def _in_list(e: E.InList, b: Batch, ctx: EvalContext) -> ColumnVector:
 
 
 # -------------------------------------------------------------------------------------
-# Spark murmur3 (Murmur3_x86_32 hashInt / hashLong, seed carried column to column)
+# Spark murmur3 (Murmur3_x86_32 hashInt / hashLong / hashUnsafeBytes, seed carried
+# column to column)
 # -------------------------------------------------------------------------------------
 # Each 32-bit word lives in the low half of an int64 as an unsigned value, so
 # shifts are logical and no product can overflow: a multiply by a 32-bit
@@ -511,7 +579,7 @@ def _mix_h1(h1: torch.Tensor, k1: torch.Tensor) -> torch.Tensor:
     return (_rotl32(h1 ^ k1, 13) * 5 + 0xE6546B64) & _M32
 
 
-def _fmix(h1: torch.Tensor, length: int) -> torch.Tensor:
+def _fmix(h1: torch.Tensor, length) -> torch.Tensor:
     h1 = h1 ^ length
     h1 = _mul32(h1 ^ (h1 >> 16), 0x85EBCA6B)
     h1 = _mul32(h1 ^ (h1 >> 13), 0xC2B2AE35)
@@ -539,6 +607,28 @@ def murmur3_hash_i64(value: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
     return _i32(_fmix(h1, 8))
 
 
+def murmur3_hash_bytes(mat: torch.Tensor, lens: torch.Tensor, seed: torch.Tensor
+                       ) -> torch.Tensor:
+    """Spark hashUnsafeBytes of each row's first ``lens`` bytes of ``mat``
+    (cap, w): the 4-byte little-endian words, then each tail byte as a
+    signed int8 (at most three, in order), then fmix with the length."""
+    cap, w = mat.shape
+    h1 = _u32(seed).expand(cap)
+    lens = lens.long()
+    m = mat.long()
+    for i in range(w // 4):
+        word = m[:, 4 * i] | (m[:, 4 * i + 1] << 8) | (m[:, 4 * i + 2] << 16) \
+            | (m[:, 4 * i + 3] << 24)
+        h1 = torch.where(4 * (i + 1) <= lens, _mix_h1(h1, _mix_k1(word)), h1)
+    tail0 = (lens // 4) * 4
+    for t in range(3):
+        j = tail0 + t
+        byte = m.gather(1, j.clamp(max=max(w - 1, 0)).view(-1, 1))[:, 0] if w else lens * 0
+        signed = torch.where(byte >= 128, byte - 256, byte) & _M32
+        h1 = torch.where(j < lens, _mix_h1(h1, _mix_k1(signed)), h1)
+    return _i32(_fmix(h1, lens))
+
+
 def murmur3_column(cv: ColumnVector, seed: torch.Tensor) -> torch.Tensor:
     """Hash one column into the running int32 seed; a null leaves the seed
     unchanged (Spark)."""
@@ -548,7 +638,8 @@ def murmur3_column(cv: ColumnVector, seed: torch.Tensor) -> torch.Tensor:
     elif dt.type_id in ("INT64", "TIMESTAMP"):
         h = murmur3_hash_i64(cv.data, seed)
     elif dt.is_binary:
-        raise NotImplementedError("murmur3 of string keys is not ported yet")
+        cv = _dedict(cv)
+        h = murmur3_hash_bytes(cv.data, cv.lengths, seed)
     else:
         raise NotImplementedError(f"murmur3 for {dt!r} is not ported yet")
     return torch.where(cv.validity, h, seed)

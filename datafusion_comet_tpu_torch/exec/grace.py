@@ -51,12 +51,12 @@ _INT_IDS = ("INT8", "INT16", "INT32", "INT64")
 def grace_key_cast(ldt: T.DataType, rdt: T.DataType) -> Optional[T.DataType]:
     """The common hash type of one join-key pair (None: hash as they are),
     or ValueError when both sides cannot hash equal keys alike: integer
-    keys of mixed widths hash as INT64; floats and decimals are refused, and
-    so are strings while their murmur3 is not ported (the join then runs
-    directly, over the budget, where the JAX package partitions it)."""
+    keys of mixed widths hash as INT64; strings hash their bytes (a
+    dictionary side decoded first), so equal strings of either encoding
+    land in one partition; floats and decimals are refused."""
     for dt in (ldt, rdt):
         if not (dt.type_id in _INT_IDS or dt.type_id in ("DATE", "TIMESTAMP")
-                or dt.is_boolean):
+                or dt.is_boolean or dt.is_binary):
             raise ValueError(f"grace join: unhashable key dtype {dt.type_id}")
     if ldt.type_id == rdt.type_id:
         return None

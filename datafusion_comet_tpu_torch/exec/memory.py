@@ -1,10 +1,11 @@
 """Device memory budget accounting (port of
-``datafusion_comet_tpu/exec/memory.py:25-75``).
+``datafusion_comet_tpu/exec/memory.py:25-87``).
 
 A batch's bytes follow from its schema and capacity alone, so the planner
 bounds a plan's resident footprint before running it and compares it with
 the budget: the card's memory times ``Config.memory_fraction``. Over budget,
-the engine hash-partitions the join (exec/grace.py).
+the engine tiles an aggregate over one table (exec/streaming.py) or
+hash-partitions the join (exec/grace.py).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from datafusion_comet_tpu_torch.exec.operators.join import JOIN_FANOUT
 from datafusion_comet_tpu_torch.exec.stats import DEFAULT_MAX_GROUPS
 from datafusion_comet_tpu_torch.ir import plan as P
 
-__all__ = ["batch_bytes", "plan_peak_bytes", "device_budget_bytes"]
+__all__ = ["batch_bytes", "plan_peak_bytes", "device_budget_bytes", "plan_tiles"]
 
 CPU_MEMORY_LIMIT = 4 * 1024**3  # the JAX package's limit off the TPU
 
@@ -66,3 +67,14 @@ def device_budget_bytes(device: Union[str, torch.device], memory_fraction: float
     else:
         limit = CPU_MEMORY_LIMIT
     return int(limit * memory_fraction)
+
+
+def plan_tiles(plan: P.PlanNode, total_rows: int, budget: int) -> int:
+    """Input tiles (a power of two, at most 4096) so that one tile's run of
+    ``plan`` fits ``budget``."""
+    tiles = 1
+    while tiles < 4096:
+        if plan_peak_bytes(plan, max(-(-total_rows // tiles), 1)) <= budget:
+            return tiles
+        tiles *= 2
+    return tiles

@@ -12,7 +12,8 @@ NotImplementedError.
 Two paths, chosen as the JAX package chooses them:
 
 - **Dense.** When the group keys pack into a small perfect-hash domain
-  (dictionary codes, bools, int8; at most ``agg_dense_max_domain`` buckets)
+  (dictionary codes, bools, int8, padded strings of at most 2 bytes; at
+  most ``agg_dense_max_domain`` buckets)
   the packed key IS the bucket id: no row sort, one pass per aggregate
   input. Every per-bucket sum and count runs on the hand-written kernels of
   exec/kernels.py: sums on ``bucket_sum``, counts, presence and has-a-value
@@ -25,10 +26,13 @@ Two paths, chosen as the JAX package chooses them:
   exactly one row even over empty input (sum null, count 0). The JAX package
   sorts there; the result is the same (its sorted inputs have no magnitude
   bound, so an ungrouped MIN or MAX carries none either).
-- **Sorted.** Any other key set: the keys pack into one or two int64 sort
-  limbs where each key's range is known (``_pack_sort_limbs``: dictionary
-  codes, bools, int8, and integers and dates with a statistics range), else
-  into the generic null-flag-and-value limbs (sortkeys.grouping_limbs). The
+- **Sorted.** Any other key set: a packed domain too wide for the dense
+  path is one int32 sort limb (Q1 with padded one-byte flags: 2^20
+  buckets); else the keys pack into one or two int64 sort limbs where each
+  key's range is known (``_pack_sort_limbs``: dictionary codes, bools,
+  int8, and integers and dates with a statistics range), else into the
+  generic null-flag-and-value limbs (sortkeys.grouping_limbs: a padded
+  string key gives a limb for each 8 bytes). The
   dead-row flag goes into bit 62 of the first limb, one stable
   ``torch.sort`` (a lexsort over several limbs) orders the rows, and every
   aggregate input, evaluated once on the unsorted batch, is gathered once
@@ -119,6 +123,14 @@ def _try_pack_keys(key_cols: Sequence[ColumnVector]):
             # dictionary codes are a perfect hash of the key domain
             k = cv.dictionary.size
             enc, b = cv.data.clamp(0, max(k - 1, 0)).int(), max(k.bit_length(), 1)
+        elif cv.dtype.is_binary and cv.dtype.byte_width <= 2:
+            # padded bytes of at most 2: the bytes, then the length (in [0, w])
+            w = cv.dtype.byte_width
+            len_bits = w.bit_length()
+            enc = torch.zeros(cv.capacity, dtype=torch.int32, device=cv.data.device)
+            for i in range(w):
+                enc = (enc << 8) | cv.data[:, i].int()
+            enc, b = (enc << len_bits) | cv.lengths.clamp(max=w).int(), 8 * w + len_bits
         else:
             return None
         enc = torch.where(cv.validity, enc + 1, 0)  # null bit: nulls group together

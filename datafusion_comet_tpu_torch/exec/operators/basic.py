@@ -40,7 +40,10 @@ def sort_op(batch: Batch, orders: Sequence[E.SortOrder], fetch: Optional[int] = 
     """Total sort, live rows first; then only the sorted rows [skip, skip +
     fetch) stay live (a top-K: the whole sort, then the mask, as in the JAX
     package, so ties keep the stable sort's order). Sorted columns drop
-    their magnitude bounds, as in the JAX package."""
+    their magnitude bounds, as in the JAX package; a Sort whose input is
+    already in its order (an aggregate's keys) never gets here, as the
+    planner drops it (engine.apply_orderings), so that input's bounds
+    reach the output, as in the JAX package."""
     limbs = [(~batch.row_mask).int()]
     for o in orders:
         cv = evaluate(o.child, batch, ctx)

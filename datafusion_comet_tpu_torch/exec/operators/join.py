@@ -3,7 +3,9 @@
 the key packing :400-419, the unique build :551-581, the compacted pair
 list :586-614, the sorted-build path :626-660 and :740-756, the
 dense-bitmap membership path :433-466, ``_key_limbs`` :45 and
-``_harmonize_keys`` :56).
+``_harmonize_keys`` :56). Keys are integers, dates, decimals or strings:
+dictionary codes, or padded bytes whose big-endian limbs
+(sortkeys.column_limbs) collapse into one by their dense rank.
 
 The build side is sorted once by (has no valid key, key limbs); every probe
 row finds its run of equal build keys with two binary searches
@@ -98,7 +100,8 @@ def _key_limbs(cols: Sequence[ColumnVector]) -> Tuple[List[torch.Tensor], torch.
 def _harmonize_keys(build_keys: List[ColumnVector], probe_keys: List[ColumnVector]
                     ) -> Tuple[List[ColumnVector], List[ColumnVector]]:
     """Dictionary keys from different tables: remap both sides' codes to
-    ranks in the union of the two dictionaries so they compare as int32."""
+    ranks in the union of the two dictionaries so they compare as int32. A
+    dictionary key against a padded one: both decoded (JAX ``join.py:72``)."""
     out_b, out_p = [], []
     for b, p in zip(build_keys, probe_keys):
         if b.is_dict and p.is_dict and b.dictionary != p.dictionary:
@@ -107,8 +110,7 @@ def _harmonize_keys(build_keys: List[ColumnVector], probe_keys: List[ColumnVecto
             b = ColumnVector(ra[b.data.clamp(0, len(ra) - 1).long()], b.validity, None, T.INT32)
             p = ColumnVector(rb[p.data.clamp(0, len(rb) - 1).long()], p.validity, None, T.INT32)
         elif b.is_dict != p.is_dict:
-            raise NotImplementedError("joining a dictionary key with a padded string key "
-                                      "needs a decode, which is not ported yet")
+            b, p = b.decode(), p.decode()
         out_b.append(b)
         out_p.append(p)
     return out_b, out_p

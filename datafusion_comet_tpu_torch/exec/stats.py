@@ -1,8 +1,9 @@
 """Table statistics and the group capacities derived from them (port of the
 subset of ``datafusion_comet_tpu/exec/stats.py`` that TPC-H Q1, Q3, Q4, Q5,
-Q6, Q12 and Q15 reach: ``collect_stats`` :42, ``derive_capacities`` :129,
-``_walk`` :220 over Scan, Filter, Projection, HashJoin, HashAggregate, Sort
-and Limit, ``_column_range`` :167, ``_source_column`` :480, ``_pad`` :490).
+Q6, Q10, Q12, Q15 and Q18 reach: ``collect_stats`` :42,
+``derive_capacities`` :129, ``_walk`` :220 over Scan, Filter, Projection,
+HashJoin, HashAggregate, Sort and Limit, ``_column_range`` :167,
+``_source_column`` :480, ``_pad`` :490).
 
 ``collect_stats`` sketches each registered table on the host: its rows, a
 distinct-count estimate per column (exact up to 65,536 rows, else from a

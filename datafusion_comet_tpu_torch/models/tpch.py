@@ -1,7 +1,7 @@
 """TPC-H workload subset: the ``lineitem``, ``orders``, ``customer``,
 ``supplier``, ``nation`` and ``region`` schemas and generators, and the
-plans of Q1, Q3, Q4, Q5, Q6, Q12 and Q15 (port of
-``datafusion_comet_tpu/models/tpch.py``).
+plans of Q1, Q3, Q4, Q5, Q6, Q10, Q12, Q15 and Q18 (port of
+``datafusion_comet_tpu/models/tpch.py``; ``QUERIES`` lists them).
 
 The generator is a line-for-line copy of the JAX package's, so the same
 ``(sf, seed)`` gives bit-identical columns in both packages: results can be
@@ -20,8 +20,8 @@ from datafusion_comet_tpu_torch import types as T
 from datafusion_comet_tpu_torch.ir import expr as E
 from datafusion_comet_tpu_torch.ir import plan as P
 
-__all__ = ["SCHEMAS", "table_rows", "generate_table", "generate_tables", "q1", "q3", "q4", "q5",
-           "q6", "q12", "q15"]
+__all__ = ["SCHEMAS", "QUERIES", "table_rows", "generate_table", "generate_tables", "q1", "q3",
+           "q4", "q5", "q6", "q10", "q12", "q15", "q18"]
 
 _dec = T.decimal
 
@@ -381,3 +381,54 @@ def q12() -> P.PlanNode:
         [E.AggExpr("sum", high, "high_line_count"), E.AggExpr("sum", low, "low_line_count")],
     )
     return agg.sort([E.SortOrder(E.col("l_shipmode"))])
+
+
+def q10() -> P.PlanNode:
+    """Returned item reporting: top-20 customers by lost revenue."""
+    c = P.Scan("customer", SCHEMAS["customer"])
+    o = P.Scan("orders", SCHEMAS["orders"]).filter(
+        (E.col("o_orderdate") >= _date_lit("1993-10-01"))
+        & (E.col("o_orderdate") < _date_lit("1994-01-01"))
+    )
+    l = P.Scan("lineitem", SCHEMAS["lineitem"]).filter(E.col("l_returnflag") == E.lit("R"))
+    n = P.Scan("nation", SCHEMAS["nation"])
+    lo = P.HashJoin(l, o, (E.col("l_orderkey"),), (E.col("o_orderkey"),), P.JoinType.INNER, "right")
+    loc = P.HashJoin(lo, c, (E.col("o_custkey"),), (E.col("c_custkey"),), P.JoinType.INNER, "right")
+    locn = P.HashJoin(loc, n, (E.col("c_nationkey"),), (E.col("n_nationkey"),), P.JoinType.INNER,
+                      "right")
+    revenue = E.col("l_extendedprice") * (E.lit(1).cast(_dec(10, 0)) - E.col("l_discount"))
+    agg = locn.aggregate(
+        [E.col("c_custkey"), E.col("c_name"), E.col("c_acctbal"), E.col("n_name")],
+        [E.AggExpr("sum", revenue, "revenue")],
+    )
+    return agg.sort([E.SortOrder(E.col("revenue"), ascending=False)], fetch=20)
+
+
+def q18(min_qty: int = 300) -> P.PlanNode:
+    """Large volume customers: orders whose lineitem quantity sum exceeds
+    ``min_qty`` (300 in TPC-H), top 100 by price then date."""
+    l = P.Scan("lineitem", SCHEMAS["lineitem"])
+    perorder = l.aggregate([E.col("l_orderkey")], [E.AggExpr("sum", E.col("l_quantity"), "qty")])
+    big = P.Filter(perorder, E.col("qty") > E.lit(min_qty, _dec(25, 2)))
+    o = P.Scan("orders", SCHEMAS["orders"])
+    ob = P.HashJoin(o, big, (E.col("o_orderkey"),), (E.col("l_orderkey"),), P.JoinType.LEFT_SEMI,
+                    "right")
+    c = P.Scan("customer", SCHEMAS["customer"])
+    oc = P.HashJoin(ob, c, (E.col("o_custkey"),), (E.col("c_custkey"),), P.JoinType.INNER, "right")
+    l2 = P.Scan("lineitem", SCHEMAS["lineitem"])
+    j = P.HashJoin(l2, oc, (E.col("l_orderkey"),), (E.col("o_orderkey"),), P.JoinType.INNER,
+                   "right")
+    agg = j.aggregate(
+        [E.col("c_name"), E.col("c_custkey"), E.col("o_orderkey"), E.col("o_orderdate"),
+         E.col("o_totalprice")],
+        [E.AggExpr("sum", E.col("l_quantity"), "sum_qty")],
+    )
+    return agg.sort(
+        [E.SortOrder(E.col("o_totalprice"), ascending=False), E.SortOrder(E.col("o_orderdate"))],
+        fetch=100,
+    )
+
+
+# every query of the port, by name
+QUERIES = {"q1": q1, "q3": q3, "q4": q4, "q5": q5, "q6": q6, "q10": q10, "q12": q12,
+           "q15": q15, "q18": q18}

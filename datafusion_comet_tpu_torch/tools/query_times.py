@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Warm latency, peak device memory, kernel launches, retries and (with
-``--profile``) device-time breakdowns of TPC-H Q1, Q6, Q12, Q3, Q4, Q15 and
-Q5 (Q12, Q3, Q4 and Q5 directly, and through the grace join at K = 16) for
-the port in any checkout; a checkout whose port lacks Q3, Q4 and Q15, or
-Q5, runs the others. Each checkout runs in its own process, so two of them
-can be compared in turns on one card:
+``--profile``) device-time breakdowns of TPC-H Q1, Q6, Q12, Q3, Q4, Q15,
+Q5, Q10 and Q18 (Q12, Q3, Q4, Q5, Q10 and Q18 directly, and through the
+grace join at K = 16) for the port in any checkout; a checkout whose port
+lacks Q3, Q4 and Q15, Q5, or Q10 and Q18, runs the others. Each checkout
+runs in its own process, so two of them can be compared in turns on one
+card:
 
     python3 datafusion_comet_tpu_torch/tools/query_times.py [--tree DIR] [--sf 1] [--profile]
 
@@ -41,7 +42,7 @@ CLASSES = {
     "partition": ("b3_", "partition_"),
     "sort": ("RadixSort", "radixSort", "bitonicSort", "sortKeyValue"),
 }
-SPANS = ("grace.", "aggregate.")  # the port's record_function spans
+SPANS = ("grace.", "aggregate.", "tiled.")  # the port's record_function spans
 
 
 def grace_fraction(sess, plan, K: int = GRACE_K):
@@ -174,6 +175,7 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({"tree": str(tree), "sf": args.sf, "nvidia_smi": smi}), flush=True)
     has_q3, has_q4, has_q5 = hasattr(tpch, "q3"), hasattr(tpch, "q4"), hasattr(tpch, "q5")
+    has_q18 = hasattr(tpch, "q18")
     sess = Session()
     for t in (("lineitem", "orders") + (("customer",) if has_q3 else ())
               + (("supplier",) if has_q4 else ()) + (("nation", "region") if has_q5 else ())):
@@ -196,6 +198,10 @@ def main(argv=None) -> int:
                  ("q15", sess, tpch.q15())]
     if has_q5:
         runs += [("q5_direct", sess, tpch.q5()), ("q5_grace", grace_session(tpch.q5()), tpch.q5())]
+    if has_q18:
+        for q in ("q10", "q18"):
+            plan = getattr(tpch, q)()
+            runs += [(f"{q}_direct", sess, plan), (f"{q}_grace", grace_session(plan), plan)]
     for name, s, plan in runs:
         ms, times, peak = warm_times(s, plan, args.reps)
         launches, retries = launches_and_retries(s, plan)
@@ -207,7 +213,7 @@ def main(argv=None) -> int:
             line.update(K=r.K, mode=r.downstream and r.downstream[0],
                         sizes=[x.tolist() for x in r.sizes],
                         grace=[{"K": g.K, "mode": g.downstream and g.downstream[0]}
-                               for g in s.grace_runners])
+                               for g in s.grace_runners], tiled=getattr(s, "tiled", []))
         print(json.dumps(line), flush=True)
     if args.profile:
         for name, s, plan in runs:

@@ -1,7 +1,9 @@
 """PyTorch port on the card: the CUDA kernels against their plain versions,
-Q1, Q6, Q12, Q3, Q4 and Q5 (the last four directly and through the grace
-join; Q4 on both semi-join membership paths) and Q15 on the card against
-the same queries on the CPU, and the dense path's MIN/MAX on the card
+Q1, Q6, Q12, Q3, Q4, Q5, Q10 and Q18 (the last six directly and through
+the grace join; Q4 on both semi-join membership paths; Q10 and Q18 with
+the default staging and every string padded) and Q15 on the card against
+the same queries on the CPU, the dense path's MIN/MAX, and the string
+operations (padded limbs, comparisons, CASE WHEN, murmur3) on the card
 against the CPU. Marked ``cuda``;
 without a card every test here skips. This file imports no JAX, so it runs
 on a machine without it (tests/conftest.py imports JAX, hence --noconftest):
@@ -9,6 +11,7 @@ on a machine without it (tests/conftest.py imports JAX, hence --noconftest):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
 import json
 
 import numpy as np
@@ -275,14 +278,15 @@ def test_bucket_times_script_on_card(dev, capsys):
 
 def test_query_times_script_on_card(dev, capsys):
     """tools/query_times.py runs every query of both trees' comparison and
-    profiles every run, with the grace runs at K = 16."""
+    profiles every run, with the grace runs at K = 16 (Q18's per-order
+    aggregate tiled)."""
     from datafusion_comet_tpu_torch.tools import query_times as QT
 
     assert QT.main(["--sf", "0.01", "--reps", "2", "--profile"]) == 0
     head, *rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
     assert "nvidia_smi" in head
     runs = ["q12_direct", "q12_grace", "q3_direct", "q3_grace", "q4_direct", "q4_grace", "q15",
-            "q5_direct", "q5_grace"]
+            "q5_direct", "q5_grace", "q10_direct", "q10_grace", "q18_direct", "q18_grace"]
     names = ["q1", "q6"] + runs
     assert [r.get("query") or r["profile"] for r in rows] == names + names
     assert rows[3]["K"] == 16 and rows[3]["mode"] == "partial"
@@ -291,7 +295,8 @@ def test_query_times_script_on_card(dev, capsys):
     assert 16 in [r["K"] for r in rows[10]["grace"]]
     assert rows[2]["retries"] == 1  # Q12 direct: the unique-build hint is wrong
     assert rows[0]["launches"]["bucket_sum"] > 0
-    profiles = dict(zip(names, rows[11:]))
+    assert rows[names.index("q18_grace")]["tiled"]  # its per-order aggregate
+    profiles = dict(zip(names, rows[len(names):]))
     assert all(r["device_busy_ms"] > 0 for r in profiles.values())
     # at SF 0.01 Q3 direct, Q4 direct, Q15 and Q5 direct call no B3: their
     # joins are unique builds or semi joins, and nothing shrinks 4x
@@ -407,3 +412,107 @@ def test_dense_minmax_on_card_equals_cpu(dev, m, is_min, dtype):
     want = _minmax_reduce(x, seg, m, is_min)
     got = _minmax_reduce(x.to(dev), seg.to(dev), m, is_min)
     assert torch.equal(got.cpu(), want)
+
+
+def _string_batch(device):
+    """Padded strings of widths 6 and 25 (bytes 0x80 and up, every length),
+    a dictionary column, nulls and dead rows, staged on ``device``."""
+    from datafusion_comet_tpu_torch import types as PT
+    from datafusion_comet_tpu_torch.exec import batch as PB
+
+    rng = np.random.default_rng(11)
+    n = 200_003
+
+    def strings(width):
+        lens = rng.integers(0, width + 1, n)
+        return np.array([bytes(rng.integers(0, 256, k).astype(np.uint8)) for k in lens], object)
+
+    data = {"a": strings(6), "b": strings(25),
+            "d": np.array([b"", b"ab", b"abc", b"\x80", b"zz"], object)[rng.integers(0, 5, n)]}
+    data["b"][::4] = data["a"][::4]
+    schema = PT.Schema([PT.Field("a", PT.string(6)), PT.Field("b", PT.string(25)),
+                        PT.Field("d", PT.string(6))])
+    validity = {c: rng.random(n) > 0.05 for c in data}
+    b = PB.from_numpy(data, schema, device, validity=validity, dict_max_size=16)
+    keep = torch.from_numpy(rng.random(b.capacity) > 0.05).to(device)
+    return b.with_mask(b.row_mask & keep)
+
+
+def test_string_ops_on_card_equal_cpu(dev):
+    """Padded-string limbs (widths 1 to 55), every comparison (padded of two
+    widths, dictionary against padded, a literal), IN, CASE WHEN with a
+    string result and murmur3 of strings on the card equal the CPU's."""
+    from datafusion_comet_tpu_torch.exec import evaluator as EV
+    from datafusion_comet_tpu_torch.exec import sortkeys
+    from datafusion_comet_tpu_torch.ir import expr as E
+
+    cpu, gpu = _string_batch("cpu"), _string_batch(dev)
+    assert [c.is_dict for c in gpu.columns] == [False, False, True]
+    for w in (1, 4, 10, 25, 55):
+        n = 100_003
+        mat = torch.randint(0, 256, (n, w), dtype=torch.uint8)
+        cv = dataclasses.replace(cpu.columns[0], data=mat, validity=torch.ones(n, dtype=torch.bool),
+                                 lengths=torch.full((n,), w, dtype=torch.int32))
+        want = sortkeys.column_limbs(cv)
+        got = sortkeys.column_limbs(dataclasses.replace(
+            cv, data=mat.to(dev), validity=cv.validity.to(dev), lengths=cv.lengths.to(dev)))
+        assert len(got) == len(want) and all(torch.equal(g.cpu(), x) for g, x in zip(got, want))
+        assert torch.equal(sortkeys.lexsort(got).cpu(), sortkeys.lexsort(want))
+    exprs = [E.BinaryOp(op, l, r) for op in ("eq", "ne", "lt", "le", "gt", "ge", "eqns")
+             for l, r in ((E.col("a"), E.col("b")), (E.col("d"), E.col("b")),
+                          (E.col("b"), E.lit("ab")))]
+    exprs += [E.InList(E.col("a"), (E.lit("ab"), E.col("d"))),
+              E.CaseWhen(((E.col("a") < E.col("b"), E.col("d")),), E.col("b"))]
+    for e in exprs:
+        want = EV.evaluate(E.bind(e, cpu.schema), cpu)
+        got = EV.evaluate(E.bind(e, gpu.schema), gpu)
+        for a, b in ((got.data, want.data), (got.validity, want.validity),
+                     (got.lengths, want.lengths)):
+            assert (a is None) == (b is None) and (a is None or torch.equal(a.cpu(), b)), e
+    seed = torch.arange(cpu.capacity, dtype=torch.int32) * 7919
+    for c in range(3):
+        want = EV.murmur3_column(cpu.columns[c], seed)
+        assert torch.equal(EV.murmur3_column(gpu.columns[c], seed.to(dev)).cpu(), want)
+
+
+@pytest.mark.parametrize("staging", ["default", "padded"])
+@pytest.mark.parametrize("q", ["q10", "q18"])
+def test_q10_q18_on_card_equal_cpu_direct_and_grace(dev, q, staging):
+    """Q10 and Q18 (as the variant with HAVING > 200, which keeps rows at SF
+    0.01) on the card equal the CPU runs and the numpy oracles, directly and
+    with the first join partitioned into K = 16 (B3 partitions; Q18's
+    per-order aggregate tiled first), with the default staging and with
+    every string padded."""
+    names = ("lineitem", "orders", "customer", "nation")
+    data = {t: tpch.generate_table(t, 0.01) for t in names}
+    dms = 1 << 16 if staging == "default" else 0
+    plan = tpch.q10 if q == "q10" else (lambda: tpch.q18(200))
+
+    def session(device, fraction=None):
+        conf = Config(scan_dictionary_max_size=dms,
+                      **({"memory_fraction": fraction} if fraction else {}))
+        s = Session(device=device, conf=conf)
+        for t, d in data.items():
+            s.register_numpy(t, d, tpch.SCHEMAS[t])
+        return s
+
+    cpu = session("cpu")
+    want = cpu.collect(plan())
+    if q == "q10":
+        chip_smoke.check_q10(want, chip_smoke.oracle_q10(
+            data["lineitem"], data["orders"], data["customer"], data["nation"],
+            tpch._d("1993-10-01"), tpch._d("1994-01-01")), "cpu")
+    else:
+        chip_smoke.check_q18(want, chip_smoke.oracle_q18(
+            data["lineitem"], data["orders"], data["customer"], 200), "cpu")
+    fraction, _ = chip_smoke.grace_fraction(cpu, plan(), 16)
+    card_fraction = fraction * 4 * 2**30 / torch.cuda.get_device_properties(dev).total_memory
+    for grace, f in ((False, None), (True, card_fraction)):
+        gpu = session(None, f)
+        K.partition_columns.launches = 0
+        _same(gpu.collect(plan()), want)
+        assert bool(gpu.grace_runners) == grace
+        assert (K.partition_columns.launches > 0) or not grace
+        if grace:
+            assert 16 in [r.K for r in gpu.grace_runners]
+            assert bool(gpu.tiled) == (q == "q18")

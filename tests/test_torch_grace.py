@@ -542,8 +542,34 @@ def test_merge_modes_match_jax_hash_aggregate(mode, wide):
 
 
 def test_over_budget_streamable_aggregate_is_not_ported(q12_data):
-    """Q1 over budget: the JAX package would tile its aggregate; the port
-    says that path is not ported instead of running over budget."""
-    ps = _port_session(_tpch_tables({"lineitem": q12_data["lineitem"]}, PT), 1e-6)
-    with pytest.raises(NotImplementedError, match="streaming aggregate"):
-        ps.collect(tpch.q1())
+    """Q1 over budget: the port tiles its aggregate (exec/streaming.py, which
+    came with Q18) at the JAX package's tile count; the result equals the
+    direct run and the oracle. With every string padded the JAX package
+    tiles it too, to the same answer, storage and bounds (with dictionary
+    keys its tiled concatenation raises, ROADMAP C8). The name is kept from
+    when the port refused this path."""
+    from datafusion_comet_tpu_torch.exec.memory import CPU_MEMORY_LIMIT, plan_peak_bytes
+
+    tables = _tpch_tables({"lineitem": q12_data["lineitem"]}, PT)
+    direct = _port_session(tables)
+    (_, stage), = direct._plan_stages(tpch.q1())
+    cap = direct.tables["lineitem"].capacity
+    # a budget that one eighth of the lineitem fits: eight tiles
+    fraction = (plan_peak_bytes(stage, cap // 8) + 1) / CPU_MEMORY_LIMIT
+    ps = _port_session(tables, fraction)
+    got = ps.collect(tpch.q1())
+    assert ps.tiled == [("lineitem", 8)] and ps.grace_runners == []
+    _assert_same(direct.collect(tpch.q1()), got)
+    chip_smoke.check_q1(got, chip_smoke.oracle_q1(q12_data["lineitem"], tpch._d("1998-09-02")))
+    ps = _port_session(tables, fraction, scan_dictionary_max_size=0)
+    pb = ps.execute(tpch.q1())
+    assert ps.tiled == [("lineitem", 8)]
+    js = JaxSession()
+    js.register_numpy("lineitem", q12_data["lineitem"], JTPCH.SCHEMAS["lineitem"],
+                      dict_max_size=0)
+    with jax_fraction(fraction):
+        jb = js.execute(JTPCH.q1())
+    _assert_same(JB.to_numpy(jb), PB.to_numpy(pb))
+    for jc, pc in zip(jb.columns, pb.columns):
+        assert (np.asarray(jc.data).ndim, jc.mag_bound) == (pc.data.dim(), pc.mag_bound)
+    _assert_same(got, PB.to_numpy(pb))

@@ -339,9 +339,12 @@ def test_grace_key_cast_refuses_what_jax_refuses():
 
 
 def test_grace_key_cast_refuses_string_keys_until_their_hash_is_ported():
-    """The JAX package partitions on string keys; the port has no murmur3 of
-    strings yet, so such a join is not picked for grace and runs directly."""
-    assert JG.grace_key_cast(JT.string(5), JT.string(5)) is None
-    with pytest.raises(ValueError, match="unhashable"):
-        PG.grace_key_cast(PT.string(5), PT.string(5))
+    """Both packages partition on string keys now that the port hashes
+    strings (the name is kept from when it refused them): a string pair
+    hashes as it is, a string against raw bytes is refused in both."""
+    for M, G in ((JT, JG), (PT, PG)):
+        assert G.grace_key_cast(M.string(5), M.string(5)) is None
+        assert G.grace_key_cast(M.string(5), M.string(25)) is None
+        with pytest.raises(ValueError, match="mixed"):
+            G.grace_key_cast(M.string(5), M.binary(5))
     assert PG.grace_key_cast(PT.TIMESTAMP, PT.TIMESTAMP) is None

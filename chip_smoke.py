@@ -6,7 +6,7 @@ On a machine with one NVIDIA card, from the root of a checkout:
     python3 chip_smoke.py            # TPC-H SF1
     python3 chip_smoke.py --sf 10    # another scale
     python3 chip_smoke.py --profile  # add torch.profiler breakdowns of Q1, Q12 grace, Q3, Q4,
-                                     # Q15, Q5, Q10, Q18
+                                     # Q15, Q5, Q10, Q18, Q2, Q9, Q19
 
 Phases, one JSON line each:
   1. device: the card's name, count, and nvidia-smi's name and power limit;
@@ -46,22 +46,35 @@ Phases, one JSON line each:
      aggregate runs tiled first), against numpy oracles, with Q5's fields
      plus the tiled aggregates and the sort limbs of the grouping aggregate
      (c_name is padded from SF1 up: four int64 limbs);
+  q2, q9, q19: over the part and partsupp tables, Q2 (the EUROPE suppliers'
+     least supply cost per part, LIKE '%BRASS' over p_type, a two-key
+     LEFT_SEMI join back, a top-100), Q9 (LIKE '%green%' over the padded
+     p_name, five INNER joins, profit per nation and year(o_orderdate)) and
+     Q19 (lineitem joined to part under three brand, container, quantity
+     and size clauses, an ungrouped SUM) directly and through the grace
+     join (the first stage's top join at K = 16), against numpy oracles;
   padded (at SF1, or the smaller --sf): Q1, Q3, Q4, Q5 and Q12 over tables
      staged with every string padded (no dictionary codes), against the
      same oracles.
      Every query line carries its joins' ``hints`` (per INNER join: build
      side, K, unique build, key packing, compacted-list rows and the path
-     taken: dense_unique, sorted_unique, pair_list or block) and its
+     taken: dense_unique, sorted_unique, pair_list or block), its
      ``attempts`` and ``retries`` (the stage runs, and those that
-     overflowed and ran again);
+     overflowed and ran again), its ``runtime_filters`` (per injected semi
+     join: key table, keys, key range, row estimate; Q3, Q5, Q10, Q9 and
+     Q2 at SF1, Q9 and Q2 at SF10, and the direct runs but Q3's compact
+     the filter's output: ``RF_EXPECTED``, checked) and ``plan_ms``, the host ms of
+     ``Session._plan_stages`` (the first run's, with the host copies of the
+     dimension tables, and the warm runs' median);
   grace_pair_kernels: times both bucket kernels at the grace run's pair
      shape (a pair's block, B = 16, its mean live rows);
   5. partition: holds B3 against its plain versions, exactly: the
      payload-moving partition_columns at every distinct B3 call of Q12's,
-     Q3's, Q4's, Q15's, Q6's, Q5's, Q10's, Q18's and the padded phase's
-     runs (Q18's grace calls move c_name's 25-byte rows; the grace runs' input shrinks,
-     sides and per-pair shrinks, the filter shrinks, the semi output's
-     compaction, the stage shrinks), each on the
+     Q3's, Q4's, Q15's, Q6's, Q5's, Q10's, Q18's, Q2's, Q9's, Q19's and the
+     padded phase's runs (Q18's grace calls move c_name's 25-byte rows; the
+     grace runs' input shrinks, sides and per-pair shrinks, the filter
+     shrinks, the semi outputs' compactions, the runtime filters' among
+     them, named ``rf_compact``, the stage shrinks), each on the
      codes the query gave it (logged by one extra run of each query) with
      random columns of the call's types and widths; at the TPU kernel's
      probe shape (n = 2^23, four int64
@@ -108,8 +121,9 @@ KERNELS = tuple(REPLACES)
 # the public wrappers whose launches are each TPU kernel's
 WRAPPERS = {"bucket_count": ("bucket_count",), "bucket_sum": ("bucket_sum",),
             "partition_sort": ("partition_sort", "partition_columns")}
-GRACE_K = 16  # the partition count the grace runs of Q12, Q3, Q4, Q5, Q10 and Q18 are sized to
+GRACE_K = 16  # the partition count every grace run is sized to
 TABLES = ("lineitem", "orders", "customer", "supplier", "nation", "region")
+PART_TABLES = ("part", "partsupp")  # Q2, Q9 and Q19's
 
 
 def emit(obj) -> None:
@@ -575,6 +589,123 @@ def check_q18(out, expect, what: str) -> None:
         raise AssertionError(f"{what}: got {got}, expected {expect}")
 
 
+def _year(days: np.ndarray) -> np.ndarray:
+    """The calendar year of days since 1970-01-01 (numpy datetime64)."""
+    return (np.datetime64("1970-01-01", "D") + days.astype("timedelta64[D]")).astype(
+        "datetime64[Y]").astype(np.int64) + 1970
+
+
+def oracle_q19(li, pa):
+    """Q19 with numpy alone: the lines shipped by AIR or REG AIR, their part
+    (np.searchsorted on the unique p_partkey), the three brand, container,
+    quantity and size clauses, revenue summed exactly in int64 (scale 4, at
+    most 1.05e9 a line). Returns the revenue, or None where no line
+    qualifies (SQL's SUM of no rows)."""
+    pkeys, brand, cont, size = _by_key(pa, "p_partkey", "p_brand", "p_container", "p_size")
+    sm = li["l_shipmode"]
+    lm = (sm == "AIR") | (sm == "REG AIR")
+    pos, found = _lookup(pkeys, li["l_partkey"][lm])
+    b, c, sz = brand[pos], cont[pos], size[pos]
+    qty = li["l_quantity"][lm]
+    m = np.zeros(len(pos), bool)
+    for br, ct, qlo, qhi, szhi in (("Brand#12", "SM CASE", 1, 11, 5),
+                                   ("Brand#23", "MED BAG", 10, 20, 10),
+                                   ("Brand#34", "LG BOX", 20, 30, 15)):
+        m |= ((b == br) & (c == ct) & (qty >= qlo * 100) & (qty <= qhi * 100) & (sz >= 1)
+              & (sz <= szhi))
+    m &= found
+    if not m.any():
+        return None
+    return _exact_sum(li["l_extendedprice"][lm][m] * (100 - li["l_discount"][lm][m]))
+
+
+def check_q19(out, expect, what: str) -> None:
+    valid = bool(out["revenue__valid"][0]) if len(out["revenue"]) == 1 else None
+    got = int(out["revenue"][0]) if valid else None
+    if len(out["revenue"]) != 1 or got != expect or valid != (expect is not None):
+        raise AssertionError(f"{what}: got {out['revenue'].tolist()} "
+                             f"(valid {out['revenue__valid'].tolist()}), expected {expect}")
+
+
+def oracle_q2(pa, su, ps, na, re):
+    """Q2 with numpy alone: the EUROPE suppliers (their nation and region by
+    np.searchsorted on the unique keys), their partsupp rows, the least
+    supply cost of each part among them, the rows of the parts of size 15
+    whose type ends in BRASS at that cost, the top 100 by supplier balance
+    descending, then nation name, supplier name and part key. Returns
+    [(s_acctbal, s_name, n_name, p_partkey, p_brand)]."""
+    europe = re["r_regionkey"][re["r_name"] == "EUROPE"]
+    nkeys, nname, nreg = _by_key(na, "n_nationkey", "n_name", "n_regionkey")
+    skeys, snat, sbal, sname = _by_key(su, "s_suppkey", "s_nationkey", "s_acctbal", "s_name")
+    pkeys, psize, ptype, pbrand = _by_key(pa, "p_partkey", "p_size", "p_type", "p_brand")
+    spos, sfound = _lookup(skeys, ps["ps_suppkey"])
+    npos, nfound = _lookup(nkeys, snat[spos])
+    eu = sfound & nfound & np.isin(nreg[npos], europe)
+    part, cost, spos, npos = ps["ps_partkey"][eu], ps["ps_supplycost"][eu], spos[eu], npos[eu]
+    parts, inv = np.unique(part, return_inverse=True)
+    least = np.full(len(parts), np.iinfo(np.int64).max)
+    np.minimum.at(least, inv, cost)
+    ppos, pfound = _lookup(pkeys, part)
+    brass = np.array([t.endswith("BRASS") for t in ptype[ppos]], bool)
+    m = pfound & (psize[ppos] == 15) & brass & (cost == least[inv])
+    rows = [(int(sbal[s]), sname[s], nname[n], int(p), pbrand[pp])
+            for s, n, p, pp in zip(spos[m], npos[m], part[m], ppos[m])]
+    return sorted(rows, key=lambda r: (-r[0], r[2].encode(), r[1].encode(), r[3]))[:100]
+
+
+def check_q2(out, expect, what: str) -> None:
+    cols = ("s_acctbal", "s_name", "n_name", "p_partkey", "p_brand")
+    got = [tuple(int(out[c][i]) if c in ("s_acctbal", "p_partkey") else out[c][i] for c in cols)
+           for i in range(len(out["p_partkey"]))]
+    if got != expect or not all(out[c + "__valid"].all() for c in cols):
+        raise AssertionError(f"{what}: got {got[:5]}..., expected {expect[:5]}...")
+
+
+def oracle_q9(li, pa, ps, su, od, na):
+    """Q9 with numpy alone: the parts whose name holds 'green', their lines,
+    every partsupp row of each line's (supplier, part) pair (the pairs
+    repeat: an INNER join multiplies), the supplier's nation and the
+    order's year (np.searchsorted on the unique keys), profit summed
+    exactly per nation and year (scale 4: price x (1 - discount) less
+    supply cost x quantity). Returns [(nation, o_year, sum_profit)] by
+    nation, then year descending."""
+    green = pa["p_partkey"][np.array(["green" in n for n in pa["p_name"]], bool)]
+    lm = np.isin(li["l_partkey"], green)
+    lsupp, lpart = li["l_suppkey"][lm], li["l_partkey"][lm]
+    span = int(max(ps["ps_suppkey"].max(), lsupp.max(initial=0))) + 1
+    pair = ps["ps_partkey"] * span + ps["ps_suppkey"]
+    order = np.argsort(pair, kind="stable")
+    spair, scost = pair[order], ps["ps_supplycost"][order]
+    want = lpart * span + lsupp
+    lo, hi = np.searchsorted(spair, want, "left"), np.searchsorted(spair, want, "right")
+    counts = hi - lo  # one row a matching partsupp row
+    line = np.repeat(np.arange(len(want)), counts)
+    first = np.repeat(lo - (np.cumsum(counts) - counts), counts)
+    cost = scost[first + np.arange(int(counts.sum()))]
+    skeys, snat = _by_key(su, "s_suppkey", "s_nationkey")
+    okeys, odate = _by_key(od, "o_orderkey", "o_orderdate")
+    nkeys, nname = _by_key(na, "n_nationkey", "n_name")
+    spos, sfound = _lookup(skeys, lsupp[line])
+    opos, ofound = _lookup(okeys, li["l_orderkey"][lm][line])
+    npos, nfound = _lookup(nkeys, snat[spos])
+    m = sfound & ofound & nfound
+    price, disc = li["l_extendedprice"][lm][line][m], li["l_discount"][lm][line][m]
+    amount = price * (100 - disc) - cost[m] * li["l_quantity"][lm][line][m]
+    nation, year = nname[npos[m]], _year(odate[opos[m]])
+    sums = {}
+    for k, a in zip(zip(nation.tolist(), year.tolist()), amount.tolist()):
+        sums[k] = sums.get(k, 0) + a
+    return [(n, y, sums[(n, y)]) for n, y in sorted(sums, key=lambda k: (k[0].encode(), -k[1]))]
+
+
+def check_q9(out, expect, what: str) -> None:
+    cols = ("nation", "o_year", "sum_profit")
+    got = [(out["nation"][i], int(out["o_year"][i]), int(out["sum_profit"][i]))
+           for i in range(len(out["nation"]))]
+    if got != expect or not all(out[c + "__valid"].all() for c in cols):
+        raise AssertionError(f"{what}: got {got[:5]}..., expected {expect[:5]}...")
+
+
 def grace_fraction(sess, plan, K: int = GRACE_K):
     """The Config(memory_fraction) under which the session splits ``plan``'s
     join into K partitions, and the join's peak estimate: (fraction,
@@ -598,7 +729,7 @@ def b3_call_shapes(log):
     """The B3 calls of one run, from partition_columns' log: n, K, limit,
     codes type, each tensor's dtype and row shape, and the code totals."""
     return [{"n": c["n"], "K": c["K"], "local": c["local"], "limit": c["limit"],
-             "codes": c["codes"], "tensors": c["tensors"],
+             "codes": c["codes"], "tensors": c["tensors"], "rf": c["rf"],
              "sizes": c["sizes"].tolist() if not c["local"] else None} for c in log]
 
 
@@ -619,12 +750,38 @@ def run_record(sess):
             "retries": sum(r["overflowed"] for r in stage)}
 
 
+# the runtime filters each query's runs inject at SF1 and SF10, by the JAX
+# package's gates (PERF.md): "compact" where the direct run compacts the
+# filter's semi output (a B3 call the engine tags "rf"), "mask" where the
+# filter only thins the row mask; a query not named injects none. Other
+# scale factors are not checked.
+RF_EXPECTED = {1: {"q3": "mask", "q5": "compact", "q10": "compact", "q9": "compact",
+                   "q2": "compact"},
+               10: {"q9": "compact", "q2": "compact"}}
+
+
+def check_rf(q: str, sf: float, run: str, record: dict) -> None:
+    """Fail where a run's runtime filters are not those ``RF_EXPECTED``
+    gives its query at its scale factor."""
+    if sf not in RF_EXPECTED:
+        return
+    want = RF_EXPECTED[sf].get(q)
+    got = record["runtime_filters"]
+    rf_calls = sum(c["rf"] for c in record["b3_calls"])
+    if bool(got) != bool(want) or (want == "compact" and run == "direct" and not rf_calls):
+        raise AssertionError(f"{q} {run} at SF{sf:g}: runtime filters {got}, {rf_calls} "
+                             f"rf compactions; expected {want or 'none'}")
+
+
 def run_query(sess, plan, reps: int):
     """One run with the launch counts zeroed just before it and read just
     after, ``reps`` warm runs, then one run that logs each B3 call with a
     copy of its codes (apart, so that the copies touch no measured run).
     Returns (first output, launches, first-run s, warm ms list, peak bytes,
-    the B3 log, the semi-like joins of the first run by membership path)."""
+    the B3 log, the semi-like joins of the first run by membership path,
+    ``_plan_stages``' host ms: the first run's and the warm runs' median).
+    A logged call that compacts a runtime filter's semi output (the
+    engine's tag "rf") is marked ``rf``."""
     import torch
     from datafusion_comet_tpu_torch.exec import kernels as K
     from datafusion_comet_tpu_torch.exec.operators.join import hash_join
@@ -639,15 +796,20 @@ def run_query(sess, plan, reps: int):
     launches = _counts(K)
     semi = {path: n - semi[path] for path, n in hash_join.semi_paths.items()}
     peak = torch.cuda.max_memory_allocated()
-    times = []
+    plan_first = sess.plan_ms
+    times, plans = [], []
     for _ in range(reps):
         t0 = time.perf_counter()
         sess.collect(plan)
         times.append((time.perf_counter() - t0) * 1e3)
+        plans.append(sess.plan_ms)
     K.partition_columns.log = []
     sess.collect(plan)
     log, K.partition_columns.log = K.partition_columns.log, None
-    return out, launches, first_s, times, peak, log, semi
+    for c in log:
+        c["rf"] = c["tag"] == "rf"
+    return out, launches, first_s, times, peak, log, semi, {"first": plan_first,
+                                                          "warm": statistics.median(plans)}
 
 
 def query_phase(sf: float, reps: int, profile: bool):
@@ -656,13 +818,13 @@ def query_phase(sf: float, reps: int, profile: bool):
     from datafusion_comet_tpu_torch.models import tpch
 
     data, gen_s = {}, {}
-    for t in TABLES:
+    for t in TABLES + PART_TABLES:
         t0 = time.perf_counter()
         data[t] = tpch.generate_table(t, sf)
         gen_s[t] = time.perf_counter() - t0
     sess = Session()  # the card, the default device
     stage_s = {}
-    for t in TABLES:
+    for t in TABLES + PART_TABLES:
         t0 = time.perf_counter()
         sess.register_numpy(t, data[t], tpch.SCHEMAS[t])
         torch.cuda.synchronize()
@@ -674,7 +836,7 @@ def query_phase(sf: float, reps: int, profile: bool):
           "generate_s": gen_s, "stage_s": stage_s})
     launches, b3_calls = {}, {}
     for q in ("q1", "q6"):
-        out, launches[q], first_s, times, peak, b3_calls[q], _ = run_query(
+        out, launches[q], first_s, times, peak, b3_calls[q], _, plan_ms = run_query(
             sess, getattr(tpch, q)(), reps)
         if q == "q1":
             check_q1(out, oracle_q1(data["lineitem"], tpch._d("1998-09-02")))
@@ -690,7 +852,8 @@ def query_phase(sf: float, reps: int, profile: bool):
         emit({"phase": q, "sf": sf, "rows": n_rows, "correct": True, "first_run_s": first_s,
               "warm_ms": warm_ms, "warm_ms_all": times, "rows_per_s": n_rows / (warm_ms / 1e3),
               "peak_mem_bytes": peak, "launches": launches[q],
-              "b3_call_n": [c["n"] for c in b3_calls[q]], **run_record(sess)})
+              "b3_call_n": [c["n"] for c in b3_calls[q]], **plan_record(sess, plan_ms),
+              **run_record(sess)})
     if profile:
         emit(profile_run(sess, tpch.q1(), "profile_q1"))
 
@@ -702,7 +865,8 @@ def query_phase(sf: float, reps: int, profile: bool):
     grace = grace_session(sess, fraction)
     q12 = {}
     for run, s in (("direct", sess), ("grace", grace)):
-        out, launches[f"q12_{run}"], first_s, times, peak, b3_calls[f"q12_{run}"], _ = run_query(
+        key = f"q12_{run}"
+        out, launches[key], first_s, times, peak, b3_calls[key], _, plan_ms = run_query(
             s, tpch.q12(), reps)
         check_q12(out, expect, f"q12 {run}")
         got = launches[f"q12_{run}"]
@@ -714,7 +878,8 @@ def query_phase(sf: float, reps: int, profile: bool):
         q12[run] = {"first_run_s": first_s, "warm_ms": statistics.median(times),
                     "warm_ms_all": times, "peak_mem_bytes": peak, "launches": got,
                     "b3_call_n": [c["n"] for c in b3_calls[f"q12_{run}"]],
-                    "b3_calls": b3_call_shapes(b3_calls[f"q12_{run}"]), **run_record(s)}
+                    "b3_calls": b3_call_shapes(b3_calls[f"q12_{run}"]),
+                    **plan_record(s, plan_ms), **run_record(s)}
     if grace.grace_runners and not sess.grace_runners:
         r = grace.grace_runners[0]
     else:
@@ -738,6 +903,8 @@ def query_phase(sf: float, reps: int, profile: bool):
     q5_phase(sess, data, sf, reps, profile, launches, b3_calls)
     for q in ("q10", "q18"):
         q10_q18_phase(q, sess, data, sf, reps, profile, launches, b3_calls)
+    for q in ("q2", "q9", "q19"):
+        part_phase(q, sess, data, sf, reps, profile, launches, b3_calls)
     return launches, sizes, b3_calls
 
 
@@ -767,8 +934,8 @@ def q3_phase(sess, data, sf: float, reps: int, profile: bool, launches, b3_calls
     runs = {}
     for run, s in (("direct", sess), ("grace", grace)):
         key = f"q3_{run}"
-        out, launches[key], first_s, times, peak, b3_calls[key], _ = run_query(s, tpch.q3(),
-                                                                              reps)
+        out, launches[key], first_s, times, peak, b3_calls[key], _, plan_ms = run_query(
+            s, tpch.q3(), reps)
         check_q3(out, expect, key)
         # the grace run partitions with B3; the direct run's joins are
         # unique builds, which need no compaction, and its aggregate is the
@@ -785,7 +952,9 @@ def q3_phase(sess, data, sf: float, reps: int, profile: bool, launches, b3_calls
                 agg_stage, max(s.tables[t].capacity for t in TABLES)),
             "partitioned": bool(s.grace_runners),
             "b3_call_n": [c["n"] for c in b3_calls[key]],
-            "b3_calls": b3_call_shapes(b3_calls[key]), **run_record(s)}
+            "b3_calls": b3_call_shapes(b3_calls[key]), **plan_record(s, plan_ms),
+            **run_record(s)}
+        check_rf("q3", sf, run, runs[run])
     if len(grace.grace_runners) != 1:
         raise AssertionError(f"q3 grace: {len(grace.grace_runners)} grace joins, expected 1")
     r = grace.grace_runners[0]
@@ -822,7 +991,7 @@ def semi_compact_plan(day: int):
         [E.SortOrder(E.col("l_returnflag"))])
 
 
-def _query_run(s, key, first_s, times, peak, launches, b3_calls, semi):
+def _query_run(s, key, first_s, times, peak, launches, b3_calls, semi, plan_ms):
     """The fields of one run in a query line: as Q3's, plus the semi-like
     joins of the counted run by membership path."""
     return {"first_run_s": first_s, "warm_ms": statistics.median(times), "warm_ms_all": times,
@@ -830,7 +999,16 @@ def _query_run(s, key, first_s, times, peak, launches, b3_calls, semi):
             "stages": [[n, type(p).__name__] for n, p in s.stages],
             "partitioned": bool(s.grace_runners), "semi_paths": semi,
             "b3_call_n": [c["n"] for c in b3_calls[key]],
-            "b3_calls": b3_call_shapes(b3_calls[key]), **run_record(s)}
+            "b3_calls": b3_call_shapes(b3_calls[key]), **plan_record(s, plan_ms),
+            **run_record(s)}
+
+
+def plan_record(s, plan_ms):
+    """The runtime filters of a session's last run (key table, keys, range,
+    row estimate each) and ``_plan_stages``' host ms."""
+    from datafusion_comet_tpu_torch.exec.runtime_filter import injected_filters
+
+    return {"runtime_filters": injected_filters(s), "plan_ms": plan_ms}
 
 
 def q4_phase(sess, data, sf: float, reps: int, profile: bool, launches, b3_calls) -> None:
@@ -850,7 +1028,7 @@ def q4_phase(sess, data, sf: float, reps: int, profile: bool, launches, b3_calls
     grace = grace_session(sess, fraction)
     runs = {}
     for run, s, key in (("direct", sess, "q4"), ("grace", grace, "q4_grace")):
-        out, launches[key], first_s, times, peak, b3_calls[key], semi = run_query(
+        out, launches[key], first_s, times, peak, b3_calls[key], semi, plan_ms = run_query(
             s, tpch.q4(), reps)
         check_q4(out, expect, key)
         need = ("bucket_count",) + (("partition_sort",) if run == "grace" else ())
@@ -858,7 +1036,7 @@ def q4_phase(sess, data, sf: float, reps: int, profile: bool, launches, b3_calls
             raise AssertionError(f"{key} did not launch {need}: {launches[key]}")
         if sum(semi.values()) == 0:
             raise AssertionError(f"{key} ran no semi join: {semi}")
-        runs[run] = _query_run(s, key, first_s, times, peak, launches, b3_calls, semi)
+        runs[run] = _query_run(s, key, first_s, times, peak, launches, b3_calls, semi, plan_ms)
         runs[run]["max_groups"] = [a.max_groups for a in _plan_nodes(s.stages, "HashAggregate")]
         runs[run]["joins"] = [[j.join_type, j.build_key_range, j.out_rows_hint]
                               for j in _plan_nodes(s.stages, "HashJoin")]
@@ -877,7 +1055,7 @@ def q4_phase(sess, data, sf: float, reps: int, profile: bool, launches, b3_calls
     flags = li["l_returnflag"][keep]
     want = [(f, int((flags == f).sum())) for f in sorted(set(flags.tolist()))]
     key = "q4_semi_compact"
-    out, launches[key], first_s, times, peak, b3_calls[key], semi = run_query(
+    out, launches[key], first_s, times, peak, b3_calls[key], semi, plan_ms = run_query(
         sess, semi_compact_plan(day), reps)
     got = [(out["l_returnflag"][i], int(out["n"][i])) for i in range(len(out["n"]))]
     if got != want or not out["n__valid"].all():
@@ -885,7 +1063,7 @@ def q4_phase(sess, data, sf: float, reps: int, profile: bool, launches, b3_calls
     if not any(c["codes"] == "bool" for c in b3_calls[key]):
         raise AssertionError(f"{key}: the semi output was not compacted")
     runs["semi_compact"] = dict(_query_run(sess, key, first_s, times, peak, launches, b3_calls,
-                                           semi), day=day, result=want)
+                                           semi, plan_ms), day=day, result=want)
     emit({"phase": "q4", "sf": sf, "correct": True, "result": expect,
           "memory_fraction": fraction, "grace_budget_bytes": grace.budget_bytes(),
           "join_peak_estimate_bytes": jpeak, "K": r.K, "mode": r.downstream[0],
@@ -903,7 +1081,7 @@ def q15_phase(sess, data, sf: float, reps: int, profile: bool, launches, b3_call
 
     expect = oracle_q15(data["lineitem"], data["supplier"], tpch._d("1996-01-01"),
                         tpch._d("1996-04-01"))
-    out, launches["q15"], first_s, times, peak, b3_calls["q15"], semi = run_query(
+    out, launches["q15"], first_s, times, peak, b3_calls["q15"], semi, plan_ms = run_query(
         sess, tpch.q15(), reps)
     check_q15(out, expect, "q15")
     # the MAX's presence on B1 (B3 shrinks the stage boundary where the
@@ -912,7 +1090,7 @@ def q15_phase(sess, data, sf: float, reps: int, profile: bool, launches, b3_call
         raise AssertionError(f"q15 did not launch B1: {launches['q15']}")
     if semi["sorted"] == 0:
         raise AssertionError(f"q15 ran no semi join on the sorted path: {semi}")
-    run = _query_run(sess, "q15", first_s, times, peak, launches, b3_calls, semi)
+    run = _query_run(sess, "q15", first_s, times, peak, launches, b3_calls, semi, plan_ms)
     top = sess.stages[0][1]  # stage 0: supplier INNER JOIN (revenue LEFT_SEMI max)
     # the semi join's two key sides, each run alone: limbs of their storage
     semi_join = top.right
@@ -940,13 +1118,14 @@ def q5_phase(sess, data, sf: float, reps: int, profile: bool, launches, b3_calls
     grace = grace_session(sess, fraction)
     runs = {}
     for run, s, key in (("direct", sess, "q5_direct"), ("grace", grace, "q5_grace")):
-        out, launches[key], first_s, times, peak, b3_calls[key], semi = run_query(
+        out, launches[key], first_s, times, peak, b3_calls[key], semi, plan_ms = run_query(
             s, tpch.q5(), reps)
         check_q5(out, expect, key)
         need = ("bucket_count", "bucket_sum") + (("partition_sort",) if run == "grace" else ())
         if min(launches[key][k] for k in need) == 0:
             raise AssertionError(f"{key} did not launch {need}: {launches[key]}")
-        runs[run] = _query_run(s, key, first_s, times, peak, launches, b3_calls, semi)
+        runs[run] = _query_run(s, key, first_s, times, peak, launches, b3_calls, semi, plan_ms)
+        check_rf("q5", sf, run, runs[run])
         runs[run]["grace_runners"] = [
             {"K": r.K, "mode": r.downstream and r.downstream[0], "pair_retries": r.retries,
              "capacities": list(r.capacities),
@@ -1019,13 +1198,15 @@ def q10_q18_phase(q: str, sess, data, sf: float, reps: int, profile: bool, launc
     runs = {}
     for run, s in (("direct", sess), ("grace", grace)):
         key = f"{q}_{run}"
-        out, launches[key], first_s, times, peak, b3_calls[key], semi = run_query(
+        out, launches[key], first_s, times, peak, b3_calls[key], semi, plan_ms = run_query(
             s, plan(), reps)
         check(out, expect, key)
         if run == "grace" and launches[key]["partition_sort"] == 0:
             raise AssertionError(f"{key} did not launch B3: {launches[key]}")
-        runs[run] = dict(_query_run(s, key, first_s, times, peak, launches, b3_calls, semi),
-                         **_grace_record(s), sort_limbs=agg_sort_limbs(s, plan()))
+        runs[run] = dict(_query_run(s, key, first_s, times, peak, launches, b3_calls, semi,
+                                    plan_ms), **_grace_record(s),
+                         sort_limbs=agg_sort_limbs(s, plan()))
+        check_rf(q, sf, run, runs[run])
     if sess.grace_runners or not any(r.K == GRACE_K for r in grace.grace_runners):
         raise AssertionError(f"{q}: the direct run partitioned, or no grace join of K={GRACE_K}: "
                              f"{runs['grace']['grace_runners']}")
@@ -1034,6 +1215,57 @@ def q10_q18_phase(q: str, sess, data, sf: float, reps: int, profile: bool, launc
           "c_name_padded": not c_name.is_dict, "memory_fraction": fraction,
           "grace_budget_bytes": grace.budget_bytes(), "join_peak_estimate_bytes": jpeak,
           **runs})
+    if profile:
+        emit(profile_run(sess, plan(), f"profile_{q}_direct"))
+        emit(profile_run(grace, plan(), f"profile_{q}_grace"))
+
+
+def part_phase(q: str, sess, data, sf: float, reps: int, profile: bool, launches,
+               b3_calls) -> None:
+    """Q2 (the EUROPE suppliers' least cost per part, LIKE '%BRASS' over
+    p_type, a two-key LEFT_SEMI join back, a top-100), Q9 (LIKE '%green%'
+    over the padded p_name, five INNER joins, one on partsupp's two keys,
+    profit per nation and year) or Q19 (lineitem joined to part under three
+    clauses, an ungrouped SUM: B2's one bucket) directly and under a budget
+    that makes the engine split the first stage's top join into K = 16
+    pairs: each checked against its numpy oracle, timed, its launches, B3
+    calls, runtime filters (Q2's and Q9's on the part side), planning host
+    ms, stages, hints, attempts and grace joins reported."""
+    from datafusion_comet_tpu_torch.models import tpch
+
+    d = data
+    expect, check = {
+        "q2": lambda: (oracle_q2(d["part"], d["supplier"], d["partsupp"], d["nation"],
+                                 d["region"]), check_q2),
+        "q9": lambda: (oracle_q9(d["lineitem"], d["part"], d["partsupp"], d["supplier"],
+                                 d["orders"], d["nation"]), check_q9),
+        "q19": lambda: (oracle_q19(d["lineitem"], d["part"]), check_q19),
+    }[q]()
+    plan = getattr(tpch, q)
+    fraction, jpeak = grace_fraction(sess, plan())
+    grace = grace_session(sess, fraction)
+    runs = {}
+    for run, s in (("direct", sess), ("grace", grace)):
+        key = f"{q}_{run}"
+        out, launches[key], first_s, times, peak, b3_calls[key], semi, plan_ms = run_query(
+            s, plan(), reps)
+        check(out, expect, key)
+        need = (("partition_sort",) if run == "grace" else ()) + (
+            ("bucket_sum",) if q == "q19" and run == "direct" else ())
+        if any(launches[key][k] == 0 for k in need):
+            raise AssertionError(f"{key} did not launch {need}: {launches[key]}")
+        runs[run] = dict(_query_run(s, key, first_s, times, peak, launches, b3_calls, semi,
+                                    plan_ms), **_grace_record(s))
+        check_rf(q, sf, run, runs[run])
+    if sess.grace_runners or not any(r.K == GRACE_K for r in grace.grace_runners):
+        raise AssertionError(f"{q}: the direct run partitioned, or no grace join of K={GRACE_K}: "
+                             f"{runs['grace']['grace_runners']}")
+    p_name = sess.tables["part"].column("p_name")
+    emit({"phase": q, "sf": sf, "correct": True,
+          "rows": 1 if q == "q19" else len(expect),
+          "result": expect if q == "q19" else expect[:5], "p_name_padded": not p_name.is_dict,
+          "memory_fraction": fraction, "grace_budget_bytes": grace.budget_bytes(),
+          "join_peak_estimate_bytes": jpeak, **runs})
     if profile:
         emit(profile_run(sess, plan(), f"profile_{q}_direct"))
         emit(profile_run(grace, plan(), f"profile_{q}_grace"))
@@ -1074,10 +1306,10 @@ def padded_phase(sf: float, reps: int, launches, b3_calls) -> None:
     runs = {}
     for q, check in checks.items():
         key = f"padded_{q}"
-        out, launches[key], first_s, times, peak, b3_calls[key], semi = run_query(
+        out, launches[key], first_s, times, peak, b3_calls[key], semi, plan_ms = run_query(
             sess, getattr(tpch, q)(), reps)
         check(out)
-        runs[q] = _query_run(sess, key, first_s, times, peak, launches, b3_calls, semi)
+        runs[q] = _query_run(sess, key, first_s, times, peak, launches, b3_calls, semi, plan_ms)
     emit({"phase": "padded", "sf": sf, "correct": True, "stage_s": stage_s, **runs})
 
 
@@ -1267,7 +1499,8 @@ def b3_call_names(calls):
             shape = (c["n"], c["K"], c["local"], c["limit"], c["codes"], tuple(c["tensors"]))
             if shape not in seen:
                 seen.add(shape)
-                kind = "compact" if c["codes"] == "bool" else f"k{c['K']}"
+                kind = ("rf_compact" if c["rf"] else "compact") if c["codes"] == "bool" \
+                    else f"k{c['K']}"
                 out.append((f"{run}_{i}_{kind}", c))
     return out
 
@@ -1403,7 +1636,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=7, help="seed of the kernel-phase inputs")
     ap.add_argument("--profile", action="store_true",
                     help="add profiled runs of Q1, of Q12's grace run, of Q3's, Q4's, Q5's, "
-                         "Q10's and Q18's two runs and of Q15")
+                         "Q10's, Q18's, Q2's, Q9's and Q19's two runs and of Q15")
     args = ap.parse_args(argv)
 
     import torch

@@ -1,5 +1,5 @@
 """Session settings (port of the ``datafusion_comet_tpu/conf.py`` keys the
-Q1/Q6/Q12/Q3 slices read).
+Q1/Q6/Q12/Q3 slices and the runtime filters read).
 
 The JAX package keeps a process-wide mutable registry; here the settings are
 one immutable object that a ``Session`` owns and passes down, so two sessions
@@ -35,3 +35,9 @@ class Config:
     # with more heavy operators (joins, sorts, grouping aggregates) than this
     # is cut below a Sort or grouping HashAggregate. 0 disables the split.
     stage_max_heavy_ops: int = 3
+    # comet.exec.runtimeFilter.enabled: inject plan-time runtime semi-join
+    # filters (exec/runtime_filter.py): a selective Scan+Filter dimension
+    # chain is evaluated on the host, its surviving join keys become a
+    # constant table, and a LEFT_SEMI join against it is pushed down the
+    # fact side of an equi-join.
+    runtime_filter_enabled: bool = True

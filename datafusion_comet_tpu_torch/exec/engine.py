@@ -1,12 +1,13 @@
 """Query engine: a bound plan tree executed operator by operator over
 device-resident tables (port of the ``Session`` subset of
-``datafusion_comet_tpu/exec/engine.py`` that TPC-H Q1, Q3, Q4, Q5, Q6, Q10,
-Q12, Q15 and Q18 reach).
+``datafusion_comet_tpu/exec/engine.py`` that the ported TPC-H queries
+reach).
 
-PyTorch runs eagerly, so there is no whole-plan compile. ``execute`` binds
-and prunes the plan, fills each aggregate's group capacity from the tables'
-statistics (exec/stats.py, collected by ``register_numpy``), splits the plan
-into stages, and runs them in order. Data enters once per table and leaves
+PyTorch runs eagerly, so there is no whole-plan compile. ``execute`` prunes
+the plan, injects the runtime filters (exec/runtime_filter.py), binds it,
+fills each aggregate's group capacity from the tables' statistics
+(exec/stats.py, collected by ``register_numpy``), splits the plan into
+stages, and runs them in order. Data enters once per table and leaves
 once at ``collect``; everything between stays on the session's device.
 
 Stages (``_plan_stages``, as the JAX package splits them): a plan with more
@@ -22,10 +23,9 @@ capacities the later operators run at. Before the split, a Sort over an
 aggregate already ordered by its keys is dropped (``apply_orderings``, the
 Sort branch of the JAX package's ``_apply_orderings``): Q1, Q4 and Q12 end
 in their aggregate, which keeps its outputs' magnitude bounds as the JAX
-package's does. The JAX package's runtime filters
-(``inject_runtime_filters``) and its merge-join half of
-``_apply_orderings`` are not ported: they change no result of the ported
-queries.
+package's does. A runtime filter's semi join does not count toward the
+split (``_count_joins``, ``_count_heavy``), as in the JAX package. The
+merge-join half of the JAX package's ``_apply_orderings`` is not ported.
 
 The operators read the planner's hints (exec/stats.py) as the JAX package
 does: a filter estimated to keep under an eighth of its capacity is
@@ -54,6 +54,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import itertools
+import time
 import warnings
 from typing import Dict, List, Optional, Tuple, Union
 
@@ -66,11 +67,13 @@ from datafusion_comet_tpu_torch.conf import Config
 from datafusion_comet_tpu_torch.exec import grace as G
 from datafusion_comet_tpu_torch.exec.batch import Batch, from_numpy, pad_capacity, to_numpy
 from datafusion_comet_tpu_torch.exec.evaluator import EvalContext
+from datafusion_comet_tpu_torch.exec.host_filter import HostColumns
 from datafusion_comet_tpu_torch.exec.memory import (device_budget_bytes, plan_peak_bytes,
                                                    plan_tiles)
 from datafusion_comet_tpu_torch.exec.operators import aggregate as AGG
 from datafusion_comet_tpu_torch.exec.operators import basic as B
 from datafusion_comet_tpu_torch.exec.operators import join as J
+from datafusion_comet_tpu_torch.exec.runtime_filter import inject_runtime_filters
 from datafusion_comet_tpu_torch.exec.stats import (DEFAULT_MAX_GROUPS, TableStats, collect_stats,
                                                   derive_capacities)
 from datafusion_comet_tpu_torch.exec.streaming import TiledAggregator, pseudo_scan, slice_tiles
@@ -82,7 +85,8 @@ __all__ = ["Session", "run_plan", "QueryExecutionError", "JoinOverflowError"]
 
 
 # a semi or anti join's output is compacted to this many times its row
-# estimate (the JAX package's margin for estimates from statistics)
+# estimate (the JAX package's margin for estimates from statistics; 2 for a
+# runtime filter's)
 _SEMI_MARGIN = 4
 
 
@@ -145,7 +149,8 @@ def _exec_hash_join(plan: P.HashJoin, tables, ctx, conf, fanout) -> Batch:
     in capacity instead of multiplying their K's. A semi-like join's output
     keeps the probe's capacity with a thinned mask; with an output-row
     estimate it is compacted to a margin over the estimate (4x, grown by the
-    retry loop) when that cuts its capacity at least 8x, so the operators
+    retry loop; 2x where a runtime filter's exact key set gave the
+    estimate) when that cuts its capacity at least 8x, so the operators
     above run at the post-join size."""
     left = run_plan(plan.left, tables, ctx, conf, fanout)
     right = run_plan(plan.right, tables, ctx, conf, fanout)
@@ -163,15 +168,14 @@ def _exec_hash_join(plan: P.HashJoin, tables, ctx, conf, fanout) -> Batch:
                            build_key_range=plan.build_key_range,
                            unique_build=bool(plan.unique_build_hint) and ctx.unique_join_ok,
                            key_pack=plan.key_pack if ctx.unique_join_ok else None,
-                           compact_rows=compact_rows)
+                           compact_rows=compact_rows, dense_range=plan.rf_dense_range)
     if plan.join_type in J.SEMI_LIKE:
         est = plan.out_rows_hint
         if est and plan.join_type != P.JoinType.EXISTENCE:
-            # the JAX package's margin is 2 where a runtime filter's exact
-            # key set gave the estimate; runtime filters are not ported
-            target = pad_capacity(max(_SEMI_MARGIN * est, 1024) * ctx.agg_scale)
+            rf = plan.rf_dense_range is not None  # a runtime filter's exact key set
+            target = pad_capacity(max((2 if rf else _SEMI_MARGIN) * est, 1024) * ctx.agg_scale)
             if target * 8 <= out.capacity:
-                out, covf = B.compact_batch(out, target)
+                out, covf = B.compact_batch(out, target, tag="rf" if rf else None)
                 ctx.overflow_flags.append(covf)
         return out
     ctx.overflow_flags.append(ovf)
@@ -240,13 +244,20 @@ def apply_orderings(plan: P.PlanNode) -> P.PlanNode:
     return out
 
 
+def _is_counted_join(plan: P.PlanNode) -> bool:
+    """A join the stage split counts: not a runtime filter's bitmap semi
+    join (one scatter and one gather; JAX ``engine.py:1276``)."""
+    return isinstance(plan, P.HashJoin) and not plan.rf_injected
+
+
 def _count_joins(plan: P.PlanNode) -> int:
-    return int(isinstance(plan, P.HashJoin)) + sum(_count_joins(c) for c in plan.children())
+    return int(_is_counted_join(plan)) + sum(_count_joins(c) for c in plan.children())
 
 
 def _count_heavy(plan: P.PlanNode) -> int:
-    """Joins, sorts and grouping aggregates in a subtree."""
-    own = isinstance(plan, (P.HashJoin, P.Sort)) or (
+    """Joins (but a runtime filter's), sorts and grouping aggregates in a
+    subtree."""
+    own = _is_counted_join(plan) or isinstance(plan, P.Sort) or (
         isinstance(plan, P.HashAggregate) and bool(plan.group_exprs))
     return int(own) + sum(_count_heavy(c) for c in plan.children())
 
@@ -295,7 +306,8 @@ class Session:
     Of the last ``execute``: ``stages`` holds its (temporary table name or
     None, bound subplan) stages in run order, ``grace_runners`` its grace
     joins (K, mode, partition sizes), ``tiled`` its tiled aggregates
-    (table, tiles)."""
+    (table, tiles), ``plan_ms`` the host ms ``_plan_stages`` took. The
+    runtime filters' key tables (``__rf_*``) stay registered."""
 
     def __init__(self, device: Union[str, torch.device, None] = None,
                  conf: Optional[Config] = None):
@@ -316,7 +328,9 @@ class Session:
         # "pair"), its attempt, growth scale, unique_join_ok, whether it
         # overflowed, and its INNER joins' paths
         self.runs: List[dict] = []
+        self.plan_ms: Optional[float] = None
         self._ids = itertools.count()
+        self._host_cols: Dict[str, HostColumns] = {}
 
     def register_batch(self, name: str, batch: Batch) -> None:
         if batch.device != self.device:
@@ -331,6 +345,16 @@ class Session:
         self.stats[name] = collect_stats(data, schema)
         self.tables[name] = from_numpy(data, schema, self.device, **kw)
 
+    def host_columns(self, table: str) -> HostColumns:
+        """Host copies of a registered table's columns, for the runtime
+        filters' plan-time evaluation: made on first use and kept while the
+        same batch stays registered under ``table``."""
+        batch = self.tables[table]
+        hit = self._host_cols.get(table)
+        if hit is None or hit.batch is not batch:
+            hit = self._host_cols[table] = HostColumns(batch)
+        return hit
+
     def budget_bytes(self) -> int:
         return device_budget_bytes(self.device, self.conf.memory_fraction)
 
@@ -340,7 +364,9 @@ class Session:
         stage's result, compacted, is the temporary table the next stages
         read. Raises QueryExecutionError when a flag of the error side
         channel fired: an ANSI error, or a kernel's code out of range."""
+        t0 = time.perf_counter()
         self.stages = self._plan_stages(plan)
+        self.plan_ms = (time.perf_counter() - t0) * 1e3
         self.grace_runners = []
         self.tiled = []
         self.runs = []
@@ -361,11 +387,14 @@ class Session:
 
     # -- stages --------------------------------------------------------------------
     def _plan_stages(self, plan: P.PlanNode) -> List[Tuple[Optional[str], P.PlanNode]]:
-        """Bind and prune (unless ``plan`` is bound), fill the aggregates'
-        capacities from statistics, drop the Sorts their input already
-        satisfies (``apply_orderings``), and split: [(temporary table name,
-        subplan)] in run order, the last one (None, the query's root)."""
-        bound = plan if plan.schema is not None else P.bind_plan(prune_columns(plan))
+        """Prune, inject the runtime filters and bind (unless ``plan`` is
+        bound; the injector keeps the hints pruning would not carry), fill
+        the aggregates' capacities from statistics, drop the Sorts their
+        input already satisfies (``apply_orderings``), and split:
+        [(temporary table name, subplan)] in run order, the last one (None,
+        the query's root)."""
+        bound = plan if plan.schema is not None else P.bind_plan(
+            inject_runtime_filters(prune_columns(plan), self))
         derive_capacities(bound, self.stats)
         bound = apply_orderings(bound)
         stages: List[Tuple[Optional[str], P.PlanNode]] = []

@@ -1,7 +1,7 @@
 """Expression evaluator: bound expression IR -> tensor ops over a Batch
 (port of ``datafusion_comet_tpu/exec/evaluator.py``, the subset the ported
-TPC-H queries reach, and Spark's murmur3 over integer and string columns
-for hash partitioning).
+TPC-H queries reach: LIKE and the fields of a DATE among them, and Spark's
+murmur3 over integer and string columns for hash partitioning).
 
 Spark semantics kept from the JAX package:
 - three-valued logic through validity vectors, Kleene AND/OR;
@@ -11,7 +11,10 @@ Spark semantics kept from the JAX package:
   each other as codes when they share a dictionary; anything else decodes
   (``_dedict``) and compares padded bytes as unsigned, the zero padding
   giving the shorter-prefix rule;
-- LEGACY/ANSI/TRY modes with an error side channel in ``EvalContext``.
+- LEGACY/ANSI/TRY modes with an error side channel in ``EvalContext``;
+- a function of a dictionary column's strings runs over the dictionary's
+  entries and is gathered back by code (``_eval_on_dict``): LIKE over
+  ``p_type``'s 150 entries instead of its rows.
 
 The storage choice (narrow int64 or two-limb i128) follows the same bounds
 as the JAX package, so both packages hold the same buffers for each node.
@@ -95,6 +98,10 @@ def _ev(e: E.Expr, b: Batch, ctx: EvalContext) -> ColumnVector:
         return _case_when(e, b, ctx)
     if isinstance(e, E.InList):
         return _in_list(e, b, ctx)
+    if isinstance(e, E.Like):
+        return _like(e, b, ctx)
+    if isinstance(e, E.TemporalFunc):
+        return _temporal_func(e, b, ctx)
     raise NotImplementedError(f"evaluate: {type(e).__name__}")
 
 
@@ -261,6 +268,36 @@ def _dict_code_compare(op: str, cv: ColumnVector, value, flip: bool) -> ColumnVe
 
 def _dedict(cv: ColumnVector) -> ColumnVector:
     return cv.decode() if cv.is_dict else cv
+
+
+def _eval_on_dict(cv: ColumnVector, fn, ctx: EvalContext) -> ColumnVector:
+    """``fn`` (a column of the K dictionary entries -> a column of K rows)
+    over the dictionary, its result gathered back by code. Error flags that
+    ``fn`` raises per entry go to the live, valid rows that hold the entry
+    (JAX ``evaluator.py:88``)."""
+    d = cv.dictionary
+    K = max(d.size, 1)
+    dev = cv.data.device
+    vals, lens = d.device_arrays(dev, cv.dtype.byte_width)
+    small = ColumnVector(vals, torch.ones(K, dtype=torch.bool, device=dev), lens, cv.dtype)
+    outer_errors, outer_mask = ctx.errors, ctx.row_mask
+    entry_errors: List[Tuple[torch.Tensor, str]] = []
+    ctx.errors = entry_errors if outer_errors is not None else None
+    ctx.row_mask = None
+    try:
+        res = fn(small)
+    finally:
+        ctx.errors, ctx.row_mask = outer_errors, outer_mask
+    idx = cv.data.long().clamp(0, K - 1)
+    if outer_errors is not None:
+        for flags, msg in entry_errors:
+            row_flags = flags[idx] & cv.validity
+            if outer_mask is not None:
+                row_flags = row_flags & outer_mask
+            outer_errors.append((row_flags, msg))
+    lengths = None if res.lengths is None else res.lengths[idx]
+    return ColumnVector(res.data[idx], cv.validity & res.validity[idx], lengths, res.dtype,
+                        res.dictionary)
 
 
 def _pad_width(mat: torch.Tensor, w: int) -> torch.Tensor:
@@ -549,6 +586,144 @@ def _in_list(e: E.InList, b: Batch, ctx: EvalContext) -> ColumnVector:
     if e.negated:
         return ColumnVector(~acc.data.bool(), acc.validity, None, T.BOOL)
     return acc
+
+
+# -------------------------------------------------------------------------------------
+# LIKE (JAX ``evaluator.py:1537-1612``)
+# -------------------------------------------------------------------------------------
+
+
+def _segment_match_positions(mat: torch.Tensor, lens: torch.Tensor, seg: bytes) -> torch.Tensor:
+    """(cap, P) bool: whether ``seg`` ('_' matching any byte) matches at
+    byte offset p and fits inside the string, P = max(w - len(seg) + 1, 1)."""
+    cap, w = mat.shape
+    m = len(seg)
+    P = max(w - m + 1, 1)
+    dev = mat.device
+    if m == 0:
+        return torch.ones((cap, P), dtype=torch.bool, device=dev)
+    acc = torch.ones((cap, P), dtype=torch.bool, device=dev)
+    base = torch.arange(P, device=dev)
+    for j, chb in enumerate(seg):
+        if chb != ord("_"):
+            acc &= mat[:, (base + j).clamp(max=w - 1)] == chb
+    return acc & ((base[None, :] + m) <= lens[:, None])
+
+
+def _like(e: E.Like, b: Batch, ctx: EvalContext) -> ColumnVector:
+    cv = _ev(e.child, b, ctx)
+    if cv.is_dict:  # match the K entries, map back by code
+        return _eval_on_dict(cv, lambda s: _like_cv(e, s), ctx)
+    return _like_cv(e, cv)
+
+
+def _like_cv(e: E.Like, cv: ColumnVector) -> ColumnVector:
+    """LIKE over padded bytes: the pattern's '%'-separated segments matched
+    left to right, each at its first position at or after the previous
+    one's end; the first anchored at offset 0 unless the pattern starts
+    with '%', the last at the string's end unless it ends with '%'. '_'
+    is one byte."""
+    pat = e.pattern
+    anchored_start = not pat.startswith("%")
+    anchored_end = not pat.endswith("%")
+    segs = [s.encode("utf-8") for s in pat.split("%") if s != ""]
+    mat, lens = cv.data, cv.lengths
+    cap = mat.shape[0]
+    dev = mat.device
+    if not segs:  # only '%'s, or the empty pattern
+        res = torch.ones(cap, dtype=torch.bool, device=dev) if "%" in pat else lens == 0
+    else:
+        cur = torch.zeros(cap, dtype=torch.int64, device=dev)
+        ok = torch.ones(cap, dtype=torch.bool, device=dev)
+        for i, seg in enumerate(segs):
+            matches = _segment_match_positions(mat, lens, seg)
+            if i == 0 and anchored_start:
+                ok = ok & matches[:, 0]
+                cur = torch.full((cap,), len(seg), dtype=torch.int64, device=dev)
+            else:
+                poss = torch.arange(matches.shape[1], device=dev)[None, :]
+                avail = matches & (poss >= cur[:, None])
+                ok = ok & avail.any(1)
+                cur = avail.to(torch.uint8).argmax(1) + len(seg)
+        if anchored_end:
+            last = segs[-1]
+            if len(segs) == 1 and anchored_start:
+                ok = ok & (lens == len(last))
+            else:  # the last segment also matches at the very end
+                end_matches = _segment_match_positions(mat, lens, last)
+                end_pos = (lens.long() - len(last)).clamp(min=0)
+                at = end_pos.clamp(max=end_matches.shape[1] - 1)[:, None]
+                hit_end = end_matches.gather(1, at)[:, 0]
+                ok = ok & hit_end & (end_pos + len(last) >= cur)
+        res = ok
+    if e.negated:
+        res = ~res
+    return ColumnVector(res, cv.validity, None, T.BOOL)
+
+
+# -------------------------------------------------------------------------------------
+# temporal: the fields of a DATE (JAX ``evaluator.py:2089-2160``)
+# -------------------------------------------------------------------------------------
+
+
+def _civil_from_days(days: torch.Tensor):
+    """Days since 1970-01-01 -> (year, month, day), Hinnant's algorithm in
+    floor division."""
+    z = days.long() + 719468
+    era = torch.where(z >= 0, z, z - 146096) // 146097
+    doe = z - era * 146097
+    yoe = (doe - doe // 1460 + doe // 36524 - doe // 146096) // 365
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + yoe // 4 - yoe // 100)
+    mp = (5 * doy + 2) // 153
+    d = doy - (153 * mp + 2) // 5 + 1
+    m = torch.where(mp < 10, mp + 3, mp - 9)
+    y = torch.where(m <= 2, y + 1, y)
+    return y.int(), m.int(), d.int()
+
+
+def _days_from_civil(y: torch.Tensor, m: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    y, m, d = y.long(), m.long(), d.long()
+    y_adj = torch.where(m <= 2, y - 1, y)
+    era = torch.where(y_adj >= 0, y_adj, y_adj - 399) // 400
+    yoe = y_adj - era * 400
+    mp = torch.where(m > 2, m - 3, m + 9)
+    doy = (153 * mp + 2) // 5 + d - 1
+    doe = yoe * 365 + yoe // 4 - yoe // 100 + doy
+    return era * 146097 + doe - 719468
+
+
+def _temporal_func(e: E.TemporalFunc, b: Batch, ctx: EvalContext) -> ColumnVector:
+    """year, month, day, quarter, dayofweek (1 = Sunday), dayofyear and ISO
+    weekofyear of a DATE, as INT32. Timestamps and time zones are not
+    ported yet."""
+    f = e.func
+    cv = _ev(e.args[0], b, ctx)
+    if cv.dtype.type_id != "DATE" or e.tz:
+        raise NotImplementedError(f"{f} of {cv.dtype.type_id}"
+                                  f"{' in a time zone' if e.tz else ''} is not ported yet")
+    if f not in E.DATE_FIELDS:
+        raise NotImplementedError(f"TemporalFunc {f!r} is not ported yet")
+    days = cv.data.long()
+    y, m, d = _civil_from_days(days)
+    if f == "year":
+        data = y
+    elif f == "month":
+        data = m
+    elif f == "day":
+        data = d
+    elif f == "quarter":
+        data = (m - 1) // 3 + 1
+    elif f == "dayofweek":  # 1970-01-01 was a Thursday (5)
+        data = (days + 4) % 7 + 1
+    elif f == "dayofyear":
+        data = days - _days_from_civil(y, torch.ones_like(m), torch.ones_like(d)) + 1
+    else:  # weekofyear (ISO 8601): the week of this week's Thursday
+        thursday = days - (days + 3) % 7 + 3
+        ty, _, _ = _civil_from_days(thursday)
+        jan1 = _days_from_civil(ty, torch.ones_like(ty), torch.ones_like(ty))
+        data = (thursday - jan1) // 7 + 1
+    return ColumnVector(data.int(), cv.validity, None, T.INT32)
 
 
 # -------------------------------------------------------------------------------------

@@ -484,13 +484,13 @@ def _partition_columns_card(codes: torch.Tensor, num_parts: int, tensors: Sequen
 
 def partition_columns(codes: torch.Tensor, num_parts: int, tensors: Sequence[torch.Tensor],
                       local: bool = False, limit: Optional[int] = None,
-                      errors: Optional[List[Tuple[torch.Tensor, str]]] = None
-                      ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+                      errors: Optional[List[Tuple[torch.Tensor, str]]] = None,
+                      tag: Optional[str] = None) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """The rows of each tensor (n, ...) in partition order: (reordered
     tensors, sizes). Global: sizes are the int64 (K + 1,) rows of each code,
     dead rows (code K) included, and ``limit`` keeps the first ``limit`` rows
     of the order. Local: sizes are the int32 (T, K + 1) counts of each 512-row
-    tile. At most 64 tensors a call."""
+    tile. At most 64 tensors a call. ``tag`` names the call in the log."""
     _check_parts(codes, num_parts)
     n = codes.shape[0]
     if local and limit is not None:
@@ -509,14 +509,14 @@ def partition_columns(codes: torch.Tensor, num_parts: int, tensors: Sequence[tor
             "n": n, "K": num_parts, "local": local, "limit": limit,
             "codes": str(codes.dtype).replace("torch.", ""),
             "tensors": [(str(t.dtype).replace("torch.", ""), tuple(t.shape[1:])) for t in tensors],
-            "sizes": sizes, "code_values": codes.clone()})
+            "sizes": sizes, "code_values": codes.clone(), "tag": tag})
     return outs, sizes
 
 
 partition_columns.launches = 0
-# None, or a list that gets each call's shape, its sizes tensor and a copy of
-# its codes (chip_smoke.py reads it around one run of a query, apart from the
-# runs it times)
+# None, or a list that gets each call's shape, its sizes tensor, a copy of its
+# codes and its tag (chip_smoke.py reads it around one run of a query, apart
+# from the runs it times)
 partition_columns.log = None
 
 

@@ -69,17 +69,18 @@ def limit_op(batch: Batch, limit: int, offset: int = 0) -> Batch:
 
 def partition_batch(batch: Batch, codes: torch.Tensor, num_parts: int,
                     limit: Optional[int] = None, keep_bounds: bool = False,
-                    errors: Optional[List[Tuple[torch.Tensor, str]]] = None
-                    ) -> Tuple[Batch, torch.Tensor]:
+                    errors: Optional[List[Tuple[torch.Tensor, str]]] = None,
+                    tag: Optional[str] = None) -> Tuple[Batch, torch.Tensor]:
     """The row mask and every column buffer of ``batch`` moved into the
     stable partition order of ``codes`` by one call of the partition kernel
-    (``kernels.partition_columns``, global mode): (batch, the int64 rows of
-    each code). Bounds do not carry over, as in the JAX package, unless
-    ``keep_bounds``."""
+    (``kernels.partition_columns``, global mode, its log's ``tag``):
+    (batch, the int64 rows of each code). Bounds do not carry over, as in
+    the JAX package, unless ``keep_bounds``."""
     tensors = [batch.row_mask]
     for c in batch.columns:
         tensors += [c.data, c.validity] + ([] if c.lengths is None else [c.lengths])
-    outs, sizes = KN.partition_columns(codes, num_parts, tensors, limit=limit, errors=errors)
+    outs, sizes = KN.partition_columns(codes, num_parts, tensors, limit=limit, errors=errors,
+                                       tag=tag)
     moved = iter(outs[1:])
     cols = []
     for c in batch.columns:
@@ -90,13 +91,13 @@ def partition_batch(batch: Batch, codes: torch.Tensor, num_parts: int,
     return Batch(tuple(cols), outs[0], batch.schema), sizes
 
 
-def compact_batch(batch: Batch, new_cap: int, keep_bounds: bool = False
-                  ) -> Tuple[Batch, torch.Tensor]:
+def compact_batch(batch: Batch, new_cap: int, keep_bounds: bool = False,
+                  tag: Optional[str] = None) -> Tuple[Batch, torch.Tensor]:
     """Pack live rows to the front and cut the capacity to ``new_cap``: one
     partition by the row mask (live rows first, both halves in row order)
-    that writes only the first ``new_cap`` rows. Returns (compacted batch,
-    overflow flag: the live rows did not fit)."""
+    that writes only the first ``new_cap`` rows (its log's ``tag``).
+    Returns (compacted batch, overflow flag: the live rows did not fit)."""
     if new_cap >= batch.capacity:
         return batch, torch.zeros((), dtype=torch.bool, device=batch.device)
-    out, sizes = partition_batch(batch, batch.row_mask, 1, new_cap, keep_bounds)
+    out, sizes = partition_batch(batch, batch.row_mask, 1, new_cap, keep_bounds, tag=tag)
     return out, sizes[0] > new_cap

@@ -44,9 +44,10 @@ A semi-like join keeps the probe (left) side and needs only whether each
 probe row has a match: LEFT_SEMI keeps the rows that do, LEFT_ANTI the rows
 that do not (a null key never matches, so it passes), EXISTENCE keeps every
 row and appends a non-null BOOL ``exists``. When the single integer or date
-build key has an exact range (``build_key_range``, from statistics) whose
-span is at most 2^24, membership is one scatter into a span + 1 boolean
-bitmap and one gather for the probe, with no sort; else the match count of
+build key has an exact range (``dense_range``, a runtime filter's key range,
+else ``build_key_range``, from statistics) whose span is at most 2^24,
+membership is one scatter into a span + 1 boolean bitmap and one gather for
+the probe, with no sort; else the match count of
 the sorted path decides (count > 0), and no pair block is built. So a
 semi-like join never overflows: the JAX package raises its fan-out flag on
 this path when a probe row has more than K matches (its unused pair block
@@ -283,7 +284,8 @@ def hash_join(left: Batch, right: Batch, left_keys: Sequence[E.Expr],
               max_build_matches: int = 4, ctx: Optional[EvalContext] = None,
               build_key_range: Optional[Tuple[int, int]] = None, unique_build: bool = False,
               key_pack: Optional[Tuple[Tuple[int, int], ...]] = None,
-              compact_rows: Optional[int] = None) -> Tuple[Batch, torch.Tensor]:
+              compact_rows: Optional[int] = None,
+              dense_range: Optional[Tuple[int, int]] = None) -> Tuple[Batch, torch.Tensor]:
     """Returns (joined batch, overflow flag). INNER: the pairs on the path
     the arguments select (module docstring), and the flag set where the
     result is incomplete (a probe row with more than K =
@@ -294,7 +296,9 @@ def hash_join(left: Batch, right: Batch, left_keys: Sequence[E.Expr],
     ``exists``), and a flag set only by ``key_pack``.
     ``build_key_range``: the exact (min, max) of a single build key, which
     lets a semi-like join use the membership bitmap and a unique build the
-    dense table. Each INNER run appends its arguments and path to
+    dense table; ``dense_range``, a runtime filter's exact key range, takes
+    its place for the semi-like bitmap (JAX ``join.py:429``). Each INNER run
+    appends its arguments and path to
     ``ctx.join_log`` where that is a list."""
     semi = join_type in SEMI_LIKE
     if join_type != JoinType.INNER and not semi:
@@ -328,9 +332,10 @@ def hash_join(left: Batch, right: Batch, left_keys: Sequence[E.Expr],
                  else torch.zeros((), dtype=torch.bool, device=dev))
 
     if semi:
-        if _bitmap_ok(bcols, pcols, build_key_range):
+        rng = dense_range if dense_range is not None else build_key_range
+        if _bitmap_ok(bcols, pcols, rng):
             hash_join.semi_paths["bitmap"] += 1
-            hit = _bitmap_member(bcols[0].data, bvalid, pcols[0].data, pvalid, build_key_range)
+            hit = _bitmap_member(bcols[0].data, bvalid, pcols[0].data, pvalid, rng)
         else:
             hash_join.semi_paths["sorted"] += 1
             bkey, pkey = _one_limb(blimbs, plimbs)

@@ -1,6 +1,6 @@
 """Table statistics and the group capacities derived from them (port of the
-subset of ``datafusion_comet_tpu/exec/stats.py`` that TPC-H Q1, Q3, Q4, Q5,
-Q6, Q10, Q12, Q15 and Q18 reach: ``collect_stats`` :42,
+subset of ``datafusion_comet_tpu/exec/stats.py`` that the ported TPC-H
+queries reach: ``collect_stats`` :42,
 ``derive_capacities`` :129, ``_walk`` :220 over Scan, Filter, Projection,
 HashJoin, HashAggregate, Sort and Limit, ``_column_range`` :167,
 ``_source_column`` :480, ``_pad`` :490).
@@ -33,6 +33,12 @@ a hint is None (a hint set already wins):
   build keys' distinct product, a power of two in [2, 256]) and
   ``out_rows_hint``, the foreign-key-to-primary-key estimate: the smaller
   side thins the larger by its rows over its key's distinct count.
+
+A runtime filter's semi join (exec/runtime_filter.py) comes with its row
+estimate set, and its key table is registered with statistics, so the walk
+gives it the key table's range as ``build_key_range``; the INNER join above
+it keeps the estimate the injector set, and the estimates above follow it,
+as in the JAX walk.
 
 The JAX walk's condition-column ranges serve semi joins with a condition,
 which the port does not run.

@@ -1,5 +1,6 @@
 """Expression IR and Spark type inference (port of
-``datafusion_comet_tpu/ir/expr.py``, the subset TPC-H Q1, Q6 and Q12 reach).
+``datafusion_comet_tpu/ir/expr.py``, the subset the ported TPC-H queries
+reach: LIKE and the date fields of ``TemporalFunc`` among them).
 
 Expressions are built unbound (column names); ``bind(expr, schema)`` resolves
 references to column indices and computes result types, including Spark's
@@ -16,8 +17,12 @@ from datafusion_comet_tpu_torch import types as T
 
 __all__ = [
     "Expr", "EvalMode", "ColumnRef", "BoundRef", "Literal", "Alias", "BinaryOp",
-    "Cast", "CaseWhen", "InList", "SortOrder", "AggFunc", "AggExpr", "col", "lit", "bind",
+    "Cast", "CaseWhen", "InList", "Like", "TemporalFunc", "DATE_FIELDS", "SortOrder", "AggFunc",
+    "AggExpr", "col", "lit", "bind",
 ]
+
+# the TemporalFunc functions the port evaluates: fields of a DATE, each INT32
+DATE_FIELDS = ("year", "month", "day", "quarter", "dayofweek", "dayofyear", "weekofyear")
 
 
 class EvalMode:
@@ -91,8 +96,14 @@ class Expr:
     def __hash__(self):
         return object.__hash__(self)
 
+    def between(self, lo, hi) -> "Expr":
+        return (self >= _e(lo)) & (self <= _e(hi))
+
     def isin(self, *values) -> "InList":
         return InList(self, tuple(_e(v) for v in values))
+
+    def like(self, pattern: str) -> "Like":
+        return Like(self, pattern)
 
     @property
     def name(self) -> str:
@@ -195,6 +206,35 @@ class InList(Expr):
 
     def children(self):
         return (self.child,) + self.values
+
+
+@_node
+class Like(Expr):
+    """SQL LIKE with a literal pattern: '%' matches any run of bytes, '_'
+    one byte (the JAX package's semantics; Spark's '_' is one character,
+    ROADMAP C10)."""
+
+    child: Expr
+    pattern: str
+    negated: bool = False
+
+    def children(self):
+        return (self.child,)
+
+
+@_node
+class TemporalFunc(Expr):
+    """A date/time function by name over ``args``; ``tz`` names the session
+    time zone, ``unit`` a calendar unit (as in the JAX package). The port
+    binds and evaluates the fields of a DATE (``DATE_FIELDS``)."""
+
+    func: str
+    args: Tuple[Expr, ...]
+    tz: Optional[str] = None
+    unit: Optional[str] = None
+
+    def children(self):
+        return self.args
 
 
 @dataclasses.dataclass(frozen=True)
@@ -344,6 +384,16 @@ def bind(expr: Expr, schema: T.Schema) -> Expr:
     if isinstance(e, InList):
         out = InList(bind(e.child, schema), tuple(bind(v, schema) for v in e.values), e.negated)
         object.__setattr__(out, "dtype", T.BOOL)
+        return out
+    if isinstance(e, Like):
+        out = Like(bind(e.child, schema), e.pattern, e.negated)
+        object.__setattr__(out, "dtype", T.BOOL)
+        return out
+    if isinstance(e, TemporalFunc):
+        if e.func not in DATE_FIELDS:
+            raise NotImplementedError(f"TemporalFunc {e.func!r} is not ported yet")
+        out = TemporalFunc(e.func, tuple(bind(a, schema) for a in e.args), e.tz, e.unit)
+        object.__setattr__(out, "dtype", T.INT32)
         return out
     raise NotImplementedError(f"bind: {type(e).__name__}")
 

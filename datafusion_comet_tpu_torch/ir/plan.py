@@ -1,6 +1,6 @@
 """Operator plan IR (port of ``datafusion_comet_tpu/ir/plan.py``: the Scan,
-Filter, Projection, HashAggregate, Sort, Limit and HashJoin nodes TPC-H Q1,
-Q3, Q4, Q5, Q6, Q12 and Q15 use).
+Filter, Projection, HashAggregate, Sort, Limit and HashJoin nodes the ported
+TPC-H queries use).
 
 Plans are built unbound; ``bind_plan`` binds expressions bottom-up against
 child schemas and computes each node's output schema.
@@ -165,7 +165,12 @@ class HashJoin(PlanNode):
     join's first K (build matches per probe row); ``unique_build_hint``,
     that the build keys look unique (one match per probe row at most);
     ``key_pack``, per key of a multi-key join the (min, max) over both
-    sides, which packs the key tuple into one int64."""
+    sides, which packs the key tuple into one int64.
+
+    Set by the runtime-filter injector (exec/runtime_filter.py) on the
+    LEFT_SEMI join it adds: ``rf_dense_range``, the exact (min, max) of its
+    constant key table, which the membership bitmap covers, and
+    ``rf_injected``, which keeps the join out of the stage split's counts."""
 
     left: PlanNode
     right: PlanNode
@@ -179,6 +184,8 @@ class HashJoin(PlanNode):
     fanout_hint: Optional[int] = None
     unique_build_hint: Optional[bool] = None
     key_pack: Optional[Tuple[Tuple[int, int], ...]] = None
+    rf_dense_range: Optional[Tuple[int, int]] = None
+    rf_injected: bool = False
 
     def children(self):
         return (self.left, self.right)
@@ -264,7 +271,8 @@ def bind_plan(plan: PlanNode) -> PlanNode:
         cond = E.bind(plan.condition, pair) if plan.condition is not None else None
         out = HashJoin(left, right, lkeys, rkeys, plan.join_type, plan.build_side, cond,
                        plan.build_key_range, plan.out_rows_hint, plan.fanout_hint,
-                       plan.unique_build_hint, plan.key_pack)
+                       plan.unique_build_hint, plan.key_pack, plan.rf_dense_range,
+                       plan.rf_injected)
         out.schema = _join_out_schema(left.schema, right.schema, plan.join_type)
         return out
     raise NotImplementedError(f"bind_plan: {type(plan).__name__}")

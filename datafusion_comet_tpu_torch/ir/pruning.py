@@ -20,7 +20,7 @@ def _expr_refs(e: Optional[E.Expr], out: Set[str]) -> None:
         return
     if isinstance(e, (E.ColumnRef, E.BoundRef)):
         out.add(e.col_name)
-    for c in e.children():
+    for c in e.children():  # Like's and TemporalFunc's arguments included
         _expr_refs(c, out)
 
 
@@ -88,7 +88,8 @@ def prune_columns(plan: P.PlanNode, required: Optional[Set[str]] = ALL) -> P.Pla
         return P.HashJoin(prune_columns(plan.left, lneed), prune_columns(plan.right, rneed),
                           plan.left_keys, plan.right_keys, plan.join_type, plan.build_side,
                           plan.condition, plan.build_key_range, plan.out_rows_hint,
-                          plan.fanout_hint, plan.unique_build_hint, plan.key_pack)
+                          plan.fanout_hint, plan.unique_build_hint, plan.key_pack,
+                          plan.rf_dense_range, plan.rf_injected)
     raise NotImplementedError(f"prune_columns: {type(plan).__name__}")
 
 

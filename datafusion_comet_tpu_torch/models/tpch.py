@@ -1,7 +1,8 @@
 """TPC-H workload subset: the ``lineitem``, ``orders``, ``customer``,
-``supplier``, ``nation`` and ``region`` schemas and generators, and the
-plans of Q1, Q3, Q4, Q5, Q6, Q10, Q12, Q15 and Q18 (port of
-``datafusion_comet_tpu/models/tpch.py``; ``QUERIES`` lists them).
+``supplier``, ``nation``, ``region``, ``part`` and ``partsupp`` schemas and
+generators, and the plans of Q1, Q2, Q3, Q4, Q5, Q6, Q9, Q10, Q12, Q15, Q18
+and Q19 (port of ``datafusion_comet_tpu/models/tpch.py``; ``QUERIES`` lists
+them).
 
 The generator is a line-for-line copy of the JAX package's, so the same
 ``(sf, seed)`` gives bit-identical columns in both packages: results can be
@@ -20,8 +21,8 @@ from datafusion_comet_tpu_torch import types as T
 from datafusion_comet_tpu_torch.ir import expr as E
 from datafusion_comet_tpu_torch.ir import plan as P
 
-__all__ = ["SCHEMAS", "QUERIES", "table_rows", "generate_table", "generate_tables", "q1", "q3",
-           "q4", "q5", "q6", "q10", "q12", "q15", "q18"]
+__all__ = ["SCHEMAS", "QUERIES", "table_rows", "generate_table", "generate_tables", "q1", "q2",
+           "q3", "q4", "q5", "q6", "q9", "q10", "q12", "q15", "q18", "q19"]
 
 _dec = T.decimal
 
@@ -87,6 +88,25 @@ SCHEMAS: Dict[str, T.Schema] = {
             T.Field("r_name", T.string(25), False),
         ]
     ),
+    "part": T.Schema(
+        [
+            T.Field("p_partkey", T.INT64, False),
+            T.Field("p_name", T.string(55), False),
+            T.Field("p_brand", T.string(10), False),
+            T.Field("p_type", T.string(25), False),
+            T.Field("p_size", T.INT32, False),
+            T.Field("p_container", T.string(10), False),
+            T.Field("p_retailprice", _dec(15, 2), False),
+        ]
+    ),
+    "partsupp": T.Schema(
+        [
+            T.Field("ps_partkey", T.INT64, False),
+            T.Field("ps_suppkey", T.INT64, False),
+            T.Field("ps_availqty", T.INT32, False),
+            T.Field("ps_supplycost", _dec(15, 2), False),
+        ]
+    ),
 }
 
 _NATIONS = [
@@ -101,6 +121,22 @@ _REGIONS = ["AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST"]
 _SHIPMODES = ["REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB"]
 _PRIORITIES = ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECI", "5-LOW"]
 _SEGMENTS = ["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD"]
+
+# the spec's 92 P_NAME words (TPC-H clause 4.2.3): a part's name is five of
+# them, so LIKE '%green%' (Q9) keeps about 5% of the parts
+_P_NAME_WORDS = (
+    "almond antique aquamarine azure beige bisque black blanched blue blush "
+    "brown burlywood burnished chartreuse chiffon chocolate coral cornflower "
+    "cornsilk cream cyan dark deep dim dodger drab firebrick floral forest "
+    "frosted gainsboro ghost goldenrod green grey honeydew hot indian ivory "
+    "khaki lace lavender lawn lemon light lime linen magenta maroon medium "
+    "metallic midnight mint misty moccasin navajo navy olive orange orchid "
+    "pale papaya peach peru pink plum powder puff purple red rose rosy royal "
+    "saddle salmon sandy seashell sienna sky slate smoke snow spring steel "
+    "tan thistle tomato turquoise violet wheat white yellow"
+).split()
+_CONTAINER_SIZES = ("SM", "LG", "MED", "JUMBO", "WRAP")
+_CONTAINER_KINDS = ("CASE", "BOX", "BAG", "JAR", "PKG", "PACK", "CAN", "DRUM")
 
 
 def _d(datestr: str) -> int:
@@ -124,10 +160,19 @@ def table_rows(name: str, sf: float) -> int:
     return max(int(base * sf), 1)
 
 
+def _p_names(rng: np.random.Generator, n: int) -> np.ndarray:
+    """Five words of the spec's list per part, drawn in one call (repeats
+    allowed, as in the JAX package's generator)."""
+    idx = rng.integers(0, len(_P_NAME_WORDS), (n, 5))
+    return np.array([" ".join(_P_NAME_WORDS[a] for a in row) for row in idx], object)
+
+
 def generate_table(name: str, sf: float, seed: int = 19920401) -> Dict[str, np.ndarray]:
     """Deterministic TPC-H-shaped ``lineitem``, ``orders``, ``customer``,
-    ``supplier``, ``nation`` or ``region`` (value ranges per the spec).
-    Decimals come pre-scaled as int64 (the engine's physical form)."""
+    ``supplier``, ``nation``, ``region``, ``part`` or ``partsupp`` (value
+    ranges per the spec; ``p_name`` from the spec's 92 words, 40
+    containers). Decimals come pre-scaled as int64 (the engine's physical
+    form)."""
     if name not in SCHEMAS:
         raise KeyError(name)
     n = table_rows(name, sf)
@@ -174,6 +219,35 @@ def generate_table(name: str, sf: float, seed: int = 19920401) -> Dict[str, np.n
                 ],
                 object,
             ),
+        }
+    if name == "part":
+        pk = np.arange(1, n + 1, dtype=np.int64)
+        types_ = np.array(
+            [f"{a} {b} {c}" for a in ("STANDARD", "SMALL", "MEDIUM", "LARGE", "ECONOMY", "PROMO")
+             for b in ("ANODIZED", "BURNISHED", "PLATED", "POLISHED", "BRUSHED")
+             for c in ("TIN", "NICKEL", "BRASS", "STEEL", "COPPER")],
+            object,
+        )
+        return {
+            "p_partkey": pk,
+            "p_name": _p_names(rng, n),
+            "p_brand": np.array([f"Brand#{i}{j}" for i, j in zip(rng.integers(1, 6, n),
+                                                                 rng.integers(1, 6, n))], object),
+            "p_type": types_[rng.integers(0, len(types_), n)],
+            "p_size": rng.integers(1, 51, n).astype(np.int32),
+            "p_container": np.array(
+                [f"{s} {k}" for s in _CONTAINER_SIZES for k in _CONTAINER_KINDS],
+                object)[rng.integers(0, 40, n)],
+            "p_retailprice": (90000 + pk % 20001).astype(np.int64),
+        }
+    if name == "partsupp":
+        nparts = table_rows("part", sf)
+        pk = np.repeat(np.arange(1, nparts + 1, dtype=np.int64), 4)[:n]
+        return {
+            "ps_partkey": pk,
+            "ps_suppkey": rng.integers(1, table_rows("supplier", sf) + 1, n).astype(np.int64),
+            "ps_availqty": rng.integers(1, 10000, n).astype(np.int32),
+            "ps_supplycost": rng.integers(100, 100001, n).astype(np.int64),
         }
     if name == "orders":
         ok = np.arange(1, n + 1, dtype=np.int64) * 4 - 3  # sparse keys like dbgen
@@ -429,6 +503,90 @@ def q18(min_qty: int = 300) -> P.PlanNode:
     )
 
 
+def q19() -> P.PlanNode:
+    """Discounted revenue: lineitem joined to part under a disjunction of
+    three brand, container, quantity and size clauses, one ungrouped sum."""
+    l = P.Scan("lineitem", SCHEMAS["lineitem"]).filter(
+        E.col("l_shipmode").isin("AIR", "REG AIR"))
+    p = P.Scan("part", SCHEMAS["part"])
+    j = P.HashJoin(l, p, (E.col("l_partkey"),), (E.col("p_partkey"),), P.JoinType.INNER, "right")
+
+    def clause(brand, containers, qlo, qhi, szhi):
+        return ((E.col("p_brand") == E.lit(brand))
+                & E.col("p_container").isin(*containers)
+                & (E.col("l_quantity") >= E.lit(qlo, _dec(15, 2)))
+                & (E.col("l_quantity") <= E.lit(qhi, _dec(15, 2)))
+                & (E.col("p_size").between(1, szhi)))
+
+    pred = (clause("Brand#12", ["SM CASE"], 1, 11, 5)
+            | clause("Brand#23", ["MED BAG"], 10, 20, 10)
+            | clause("Brand#34", ["LG BOX"], 20, 30, 15))
+    disc = E.col("l_extendedprice") * (E.lit(1).cast(_dec(10, 0)) - E.col("l_discount"))
+    return j.filter(pred).aggregate([], [E.AggExpr("sum", disc, "revenue")])
+
+
+def q2() -> P.PlanNode:
+    """Minimum cost supplier: the correlated MIN subquery as a per-part MIN
+    over the EUROPE suppliers' partsupp rows, joined back on (part, cost) by
+    a LEFT_SEMI join; the parts of size 15 whose type ends in BRASS; top 100
+    by supplier balance. ``pss`` feeds both the MIN and the join."""
+    p = P.Scan("part", SCHEMAS["part"]).filter(
+        (E.col("p_size") == E.lit(15)) & E.col("p_type").like("%BRASS"))
+    r = P.Scan("region", SCHEMAS["region"]).filter(E.col("r_name") == E.lit("EUROPE"))
+    n = P.Scan("nation", SCHEMAS["nation"])
+    nr = P.HashJoin(n, r, (E.col("n_regionkey"),), (E.col("r_regionkey"),), P.JoinType.INNER,
+                    "right")
+    s = P.Scan("supplier", SCHEMAS["supplier"])
+    sn = P.HashJoin(s, nr, (E.col("s_nationkey"),), (E.col("n_nationkey"),), P.JoinType.INNER,
+                    "right")
+    ps = P.Scan("partsupp", SCHEMAS["partsupp"])
+    pss = P.HashJoin(ps, sn, (E.col("ps_suppkey"),), (E.col("s_suppkey"),), P.JoinType.INNER,
+                     "right")
+    mincost = P.HashAggregate(
+        pss, (E.col("ps_partkey"),), (E.AggExpr("min", E.col("ps_supplycost"), "min_cost"),),
+        P.AggMode.SINGLE)
+    psp = P.HashJoin(pss, p, (E.col("ps_partkey"),), (E.col("p_partkey"),), P.JoinType.INNER,
+                     "right")
+    best = P.HashJoin(psp, mincost, (E.col("ps_partkey"), E.col("ps_supplycost")),
+                      (E.col("ps_partkey"), E.col("min_cost")), P.JoinType.LEFT_SEMI, "right")
+    # the schema has no p_mfgr: the JAX plan projects p_brand in its place
+    return best.sort(
+        [E.SortOrder(E.col("s_acctbal"), ascending=False), E.SortOrder(E.col("n_name")),
+         E.SortOrder(E.col("s_name")), E.SortOrder(E.col("p_partkey"))],
+        fetch=100,
+    ).project([E.col("s_acctbal"), E.col("s_name"), E.col("n_name"), E.col("p_partkey"),
+               E.col("p_brand")])
+
+
+def q9() -> P.PlanNode:
+    """Product type profit by nation and year: the parts whose name holds
+    'green', five INNER joins (one on the two keys of partsupp), profit
+    summed per nation and order year."""
+    p = P.Scan("part", SCHEMAS["part"]).filter(E.col("p_name").like("%green%"))
+    l = P.Scan("lineitem", SCHEMAS["lineitem"])
+    lp = P.HashJoin(l, p, (E.col("l_partkey"),), (E.col("p_partkey"),), P.JoinType.INNER, "right")
+    ps = P.Scan("partsupp", SCHEMAS["partsupp"])
+    lps = P.HashJoin(lp, ps, (E.col("l_suppkey"), E.col("l_partkey")),
+                     (E.col("ps_suppkey"), E.col("ps_partkey")), P.JoinType.INNER, "right")
+    s = P.Scan("supplier", SCHEMAS["supplier"])
+    lpss = P.HashJoin(lps, s, (E.col("l_suppkey"),), (E.col("s_suppkey"),), P.JoinType.INNER,
+                      "right")
+    o = P.Scan("orders", SCHEMAS["orders"])
+    lpsso = P.HashJoin(lpss, o, (E.col("l_orderkey"),), (E.col("o_orderkey"),),
+                       P.JoinType.INNER, "right")
+    n = P.Scan("nation", SCHEMAS["nation"])
+    j = P.HashJoin(lpsso, n, (E.col("s_nationkey"),), (E.col("n_nationkey"),), P.JoinType.INNER,
+                   "right")
+    amount = (E.col("l_extendedprice") * (E.lit(1).cast(_dec(10, 0)) - E.col("l_discount"))
+              - (E.col("ps_supplycost") * E.col("l_quantity")).cast(_dec(38, 4)))
+    pre = j.project([E.col("n_name").alias("nation"),
+                     E.TemporalFunc("year", (E.col("o_orderdate"),)).alias("o_year"),
+                     amount.alias("amount")])
+    agg = pre.aggregate([E.col("nation"), E.col("o_year")],
+                        [E.AggExpr("sum", E.col("amount"), "sum_profit")])
+    return agg.sort([E.SortOrder(E.col("nation")), E.SortOrder(E.col("o_year"), ascending=False)])
+
+
 # every query of the port, by name
-QUERIES = {"q1": q1, "q3": q3, "q4": q4, "q5": q5, "q6": q6, "q10": q10, "q12": q12,
-           "q15": q15, "q18": q18}
+QUERIES = {"q1": q1, "q2": q2, "q3": q3, "q4": q4, "q5": q5, "q6": q6, "q9": q9, "q10": q10,
+           "q12": q12, "q15": q15, "q18": q18, "q19": q19}

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Warm latency, peak device memory, kernel launches, retries and (with
-``--profile``) device-time breakdowns of TPC-H Q1, Q6, Q12, Q3, Q4, Q15,
-Q5, Q10 and Q18 (Q12, Q3, Q4, Q5, Q10 and Q18 directly, and through the
-grace join at K = 16) for the port in any checkout; a checkout whose port
-lacks Q3, Q4 and Q15, Q5, or Q10 and Q18, runs the others. Each checkout
+"""Warm latency, peak device memory, kernel launches, retries, runtime
+filters, planning host time and (with ``--profile``) device-time
+breakdowns of TPC-H Q1, Q6, Q12, Q3, Q4, Q15, Q5, Q10, Q18, Q2, Q9 and Q19
+(all but Q1, Q6 and Q15 directly, and through the grace join at K = 16)
+for the port in any checkout; a checkout whose port lacks Q3, Q4 and Q15,
+Q5, Q10 and Q18, or Q2, Q9 and Q19, runs the others. Each checkout
 runs in its own process, so two of them can be compared in turns on one
 card:
 
     python3 datafusion_comet_tpu_torch/tools/query_times.py [--tree DIR] [--sf 1] [--profile]
+        [--queries q3,q5,q10]
 
 DIR (default: the checkout holding this file) goes first on sys.path, and
 only the port's public entry points are called (``Session``, ``Config``,
@@ -16,7 +18,9 @@ JSON line per query: the median and every one of ``--reps`` warm runs
 (host clock, each ending in a device sync), the peak device memory of one
 run, and of one run the launches of each kernel wrapper and the retries
 (the plan runs that overflowed a capacity and ran again, grace pairs
-included). With ``--profile``, one torch.profiler run of each run: wall
+included), the runtime filters injected (each one's key count) and the
+median host ms of ``_plan_stages`` over the warm runs (where the
+checkout's ``Session`` records them). With ``--profile``, one torch.profiler run of each run: wall
 ms, device busy ms and idle share, the device ms of index gathers (advanced indexing and
 index_select kernels), of scatter_reduce, of the partition kernels (B3), of
 sort kernels, the top kernels, the host ms of the grace runner's spans, and
@@ -93,19 +97,32 @@ def launches_and_retries(sess, plan):
 
 
 def warm_times(sess, plan, reps: int):
-    """(median ms, all ms, peak bytes of one run) after one warm-up run."""
+    """(median ms, all ms, peak bytes of one run, median planning host ms or
+    None) after one warm-up run."""
     import torch
 
     sess.collect(plan)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    times = []
+    times, plans = [], []
     for _ in range(reps):
         t0 = time.perf_counter()
         sess.collect(plan)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times), times, torch.cuda.max_memory_allocated()
+        plans.append(getattr(sess, "plan_ms", None))
+    plan_ms = statistics.median(plans) if None not in plans else None
+    return statistics.median(times), times, torch.cuda.max_memory_allocated(), plan_ms
+
+
+def runtime_filters(sess):
+    """Key counts of the runtime filters of the session's last run, or None
+    where the checkout's port has none."""
+    try:
+        from datafusion_comet_tpu_torch.exec.runtime_filter import injected_filters
+    except ImportError:
+        return None
+    return [f["keys"] for f in injected_filters(sess)]
 
 
 def profile(sess, plan):
@@ -156,6 +173,9 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=7, help="warm runs per query")
     ap.add_argument("--profile", action="store_true",
                     help="add a profile of every run")
+    ap.add_argument("--queries", default="",
+                    help="comma-separated queries to run (q3 runs q3_direct and q3_grace); "
+                         "default every one the tree has")
     args = ap.parse_args(argv)
     tree = args.tree.resolve()
     sys.path.insert(0, str(tree))
@@ -175,10 +195,11 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({"tree": str(tree), "sf": args.sf, "nvidia_smi": smi}), flush=True)
     has_q3, has_q4, has_q5 = hasattr(tpch, "q3"), hasattr(tpch, "q4"), hasattr(tpch, "q5")
-    has_q18 = hasattr(tpch, "q18")
+    has_q18, has_q9 = hasattr(tpch, "q18"), hasattr(tpch, "q9")
     sess = Session()
     for t in (("lineitem", "orders") + (("customer",) if has_q3 else ())
-              + (("supplier",) if has_q4 else ()) + (("nation", "region") if has_q5 else ())):
+              + (("supplier",) if has_q4 else ()) + (("nation", "region") if has_q5 else ())
+              + (("part", "partsupp") if has_q9 else ())):
         sess.register_numpy(t, tpch.generate_table(t, args.sf), tpch.SCHEMAS[t])
 
     def grace_session(plan):
@@ -198,15 +219,18 @@ def main(argv=None) -> int:
                  ("q15", sess, tpch.q15())]
     if has_q5:
         runs += [("q5_direct", sess, tpch.q5()), ("q5_grace", grace_session(tpch.q5()), tpch.q5())]
-    if has_q18:
-        for q in ("q10", "q18"):
-            plan = getattr(tpch, q)()
-            runs += [(f"{q}_direct", sess, plan), (f"{q}_grace", grace_session(plan), plan)]
+    for q in (("q10", "q18") if has_q18 else ()) + (("q2", "q9", "q19") if has_q9 else ()):
+        plan = getattr(tpch, q)()
+        runs += [(f"{q}_direct", sess, plan), (f"{q}_grace", grace_session(plan), plan)]
+    if args.queries:
+        keep = set(args.queries.split(","))
+        runs = [r for r in runs if r[0].split("_")[0] in keep]
     for name, s, plan in runs:
-        ms, times, peak = warm_times(s, plan, args.reps)
+        ms, times, peak, plan_ms = warm_times(s, plan, args.reps)
         launches, retries = launches_and_retries(s, plan)
         line = {"query": name, "warm_ms": ms, "warm_ms_all": times, "peak_mem_bytes": peak,
-                "launches": launches, "retries": retries}
+                "launches": launches, "retries": retries, "runtime_filters": runtime_filters(s),
+                "plan_ms": plan_ms}
         if name.endswith("_grace"):
             # the first runner to finish, and every runner's K and mode
             r = s.grace_runners[0]

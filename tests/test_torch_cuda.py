@@ -1,10 +1,11 @@
 """PyTorch port on the card: the CUDA kernels against their plain versions,
-Q1, Q6, Q12, Q3, Q4, Q5, Q10 and Q18 (the last six directly and through
-the grace join; Q4 on both semi-join membership paths; Q10 and Q18 with
-the default staging and every string padded) and Q15 on the card against
-the same queries on the CPU, the dense path's MIN/MAX, and the string
-operations (padded limbs, comparisons, CASE WHEN, murmur3) on the card
-against the CPU. Marked ``cuda``;
+Q1, Q6, Q12, Q3, Q4, Q5, Q10, Q18, Q2, Q9 and Q19 (all but Q1 and Q6
+directly and through the grace join; Q4 on both semi-join membership
+paths; Q10, Q18, Q2, Q9 and Q19 with the default staging and every string
+padded), Q15, and Q3, Q9 and Q10 with their runtime filters on the card
+against the same queries on the CPU, the dense path's MIN/MAX, and the
+string operations (padded limbs, comparisons, CASE WHEN, murmur3, LIKE)
+and the fields of a date on the card against the CPU. Marked ``cuda``;
 without a card every test here skips. This file imports no JAX, so it runs
 on a machine without it (tests/conftest.py imports JAX, hence --noconftest):
 
@@ -286,7 +287,8 @@ def test_query_times_script_on_card(dev, capsys):
     head, *rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
     assert "nvidia_smi" in head
     runs = ["q12_direct", "q12_grace", "q3_direct", "q3_grace", "q4_direct", "q4_grace", "q15",
-            "q5_direct", "q5_grace", "q10_direct", "q10_grace", "q18_direct", "q18_grace"]
+            "q5_direct", "q5_grace", "q10_direct", "q10_grace", "q18_direct", "q18_grace",
+            "q2_direct", "q2_grace", "q9_direct", "q9_grace", "q19_direct", "q19_grace"]
     names = ["q1", "q6"] + runs
     assert [r.get("query") or r["profile"] for r in rows] == names + names
     assert rows[3]["K"] == 16 and rows[3]["mode"] == "partial"
@@ -296,12 +298,14 @@ def test_query_times_script_on_card(dev, capsys):
     assert rows[2]["retries"] == 1  # Q12 direct: the unique-build hint is wrong
     assert rows[0]["launches"]["bucket_sum"] > 0
     assert rows[names.index("q18_grace")]["tiled"]  # its per-order aggregate
+    # no fact side reaches the runtime filters' 65,536 rows at SF 0.01
+    assert all(r["runtime_filters"] == [] and r["plan_ms"] > 0 for r in rows[:len(names)])
     profiles = dict(zip(names, rows[len(names):]))
     assert all(r["device_busy_ms"] > 0 for r in profiles.values())
     # at SF 0.01 Q3 direct, Q4 direct, Q15 and Q5 direct call no B3: their
     # joins are unique builds or semi joins, and nothing shrinks 4x
     assert all(profiles[q]["partition_calls"] > 0 for q in runs
-               if q not in ("q3_direct", "q4_direct", "q15", "q5_direct"))
+               if q.endswith("_grace") or q in ("q12_direct", "q10_direct", "q18_direct"))
     assert all(profiles[q]["aggregate_sort_calls"] > 0 for q in ("q3_direct", "q3_grace"))
 
 
@@ -516,3 +520,104 @@ def test_q10_q18_on_card_equal_cpu_direct_and_grace(dev, q, staging):
         if grace:
             assert 16 in [r.K for r in gpu.grace_runners]
             assert bool(gpu.tiled) == (q == "q18")
+
+
+def _like_batch(device, width, dms):
+    from datafusion_comet_tpu_torch import types as T
+    from datafusion_comet_tpu_torch.exec import batch as B
+
+    rng = np.random.default_rng(width)
+    vals = np.array(["".join(rng.choice(list("abcx"), rng.integers(0, width + 1)))
+                     for _ in range(50_003)], dtype=object)
+    vals[::17] = None
+    days = rng.integers(-150_000, 150_000, len(vals)).astype(np.int32)
+    schema = T.Schema([T.Field("s", T.string(width)), T.Field("d", T.DATE)])
+    return B.from_numpy({"s": vals, "d": days}, schema, device, dict_max_size=dms)
+
+
+@pytest.mark.parametrize("width,dms", [(25, 1 << 16), (1, 0), (10, 0), (25, 0), (55, 0)])
+def test_like_and_date_fields_on_card_equal_cpu(dev, width, dms):
+    """LIKE over a dictionary column and padded columns of widths 1 to 55
+    (prefix, suffix, contains, several segments, '_', only '%', the empty
+    pattern, NOT LIKE) and every field of a DATE, on the card equal the
+    CPU."""
+    from datafusion_comet_tpu_torch.exec import evaluator as EV
+    from datafusion_comet_tpu_torch.ir import expr as E
+
+    cpu, gpu = _like_batch("cpu", width, dms), _like_batch(dev, width, dms)
+    assert gpu.columns[0].is_dict == (dms > 0)
+    exprs = [E.Like(E.col("s"), p, neg) for p in ("ab%", "%ab", "%ab%", "a%b%c", "a_c", "_b%",
+                                                  "%a_b%", "%", "", "abc")
+             for neg in (False, True)]
+    exprs += [E.TemporalFunc(f, (E.col("d"),)) for f in E.DATE_FIELDS]
+    for e in exprs:
+        want = EV.evaluate(E.bind(e, cpu.schema), cpu)
+        got = EV.evaluate(E.bind(e, gpu.schema), gpu)
+        assert torch.equal(got.data.cpu(), want.data), e
+        assert torch.equal(got.validity.cpu(), want.validity), e
+
+
+@pytest.mark.parametrize("staging", ["default", "padded"])
+@pytest.mark.parametrize("q", ["q2", "q9", "q19"])
+def test_q2_q9_q19_on_card_equal_cpu_direct_and_grace(dev, q, staging):
+    """Q2 and Q9 at SF 0.01, Q19 at SF 0.05 (where it is not empty) on the
+    card equal the CPU runs and the numpy oracles, directly and with the
+    first stage's top join partitioned into K = 16, with the default
+    staging and with every string padded."""
+    names, sf = {"q2": (("part", "supplier", "partsupp", "nation", "region"), 0.01),
+                 "q9": (("lineitem", "orders", "part", "partsupp", "supplier", "nation"), 0.01),
+                 "q19": (("lineitem", "part"), 0.05)}[q]
+    data = {t: tpch.generate_table(t, sf) for t in names}
+    dms = 1 << 16 if staging == "default" else 0
+
+    def session(device, fraction=None):
+        conf = Config(scan_dictionary_max_size=dms,
+                      **({"memory_fraction": fraction} if fraction else {}))
+        s = Session(device=device, conf=conf)
+        for t, d in data.items():
+            s.register_numpy(t, d, tpch.SCHEMAS[t])
+        return s
+
+    cpu = session("cpu")
+    plan = getattr(tpch, q)
+    want = cpu.collect(plan())
+    d = data
+    if q == "q2":
+        chip_smoke.check_q2(want, chip_smoke.oracle_q2(d["part"], d["supplier"], d["partsupp"],
+                                                       d["nation"], d["region"]), "cpu")
+    elif q == "q9":
+        chip_smoke.check_q9(want, chip_smoke.oracle_q9(d["lineitem"], d["part"], d["partsupp"],
+                                                       d["supplier"], d["orders"], d["nation"]),
+                            "cpu")
+    else:
+        chip_smoke.check_q19(want, chip_smoke.oracle_q19(d["lineitem"], d["part"]), "cpu")
+    fraction, _ = chip_smoke.grace_fraction(cpu, plan(), 16)
+    card_fraction = fraction * 4 * 2**30 / torch.cuda.get_device_properties(dev).total_memory
+    for grace, f in ((False, None), (True, card_fraction)):
+        gpu = session(None, f)
+        K.partition_columns.launches = 0
+        _same(gpu.collect(plan()), want)
+        assert bool(gpu.grace_runners) == grace
+        assert (K.partition_columns.launches > 0) or not grace
+        if grace:
+            assert 16 in [r.K for r in gpu.grace_runners]
+
+
+@pytest.mark.parametrize("q", ["q3", "q9", "q10"])
+def test_runtime_filters_on_card_equal_cpu(dev, q):
+    """At SF 0.02 the runtime filter fires (lineitem's 120,000 rows): the
+    card injects the same filter as the CPU, compacts its semi output with
+    B3, and gives the CPU's answer."""
+    from datafusion_comet_tpu_torch.exec.runtime_filter import injected_filters
+
+    names = ("lineitem", "orders", "customer", "supplier", "nation", "region", "part", "partsupp")
+    data = tpch.generate_tables(names, 0.02)
+    cpu, gpu = Session(device="cpu"), Session()
+    for s in (cpu, gpu):
+        for t, d in data.items():
+            s.register_numpy(t, d, tpch.SCHEMAS[t])
+    want = cpu.collect(getattr(tpch, q)())
+    K.partition_columns.launches = 0
+    _same(gpu.collect(getattr(tpch, q)()), want)
+    assert injected_filters(gpu) == injected_filters(cpu) and injected_filters(gpu)
+    assert K.partition_columns.launches > 0

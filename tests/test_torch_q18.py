@@ -16,10 +16,12 @@ test_torch_q10.py):
 Q18 is empty at SF 0.01 (no order holds more than 300 units there), so it
 also runs as a variant with HAVING
 sum(l_quantity) > 200, which keeps several hundred orders and lets the
-top-100 cut, and the real plan at SF 0.05 (4 rows). The JAX package
-injects runtime filters on fact sides of 65,536 rows or more, which the
-port does not have: they are switched off in the JAX package for the SF
-0.05 run, and asserted absent at the smaller sizes."""
+top-100 cut, and the real plan at SF 0.05 (4 rows). Both packages
+consider runtime filters on fact sides of 65,536 rows or more: the SF 0.05
+run goes once with them switched off in both packages and once with them
+on (Q18 gets none: the dimension side of its lineitem join filters an
+aggregate, not a scan), and they are asserted absent at the smaller
+sizes."""
 
 import contextlib
 import warnings
@@ -91,10 +93,11 @@ def tables():
     return {sf: tpch.generate_tables(NAMES, sf) for sf in (0.005, 0.01)}
 
 
-def _sessions(data, staging, fraction=None):
+def _sessions(data, staging, fraction=None, **conf):
     js = JaxSession()
     ps = Session(device="cpu", conf=Config(scan_dictionary_max_size=STAGING[staging],
-                                           **({"memory_fraction": fraction} if fraction else {})))
+                                           **({"memory_fraction": fraction} if fraction else {}),
+                                           **conf))
     for t in NAMES:
         js.register_numpy(t, data[t], JTPCH.SCHEMAS[t], dict_max_size=STAGING[staging])
         ps.register_numpy(t, data[t], tpch.SCHEMAS[t])
@@ -214,14 +217,33 @@ def _jax_without_runtime_filters():
         CONF.set("comet.exec.runtimeFilter.enabled", old)
 
 
-def test_q18_real_plan_at_sf005_matches_jax_and_oracle(jax_attempts):
-    """The real Q18 where it is not empty: 4 orders at SF 0.05. The JAX
-    package would inject a runtime filter on the 300,000-row lineitem; it
-    is switched off, as the port has none."""
-    data = tpch.generate_tables(NAMES, 0.05)
-    js, ps = _sessions(data, "default")
+@pytest.fixture(scope="module")
+def sf005():
+    return tpch.generate_tables(NAMES, 0.05)
+
+
+def test_q18_real_plan_at_sf005_matches_jax_and_oracle(jax_attempts, sf005):
+    """The real Q18 where it is not empty: 4 orders at SF 0.05, over the
+    300,000-row lineitem, with the runtime filters switched off in both
+    packages."""
+    js, ps = _sessions(sf005, "default", runtime_filter_enabled=False)
     with _jax_without_runtime_filters():
         got, _ = _direct(js, ps, "q18", jax_attempts)
-    expect = QUERIES["q18"][2](data)
+    expect = QUERIES["q18"][2](sf005)
     assert len(expect) == 4
     chip_smoke.check_q18(got, expect, "q18 sf0.05")
+
+
+def test_q18_real_plan_at_sf005_with_runtime_filters_matches_jax_and_oracle(jax_attempts,
+                                                                            sf005):
+    """The same run with the runtime filters on in both packages (the
+    default): the same plans, none injected, and the same answer."""
+    js, ps = _sessions(sf005, "default")
+    got, stages = _direct(js, ps, "q18", jax_attempts)
+    assert not [j for _, sub in stages for j in _joins(sub) if j.rf_injected]
+    chip_smoke.check_q18(got, QUERIES["q18"][2](sf005), "q18 sf0.05 with runtime filters")
+
+
+def _joins(p):
+    own = [p] if isinstance(p, PP.HashJoin) else []
+    return own + [j for c in p.children() for j in _joins(c)]

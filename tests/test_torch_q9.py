@@ -1,0 +1,164 @@
+"""PyTorch port, TPC-H Q9 (the ``part`` and ``partsupp`` tables, LIKE
+'%green%' over ``p_name``'s dictionary or its padded bytes, a packed two-key
+join on partsupp, ``year`` of a date)
+through the port's ``Session`` on the CPU, against the JAX ``Session`` on
+the same generated data, with the default staging and with every string
+padded (``dict_max_size=0``), and against the numpy oracles chip_smoke.py
+checks the card with:
+
+- directly: values, order, the output's storage and bounds, the planner's
+  hints stage by stage (the runtime filters' fields included) and the
+  retry attempts (a spy on the JAX ``Session.compile``);
+- under the budget that makes the engine partition the first stage's top
+  join into K = 16: the same grace joins (K and mode), partition sizes and
+  pair retries in both packages, and the same answer.
+
+Q9 (78 rows) runs at SF 0.01, where no runtime filter fires
+(test_torch_runtime_filter.py runs it where one does). The helpers serve
+Q2 and Q19 too (test_torch_q2.py, test_torch_q19.py)."""
+
+import warnings
+
+import numpy as np
+import pytest
+
+import chip_smoke
+from datafusion_comet_tpu.exec import batch as JB
+from datafusion_comet_tpu.exec.engine import Session as JaxSession
+from datafusion_comet_tpu.ir import plan as JP
+from datafusion_comet_tpu.models import tpch as JTPCH
+from datafusion_comet_tpu_torch.conf import Config
+from datafusion_comet_tpu_torch.exec import batch as PB
+from datafusion_comet_tpu_torch.exec.engine import Session
+from datafusion_comet_tpu_torch.ir import plan as PP
+from datafusion_comet_tpu_torch.models import tpch
+from test_torch_grace import jax_fraction, jax_spy  # noqa: F401 (a fixture)
+from test_torch_hints import jax_attempts, stage_hints  # noqa: F401 (a fixture)
+
+STAGING = {"default": 1 << 16, "padded": 0}
+GRACE_K = 16
+
+# per query: its tables, its scale, its oracle and check
+QUERIES = {
+    "q2": (("part", "supplier", "partsupp", "nation", "region"), 0.01,
+           lambda d: chip_smoke.oracle_q2(d["part"], d["supplier"], d["partsupp"], d["nation"],
+                                          d["region"]), chip_smoke.check_q2),
+    "q9": (("lineitem", "orders", "part", "partsupp", "supplier", "nation"), 0.01,
+           lambda d: chip_smoke.oracle_q9(d["lineitem"], d["part"], d["partsupp"],
+                                          d["supplier"], d["orders"], d["nation"]),
+           chip_smoke.check_q9),
+    "q19": (("lineitem", "part"), 0.05,
+            lambda d: chip_smoke.oracle_q19(d["lineitem"], d["part"]), chip_smoke.check_q19),
+}
+
+
+@pytest.fixture(scope="module")
+def tables():
+    """Generated tables by (name, scale), each made once."""
+    cache = {}
+
+    def get(q, sf=None):
+        names, qsf = QUERIES[q][:2]
+        sf = sf or qsf
+        for t in names:
+            if (t, sf) not in cache:
+                cache[(t, sf)] = tpch.generate_table(t, sf)
+        return {t: cache[(t, sf)] for t in names}
+
+    return get
+
+
+def rf_hints(stages, P):
+    """``stage_hints`` plus each join's runtime-filter fields."""
+    def joins(p):
+        out = [p] if isinstance(p, P.HashJoin) else []
+        for c in p.children():
+            out += joins(c)
+        return out
+
+    return [(stage_hints([(name, sub)], P),
+             [(getattr(j, "rf_dense_range", None), bool(getattr(j, "rf_injected", False)))
+              for j in joins(sub)]) for name, sub in stages]
+
+
+def sessions(data, staging, fraction=None):
+    js = JaxSession()
+    ps = Session(device="cpu", conf=Config(scan_dictionary_max_size=STAGING[staging],
+                                           **({"memory_fraction": fraction} if fraction else {})))
+    for t, d in data.items():
+        js.register_numpy(t, d, JTPCH.SCHEMAS[t], dict_max_size=STAGING[staging])
+        ps.register_numpy(t, d, tpch.SCHEMAS[t])
+    return js, ps
+
+
+def same(want, got):
+    assert list(want) == list(got)
+    for k in want:
+        assert want[k].dtype == got[k].dtype, k
+        np.testing.assert_array_equal(want[k], got[k], err_msg=k)
+
+
+def direct(js, ps, q, jax_attempts):
+    """Both packages' direct runs held to each other: the port's output."""
+    want_stages = js._plan_stages(getattr(JTPCH, q)())
+    got_stages = ps._plan_stages(getattr(tpch, q)())
+    assert rf_hints(got_stages, PP) == rf_hints(want_stages, JP)
+    jax_attempts.clear()
+    jb, pb = js.execute(getattr(JTPCH, q)()), ps.execute(getattr(tpch, q)())
+    want, got = JB.to_numpy(jb), PB.to_numpy(pb)
+    same(want, got)
+    for jc, pc, f in zip(jb.columns, pb.columns, pb.schema.fields):
+        assert np.asarray(jc.data).ndim == pc.data.dim(), f.name
+        assert jc.mag_bound == pc.mag_bound, f.name
+        assert (jc.lengths is None) == (pc.lengths is None), f.name
+    assert [(r["scale"], r["unique_join_ok"]) for r in ps.runs] == jax_attempts
+    return got
+
+
+@pytest.mark.parametrize("staging", list(STAGING))
+def test_q9_direct_matches_jax_and_oracle(tables, jax_attempts, staging):
+    check_direct(tables, jax_attempts, "q9", staging)
+
+
+def check_direct(tables, jax_attempts, q, staging):
+    data = tables(q)
+    js, ps = sessions(data, staging)
+    got = direct(js, ps, q, jax_attempts)
+    expect = QUERIES[q][2](data)
+    QUERIES[q][3](got, expect, q)
+    assert {"q2": 3, "q9": 78, "q19": 1}[q] == (len(expect) if q != "q19" else 1)
+    if q == "q19":
+        assert expect == 1_451_737_474
+    if q in ("q2", "q9"):  # LIKE over codes, or over padded bytes (p_name from SF1 up)
+        col = "p_type" if q == "q2" else "p_name"
+        assert ps.tables["part"].column(col).is_dict == (staging == "default")
+
+
+@pytest.mark.parametrize("staging", list(STAGING))
+def test_q9_grace_matches_jax(tables, jax_spy, staging):
+    check_grace(tables, jax_spy, "q9", staging)
+
+
+def check_grace(tables, jax_spy, q, staging):
+    """The first stage's top join partitioned into K = 16 in both packages
+    (and any join the runner's inputs hold over the budget as well): the
+    same K, modes, partition sizes and pair retries, and the same answer,
+    equal to the oracle."""
+    data = tables(q)
+    _, direct_s = sessions(data, staging)
+    fraction, _ = chip_smoke.grace_fraction(direct_s, getattr(tpch, q)(), GRACE_K)
+    js, grace = sessions(data, staging, fraction)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        got = grace.collect(getattr(tpch, q)())
+    with jax_fraction(fraction):
+        want = js.collect(getattr(JTPCH, q)())
+    same(want, got)
+    QUERIES[q][3](got, QUERIES[q][2](data), f"{q} grace")
+    ports = sorted(grace.grace_runners, key=lambda r: int(r.tmp[len("__grace"):]))
+    assert [(r.K, r.downstream and r.downstream[0]) for r in ports] == list(jax_spy)
+    assert GRACE_K in [r.K for r in ports] and len(ports) == len(jax_spy.sizes)
+    for r, sizes in zip(grace.grace_runners, jax_spy.sizes):
+        for got_sizes, want_sizes in zip(r.sizes, sizes):
+            np.testing.assert_array_equal(got_sizes, want_sizes)
+    assert jax_spy.pair_retries() == [r.retries for r in ports]

@@ -6,7 +6,7 @@ On a machine with one NVIDIA card, from the root of a checkout:
     python3 chip_smoke.py            # TPC-H SF1
     python3 chip_smoke.py --sf 10    # another scale
     python3 chip_smoke.py --profile  # add torch.profiler breakdowns of Q1, Q12 grace, Q3, Q4,
-                                     # Q15, Q5, Q10, Q18, Q2, Q9, Q19
+                                     # Q15, Q5, Q10, Q18, Q2, Q9, Q19, Q7, Q8, Q11, Q14, Q17
 
 Phases, one JSON line each:
   1. device: the card's name, count, and nvidia-smi's name and power limit;
@@ -53,6 +53,18 @@ Phases, one JSON line each:
      Q19 (lineitem joined to part under three brand, container, quantity
      and size clauses, an ungrouped SUM) directly and through the grace
      join (the first stage's top join at K = 16), against numpy oracles;
+  q7, q8, q11, q14, q17: the floats and the nested-loop join: Q7 (the
+     FRANCE-GERMANY trade), Q8 (BRAZIL's DOUBLE market share: two float
+     SUMs per year and their division), Q11 (GERMANY's part values against
+     0.0001 / SF of the total, TPC-H's FRACTION, by a broadcast nested-loop
+     join under a DOUBLE condition; its lines add the join's two input
+     capacities), Q14 (the
+     PROMO share, decimal sums cast to DOUBLE) and Q17 (a per-part AVG
+     joined back under a DOUBLE condition) directly and through the grace
+     join (K = 16), against numpy oracles: Q8's FLOAT64 sums within
+     ``FLOAT_SUM_RTOL`` (1e-9), every other value exact, Q11's threshold,
+     Q14's ratio and Q17's average bit-equal (the same float operations in
+     numpy);
   padded (at SF1, or the smaller --sf): Q1, Q3, Q4, Q5 and Q12 over tables
      staged with every string padded (no dictionary codes), against the
      same oracles.
@@ -61,17 +73,19 @@ Phases, one JSON line each:
      taken: dense_unique, sorted_unique, pair_list or block), its
      ``attempts`` and ``retries`` (the stage runs, and those that
      overflowed and ran again), its ``runtime_filters`` (per injected semi
-     join: key table, keys, key range, row estimate; Q3, Q5, Q10, Q9 and
-     Q2 at SF1, Q9 and Q2 at SF10, and the direct runs but Q3's compact
-     the filter's output: ``RF_EXPECTED``, checked) and ``plan_ms``, the host ms of
+     join: key table, keys, key range, row estimate; Q3, Q5, Q10, Q9, Q2,
+     Q8 and Q17 at SF1, Q9, Q2, Q8, Q11 and Q17 at SF10, and the direct
+     runs but Q3's compact the filter's output: ``RF_EXPECTED``, checked)
+     and ``plan_ms``, the host ms of
      ``Session._plan_stages`` (the first run's, with the host copies of the
      dimension tables, and the warm runs' median);
   grace_pair_kernels: times both bucket kernels at the grace run's pair
      shape (a pair's block, B = 16, its mean live rows);
   5. partition: holds B3 against its plain versions, exactly: the
      payload-moving partition_columns at every distinct B3 call of Q12's,
-     Q3's, Q4's, Q15's, Q6's, Q5's, Q10's, Q18's, Q2's, Q9's, Q19's and the
-     padded phase's runs (Q18's grace calls move c_name's 25-byte rows; the
+     Q3's, Q4's, Q15's, Q6's, Q5's, Q10's, Q18's, Q2's, Q9's, Q19's, Q7's,
+     Q8's, Q11's, Q14's, Q17's and the padded phase's runs (Q18's grace
+     calls move c_name's 25-byte rows; the
      grace runs' input shrinks, sides and per-pair shrinks, the filter
      shrinks, the semi outputs' compactions, the runtime filters' among
      them, named ``rf_compact``, the stage shrinks), each on the
@@ -706,6 +720,160 @@ def check_q9(out, expect, what: str) -> None:
         raise AssertionError(f"{what}: got {got[:5]}..., expected {expect[:5]}...")
 
 
+# FLOAT64 results that are sums of floats over many rows (Q8's volumes):
+# their order of addition differs from the oracle's, so they are held to it
+# within this relative tolerance; the other float results (Q11's threshold,
+# Q14's ratio, Q17's average) are exact decimals converted and divided by
+# the same float operations in numpy, and must come out bit-equal
+FLOAT_SUM_RTOL = 1e-9
+# TPC-H Q11's FRACTION at SF1 (the spec's is 0.0001 / SF)
+Q11_FRACTION = 0.0001
+
+
+def oracle_q7(li, su, od, cu, na, lo: int, hi: int):
+    """Q7 with numpy alone: the lines shipped in [lo, hi], their supplier's
+    and their order's customer's nation (np.searchsorted on the unique
+    keys), kept where one is FRANCE and the other GERMANY, revenue (scale 4)
+    summed exactly per supplier nation, customer nation and ship year.
+    Returns [(supp_nation, cust_nation, l_year, revenue)] in that order."""
+    lm = (li["l_shipdate"] >= lo) & (li["l_shipdate"] <= hi)
+    skeys, snat = _by_key(su, "s_suppkey", "s_nationkey")
+    okeys, ocust = _by_key(od, "o_orderkey", "o_custkey")
+    ckeys, cnat = _by_key(cu, "c_custkey", "c_nationkey")
+    nkeys, nname = _by_key(na, "n_nationkey", "n_name")
+    spos, sfound = _lookup(skeys, li["l_suppkey"][lm])
+    opos, ofound = _lookup(okeys, li["l_orderkey"][lm])
+    cpos, cfound = _lookup(ckeys, ocust[opos])
+    sn = nname[_lookup(nkeys, snat[spos])[0]]
+    cn = nname[_lookup(nkeys, cnat[cpos])[0]]
+    m = (sfound & ofound & cfound & (((sn == "FRANCE") & (cn == "GERMANY"))
+                                      | ((sn == "GERMANY") & (cn == "FRANCE"))))
+    vol = li["l_extendedprice"][lm][m] * (100 - li["l_discount"][lm][m])
+    keys = list(zip(sn[m].tolist(), cn[m].tolist(), _year(li["l_shipdate"][lm][m]).tolist()))
+    sums = {}
+    for k, v in zip(keys, vol.tolist()):
+        sums[k] = sums.get(k, 0) + v
+    return [k + (sums[k],) for k in sorted(sums, key=lambda k: (k[0].encode(), k[1].encode(),
+                                                                 k[2]))]
+
+
+def check_q7(out, expect, what: str) -> None:
+    cols = ("supp_nation", "cust_nation", "l_year", "revenue")
+    got = [(out["supp_nation"][i], out["cust_nation"][i], int(out["l_year"][i]),
+            int(out["revenue"][i])) for i in range(len(out["revenue"]))]
+    if got != expect or not all(out[c + "__valid"].all() for c in cols):
+        raise AssertionError(f"{what}: got {got}, expected {expect}")
+
+
+def oracle_q8(li, pa, od, cu, su, na, re, lo: int, hi: int):
+    """Q8 with numpy alone: the lines of ECONOMY ANODIZED STEEL parts whose
+    order falls in [lo, hi] and whose customer's nation is in AMERICA (each
+    join by np.searchsorted on the unique keys); each line's volume, its
+    exact scale-4 decimal converted to float64 and divided by 1e4 as the
+    engine casts it, summed per order year in float64, BRAZIL's suppliers'
+    apart. Returns [(o_year, BRAZIL's volume / all volume)] by year."""
+    america = re["r_regionkey"][re["r_name"] == "AMERICA"]
+    parts = pa["p_partkey"][pa["p_type"] == "ECONOMY ANODIZED STEEL"]
+    lm = np.isin(li["l_partkey"], parts)
+    om = (od["o_orderdate"] >= lo) & (od["o_orderdate"] <= hi)
+    okeys, ocust, odate = _by_key({k: od[k][om] for k in ("o_orderkey", "o_custkey",
+                                                         "o_orderdate")},
+                                  "o_orderkey", "o_custkey", "o_orderdate")
+    ckeys, cnat = _by_key(cu, "c_custkey", "c_nationkey")
+    skeys, snat = _by_key(su, "s_suppkey", "s_nationkey")
+    nkeys, nname, nreg = _by_key(na, "n_nationkey", "n_name", "n_regionkey")
+    opos, ofound = _lookup(okeys, li["l_orderkey"][lm])
+    cpos, cfound = _lookup(ckeys, ocust[opos])
+    spos, sfound = _lookup(skeys, li["l_suppkey"][lm])
+    cnpos, cnfound = _lookup(nkeys, cnat[cpos])
+    snpos, snfound = _lookup(nkeys, snat[spos])
+    m = ofound & cfound & sfound & cnfound & snfound & np.isin(nreg[cnpos], america)
+    vol = (li["l_extendedprice"][lm][m] * (100 - li["l_discount"][lm][m])).astype(
+        np.float64) / 1e4
+    brazil = np.where(nname[snpos[m]] == "BRAZIL", vol, 0.0)
+    year = _year(odate[opos[m]])
+    return [(int(y), float(brazil[year == y].sum() / vol[year == y].sum()))
+            for y in sorted(set(year.tolist()))]
+
+
+def check_q8(out, expect, what: str) -> None:
+    years = [int(y) for y in out["o_year"]]
+    share = np.asarray(out["mkt_share"], np.float64)
+    want = np.array([s for _, s in expect], np.float64)
+    if (years != [y for y, _ in expect] or not out["mkt_share__valid"].all()
+            or not np.allclose(share, want, rtol=FLOAT_SUM_RTOL, atol=0)):
+        raise AssertionError(f"{what}: got {list(zip(years, share.tolist()))}, "
+                             f"expected {expect} (rtol {FLOAT_SUM_RTOL})")
+
+
+def oracle_q11(ps, su, na, fraction: float):
+    """Q11 with numpy alone: the partsupp rows of GERMANY's suppliers, value
+    = supply cost x available quantity (scale 2) summed exactly per part
+    and in all; the threshold is the total converted to float64, divided
+    by 100 and times ``fraction``, as the engine computes it, and a part is
+    kept where its value, converted alike, is above it. Returns (threshold,
+    [(ps_partkey, value)] by value descending, then part key)."""
+    ger = na["n_nationkey"][na["n_name"] == "GERMANY"]
+    supp = su["s_suppkey"][np.isin(su["s_nationkey"], ger)]
+    m = np.isin(ps["ps_suppkey"], supp)
+    value = ps["ps_supplycost"][m] * ps["ps_availqty"][m].astype(np.int64)
+    parts, inv = np.unique(ps["ps_partkey"][m], return_inverse=True)
+    per_part = np.zeros(len(parts), np.int64)
+    np.add.at(per_part, inv, value)
+    threshold = np.float64(_exact_sum(value)) / 100.0 * fraction
+    keep = per_part.astype(np.float64) / 100.0 > threshold
+    rows = sorted(zip(parts[keep].tolist(), per_part[keep].tolist()), key=lambda r: (-r[1], r[0]))
+    return float(threshold), rows
+
+
+def check_q11(out, expect, what: str) -> None:
+    got = [(int(out["ps_partkey"][i]), int(out["value"][i])) for i in range(len(out["value"]))]
+    if got != expect[1] or not (out["ps_partkey__valid"].all() and out["value__valid"].all()):
+        raise AssertionError(f"{what}: got {got[:5]}... ({len(got)} rows), "
+                             f"expected {expect[1][:5]}... ({len(expect[1])} rows)")
+
+
+def oracle_q14(li, pa, lo: int, hi: int) -> float:
+    """Q14 with numpy alone: the lines shipped in [lo, hi), their part
+    (np.searchsorted on the unique p_partkey), the PROMO parts' revenue and
+    all revenue summed exactly (scale 4), each converted to float64 and
+    divided by 1e4, then 100 x promo / total, the engine's operations."""
+    pkeys, ptype = _by_key(pa, "p_partkey", "p_type")
+    lm = (li["l_shipdate"] >= lo) & (li["l_shipdate"] < hi)
+    pos, found = _lookup(pkeys, li["l_partkey"][lm])
+    rev = (li["l_extendedprice"][lm] * (100 - li["l_discount"][lm]))[found]
+    promo = np.array([t.startswith("PROMO") for t in ptype[pos[found]]], bool)
+    a = np.float64(_exact_sum(rev[promo])) / 1e4
+    b = np.float64(_exact_sum(rev)) / 1e4
+    return float(np.float64(100.0) * a / b)
+
+
+def oracle_q17(li, pa) -> float:
+    """Q17 with numpy alone: each part's average quantity over all of
+    lineitem (decimal(19,6): the exact sum at scale 6 over the count,
+    HALF_UP), the lines of Brand#23 MED BAG parts whose quantity, converted
+    to float64, is below 0.2 x that average converted alike, their price
+    summed exactly and the sum's float64 over 7.0."""
+    parts = pa["p_partkey"][(pa["p_brand"] == "Brand#23") & (pa["p_container"] == "MED BAG")]
+    pk = li["l_partkey"]
+    # per part key: the quantity sum (float64 weights: exact below 2^53) and count
+    qsum = np.bincount(pk, weights=li["l_quantity"]).astype(np.int64)
+    cnt = np.maximum(np.bincount(pk), 1).astype(np.int64)
+    avg6 = (2 * qsum * 10**4 + cnt) // (2 * cnt)  # HALF_UP, the sums are >= 0
+    lm = np.isin(pk, parts)
+    qty = li["l_quantity"][lm].astype(np.float64) / 100.0
+    thr = 0.2 * (avg6[pk[lm]].astype(np.float64) / 1e6)
+    s = _exact_sum(li["l_extendedprice"][lm][qty < thr])
+    return float(np.float64(s) / 100.0 / 7.0)
+
+
+def check_scalar_f64(out, col: str, expect: float, what: str) -> None:
+    """One FLOAT64 row, bit-equal to the oracle's."""
+    if len(out[col]) != 1 or not out[col + "__valid"][0] or float(out[col][0]) != expect:
+        raise AssertionError(f"{what}: got {out[col].tolist()} "
+                             f"(valid {out[col + '__valid'].tolist()}), expected {expect!r}")
+
+
 def grace_fraction(sess, plan, K: int = GRACE_K):
     """The Config(memory_fraction) under which the session splits ``plan``'s
     join into K partitions, and the join's peak estimate: (fraction,
@@ -756,8 +924,9 @@ def run_record(sess):
 # filter only thins the row mask; a query not named injects none. Other
 # scale factors are not checked.
 RF_EXPECTED = {1: {"q3": "mask", "q5": "compact", "q10": "compact", "q9": "compact",
-                   "q2": "compact"},
-               10: {"q9": "compact", "q2": "compact"}}
+                   "q2": "compact", "q8": "compact", "q17": "compact"},
+               10: {"q9": "compact", "q2": "compact", "q8": "compact", "q11": "compact",
+                    "q17": "compact"}}
 
 
 def check_rf(q: str, sf: float, run: str, record: dict) -> None:
@@ -903,7 +1072,7 @@ def query_phase(sf: float, reps: int, profile: bool):
     q5_phase(sess, data, sf, reps, profile, launches, b3_calls)
     for q in ("q10", "q18"):
         q10_q18_phase(q, sess, data, sf, reps, profile, launches, b3_calls)
-    for q in ("q2", "q9", "q19"):
+    for q in ("q2", "q9", "q19", "q7", "q8", "q11", "q14", "q17"):
         part_phase(q, sess, data, sf, reps, profile, launches, b3_calls)
     return launches, sizes, b3_calls
 
@@ -1225,23 +1394,49 @@ def part_phase(q: str, sess, data, sf: float, reps: int, profile: bool, launches
     """Q2 (the EUROPE suppliers' least cost per part, LIKE '%BRASS' over
     p_type, a two-key LEFT_SEMI join back, a top-100), Q9 (LIKE '%green%'
     over the padded p_name, five INNER joins, one on partsupp's two keys,
-    profit per nation and year) or Q19 (lineitem joined to part under three
-    clauses, an ungrouped SUM: B2's one bucket) directly and under a budget
-    that makes the engine split the first stage's top join into K = 16
-    pairs: each checked against its numpy oracle, timed, its launches, B3
-    calls, runtime filters (Q2's and Q9's on the part side), planning host
-    ms, stages, hints, attempts and grace joins reported."""
+    profit per nation and year), Q19 (lineitem joined to part under three
+    clauses, an ungrouped SUM: B2's one bucket), or one of the float
+    queries: Q7 (the FRANCE-GERMANY trade, five INNER joins, two nation
+    scans), Q8 (BRAZIL's market share: seven INNER joins, a DOUBLE volume,
+    a float CASE, two float SUMs per year and their division), Q11
+    (GERMANY's partsupp value per part against TPC-H's FRACTION, 0.0001 /
+    SF, of the total: a broadcast nested-loop join under a DOUBLE
+    condition), Q14 (the PROMO
+    revenue share: two decimal sums cast to DOUBLE) or Q17 (a per-part
+    decimal AVG over all of lineitem, joined back under a DOUBLE
+    condition); directly and under a budget that makes the engine split
+    the first stage's top join into K = 16 pairs: each checked against its
+    numpy oracle (FLOAT64 sums within ``FLOAT_SUM_RTOL``, the other float
+    results bit-equal), timed, its launches (B1 and B2 in the one-bucket
+    sums of the direct runs of Q19, Q11, Q14 and Q17, B3 in every grace
+    run), B3 calls, runtime filters, planning host ms, stages, hints,
+    attempts and grace joins reported; Q11's lines add the nested-loop
+    join's two input capacities, whose product must stay under
+    ``join.BNLJ_MAX_PRODUCT_ROWS``."""
+    from datafusion_comet_tpu_torch.exec.operators.join import BNLJ_MAX_PRODUCT_ROWS
     from datafusion_comet_tpu_torch.models import tpch
 
-    d = data
+    d, day = data, tpch._d
+    scalar = (lambda col: lambda out, e, what: check_scalar_f64(out, col, e, what))
     expect, check = {
         "q2": lambda: (oracle_q2(d["part"], d["supplier"], d["partsupp"], d["nation"],
                                  d["region"]), check_q2),
         "q9": lambda: (oracle_q9(d["lineitem"], d["part"], d["partsupp"], d["supplier"],
                                  d["orders"], d["nation"]), check_q9),
         "q19": lambda: (oracle_q19(d["lineitem"], d["part"]), check_q19),
+        "q7": lambda: (oracle_q7(d["lineitem"], d["supplier"], d["orders"], d["customer"],
+                                 d["nation"], day("1995-01-01"), day("1996-12-31")), check_q7),
+        "q8": lambda: (oracle_q8(d["lineitem"], d["part"], d["orders"], d["customer"],
+                                 d["supplier"], d["nation"], d["region"], day("1995-01-01"),
+                                 day("1996-12-31")), check_q8),
+        "q11": lambda: (oracle_q11(d["partsupp"], d["supplier"], d["nation"],
+                                   Q11_FRACTION / sf), check_q11),
+        "q14": lambda: (oracle_q14(d["lineitem"], d["part"], day("1995-09-01"),
+                                   day("1995-10-01")), scalar("promo_revenue")),
+        "q17": lambda: (oracle_q17(d["lineitem"], d["part"]), scalar("avg_yearly")),
     }[q]()
-    plan = getattr(tpch, q)
+    # Q11 at TPC-H's FRACTION for the scale factor (the plan's default is SF1's)
+    plan = (lambda: tpch.q11(Q11_FRACTION / sf)) if q == "q11" else getattr(tpch, q)
     fraction, jpeak = grace_fraction(sess, plan())
     grace = grace_session(sess, fraction)
     runs = {}
@@ -1250,22 +1445,32 @@ def part_phase(q: str, sess, data, sf: float, reps: int, profile: bool, launches
         out, launches[key], first_s, times, peak, b3_calls[key], semi, plan_ms = run_query(
             s, plan(), reps)
         check(out, expect, key)
-        need = (("partition_sort",) if run == "grace" else ()) + (
-            ("bucket_sum",) if q == "q19" and run == "direct" else ())
+        need = ("partition_sort",) if run == "grace" else {
+            "q19": ("bucket_sum",), "q11": ("bucket_count", "bucket_sum"),
+            "q14": ("bucket_count", "bucket_sum"), "q17": ("bucket_count", "bucket_sum"),
+        }.get(q, ())
         if any(launches[key][k] == 0 for k in need):
             raise AssertionError(f"{key} did not launch {need}: {launches[key]}")
         runs[run] = dict(_query_run(s, key, first_s, times, peak, launches, b3_calls, semi,
                                     plan_ms), **_grace_record(s))
+        if q == "q11":
+            caps = [j["capacities"] for r in s.runs if r["where"] == "stage"
+                    and not r["overflowed"] for j in r["joins"] if j["path"] == "nested_loop"]
+            if len(caps) != 1 or caps[0][0] * caps[0][1] > BNLJ_MAX_PRODUCT_ROWS:
+                raise AssertionError(f"{key}: nested-loop join capacities {caps}")
+            runs[run]["bnlj_capacities"] = caps[0]
         check_rf(q, sf, run, runs[run])
     if sess.grace_runners or not any(r.K == GRACE_K for r in grace.grace_runners):
         raise AssertionError(f"{q}: the direct run partitioned, or no grace join of K={GRACE_K}: "
                              f"{runs['grace']['grace_runners']}")
+    rows = expect[1] if q == "q11" else expect
     p_name = sess.tables["part"].column("p_name")
     emit({"phase": q, "sf": sf, "correct": True,
-          "rows": 1 if q == "q19" else len(expect),
-          "result": expect if q == "q19" else expect[:5], "p_name_padded": not p_name.is_dict,
-          "memory_fraction": fraction, "grace_budget_bytes": grace.budget_bytes(),
-          "join_peak_estimate_bytes": jpeak, **runs})
+          "rows": len(rows) if isinstance(rows, list) else 1,
+          "result": rows[:5] if isinstance(rows, list) else rows,
+          **({"threshold": expect[0]} if q == "q11" else {}),
+          "p_name_padded": not p_name.is_dict, "memory_fraction": fraction,
+          "grace_budget_bytes": grace.budget_bytes(), "join_peak_estimate_bytes": jpeak, **runs})
     if profile:
         emit(profile_run(sess, plan(), f"profile_{q}_direct"))
         emit(profile_run(grace, plan(), f"profile_{q}_grace"))
@@ -1464,7 +1669,8 @@ def _words(t):
     t = t.contiguous()
     if t.element_size() == 1:
         return t.view(torch.uint8).long()
-    return t.view(torch.int32).long() if t.element_size() == 8 else t.long()
+    return t.view(torch.int32).long() if t.element_size() in (4, 8) else t.view(
+        torch.int16).long()
 
 
 def check_payload(K, name, codes, k, tensors, local=False, limit=None):
@@ -1488,7 +1694,8 @@ def check_payload(K, name, codes, k, tensors, local=False, limit=None):
 def b3_call_names(calls):
     """Each distinct B3 call of Q12's, Q3's, Q4's, Q15's, Q6's, Q5's, Q10's
     and Q18's runs (Q18's grace calls move c_name's 25-byte rows), then of
-    the padded phase's, named by run, place in the run and kind: [(name,
+    every other run (Q2, Q9, Q19, Q7, Q8, Q11, Q14, Q17 and the padded
+    phase) in name order, named by run, place in the run and kind: [(name,
     call)], a repeated shape once."""
     out, seen = [], set()
     first = ("q12_grace", "q12_direct", "q3_grace", "q3_direct", "q4_grace", "q4",
@@ -1636,7 +1843,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=7, help="seed of the kernel-phase inputs")
     ap.add_argument("--profile", action="store_true",
                     help="add profiled runs of Q1, of Q12's grace run, of Q3's, Q4's, Q5's, "
-                         "Q10's, Q18's, Q2's, Q9's and Q19's two runs and of Q15")
+                         "Q10's, Q18's, Q2's, Q9's, Q19's, Q7's, Q8's, Q11's, Q14's and Q17's "
+                         "two runs and of Q15")
     args = ap.parse_args(argv)
 
     import torch

@@ -1,6 +1,6 @@
 """Wide-decimal (precision > 18) column arithmetic over two-limb i128
 storage (port of ``datafusion_comet_tpu/exec/decimal_wide.py``, the subset
-Q1/Q6 reach).
+the ported queries reach, with the float conversions).
 
 A two-limb column stores ``data`` as a (rows, 2) int64 [hi, lo] matrix.
 Aggregation splits each i128 into four 32-bit lanes whose int64 sums cannot
@@ -57,6 +57,28 @@ def rescale(p: Pair, k: int) -> Pair:
     if k > 0:
         return i128.mul_pow10_i128(p, k)
     return i128.div_pow10_i128_half_up(p, -k)
+
+
+def f64_to_i64_sat(x: torch.Tensor) -> torch.Tensor:
+    """Float to int64 as XLA converts it: truncated toward zero, saturated
+    at the int64 bounds, NaN to 0 (PyTorch leaves out-of-range values
+    undefined)."""
+    big, small = x >= 2.0**63, x < -(2.0**63)
+    out = torch.where(big | small | torch.isnan(x), torch.zeros_like(x), x).long()
+    return torch.where(big, (1 << 63) - 1, torch.where(small, -(1 << 63), out))
+
+
+def f64_to_i128(x: torch.Tensor) -> Pair:
+    """An integral float64 -> i128 (JAX ``decimal_wide.py:215``): the
+    magnitude's high limb and its low limb in two 32-bit halves, negated
+    for a negative value. Beyond 2^127 the high limb saturates."""
+    ax = x.abs()
+    hi_f = torch.floor(ax / 2.0**64)
+    lo_f = ax - hi_f * 2.0**64
+    lo_hi = torch.floor(lo_f / 2.0**32)
+    lo_lo = lo_f - lo_hi * 2.0**32
+    p = (f64_to_i64_sat(hi_f), (lo_hi.long() << 32) | lo_lo.long())
+    return i128.select(x < 0, i128.neg(p), p)
 
 
 def overflow_check(p: Pair, precision: int) -> torch.Tensor:

@@ -110,6 +110,14 @@ def run_plan(plan: P.PlanNode, tables: Dict[str, Batch], ctx: EvalContext, conf:
         return b
     if isinstance(plan, P.HashJoin):
         return _exec_hash_join(plan, tables, ctx, conf, fanout)
+    if isinstance(plan, P.BroadcastNestedLoopJoin):
+        left = run_plan(plan.left, tables, ctx, conf, fanout)
+        right = run_plan(plan.right, tables, ctx, conf, fanout)
+        if ctx.join_log is not None:
+            ctx.join_log.append({"path": "nested_loop",
+                                 "capacities": [left.capacity, right.capacity]})
+        return J.nested_loop_join(left, right, plan.join_type, plan.schema, plan.condition,
+                                  ctx)
     child = run_plan(plan.children()[0], tables, ctx, conf, fanout)
     if isinstance(plan, P.Filter):
         out = B.filter_op(child, plan.predicate, ctx)
@@ -244,10 +252,14 @@ def apply_orderings(plan: P.PlanNode) -> P.PlanNode:
     return out
 
 
+def _is_join(plan: P.PlanNode) -> bool:
+    return isinstance(plan, (P.HashJoin, P.BroadcastNestedLoopJoin))
+
+
 def _is_counted_join(plan: P.PlanNode) -> bool:
     """A join the stage split counts: not a runtime filter's bitmap semi
     join (one scatter and one gather; JAX ``engine.py:1276``)."""
-    return isinstance(plan, P.HashJoin) and not plan.rf_injected
+    return _is_join(plan) and not getattr(plan, "rf_injected", False)
 
 
 def _count_joins(plan: P.PlanNode) -> int:
@@ -326,7 +338,8 @@ class Session:
         self.tiled: List[Tuple[str, int]] = []  # (table, tiles) of each tiled aggregate
         # every run of the last ``execute``: where it ran ("stage" or a grace
         # "pair"), its attempt, growth scale, unique_join_ok, whether it
-        # overflowed, and its INNER joins' paths
+        # overflowed, its INNER joins' paths and its nested-loop joins'
+        # input capacities
         self.runs: List[dict] = []
         self.plan_ms: Optional[float] = None
         self._ids = itertools.count()
@@ -427,7 +440,7 @@ class Session:
             new = self._split_stages(old, max_joins, stages)
             if new is not old:
                 plan = replace_child_pure(plan, old, new)
-        total = sum(_count_joins(k) for k in plan.children()) + int(isinstance(plan, P.HashJoin))
+        total = sum(_count_joins(k) for k in plan.children()) + int(_is_join(plan))
         for child in sorted(plan.children(), key=_count_joins, reverse=True):
             if total <= max_joins or _count_joins(child) == 0:
                 break

@@ -1,7 +1,8 @@
 """Expression evaluator: bound expression IR -> tensor ops over a Batch
 (port of ``datafusion_comet_tpu/exec/evaluator.py``, the subset the ported
-TPC-H queries reach: LIKE and the fields of a DATE among them, and Spark's
-murmur3 over integer and string columns for hash partitioning).
+TPC-H queries reach: LIKE, the fields of a DATE and floats among them, and
+Spark's murmur3 over integer, float and string columns for hash
+partitioning).
 
 Spark semantics kept from the JAX package:
 - three-valued logic through validity vectors, Kleene AND/OR;
@@ -12,6 +13,9 @@ Spark semantics kept from the JAX package:
   (``_dedict``) and compares padded bytes as unsigned, the zero padding
   giving the shorter-prefix rule;
 - LEGACY/ANSI/TRY modes with an error side channel in ``EvalContext``;
+- floats as Spark (Java) has them: NaN equals NaN and ranks above +Inf,
+  -0.0 equals 0.0, x / 0.0 is +-Inf or NaN; subnormals kept (XLA on the CPU
+  flushes them, ROADMAP C13);
 - a function of a dictionary column's strings runs over the dictionary's
   entries and is gathered back by code (``_eval_on_dict``): LIKE over
   ``p_type``'s 150 entries instead of its rows.
@@ -54,7 +58,8 @@ class EvalContext:
     # key-packing hints: true on a plan's first run only, so a hint that
     # proved wrong (its flag fired) is not taken again
     unique_join_ok: bool = True
-    # where a list: each INNER join's path and hints, in run order
+    # where a list: each INNER join's path and hints, and each nested-loop
+    # join's input capacities, in run order
     join_log: Optional[list] = None
 
     def record_error(self, flags: torch.Tensor, message: str) -> None:
@@ -92,6 +97,8 @@ def _ev(e: E.Expr, b: Batch, ctx: EvalContext) -> ColumnVector:
         return _ev(e.child, b, ctx)
     if isinstance(e, E.BinaryOp):
         return _binary(e, b, ctx)
+    if isinstance(e, E.UnaryOp):
+        return _unary(e, b, ctx)
     if isinstance(e, E.Cast):
         return _cast(_ev(e.child, b, ctx), e.child.dtype, e.to, e.eval_mode, ctx)
     if isinstance(e, E.CaseWhen):
@@ -226,9 +233,18 @@ def _binary(e: E.BinaryOp, b: Batch, ctx: EvalContext) -> ColumnVector:
         r = r if r is not None else _ev(e.right, b, ctx)
         return _compare(op, l, r)
     l, r = _ev(e.left, b, ctx), _ev(e.right, b, ctx)
-    if op in ("add", "sub", "mul", "div"):
+    if op in ("add", "sub", "mul", "div", "mod", "pmod"):
         return _arith(e, l, r, ctx)
     raise NotImplementedError(op)
+
+
+def _unary(e: E.UnaryOp, b: Batch, ctx: EvalContext) -> ColumnVector:
+    """isnan: true on a valid NaN, never null (JAX ``evaluator.py:930``)."""
+    c = _ev(e.child, b, ctx)
+    if e.op != "isnan":
+        raise NotImplementedError(f"UnaryOp {e.op!r} is not ported yet")
+    nan = torch.isnan(c.data) if c.dtype.is_floating else torch.zeros_like(c.validity)
+    return ColumnVector(nan & c.validity, torch.ones_like(c.validity), None, T.BOOL)
 
 
 def _binary_literal(e: E.Expr) -> bool:
@@ -347,11 +363,23 @@ def _compare(op: str, l: ColumnVector, r: ColumnVector) -> ColumnVector:
         ld = _rescale_up_i64(l.data.long(), lk)
         rd = _rescale_up_i64(r.data.long(), rk)
     elif lt_.is_floating or rt_.is_floating:
-        raise NotImplementedError("float comparison is not ported yet")
+        ct = T.common_type(lt_, rt_)
+        ld, rd = _coerce(l, ct).data, _coerce(r, ct).data
+        return _compare_result(op, _float_eq(ld, rd), _float_lt(ld, rd), l, r)
     else:
         ct = T.common_type(lt_, rt_)
         ld, rd = _coerce(l, ct).data, _coerce(r, ct).data
     return _compare_result(op, ld == rd, ld < rd, l, r)
+
+
+def _float_eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Spark float equality: NaN equals NaN (and -0.0 equals 0.0)."""
+    return (a == b) | (torch.isnan(a) & torch.isnan(b))
+
+
+def _float_lt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Spark float order: NaN above every value, +Inf included."""
+    return torch.where(torch.isnan(a), False, torch.where(torch.isnan(b), True, a < b))
 
 
 def _compare_result(op: str, eq: torch.Tensor, lt: Optional[torch.Tensor], l: ColumnVector,
@@ -378,12 +406,33 @@ def _arith(e: E.BinaryOp, l: ColumnVector, r: ColumnVector, ctx: EvalContext) ->
     op, out = e.op, e.dtype
     validity = l.validity & r.validity
     if out.is_decimal:
+        if op in ("mod", "pmod"):
+            raise NotImplementedError("decimal mod is not ported yet")
         return _decimal_arith(e, l, r, validity, ctx)
-    if op == "div" or out.is_floating:
-        raise NotImplementedError("float arithmetic is not ported yet")
-    ld, rd = _coerce(l, out).data, _coerce(r, out).data
-    data = {"add": torch.add, "sub": torch.sub, "mul": torch.mul}[op](ld, rd)
-    return ColumnVector(data, validity, None, out)
+    # JAX ``evaluator.py:731-770``: division runs in DOUBLE; floats follow
+    # Java (x / 0.0 is +-Inf or NaN, x % 0.0 NaN, never null); integer mod
+    # truncates toward zero and is null on a zero divisor (ANSI: an error)
+    work = T.FLOAT64 if op == "div" else out
+    ld, rd = _coerce(l, work).data, _coerce(r, work).data
+    if op in ("add", "sub", "mul", "div"):
+        data = {"add": torch.add, "sub": torch.sub, "mul": torch.mul, "div": torch.div}[op](ld, rd)
+        return ColumnVector(data.to(_torch_dtype(out)), validity, None, out)
+    is_zero = rd == 0
+    safe = torch.where(is_zero, torch.ones_like(rd), rd)
+    if out.is_floating:
+        data = torch.where(is_zero, torch.full_like(ld, float("nan")), _c_fmod(ld, safe))
+        return ColumnVector(data, validity, None, out)
+    data = ld - (ld.double() / safe.double()).trunc().to(ld.dtype) * safe
+    if op == "pmod":
+        data = torch.where(data < 0, data + safe.abs(), data)
+    if e.eval_mode == E.EvalMode.ANSI:
+        ctx.record_error(is_zero & validity, "DIVIDE_BY_ZERO")
+    return ColumnVector(data, validity & ~is_zero, None, out)
+
+
+def _c_fmod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a - b x trunc(a / b), as the JAX package computes a float mod."""
+    return a - b * torch.trunc(a / b)
 
 
 def _arith_bound(op: str, lb: int, rb: int, s1: int, s2: int, so: int, prec: int):
@@ -489,8 +538,8 @@ def _cast_bound(cv: ColumnVector, frm: T.DataType, to: T.DataType) -> int:
 
 def _cast(cv: ColumnVector, frm: T.DataType, to: T.DataType, mode: str,
           ctx: EvalContext) -> ColumnVector:
-    """Integer, decimal and string-to-string subset of the Spark cast
-    matrix."""
+    """Integer, decimal, float and string-to-string subset of the Spark
+    cast matrix."""
     if frm == to:
         return cv
     if frm.type_id == "NULL":
@@ -503,6 +552,8 @@ def _cast(cv: ColumnVector, frm: T.DataType, to: T.DataType, mode: str,
         cv, w = _dedict(cv), to.byte_width
         data = cv.data[:, :w] if cv.data.shape[1] >= w else _pad_width(cv.data, w)
         return ColumnVector(data, validity, cv.lengths.clamp(max=w), to)
+    if frm.is_floating or to.is_floating:
+        return _cast_float(cv, frm, to, mode, ctx)
     if to.is_integer and frm.is_integer and T.common_type(frm, to) == to:  # widening
         return ColumnVector(cv.data.to(_torch_dtype(to)), validity, None, to)
     if to.is_decimal and (frm.is_decimal or frm.is_integer or frm.is_boolean):
@@ -517,6 +568,63 @@ def _cast(cv: ColumnVector, frm: T.DataType, to: T.DataType, mode: str,
             data = cv.data.long() * 10**to.scale
         return _with_bound(ColumnVector(data, validity, None, to), nb)
     raise NotImplementedError(f"cast {frm!r} -> {to!r}")
+
+
+def _cast_float(cv: ColumnVector, frm: T.DataType, to: T.DataType, mode: str,
+                ctx: EvalContext) -> ColumnVector:
+    """The float rows of the cast matrix (JAX ``evaluator.py:1010-1060``,
+    ``:1118``): integers, bools, floats and decimals to a float (a two-limb
+    decimal through ``int128.to_f64``); a float to an integer (truncated:
+    LEGACY wraps through int64 as Java's narrowing does, TRY is null out of
+    range, ANSI records CAST_OVERFLOW), to a bool (non-zero) and to a
+    decimal (scaled, rounded half to even, null where not finite or over
+    the precision, ANSI CAST_OVERFLOW)."""
+    validity = cv.validity
+    if to.is_floating:
+        if frm.is_decimal:
+            data = (int128.to_f64(DW.pair(cv.data)) if cv.is_wide_storage
+                    else cv.data.double())
+            # a divisor on the device: CUDA divides by a host scalar as a
+            # product with its reciprocal, one ulp off the quotient
+            data = data / torch.full((), 10.0**frm.scale, dtype=torch.float64,
+                                     device=data.device)
+        elif frm.is_floating or frm.is_integer or frm.is_boolean:
+            data = cv.data
+        else:
+            raise NotImplementedError(f"cast {frm!r} -> {to!r}")
+        return ColumnVector(data.to(_torch_dtype(to)), validity, None, to)
+    x = cv.data
+    if to.is_integer:
+        lo, hi = to.int_bounds()
+        if mode == E.EvalMode.LEGACY:
+            data = DW.f64_to_i64_sat(x)
+        else:
+            trunc = torch.trunc(x)
+            in_range = (trunc >= lo) & (trunc <= hi) & ~torch.isnan(x)
+            data = DW.f64_to_i64_sat(torch.where(in_range, trunc, 0)).clamp(lo, hi)
+            if mode == E.EvalMode.ANSI:
+                ctx.record_error(~in_range & validity, "CAST_OVERFLOW")
+            else:
+                validity = validity & in_range
+        return ColumnVector(data.to(_torch_dtype(to)), validity, None, to)
+    if to.is_boolean:
+        return ColumnVector(x != 0, validity, None, to)
+    if not to.is_decimal:
+        raise NotImplementedError(f"cast {frm!r} -> {to!r}")
+    scaled = x.double() * (10.0**to.scale)
+    ok = torch.isfinite(scaled)
+    p = DW.f64_to_i128(torch.where(ok, torch.round(scaled), 0.0))
+    if mode == E.EvalMode.ANSI:
+        ctx.record_error(~ok & validity, "CAST_OVERFLOW")
+    validity = validity & ok
+    over = DW.overflow_check(p, to.precision)
+    if mode == E.EvalMode.ANSI:
+        ctx.record_error(over & validity, "CAST_OVERFLOW")
+    validity = validity & ~over
+    eff = 10**to.precision - 1  # a float has no magnitude bound: the type's
+    if to.is_wide_decimal and eff >= _NARROW_LIMIT:
+        return ColumnVector(DW.pack(p), validity, None, to)
+    return _with_bound(ColumnVector(p[1], validity, None, to), eff)
 
 
 def _cast_wide_decimal(cv: ColumnVector, frm: T.DataType, to: T.DataType, mode: str,
@@ -815,6 +923,16 @@ def murmur3_column(cv: ColumnVector, seed: torch.Tensor) -> torch.Tensor:
     elif dt.is_binary:
         cv = _dedict(cv)
         h = murmur3_hash_bytes(cv.data, cv.lengths, seed)
+    elif dt.is_floating:
+        # the bits, -0.0 hashed as 0.0; a DOUBLE NaN as Java's canonical NaN
+        # (doubleToLongBits), a FLOAT NaN with its own bits (JAX
+        # ``evaluator.py:2906-2914``)
+        d = torch.where(cv.data == 0.0, torch.zeros_like(cv.data), cv.data)
+        if dt.type_id == "FLOAT":
+            h = murmur3_hash_i32(d.view(torch.int32), seed)
+        else:
+            bits = torch.where(torch.isnan(d), 0x7FF8000000000000, d.view(torch.int64))
+            h = murmur3_hash_i64(bits, seed)
     else:
         raise NotImplementedError(f"murmur3 for {dt!r} is not ported yet")
     return torch.where(cv.validity, h, seed)

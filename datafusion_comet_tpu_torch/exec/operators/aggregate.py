@@ -4,10 +4,10 @@ _pack_sort_limbs, _segments, _seg_bounds, _seg_sum, hash_aggregate,
 _sorted_aggregate, _compact_groups, _bucket_aggregate, _input_agg,
 _limb_minmax, _merge_agg, _decimal_sum, _finalize). SINGLE and PARTIAL
 aggregate input rows; FINAL and PARTIAL_MERGE merge the state columns
-PARTIAL emits (``state_fields``). MIN and MAX take integers, dates and
-decimals (narrow and two-limb); strings, floats and bools, and the other
-aggregate functions (FIRST, LAST and the rest), are not ported and raise
-NotImplementedError.
+PARTIAL emits (``state_fields``). MIN and MAX take integers, dates,
+decimals (narrow and two-limb) and floats; strings and bools, and the
+other aggregate functions (FIRST, LAST and the rest), are not ported and
+raise NotImplementedError.
 
 Two paths, chosen as the JAX package chooses them:
 
@@ -46,13 +46,26 @@ Two paths, chosen as the JAX package chooses them:
   groups than that flag an overflow, and the session re-runs with the
   capacity four times larger.
 
+A float SUM (and a float or integer AVG's sum) is a float64 sum of each
+group on its own (``_float_sums``): the rows in group order (the sorted
+path's order, or a stable sort of the bucket ids), one deterministic
+segmented reduction a group. The JAX package's sorted path takes the
+difference of one cumulative sum there, which is exact for integers only:
+one NaN or Inf turns every later group's sum into NaN, and a group after
+groups of large magnitude loses its precision (ROADMAP C12). Never on
+``bucket_sum``, which adds int64 lanes. A sum that is -0.0 comes out 0.0,
+as the JAX package's does.
+
 MIN and MAX of a one-limb value fill invalid rows with the type's identity
 and reduce per group (``_minmax_reduce``): a scatter-min or -max, spread
 over up to 1024 lanes a group (row i updates lane i mod lanes) so that no
 address takes every row of a group, then a min or max over the lanes. A
 two-limb decimal runs the JAX package's limb tournament: reduce the high
 limb, keep the rows that reach it, reduce the low limb among them, and
-gather the lowest such row.
+gather the lowest such row. A float runs the same tournament on its
+one order limb (sortkeys._float_limb, as the JAX package runs its four
+float limbs): NaN is the greatest value, and the row gathered gives the
+group's -0.0 or 0.0, and its NaN's bits, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -203,6 +216,15 @@ def _minmax_reduce(x: torch.Tensor, seg: torch.Tensor, m: int, is_min: bool) -> 
     return part.amin(1) if is_min else part.amax(1)
 
 
+def _float_sums(x: torch.Tensor, seg: torch.Tensor, m: int) -> torch.Tensor:
+    """float64 (m,) sums of ``x`` (n,) per group id ``seg`` (n,), which is
+    nondecreasing (m: dead rows, last): one segmented sum a group, in row
+    order; an empty group sums to 0.0, and -0.0 comes out 0.0."""
+    gids = torch.arange(m + 1, dtype=seg.dtype, device=seg.device)
+    offsets = torch.searchsorted(seg.contiguous(), gids)
+    return torch.segment_reduce(x.double(), "sum", offsets=offsets, unsafe=True)[:m] + 0.0
+
+
 class _Buckets:
     """Per-bucket reductions on the bucket kernels (the dense path): ``seg``
     the int32 bucket id of each row, dead rows ``m``. ``keep_bounds``: a
@@ -211,6 +233,7 @@ class _Buckets:
 
     def __init__(self, seg: torch.Tensor, m: int, errors, keep_bounds: bool = True):
         self.seg, self.m, self.errors, self.keep_bounds = seg, m, errors, keep_bounds
+        self._by_bucket = None  # (sorted ids, permutation), made by the first fsum
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         """int64 (n,) or (k, n) values, zero where not summed -> (m,) or (k, m)."""
@@ -221,6 +244,15 @@ class _Buckets:
 
     def minmax(self, x: torch.Tensor, is_min: bool) -> torch.Tensor:
         return _minmax_reduce(x, self.seg, self.m, is_min)
+
+    def fsum(self, x: torch.Tensor) -> torch.Tensor:
+        """float (n,) values, zero where not summed -> float64 (m,): the
+        rows stably sorted by bucket (one sort for every float sum of the
+        aggregate), each bucket summed on its own."""
+        if self._by_bucket is None:
+            self._by_bucket = torch.sort(self.seg, stable=True)
+        seg, perm = self._by_bucket
+        return _float_sums(x[perm], seg, self.m)
 
 
 class _Segments:
@@ -250,6 +282,10 @@ class _Segments:
 
     def minmax(self, x: torch.Tensor, is_min: bool) -> torch.Tensor:
         return _minmax_reduce(x, self.seg, self.m, is_min)
+
+    def fsum(self, x: torch.Tensor) -> torch.Tensor:
+        """float (n,) sorted values, zero where not summed -> float64 (m,)."""
+        return _float_sums(x, self.seg, self.m)
 
 
 def hash_aggregate(
@@ -457,7 +493,7 @@ def _decimal_sum(cv: ColumnVector, x: torch.Tensor, valid: torch.Tensor, red,
             return packed, None, over
         return red.sum(torch.where(valid, x, 0).long()), sb, None
     if st.is_floating:
-        raise NotImplementedError("floating-point SUM is not ported yet")
+        return red.fsum(torch.where(valid, x, 0)), None, None
     return red.sum(torch.where(valid, x, 0).long()), None, None
 
 
@@ -511,10 +547,10 @@ def _minmax(is_min: bool, cv: ColumnVector, valid: torch.Tensor, red,
     reduced per group; the result is one of the inputs, so the input's
     bound carries over. Two limbs: the limb tournament (``_limb_minmax``)."""
     dt = cv.dtype
-    if dt.is_binary or dt.is_floating or dt.is_boolean:
+    if dt.is_binary or dt.is_boolean:
         raise NotImplementedError(f"MIN/MAX of {dt.type_id} is not ported yet")
     has = (red.count(valid) > 0) & group_mask
-    if cv.is_wide_storage:
+    if cv.is_wide_storage or dt.is_floating:
         return _limb_minmax(is_min, cv, valid, red, has)
     info = torch.iinfo(cv.data.dtype)
     x = torch.where(valid, cv.data, info.max if is_min else info.min)
@@ -524,15 +560,17 @@ def _minmax(is_min: bool, cv: ColumnVector, valid: torch.Tensor, red,
 
 def _limb_minmax(is_min: bool, cv: ColumnVector, valid: torch.Tensor, red,
                  has: torch.Tensor) -> ColumnVector:
-    """MIN or MAX over two-limb decimals: reduce the high limb (signed), keep
-    the rows that reach their group's best, reduce the low limb (sign bit
-    flipped, so signed order is unsigned order) among those, and gather
-    each group's lowest row that is still in (row n - 1 for an empty
-    group). No bound carries over, as in the JAX package."""
+    """MIN or MAX over two-limb decimals or floats: reduce the first limb
+    (for a decimal the high limb, signed), keep the rows that reach their
+    group's best, reduce the next limb (the low limb, sign bit flipped, so
+    signed order is unsigned order) among those, and gather each group's
+    lowest row that is still in (row n - 1 for an empty group). No bound
+    carries over, as in the JAX package."""
     n = valid.shape[0]
     ident = (1 << 63) - 1 if is_min else -(1 << 63)
     alive = valid
     for limb in sortkeys.column_limbs(cv):
+        limb = limb.long()
         best = red.minmax(torch.where(alive, limb, ident), is_min)
         per_row = torch.cat([best, best.new_zeros(1)])[red.seg.long().clamp(max=red.m)]
         alive = alive & (limb == per_row)
@@ -584,8 +622,9 @@ def _finalize(a: E.AggExpr, vals: List[ColumnVector], rows: Optional[int]) -> Co
     if a.func in (E.AggFunc.COUNT, E.AggFunc.SUM) + _MINMAX:
         return vals[0]
     s, cnt = vals
-    if not rt.is_decimal:
-        raise NotImplementedError("floating-point AVG is not ported yet")
+    if not rt.is_decimal:  # a float or integer sum over the count, in float64
+        return ColumnVector(s.data.double() / cnt.data.clamp(min=1).double(),
+                            s.validity & (cnt.data > 0), None, rt)
     # avg = sum / count at the result scale, HALF_UP: lift the sum state to
     # i128, upscale, divide by the count
     k = rt.scale - s.dtype.scale

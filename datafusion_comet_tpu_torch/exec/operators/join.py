@@ -1,4 +1,5 @@
-"""Hash join: INNER, and the semi-like LEFT_SEMI, LEFT_ANTI and EXISTENCE
+"""Hash join: INNER, and the semi-like LEFT_SEMI, LEFT_ANTI and EXISTENCE,
+and the broadcast nested-loop join (``nested_loop_join``, JAX :778-830)
 (port of ``datafusion_comet_tpu/exec/operators/join.py::hash_join``, :354;
 the key packing :400-419, the unique build :551-581, the compacted pair
 list :586-614, the sorted-build path :626-660 and :740-756, the
@@ -68,13 +69,13 @@ import torch
 
 from datafusion_comet_tpu_torch import types as T
 from datafusion_comet_tpu_torch.exec import sortkeys
-from datafusion_comet_tpu_torch.exec.batch import Batch, ColumnVector
+from datafusion_comet_tpu_torch.exec.batch import Batch, ColumnVector, _concat_column
 from datafusion_comet_tpu_torch.exec.dictionary import union_ranks
 from datafusion_comet_tpu_torch.exec.evaluator import EvalContext, evaluate, evaluate_predicate
 from datafusion_comet_tpu_torch.ir import expr as E
 from datafusion_comet_tpu_torch.ir.plan import JoinType
 
-__all__ = ["hash_join", "SEMI_LIKE", "JOIN_FANOUT", "MAX_JOIN_RETRIES"]
+__all__ = ["hash_join", "nested_loop_join", "SEMI_LIKE", "JOIN_FANOUT", "MAX_JOIN_RETRIES"]
 
 # The JAX Session's defaults (Session(join_fanout=4, max_join_retries=4)):
 # a join's first K, the build matches each probe row may have before the run
@@ -387,3 +388,76 @@ def hash_join(left: Batch, right: Batch, left_keys: Sequence[E.Expr],
 
 # the semi-like joins run by each membership path, counted where they run
 hash_join.semi_paths = {"bitmap": 0, "sorted": 0}
+
+
+def _null_like(cv: ColumnVector, cap: int) -> ColumnVector:
+    """``cap`` null rows of ``cv``'s type, storage and dictionary."""
+    dev = cv.data.device
+    return ColumnVector(torch.zeros((cap,) + tuple(cv.data.shape[1:]), dtype=cv.data.dtype,
+                                    device=dev),
+                        torch.zeros(cap, dtype=torch.bool, device=dev),
+                        None if cv.lengths is None else torch.zeros(cap, dtype=torch.int32,
+                                                                    device=dev),
+                        cv.dtype, cv.dictionary)
+
+
+def _with_validity(cv: ColumnVector, validity: torch.Tensor) -> ColumnVector:
+    return ColumnVector(cv.data, validity, cv.lengths, cv.dtype, cv.dictionary, cv.mag_bound)
+
+
+# The JAX package's comet.exec.bnlj.maxProductRows default: a nested-loop
+# join whose left capacity times right capacity is over this many pair rows
+# raises MemoryError instead of allocating them.
+BNLJ_MAX_PRODUCT_ROWS = 1 << 26
+
+
+def nested_loop_join(left: Batch, right: Batch, join_type: str, out_schema: T.Schema,
+                     condition: Optional[E.Expr] = None,
+                     ctx: Optional[EvalContext] = None) -> Batch:
+    """Broadcast nested-loop join (JAX ``join.py:778-830``): the full cross
+    product, pair row l * cap_r + r holding left row l and right row r,
+    under the condition's mask (every live pair without one). INNER keeps
+    the pairs that pass; LEFT adds each left row with no passing pair once,
+    in its r = 0 slot, with a null right side; RIGHT mirrors it in the l = 0
+    slot; FULL is LEFT's block and a tail of cap_r rows holding the
+    unmatched right rows with a null left side; LEFT_SEMI and LEFT_ANTI keep
+    the left batch with the rows that have (have no) passing pair. A
+    product over ``BNLJ_MAX_PRODUCT_ROWS`` raises MemoryError."""
+    lcap, rcap = left.capacity, right.capacity
+    if lcap * rcap > BNLJ_MAX_PRODUCT_ROWS:
+        raise MemoryError(
+            f"BNLJ cross product {lcap} x {rcap} rows exceeds "
+            f"comet.exec.bnlj.maxProductRows={BNLJ_MAX_PRODUCT_ROWS}; add equi-join keys or "
+            f"filter the broadcast side")
+    ctx = ctx or EvalContext()
+    dev = left.device
+    li = torch.arange(lcap, device=dev).repeat_interleave(rcap)
+    ri = torch.arange(rcap, device=dev).repeat(lcap)
+    lcols = [c.take(li) for c in left.columns]
+    rcols = [c.take(ri) for c in right.columns]
+    pair_live = left.row_mask[li] & right.row_mask[ri]
+    pair = Batch(tuple(lcols) + tuple(rcols), pair_live,
+                 T.Schema(list(left.schema.fields) + list(right.schema.fields)))
+    cmask = evaluate_predicate(condition, pair, ctx) if condition is not None else pair_live
+    grid = cmask.view(lcap, rcap)
+    if join_type == JoinType.INNER:
+        return Batch(pair.columns, cmask, out_schema)
+    if join_type in (JoinType.LEFT, JoinType.FULL):
+        un_l_slot = (ri == 0) & (left.row_mask & ~grid.any(1))[li]
+        rcols = [_with_validity(c, c.validity & ~un_l_slot) for c in rcols]
+        if join_type == JoinType.LEFT:
+            return Batch(tuple(lcols) + tuple(rcols), cmask | un_l_slot, out_schema)
+        # FULL: the unmatched right rows follow in a tail of their own
+        lcols = [_concat_column([c, _null_like(c, rcap)], c.dtype) for c in lcols]
+        rcols = [_concat_column([c, rc], c.dtype) for c, rc in zip(rcols, right.columns)]
+        live = torch.cat([cmask | un_l_slot, right.row_mask & ~grid.any(0)])
+        return Batch(tuple(lcols) + tuple(rcols), live, out_schema)
+    if join_type == JoinType.LEFT_SEMI:
+        return Batch(left.columns, left.row_mask & grid.any(1), out_schema)
+    if join_type == JoinType.LEFT_ANTI:
+        return Batch(left.columns, left.row_mask & ~grid.any(1), out_schema)
+    if join_type == JoinType.RIGHT:
+        un_slot = (li == 0) & (right.row_mask & ~grid.any(0))[ri]
+        lcols = [_with_validity(c, c.validity & ~un_slot) for c in lcols]
+        return Batch(tuple(lcols) + tuple(rcols), cmask | un_slot, out_schema)
+    raise NotImplementedError(f"nested loop join type {join_type}")

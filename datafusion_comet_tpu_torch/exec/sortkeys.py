@@ -1,12 +1,12 @@
 """Orderable sort-key limbs (port of ``datafusion_comet_tpu/exec/sortkeys.py``,
-the limbs a sort on strings, integers and decimals needs).
+the limbs a sort on strings, integers, decimals and floats needs).
 
 A column maps to integer limbs whose lexicographic signed order equals the
 column's SQL order; a stable lexsort over the limbs orders the rows. Strings
 compare as unsigned bytes, a shorter prefix first: dictionary codes are one
 int32 limb (the dictionary is sorted), padded bytes pack big-endian into
 sign-flipped limbs (``_string_limbs``), the zero padding giving the prefix
-rule.
+rule. A float is one limb of its own width (``_float_limb``).
 """
 
 from __future__ import annotations
@@ -38,6 +38,23 @@ def _string_limbs(cv: ColumnVector) -> List[torch.Tensor]:
     return [words[:, i] ^ sign for i in range(n_limbs)]
 
 
+def _float_limb(data: torch.Tensor) -> torch.Tensor:
+    """Floats in Spark's order as one signed integer limb of their width:
+    -0.0 becomes 0.0 and every NaN one NaN above +Inf, so equal values
+    (and all NaNs) share a limb; the bits are read as an integer and a
+    negative value's magnitude bits are flipped, so signed integer order is
+    float order. The JAX package splits a float64 into four int32 limbs by
+    arithmetic (``_float_orderable``, ``sortkeys.py:73-99``), as the TPU has
+    no float64 bitcast; the order is the same."""
+    d = torch.where(data == 0.0, torch.zeros_like(data), data)
+    f32 = d.dtype == torch.float32
+    bits = torch.where(torch.isnan(d), 0x7FC00000 if f32 else 0x7FF8000000000000,
+                       d.view(torch.int32 if f32 else torch.int64))
+    width = 8 * bits.element_size()
+    # x ^ (x >> (w-1) & 0x7f..f): a negative value's magnitude bits flip
+    return bits ^ ((bits >> (width - 1)) & ((1 << (width - 1)) - 1))
+
+
 def column_limbs(cv: ColumnVector) -> List[torch.Tensor]:
     """Value limbs (no null handling), most significant first."""
     dt = cv.dtype
@@ -47,7 +64,7 @@ def column_limbs(cv: ColumnVector) -> List[torch.Tensor]:
         # sorted dictionary: codes are order-isomorphic to string order
         return [cv.data.int()]
     if dt.is_floating:
-        raise NotImplementedError("sorting floats is not ported yet")
+        return [_float_limb(cv.data)]
     if dt.is_boolean or dt.type_id in ("INT8", "INT16", "INT32", "DATE"):
         return [cv.data.int()]
     if dt.is_decimal and cv.data.dim() == 2:

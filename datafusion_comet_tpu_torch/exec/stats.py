@@ -2,7 +2,7 @@
 subset of ``datafusion_comet_tpu/exec/stats.py`` that the ported TPC-H
 queries reach: ``collect_stats`` :42,
 ``derive_capacities`` :129, ``_walk`` :220 over Scan, Filter, Projection,
-HashJoin, HashAggregate, Sort and Limit, ``_column_range`` :167,
+HashJoin, BroadcastNestedLoopJoin, HashAggregate, Sort and Limit, ``_column_range`` :167,
 ``_source_column`` :480, ``_pad`` :490).
 
 ``collect_stats`` sketches each registered table on the host: its rows, a
@@ -266,6 +266,10 @@ def _walk(plan: P.PlanNode, stats: Dict[str, TableStats]) -> Tuple[int, Dict[str
         else:  # a hint set already wins, and the estimates above follow it
             rows = max(int(plan.out_rows_hint), 1)
         return rows, ndv
+
+    if isinstance(plan, P.BroadcastNestedLoopJoin):  # every pair (JAX :406)
+        (lr, ln), (rr, rn) = kids
+        return max(lr * rr, 1), {**rn, **ln}
 
     if isinstance(plan, P.HashAggregate):
         rows, ndv = kids[0]

@@ -1,6 +1,7 @@
 """Expression IR and Spark type inference (port of
 ``datafusion_comet_tpu/ir/expr.py``, the subset the ported TPC-H queries
-reach: LIKE and the date fields of ``TemporalFunc`` among them).
+reach: LIKE, the date fields of ``TemporalFunc``, float literals and
+arithmetic, and the NaN test among them).
 
 Expressions are built unbound (column names); ``bind(expr, schema)`` resolves
 references to column indices and computes result types, including Spark's
@@ -16,7 +17,7 @@ from typing import Any, Optional, Tuple
 from datafusion_comet_tpu_torch import types as T
 
 __all__ = [
-    "Expr", "EvalMode", "ColumnRef", "BoundRef", "Literal", "Alias", "BinaryOp",
+    "Expr", "EvalMode", "ColumnRef", "BoundRef", "Literal", "Alias", "BinaryOp", "UnaryOp",
     "Cast", "CaseWhen", "InList", "Like", "TemporalFunc", "DATE_FIELDS", "SortOrder", "AggFunc",
     "AggExpr", "col", "lit", "bind",
 ]
@@ -158,8 +159,8 @@ class Alias(Expr):
 
 @_node
 class BinaryOp(Expr):
-    """Arithmetic add/sub/mul/div; comparison eq/ne/lt/le/gt/ge/eqns;
-    Kleene logic and/or."""
+    """Arithmetic add/sub/mul/div/mod/pmod; comparison
+    eq/ne/lt/le/gt/ge/eqns; Kleene logic and/or."""
 
     op: str
     left: Expr
@@ -168,6 +169,18 @@ class BinaryOp(Expr):
 
     def children(self):
         return (self.left, self.right)
+
+
+@_node
+class UnaryOp(Expr):
+    """isnan, BOOL (the JAX package's other unary ops are not ported)."""
+
+    op: str
+    child: Expr
+    eval_mode: str = EvalMode.LEGACY
+
+    def children(self):
+        return (self.child,)
 
 
 @_node
@@ -314,7 +327,8 @@ def _infer_literal_type(v: Any) -> T.DataType:
 
 _CMP_OPS = {"eq", "ne", "lt", "le", "gt", "ge", "eqns"}
 _LOGIC_OPS = {"and", "or"}
-_ARITH_OPS = {"add", "sub", "mul", "div"}
+_ARITH_OPS = {"add", "sub", "mul", "div", "mod", "pmod"}
+_UNARY_OPS = ("isnan",)
 
 
 def _decimal_arith_type(op: str, a: T.DataType, b: T.DataType) -> T.DataType:
@@ -328,6 +342,9 @@ def _decimal_arith_type(op: str, a: T.DataType, b: T.DataType) -> T.DataType:
     elif op == "div":
         s = max(6, s1 + p2 + 1)
         p = p1 - s1 + s2 + s
+    elif op in ("mod", "pmod"):
+        s = max(s1, s2)
+        p = min(p1 - s1, p2 - s2) + s
     else:
         raise ValueError(op)
     return _adjust_precision_scale(p, s)
@@ -364,6 +381,12 @@ def bind(expr: Expr, schema: T.Schema) -> Expr:
         l, r = bind(e.left, schema), bind(e.right, schema)
         out = BinaryOp(e.op, l, r, e.eval_mode)
         object.__setattr__(out, "dtype", _binary_result_type(e.op, l, r))
+        return out
+    if isinstance(e, UnaryOp):
+        if e.op not in _UNARY_OPS:
+            raise NotImplementedError(f"UnaryOp {e.op!r} is not ported yet")
+        out = UnaryOp(e.op, bind(e.child, schema), e.eval_mode)
+        object.__setattr__(out, "dtype", T.BOOL)
         return out
     if isinstance(e, Cast):
         c = bind(e.child, schema)
@@ -405,7 +428,9 @@ def _binary_result_type(op: str, l: Expr, r: Expr) -> T.DataType:
     if op in _ARITH_OPS:
         if lt.is_decimal or rt.is_decimal:
             return _decimal_arith_type(op, _to_decimal_if_int(lt), _to_decimal_if_int(rt))
-        if op == "div" and lt.is_integer and rt.is_integer:
-            return T.FLOAT64  # Spark '/' on integers yields double
+        if op == "div":
+            # Spark's '/' of non-decimals is DOUBLE; the JAX package binds
+            # FLOAT / FLOAT as FLOAT but computes it in DOUBLE too (ROADMAP C14)
+            return T.FLOAT64
         return T.common_type(lt, rt)
     raise NotImplementedError(op)

@@ -1,6 +1,6 @@
 """Operator plan IR (port of ``datafusion_comet_tpu/ir/plan.py``: the Scan,
-Filter, Projection, HashAggregate, Sort, Limit and HashJoin nodes the ported
-TPC-H queries use).
+Filter, Projection, HashAggregate, Sort, Limit, HashJoin and
+BroadcastNestedLoopJoin nodes the ported TPC-H queries use).
 
 Plans are built unbound; ``bind_plan`` binds expressions bottom-up against
 child schemas and computes each node's output schema.
@@ -15,12 +15,14 @@ from datafusion_comet_tpu_torch import types as T
 from datafusion_comet_tpu_torch.ir import expr as E
 
 __all__ = ["PlanNode", "Scan", "Filter", "Projection", "HashAggregate", "AggMode",
-           "Sort", "Limit", "HashJoin", "JoinType", "bind_plan", "scan_tables"]
+           "Sort", "Limit", "HashJoin", "BroadcastNestedLoopJoin", "JoinType", "bind_plan",
+           "scan_tables"]
 
 
 class JoinType:
-    """Join types of the IR; the executor runs INNER, LEFT_SEMI, LEFT_ANTI
-    and EXISTENCE and raises on the rest."""
+    """Join types of the IR. The hash join runs INNER, LEFT_SEMI, LEFT_ANTI
+    and EXISTENCE; the nested-loop join every type but the null-aware anti
+    and EXISTENCE."""
 
     INNER = "inner"
     LEFT = "left"
@@ -191,6 +193,22 @@ class HashJoin(PlanNode):
         return (self.left, self.right)
 
 
+@dataclasses.dataclass
+class BroadcastNestedLoopJoin(PlanNode):
+    """Every left row paired with every right row, kept where ``condition``
+    holds (all pairs without one); for joins with no equi-key, one side
+    small (exec/operators/join.py::nested_loop_join). Output schema as for
+    HashJoin."""
+
+    left: PlanNode
+    right: PlanNode
+    join_type: str = JoinType.INNER
+    condition: Optional[E.Expr] = None
+
+    def children(self):
+        return (self.left, self.right)
+
+
 def _join_out_schema(ls: T.Schema, rs: T.Schema, join_type: str) -> T.Schema:
     if join_type in (JoinType.LEFT_SEMI, JoinType.LEFT_ANTI, JoinType.LEFT_ANTI_NULL_AWARE):
         return ls
@@ -273,6 +291,13 @@ def bind_plan(plan: PlanNode) -> PlanNode:
                        plan.build_key_range, plan.out_rows_hint, plan.fanout_hint,
                        plan.unique_build_hint, plan.key_pack, plan.rf_dense_range,
                        plan.rf_injected)
+        out.schema = _join_out_schema(left.schema, right.schema, plan.join_type)
+        return out
+    if isinstance(plan, BroadcastNestedLoopJoin):
+        left, right = kids
+        pair = T.Schema(list(left.schema.fields) + list(right.schema.fields))
+        cond = E.bind(plan.condition, pair) if plan.condition is not None else None
+        out = BroadcastNestedLoopJoin(left, right, plan.join_type, cond)
         out.schema = _join_out_schema(left.schema, right.schema, plan.join_type)
         return out
     raise NotImplementedError(f"bind_plan: {type(plan).__name__}")

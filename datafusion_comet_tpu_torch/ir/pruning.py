@@ -90,6 +90,11 @@ def prune_columns(plan: P.PlanNode, required: Optional[Set[str]] = ALL) -> P.Pla
                           plan.condition, plan.build_key_range, plan.out_rows_hint,
                           plan.fanout_hint, plan.unique_build_hint, plan.key_pack,
                           plan.rf_dense_range, plan.rf_injected)
+    if isinstance(plan, P.BroadcastNestedLoopJoin):
+        # as the JAX package's default branch: both sides keep every column
+        return P.BroadcastNestedLoopJoin(prune_columns(plan.left, ALL),
+                                         prune_columns(plan.right, ALL), plan.join_type,
+                                         plan.condition)
     raise NotImplementedError(f"prune_columns: {type(plan).__name__}")
 
 

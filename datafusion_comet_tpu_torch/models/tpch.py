@@ -1,8 +1,7 @@
 """TPC-H workload subset: the ``lineitem``, ``orders``, ``customer``,
 ``supplier``, ``nation``, ``region``, ``part`` and ``partsupp`` schemas and
-generators, and the plans of Q1, Q2, Q3, Q4, Q5, Q6, Q9, Q10, Q12, Q15, Q18
-and Q19 (port of ``datafusion_comet_tpu/models/tpch.py``; ``QUERIES`` lists
-them).
+generators, and the plans of Q1-Q12, Q14, Q15, Q17, Q18 and Q19 (port of
+``datafusion_comet_tpu/models/tpch.py``; ``QUERIES`` lists them).
 
 The generator is a line-for-line copy of the JAX package's, so the same
 ``(sf, seed)`` gives bit-identical columns in both packages: results can be
@@ -22,7 +21,8 @@ from datafusion_comet_tpu_torch.ir import expr as E
 from datafusion_comet_tpu_torch.ir import plan as P
 
 __all__ = ["SCHEMAS", "QUERIES", "table_rows", "generate_table", "generate_tables", "q1", "q2",
-           "q3", "q4", "q5", "q6", "q9", "q10", "q12", "q15", "q18", "q19"]
+           "q3", "q4", "q5", "q6", "q7", "q8", "q9", "q10", "q11", "q12", "q14", "q15", "q17",
+           "q18", "q19"]
 
 _dec = T.decimal
 
@@ -587,6 +587,148 @@ def q9() -> P.PlanNode:
     return agg.sort([E.SortOrder(E.col("nation")), E.SortOrder(E.col("o_year"), ascending=False)])
 
 
+def q7() -> P.PlanNode:
+    """Volume shipping: the FRANCE-GERMANY trade in either direction,
+    revenue per supplier nation, customer nation and ship year."""
+    n1 = P.Scan("nation", SCHEMAS["nation"]).project(
+        [E.col("n_nationkey").alias("n1_key"), E.col("n_name").alias("supp_nation")]
+    ).filter((E.col("supp_nation") == E.lit("FRANCE"))
+             | (E.col("supp_nation") == E.lit("GERMANY")))
+    n2 = P.Scan("nation", SCHEMAS["nation"]).project(
+        [E.col("n_nationkey").alias("n2_key"), E.col("n_name").alias("cust_nation")]
+    ).filter((E.col("cust_nation") == E.lit("FRANCE"))
+             | (E.col("cust_nation") == E.lit("GERMANY")))
+    l = P.Scan("lineitem", SCHEMAS["lineitem"]).filter(
+        (E.col("l_shipdate") >= _date_lit("1995-01-01"))
+        & (E.col("l_shipdate") <= _date_lit("1996-12-31")))
+    s = P.Scan("supplier", SCHEMAS["supplier"])
+    o = P.Scan("orders", SCHEMAS["orders"])
+    c = P.Scan("customer", SCHEMAS["customer"])
+    ls = P.HashJoin(l, s, (E.col("l_suppkey"),), (E.col("s_suppkey"),), P.JoinType.INNER, "right")
+    lso = P.HashJoin(ls, o, (E.col("l_orderkey"),), (E.col("o_orderkey"),), P.JoinType.INNER,
+                     "right")
+    lsoc = P.HashJoin(lso, c, (E.col("o_custkey"),), (E.col("c_custkey"),), P.JoinType.INNER,
+                      "right")
+    j1 = P.HashJoin(lsoc, n1, (E.col("s_nationkey"),), (E.col("n1_key"),), P.JoinType.INNER,
+                    "right")
+    j2 = P.HashJoin(j1, n2, (E.col("c_nationkey"),), (E.col("n2_key"),), P.JoinType.INNER,
+                    "right")
+    cross = j2.filter(
+        ((E.col("supp_nation") == E.lit("FRANCE")) & (E.col("cust_nation") == E.lit("GERMANY")))
+        | ((E.col("supp_nation") == E.lit("GERMANY")) & (E.col("cust_nation") == E.lit("FRANCE"))))
+    vol = E.col("l_extendedprice") * (E.lit(1).cast(_dec(10, 0)) - E.col("l_discount"))
+    withyear = cross.project(
+        [E.col("supp_nation"), E.col("cust_nation"),
+         E.TemporalFunc("year", (E.col("l_shipdate"),)).alias("l_year"), vol.alias("volume")])
+    agg = withyear.aggregate(
+        [E.col("supp_nation"), E.col("cust_nation"), E.col("l_year")],
+        [E.AggExpr("sum", E.col("volume"), "revenue")])
+    return agg.sort([E.SortOrder(E.col("supp_nation")), E.SortOrder(E.col("cust_nation")),
+                     E.SortOrder(E.col("l_year"))])
+
+
+def q8() -> P.PlanNode:
+    """National market share: BRAZIL's share, per order year, of the
+    AMERICA region's ECONOMY ANODIZED STEEL volume; the volume is a DOUBLE,
+    summed per year, and the share a float division."""
+    p = P.Scan("part", SCHEMAS["part"]).filter(E.col("p_type") == E.lit("ECONOMY ANODIZED STEEL"))
+    l = P.Scan("lineitem", SCHEMAS["lineitem"])
+    lp = P.HashJoin(l, p, (E.col("l_partkey"),), (E.col("p_partkey"),), P.JoinType.INNER, "right")
+    o = P.Scan("orders", SCHEMAS["orders"]).filter(
+        (E.col("o_orderdate") >= _date_lit("1995-01-01"))
+        & (E.col("o_orderdate") <= _date_lit("1996-12-31")))
+    lpo = P.HashJoin(lp, o, (E.col("l_orderkey"),), (E.col("o_orderkey"),), P.JoinType.INNER,
+                     "right")
+    c = P.Scan("customer", SCHEMAS["customer"])
+    lpoc = P.HashJoin(lpo, c, (E.col("o_custkey"),), (E.col("c_custkey"),), P.JoinType.INNER,
+                      "right")
+    n1 = P.Scan("nation", SCHEMAS["nation"]).project(
+        [E.col("n_nationkey").alias("n1_key"), E.col("n_regionkey").alias("n1_region")])
+    r = P.Scan("region", SCHEMAS["region"]).filter(E.col("r_name") == E.lit("AMERICA"))
+    n1r = P.HashJoin(n1, r, (E.col("n1_region"),), (E.col("r_regionkey"),), P.JoinType.INNER,
+                     "right")
+    j1 = P.HashJoin(lpoc, n1r, (E.col("c_nationkey"),), (E.col("n1_key"),), P.JoinType.INNER,
+                    "right")
+    s = P.Scan("supplier", SCHEMAS["supplier"])
+    j2 = P.HashJoin(j1, s, (E.col("l_suppkey"),), (E.col("s_suppkey"),), P.JoinType.INNER, "right")
+    n2 = P.Scan("nation", SCHEMAS["nation"]).project(
+        [E.col("n_nationkey").alias("n2_key"), E.col("n_name").alias("supp_nation")])
+    j3 = P.HashJoin(j2, n2, (E.col("s_nationkey"),), (E.col("n2_key"),), P.JoinType.INNER,
+                    "right")
+    vol = (E.col("l_extendedprice")
+           * (E.lit(1).cast(_dec(10, 0)) - E.col("l_discount"))).cast(T.FLOAT64)
+    pre = j3.project(
+        [E.TemporalFunc("year", (E.col("o_orderdate"),)).alias("o_year"),
+         vol.alias("volume"),
+         E.CaseWhen(((E.col("supp_nation") == E.lit("BRAZIL"), vol),),
+                    E.lit(0.0)).alias("brazil_vol")])
+    agg = pre.aggregate(
+        [E.col("o_year")],
+        [E.AggExpr("sum", E.col("brazil_vol"), "bv"), E.AggExpr("sum", E.col("volume"), "tv")])
+    share = P.Projection(agg, (E.col("o_year"), (E.col("bv") / E.col("tv")).alias("mkt_share")))
+    return P.Sort(share, (E.SortOrder(E.col("o_year")),))
+
+
+def q11(fraction: float = 0.0001) -> P.PlanNode:
+    """Important stock: GERMANY's partsupp value per part, kept where it is
+    over ``fraction`` of the total; the total is one row, joined to every
+    part by a broadcast nested-loop join with the DOUBLE comparison as
+    condition. TPC-H's FRACTION is 0.0001 / SF; the default is SF1's (the
+    JAX plan's constant), under which no part qualifies from SF10 up."""
+    n = P.Scan("nation", SCHEMAS["nation"]).filter(E.col("n_name") == E.lit("GERMANY"))
+    s = P.Scan("supplier", SCHEMAS["supplier"])
+    sn = P.HashJoin(s, n, (E.col("s_nationkey"),), (E.col("n_nationkey"),), P.JoinType.INNER,
+                    "right")
+    ps = P.Scan("partsupp", SCHEMAS["partsupp"])
+    pss = P.HashJoin(ps, sn, (E.col("ps_suppkey"),), (E.col("s_suppkey"),), P.JoinType.INNER,
+                     "right")
+    value = (E.col("ps_supplycost") * E.col("ps_availqty").cast(T.INT64)).alias("value")
+    per_part = pss.aggregate([E.col("ps_partkey")], [E.AggExpr("sum", value, "value")])
+    total = pss.aggregate([], [E.AggExpr("sum", value, "total")])
+    thresh = P.Projection(
+        total, ((E.col("total").cast(T.FLOAT64) * E.lit(float(fraction))).alias("threshold"),))
+    j = P.BroadcastNestedLoopJoin(
+        per_part, thresh, P.JoinType.INNER,
+        condition=E.col("value").cast(T.FLOAT64) > E.col("threshold"))
+    return P.Sort(P.Projection(j, (E.col("ps_partkey"), E.col("value"))),
+                  (E.SortOrder(E.col("value"), ascending=False),))
+
+
+def q14() -> P.PlanNode:
+    """Promotion effect: the share of September 1995's revenue from PROMO
+    parts, the two decimal sums cast to DOUBLE and divided."""
+    l = P.Scan("lineitem", SCHEMAS["lineitem"]).filter(
+        (E.col("l_shipdate") >= _date_lit("1995-09-01"))
+        & (E.col("l_shipdate") < _date_lit("1995-10-01")))
+    p = P.Scan("part", SCHEMAS["part"])
+    j = P.HashJoin(l, p, (E.col("l_partkey"),), (E.col("p_partkey"),), P.JoinType.INNER, "right")
+    disc = E.col("l_extendedprice") * (E.lit(1).cast(_dec(10, 0)) - E.col("l_discount"))
+    promo = E.CaseWhen(((E.col("p_type").like("PROMO%"), disc),), None)
+    agg = j.aggregate(
+        [], [E.AggExpr("sum", promo, "promo_rev"), E.AggExpr("sum", disc, "total_rev")])
+    return P.Projection(
+        agg, ((E.lit(100.0) * E.col("promo_rev").cast(T.FLOAT64)
+               / E.col("total_rev").cast(T.FLOAT64)).alias("promo_revenue"),))
+
+
+def q17() -> P.PlanNode:
+    """Small-quantity-order revenue: the correlated AVG as a per-part
+    average over all of lineitem, joined back under the DOUBLE condition
+    quantity < 0.2 x average; the yearly average of the kept revenue."""
+    p = P.Scan("part", SCHEMAS["part"]).filter(
+        (E.col("p_brand") == E.lit("Brand#23")) & (E.col("p_container") == E.lit("MED BAG")))
+    l = P.Scan("lineitem", SCHEMAS["lineitem"])
+    avgq = l.aggregate([E.col("l_partkey")], [E.AggExpr("avg", E.col("l_quantity"), "avg_qty")])
+    lp = P.HashJoin(l, p, (E.col("l_partkey"),), (E.col("p_partkey"),), P.JoinType.INNER, "right")
+    j = P.HashJoin(
+        lp, avgq, (E.col("l_partkey"),), (E.col("l_partkey"),), P.JoinType.INNER, "right",
+        condition=E.col("l_quantity").cast(T.FLOAT64)
+        < E.lit(0.2) * E.col("avg_qty").cast(T.FLOAT64))
+    agg = j.aggregate([], [E.AggExpr("sum", E.col("l_extendedprice"), "s")])
+    return P.Projection(agg, ((E.col("s").cast(T.FLOAT64) / E.lit(7.0)).alias("avg_yearly"),))
+
+
 # every query of the port, by name
-QUERIES = {"q1": q1, "q2": q2, "q3": q3, "q4": q4, "q5": q5, "q6": q6, "q9": q9, "q10": q10,
-           "q12": q12, "q15": q15, "q18": q18, "q19": q19}
+QUERIES = {"q1": q1, "q2": q2, "q3": q3, "q4": q4, "q5": q5, "q6": q6, "q7": q7, "q8": q8,
+           "q9": q9, "q10": q10, "q11": q11, "q12": q12, "q14": q14, "q15": q15, "q17": q17,
+           "q18": q18, "q19": q19}

@@ -1,11 +1,13 @@
 """PyTorch port on the card: the CUDA kernels against their plain versions,
-Q1, Q6, Q12, Q3, Q4, Q5, Q10, Q18, Q2, Q9 and Q19 (all but Q1 and Q6
-directly and through the grace join; Q4 on both semi-join membership
-paths; Q10, Q18, Q2, Q9 and Q19 with the default staging and every string
-padded), Q15, and Q3, Q9 and Q10 with their runtime filters on the card
-against the same queries on the CPU, the dense path's MIN/MAX, and the
-string operations (padded limbs, comparisons, CASE WHEN, murmur3, LIKE)
-and the fields of a date on the card against the CPU. Marked ``cuda``;
+Q1, Q6, Q12, Q3, Q4, Q5, Q10, Q18, Q2, Q9, Q19, Q7, Q8, Q11, Q14 and Q17
+(all but Q1 and Q6 directly and through the grace join; Q4 on both
+semi-join membership paths; Q10, Q18 and the last eight with the default
+staging and every string padded), Q15, and Q3, Q9 and Q10 with their
+runtime filters on the card against the same queries on the CPU, the
+dense path's MIN/MAX, the string operations (padded limbs, comparisons,
+CASE WHEN, murmur3, LIKE) and the fields of a date, and the float
+operations (order limbs, expressions, SUM/AVG/MIN/MAX) and the
+nested-loop join on the card against the CPU. Marked ``cuda``;
 without a card every test here skips. This file imports no JAX, so it runs
 on a machine without it (tests/conftest.py imports JAX, hence --noconftest):
 
@@ -20,6 +22,7 @@ import pytest
 import torch
 
 import chip_smoke
+from datafusion_comet_tpu_torch import types as PT
 from datafusion_comet_tpu_torch.conf import Config
 from datafusion_comet_tpu_torch.exec import kernels as K
 from datafusion_comet_tpu_torch.exec.engine import Session
@@ -621,3 +624,192 @@ def test_runtime_filters_on_card_equal_cpu(dev, q):
     _same(gpu.collect(getattr(tpch, q)()), want)
     assert injected_filters(gpu) == injected_filters(cpu) and injected_filters(gpu)
     assert K.partition_columns.launches > 0
+
+
+# ---- floats and the nested-loop join ----------------------------------------------------
+
+_F_SPECIAL = [0.0, -0.0, np.inf, -np.inf, np.nan, 1.0, -2.5, 1e-310, -5e-324, 1.7e308, 2.0**63,
+              -(2.0**31) - 1.0, 123.455]
+
+
+def _float_data(n: int, seed: int):
+    """DOUBLE a, b, FLOAT c (specials, subnormals among them), INT32 i,
+    DECIMAL(15,2) d, DOUBLE y (positive, of mixed magnitude), an int64
+    group key g, a 5-word string key s; 10% of each null."""
+    rng = np.random.default_rng(seed)
+
+    def floats(dtype):
+        x = rng.standard_normal(n) * 10.0 ** rng.integers(-3, 13, n)
+        pick = rng.random(n) < 0.3
+        x[pick] = np.array(_F_SPECIAL)[rng.integers(0, len(_F_SPECIAL), int(pick.sum()))]
+        return x.astype(dtype)
+
+    data = {"a": floats(np.float64), "b": floats(np.float64), "c": floats(np.float32),
+            "i": rng.integers(-5, 5, n).astype(np.int32),
+            "d": rng.integers(-10**12, 10**12, n).astype(np.int64),
+            "y": 10.0 ** rng.integers(0, 13, n) * (1.0 + rng.random(n)),
+            "g": rng.integers(0, 500, n).astype(np.int64),
+            "s": np.array(["aa", "bb", "cc", "dd", "ee"], object)[rng.integers(0, 5, n)]}
+    validity = {k: rng.random(n) > 0.1 for k in data}
+    schema = PT.Schema([PT.Field("a", PT.FLOAT64), PT.Field("b", PT.FLOAT64),
+                            PT.Field("c", PT.FLOAT32), PT.Field("i", PT.INT32),
+                            PT.Field("d", PT.decimal(15, 2)), PT.Field("y", PT.FLOAT64),
+                            PT.Field("g", PT.INT64), PT.Field("s", PT.string(2))])
+    return data, validity, schema
+
+
+def _bit_same(got, want, rtol=None):
+    """Equal numpy columns: floats bit for bit (any NaN equal to any NaN),
+    or within ``rtol``; everything else exactly."""
+    assert list(got) == list(want)
+    for k in want:
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        assert g.dtype == w.dtype, k
+        if w.dtype.kind == "f":
+            np.testing.assert_array_equal(np.isnan(g), np.isnan(w), err_msg=k)
+            g, w = g[~np.isnan(w)], w[~np.isnan(w)]
+            if rtol is None:
+                np.testing.assert_array_equal(g.view(f"i{g.itemsize}"), w.view(f"i{w.itemsize}"),
+                                              err_msg=k)
+                continue
+            np.testing.assert_allclose(g, w, rtol=rtol, atol=0, err_msg=k)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=k)
+
+
+def test_float_sort_limbs_on_card_equal_cpu(dev):
+    """The float order limb (-0.0 as 0.0, one NaN above +Inf, subnormals
+    kept) and the stable sort by it, on the card and on the CPU."""
+    from datafusion_comet_tpu_torch.exec import sortkeys
+
+    data, _, _ = _float_data(100_003, 0)
+    for col in ("a", "c"):
+        x = torch.from_numpy(data[col])
+        want = sortkeys._float_limb(x)
+        got = sortkeys._float_limb(x.to(dev))
+        assert torch.equal(got.cpu(), want)
+        assert torch.equal(torch.argsort(got, stable=True).cpu(), torch.argsort(want, stable=True))
+
+
+def test_float_expressions_on_card_equal_cpu(dev):
+    """Float comparisons, arithmetic (x / 0.0, mod), casts in every mode and
+    CASE WHEN on the card, bit for bit the CPU's (IEEE: neither flushes
+    subnormals)."""
+    from datafusion_comet_tpu_torch.exec import batch as PB
+    from datafusion_comet_tpu_torch.exec import evaluator as EV
+    from datafusion_comet_tpu_torch.ir import expr as E
+
+    data, validity, schema = _float_data(50_001, 1)
+    T = PT
+    exprs = [E.col("a") < E.col("b"), E.col("c") == E.col("a"), E.col("a") + E.col("b"),
+             E.col("a") * E.col("c"), E.col("a") / E.col("b"), E.col("a") / E.col("i"),
+             E.BinaryOp("mod", E.col("a"), E.col("b")), E.BinaryOp("pmod", E.col("c"), E.col("c")),
+             E.UnaryOp("isnan", E.col("a")), E.col("d").cast(T.FLOAT64),
+             E.CaseWhen(((E.col("a") > E.lit(0.0), E.col("a")), (E.col("i") > E.lit(0),
+                                                                 E.col("d"))), E.lit(-0.0))]
+    exprs += [E.Cast(E.col(c), to, mode) for c in ("a", "c")
+              for to in (T.INT32, T.INT64, T.decimal(15, 2), T.decimal(38, 4), T.FLOAT32)
+              for mode in ("LEGACY", "TRY", "ANSI")]
+    cpu = PB.from_numpy(data, schema, "cpu", validity=validity)
+    gpu = PB.from_numpy(data, schema, dev, validity=validity)
+    for e in exprs:
+        b = E.bind(e, schema)
+        errs = {"cpu": [], "gpu": []}
+        want = EV.evaluate(b, cpu, EV.EvalContext(errors=errs["cpu"]))
+        got = EV.evaluate(b, gpu, EV.EvalContext(errors=errs["gpu"]))
+        ok = want.validity.numpy()
+        assert np.array_equal(got.validity.cpu().numpy(), ok), repr(e)
+        _bit_same({"x": got.data.cpu().numpy()[ok]}, {"x": want.data.numpy()[ok]})
+        for (fg, mg), (fc, mc) in zip(errs["gpu"], errs["cpu"]):
+            assert mg == mc and torch.equal(fg.cpu(), fc), repr(e)
+
+
+@pytest.mark.parametrize("key", ["s", "g", "a", None])
+def test_float_aggregates_on_card_equal_cpu(dev, key):
+    """SUM, AVG, MIN and MAX of floats on the dense path (a dictionary key),
+    the sorted path (an int64 key, a float key) and ungrouped, on the card
+    against the CPU: keys, counts, MIN and MAX bit-equal, the per-group
+    float sums within 1e-12 (a segmented sum may add in another order on
+    the card)."""
+    from datafusion_comet_tpu_torch.ir import expr as E
+    from datafusion_comet_tpu_torch.ir import plan as P
+
+    data, validity, schema = _float_data(200_003, 2)
+    aggs = [E.AggExpr(f, E.col(c), f"{f}_{c}") for f in ("sum", "avg", "min", "max")
+            for c in ("a", "c", "y")] + [E.AggExpr("count", None, "n")]
+    outs = []
+    for device in ("cpu", None):
+        s = Session(device=device)
+        s.register_numpy("t", data, schema, validity=validity)
+        plan = P.Scan("t", schema).aggregate([E.col(key)] if key else [], aggs)
+        if key:
+            plan = plan.sort([E.SortOrder(E.col(key))])
+        outs.append(s.collect(plan))
+    want, got = outs
+    sums = {k for k in want if k.startswith(("sum_", "avg_")) and not k.endswith("__valid")}
+    _bit_same({k: v for k, v in got.items() if k not in sums},
+              {k: v for k, v in want.items() if k not in sums})
+    _bit_same({k: got[k] for k in sums}, {k: want[k] for k in sums}, rtol=1e-12)
+
+
+@pytest.mark.parametrize("join_type", ["inner", "left", "right", "full", "left_semi",
+                                       "left_anti"])
+def test_nested_loop_join_on_card_equals_cpu(dev, join_type):
+    """Every join type of the nested-loop join, a float and a string
+    condition, on the card against the CPU, row by row."""
+    from datafusion_comet_tpu_torch.exec import batch as PB
+    from datafusion_comet_tpu_torch.exec.operators import join as J
+    from datafusion_comet_tpu_torch.ir import expr as E
+    from datafusion_comet_tpu_torch.ir import plan as P
+
+    data, validity, schema = _float_data(300, 3)
+    rdata = {f"r{k}": v[:70] for k, v in data.items()}
+    rval = {f"r{k}": v[:70] for k, v in validity.items()}
+    rschema = PT.Schema([PT.Field(f"r{f.name}", f.dtype) for f in schema.fields])
+    node = P.bind_plan(P.BroadcastNestedLoopJoin(
+        P.Scan("l", schema), P.Scan("r", rschema), join_type,
+        (E.col("a") > E.col("rb")) | (E.col("s") == E.col("rs"))))
+    outs = []
+    for device in ("cpu", dev):
+        left = PB.from_numpy(data, schema, device, validity=validity)
+        right = PB.from_numpy(rdata, rschema, device, validity=rval)
+        out = J.nested_loop_join(left, right, join_type, node.schema, node.condition)
+        outs.append((out.row_mask.cpu(), PB.to_numpy(out)))
+    assert torch.equal(outs[0][0], outs[1][0]) and outs[0][0].any()
+    _bit_same(outs[1][1], outs[0][1])
+
+
+@pytest.mark.parametrize("staging", ["default", "padded"])
+@pytest.mark.parametrize("q", ["q7", "q8", "q11", "q14", "q17"])
+def test_float_queries_on_card_equal_cpu_direct_and_grace(dev, q, staging):
+    """Q7, Q11, Q14 and Q17 at SF 0.01, Q8 at SF 0.05 (where its shares are
+    not 0.0) on the card equal the CPU runs (FLOAT64 within
+    ``chip_smoke.FLOAT_SUM_RTOL``) and the numpy oracles, directly and with
+    the first stage's top join partitioned into K = 16, with the default
+    staging and with every string padded."""
+    sf = 0.05 if q == "q8" else 0.01
+    names = ("lineitem", "orders", "customer", "supplier", "nation", "region", "part", "partsupp")
+    data = tpch.generate_tables(names, sf)
+    dms = 1 << 16 if staging == "default" else 0
+
+    def session(device, fraction=None):
+        conf = Config(scan_dictionary_max_size=dms,
+                      **({"memory_fraction": fraction} if fraction else {}))
+        s = Session(device=device, conf=conf)
+        for t, d in data.items():
+            s.register_numpy(t, d, tpch.SCHEMAS[t])
+        return s
+
+    cpu = session("cpu")
+    plan = getattr(tpch, q)
+    want = cpu.collect(plan())
+    fraction, _ = chip_smoke.grace_fraction(cpu, plan(), 16)
+    card_fraction = fraction * 4 * 2**30 / torch.cuda.get_device_properties(dev).total_memory
+    for grace, f in ((False, None), (True, card_fraction)):
+        gpu = session(None, f)
+        K.partition_columns.launches = 0
+        _bit_same(gpu.collect(plan()), want, rtol=chip_smoke.FLOAT_SUM_RTOL)
+        assert bool(gpu.grace_runners) == grace
+        assert (K.partition_columns.launches > 0) or not grace
+        if grace:
+            assert 16 in [r.K for r in gpu.grace_runners]

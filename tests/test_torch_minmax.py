@@ -201,6 +201,8 @@ def test_ungrouped_over_no_rows_is_one_null_row():
 
 
 def test_floats_strings_and_bools_still_raise():
+    """MIN/MAX of strings and bools raise; of floats (ported since, and held
+    to the JAX package in test_torch_floats.py) they give the value."""
     schema = PT.Schema([PT.Field("f", PT.FLOAT64), PT.Field("s", PT.string(2)),
                         PT.Field("b", PT.BOOL)])
     b = PB.from_numpy({"f": np.arange(4.0), "s": np.array(["a", "b", "a", "c"], object),
@@ -208,6 +210,10 @@ def test_floats_strings_and_bools_still_raise():
     for c in ("f", "s", "b"):
         node = PP.bind_plan(PP.HashAggregate(PP.Scan("t", schema), (),
                                              (PE.AggExpr("max", PE.col(c), "m"),)))
+        if c == "f":
+            out = PAGG.hash_aggregate(b, node.group_exprs, node.agg_exprs, "single", node.schema)
+            assert PB.to_numpy(out)["m"].tolist() == [3.0]
+            continue
         with pytest.raises(NotImplementedError, match="MIN/MAX"):
             PAGG.hash_aggregate(b, node.group_exprs, node.agg_exprs, "single", node.schema)
 

@@ -1,0 +1,24 @@
+"""PyTorch port, TPC-H Q14 (a CASE over LIKE 'PROMO%', two decimal sums in one bucket,
+cast to DOUBLE, multiplied and divided) at SF 0.01
+through the port's ``Session`` on the CPU, against the JAX ``Session`` with
+the default staging and with every string padded, and against the numpy
+oracle chip_smoke.py checks the card with: directly (values, storage,
+bounds, hints stage by stage, attempts) and under the budget that
+partitions the first stage's top join into K = 16 (K, mode, partition
+sizes, pair retries). The helpers are test_torch_q9.py's."""
+
+import pytest
+
+from test_torch_grace import jax_spy  # noqa: F401 (a fixture)
+from test_torch_hints import jax_attempts  # noqa: F401 (a fixture)
+from test_torch_q9 import STAGING, check_direct, check_grace, tables  # noqa: F401
+
+
+@pytest.mark.parametrize("staging", list(STAGING))
+def test_q14_direct_matches_jax_and_oracle(tables, jax_attempts, staging):
+    check_direct(tables, jax_attempts, "q14", staging)
+
+
+@pytest.mark.parametrize("staging", list(STAGING))
+def test_q14_grace_matches_jax(tables, jax_spy, staging):
+    check_grace(tables, jax_spy, "q14", staging)

@@ -1,0 +1,26 @@
+"""PyTorch port, TPC-H Q8 (seven INNER joins, two ``nation`` scans, the volume cast to
+DOUBLE, a float CASE with a ``0.0`` else, two float SUMs per order year on
+the sorted path, a float division) at SF 0.05 (at SF 0.01 both shares are
+0.0, which proves nothing)
+through the port's ``Session`` on the CPU, against the JAX ``Session`` with
+the default staging and with every string padded, and against the numpy
+oracle chip_smoke.py checks the card with: directly (values, storage,
+bounds, hints stage by stage, attempts) and under the budget that
+partitions the first stage's top join into K = 16 (K, mode, partition
+sizes, pair retries). The helpers are test_torch_q9.py's."""
+
+import pytest
+
+from test_torch_grace import jax_spy  # noqa: F401 (a fixture)
+from test_torch_hints import jax_attempts  # noqa: F401 (a fixture)
+from test_torch_q9 import STAGING, check_direct, check_grace, tables  # noqa: F401
+
+
+@pytest.mark.parametrize("staging", list(STAGING))
+def test_q8_direct_matches_jax_and_oracle(tables, jax_attempts, staging):
+    check_direct(tables, jax_attempts, "q8", staging)
+
+
+@pytest.mark.parametrize("staging", list(STAGING))
+def test_q8_grace_matches_jax(tables, jax_spy, staging):
+    check_grace(tables, jax_spy, "q8", staging)

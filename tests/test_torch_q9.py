@@ -15,7 +15,9 @@ checks the card with:
 
 Q9 (78 rows) runs at SF 0.01, where no runtime filter fires
 (test_torch_runtime_filter.py runs it where one does). The helpers serve
-Q2 and Q19 too (test_torch_q2.py, test_torch_q19.py)."""
+Q2, Q19, Q7, Q8, Q11, Q14 and Q17 too (test_torch_q2.py and the others);
+every comparison is exact but that of a FLOAT64 column, held to the other
+package's and to the oracle's within ``chip_smoke.FLOAT_SUM_RTOL``."""
 
 import warnings
 
@@ -49,7 +51,30 @@ QUERIES = {
            chip_smoke.check_q9),
     "q19": (("lineitem", "part"), 0.05,
             lambda d: chip_smoke.oracle_q19(d["lineitem"], d["part"]), chip_smoke.check_q19),
+    "q7": (("lineitem", "supplier", "orders", "customer", "nation"), 0.01,
+           lambda d: chip_smoke.oracle_q7(d["lineitem"], d["supplier"], d["orders"],
+                                          d["customer"], d["nation"], tpch._d("1995-01-01"),
+                                          tpch._d("1996-12-31")), chip_smoke.check_q7),
+    # at SF 0.01 both shares are 0.0
+    "q8": (("lineitem", "part", "orders", "customer", "supplier", "nation", "region"), 0.05,
+           lambda d: chip_smoke.oracle_q8(d["lineitem"], d["part"], d["orders"], d["customer"],
+                                          d["supplier"], d["nation"], d["region"],
+                                          tpch._d("1995-01-01"), tpch._d("1996-12-31")),
+           chip_smoke.check_q8),
+    "q11": (("partsupp", "supplier", "nation"), 0.01,
+            lambda d: chip_smoke.oracle_q11(d["partsupp"], d["supplier"], d["nation"],
+                                            chip_smoke.Q11_FRACTION),
+            chip_smoke.check_q11),
+    "q14": (("lineitem", "part"), 0.01,
+            lambda d: chip_smoke.oracle_q14(d["lineitem"], d["part"], tpch._d("1995-09-01"),
+                                            tpch._d("1995-10-01")),
+            lambda out, e, what: chip_smoke.check_scalar_f64(out, "promo_revenue", e, what)),
+    "q17": (("lineitem", "part"), 0.01,
+            lambda d: chip_smoke.oracle_q17(d["lineitem"], d["part"]),
+            lambda out, e, what: chip_smoke.check_scalar_f64(out, "avg_yearly", e, what)),
 }
+# the rows of each query's answer at its scale
+ROWS = {"q2": 3, "q9": 78, "q19": 1, "q7": 4, "q8": 2, "q11": 152, "q14": 1, "q17": 1}
 
 
 @pytest.fixture(scope="module")
@@ -95,7 +120,11 @@ def same(want, got):
     assert list(want) == list(got)
     for k in want:
         assert want[k].dtype == got[k].dtype, k
-        np.testing.assert_array_equal(want[k], got[k], err_msg=k)
+        if want[k].dtype == np.float64:
+            np.testing.assert_allclose(got[k], want[k], rtol=chip_smoke.FLOAT_SUM_RTOL, atol=0,
+                                       err_msg=k)
+        else:
+            np.testing.assert_array_equal(want[k], got[k], err_msg=k)
 
 
 def direct(js, ps, q, jax_attempts):
@@ -126,7 +155,8 @@ def check_direct(tables, jax_attempts, q, staging):
     got = direct(js, ps, q, jax_attempts)
     expect = QUERIES[q][2](data)
     QUERIES[q][3](got, expect, q)
-    assert {"q2": 3, "q9": 78, "q19": 1}[q] == (len(expect) if q != "q19" else 1)
+    rows = expect[1] if q == "q11" else expect
+    assert ROWS[q] == (len(rows) if isinstance(rows, list) else 1)
     if q == "q19":
         assert expect == 1_451_737_474
     if q in ("q2", "q9"):  # LIKE over codes, or over padded bytes (p_name from SF1 up)

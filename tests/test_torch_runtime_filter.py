@@ -1,8 +1,8 @@
 """PyTorch port, the runtime semi-join filters (exec/runtime_filter.py,
 exec/host_filter.py), exactly against the JAX package where it injects
-them: TPC-H Q3, Q5, Q9 and Q10 at SF 0.02 (120,000 lineitem rows, over
-the injector's 65,536-row fact-side minimum) and Q2 at SF 0.1 (80,000
-partsupp rows).
+them: TPC-H Q3, Q5, Q9, Q10, Q8 and Q17 at SF 0.02 (120,000 lineitem
+rows, over the injector's 65,536-row fact-side minimum) and Q2 at SF 0.1
+(80,000 partsupp rows).
 
 - The plan: per stage the hints of every join, filter and aggregate, each
   join's ``rf_dense_range`` and injected flag, the key tables' names and
@@ -47,7 +47,8 @@ from test_torch_q9 import rf_hints, same
 GRACE_K = 16
 BIG = ("lineitem", "orders", "customer", "supplier", "nation", "region", "part", "partsupp")
 Q2_TABLES = ("part", "supplier", "partsupp", "nation", "region")
-CASES = [("q3", 0.02), ("q5", 0.02), ("q9", 0.02), ("q10", 0.02), ("q2", 0.1)]
+CASES = [("q3", 0.02), ("q5", 0.02), ("q9", 0.02), ("q10", 0.02), ("q2", 0.1), ("q8", 0.02),
+         ("q17", 0.02)]
 
 
 @pytest.fixture(scope="module")
@@ -101,13 +102,13 @@ def test_plan_and_result_match_jax(data, jax_attempts, q, sf):
     assert len(jinj) >= 1  # the JAX package injected: the case is not empty
     assert rf_hints(got_stages, PP) == rf_hints(want_stages, JP)
     assert sorted(j.right.table for j in pinj) == sorted(j.right.table for j in jinj)
-    for jj in jinj:
-        (pj,) = [p for p in pinj if p.right.table == jj.right.table]
-        assert (pj.rf_dense_range, pj.out_rows_hint, pj.build_key_range) == (
-            jj.rf_dense_range, jj.out_rows_hint, jj.build_key_range)
-        keys = _key_table(ps, pj.right.table)
-        np.testing.assert_array_equal(keys, _key_table(js, jj.right.table))
-        assert (int(keys.min()), int(keys.max())) == tuple(pj.rf_dense_range)
+    fields = lambda j: (j.rf_dense_range, j.out_rows_hint, j.build_key_range)  # noqa: E731
+    for name in {j.right.table for j in jinj}:  # Q17 filters two scans by one key table
+        pjs = [p for p in pinj if p.right.table == name]
+        assert sorted(map(fields, pjs)) == sorted(fields(j) for j in jinj if j.right.table == name)
+        keys = _key_table(ps, name)
+        np.testing.assert_array_equal(keys, _key_table(js, name))
+        assert all((int(keys.min()), int(keys.max())) == tuple(p.rf_dense_range) for p in pjs)
     jax_attempts.clear()
     want = js.collect(getattr(JTPCH, q)())
     got = ps.collect(getattr(tpch, q)())

@@ -6,7 +6,8 @@ On a machine with one NVIDIA card, from the root of a checkout:
     python3 chip_smoke.py            # TPC-H SF1
     python3 chip_smoke.py --sf 10    # another scale
     python3 chip_smoke.py --profile  # add torch.profiler breakdowns of Q1, Q12 grace, Q3, Q4,
-                                     # Q15, Q5, Q10, Q18, Q2, Q9, Q19, Q7, Q8, Q11, Q14, Q17
+                                     # Q15, Q5, Q10, Q18, Q2, Q9, Q19, Q7, Q8, Q11, Q14, Q17,
+                                     # Q13, Q16, Q20
 
 Phases, one JSON line each:
   1. device: the card's name, count, and nvidia-smi's name and power limit;
@@ -65,6 +66,15 @@ Phases, one JSON line each:
      ``FLOAT_SUM_RTOL`` (1e-9), every other value exact, Q11's threshold,
      Q14's ratio and Q17's average bit-equal (the same float operations in
      numpy);
+  q13, q16, q20, q20_variant: the outer join and COUNT(DISTINCT): Q13
+     (customer LEFT JOIN orders, COUNT(o_orderkey) per customer, then the
+     customers per count; its lines add each outer join's path and output
+     capacity), Q16 (a LEFT ANTI join against the suppliers with
+     complaints, COUNT(DISTINCT ps_suppkey) per brand, type and size, as a
+     group-only aggregate and a COUNT), Q20 at TPC-H's literals (empty at
+     every scale: the generator draws l_suppkey and ps_suppkey apart) and
+     with ``Q20_VARIANT``'s (every part name, ship dates 1992-1998), each
+     directly and through the grace join (K = 16), against numpy oracles;
   padded (at SF1, or the smaller --sf): Q1, Q3, Q4, Q5 and Q12 over tables
      staged with every string padded (no dictionary codes), against the
      same oracles.
@@ -84,7 +94,8 @@ Phases, one JSON line each:
   5. partition: holds B3 against its plain versions, exactly: the
      payload-moving partition_columns at every distinct B3 call of Q12's,
      Q3's, Q4's, Q15's, Q6's, Q5's, Q10's, Q18's, Q2's, Q9's, Q19's, Q7's,
-     Q8's, Q11's, Q14's, Q17's and the padded phase's runs (Q18's grace
+     Q8's, Q11's, Q14's, Q17's, Q13's, Q16's, Q20's and the padded phase's
+     runs (Q18's grace
      calls move c_name's 25-byte rows; the
      grace runs' input shrinks, sides and per-pair shrinks, the filter
      shrinks, the semi outputs' compactions, the runtime filters' among
@@ -874,10 +885,104 @@ def check_scalar_f64(out, col: str, expect: float, what: str) -> None:
                              f"(valid {out[col + '__valid'].tolist()}), expected {expect!r}")
 
 
+def _like(values, pattern: str) -> np.ndarray:
+    """SQL LIKE over host strings ('%' any run, '_' one character)."""
+    rx = re.compile("".join(".*" if c == "%" else "." if c == "_" else re.escape(c)
+                            for c in pattern), re.S)
+    return np.array([rx.fullmatch(v) is not None for v in values], bool)
+
+
+def oracle_q13(cu, od):
+    """Q13 with numpy alone, following the plan (ROADMAP C15): the orders
+    whose o_orderpriority is NOT LIKE '%special%requests%' (all of them),
+    their count per customer (0 for a customer with none: the LEFT join
+    keeps it, and COUNT(o_orderkey) skips its null order), then the
+    customers per count. Returns [(c_count, custdist)] by custdist
+    descending, then c_count descending."""
+    keep = ~_like(od["o_orderpriority"], "%special%requests%")
+    ckeys = np.sort(cu["c_custkey"])
+    pos, found = _lookup(ckeys, od["o_custkey"][keep])
+    per_cust = np.bincount(pos[found], minlength=len(ckeys))
+    counts, dist = np.unique(per_cust, return_counts=True)
+    return sorted(zip(counts.tolist(), dist.tolist()), key=lambda r: (-r[1], -r[0]))
+
+
+def check_q13(out, expect, what: str) -> None:
+    got = list(zip(out["c_count"].tolist(), out["custdist"].tolist()))
+    if got != expect or not (out["c_count__valid"].all() and out["custdist__valid"].all()):
+        raise AssertionError(f"{what}: got {got}, expected {expect}")
+
+
+def oracle_q16(pa, ps, su):
+    """Q16 with numpy alone: the parts of another brand than Brand#45, a
+    type NOT LIKE 'MEDIUM POLISHED%' and one of eight sizes, their partsupp
+    rows (np.searchsorted on the unique p_partkey) less those of suppliers
+    whose comment is LIKE '%Customer%Complaints%', the distinct suppliers
+    per (brand, type, size). Returns [(p_brand, p_type, p_size,
+    supplier_cnt)] by the count descending, then brand, type and size."""
+    pm = ((pa["p_brand"] != "Brand#45") & ~_like(pa["p_type"], "MEDIUM POLISHED%")
+          & np.isin(pa["p_size"], [49, 14, 23, 45, 19, 3, 36, 9]))
+    pkeys, brand, ptype, size = _by_key({k: pa[k][pm] for k in pa}, "p_partkey", "p_brand",
+                                        "p_type", "p_size")
+    pos, found = _lookup(pkeys, ps["ps_partkey"])
+    bad = su["s_suppkey"][_like(su["s_comment"], "%Customer%Complaints%")]
+    m = found & ~np.isin(ps["ps_suppkey"], bad)
+    groups = {}
+    for b, t, z, sk in zip(brand[pos[m]], ptype[pos[m]], size[pos[m]].tolist(),
+                           ps["ps_suppkey"][m].tolist()):
+        groups.setdefault((b, t, z), set()).add(sk)
+    return sorted(((b, t, z, len(v)) for (b, t, z), v in groups.items()),
+                  key=lambda r: (-r[3], r[0].encode(), r[1].encode(), r[2]))
+
+
+def check_q16(out, expect, what: str) -> None:
+    cols = ("p_brand", "p_type", "p_size", "supplier_cnt")
+    got = [(out["p_brand"][i], out["p_type"][i], int(out["p_size"][i]),
+            int(out["supplier_cnt"][i])) for i in range(len(out["p_size"]))]
+    if got != expect or not all(out[c + "__valid"].all() for c in cols):
+        raise AssertionError(f"{what}: got {got[:5]}..., expected {expect[:5]}...")
+
+
+# Q20 at TPC-H's literals is empty at every scale (ROADMAP C16); these keep
+# the plan's shape and give rows
+Q20_VARIANT = {"pattern": "%", "ship_from": "1992-01-01", "ship_to": "1999-01-01"}
+
+
+def oracle_q20(pa, li, ps, su, na, pattern: str, lo: int, hi: int):
+    """Q20 with numpy alone: the parts whose name is LIKE ``pattern``, the
+    quantity shipped per (part, supplier) in [lo, hi) (exact, scale 2), the
+    partsupp rows of those parts whose availqty as a DOUBLE is over 0.005 x
+    that quantity as a DOUBLE (the plan's float operations), and the CANADA
+    suppliers among theirs. Returns [(s_name, s_suppkey)] by name."""
+    parts = pa["p_partkey"][_like(pa["p_name"], pattern)]
+    lm = (li["l_shipdate"] >= lo) & (li["l_shipdate"] < hi)
+    span = int(max(li["l_suppkey"].max(), ps["ps_suppkey"].max())) + 1
+    pairs, inv = np.unique(li["l_partkey"][lm] * span + li["l_suppkey"][lm],
+                           return_inverse=True)
+    qty = np.zeros(len(pairs), np.int64)
+    np.add.at(qty, inv, li["l_quantity"][lm])
+    pm = np.isin(ps["ps_partkey"], parts)
+    pos, found = _lookup(pairs, ps["ps_partkey"][pm] * span + ps["ps_suppkey"][pm])
+    shipped = qty[pos].astype(np.float64) / np.float64(100.0)
+    ok = found & (ps["ps_availqty"][pm].astype(np.int64).astype(np.float64)
+                  > np.float64(0.005) * shipped)
+    canada = na["n_nationkey"][na["n_name"] == "CANADA"]
+    sm = np.isin(su["s_nationkey"], canada) & np.isin(su["s_suppkey"], ps["ps_suppkey"][pm][ok])
+    return sorted(zip(su["s_name"][sm].tolist(), su["s_suppkey"][sm].tolist()),
+                  key=lambda r: r[0].encode())
+
+
+def check_q20(out, expect, what: str) -> None:
+    got = list(zip(out["s_name"].tolist(), out["s_suppkey"].tolist()))
+    if got != expect or not (out["s_name__valid"].all() and out["s_suppkey__valid"].all()):
+        raise AssertionError(f"{what}: got {got[:5]}..., expected {expect[:5]}...")
+
+
 def grace_fraction(sess, plan, K: int = GRACE_K):
-    """The Config(memory_fraction) under which the session splits ``plan``'s
-    join into K partitions, and the join's peak estimate: (fraction,
-    jpeak), from tools/query_times.py."""
+    """The Config(memory_fraction) under which a run of ``plan`` splits a
+    join into K partitions (corrected by grace runs where a join side is
+    tiled first), and the first stage's top join's peak estimate:
+    (fraction, jpeak), from tools/query_times.py."""
     from datafusion_comet_tpu_torch.tools import query_times as QT
 
     return QT.grace_fraction(sess, plan, K)
@@ -921,12 +1026,13 @@ def run_record(sess):
 # the runtime filters each query's runs inject at SF1 and SF10, by the JAX
 # package's gates (PERF.md): "compact" where the direct run compacts the
 # filter's semi output (a B3 call the engine tags "rf"), "mask" where the
-# filter only thins the row mask; a query not named injects none. Other
+# filter only thins the row mask; a query not named injects none (Q13, Q16
+# at both, Q20 at SF1: its supplier scan passes 65,536 rows at SF10). Other
 # scale factors are not checked.
 RF_EXPECTED = {1: {"q3": "mask", "q5": "compact", "q10": "compact", "q9": "compact",
                    "q2": "compact", "q8": "compact", "q17": "compact"},
                10: {"q9": "compact", "q2": "compact", "q8": "compact", "q11": "compact",
-                    "q17": "compact"}}
+                    "q17": "compact", "q20": "compact", "q20_variant": "compact"}}
 
 
 def check_rf(q: str, sf: float, run: str, record: dict) -> None:
@@ -1072,22 +1178,18 @@ def query_phase(sf: float, reps: int, profile: bool):
     q5_phase(sess, data, sf, reps, profile, launches, b3_calls)
     for q in ("q10", "q18"):
         q10_q18_phase(q, sess, data, sf, reps, profile, launches, b3_calls)
-    for q in ("q2", "q9", "q19", "q7", "q8", "q11", "q14", "q17"):
+    for q in ("q2", "q9", "q19", "q7", "q8", "q11", "q14", "q17", "q13", "q16", "q20",
+              "q20_variant"):
         part_phase(q, sess, data, sf, reps, profile, launches, b3_calls)
     return launches, sizes, b3_calls
 
 
 def grace_session(sess, fraction: float):
     """A session over the same device tables and statistics whose memory
-    budget is ``fraction`` of the card."""
-    from datafusion_comet_tpu_torch.conf import Config
-    from datafusion_comet_tpu_torch.exec.engine import Session
+    budget is ``fraction`` of the card, from tools/query_times.py."""
+    from datafusion_comet_tpu_torch.tools import query_times as QT
 
-    grace = Session(conf=Config(memory_fraction=fraction))
-    for t, b in sess.tables.items():
-        grace.register_batch(t, b)
-    grace.stats.update(sess.stats)
-    return grace
+    return QT.grace_session(sess, fraction)
 
 
 def q3_phase(sess, data, sf: float, reps: int, profile: bool, launches, b3_calls) -> None:
@@ -1312,14 +1414,17 @@ def q5_phase(sess, data, sf: float, reps: int, profile: bool, launches, b3_calls
 
 
 def _grace_record(s):
-    """Each grace join of a session's last run (in the order they finished)
-    and each tiled aggregate."""
+    """Each grace join of a session's last run (in the order they finished),
+    each tiled aggregate (table, tiles) and each attempt of a tiled
+    aggregate (growth scale, whether it overflowed and ran again)."""
     return {"grace_runners": [
         {"K": r.K, "mode": r.downstream and r.downstream[0], "pair_retries": r.retries,
          "capacities": list(r.capacities),
          "sizes": [{"rows": int(sz.sum()), "min": int(sz.min()), "max": int(sz.max())}
                    for sz in r.sizes]} for r in s.grace_runners],
-        "tiled": [list(t) for t in s.tiled]}
+        "tiled": [list(t) for t in s.tiled],
+        "tiled_attempts": [[r["scale"], r["overflowed"]] for r in s.runs
+                           if r["where"] == "tiled"]}
 
 
 def agg_sort_limbs(sess, plan) -> dict:
@@ -1404,14 +1509,20 @@ def part_phase(q: str, sess, data, sf: float, reps: int, profile: bool, launches
     condition), Q14 (the PROMO
     revenue share: two decimal sums cast to DOUBLE) or Q17 (a per-part
     decimal AVG over all of lineitem, joined back under a DOUBLE
-    condition); directly and under a budget that makes the engine split
-    the first stage's top join into K = 16 pairs: each checked against its
+    condition), or Q13 (customer LEFT JOIN orders, the orders per customer
+    and the customers per count), Q16 (a LEFT ANTI join, COUNT(DISTINCT
+    ps_suppkey)), Q20 (a packed two-key join under a DOUBLE condition, two
+    LEFT_SEMI joins; empty at TPC-H's literals, ROADMAP C16) or Q20's
+    variant ``Q20_VARIANT``; directly and under a budget that makes the
+    engine split a join into K = 16 pairs (Q20's lineitem aggregate runs
+    tiled first, each attempt reported): each checked against its
     numpy oracle (FLOAT64 sums within ``FLOAT_SUM_RTOL``, the other float
     results bit-equal), timed, its launches (B1 and B2 in the one-bucket
     sums of the direct runs of Q19, Q11, Q14 and Q17, B3 in every grace
     run), B3 calls, runtime filters, planning host ms, stages, hints,
-    attempts and grace joins reported; Q11's lines add the nested-loop
-    join's two input capacities, whose product must stay under
+    attempts, grace joins and outer joins (path and output capacity)
+    reported; Q11's lines add the nested-loop join's two input capacities,
+    whose product must stay under
     ``join.BNLJ_MAX_PRODUCT_ROWS``."""
     from datafusion_comet_tpu_torch.exec.operators.join import BNLJ_MAX_PRODUCT_ROWS
     from datafusion_comet_tpu_torch.models import tpch
@@ -1434,9 +1545,19 @@ def part_phase(q: str, sess, data, sf: float, reps: int, profile: bool, launches
         "q14": lambda: (oracle_q14(d["lineitem"], d["part"], day("1995-09-01"),
                                    day("1995-10-01")), scalar("promo_revenue")),
         "q17": lambda: (oracle_q17(d["lineitem"], d["part"]), scalar("avg_yearly")),
+        "q13": lambda: (oracle_q13(d["customer"], d["orders"]), check_q13),
+        "q16": lambda: (oracle_q16(d["part"], d["partsupp"], d["supplier"]), check_q16),
+        "q20": lambda: (oracle_q20(d["part"], d["lineitem"], d["partsupp"], d["supplier"],
+                                   d["nation"], "forest%", day("1994-01-01"),
+                                   day("1995-01-01")), check_q20),
+        "q20_variant": lambda: (oracle_q20(d["part"], d["lineitem"], d["partsupp"],
+                                           d["supplier"], d["nation"], Q20_VARIANT["pattern"],
+                                           day(Q20_VARIANT["ship_from"]),
+                                           day(Q20_VARIANT["ship_to"])), check_q20),
     }[q]()
     # Q11 at TPC-H's FRACTION for the scale factor (the plan's default is SF1's)
-    plan = (lambda: tpch.q11(Q11_FRACTION / sf)) if q == "q11" else getattr(tpch, q)
+    plan = {"q11": lambda: tpch.q11(Q11_FRACTION / sf),
+            "q20_variant": lambda: tpch.q20(**Q20_VARIANT)}.get(q) or getattr(tpch, q)
     fraction, jpeak = grace_fraction(sess, plan())
     grace = grace_session(sess, fraction)
     runs = {}
@@ -1452,7 +1573,9 @@ def part_phase(q: str, sess, data, sf: float, reps: int, profile: bool, launches
         if any(launches[key][k] == 0 for k in need):
             raise AssertionError(f"{key} did not launch {need}: {launches[key]}")
         runs[run] = dict(_query_run(s, key, first_s, times, peak, launches, b3_calls, semi,
-                                    plan_ms), **_grace_record(s))
+                                    plan_ms), **_grace_record(s), outer_joins=outer_joins(s))
+        if q == "q13" and not runs[run]["outer_joins"]:
+            raise AssertionError(f"{key} ran no outer join")
         if q == "q11":
             caps = [j["capacities"] for r in s.runs if r["where"] == "stage"
                     and not r["overflowed"] for j in r["joins"] if j["path"] == "nested_loop"]
@@ -1474,6 +1597,17 @@ def part_phase(q: str, sess, data, sf: float, reps: int, profile: bool, launches
     if profile:
         emit(profile_run(sess, plan(), f"profile_{q}_direct"))
         emit(profile_run(grace, plan(), f"profile_{q}_grace"))
+
+
+def outer_joins(s):
+    """The outer joins of a session's last run, each distinct one once:
+    where it ran (a stage or a grace pair), its type, path, compacted-list
+    rows and output capacity."""
+    seen = {json.dumps(dict(where=r["where"], **{k: j[k] for k in (
+        "type", "path", "compact_rows", "out_capacity")}), sort_keys=True)
+        for r in s.runs if not r["overflowed"] for j in r["joins"]
+        if j.get("type") in ("left", "right", "full")}
+    return [json.loads(j) for j in sorted(seen)]
 
 
 def padded_phase(sf: float, reps: int, launches, b3_calls) -> None:
@@ -1694,8 +1828,8 @@ def check_payload(K, name, codes, k, tensors, local=False, limit=None):
 def b3_call_names(calls):
     """Each distinct B3 call of Q12's, Q3's, Q4's, Q15's, Q6's, Q5's, Q10's
     and Q18's runs (Q18's grace calls move c_name's 25-byte rows), then of
-    every other run (Q2, Q9, Q19, Q7, Q8, Q11, Q14, Q17 and the padded
-    phase) in name order, named by run, place in the run and kind: [(name,
+    every other run (Q2, Q9, Q19, Q7, Q8, Q11, Q14, Q17, Q13, Q16, Q20, Q20's
+    variant and the padded phase) in name order, named by run, place in the run and kind: [(name,
     call)], a repeated shape once."""
     out, seen = [], set()
     first = ("q12_grace", "q12_direct", "q3_grace", "q3_direct", "q4_grace", "q4",
@@ -1843,8 +1977,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=7, help="seed of the kernel-phase inputs")
     ap.add_argument("--profile", action="store_true",
                     help="add profiled runs of Q1, of Q12's grace run, of Q3's, Q4's, Q5's, "
-                         "Q10's, Q18's, Q2's, Q9's, Q19's, Q7's, Q8's, Q11's, Q14's and Q17's "
-                         "two runs and of Q15")
+                         "Q10's, Q18's, Q2's, Q9's, Q19's, Q7's, Q8's, Q11's, Q14's, Q17's, "
+                         "Q13's, Q16's, Q20's and Q20's variant's two runs and of Q15")
     args = ap.parse_args(argv)
 
     import torch

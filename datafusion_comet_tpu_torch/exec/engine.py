@@ -44,9 +44,9 @@ Two loops wrap a stage's run, as in the JAX package:
 - the memory budget (``_budget_plan``): while a plan's resident-bytes
   estimate is over ``device_budget_bytes`` (the card's memory times
   ``Config.memory_fraction``), a SINGLE aggregate over one table runs tiled
-  (exec/streaming.py), else an over-budget join runs hash-partitioned
-  (exec/grace.py), and its result, the aggregate above it, or the whole
-  stage comes back as a temporary table.
+  (exec/streaming.py, under the overflow retry too), else an over-budget
+  join runs hash-partitioned (exec/grace.py), and its result, the aggregate
+  above it, or the whole stage comes back as a temporary table.
 """
 
 from __future__ import annotations
@@ -56,7 +56,7 @@ import dataclasses
 import itertools
 import time
 import warnings
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -137,7 +137,7 @@ def run_plan(plan: P.PlanNode, tables: Dict[str, Batch], ctx: EvalContext, conf:
         return AGG.hash_aggregate(child, plan.group_exprs, plan.agg_exprs, plan.mode,
                                   plan.schema, ctx, conf.agg_dense_max_domain,
                                   plan.max_groups or DEFAULT_MAX_GROUPS,
-                                  plan.group_key_ranges)
+                                  plan.group_key_ranges, plan.merge_rows)
     if isinstance(plan, P.Sort):
         return B.sort_op(child, plan.orders, plan.fetch, plan.skip, ctx)
     if isinstance(plan, P.Limit):
@@ -148,11 +148,13 @@ def run_plan(plan: P.PlanNode, tables: Dict[str, Batch], ctx: EvalContext, conf:
 def _exec_hash_join(plan: P.HashJoin, tables, ctx, conf, fanout) -> Batch:
     """A join with its planner hints (JAX ``engine.py:185-247``): K is the
     join's ``fanout_hint`` times the growth scale (at most 256), else the
-    session's fan-out; an INNER join with a row estimate lays its pairs out
-    in a compacted list of twice the estimate (at least 4096, times the
-    growth scale, at most 64x the larger input's capacity); the unique-build
-    and key-packing hints hold on a plan's first run only. An INNER join's
-    output is compacted to the larger input's capacity times max(2, K / 2)
+    session's fan-out; an INNER or outer join with a row estimate lays its
+    pairs out in a compacted list of twice the estimate (at least 4096, times
+    the growth scale, at most 64x the larger input's capacity); the
+    unique-build and key-packing hints hold on a plan's first run only. An
+    INNER or outer join's output (FULL's with its build-capacity tail of
+    unmatched build rows, as in the JAX engine) is compacted to the larger
+    input's capacity times max(2, K / 2)
     (times the growth scale without a hint): chained joins then stay linear
     in capacity instead of multiplying their K's. A semi-like join's output
     keeps the probe's capacity with a thinned mask; with an output-row
@@ -336,9 +338,10 @@ class Session:
         self.stages: List[Tuple[Optional[str], P.PlanNode]] = []
         self.grace_runners: List[G.GraceJoinRunner] = []
         self.tiled: List[Tuple[str, int]] = []  # (table, tiles) of each tiled aggregate
-        # every run of the last ``execute``: where it ran ("stage" or a grace
-        # "pair"), its attempt, growth scale, unique_join_ok, whether it
-        # overflowed, its INNER joins' paths and its nested-loop joins'
+        # every run of the last ``execute``: where it ran ("stage", a grace
+        # "pair" or a "tiled" aggregate), its growth scale, unique_join_ok,
+        # whether it overflowed, its hash joins' types, paths and output
+        # capacities (semi-like joins apart) and its nested-loop joins'
         # input capacities
         self.runs: List[dict] = []
         self.plan_ms: Optional[float] = None
@@ -466,15 +469,17 @@ class Session:
     def _run_subtree(self, plan: P.PlanNode, temp_names: List[str]) -> Batch:
         return self._execute_retry(self._budget_plan(plan, temp_names))
 
-    def _execute_retry(self, plan: P.PlanNode,
-                       tables: Optional[Dict[str, Batch]] = None) -> Batch:
+    def _execute_retry(self, plan: Union[P.PlanNode, Callable[[EvalContext], Batch]],
+                       tables: Optional[Dict[str, Batch]] = None, where: str = "stage") -> Batch:
         """Run ``plan``, again with the joins' fan-out and the growth scale
         four times larger while a capacity overflows; the joins' unique-build
-        and key-packing hints hold on the first attempt only."""
+        and key-packing hints hold on the first attempt only. ``plan`` is a
+        bound plan, or a function that runs one attempt in the context it is
+        given (the tiled aggregate's tiles, ``where="tiled"``)."""
         fanout, scale = J.JOIN_FANOUT, 1
         for attempt in range(J.MAX_JOIN_RETRIES):
             out, overflowed = self._run_once(plan, fanout, scale, tables,
-                                             unique_join_ok=attempt == 0, where="stage")
+                                             unique_join_ok=attempt == 0, where=where)
             if not overflowed:
                 return out
             fanout *= 4
@@ -482,16 +487,18 @@ class Session:
         raise JoinOverflowError(
             f"a join's fan-out or an aggregate's groups exceeded after {J.MAX_JOIN_RETRIES} retries")
 
-    def _run_once(self, plan: P.PlanNode, fanout: int, scale: int,
-                  tables: Optional[Dict[str, Batch]] = None, unique_join_ok: bool = True,
-                  where: str = "stage") -> Tuple[Batch, bool]:
-        """One run of a bound plan: (result, whether a capacity overflowed).
-        Every error and overflow flag of the run is read in one
-        device-to-host copy at its end."""
+    def _run_once(self, plan: Union[P.PlanNode, Callable[[EvalContext], Batch]], fanout: int,
+                  scale: int, tables: Optional[Dict[str, Batch]] = None,
+                  unique_join_ok: bool = True, where: str = "stage") -> Tuple[Batch, bool]:
+        """One run of a bound plan (or of a function of the run's context):
+        (result, whether a capacity overflowed). Every error and overflow
+        flag of the run is read in one device-to-host copy at its end, and
+        the run is recorded in ``runs``."""
         errs: List[Tuple[torch.Tensor, str]] = []
         ctx = EvalContext(errors=errs, overflow_flags=[], agg_scale=scale,
                           unique_join_ok=unique_join_ok, join_log=[])
-        out = run_plan(plan, self.tables if tables is None else tables, ctx, self.conf, fanout)
+        out = (plan(ctx) if callable(plan) else
+               run_plan(plan, self.tables if tables is None else tables, ctx, self.conf, fanout))
         flags = [f for f, _ in errs] + ctx.overflow_flags
         hit = torch.stack([f.any() for f in flags]).tolist() if flags else []
         fired = [m for (_, m), h in zip(errs, hit) if h]
@@ -518,16 +525,19 @@ class Session:
                        budget: int, temp_names: List[str]) -> P.PlanNode:
         """Run ``agg`` tiled over ``table`` (exec/streaming.py), at the
         JAX package's tile count (``plan_tiles`` snapped to a power of two,
-        at most an eighth of the capacity), register its result as a
+        at most an eighth of the capacity), with the overflow retry (each
+        attempt a ``runs`` entry where "tiled"), register its result as a
         temporary table and put a scan of it in the aggregate's place."""
         batch = self.tables[table]
         tiles = max(plan_tiles(agg, batch.capacity, budget), 1)
         tiles = min(1 << max(int(tiles - 1).bit_length(), 0), max(batch.capacity // 8, 1))
         tmp = f"__budget{next(self._ids)}"
         temp_names.append(tmp)
+        tiled = TiledAggregator(agg, table, self.conf)
+        pieces = list(slice_tiles(batch, max(batch.capacity // tiles, 8)))
         with record_function("tiled.aggregate"):
-            self.tables[tmp] = TiledAggregator(agg, table, self.conf).run(
-                slice_tiles(batch, max(batch.capacity // tiles, 8)))
+            self.tables[tmp] = self._execute_retry(lambda ctx: tiled.run(pieces, ctx),
+                                                   where="tiled")
         self.tiled.append((table, tiles))
         scan = pseudo_scan(tmp, self.tables[tmp].schema)
         return scan if agg is stage else replace_child_pure_deep(stage, agg, scan)

@@ -234,10 +234,11 @@ class GraceJoinRunner:
             self.out_schema = downstream[1].schema
         self.template: Optional[P.PlanNode] = None  # each pair's plan, set by a run
         # what the last run saw: each side's capacity and partition sizes,
-        # and the pair retries
+        # the pair retries and the pairs' join output capacities summed
         self.capacities: Optional[Tuple[int, int]] = None
         self.sizes: Optional[Tuple[np.ndarray, np.ndarray]] = None
         self.retries = 0
+        self.pair_rows = 0
 
     def _mini_plan(self) -> P.HashJoin:
         """The join over two temporary tables holding one pair, with the
@@ -292,7 +293,8 @@ class GraceJoinRunner:
         _, A = self.downstream
         groups = tuple(E.bind(E.col(g.name), self.template.schema) for g in A.group_exprs)
         node = P.HashAggregate(pseudo_scan("__acc", union.schema), groups, A.agg_exprs,
-                               P.AggMode.FINAL, A.max_groups, A.group_key_ranges)
+                               P.AggMode.FINAL, A.max_groups, A.group_key_ranges,
+                               merge_rows=self.pair_rows)
         node.schema = A.schema
         return self.session._execute_retry(node, {"__acc": union})
 
@@ -349,7 +351,9 @@ class GraceJoinRunner:
         """Each non-empty pair's output, with the pair retry: a pair whose
         join overflowed runs again with the fan-out and the growth scale
         four times larger, and without the unique-build and key-packing
-        hints."""
+        hints. ``pair_rows``: the pairs' join output capacities summed (a
+        semi-like join's is its probe side's), which bound the rows behind
+        any group of the partial states."""
         s, K = self.session, self.K
         sizes_l, sizes_r = self.sizes
         outs: List[Optional[Batch]] = [None] * K
@@ -358,6 +362,7 @@ class GraceJoinRunner:
         # emits its one row
         force_k0 = self.downstream is not None and self.downstream[0] == "partial"
         self.retries = 0
+        self.pair_rows = 0
         for _ in range(J.MAX_JOIN_RETRIES):
             overflowed = False
             for k in range(K):
@@ -373,6 +378,8 @@ class GraceJoinRunner:
                 if ovf:
                     overflowed = True
                     continue
+                self.pair_rows += max([cap_l, cap_r] + [j.get("out_capacity", 0)
+                                                        for j in s.runs[-1]["joins"]])
                 outs[k] = s._aqe_shrink(out)
             if not overflowed:
                 break

@@ -298,19 +298,24 @@ def hash_aggregate(
     dense_max_domain: int = 64,
     max_groups: int = DEFAULT_MAX_GROUPS,
     key_ranges=None,
+    merge_rows: Optional[int] = None,
 ) -> Batch:
     """Group ``batch`` by ``group_exprs``. ``max_groups``: the output's group
     capacity, times the session's growth scale and at most the input
-    capacity; ``key_ranges``: per key an exact (min, max) or None."""
+    capacity; ``key_ranges``: per key an exact (min, max) or None;
+    ``merge_rows``: a merge's host-known bound on the rows behind one
+    group's states, or None."""
     ctx = ctx or EvalContext()
     max_groups = min(max_groups * max(ctx.agg_scale, 1), batch.capacity)
     key_cols = [evaluate(g, batch, ctx) for g in group_exprs]
     if not key_cols:
         seg = torch.where(batch.row_mask, 0, 1).int()
-        return _bucket_aggregate(batch, key_cols, agg_exprs, mode, (seg, 1), out_schema, ctx)
+        return _bucket_aggregate(batch, key_cols, agg_exprs, mode, (seg, 1), out_schema, ctx,
+                                 merge_rows)
     packed = _try_pack_keys(key_cols)
     if packed is not None and packed[1] <= max(dense_max_domain, 0):
-        out = _bucket_aggregate(batch, key_cols, agg_exprs, mode, packed, out_schema, ctx)
+        out = _bucket_aggregate(batch, key_cols, agg_exprs, mode, packed, out_schema, ctx,
+                                merge_rows)
         if out.capacity > max_groups:
             # the live buckets, in key order, packed into max_groups rows
             out, ovf = compact_batch(out, max_groups)
@@ -327,7 +332,7 @@ def hash_aggregate(
     keep_bounds = (packed is not None and packed[1] <= _BUCKET_DOMAIN
                    and batch.capacity <= _BUCKET_ROWS)
     return _sorted_aggregate(batch, key_cols, key_limbs, agg_exprs, mode, max_groups,
-                             out_schema, ctx, keep_bounds)
+                             out_schema, ctx, keep_bounds, merge_rows)
 
 
 def _sort_groups(key_cols, key_limbs, row_mask: torch.Tensor):
@@ -374,13 +379,15 @@ def _seg_bounds(seg: torch.Tensor, changed: torch.Tensor, num_groups: torch.Tens
 
 def _sorted_aggregate(batch: Batch, key_cols, key_limbs, agg_exprs, mode: str,
                       max_groups: int, out_schema: T.Schema, ctx: EvalContext,
-                      keep_bounds: bool = False) -> Batch:
+                      keep_bounds: bool = False, merge_rows: Optional[int] = None) -> Batch:
     """The sorted path: see the module docstring. Output capacity
     ``max_groups``, groups in key order. The sorted inputs drop their
     magnitude bounds, as the JAX package's sorted payloads do, unless
     ``keep_bounds``."""
     cap = batch.capacity
     merging = mode in (AggMode.FINAL, AggMode.PARTIAL_MERGE)
+    # a count's bound: the input rows, or a merge's bound on the rows behind it
+    rows = merge_rows if merging else cap
     # every aggregate input evaluated once, on the unsorted batch
     pre: List[ColumnVector] = []
     names: List[str] = []
@@ -436,14 +443,15 @@ def _sorted_aggregate(batch: Batch, key_cols, key_limbs, agg_exprs, mode: str,
             vals = _input_agg(dataclasses.replace(a, child=ref(a.child)), synth, red,
                               group_mask, ctx)
         if mode in (AggMode.SINGLE, AggMode.FINAL):
-            out_cols.append(_finalize(a, vals, None if merging else cap))
+            out_cols.append(_finalize(a, vals, rows))
         else:
             out_cols.extend(vals)
     return Batch(tuple(out_cols), group_mask, out_schema)
 
 
 def _bucket_aggregate(batch: Batch, key_cols, agg_exprs, mode: str, packed,
-                      out_schema: T.Schema, ctx: EvalContext) -> Batch:
+                      out_schema: T.Schema, ctx: EvalContext,
+                      merge_rows: Optional[int] = None) -> Batch:
     """Direct-bucket aggregation: output capacity = bucket count; a group
     is live where its bucket holds a live row (always, when ungrouped)."""
     seg_raw, n_buckets = packed
@@ -467,7 +475,7 @@ def _bucket_aggregate(batch: Batch, key_cols, agg_exprs, mode: str, packed,
         if mode in (AggMode.SINGLE, AggMode.FINAL):
             # merged counts are sums of counts: the input capacity bounds
             # them only when rows are aggregated directly
-            out_cols.append(_finalize(a, vals, None if merging else cap))
+            out_cols.append(_finalize(a, vals, merge_rows if merging else cap))
         else:
             out_cols.extend(vals)
     return Batch(tuple(out_cols), group_mask, out_schema)
@@ -628,6 +636,8 @@ def _finalize(a: E.AggExpr, vals: List[ColumnVector], rows: Optional[int]) -> Co
     # avg = sum / count at the result scale, HALF_UP: lift the sum state to
     # i128, upscale, divide by the count
     k = rt.scale - s.dtype.scale
+    # below 2^31 rows the division takes 4 long-division steps, else 128
+    # restoring steps (about 640 elementwise ops), with the same quotient
     q = DW._div_i128_i64_full(DW.rescale(DW.lift(s), k), cnt.data.clamp(min=1).long(),
                               den_bound=rows)
     ok = s.validity & (cnt.data > 0)

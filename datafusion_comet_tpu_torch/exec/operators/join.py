@@ -1,5 +1,6 @@
-"""Hash join: INNER, and the semi-like LEFT_SEMI, LEFT_ANTI and EXISTENCE,
-and the broadcast nested-loop join (``nested_loop_join``, JAX :778-830)
+"""Hash join: INNER, the outer LEFT, RIGHT and FULL, and the semi-like
+LEFT_SEMI, LEFT_ANTI and EXISTENCE, and the broadcast nested-loop join
+(``nested_loop_join``, JAX :778-830)
 (port of ``datafusion_comet_tpu/exec/operators/join.py::hash_join``, :354;
 the key packing :400-419, the unique build :551-581, the compacted pair
 list :586-614, the sorted-build path :626-660 and :740-756, the
@@ -34,6 +35,15 @@ paths, which the planner's hints select (exec/stats.py, exec/engine.py):
 - **pair block**: row p*K + j pairs probe row p with its j-th build match;
   a probe row with more than K matches raises the flag and the session
   re-plans with a larger K.
+
+An outer join (JAX ``join.py:597-600``, ``:704-736``) runs on the same
+four paths. Its output is INNER's pairs plus each live probe row without a
+match (a null key never matches) once, in its first slot (j = 0), with a
+null build side; on the compacted list every live probe row holds at least
+one slot. With a condition, a probe row is matched where one of its pairs
+passes it. FULL appends a tail of build capacity in which the build rows
+that no pair matched come out with a null probe side. LEFT probes its left
+input and RIGHT its right one; FULL probes either.
 
 A multi-key join with ``key_pack`` (per key, the (min, max) over both
 sides) packs the key tuple into one int64, (k1 - lo1) + (k2 - lo2) x span1
@@ -75,7 +85,8 @@ from datafusion_comet_tpu_torch.exec.evaluator import EvalContext, evaluate, eva
 from datafusion_comet_tpu_torch.ir import expr as E
 from datafusion_comet_tpu_torch.ir.plan import JoinType
 
-__all__ = ["hash_join", "nested_loop_join", "SEMI_LIKE", "JOIN_FANOUT", "MAX_JOIN_RETRIES"]
+__all__ = ["hash_join", "nested_loop_join", "SEMI_LIKE", "OUTER", "JOIN_FANOUT",
+           "MAX_JOIN_RETRIES"]
 
 # The JAX Session's defaults (Session(join_fanout=4, max_join_retries=4)):
 # a join's first K, the build matches each probe row may have before the run
@@ -87,6 +98,7 @@ MAX_JOIN_RETRIES = 4
 _I64_MAX = (1 << 63) - 1
 _BITMAP_SPAN = 1 << 24  # the largest build-key span the membership bitmap covers
 SEMI_LIKE = (JoinType.LEFT_SEMI, JoinType.LEFT_ANTI, JoinType.EXISTENCE)
+OUTER = (JoinType.LEFT, JoinType.RIGHT, JoinType.FULL)
 
 
 def _key_limbs(cols: Sequence[ColumnVector]) -> Tuple[List[torch.Tensor], torch.Tensor]:
@@ -253,30 +265,34 @@ def _sorted_unique(bkey: torch.Tensor, bvalid: torch.Tensor, pkey: torch.Tensor,
     return bperm[lo.clamp(0, max(bkey.shape[0] - 1, 0))], count > 0, dup
 
 
-def _pair_list(bperm: torch.Tensor, lo: torch.Tensor, count: torch.Tensor, rows: int
-               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(probe row, build row and liveness of each of ``rows`` pair slots,
-    overflow): probe row p owns the slots [off[p], off[p] + count[p]), off
-    the exclusive cumulative sum of the counts; a slot finds its probe row
-    as the first whose inclusive sum passes it, and its build row at its
-    offset into the probe row's run."""
-    csum = count.long().cumsum(0)
+def _pair_list(bperm: torch.Tensor, lo: torch.Tensor, count: torch.Tensor, rows: int,
+               slots: Optional[torch.Tensor] = None):
+    """(probe row, build row, offset into the probe row's run, live slot and
+    pair of each of ``rows`` slots, overflow): probe row p owns the slots
+    [off[p], off[p] + slots[p]), off the exclusive cumulative sum of
+    ``slots`` (the match counts, or an outer join's counts with at least one
+    slot per live probe row); a slot finds its probe row as the first whose
+    inclusive sum passes it, and its build row at its offset into the probe
+    row's run. A slot is a pair where its offset is under the match count."""
+    n = count if slots is None else slots
+    csum = n.long().cumsum(0)
     total = csum[-1] if csum.shape[0] else csum.new_zeros(())
     slot = torch.arange(rows, device=count.device)
     p = torch.searchsorted(csum, slot, right=True).clamp(max=max(count.shape[0] - 1, 0))
-    j = slot - (csum[p] - count[p])
+    j = slot - (csum[p] - n[p])
     b = bperm[(lo[p] + j).clamp(0, max(bperm.shape[0] - 1, 0))]
-    return p, b, slot < total, total > rows
+    live = slot < total
+    return p, b, j, live, live if slots is None else live & (j < count[p]), total > rows
 
 
 def _pair_block(bperm: torch.Tensor, lo: torch.Tensor, count: torch.Tensor, K: int
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(build row and liveness of each (probe x K) block row): row p*K + j
-    is probe row p's j-th match."""
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(build row, liveness and offset j of each (probe x K) block row): row
+    p*K + j is probe row p's j-th match."""
     pcap = count.shape[0]
     j = torch.arange(K, device=count.device).repeat(pcap)
     live = j < count.clamp(max=K).repeat_interleave(K)
-    return bperm[(lo.repeat_interleave(K) + j).clamp(0, max(bperm.shape[0] - 1, 0))], live
+    return bperm[(lo.repeat_interleave(K) + j).clamp(0, max(bperm.shape[0] - 1, 0))], live, j
 
 
 def hash_join(left: Batch, right: Batch, left_keys: Sequence[E.Expr],
@@ -293,19 +309,29 @@ def hash_join(left: Batch, right: Batch, left_keys: Sequence[E.Expr],
     ``max_build_matches`` matches in the block, more pairs than
     ``compact_rows``, a repeated key under ``unique_build``, a key outside
     ``key_pack``), so the caller must re-run with larger capacities and no
-    hints. Semi-like: the probe's columns at its capacity (EXISTENCE adds
-    ``exists``), and a flag set only by ``key_pack``.
+    hints. LEFT, RIGHT and FULL (the outer side the probe side, else
+    NotImplementedError, as in the JAX package): INNER's pairs on the same
+    paths, plus each unmatched live probe row once with a null build side,
+    and for FULL a tail of the unmatched build rows (``_outer_rows``); the
+    compacted list gives every live probe row at least one slot. Semi-like:
+    the probe's columns at its capacity (EXISTENCE adds ``exists``), and a
+    flag set only by ``key_pack``.
     ``build_key_range``: the exact (min, max) of a single build key, which
     lets a semi-like join use the membership bitmap and a unique build the
     dense table; ``dense_range``, a runtime filter's exact key range, takes
-    its place for the semi-like bitmap (JAX ``join.py:429``). Each INNER run
-    appends its arguments and path to
+    its place for the semi-like bitmap (JAX ``join.py:429``). Each run but a
+    semi-like one appends its type, arguments, path and output capacity to
     ``ctx.join_log`` where that is a list."""
     semi = join_type in SEMI_LIKE
-    if join_type != JoinType.INNER and not semi:
+    outer = join_type in OUTER
+    if join_type != JoinType.INNER and not semi and not outer:
         raise NotImplementedError(f"{join_type} joins are not ported yet")
     if semi and condition is not None:
         raise NotImplementedError(f"{join_type} joins with a condition are not ported yet")
+    if join_type in (JoinType.LEFT, JoinType.RIGHT) and (
+            (join_type == JoinType.LEFT) != (build_side != "left")):
+        raise NotImplementedError(
+            "outer side must be the probe side; planner must pick build side accordingly")
     ctx = ctx or EvalContext()
     if build_side == "left":
         assert not semi, "semi and anti joins keep the left (probe) side"
@@ -349,6 +375,11 @@ def hash_join(left: Batch, right: Batch, left_keys: Sequence[E.Expr],
         return Batch(tuple(probe.columns) + (exists,), probe.row_mask, out_schema), semi_flag
 
     bkey, pkey = _one_limb(blimbs, plimbs)
+    # j: each pair row's offset into its probe row's matches (None on the
+    # unique paths, whose one row a probe row is its first); per_probe
+    # spreads a probe-row flag to the pair rows, any_pair folds a pair flag
+    # back to the probe rows
+    j = None
     if unique_build:
         if _bitmap_ok(bcols, pcols, build_key_range):
             path = "dense_unique"
@@ -357,33 +388,76 @@ def hash_join(left: Batch, right: Batch, left_keys: Sequence[E.Expr],
         else:
             path = "sorted_unique"
             b_idx, pair_valid, overflow = _sorted_unique(bkey, bvalid, pkey, pvalid)
+        has_match = pair_valid
         probe_cols = list(probe.columns)
+        per_probe = (lambda x: x)
+        any_pair = (lambda v: v)
     else:
         bperm, lo, count = _sorted_matches(bkey, bvalid, pkey, pvalid)
+        has_match = count > 0
         if compact_rows is not None:
             path = "pair_list"
-            p_idx, b_idx, pair_valid, overflow = _pair_list(bperm, lo, count, compact_rows)
+            # an outer join's live probe row holds a slot even with no match
+            slots = torch.where(probe.row_mask, count.clamp(min=1), count) if outer else None
+            p_idx, b_idx, j, slot_live, pair_valid, overflow = _pair_list(
+                bperm, lo, count, compact_rows, slots)
             probe_cols = [c.take(p_idx) for c in probe.columns]
+            per_probe = (lambda x: x[p_idx] & slot_live)
+            any_pair = (lambda v: torch.zeros(pcap, dtype=torch.int32, device=dev).index_add_(
+                0, p_idx, v.int()) > 0)
         else:
             path = "block"
-            b_idx, pair_valid = _pair_block(bperm, lo, count, K)
+            b_idx, pair_valid, j = _pair_block(bperm, lo, count, K)
             overflow = (count > K).any()
             probe_cols = [_repeat(c, K) for c in probe.columns]
+            per_probe = (lambda x: x.repeat_interleave(K))
+            any_pair = (lambda v: v.view(pcap, K).any(1))
     if pack_oor is not None:
         overflow = overflow | pack_oor
-    if ctx.join_log is not None:
-        ctx.join_log.append({"build": build_side, "K": K, "unique": unique_build,
-                             "pack": pack_oor is not None, "compact_rows": compact_rows,
-                             "path": path})
     build_cols = [c.take(b_idx) for c in build.columns]
-    if build_side == "left":
-        pair_cols, pair_fields = build_cols + probe_cols, build.schema.fields + probe.schema.fields
-    else:
-        pair_cols, pair_fields = probe_cols + build_cols, probe.schema.fields + build.schema.fields
+
+    def assemble(pcols, bcols_):
+        return bcols_ + pcols if build_side == "left" else pcols + bcols_
+
     if condition is not None:
-        pair = Batch(tuple(pair_cols), pair_valid, T.Schema(list(pair_fields)))
+        fields = assemble(list(probe.schema.fields), list(build.schema.fields))
+        pair = Batch(tuple(assemble(probe_cols, build_cols)), pair_valid, T.Schema(fields))
         pair_valid = evaluate_predicate(condition, pair, ctx)
-    return Batch(tuple(pair_cols), pair_valid, out_schema), overflow
+        if outer:  # a probe row matches where a pair of it passes the condition
+            has_match = any_pair(pair_valid)
+    if not outer:
+        out = Batch(tuple(assemble(probe_cols, build_cols)), pair_valid, out_schema)
+    else:
+        out = _outer_rows(join_type, probe, build, probe_cols, build_cols, b_idx, pair_valid,
+                          has_match, per_probe, j, assemble, out_schema)
+    if ctx.join_log is not None:
+        ctx.join_log.append({"type": join_type, "build": build_side, "K": K,
+                             "unique": unique_build, "pack": pack_oor is not None,
+                             "compact_rows": compact_rows, "path": path,
+                             "out_capacity": out.capacity})
+    return out, overflow
+
+
+def _outer_rows(join_type, probe: Batch, build: Batch, probe_cols, build_cols, b_idx,
+                pair_valid, has_match, per_probe, j, assemble, out_schema) -> Batch:
+    """LEFT and RIGHT: the pairs, and each live probe row with no pair once,
+    in its first slot (j = 0), with a null build side (JAX ``join.py:704``).
+    FULL: that, then a build-capacity tail holding the build rows no pair
+    matched, with a null probe side (``:719``)."""
+    un_slot = per_probe(probe.row_mask & ~has_match)
+    if j is not None:
+        un_slot = un_slot & (j == 0)
+    build_cols = [_with_validity(c, c.validity & ~un_slot) for c in build_cols]
+    out_cols = assemble(probe_cols, build_cols)
+    if join_type != JoinType.FULL:
+        return Batch(tuple(out_cols), pair_valid | un_slot, out_schema)
+    bcap = build.capacity
+    hit = torch.zeros(bcap, dtype=torch.int32, device=build.device).index_add_(
+        0, b_idx, pair_valid.int())
+    tail = assemble([_null_like(c, bcap) for c in probe.columns], list(build.columns))
+    out_cols = [_concat_column([c, t], c.dtype) for c, t in zip(out_cols, tail)]
+    return Batch(tuple(out_cols), torch.cat([pair_valid | un_slot, build.row_mask & (hit == 0)]),
+                 out_schema)
 
 
 # the semi-like joins run by each membership path, counted where they run

@@ -15,7 +15,10 @@ the operators above then run at the thinned size.
 
 Safety: the filter only removes rows whose key cannot match the dimension
 side of the equi-join chain (equality carried through INNER and LEFT_SEMI
-join keys), so results are unchanged.
+join keys), so results are unchanged. Only an INNER join plants one; on its
+way down it passes an INNER, LEFT_SEMI, LEFT_ANTI or LEFT join (below a
+LEFT join's preserved side, the rows it removes are the INNER join's above
+to drop) and stops above a RIGHT or FULL join, as the JAX injector does.
 
 Gates, the JAX package's: the fact side's scan has at least 65,536 rows
 (``_MIN_TARGET_ROWS``); the dimension table's capacity is at most 2^22

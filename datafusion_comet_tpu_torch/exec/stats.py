@@ -25,14 +25,18 @@ a hint is None (a hint set already wins):
   the probe rows times the share of the probe key's distinct values the
   build side can hold;
 - on an INNER join (:306-404): the build side moves to the left input when
-  that is at most half the right's estimate; then ``build_key_range``
+  that is at most half the right's estimate (an outer join keeps its build
+  side: it probes its preserved side); then, on outer joins too,
+  ``build_key_range``
   (after the swap), ``unique_build_hint`` where the build key's distinct
   estimate is at least 0.8 x the build rows, ``key_pack`` where every key
   of a multi-key join has a range on both sides (their union, the spans'
   product under 2^62), ``fanout_hint`` (twice the build rows over the
   build keys' distinct product, a power of two in [2, 256]) and
   ``out_rows_hint``, the foreign-key-to-primary-key estimate: the smaller
-  side thins the larger by its rows over its key's distinct count.
+  side thins the larger by its rows over its key's distinct count (an outer
+  join's at least its preserved side's rows; the estimate the walk hands up
+  stays the formula's, as in the JAX walk).
 
 A runtime filter's semi join (exec/runtime_filter.py) comes with its row
 estimate set, and its key table is registered with statistics, so the walk
@@ -239,12 +243,12 @@ def _walk(plan: P.PlanNode, stats: Dict[str, TableStats]) -> Tuple[int, Dict[str
                 ln[lk0] = min(ln[lk0], max(rr, 1))
                 return est, ln
             return lr, ln
-        # INNER (the outer joins are not run by the executor)
+        # INNER and the outer joins (JAX :355-395)
         lk = [_source_column(k) for k in plan.left_keys]
         rk = [_source_column(k) for k in plan.right_keys]
-        # the build goes to the smaller input, with a 2x margin against
-        # noisy estimates
-        if plan.build_side == "right" and lr * 2 <= rr:
+        # an INNER join's build goes to the smaller input, with a 2x margin
+        # against noisy estimates; an outer join probes its preserved side
+        if plan.join_type == P.JoinType.INNER and plan.build_side == "right" and lr * 2 <= rr:
             plan.build_side = "left"
         _set_build_range(plan, stats)
         _set_inner_hints(plan, stats, (lr, ln, lk), (rr, rn, rk))
@@ -261,8 +265,15 @@ def _walk(plan: P.PlanNode, stats: Dict[str, TableStats]) -> Tuple[int, Dict[str
             rows = max(int(rr * min(1.0, lr / max(ln[lk[0]], 1))), 1)
             if rk and rk[0]:
                 ndv[rk[0]] = min(ndv.get(rk[0], lr), lr)
+        # the output estimate: an outer join keeps every row of its preserved
+        # side; the estimate handed up stays the key formula's, as in JAX
+        est = rows
+        if plan.join_type in (P.JoinType.LEFT, P.JoinType.FULL):
+            est = max(est, lr)
+        if plan.join_type in (P.JoinType.RIGHT, P.JoinType.FULL):
+            est = max(est, rr)
         if plan.out_rows_hint is None:
-            plan.out_rows_hint = rows
+            plan.out_rows_hint = est
         else:  # a hint set already wins, and the estimates above follow it
             rows = max(int(plan.out_rows_hint), 1)
         return rows, ndv
@@ -332,7 +343,7 @@ def _set_build_range(plan: P.HashJoin, stats: Dict[str, TableStats]) -> None:
 
 
 def _set_inner_hints(plan: P.HashJoin, stats: Dict[str, TableStats], left, right) -> None:
-    """An INNER join's ``unique_build_hint``, ``key_pack`` and
+    """An INNER or outer join's ``unique_build_hint``, ``key_pack`` and
     ``fanout_hint`` from each side's (row estimate, distinct estimates,
     key source columns)."""
     (lr, ln, lk), (rr, rn, rk) = left, right

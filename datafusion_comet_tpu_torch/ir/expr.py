@@ -266,6 +266,8 @@ class AggFunc:
     AVG = "avg"
     MIN = "min"
     MAX = "max"
+    # a plan-level rewrite (ir/plan.py::_rewrite_distinct), never evaluated
+    COUNT_DISTINCT = "count_distinct"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -278,7 +280,7 @@ class AggExpr:
 
     def result_dtype(self) -> T.DataType:
         cd = self.child.dtype if self.child is not None else None
-        if self.func == AggFunc.COUNT:
+        if self.func in (AggFunc.COUNT, AggFunc.COUNT_DISTINCT):
             return T.INT64
         if self.func == AggFunc.SUM:
             if cd.is_decimal:

@@ -3,7 +3,10 @@ Filter, Projection, HashAggregate, Sort, Limit, HashJoin and
 BroadcastNestedLoopJoin nodes the ported TPC-H queries use).
 
 Plans are built unbound; ``bind_plan`` binds expressions bottom-up against
-child schemas and computes each node's output schema.
+child schemas and computes each node's output schema, and rewrites a
+COUNT(DISTINCT) aggregate into two plain ones (``_rewrite_distinct``). An
+outer join's output keeps each input field's nullability, as the JAX
+package's does: the join itself nulls the side it did not match.
 """
 
 from __future__ import annotations
@@ -20,8 +23,8 @@ __all__ = ["PlanNode", "Scan", "Filter", "Projection", "HashAggregate", "AggMode
 
 
 class JoinType:
-    """Join types of the IR. The hash join runs INNER, LEFT_SEMI, LEFT_ANTI
-    and EXISTENCE; the nested-loop join every type but the null-aware anti
+    """Join types of the IR. The hash join runs every type but the
+    null-aware anti; the nested-loop join every type but the null-aware anti
     and EXISTENCE."""
 
     INNER = "inner"
@@ -112,7 +115,9 @@ class HashAggregate(PlanNode):
     statistics, exec/stats.py; a run with more groups re-runs with it four
     times larger). ``group_key_ranges``: per group key, the exact (min, max)
     of its source column where statistics know it, so the keys pack into
-    few sort limbs."""
+    few sort limbs. ``merge_rows``: where the executor knows it, a bound on
+    the input rows behind one group's merged states (a FINAL's AVG divides
+    by merged counts, on a short path below 2^31); None: unknown."""
 
     child: PlanNode
     group_exprs: Tuple[E.Expr, ...]
@@ -120,6 +125,7 @@ class HashAggregate(PlanNode):
     mode: str = AggMode.SINGLE
     max_groups: Optional[int] = None
     group_key_ranges: Optional[Tuple[Optional[Tuple[int, int]], ...]] = None
+    merge_rows: Optional[int] = None
 
     def children(self):
         return (self.child,)
@@ -248,6 +254,9 @@ def bind_plan(plan: PlanNode) -> PlanNode:
         return out
     if isinstance(plan, HashAggregate):
         child = kids[0]
+        if plan.mode == AggMode.SINGLE and any(
+                a.func == E.AggFunc.COUNT_DISTINCT for a in plan.agg_exprs):
+            return _rewrite_distinct(plan)
         groups = tuple(E.bind(g, child.schema) for g in plan.group_exprs)
         if plan.mode in (AggMode.FINAL, AggMode.PARTIAL_MERGE):
             # the merge reads state columns by name; the aggregates stay bound
@@ -301,6 +310,29 @@ def bind_plan(plan: PlanNode) -> PlanNode:
         out.schema = _join_out_schema(left.schema, right.schema, plan.join_type)
         return out
     raise NotImplementedError(f"bind_plan: {type(plan).__name__}")
+
+
+def _rewrite_distinct(plan: HashAggregate) -> PlanNode:
+    """COUNT(DISTINCT x) as two aggregates (JAX ``ir/plan.py:571``): a
+    group-only aggregate over (groups, x) drops the duplicates, then COUNT(x)
+    per group over it (a null x is a group of the first and is not counted
+    by the second). Every aggregate must be a COUNT(DISTINCT) of one and the
+    same input, as in the JAX package; mixed ones would need Spark's
+    Expand-based rewrite."""
+    distinct = [a for a in plan.agg_exprs if a.func == E.AggFunc.COUNT_DISTINCT]
+    if len(distinct) != len(plan.agg_exprs):
+        raise NotImplementedError("mixed DISTINCT and plain aggregates")
+    first = distinct[0].child
+    if any(repr(a.child) != repr(first) for a in distinct[1:]):
+        raise NotImplementedError("multiple different DISTINCT columns")
+    dname = "__distinct_key"
+    inner = HashAggregate(plan.child, plan.group_exprs + (E.Alias(first, dname),), (),
+                          AggMode.SINGLE, plan.max_groups)
+    outer = HashAggregate(
+        inner, tuple(E.col(g.name) for g in plan.group_exprs),
+        tuple(E.AggExpr(E.AggFunc.COUNT, E.col(dname), a.out_name) for a in distinct),
+        AggMode.SINGLE, plan.max_groups)
+    return bind_plan(outer)
 
 
 def scan_tables(plan: PlanNode) -> List[str]:

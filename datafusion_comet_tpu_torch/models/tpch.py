@@ -1,6 +1,6 @@
 """TPC-H workload subset: the ``lineitem``, ``orders``, ``customer``,
 ``supplier``, ``nation``, ``region``, ``part`` and ``partsupp`` schemas and
-generators, and the plans of Q1-Q12, Q14, Q15, Q17, Q18 and Q19 (port of
+generators, and the plans of Q1-Q20 (port of
 ``datafusion_comet_tpu/models/tpch.py``; ``QUERIES`` lists them).
 
 The generator is a line-for-line copy of the JAX package's, so the same
@@ -21,8 +21,8 @@ from datafusion_comet_tpu_torch.ir import expr as E
 from datafusion_comet_tpu_torch.ir import plan as P
 
 __all__ = ["SCHEMAS", "QUERIES", "table_rows", "generate_table", "generate_tables", "q1", "q2",
-           "q3", "q4", "q5", "q6", "q7", "q8", "q9", "q10", "q11", "q12", "q14", "q15", "q17",
-           "q18", "q19"]
+           "q3", "q4", "q5", "q6", "q7", "q8", "q9", "q10", "q11", "q12", "q13", "q14", "q15",
+           "q16", "q17", "q18", "q19", "q20"]
 
 _dec = T.decimal
 
@@ -728,7 +728,83 @@ def q17() -> P.PlanNode:
     return P.Projection(agg, ((E.col("s").cast(T.FLOAT64) / E.lit(7.0)).alias("avg_yearly"),))
 
 
+def q13() -> P.PlanNode:
+    """Customer distribution: customer LEFT JOIN orders (probe customer, so
+    a customer with no order comes out once with a null order side), the
+    orders per customer (COUNT of o_orderkey counts matched rows only), then
+    the customers per order count. The JAX package's orders table has no
+    o_comment, so its NOT LIKE '%special%requests%' reads o_orderpriority
+    and keeps every order (ROADMAP C15); this plan is the same."""
+    c = P.Scan("customer", SCHEMAS["customer"])
+    o = P.Scan("orders", SCHEMAS["orders"]).filter(
+        E.Like(E.col("o_orderpriority"), "%special%requests%", negated=True))
+    j = P.HashJoin(c, o, (E.col("c_custkey"),), (E.col("o_custkey"),), P.JoinType.LEFT, "right")
+    per_cust = j.aggregate([E.col("c_custkey")],
+                           [E.AggExpr("count", E.col("o_orderkey"), "c_count")])
+    dist = per_cust.aggregate([E.col("c_count")], [E.AggExpr("count", None, "custdist")])
+    return dist.sort([E.SortOrder(E.col("custdist"), ascending=False),
+                      E.SortOrder(E.col("c_count"), ascending=False)])
+
+
+def q16() -> P.PlanNode:
+    """Parts/supplier relationship: partsupp joined to the parts that pass
+    three filters, the suppliers with complaints removed by a LEFT ANTI
+    join (s_suppkey is never null, so NOT IN needs no null-aware join), and
+    COUNT(DISTINCT ps_suppkey) per brand, type and size."""
+    p = P.Scan("part", SCHEMAS["part"]).filter(
+        (E.col("p_brand") != E.lit("Brand#45"))
+        & E.Like(E.col("p_type"), "MEDIUM POLISHED%", negated=True)
+        & E.col("p_size").isin(49, 14, 23, 45, 19, 3, 36, 9))
+    ps = P.Scan("partsupp", SCHEMAS["partsupp"])
+    psp = P.HashJoin(ps, p, (E.col("ps_partkey"),), (E.col("p_partkey"),), P.JoinType.INNER,
+                     "right")
+    bad = P.Scan("supplier", SCHEMAS["supplier"]).filter(
+        E.col("s_comment").like("%Customer%Complaints%")).project([E.col("s_suppkey")])
+    good = P.HashJoin(psp, bad, (E.col("ps_suppkey"),), (E.col("s_suppkey"),),
+                      P.JoinType.LEFT_ANTI, "right")
+    agg = good.aggregate([E.col("p_brand"), E.col("p_type"), E.col("p_size")],
+                         [E.AggExpr("count_distinct", E.col("ps_suppkey"), "supplier_cnt")])
+    return agg.sort([E.SortOrder(E.col("supplier_cnt"), ascending=False),
+                     E.SortOrder(E.col("p_brand")), E.SortOrder(E.col("p_type")),
+                     E.SortOrder(E.col("p_size"))])
+
+
+def q20(pattern: str = "forest%", ship_from: str = "1994-01-01",
+        ship_to: str = "1995-01-01") -> P.PlanNode:
+    """Potential part promotion: CANADA's suppliers whose available quantity
+    of a part named ``pattern`` is over half of what they shipped of it in
+    [``ship_from``, ``ship_to``) (the correlated subqueries as a per-(part,
+    supplier) SUM joined on both keys under a DOUBLE condition). TPC-H's
+    literals are the defaults; the generator draws l_suppkey and ps_suppkey
+    independently, so few lineitems find their partsupp row and the answer
+    is empty at those literals (ROADMAP C16): pattern "%" over 1992-1998
+    keeps rows."""
+    p = P.Scan("part", SCHEMAS["part"]).filter(E.col("p_name").like(pattern)).project(
+        [E.col("p_partkey")])
+    l = P.Scan("lineitem", SCHEMAS["lineitem"]).filter(
+        (E.col("l_shipdate") >= _date_lit(ship_from)) & (E.col("l_shipdate") < _date_lit(ship_to)))
+    shipped = l.aggregate([E.col("l_partkey"), E.col("l_suppkey")],
+                          [E.AggExpr("sum", E.col("l_quantity"), "qty")])
+    ps = P.Scan("partsupp", SCHEMAS["partsupp"])
+    ps_part = P.HashJoin(ps, p, (E.col("ps_partkey"),), (E.col("p_partkey"),),
+                         P.JoinType.LEFT_SEMI, "right")
+    psq = P.HashJoin(
+        ps_part, shipped, (E.col("ps_partkey"), E.col("ps_suppkey")),
+        (E.col("l_partkey"), E.col("l_suppkey")), P.JoinType.INNER, "right",
+        condition=E.col("ps_availqty").cast(T.INT64).cast(T.FLOAT64)
+        > E.lit(0.005) * E.col("qty").cast(T.FLOAT64))  # qty is scale 2: 0.5 / 100
+    supp_keys = P.Projection(psq, (E.col("ps_suppkey"),))
+    n = P.Scan("nation", SCHEMAS["nation"]).filter(E.col("n_name") == E.lit("CANADA"))
+    s = P.Scan("supplier", SCHEMAS["supplier"])
+    sn = P.HashJoin(s, n, (E.col("s_nationkey"),), (E.col("n_nationkey"),), P.JoinType.INNER,
+                    "right")
+    out = P.HashJoin(sn, supp_keys, (E.col("s_suppkey"),), (E.col("ps_suppkey"),),
+                     P.JoinType.LEFT_SEMI, "right")
+    return P.Sort(P.Projection(out, (E.col("s_name"), E.col("s_suppkey"))),
+                  (E.SortOrder(E.col("s_name")),))
+
+
 # every query of the port, by name
 QUERIES = {"q1": q1, "q2": q2, "q3": q3, "q4": q4, "q5": q5, "q6": q6, "q7": q7, "q8": q8,
-           "q9": q9, "q10": q10, "q11": q11, "q12": q12, "q14": q14, "q15": q15, "q17": q17,
-           "q18": q18, "q19": q19}
+           "q9": q9, "q10": q10, "q11": q11, "q12": q12, "q13": q13, "q14": q14, "q15": q15,
+           "q16": q16, "q17": q17, "q18": q18, "q19": q19, "q20": q20}

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Warm latency, peak device memory, kernel launches, retries, runtime
 filters, planning host time and (with ``--profile``) device-time
-breakdowns of TPC-H Q1, Q6, Q12, Q3, Q4, Q15, Q5, Q10, Q18, Q2, Q9 and Q19
-(all but Q1, Q6 and Q15 directly, and through the grace join at K = 16)
-for the port in any checkout; a checkout whose port lacks Q3, Q4 and Q15,
-Q5, Q10 and Q18, or Q2, Q9 and Q19, runs the others. Each checkout
-runs in its own process, so two of them can be compared in turns on one
-card:
+breakdowns of TPC-H Q1, Q6, Q12, Q3, Q4, Q15, Q5, Q10, Q18, Q2, Q9, Q19,
+Q13, Q16 and Q20 (all but Q1, Q6 and Q15 directly, and through the grace
+join at K = 16, the budget ``grace_fraction`` finds) for the port in any
+checkout; a checkout whose port lacks Q3, Q4 and Q15, Q5, Q10 and Q18,
+Q2, Q9 and Q19, or Q13, Q16 and Q20, runs the others.
+Each checkout runs in its own process, so two of them can be compared in
+turns on one card:
 
     python3 datafusion_comet_tpu_torch/tools/query_times.py [--tree DIR] [--sf 1] [--profile]
         [--queries q3,q5,q10]
@@ -18,7 +19,7 @@ JSON line per query: the median and every one of ``--reps`` warm runs
 (host clock, each ending in a device sync), the peak device memory of one
 run, and of one run the launches of each kernel wrapper and the retries
 (the plan runs that overflowed a capacity and ran again, grace pairs
-included), the runtime filters injected (each one's key count) and the
+and tiled aggregates included), the runtime filters injected (each one's key count) and the
 median host ms of ``_plan_stages`` over the warm runs (where the
 checkout's ``Session`` records them). With ``--profile``, one torch.profiler run of each run: wall
 ms, device busy ms and idle share, the device ms of index gathers (advanced indexing and
@@ -36,6 +37,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 GRACE_K = 16
@@ -49,14 +51,38 @@ CLASSES = {
 SPANS = ("grace.", "aggregate.", "tiled.")  # the port's record_function spans
 
 
+def grace_session(sess, fraction: float):
+    """A session over ``sess``'s device tables and statistics whose memory
+    budget is ``fraction`` of the card."""
+    from datafusion_comet_tpu_torch.conf import Config
+    from datafusion_comet_tpu_torch.exec.engine import Session
+
+    s = Session(sess.device, Config(memory_fraction=fraction))
+    for t, b in sess.tables.items():
+        s.register_batch(t, b)
+    if hasattr(sess, "stats"):
+        s.stats.update(sess.stats)
+    return s
+
+
 def grace_fraction(sess, plan, K: int = GRACE_K):
-    """(fraction, jpeak): the Config(memory_fraction) under which the
-    session splits the plan's first join into K partitions (K >= 8), and
-    that join's peak estimate jpeak. The join is the topmost of the first
-    stage that holds one (Q5's first stage joins lineitem, orders and
-    customer). The engine doubles K from 2 until K x budget / 2 covers
-    jpeak, so a budget of 3 x jpeak / K, inside [2 jpeak / K, 4 jpeak / K),
-    stops it at K."""
+    """(fraction, jpeak): the Config(memory_fraction) under which a run of
+    the plan splits a join into K partitions (K >= 8), and the peak
+    estimate jpeak of the first stage's top join (Q5's first stage joins
+    lineitem, orders and customer). The engine doubles K from 2 until
+    K x budget / 2 covers a join's peak, so a budget of 3 x jpeak / K,
+    inside [2 jpeak / K, 4 jpeak / K), stops it at K.
+
+    The estimate counts every operator at the largest capacity the join
+    reads. Where a side of the join is an aggregate the budget runs tiled
+    first, and the join reads that largest table only there (Q20's sums
+    over lineitem), the capacity it is partitioned at is the tiled
+    result's, known only from a run (the tiled run re-runs larger where its
+    groups overflow). Then grace runs read the K taken and scale the
+    fraction by K taken / K wanted (K doubles as the budget halves), or
+    halve it where no join was partitioned, until a run takes K;
+    RuntimeError after four runs."""
+    from datafusion_comet_tpu_torch.exec import engine
     from datafusion_comet_tpu_torch.exec.memory import device_budget_bytes, plan_peak_bytes
     from datafusion_comet_tpu_torch.ir import plan as P
 
@@ -65,9 +91,35 @@ def grace_fraction(sess, plan, K: int = GRACE_K):
             node = node.children()[0] if node.children() else None
         return node
 
+    def below_filters(node):
+        while isinstance(node, (P.Filter, P.Projection)):
+            node = node.child
+        return node
+
     node = next(j for j in (top_join(sub) for _, sub in sess._plan_stages(plan)) if j)
-    jpeak = plan_peak_bytes(node, max(sess.tables[t].capacity for t in P.scan_tables(node)))
-    return 3 * jpeak / K / device_budget_bytes(sess.device, 1.0), jpeak
+    read = P.scan_tables(node)
+    cap = max(sess.tables[t].capacity for t in read)
+    jpeak = plan_peak_bytes(node, cap)
+    fraction = 3 * jpeak / K / device_budget_bytes(sess.device, 1.0)
+    # a checkout from before the tiled aggregate has no find_stream_agg
+    find = getattr(engine, "find_stream_agg", None)
+    tiled = find and find(node, sess.tables)
+    if not tiled or not any(tiled[0] is below_filters(side) for side in (node.left, node.right)):
+        return fraction, jpeak
+    for t in P.scan_tables(tiled[0]):
+        read.remove(t)
+    if max((sess.tables[t].capacity for t in read), default=0) >= cap:
+        return fraction, jpeak
+    for _ in range(4):
+        g = grace_session(sess, fraction)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # over-budget stages proceed with a warning
+            g.execute(plan)
+        ks = [r.K for r in g.grace_runners]
+        if K in ks:
+            return fraction, jpeak
+        fraction *= ks[0] / K if ks else 0.5
+    raise RuntimeError(f"no memory fraction found that partitions a join into K = {K}")
 
 
 WRAPPERS = ("bucket_count", "bucket_sum", "partition_columns", "partition_sort")
@@ -75,7 +127,8 @@ WRAPPERS = ("bucket_count", "bucket_sum", "partition_columns", "partition_sort")
 
 def launches_and_retries(sess, plan):
     """Of one run: each kernel wrapper's launches, and the runs of a plan
-    (a stage or a grace pair) that overflowed and ran again."""
+    (a stage, a grace pair or a tiled aggregate) that overflowed and ran
+    again."""
     from datafusion_comet_tpu_torch.exec import kernels as K
 
     runs = []
@@ -185,7 +238,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("query_times: no CUDA card visible", file=sys.stderr)
         return 2
-    from datafusion_comet_tpu_torch.conf import Config
     from datafusion_comet_tpu_torch.exec.engine import Session
     from datafusion_comet_tpu_torch.models import tpch
 
@@ -195,33 +247,29 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({"tree": str(tree), "sf": args.sf, "nvidia_smi": smi}), flush=True)
     has_q3, has_q4, has_q5 = hasattr(tpch, "q3"), hasattr(tpch, "q4"), hasattr(tpch, "q5")
-    has_q18, has_q9 = hasattr(tpch, "q18"), hasattr(tpch, "q9")
+    has_q18, has_q9, has_q13 = hasattr(tpch, "q18"), hasattr(tpch, "q9"), hasattr(tpch, "q13")
     sess = Session()
     for t in (("lineitem", "orders") + (("customer",) if has_q3 else ())
               + (("supplier",) if has_q4 else ()) + (("nation", "region") if has_q5 else ())
               + (("part", "partsupp") if has_q9 else ())):
         sess.register_numpy(t, tpch.generate_table(t, args.sf), tpch.SCHEMAS[t])
 
-    def grace_session(plan):
-        s = Session(conf=Config(memory_fraction=grace_fraction(sess, plan)[0]))
-        for t, b in sess.tables.items():
-            s.register_batch(t, b)
-        if hasattr(sess, "stats"):
-            s.stats.update(sess.stats)
-        return s
+    def grace(plan):
+        return grace_session(sess, grace_fraction(sess, plan)[0])
 
     runs = [("q1", sess, tpch.q1()), ("q6", sess, tpch.q6()), ("q12_direct", sess, tpch.q12()),
-            ("q12_grace", grace_session(tpch.q12()), tpch.q12())]
+            ("q12_grace", grace(tpch.q12()), tpch.q12())]
     if has_q3:
-        runs += [("q3_direct", sess, tpch.q3()), ("q3_grace", grace_session(tpch.q3()), tpch.q3())]
+        runs += [("q3_direct", sess, tpch.q3()), ("q3_grace", grace(tpch.q3()), tpch.q3())]
     if has_q4:
-        runs += [("q4_direct", sess, tpch.q4()), ("q4_grace", grace_session(tpch.q4()), tpch.q4()),
+        runs += [("q4_direct", sess, tpch.q4()), ("q4_grace", grace(tpch.q4()), tpch.q4()),
                  ("q15", sess, tpch.q15())]
     if has_q5:
-        runs += [("q5_direct", sess, tpch.q5()), ("q5_grace", grace_session(tpch.q5()), tpch.q5())]
-    for q in (("q10", "q18") if has_q18 else ()) + (("q2", "q9", "q19") if has_q9 else ()):
+        runs += [("q5_direct", sess, tpch.q5()), ("q5_grace", grace(tpch.q5()), tpch.q5())]
+    for q in ((("q10", "q18") if has_q18 else ()) + (("q2", "q9", "q19") if has_q9 else ())
+              + (("q13", "q16", "q20") if has_q13 else ())):
         plan = getattr(tpch, q)()
-        runs += [(f"{q}_direct", sess, plan), (f"{q}_grace", grace_session(plan), plan)]
+        runs += [(f"{q}_direct", sess, plan), (f"{q}_grace", grace(plan), plan)]
     if args.queries:
         keep = set(args.queries.split(","))
         runs = [r for r in runs if r[0].split("_")[0] in keep]
@@ -237,7 +285,9 @@ def main(argv=None) -> int:
             line.update(K=r.K, mode=r.downstream and r.downstream[0],
                         sizes=[x.tolist() for x in r.sizes],
                         grace=[{"K": g.K, "mode": g.downstream and g.downstream[0]}
-                               for g in s.grace_runners], tiled=getattr(s, "tiled", []))
+                               for g in s.grace_runners], tiled=getattr(s, "tiled", []),
+                        tiled_attempts=[[r["scale"], r["overflowed"]] for r in
+                                        getattr(s, "runs", []) if r["where"] == "tiled"])
         print(json.dumps(line), flush=True)
     if args.profile:
         for name, s, plan in runs:

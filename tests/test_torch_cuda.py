@@ -1,13 +1,16 @@
 """PyTorch port on the card: the CUDA kernels against their plain versions,
-Q1, Q6, Q12, Q3, Q4, Q5, Q10, Q18, Q2, Q9, Q19, Q7, Q8, Q11, Q14 and Q17
+Q1, Q6, Q12, Q3, Q4, Q5, Q10, Q18, Q2, Q9, Q19, Q7, Q8, Q11, Q14, Q17, Q13,
+Q16 and Q20
 (all but Q1 and Q6 directly and through the grace join; Q4 on both
-semi-join membership paths; Q10, Q18 and the last eight with the default
+semi-join membership paths; Q10, Q18 and the last eleven with the default
 staging and every string padded), Q15, and Q3, Q9 and Q10 with their
 runtime filters on the card against the same queries on the CPU, the
 dense path's MIN/MAX, the string operations (padded limbs, comparisons,
 CASE WHEN, murmur3, LIKE) and the fields of a date, and the float
 operations (order limbs, expressions, SUM/AVG/MIN/MAX) and the
-nested-loop join on the card against the CPU. Marked ``cuda``;
+nested-loop join, the outer hash joins on every path, and Q13, Q16, Q20
+and Q20's variant directly and through the grace join on the card against
+the CPU. Marked ``cuda``;
 without a card every test here skips. This file imports no JAX, so it runs
 on a machine without it (tests/conftest.py imports JAX, hence --noconftest):
 
@@ -291,7 +294,8 @@ def test_query_times_script_on_card(dev, capsys):
     assert "nvidia_smi" in head
     runs = ["q12_direct", "q12_grace", "q3_direct", "q3_grace", "q4_direct", "q4_grace", "q15",
             "q5_direct", "q5_grace", "q10_direct", "q10_grace", "q18_direct", "q18_grace",
-            "q2_direct", "q2_grace", "q9_direct", "q9_grace", "q19_direct", "q19_grace"]
+            "q2_direct", "q2_grace", "q9_direct", "q9_grace", "q19_direct", "q19_grace",
+            "q13_direct", "q13_grace", "q16_direct", "q16_grace", "q20_direct", "q20_grace"]
     names = ["q1", "q6"] + runs
     assert [r.get("query") or r["profile"] for r in rows] == names + names
     assert rows[3]["K"] == 16 and rows[3]["mode"] == "partial"
@@ -809,6 +813,120 @@ def test_float_queries_on_card_equal_cpu_direct_and_grace(dev, q, staging):
         gpu = session(None, f)
         K.partition_columns.launches = 0
         _bit_same(gpu.collect(plan()), want, rtol=chip_smoke.FLOAT_SUM_RTOL)
+        assert bool(gpu.grace_runners) == grace
+        assert (K.partition_columns.launches > 0) or not grace
+        if grace:
+            assert 16 in [r.K for r in gpu.grace_runners]
+
+
+# ---- the outer joins, COUNT(DISTINCT); TPC-H Q13, Q16 and Q20 -----------------------------
+
+
+def _outer_inputs(device, dup: int, shift: int = 0):
+    """A fact (probe) batch with null keys and dead rows, and a dim (build)
+    batch with null and ``dup``-fold keys, from one seed, on ``device``."""
+    from datafusion_comet_tpu_torch.exec import batch as PB
+
+    rng = np.random.default_rng(17)
+    nf, nd = 5000, 900
+    fact = {"fk": rng.integers(0, 1200, nf).astype(np.int64),
+            "fk2": rng.integers(0, 3, nf).astype(np.int32), "x": np.arange(nf, dtype=np.int64)}
+    pk = np.repeat(rng.permutation(1200)[:nd // dup], dup).astype(np.int64) + shift
+    dim = {"pk": pk, "pk2": rng.integers(0, 3, len(pk)).astype(np.int32),
+           "w": rng.integers(-50, 50, len(pk)).astype(np.int64)}
+    fs = PT.Schema([PT.Field("fk", PT.INT64), PT.Field("fk2", PT.INT32), PT.Field("x", PT.INT64)])
+    ds = PT.Schema([PT.Field("pk", PT.INT64), PT.Field("pk2", PT.INT32), PT.Field("w", PT.INT64)])
+    f = PB.from_numpy(fact, fs, device, validity={"fk": rng.random(nf) > 0.05})
+    mask = torch.from_numpy(np.pad(rng.random(nf) > 0.1, (0, f.capacity - nf))).to(device)
+    d = PB.from_numpy(dim, ds, device, validity={"pk": rng.random(len(pk)) > 0.05})
+    return f.with_mask(f.row_mask & mask), d
+
+
+@pytest.mark.parametrize("path", ["pair_list", "block", "dense_unique", "sorted_unique",
+                                  "packed", "no_match"])
+@pytest.mark.parametrize("join_type", ["left", "right", "full"])
+def test_outer_joins_on_card_equal_cpu(dev, join_type, path):
+    """LEFT, RIGHT (build left) and FULL hash joins on each path, with and
+    without a condition, on the card equal the CPU run slot for slot."""
+    from datafusion_comet_tpu_torch.exec import batch as PB
+    from datafusion_comet_tpu_torch.exec.evaluator import EvalContext
+    from datafusion_comet_tpu_torch.exec.operators import join as J
+    from datafusion_comet_tpu_torch.ir import expr as E
+
+    unique = path in ("dense_unique", "sorted_unique")
+    keys = (("fk", "fk2"), ("pk", "pk2")) if path == "packed" else (("fk",), ("pk",))
+    kw = {"pair_list": {"compact_rows": 16384}, "block": {"max_build_matches": 4},
+          "dense_unique": {"unique_build": True, "build_key_range": (0, 1199)},
+          "sorted_unique": {"unique_build": True},
+          "packed": {"key_pack": ((0, 1199), (0, 2)), "compact_rows": 16384},
+          "no_match": {"compact_rows": 16384}}[path]
+    for cond in (None, E.col("w") < E.col("fk2") * E.lit(20)):
+        outs = []
+        for device in ("cpu", dev):
+            f, d = _outer_inputs(device, 1 if unique else 3, 5000 if path == "no_match" else 0)
+            (l, lk), (r, rk) = ((d, keys[1]), (f, keys[0])) if join_type == "right" else (
+                (f, keys[0]), (d, keys[1]))
+            schema = PT.Schema(list(l.schema.fields) + list(r.schema.fields))
+            ctx = EvalContext(join_log=[])
+            out, ovf = J.hash_join(l, r, [E.bind(E.col(k), l.schema) for k in lk],
+                                   [E.bind(E.col(k), r.schema) for k in rk], join_type,
+                                   "left" if join_type == "right" else "right", schema,
+                                   None if cond is None else E.bind(cond, schema), ctx=ctx, **kw)
+            assert not bool(ovf) and ctx.join_log[0]["type"] == join_type
+            outs.append((out.row_mask.cpu().numpy(), PB.to_numpy(out)))
+        (cpu_mask, want), (gpu_mask, got) = outs
+        np.testing.assert_array_equal(gpu_mask, cpu_mask)
+        for k in want:
+            valid = want[k.split("__")[0] + "__valid"] if not k.endswith("__valid") else None
+            np.testing.assert_array_equal(got[k] if valid is None else got[k][valid],
+                                          want[k] if valid is None else want[k][valid], err_msg=k)
+
+
+@pytest.mark.parametrize("staging", ["default", "padded"])
+@pytest.mark.parametrize("q", ["q13", "q16", "q20", "q20_variant"])
+def test_q13_q16_q20_on_card_equal_cpu_direct_and_grace(dev, q, staging):
+    """Q13 (the LEFT join), Q16 (COUNT(DISTINCT)), Q20 and its variant at
+    SF 0.01 on the card equal the CPU runs and the numpy oracles, directly
+    and with the first stage's top join partitioned into K = 16 (Q20's
+    budget corrected by a run, as chip_smoke.py corrects it), with the
+    default staging and with every string padded."""
+    names = ("lineitem", "orders", "customer", "supplier", "nation", "part", "partsupp")
+    data = tpch.generate_tables(names, 0.01)
+    dms = 1 << 16 if staging == "default" else 0
+    d, day, v = data, tpch._d, chip_smoke.Q20_VARIANT
+    expect, check = {
+        "q13": (chip_smoke.oracle_q13(d["customer"], d["orders"]), chip_smoke.check_q13),
+        "q16": (chip_smoke.oracle_q16(d["part"], d["partsupp"], d["supplier"]),
+                chip_smoke.check_q16),
+        "q20": (chip_smoke.oracle_q20(d["part"], d["lineitem"], d["partsupp"], d["supplier"],
+                                      d["nation"], "forest%", day("1994-01-01"),
+                                      day("1995-01-01")), chip_smoke.check_q20),
+        "q20_variant": (chip_smoke.oracle_q20(d["part"], d["lineitem"], d["partsupp"],
+                                              d["supplier"], d["nation"], v["pattern"],
+                                              day(v["ship_from"]), day(v["ship_to"])),
+                        chip_smoke.check_q20),
+    }[q]
+
+    def session(device, fraction=None):
+        conf = Config(scan_dictionary_max_size=dms,
+                      **({"memory_fraction": fraction} if fraction else {}))
+        s = Session(device=device, conf=conf)
+        for t, td in data.items():
+            s.register_numpy(t, td, tpch.SCHEMAS[t])
+        return s
+
+    cpu = session("cpu")
+    plan = (lambda: tpch.q20(**v)) if q == "q20_variant" else getattr(tpch, q)
+    want = cpu.collect(plan())
+    check(want, expect, f"{q} cpu")
+    fraction, _ = chip_smoke.grace_fraction(cpu, plan(), 16)
+    card_fraction = fraction * 4 * 2**30 / torch.cuda.get_device_properties(dev).total_memory
+    for grace, f in ((False, None), (True, card_fraction)):
+        gpu = session(None, f)
+        K.partition_columns.launches = 0
+        got = gpu.collect(plan())
+        _same(got, want)
+        check(got, expect, f"{q} card")
         assert bool(gpu.grace_runners) == grace
         assert (K.partition_columns.launches > 0) or not grace
         if grace:

@@ -491,9 +491,12 @@ def _agg_exprs(E, input_schema):
 
 @pytest.mark.parametrize("mode", ["final", "partial_merge"])
 @pytest.mark.parametrize("wide", [False, True])
-def test_merge_modes_match_jax_hash_aggregate(mode, wide):
+@pytest.mark.parametrize("merge_rows", [None, 50 * 3000])
+def test_merge_modes_match_jax_hash_aggregate(mode, wide, merge_rows):
     """States made up directly (nulls, empty groups, dead rows) merge alike:
-    a group key, sum/avg/count states of a decimal and an int column."""
+    a group key, sum/avg/count states of a decimal and an int column; the
+    port with no bound on the rows behind a group's states (AVG's 128-step
+    division) and with one (every count is under 50: the 4-step one)."""
     rng = np.random.default_rng(int(wide))
     n = 3000
     big = 10**30 if wide else 10**12
@@ -535,7 +538,8 @@ def test_merge_modes_match_jax_hash_aggregate(mode, wide):
         if M is JT:
             res = AGG.hash_aggregate(batch, groups, aggs, mode, 64, out_schema)
         else:
-            res = AGG.hash_aggregate(batch, groups, aggs, mode, out_schema)
+            res = AGG.hash_aggregate(batch, groups, aggs, mode, out_schema,
+                                     merge_rows=merge_rows)
         out[M] = to_numpy(res)
     _assert_same(out[JT], out[PT])
     assert len(out[PT]["g"]) == 4

@@ -15,7 +15,8 @@ checks the card with:
 
 Q9 (78 rows) runs at SF 0.01, where no runtime filter fires
 (test_torch_runtime_filter.py runs it where one does). The helpers serve
-Q2, Q19, Q7, Q8, Q11, Q14 and Q17 too (test_torch_q2.py and the others);
+Q2, Q19, Q7, Q8, Q11, Q14, Q17, Q13, Q16 and Q20 too (test_torch_q2.py and
+the others; a plan variant registers its two builders in ``VARIANTS``);
 every comparison is exact but that of a FLOAT64 column, held to the other
 package's and to the oracle's within ``chip_smoke.FLOAT_SUM_RTOL``."""
 
@@ -23,6 +24,7 @@ import warnings
 
 import numpy as np
 import pytest
+import torch
 
 import chip_smoke
 from datafusion_comet_tpu.exec import batch as JB
@@ -72,9 +74,35 @@ QUERIES = {
     "q17": (("lineitem", "part"), 0.01,
             lambda d: chip_smoke.oracle_q17(d["lineitem"], d["part"]),
             lambda out, e, what: chip_smoke.check_scalar_f64(out, "avg_yearly", e, what)),
+    "q13": (("customer", "orders"), 0.01,
+            lambda d: chip_smoke.oracle_q13(d["customer"], d["orders"]), chip_smoke.check_q13),
+    "q16": (("part", "partsupp", "supplier"), 0.01,
+            lambda d: chip_smoke.oracle_q16(d["part"], d["partsupp"], d["supplier"]),
+            chip_smoke.check_q16),
 }
 # the rows of each query's answer at its scale
-ROWS = {"q2": 3, "q9": 78, "q19": 1, "q7": 4, "q8": 2, "q11": 152, "q14": 1, "q17": 1}
+ROWS = {"q2": 3, "q9": 78, "q19": 1, "q7": 4, "q8": 2, "q11": 152, "q14": 1, "q17": 1,
+        "q13": 25, "q16": 306}
+# a query that is a variant of one of the packages' plans: its (port plan,
+# JAX plan) builders (the others are the packages' ``tpch.<name>``)
+VARIANTS = {}
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """The port's CPU ops at these sizes gain nothing from intra-op threads,
+    and test workers that each start a thread per core oversubscribe the
+    CPU (the Q20 variant's file: 122 s with the default threads and 39 s
+    with one, under a six-worker run). Restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def plans(q):
+    """(port plan builder, JAX plan builder) of ``q``."""
+    return VARIANTS[q] if q in VARIANTS else (getattr(tpch, q), getattr(JTPCH, q))
 
 
 @pytest.fixture(scope="module")
@@ -129,11 +157,12 @@ def same(want, got):
 
 def direct(js, ps, q, jax_attempts):
     """Both packages' direct runs held to each other: the port's output."""
-    want_stages = js._plan_stages(getattr(JTPCH, q)())
-    got_stages = ps._plan_stages(getattr(tpch, q)())
+    port_plan, jax_plan = plans(q)
+    want_stages = js._plan_stages(jax_plan())
+    got_stages = ps._plan_stages(port_plan())
     assert rf_hints(got_stages, PP) == rf_hints(want_stages, JP)
     jax_attempts.clear()
-    jb, pb = js.execute(getattr(JTPCH, q)()), ps.execute(getattr(tpch, q)())
+    jb, pb = js.execute(jax_plan()), ps.execute(port_plan())
     want, got = JB.to_numpy(jb), PB.to_numpy(pb)
     same(want, got)
     for jc, pc, f in zip(jb.columns, pb.columns, pb.schema.fields):
@@ -175,14 +204,15 @@ def check_grace(tables, jax_spy, q, staging):
     same K, modes, partition sizes and pair retries, and the same answer,
     equal to the oracle."""
     data = tables(q)
+    port_plan, jax_plan = plans(q)
     _, direct_s = sessions(data, staging)
-    fraction, _ = chip_smoke.grace_fraction(direct_s, getattr(tpch, q)(), GRACE_K)
+    fraction, _ = chip_smoke.grace_fraction(direct_s, port_plan(), GRACE_K)
     js, grace = sessions(data, staging, fraction)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        got = grace.collect(getattr(tpch, q)())
+        got = grace.collect(port_plan())
     with jax_fraction(fraction):
-        want = js.collect(getattr(JTPCH, q)())
+        want = js.collect(jax_plan())
     same(want, got)
     QUERIES[q][3](got, QUERIES[q][2](data), f"{q} grace")
     ports = sorted(grace.grace_runners, key=lambda r: int(r.tmp[len("__grace"):]))

@@ -7,7 +7,7 @@ On a machine with one NVIDIA card, from the root of a checkout:
     python3 chip_smoke.py --sf 10    # another scale
     python3 chip_smoke.py --profile  # add torch.profiler breakdowns of Q1, Q12 grace, Q3, Q4,
                                      # Q15, Q5, Q10, Q18, Q2, Q9, Q19, Q7, Q8, Q11, Q14, Q17,
-                                     # Q13, Q16, Q20
+                                     # Q13, Q16, Q20, Q21, Q22
 
 Phases, one JSON line each:
   1. device: the card's name, count, and nvidia-smi's name and power limit;
@@ -75,6 +75,14 @@ Phases, one JSON line each:
      every scale: the generator draws l_suppkey and ps_suppkey apart) and
      with ``Q20_VARIANT``'s (every part name, ship dates 1992-1998), each
      directly and through the grace join (K = 16), against numpy oracles;
+  q21, q22: Q21 (late suppliers: a LEFT SEMI and a LEFT ANTI join with the
+     condition ``l_suppkey <>``, on the min/max pushdown; its lines add
+     each such join's path, ``minmax_dense`` at SF1 and ``minmax_sorted``
+     at SF10, checked, in the stage and in every grace pair) and Q22
+     (``substring(c_phone, 1, 2)``, the positive balances' AVG through a
+     nested-loop join, a LEFT ANTI join against the orders), directly and
+     through the grace join (K = 16), against numpy oracles (Q21's by
+     distinct suppliers per order, not by min/max);
   padded (at SF1, or the smaller --sf): Q1, Q3, Q4, Q5 and Q12 over tables
      staged with every string padded (no dictionary codes), against the
      same oracles.
@@ -84,8 +92,9 @@ Phases, one JSON line each:
      ``attempts`` and ``retries`` (the stage runs, and those that
      overflowed and ran again), its ``runtime_filters`` (per injected semi
      join: key table, keys, key range, row estimate; Q3, Q5, Q10, Q9, Q2,
-     Q8 and Q17 at SF1, Q9, Q2, Q8, Q11 and Q17 at SF10, and the direct
-     runs but Q3's compact the filter's output: ``RF_EXPECTED``, checked)
+     Q8 and Q17 at SF1, Q9, Q2, Q8, Q11, Q17, Q20 and Q21 at SF10, and the
+     direct runs but Q3's compact the filter's output: ``RF_EXPECTED``,
+     checked)
      and ``plan_ms``, the host ms of
      ``Session._plan_stages`` (the first run's, with the host copies of the
      dimension tables, and the warm runs' median);
@@ -94,8 +103,8 @@ Phases, one JSON line each:
   5. partition: holds B3 against its plain versions, exactly: the
      payload-moving partition_columns at every distinct B3 call of Q12's,
      Q3's, Q4's, Q15's, Q6's, Q5's, Q10's, Q18's, Q2's, Q9's, Q19's, Q7's,
-     Q8's, Q11's, Q14's, Q17's, Q13's, Q16's, Q20's and the padded phase's
-     runs (Q18's grace
+     Q8's, Q11's, Q14's, Q17's, Q13's, Q16's, Q20's, Q21's, Q22's and the
+     padded phase's runs (Q18's grace
      calls move c_name's 25-byte rows; the
      grace runs' input shrinks, sides and per-pair shrinks, the filter
      shrinks, the semi outputs' compactions, the runtime filters' among
@@ -978,6 +987,72 @@ def check_q20(out, expect, what: str) -> None:
         raise AssertionError(f"{what}: got {got[:5]}..., expected {expect[:5]}...")
 
 
+def oracle_q21(li, od, su, na):
+    """Q21 with numpy alone, by distinct suppliers and not by the join's
+    min/max: a late lineitem row (receipt after commit) of an 'F' order
+    from a SAUDI ARABIA supplier counts where its order has at least two
+    distinct suppliers and exactly one distinct late supplier (np.unique
+    over (orderkey, suppkey) pairs). Returns [(s_name, numwait)] by
+    numwait descending, then name, the first 100."""
+    late = li["l_receiptdate"] > li["l_commitdate"]
+    ok, sk = li["l_orderkey"], li["l_suppkey"]
+    span = int(sk.max()) + 1
+    n_ord = int(ok.max()) + 1
+
+    def distinct_suppliers(m):
+        pairs = np.unique(ok[m] * span + sk[m])
+        return np.bincount(pairs // span, minlength=n_ord)
+
+    saudi = na["n_nationkey"][na["n_name"] == "SAUDI ARABIA"]
+    sm = np.isin(su["s_nationkey"], saudi)
+    skeys, names = _by_key({k: su[k][sm] for k in su}, "s_suppkey", "s_name")
+    pos, found = _lookup(skeys, sk)
+    f_orders = od["o_orderkey"][od["o_orderstatus"] == "F"]
+    m = (late & found & np.isin(ok, f_orders) & (distinct_suppliers(np.ones_like(late))[ok] >= 2)
+         & (distinct_suppliers(late)[ok] == 1))
+    counts = np.bincount(pos[m], minlength=len(skeys))
+    rows = [(names[i], int(c)) for i, c in enumerate(counts.tolist()) if c]
+    return sorted(rows, key=lambda r: (-r[1], r[0].encode()))[:100]
+
+
+def check_q21(out, expect, what: str) -> None:
+    got = list(zip(out["s_name"].tolist(), out["numwait"].tolist()))
+    if got != expect or not (out["s_name__valid"].all() and out["numwait__valid"].all()):
+        raise AssertionError(f"{what}: got {got[:5]}..., expected {expect[:5]}...")
+
+
+Q22_CODES = ("13", "31", "23", "29", "30", "18", "17")
+
+
+def oracle_q22(cu, od):
+    """Q22 with numpy alone: the code is c_phone's first two bytes; the
+    decimal AVG of the positive balances over the seven codes, HALF_UP at
+    the AVG's result scale (6: c_acctbal's 2 plus 4), compared as DOUBLEs
+    (each balance / 100, the average / 10^6, as the plan casts them); the
+    customers of those codes with a balance over it and no order, counted
+    and their balances summed (scale 2) per code, exactly. Returns
+    [(cntrycode, numcust, totacctbal)] by code."""
+    code = np.asarray(cu["c_phone"]).astype("U2")
+    bal = cu["c_acctbal"].astype(np.int64)
+    m = np.isin(code, Q22_CODES)
+    pos = m & (bal > 0)
+    total, n = _exact_sum(bal[pos]), int(pos.sum())
+    avg = (2 * total * 10**4 + n) // (2 * n)  # HALF_UP, positive
+    rich = m & (bal.astype(np.float64) / np.float64(100.0)
+                > np.float64(avg) / np.float64(10.0**6))
+    keep = rich & ~np.isin(cu["c_custkey"], od["o_custkey"])
+    return [(c, int((keep & (code == c)).sum()), _exact_sum(bal[keep & (code == c)]))
+            for c in sorted(Q22_CODES) if (keep & (code == c)).any()]
+
+
+def check_q22(out, expect, what: str) -> None:
+    cols = ("cntrycode", "numcust", "totacctbal")
+    got = [(out["cntrycode"][i], int(out["numcust"][i]), int(out["totacctbal"][i]))
+           for i in range(len(out["numcust"]))]
+    if got != expect or not all(out[c + "__valid"].all() for c in cols):
+        raise AssertionError(f"{what}: got {got}, expected {expect}")
+
+
 def grace_fraction(sess, plan, K: int = GRACE_K):
     """The Config(memory_fraction) under which a run of ``plan`` splits a
     join into K partitions (corrected by grace runs where a join side is
@@ -1026,13 +1101,14 @@ def run_record(sess):
 # the runtime filters each query's runs inject at SF1 and SF10, by the JAX
 # package's gates (PERF.md): "compact" where the direct run compacts the
 # filter's semi output (a B3 call the engine tags "rf"), "mask" where the
-# filter only thins the row mask; a query not named injects none (Q13, Q16
-# at both, Q20 at SF1: its supplier scan passes 65,536 rows at SF10). Other
-# scale factors are not checked.
+# filter only thins the row mask; a query not named injects none (Q13, Q16,
+# Q22 at both, Q20 and Q21 at SF1: their supplier scan passes 65,536 rows at
+# SF10). Other scale factors are not checked.
 RF_EXPECTED = {1: {"q3": "mask", "q5": "compact", "q10": "compact", "q9": "compact",
                    "q2": "compact", "q8": "compact", "q17": "compact"},
                10: {"q9": "compact", "q2": "compact", "q8": "compact", "q11": "compact",
-                    "q17": "compact", "q20": "compact", "q20_variant": "compact"}}
+                    "q17": "compact", "q20": "compact", "q20_variant": "compact",
+                    "q21": "compact"}}
 
 
 def check_rf(q: str, sf: float, run: str, record: dict) -> None:
@@ -1179,7 +1255,7 @@ def query_phase(sf: float, reps: int, profile: bool):
     for q in ("q10", "q18"):
         q10_q18_phase(q, sess, data, sf, reps, profile, launches, b3_calls)
     for q in ("q2", "q9", "q19", "q7", "q8", "q11", "q14", "q17", "q13", "q16", "q20",
-              "q20_variant"):
+              "q20_variant", "q21", "q22"):
         part_phase(q, sess, data, sf, reps, profile, launches, b3_calls)
     return launches, sizes, b3_calls
 
@@ -1512,16 +1588,19 @@ def part_phase(q: str, sess, data, sf: float, reps: int, profile: bool, launches
     condition), or Q13 (customer LEFT JOIN orders, the orders per customer
     and the customers per count), Q16 (a LEFT ANTI join, COUNT(DISTINCT
     ps_suppkey)), Q20 (a packed two-key join under a DOUBLE condition, two
-    LEFT_SEMI joins; empty at TPC-H's literals, ROADMAP C16) or Q20's
-    variant ``Q20_VARIANT``; directly and under a budget that makes the
+    LEFT_SEMI joins; empty at TPC-H's literals, ROADMAP C16), Q20's
+    variant ``Q20_VARIANT``, Q21 (a LEFT SEMI and a LEFT ANTI join with a
+    condition, their paths checked by ``check_q21_paths``) or Q22
+    (``substring``, B1 and B2 in its ungrouped AVG); directly and under a
+    budget that makes the
     engine split a join into K = 16 pairs (Q20's lineitem aggregate runs
     tiled first, each attempt reported): each checked against its
     numpy oracle (FLOAT64 sums within ``FLOAT_SUM_RTOL``, the other float
     results bit-equal), timed, its launches (B1 and B2 in the one-bucket
     sums of the direct runs of Q19, Q11, Q14 and Q17, B3 in every grace
     run), B3 calls, runtime filters, planning host ms, stages, hints,
-    attempts, grace joins and outer joins (path and output capacity)
-    reported; Q11's lines add the nested-loop join's two input capacities,
+    attempts, grace joins, outer joins (path and output capacity) and
+    semi-like joins with a condition (path) reported; Q11's lines add the nested-loop join's two input capacities,
     whose product must stay under
     ``join.BNLJ_MAX_PRODUCT_ROWS``."""
     from datafusion_comet_tpu_torch.exec.operators.join import BNLJ_MAX_PRODUCT_ROWS
@@ -1554,6 +1633,9 @@ def part_phase(q: str, sess, data, sf: float, reps: int, profile: bool, launches
                                            d["supplier"], d["nation"], Q20_VARIANT["pattern"],
                                            day(Q20_VARIANT["ship_from"]),
                                            day(Q20_VARIANT["ship_to"])), check_q20),
+        "q21": lambda: (oracle_q21(d["lineitem"], d["orders"], d["supplier"], d["nation"]),
+                        check_q21),
+        "q22": lambda: (oracle_q22(d["customer"], d["orders"]), check_q22),
     }[q]()
     # Q11 at TPC-H's FRACTION for the scale factor (the plan's default is SF1's)
     plan = {"q11": lambda: tpch.q11(Q11_FRACTION / sf),
@@ -1569,13 +1651,17 @@ def part_phase(q: str, sess, data, sf: float, reps: int, profile: bool, launches
         need = ("partition_sort",) if run == "grace" else {
             "q19": ("bucket_sum",), "q11": ("bucket_count", "bucket_sum"),
             "q14": ("bucket_count", "bucket_sum"), "q17": ("bucket_count", "bucket_sum"),
+            "q22": ("bucket_count", "bucket_sum"),
         }.get(q, ())
         if any(launches[key][k] == 0 for k in need):
             raise AssertionError(f"{key} did not launch {need}: {launches[key]}")
         runs[run] = dict(_query_run(s, key, first_s, times, peak, launches, b3_calls, semi,
-                                    plan_ms), **_grace_record(s), outer_joins=outer_joins(s))
+                                    plan_ms), **_grace_record(s), outer_joins=outer_joins(s),
+                         semi_cond_joins=semi_cond_joins(s))
         if q == "q13" and not runs[run]["outer_joins"]:
             raise AssertionError(f"{key} ran no outer join")
+        if q == "q21":
+            check_q21_paths(runs[run]["semi_cond_joins"], sf, key)
         if q == "q11":
             caps = [j["capacities"] for r in s.runs if r["where"] == "stage"
                     and not r["overflowed"] for j in r["joins"] if j["path"] == "nested_loop"]
@@ -1592,7 +1678,9 @@ def part_phase(q: str, sess, data, sf: float, reps: int, profile: bool, launches
           "rows": len(rows) if isinstance(rows, list) else 1,
           "result": rows[:5] if isinstance(rows, list) else rows,
           **({"threshold": expect[0]} if q == "q11" else {}),
-          "p_name_padded": not p_name.is_dict, "memory_fraction": fraction,
+          "p_name_padded": not p_name.is_dict,
+          "c_phone_padded": not sess.tables["customer"].column("c_phone").is_dict,
+          "memory_fraction": fraction,
           "grace_budget_bytes": grace.budget_bytes(), "join_peak_estimate_bytes": jpeak, **runs})
     if profile:
         emit(profile_run(sess, plan(), f"profile_{q}_direct"))
@@ -1608,6 +1696,29 @@ def outer_joins(s):
         for r in s.runs if not r["overflowed"] for j in r["joins"]
         if j.get("type") in ("left", "right", "full")}
     return [json.loads(j) for j in sorted(seen)]
+
+
+def semi_cond_joins(s):
+    """The semi-like joins with a condition of a session's last run, each
+    distinct one once: where it ran (a stage or a grace pair), its type and
+    path (minmax_dense, minmax_sorted or pairs)."""
+    seen = {json.dumps({"where": r["where"], "type": j["type"], "path": j["path"]},
+                       sort_keys=True)
+            for r in s.runs if not r["overflowed"] for j in r["joins"]
+            if j["path"] in ("minmax_dense", "minmax_sorted", "pairs")}
+    return [json.loads(j) for j in sorted(seen)]
+
+
+def check_q21_paths(joins, sf: float, what: str) -> None:
+    """Q21's LEFT SEMI and LEFT ANTI joins with a condition take the dense
+    min/max table at SF1 (l_orderkey's span under 2^24) and the sorted
+    build's runs at SF10 (over it), in a stage and in every grace pair;
+    other scale factors are not checked."""
+    want = {1: "minmax_dense", 10: "minmax_sorted"}.get(sf)
+    types = {j["type"] for j in joins}
+    if types != {"left_semi", "left_anti"} or (want and {j["path"] for j in joins} != {want}):
+        raise AssertionError(f"{what} at SF{sf:g}: joins with a condition {joins}, "
+                             f"expected a left_semi and a left_anti on {want}")
 
 
 def padded_phase(sf: float, reps: int, launches, b3_calls) -> None:
@@ -1978,7 +2089,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="add profiled runs of Q1, of Q12's grace run, of Q3's, Q4's, Q5's, "
                          "Q10's, Q18's, Q2's, Q9's, Q19's, Q7's, Q8's, Q11's, Q14's, Q17's, "
-                         "Q13's, Q16's, Q20's and Q20's variant's two runs and of Q15")
+                         "Q13's, Q16's, Q20's, Q20's variant's, Q21's and Q22's two runs and "
+                         "of Q15")
     args = ap.parse_args(argv)
 
     import torch

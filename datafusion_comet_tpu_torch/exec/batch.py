@@ -296,12 +296,15 @@ def _to(a: np.ndarray, device) -> torch.Tensor:
 def to_numpy(batch: Batch) -> Dict[str, np.ndarray]:
     """Pull a batch back to host as compacted numpy columns plus a
     ``<name>__valid`` array each: strings as objects (None for nulls),
-    wide-typed decimals as Python ints, everything else in its dtype."""
-    mask = batch.row_mask.cpu().numpy()
+    wide-typed decimals as Python ints, everything else in its dtype. The
+    live rows are gathered on the batch's device first, so only they are
+    copied (a nested-loop join's output holds its inputs' capacities'
+    product)."""
+    live = batch.row_mask.nonzero().squeeze(1)
     out: Dict[str, np.ndarray] = {}
     for f, col in zip(batch.schema.fields, batch.columns):
-        valid = col.validity.cpu().numpy()[mask]
-        data = col.data.cpu().numpy()[mask]
+        valid = col.validity[live].cpu().numpy()
+        data = col.data[live].cpu().numpy()
         if f.dtype.is_binary:
             raw = f.dtype.type_id == "BYTES"
             if col.is_dict:
@@ -313,7 +316,7 @@ def to_numpy(batch: Batch) -> Dict[str, np.ndarray]:
                     dvals[c] = bs if raw else bs.decode("utf-8", "replace")
                 vals = dvals[np.clip(data, 0, max(d.size - 1, 0))]
             else:
-                lens = col.lengths.cpu().numpy()[mask]
+                lens = col.lengths[live].cpu().numpy()
                 vals = np.empty(len(data), dtype=object)
                 for i in range(len(data)):
                     bs = bytes(data[i, : lens[i]])

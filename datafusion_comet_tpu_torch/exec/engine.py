@@ -178,7 +178,9 @@ def _exec_hash_join(plan: P.HashJoin, tables, ctx, conf, fanout) -> Batch:
                            build_key_range=plan.build_key_range,
                            unique_build=bool(plan.unique_build_hint) and ctx.unique_join_ok,
                            key_pack=plan.key_pack if ctx.unique_join_ok else None,
-                           compact_rows=compact_rows, dense_range=plan.rf_dense_range)
+                           compact_rows=compact_rows, dense_range=plan.rf_dense_range,
+                           cond_col_ranges=plan.cond_col_ranges)
+    ctx.overflow_flags.append(ovf)
     if plan.join_type in J.SEMI_LIKE:
         est = plan.out_rows_hint
         if est and plan.join_type != P.JoinType.EXISTENCE:
@@ -188,7 +190,6 @@ def _exec_hash_join(plan: P.HashJoin, tables, ctx, conf, fanout) -> Batch:
                 out, covf = B.compact_batch(out, target, tag="rf" if rf else None)
                 ctx.overflow_flags.append(covf)
         return out
-    ctx.overflow_flags.append(ovf)
     grow = max(2, k // 2) * (1 if hint else ctx.agg_scale)
     target = pad_capacity(max(left.capacity, right.capacity) * grow)
     if target < out.capacity:

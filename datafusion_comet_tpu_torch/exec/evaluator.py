@@ -1,6 +1,6 @@
 """Expression evaluator: bound expression IR -> tensor ops over a Batch
 (port of ``datafusion_comet_tpu/exec/evaluator.py``, the subset the ported
-TPC-H queries reach: LIKE, the fields of a DATE and floats among them, and
+TPC-H queries reach: LIKE, ``substring``, the fields of a DATE and floats among them, and
 Spark's murmur3 over integer, float and string columns for hash
 partitioning).
 
@@ -107,6 +107,8 @@ def _ev(e: E.Expr, b: Batch, ctx: EvalContext) -> ColumnVector:
         return _in_list(e, b, ctx)
     if isinstance(e, E.Like):
         return _like(e, b, ctx)
+    if isinstance(e, E.StringFunc):
+        return _string_func(e, b, ctx)
     if isinstance(e, E.TemporalFunc):
         return _temporal_func(e, b, ctx)
     raise NotImplementedError(f"evaluate: {type(e).__name__}")
@@ -767,6 +769,41 @@ def _like_cv(e: E.Like, cv: ColumnVector) -> ColumnVector:
     if e.negated:
         res = ~res
     return ColumnVector(res, cv.validity, None, T.BOOL)
+
+
+# -------------------------------------------------------------------------------------
+# substring (JAX ``evaluator.py:1614`` ``_string_func``, :1766-1780)
+# -------------------------------------------------------------------------------------
+
+
+def _string_func(e: E.StringFunc, b: Batch, ctx: EvalContext) -> ColumnVector:
+    """A dictionary column with literal arguments: the function over the
+    entries, gathered back by code; anything else over the padded bytes."""
+    args = [_ev(a, b, ctx) for a in e.args]
+    if args[0].is_dict and all(isinstance(a, E.Literal) for a in e.args[1:]):
+        lits = e.args[1:]
+        return _eval_on_dict(
+            args[0], lambda s: _substring(s, [_literal(a, s.capacity, s.data.device)
+                                              for a in lits], e.dtype), ctx)
+    return _substring(_dedict(args[0]), [_dedict(a) for a in args[1:]], e.dtype)
+
+
+def _substring(cv: ColumnVector, args: List[ColumnVector], dt: T.DataType) -> ColumnVector:
+    """Spark's substring(str, pos[, len]) over padded bytes: 1-based, pos 0
+    acts as 1, a negative pos counts from the end, a negative len is 0, a
+    slice past the end is cut; the bytes past the new length are zero and
+    the input's validity is kept."""
+    mat, lens = cv.data, cv.lengths.long()
+    cap, w = mat.shape
+    p = args[0].data.long()
+    n = args[1].data.long().clamp(min=0) if len(args) > 1 else torch.full_like(lens, w)
+    start = torch.where(p > 0, p - 1, torch.where(p == 0, 0, (lens + p).clamp(min=0)))
+    out_len = (torch.minimum(start + n, lens) - start).clamp(min=0)
+    pos = torch.arange(w, device=mat.device)[None, :]
+    data = mat.gather(1, (start[:, None] + pos).clamp(0, max(w - 1, 0)))
+    data = torch.where(pos < out_len[:, None], data, torch.zeros((), dtype=mat.dtype,
+                                                                  device=mat.device))
+    return ColumnVector(data, cv.validity, out_len.int(), dt)
 
 
 # -------------------------------------------------------------------------------------

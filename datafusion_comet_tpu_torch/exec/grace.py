@@ -243,14 +243,15 @@ class GraceJoinRunner:
     def _mini_plan(self) -> P.HashJoin:
         """The join over two temporary tables holding one pair, with the
         join's hints (build-key range, fan-out, unique build, key packing,
-        a runtime filter's key range) and a K-th of its row estimate (at
-        least 2048), as in the JAX package."""
+        a runtime filter's key range, the condition columns' ranges) and a
+        K-th of its row estimate (at least 2048), as in the JAX package:
+        each pair takes the whole join's path."""
         j = self.join
         est = max(j.out_rows_hint // self.K, 2048) if j.out_rows_hint else None
         mini = P.HashJoin(pseudo_scan(self.gl, j.left.schema), pseudo_scan(self.gr, j.right.schema),
                           j.left_keys, j.right_keys, j.join_type, j.build_side, j.condition,
                           j.build_key_range, est, j.fanout_hint, j.unique_build_hint, j.key_pack,
-                          j.rf_dense_range)
+                          j.rf_dense_range, cond_col_ranges=j.cond_col_ranges)
         mini.schema = j.schema
         return mini
 

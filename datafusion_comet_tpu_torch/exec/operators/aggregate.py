@@ -23,9 +23,11 @@ Two paths, chosen as the JAX package chooses them:
   Where ``max_groups`` is below the bucket count, the live buckets are
   compacted to it in key order. An ungrouped aggregate goes through the same
   path with one bucket; its one output row is always live, so it emits
-  exactly one row even over empty input (sum null, count 0). The JAX package
-  sorts there; the result is the same (its sorted inputs have no magnitude
-  bound, so an ungrouped MIN or MAX carries none either).
+  exactly one row even over empty input (sum null, count 0), in an output of
+  min(max_groups, 8) rows as the JAX package's (JAX ``aggregate.py:408``:
+  a cross join over it then has the JAX package's capacity). The JAX
+  package sorts there; the result is the same (its sorted inputs have no
+  magnitude bound, so an ungrouped MIN or MAX carries none either).
 - **Sorted.** Any other key set: a packed domain too wide for the dense
   path is one int32 sort limb (Q1 with padded one-byte flags: 2^20
   buckets); else the keys pack into one or two int64 sort limbs where each
@@ -310,8 +312,8 @@ def hash_aggregate(
     key_cols = [evaluate(g, batch, ctx) for g in group_exprs]
     if not key_cols:
         seg = torch.where(batch.row_mask, 0, 1).int()
-        return _bucket_aggregate(batch, key_cols, agg_exprs, mode, (seg, 1), out_schema, ctx,
-                                 merge_rows)
+        return _dead_rows_to(_bucket_aggregate(batch, key_cols, agg_exprs, mode, (seg, 1),
+                                               out_schema, ctx, merge_rows), min(max_groups, 8))
     packed = _try_pack_keys(key_cols)
     if packed is not None and packed[1] <= max(dense_max_domain, 0):
         out = _bucket_aggregate(batch, key_cols, agg_exprs, mode, packed, out_schema, ctx,
@@ -333,6 +335,20 @@ def hash_aggregate(
                    and batch.capacity <= _BUCKET_ROWS)
     return _sorted_aggregate(batch, key_cols, key_limbs, agg_exprs, mode, max_groups,
                              out_schema, ctx, keep_bounds, merge_rows)
+
+
+def _dead_rows_to(b: Batch, cap: int) -> Batch:
+    """``b`` with dead rows appended up to ``cap`` rows, bounds kept."""
+    pad = cap - b.capacity
+    if pad <= 0:
+        return b
+
+    def ext(t):
+        return None if t is None else torch.cat([t, t.new_zeros((pad,) + tuple(t.shape[1:]))])
+
+    return Batch(tuple(dataclasses.replace(c, data=ext(c.data), validity=ext(c.validity),
+                                           lengths=ext(c.lengths)) for c in b.columns),
+                 ext(b.row_mask), b.schema)
 
 
 def _sort_groups(key_cols, key_limbs, row_mask: torch.Tensor):

@@ -60,15 +60,30 @@ else ``build_key_range``, from statistics) whose span is at most 2^24,
 membership is one scatter into a span + 1 boolean bitmap and one gather for
 the probe, with no sort; else the match count of
 the sorted path decides (count > 0), and no pair block is built. So a
-semi-like join never overflows: the JAX package raises its fan-out flag on
-this path when a probe row has more than K matches (its unused pair block
-is cut off) and re-runs with a larger K; the port raises none, and the
-results are the same.
+semi-like join without a condition never overflows: the JAX package raises
+its fan-out flag on this path when a probe row has more than K matches (its
+unused pair block is cut off) and re-runs with a larger K; the port raises
+none, and the results are the same.
+
+A semi-like join with a condition (JAX ``join.py:468-549``, ``:640-700``)
+takes the min/max pushdown where the condition is one comparison (ne, lt,
+le, gt, ge) between a bare build column and an expression of the probe side
+only, integers or dates on both sides (``_semi_cond_decompose``): EXISTS(b
+in the key's run: b.c OP e) is min(c) OP e or max(c) OP e over the run (ne:
+min != e or max != e). Where the key takes the bitmap's range and the
+condition column's exact range (``cond_col_ranges``) fits a biased int32,
+one ``amin`` and one ``amax`` scatter over the key span and one gather give
+each probe row its run's (min, max) (``minmax_dense``); else the sorted
+build's runs are reduced once and read at each probe row's run start
+(``minmax_sorted``, in place of the JAX package's concatenated sort and
+associative scan). Null keys and null condition values are left out. Any
+other condition runs on the pairs of the INNER paths and is folded back per
+probe row (``pairs``), with the INNER paths' overflow flag and retry.
 
 The JAX package runs these paths outside any Pallas kernel. Its carry-range
 probe (a concatenated sort of both sides) is replaced here by the binary
 searches, which give each probe row the same run in the same order; its
-null-aware anti joins and semi-like joins with a condition are not ported.
+null-aware anti joins are not ported.
 """
 
 from __future__ import annotations
@@ -252,6 +267,106 @@ def _sorted_matches(bkey: torch.Tensor, bvalid: torch.Tensor, pkey: torch.Tensor
     return bperm, lo, torch.where(pvalid, hi - lo, 0)
 
 
+_FLIP = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le", "ne": "ne"}
+_CMP = {"lt": torch.lt, "le": torch.le, "gt": torch.gt, "ge": torch.ge}
+_I64_MIN = -(1 << 63)
+_BIAS_MAX = (1 << 31) - 4  # the largest biased condition value of the dense table
+_EMPTY = (1 << 31) - 2     # the dense table's empty-slot minimum
+
+
+def _refs(e: E.Expr) -> set:
+    out = {e.index} if isinstance(e, E.BoundRef) else set()
+    for c in e.children():
+        out |= _refs(c)
+    return out
+
+
+def _int_like(dt: Optional[T.DataType]) -> bool:
+    return dt is not None and (dt.is_integer or dt.type_id == "DATE")
+
+
+def _semi_cond_decompose(cond: E.Expr, nprobe: int):
+    """(op as ``build OP probe``, the build column's index in the build
+    schema, the probe expression) where the pair-bound condition is one
+    comparison between a bare build column and an expression of probe
+    columns only, in either orientation, integers or dates on both sides;
+    else None (JAX ``join.py:263``). The probe fields lead the pair schema,
+    so the expression evaluates on the probe batch as it is bound."""
+    e = cond
+    while isinstance(e, E.Alias):
+        e = e.child
+    if not isinstance(e, E.BinaryOp) or e.op not in _FLIP:
+        return None
+
+    def bare_build(x):
+        return isinstance(x, E.BoundRef) and x.index >= nprobe
+
+    def probe_only(x):
+        return all(i < nprobe for i in _refs(x))
+
+    if bare_build(e.left) and probe_only(e.right):
+        op, bref, pexpr = e.op, e.left, e.right
+    elif bare_build(e.right) and probe_only(e.left):
+        op, bref, pexpr = _FLIP[e.op], e.right, e.left
+    else:
+        return None
+    if not (_int_like(bref.ref_dtype) and _int_like(pexpr.dtype)):
+        return None
+    return op, bref.index - nprobe, pexpr
+
+
+def _dense_minmax(bkey: torch.Tensor, bvalid: torch.Tensor, bpay: torch.Tensor,
+                  pkey: torch.Tensor, key_range, pay_range
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(any, min, max) of the payload over each probe row's key among the
+    valid build rows (``bvalid`` has the payload's validity folded in): the
+    payload biased by its range's minimum into an int32 in [0, 2^31 - 4],
+    one ``amin`` and one ``amax`` scatter into span + 1 slots (slot ``span``
+    sinks the rest; an empty slot keeps 2^31 - 2) and one gather each."""
+    lo = int(key_range[0])
+    span = int(key_range[1]) - lo + 1
+    clo = int(pay_range[0])
+    dev = bkey.device
+    bk = bkey.long() - lo
+    bslot = torch.where(bvalid & (bk >= 0) & (bk < span), bk, span)
+    enc = (bpay.long() - clo).clamp(0, _BIAS_MAX).int()
+    tmin = torch.full((span + 1,), _EMPTY, dtype=torch.int32, device=dev).scatter_reduce_(
+        0, bslot, enc, "amin")
+    tmax = torch.full((span + 1,), -1, dtype=torch.int32, device=dev).scatter_reduce_(
+        0, bslot, enc, "amax")
+    pk = pkey.long() - lo
+    in_rng = (pk >= 0) & (pk < span)
+    slot = torch.where(in_rng, pk, span)
+    mi = tmin[slot]
+    return (mi != _EMPTY) & in_rng, mi.long() + clo, tmax[slot].long() + clo
+
+
+def _sorted_minmax(bkey: torch.Tensor, bvalid: torch.Tensor, bpay: torch.Tensor,
+                   bpay_valid: torch.Tensor, pkey: torch.Tensor, pvalid: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(any, min, max) of the payload over each probe row's run of equal
+    keys in the sorted build: each run's min and max over its rows with a
+    valid payload (one ``amin`` and one ``amax`` scatter by run), read at
+    the probe row's run start. ``any``: the run has such a row."""
+    sb = _sorted_build(bkey, bvalid)
+    bperm, sorted_key, _ = sb
+    bcap = bkey.shape[0]
+    dev = bkey.device
+    live = (bpay_valid & bvalid)[bperm]
+    new_run = torch.ones(bcap, dtype=torch.bool, device=dev)
+    new_run[1:] = sorted_key[1:] != sorted_key[:-1]
+    run = new_run.long().cumsum(0) - 1
+    pay = bpay.long()[bperm]
+    rmin = torch.full((bcap,), _I64_MAX, dtype=torch.int64, device=dev).scatter_reduce_(
+        0, run, torch.where(live, pay, _I64_MAX), "amin")
+    rmax = torch.full((bcap,), _I64_MIN, dtype=torch.int64, device=dev).scatter_reduce_(
+        0, run, torch.where(live, pay, _I64_MIN), "amax")
+    rany = torch.zeros(bcap, dtype=torch.int32, device=dev).index_add_(0, run, live.int()) > 0
+    _, lo, count = _sorted_matches(bkey, bvalid, pkey, pvalid, sb)
+    r = run[lo.clamp(0, max(bcap - 1, 0))]
+    return rany[r] & (count > 0), rmin[r], rmax[r]
+
+
 def _sorted_unique(bkey: torch.Tensor, bvalid: torch.Tensor, pkey: torch.Tensor,
                    pvalid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(build row of each probe row, matched, duplicate flag) on the sorted
@@ -302,7 +417,8 @@ def hash_join(left: Batch, right: Batch, left_keys: Sequence[E.Expr],
               build_key_range: Optional[Tuple[int, int]] = None, unique_build: bool = False,
               key_pack: Optional[Tuple[Tuple[int, int], ...]] = None,
               compact_rows: Optional[int] = None,
-              dense_range: Optional[Tuple[int, int]] = None) -> Tuple[Batch, torch.Tensor]:
+              dense_range: Optional[Tuple[int, int]] = None,
+              cond_col_ranges: Optional[dict] = None) -> Tuple[Batch, torch.Tensor]:
     """Returns (joined batch, overflow flag). INNER: the pairs on the path
     the arguments select (module docstring), and the flag set where the
     result is incomplete (a probe row with more than K =
@@ -315,19 +431,20 @@ def hash_join(left: Batch, right: Batch, left_keys: Sequence[E.Expr],
     and for FULL a tail of the unmatched build rows (``_outer_rows``); the
     compacted list gives every live probe row at least one slot. Semi-like:
     the probe's columns at its capacity (EXISTENCE adds ``exists``), and a
-    flag set only by ``key_pack``.
+    flag set only by ``key_pack``, or with a condition on the pairs path by
+    INNER's flags.
     ``build_key_range``: the exact (min, max) of a single build key, which
-    lets a semi-like join use the membership bitmap and a unique build the
-    dense table; ``dense_range``, a runtime filter's exact key range, takes
-    its place for the semi-like bitmap (JAX ``join.py:429``). Each run but a
-    semi-like one appends its type, arguments, path and output capacity to
-    ``ctx.join_log`` where that is a list."""
+    lets a semi-like join use the membership bitmap (with a condition, the
+    dense min/max table) and a unique build the dense table;
+    ``dense_range``, a runtime filter's exact key range, takes its place for
+    the semi-like bitmap (JAX ``join.py:429``); ``cond_col_ranges``: the
+    exact (min, max) of the condition's columns by name. Each run but a
+    semi-like one without a condition appends its type, arguments, path
+    and output capacity to ``ctx.join_log`` where that is a list."""
     semi = join_type in SEMI_LIKE
     outer = join_type in OUTER
     if join_type != JoinType.INNER and not semi and not outer:
         raise NotImplementedError(f"{join_type} joins are not ported yet")
-    if semi and condition is not None:
-        raise NotImplementedError(f"{join_type} joins with a condition are not ported yet")
     if join_type in (JoinType.LEFT, JoinType.RIGHT) and (
             (join_type == JoinType.LEFT) != (build_side != "left")):
         raise NotImplementedError(
@@ -358,8 +475,54 @@ def hash_join(left: Batch, right: Batch, left_keys: Sequence[E.Expr],
     semi_flag = (pack_oor if pack_oor is not None
                  else torch.zeros((), dtype=torch.bool, device=dev))
 
-    if semi:
-        rng = dense_range if dense_range is not None else build_key_range
+    rng = dense_range if dense_range is not None else build_key_range
+
+    def semi_out(hit, path=None):
+        """The probe batch, thinned (SEMI, ANTI) or with ``exists``; a
+        join with a condition logged as it ran."""
+        if join_type == JoinType.LEFT_SEMI:
+            out = Batch(probe.columns, probe.row_mask & hit, out_schema)
+        elif join_type == JoinType.LEFT_ANTI:
+            out = Batch(probe.columns, probe.row_mask & ~hit, out_schema)
+        else:
+            exists = ColumnVector(hit, torch.ones(pcap, dtype=torch.bool, device=dev), None,
+                                  T.BOOL)
+            out = Batch(tuple(probe.columns) + (exists,), probe.row_mask, out_schema)
+        if path is not None:
+            hash_join.semi_paths[path] += 1
+            if ctx.join_log is not None:
+                ctx.join_log.append({"type": join_type, "build": build_side, "K": K,
+                                     "unique": unique_build, "pack": pack_oor is not None,
+                                     "compact_rows": compact_rows, "path": path,
+                                     "out_capacity": out.capacity})
+        return out
+
+    fast = None
+    if semi and condition is not None and build_side != "left" and not unique_build:
+        fast = _semi_cond_decompose(condition, len(probe.schema.fields))
+    if fast is not None:
+        op, bi, pexpr = fast
+        bcv, pcv = build.columns[bi], evaluate(pexpr, probe, ctx)
+        if not bcv.is_dict and not pcv.is_dict:
+            crng = (cond_col_ranges or {}).get(build.schema.fields[bi].name)
+            if (_bitmap_ok(bcols, pcols, rng) and crng is not None
+                    and 0 <= int(crng[1]) - int(crng[0]) < _EMPTY and bcv.data.dim() == 1):
+                path = "minmax_dense"
+                anyv, minv, maxv = _dense_minmax(bcols[0].data, bvalid & bcv.validity,
+                                                 bcv.data, pcols[0].data, rng, crng)
+            else:
+                path = "minmax_sorted"
+                bkey, pkey = _one_limb(blimbs, plimbs)
+                anyv, minv, maxv = _sorted_minmax(bkey, bvalid, bcv.data, bcv.validity, pkey,
+                                                  pvalid)
+            pe = pcv.data.long()
+            if op == "ne":
+                exists = (minv != pe) | (maxv != pe)
+            else:  # lt and le hold for some row where they hold for the min
+                exists = _CMP[op](minv if op in ("lt", "le") else maxv, pe)
+            return semi_out(pvalid & pcv.validity & anyv & exists, path), semi_flag
+
+    if semi and condition is None:
         if _bitmap_ok(bcols, pcols, rng):
             hash_join.semi_paths["bitmap"] += 1
             hit = _bitmap_member(bcols[0].data, bvalid, pcols[0].data, pvalid, rng)
@@ -367,12 +530,7 @@ def hash_join(left: Batch, right: Batch, left_keys: Sequence[E.Expr],
             hash_join.semi_paths["sorted"] += 1
             bkey, pkey = _one_limb(blimbs, plimbs)
             hit = _sorted_matches(bkey, bvalid, pkey, pvalid)[2] > 0
-        if join_type == JoinType.LEFT_SEMI:
-            return Batch(probe.columns, probe.row_mask & hit, out_schema), semi_flag
-        if join_type == JoinType.LEFT_ANTI:
-            return Batch(probe.columns, probe.row_mask & ~hit, out_schema), semi_flag
-        exists = ColumnVector(hit, torch.ones(pcap, dtype=torch.bool, device=dev), None, T.BOOL)
-        return Batch(tuple(probe.columns) + (exists,), probe.row_mask, out_schema), semi_flag
+        return semi_out(hit), semi_flag
 
     bkey, pkey = _one_limb(blimbs, plimbs)
     # j: each pair row's offset into its probe row's matches (None on the
@@ -412,8 +570,6 @@ def hash_join(left: Batch, right: Batch, left_keys: Sequence[E.Expr],
             probe_cols = [_repeat(c, K) for c in probe.columns]
             per_probe = (lambda x: x.repeat_interleave(K))
             any_pair = (lambda v: v.view(pcap, K).any(1))
-    if pack_oor is not None:
-        overflow = overflow | pack_oor
     build_cols = [c.take(b_idx) for c in build.columns]
 
     def assemble(pcols, bcols_):
@@ -423,8 +579,12 @@ def hash_join(left: Batch, right: Batch, left_keys: Sequence[E.Expr],
         fields = assemble(list(probe.schema.fields), list(build.schema.fields))
         pair = Batch(tuple(assemble(probe_cols, build_cols)), pair_valid, T.Schema(fields))
         pair_valid = evaluate_predicate(condition, pair, ctx)
-        if outer:  # a probe row matches where a pair of it passes the condition
+        if outer or semi:  # a probe row matches where a pair of it passes the condition
             has_match = any_pair(pair_valid)
+    if pack_oor is not None:
+        overflow = overflow | pack_oor
+    if semi:  # a condition the min/max pushdown does not take
+        return semi_out(has_match, "pairs"), overflow
     if not outer:
         out = Batch(tuple(assemble(probe_cols, build_cols)), pair_valid, out_schema)
     else:
@@ -461,7 +621,8 @@ def _outer_rows(join_type, probe: Batch, build: Batch, probe_cols, build_cols, b
 
 
 # the semi-like joins run by each membership path, counted where they run
-hash_join.semi_paths = {"bitmap": 0, "sorted": 0}
+hash_join.semi_paths = {"bitmap": 0, "sorted": 0, "minmax_dense": 0, "minmax_sorted": 0,
+                        "pairs": 0}
 
 
 def _null_like(cv: ColumnVector, cap: int) -> ColumnVector:

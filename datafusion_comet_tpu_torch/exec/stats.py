@@ -21,9 +21,11 @@ a hint is None (a hint set already wins):
 - a Filter's ``out_rows_hint``, its row estimate (:231-236), from which the
   engine compacts a filter that keeps under an eighth of its capacity;
 - on a semi, anti or existence join (:251-305) ``build_key_range``, the
-  exact range of a single build key, and for LEFT_SEMI ``out_rows_hint``,
-  the probe rows times the share of the probe key's distinct values the
-  build side can hold;
+  exact range of a single build key; with a condition, ``cond_col_ranges``,
+  the exact range of each column the condition names (:271-291), from the
+  build side's scans, else the probe side's; and for LEFT_SEMI
+  ``out_rows_hint``, the probe rows times the share of the probe key's
+  distinct values the build side can hold;
 - on an INNER join (:306-404): the build side moves to the left input when
   that is at most half the right's estimate (an outer join keeps its build
   side: it probes its preserved side); then, on outer joins too,
@@ -44,8 +46,6 @@ gives it the key table's range as ``build_key_range``; the INNER join above
 it keeps the estimate the injector set, and the estimates above follow it,
 as in the JAX walk.
 
-The JAX walk's condition-column ranges serve semi joins with a condition,
-which the port does not run.
 """
 
 from __future__ import annotations
@@ -231,6 +231,14 @@ def _walk(plan: P.PlanNode, stats: Dict[str, TableStats]) -> Tuple[int, Dict[str
         (lr, ln), (rr, rn) = kids
         if plan.join_type in _SEMI_LIKE:
             _set_build_range(plan, stats)
+            if plan.condition is not None and plan.cond_col_ranges is None:
+                crs = {}
+                for name in _condition_columns(plan.condition):
+                    r = (_column_range(plan.right, name, stats)
+                         or _column_range(plan.left, name, stats))
+                    if r is not None:
+                        crs[name] = r
+                plan.cond_col_ranges = crs or None
             lk0 = _source_column(plan.left_keys[0]) if plan.left_keys else None
             if plan.join_type == P.JoinType.LEFT_SEMI and lk0 and lk0 in ln:
                 # the probe rows that survive: lr x (build rows / probe-key
@@ -386,6 +394,17 @@ def _set_inner_hints(plan: P.HashJoin, stats: Dict[str, TableStats], left, right
                 ndv_prod = min(ndv_prod * max(b_ndv[k], 1), max(b_rows, 1))
             matches = max(b_rows / max(ndv_prod, 1), 1.0)
             plan.fanout_hint = int(min(max(2, 1 << math.ceil(math.log2(2.0 * matches))), 256))
+
+
+def _condition_columns(e: E.Expr) -> set:
+    """The source column of every node of a condition (JAX ``refs``)."""
+    out = set()
+    name = _source_column(e)
+    if name:
+        out.add(name)
+    for c in e.children():
+        out |= _condition_columns(c)
+    return out
 
 
 def _source_column(e: E.Expr) -> Optional[str]:

@@ -1,7 +1,7 @@
 """Expression IR and Spark type inference (port of
 ``datafusion_comet_tpu/ir/expr.py``, the subset the ported TPC-H queries
-reach: LIKE, the date fields of ``TemporalFunc``, float literals and
-arithmetic, and the NaN test among them).
+reach: LIKE, the date fields of ``TemporalFunc``, ``substring``, float
+literals and arithmetic, and the NaN test among them).
 
 Expressions are built unbound (column names); ``bind(expr, schema)`` resolves
 references to column indices and computes result types, including Spark's
@@ -18,8 +18,8 @@ from datafusion_comet_tpu_torch import types as T
 
 __all__ = [
     "Expr", "EvalMode", "ColumnRef", "BoundRef", "Literal", "Alias", "BinaryOp", "UnaryOp",
-    "Cast", "CaseWhen", "InList", "Like", "TemporalFunc", "DATE_FIELDS", "SortOrder", "AggFunc",
-    "AggExpr", "col", "lit", "bind",
+    "Cast", "CaseWhen", "InList", "Like", "StringFunc", "TemporalFunc", "DATE_FIELDS", "SortOrder",
+    "AggFunc", "AggExpr", "col", "lit", "bind",
 ]
 
 # the TemporalFunc functions the port evaluates: fields of a DATE, each INT32
@@ -236,6 +236,19 @@ class Like(Expr):
 
 
 @_node
+class StringFunc(Expr):
+    """A string function by name over ``args`` (JAX ``ir/expr.py:312``).
+    The port binds and evaluates ``substring(str, pos[, len])``, whose
+    result has its input's string type."""
+
+    func: str
+    args: Tuple[Expr, ...]
+
+    def children(self):
+        return self.args
+
+
+@_node
 class TemporalFunc(Expr):
     """A date/time function by name over ``args``; ``tz`` names the session
     time zone, ``unit`` a calendar unit (as in the JAX package). The port
@@ -413,6 +426,13 @@ def bind(expr: Expr, schema: T.Schema) -> Expr:
     if isinstance(e, Like):
         out = Like(bind(e.child, schema), e.pattern, e.negated)
         object.__setattr__(out, "dtype", T.BOOL)
+        return out
+    if isinstance(e, StringFunc):
+        if e.func != "substring":
+            raise NotImplementedError(f"StringFunc {e.func!r} is not ported yet")
+        args = tuple(bind(a, schema) for a in e.args)
+        out = StringFunc(e.func, args)
+        object.__setattr__(out, "dtype", args[0].dtype)
         return out
     if isinstance(e, TemporalFunc):
         if e.func not in DATE_FIELDS:

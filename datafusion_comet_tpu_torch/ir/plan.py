@@ -12,7 +12,7 @@ package's does: the join itself nulls the side it did not match.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from datafusion_comet_tpu_torch import types as T
 from datafusion_comet_tpu_torch.ir import expr as E
@@ -173,7 +173,10 @@ class HashJoin(PlanNode):
     join's first K (build matches per probe row); ``unique_build_hint``,
     that the build keys look unique (one match per probe row at most);
     ``key_pack``, per key of a multi-key join the (min, max) over both
-    sides, which packs the key tuple into one int64.
+    sides, which packs the key tuple into one int64; ``cond_col_ranges``,
+    on a semi-like join with a condition, the exact (min, max) of each
+    column the condition names, which lets the min/max pushdown keep its
+    per-key table in a biased int32.
 
     Set by the runtime-filter injector (exec/runtime_filter.py) on the
     LEFT_SEMI join it adds: ``rf_dense_range``, the exact (min, max) of its
@@ -194,6 +197,7 @@ class HashJoin(PlanNode):
     key_pack: Optional[Tuple[Tuple[int, int], ...]] = None
     rf_dense_range: Optional[Tuple[int, int]] = None
     rf_injected: bool = False
+    cond_col_ranges: Optional[Dict[str, Tuple[int, int]]] = None
 
     def children(self):
         return (self.left, self.right)
@@ -299,7 +303,7 @@ def bind_plan(plan: PlanNode) -> PlanNode:
         out = HashJoin(left, right, lkeys, rkeys, plan.join_type, plan.build_side, cond,
                        plan.build_key_range, plan.out_rows_hint, plan.fanout_hint,
                        plan.unique_build_hint, plan.key_pack, plan.rf_dense_range,
-                       plan.rf_injected)
+                       plan.rf_injected, plan.cond_col_ranges)
         out.schema = _join_out_schema(left.schema, right.schema, plan.join_type)
         return out
     if isinstance(plan, BroadcastNestedLoopJoin):

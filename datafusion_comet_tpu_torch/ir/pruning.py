@@ -89,7 +89,7 @@ def prune_columns(plan: P.PlanNode, required: Optional[Set[str]] = ALL) -> P.Pla
                           plan.left_keys, plan.right_keys, plan.join_type, plan.build_side,
                           plan.condition, plan.build_key_range, plan.out_rows_hint,
                           plan.fanout_hint, plan.unique_build_hint, plan.key_pack,
-                          plan.rf_dense_range, plan.rf_injected)
+                          plan.rf_dense_range, plan.rf_injected, plan.cond_col_ranges)
     if isinstance(plan, P.BroadcastNestedLoopJoin):
         # as the JAX package's default branch: both sides keep every column
         return P.BroadcastNestedLoopJoin(prune_columns(plan.left, ALL),

@@ -1,6 +1,6 @@
 """TPC-H workload subset: the ``lineitem``, ``orders``, ``customer``,
 ``supplier``, ``nation``, ``region``, ``part`` and ``partsupp`` schemas and
-generators, and the plans of Q1-Q20 (port of
+generators, and the plans of Q1-Q22 (port of
 ``datafusion_comet_tpu/models/tpch.py``; ``QUERIES`` lists them).
 
 The generator is a line-for-line copy of the JAX package's, so the same
@@ -22,7 +22,7 @@ from datafusion_comet_tpu_torch.ir import plan as P
 
 __all__ = ["SCHEMAS", "QUERIES", "table_rows", "generate_table", "generate_tables", "q1", "q2",
            "q3", "q4", "q5", "q6", "q7", "q8", "q9", "q10", "q11", "q12", "q13", "q14", "q15",
-           "q16", "q17", "q18", "q19", "q20"]
+           "q16", "q17", "q18", "q19", "q20", "q21", "q22"]
 
 _dec = T.decimal
 
@@ -804,7 +804,69 @@ def q20(pattern: str = "forest%", ship_from: str = "1994-01-01",
                   (E.SortOrder(E.col("s_name")),))
 
 
+def q21() -> P.PlanNode:
+    """Suppliers who kept orders waiting: multi-exists/not-exists with
+    inequality correlation (semi/anti joins with extra conditions)."""
+    n = P.Scan("nation", SCHEMAS["nation"]).filter(E.col("n_name") == E.lit("SAUDI ARABIA"))
+    s = P.Scan("supplier", SCHEMAS["supplier"])
+    sn = P.HashJoin(s, n, (E.col("s_nationkey"),), (E.col("n_nationkey"),), P.JoinType.INNER, "right")
+    l1 = P.Scan("lineitem", SCHEMAS["lineitem"]).filter(
+        E.col("l_receiptdate") > E.col("l_commitdate")
+    )
+    o = P.Scan("orders", SCHEMAS["orders"]).filter(E.col("o_orderstatus") == E.lit("F"))
+    l1o = P.HashJoin(l1, o, (E.col("l_orderkey"),), (E.col("o_orderkey"),), P.JoinType.LEFT_SEMI, "right")
+    l1s = P.HashJoin(l1o, sn, (E.col("l_suppkey"),), (E.col("s_suppkey"),), P.JoinType.INNER, "right")
+    # exists other-supplier lineitem on same order
+    l2 = P.Scan("lineitem", SCHEMAS["lineitem"]).project(
+        [E.col("l_orderkey").alias("lo2"), E.col("l_suppkey").alias("ls2")]
+    )
+    with_l2 = P.HashJoin(
+        l1s, l2, (E.col("l_orderkey"),), (E.col("lo2"),), P.JoinType.LEFT_SEMI, "right",
+        condition=E.col("ls2") != E.col("l_suppkey"),
+    )
+    # not exists other-supplier LATE lineitem on same order
+    l3 = P.Scan("lineitem", SCHEMAS["lineitem"]).filter(
+        E.col("l_receiptdate") > E.col("l_commitdate")
+    ).project([E.col("l_orderkey").alias("lo3"), E.col("l_suppkey").alias("ls3")])
+    without_l3 = P.HashJoin(
+        with_l2, l3, (E.col("l_orderkey"),), (E.col("lo3"),), P.JoinType.LEFT_ANTI, "right",
+        condition=E.col("ls3") != E.col("l_suppkey"),
+    )
+    agg = without_l3.aggregate([E.col("s_name")], [E.AggExpr("count", None, "numwait")])
+    return agg.sort(
+        [E.SortOrder(E.col("numwait"), ascending=False), E.SortOrder(E.col("s_name"))],
+        fetch=100,
+    )
+
+
+def q22() -> P.PlanNode:
+    """Global sales opportunity: country-code substring, acctbal above the
+    positive average (nested-loop vs the global avg), no orders (anti join)."""
+    codes = ["13", "31", "23", "29", "30", "18", "17"]
+    c = P.Scan("customer", SCHEMAS["customer"]).project(
+        [E.col("c_custkey"), E.col("c_acctbal"),
+         E.StringFunc("substring", (E.col("c_phone"), E.lit(1), E.lit(2))).alias("cntrycode")]
+    ).filter(E.col("cntrycode").isin(*codes))
+    avg_bal = P.Scan("customer", SCHEMAS["customer"]).project(
+        [E.col("c_acctbal"),
+         E.StringFunc("substring", (E.col("c_phone"), E.lit(1), E.lit(2))).alias("cc")]
+    ).filter(
+        (E.col("c_acctbal") > E.lit(0, _dec(15, 2))) & E.col("cc").isin(*codes)
+    ).aggregate([], [E.AggExpr("avg", E.col("c_acctbal"), "ab")])
+    rich = P.BroadcastNestedLoopJoin(
+        c, avg_bal, P.JoinType.INNER,
+        condition=E.col("c_acctbal").cast(T.FLOAT64) > E.col("ab").cast(T.FLOAT64),
+    )
+    o = P.Scan("orders", SCHEMAS["orders"]).project([E.col("o_custkey")])
+    noord = P.HashJoin(rich, o, (E.col("c_custkey"),), (E.col("o_custkey"),), P.JoinType.LEFT_ANTI, "right")
+    agg = noord.aggregate(
+        [E.col("cntrycode")],
+        [E.AggExpr("count", None, "numcust"), E.AggExpr("sum", E.col("c_acctbal"), "totacctbal")],
+    )
+    return agg.sort([E.SortOrder(E.col("cntrycode"))])
+
+
 # every query of the port, by name
 QUERIES = {"q1": q1, "q2": q2, "q3": q3, "q4": q4, "q5": q5, "q6": q6, "q7": q7, "q8": q8,
            "q9": q9, "q10": q10, "q11": q11, "q12": q12, "q13": q13, "q14": q14, "q15": q15,
-           "q16": q16, "q17": q17, "q18": q18, "q19": q19, "q20": q20}
+           "q16": q16, "q17": q17, "q18": q18, "q19": q19, "q20": q20, "q21": q21, "q22": q22}

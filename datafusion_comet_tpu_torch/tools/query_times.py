@@ -2,10 +2,10 @@
 """Warm latency, peak device memory, kernel launches, retries, runtime
 filters, planning host time and (with ``--profile``) device-time
 breakdowns of TPC-H Q1, Q6, Q12, Q3, Q4, Q15, Q5, Q10, Q18, Q2, Q9, Q19,
-Q13, Q16 and Q20 (all but Q1, Q6 and Q15 directly, and through the grace
-join at K = 16, the budget ``grace_fraction`` finds) for the port in any
-checkout; a checkout whose port lacks Q3, Q4 and Q15, Q5, Q10 and Q18,
-Q2, Q9 and Q19, or Q13, Q16 and Q20, runs the others.
+Q13, Q16, Q20, Q21 and Q22 (all but Q1, Q6 and Q15 directly, and through
+the grace join at K = 16, the budget ``grace_fraction`` finds) for the port
+in any checkout; a checkout whose port lacks Q3, Q4 and Q15, Q5, Q10 and
+Q18, Q2, Q9 and Q19, Q13, Q16 and Q20, or Q21 and Q22, runs the others.
 Each checkout runs in its own process, so two of them can be compared in
 turns on one card:
 
@@ -22,7 +22,8 @@ run, and of one run the launches of each kernel wrapper and the retries
 and tiled aggregates included), the runtime filters injected (each one's key count) and the
 median host ms of ``_plan_stages`` over the warm runs (where the
 checkout's ``Session`` records them). With ``--profile``, one torch.profiler run of each run: wall
-ms, device busy ms and idle share, the device ms of index gathers (advanced indexing and
+ms, the device kernels and host events it recorded, device busy ms and idle share, the device
+ms of index gathers (advanced indexing and
 index_select kernels), of scatter_reduce, of the partition kernels (B3), of
 sort kernels, the top kernels, the host ms of the grace runner's spans, and
 the host and device ms of the sorted aggregate's ``aggregate.sort`` span
@@ -199,7 +200,10 @@ def profile(sess, plan):
                    and ev.self_device_time_total and not ev.key.startswith(SPANS)),
                   reverse=True)
     busy = sum(r[0] for r in rows)
-    out = {"wall_ms": wall_ms, "device_busy_ms": busy,
+    out = {"wall_ms": wall_ms, "device_events": sum(r[2] for r in rows),
+           "host_events": sum(ev.count for ev in events
+                              if ev.device_type == torch.autograd.DeviceType.CPU),
+           "device_busy_ms": busy,
            "device_idle_share": 1 - busy / wall_ms if wall_ms else None}
     for name, frags in CLASSES.items():
         hit = [r for r in rows if any(f in r[1] for f in frags)]
@@ -248,6 +252,7 @@ def main(argv=None) -> int:
     print(json.dumps({"tree": str(tree), "sf": args.sf, "nvidia_smi": smi}), flush=True)
     has_q3, has_q4, has_q5 = hasattr(tpch, "q3"), hasattr(tpch, "q4"), hasattr(tpch, "q5")
     has_q18, has_q9, has_q13 = hasattr(tpch, "q18"), hasattr(tpch, "q9"), hasattr(tpch, "q13")
+    has_q21 = hasattr(tpch, "q21")
     sess = Session()
     for t in (("lineitem", "orders") + (("customer",) if has_q3 else ())
               + (("supplier",) if has_q4 else ()) + (("nation", "region") if has_q5 else ())
@@ -267,7 +272,7 @@ def main(argv=None) -> int:
     if has_q5:
         runs += [("q5_direct", sess, tpch.q5()), ("q5_grace", grace(tpch.q5()), tpch.q5())]
     for q in ((("q10", "q18") if has_q18 else ()) + (("q2", "q9", "q19") if has_q9 else ())
-              + (("q13", "q16", "q20") if has_q13 else ())):
+              + (("q13", "q16", "q20") if has_q13 else ()) + (("q21", "q22") if has_q21 else ())):
         plan = getattr(tpch, q)()
         runs += [(f"{q}_direct", sess, plan), (f"{q}_grace", grace(plan), plan)]
     if args.queries:

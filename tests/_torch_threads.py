@@ -1,0 +1,18 @@
+"""The PyTorch port's CPU tests run torch on one intra-op thread: their ops
+gain nothing from more at these sizes, and test workers that each start a
+thread per core oversubscribe the CPU (the Q20 variant's file: 122 s with
+the default threads and 39 s with one, under a six-worker run). A module
+takes it with ``pytestmark = pytest.mark.usefixtures("one_torch_thread")``
+and the fixture imported."""
+
+import pytest
+import torch
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One intra-op thread for the module, restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

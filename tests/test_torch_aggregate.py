@@ -20,6 +20,9 @@ from datafusion_comet_tpu_torch.exec.operators import aggregate as PAGG
 from datafusion_comet_tpu_torch.ir import expr as PE
 from datafusion_comet_tpu_torch.ir import plan as PP
 from datafusion_comet_tpu_torch.models import tpch as PTPCH
+from _torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def jax_arrays(b):
@@ -188,7 +191,7 @@ def test_ungrouped_aggregate(keep):
     masks = {"all": None, "some": lambda m: np.arange(len(m)) % 3 == 0,
              "none": lambda m: np.zeros(len(m), bool)}
     jout, pout = _run_both((), mask_fn=masks[keep])
-    assert pout.capacity == 1 and bool(pout.row_mask[0])
+    assert pout.capacity == jout.capacity == 8 and bool(pout.row_mask[0])
     _same_result(jout, pout)
     if keep == "none":
         pn = PB.to_numpy(pout)

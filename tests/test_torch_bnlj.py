@@ -26,6 +26,9 @@ from datafusion_comet_tpu_torch.exec.engine import Session
 from datafusion_comet_tpu_torch.exec.operators import join as PJ
 from datafusion_comet_tpu_torch.ir import expr as PE
 from datafusion_comet_tpu_torch.ir import plan as PP
+from _torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 PKG = {"jax": (JT, JB, JE, JP, JJ), "port": (PT, PB, PE, PP, PJ)}
 TYPES = ("inner", "left", "right", "full", "left_semi", "left_anti")

@@ -8,9 +8,10 @@ runtime filters on the card against the same queries on the CPU, the
 dense path's MIN/MAX, the string operations (padded limbs, comparisons,
 CASE WHEN, murmur3, LIKE) and the fields of a date, and the float
 operations (order limbs, expressions, SUM/AVG/MIN/MAX) and the
-nested-loop join, the outer hash joins on every path, and Q13, Q16, Q20
-and Q20's variant directly and through the grace join on the card against
-the CPU. Marked ``cuda``;
+nested-loop join, the outer hash joins on every path, Q13, Q16, Q20
+and Q20's variant, the semi-like joins with a condition on each path,
+``substring``, and Q21 and Q22 directly and through the grace join on the
+card against the CPU. Marked ``cuda``;
 without a card every test here skips. This file imports no JAX, so it runs
 on a machine without it (tests/conftest.py imports JAX, hence --noconftest):
 
@@ -295,7 +296,8 @@ def test_query_times_script_on_card(dev, capsys):
     runs = ["q12_direct", "q12_grace", "q3_direct", "q3_grace", "q4_direct", "q4_grace", "q15",
             "q5_direct", "q5_grace", "q10_direct", "q10_grace", "q18_direct", "q18_grace",
             "q2_direct", "q2_grace", "q9_direct", "q9_grace", "q19_direct", "q19_grace",
-            "q13_direct", "q13_grace", "q16_direct", "q16_grace", "q20_direct", "q20_grace"]
+            "q13_direct", "q13_grace", "q16_direct", "q16_grace", "q20_direct", "q20_grace",
+            "q21_direct", "q21_grace", "q22_direct", "q22_grace"]
     names = ["q1", "q6"] + runs
     assert [r.get("query") or r["profile"] for r in rows] == names + names
     assert rows[3]["K"] == 16 and rows[3]["mode"] == "partial"
@@ -308,6 +310,9 @@ def test_query_times_script_on_card(dev, capsys):
     # no fact side reaches the runtime filters' 65,536 rows at SF 0.01
     assert all(r["runtime_filters"] == [] and r["plan_ms"] > 0 for r in rows[:len(names)])
     profiles = dict(zip(names, rows[len(names):]))
+    with capsys.disabled():  # each profiled run's device kernels and busy ms, on every run
+        print(json.dumps({"device_events": {q: [r["device_events"], r["device_busy_ms"]]
+                                            for q, r in profiles.items()}}))
     assert all(r["device_busy_ms"] > 0 for r in profiles.values())
     # at SF 0.01 Q3 direct, Q4 direct, Q15 and Q5 direct call no B3: their
     # joins are unique builds or semi joins, and nothing shrinks 4x
@@ -931,3 +936,128 @@ def test_q13_q16_q20_on_card_equal_cpu_direct_and_grace(dev, q, staging):
         assert (K.partition_columns.launches > 0) or not grace
         if grace:
             assert 16 in [r.K for r in gpu.grace_runners]
+
+
+@pytest.mark.parametrize("path", ["minmax_dense", "minmax_sorted", "pairs"])
+def test_semi_cond_joins_on_card_equal_cpu(dev, path):
+    """LEFT SEMI, LEFT ANTI and EXISTENCE joins with a condition on each
+    path (the dense min/max table, the sorted build's runs, the pairs) on
+    the card equal the CPU run row for row, each op of the pushdown."""
+    from datafusion_comet_tpu_torch.exec import batch as PB
+    from datafusion_comet_tpu_torch.exec.evaluator import EvalContext
+    from datafusion_comet_tpu_torch.exec.operators import join as J
+    from datafusion_comet_tpu_torch.ir import expr as E
+    from datafusion_comet_tpu_torch.ir import plan as PP
+
+    rng = np.random.default_rng(21)
+    n_p, n_b = 50_000, 200_000
+    stride = 1 << 20 if path == "minmax_sorted" else 1
+    probe = {"pk": rng.integers(0, 40_000, n_p) * stride, "pv": rng.integers(0, 100, n_p)}
+    build = {"bk": rng.integers(0, 40_000, n_b) * stride, "bv": rng.integers(0, 100, n_b)}
+    pv = {c: rng.random(n_p) > 0.05 for c in probe}
+    bv = {c: rng.random(n_b) > 0.05 for c in build}
+    ps = PT.Schema([PT.Field("pk", PT.INT64), PT.Field("pv", PT.INT64)])
+    bs = PT.Schema([PT.Field("bk", PT.INT64), PT.Field("bv", PT.INT64)])
+    krange = (int(build["bk"].min()), int(build["bk"].max()))
+    if path == "pairs":
+        conds = [(E.col("bv") != E.col("pv")) & (E.col("bv") > E.lit(50))]
+    else:
+        conds = [getattr(E.col("bv"), m)(E.col("pv")) for m in
+                 ("__ne__", "__lt__", "__le__", "__gt__", "__ge__")]
+        conds.append(E.col("pv") + E.lit(3) < E.col("bv"))
+    for jt in ("left_semi", "left_anti", "existence"):
+        for cond in conds:
+            outs = []
+            for device in ("cpu", dev):
+                p = PB.from_numpy(probe, ps, device, validity=pv)
+                b = PB.from_numpy(build, bs, device, validity=bv)
+                plan = PP.bind_plan(PP.HashJoin(PP.Scan("p", ps), PP.Scan("b", bs),
+                                                (E.col("pk"),), (E.col("bk"),), jt, "right",
+                                                condition=cond))
+                ctx = EvalContext(join_log=[])
+                out, ovf = J.hash_join(p, b, plan.left_keys, plan.right_keys, jt, "right",
+                                       plan.schema, plan.condition, max_build_matches=64,
+                                       ctx=ctx, build_key_range=krange,
+                                       cond_col_ranges={"bv": (0, 99)})
+                assert not bool(ovf) and [j["path"] for j in ctx.join_log] == [path]
+                outs.append((out.row_mask.cpu().numpy(), PB.to_numpy(out)))
+            (cpu_mask, want), (gpu_mask, got) = outs
+            np.testing.assert_array_equal(gpu_mask, cpu_mask)
+            kept = want["exists"] if jt == "existence" else cpu_mask
+            assert 0 < kept.sum() < n_p  # neither side of the split is empty
+            _same(got, want)
+
+
+@pytest.mark.parametrize("encoding", ["dict", "padded"])
+def test_substring_on_card_equals_cpu(dev, encoding):
+    """substring over a dictionary's entries and over padded bytes on the
+    card equals the CPU run, every position in -16..16 and length in
+    -1..16."""
+    from datafusion_comet_tpu_torch.exec import batch as PB
+    from datafusion_comet_tpu_torch.exec.evaluator import evaluate
+    from datafusion_comet_tpu_torch.ir import expr as E
+
+    rng = np.random.default_rng(22)
+    vals = np.array([f"{i:0{rng.integers(0, 13)}d}"[-12:] if i % 7 else "" for i in
+                     rng.integers(0, 10**6, 5000)], object)
+    valid = rng.random(5000) > 0.1
+    schema = PT.Schema([PT.Field("s", PT.string(12))])
+    dms = 1 << 16 if encoding == "dict" else 0
+    bs = [PB.from_numpy({"s": vals}, schema, d, validity={"s": valid}, dict_max_size=dms)
+          for d in ("cpu", dev)]
+    assert all(b.columns[0].is_dict == (encoding == "dict") for b in bs)
+    for pos in range(-16, 17):
+        for n in range(-1, 17):
+            e = E.bind(E.StringFunc("substring", (E.col("s"), E.lit(pos), E.lit(n))), schema)
+            want, got = (evaluate(e, b) for b in bs)
+            for a, b in ((want.data, got.data), (want.lengths, got.lengths),
+                         (want.validity, got.validity)):
+                assert torch.equal(a, b.cpu()), (pos, n)
+
+
+@pytest.mark.parametrize("staging", ["default", "padded"])
+@pytest.mark.parametrize("q", ["q21", "q22"])
+def test_q21_q22_on_card_equal_cpu_direct_and_grace(dev, q, staging):
+    """Q21 (a LEFT SEMI and a LEFT ANTI join with a condition) and Q22
+    (substring, the nested-loop join against the average) at SF 0.01 on the
+    card equal the CPU runs and the numpy oracles, directly and with the
+    first stage's top join partitioned into K = 16, with the default
+    staging and with every string padded; Q21's joins with a condition take
+    the dense min/max table on both devices, in a stage and in the pairs."""
+    data = tpch.generate_tables(("lineitem", "orders", "customer", "supplier", "nation"), 0.01)
+    dms = 1 << 16 if staging == "default" else 0
+    d = data
+    expect, check = {
+        "q21": (chip_smoke.oracle_q21(d["lineitem"], d["orders"], d["supplier"], d["nation"]),
+                chip_smoke.check_q21),
+        "q22": (chip_smoke.oracle_q22(d["customer"], d["orders"]), chip_smoke.check_q22),
+    }[q]
+
+    def session(device, fraction=None):
+        conf = Config(scan_dictionary_max_size=dms,
+                      **({"memory_fraction": fraction} if fraction else {}))
+        s = Session(device=device, conf=conf)
+        for t, td in data.items():
+            s.register_numpy(t, td, tpch.SCHEMAS[t])
+        return s
+
+    cpu = session("cpu")
+    plan = getattr(tpch, q)
+    want = cpu.collect(plan())
+    check(want, expect, f"{q} cpu")
+    fraction, _ = chip_smoke.grace_fraction(cpu, plan(), 16)
+    card_fraction = fraction * 4 * 2**30 / torch.cuda.get_device_properties(dev).total_memory
+    for grace, f in ((False, None), (True, card_fraction)):
+        gpu = session(None, f)
+        K.partition_columns.launches = 0
+        got = gpu.collect(plan())
+        _same(got, want)
+        check(got, expect, f"{q} card")
+        assert bool(gpu.grace_runners) == grace
+        assert (K.partition_columns.launches > 0) or not grace
+        if grace:
+            assert 16 in [r.K for r in gpu.grace_runners]
+        if q == "q21":
+            joins = chip_smoke.semi_cond_joins(gpu)
+            assert {j["path"] for j in joins} == {"minmax_dense"}
+            assert {j["type"] for j in joins} == {"left_semi", "left_anti"}

@@ -19,6 +19,9 @@ from datafusion_comet_tpu_torch.exec import decimal_wide as PDW
 from datafusion_comet_tpu_torch.exec import evaluator as PEV
 from datafusion_comet_tpu_torch.ir import expr as PE
 from datafusion_comet_tpu_torch.utils import int128 as P128
+from _torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 _M64 = (1 << 64) - 1
 I64_EDGES = [0, 1, -1, 2**31, -(2**31), 2**32 - 1, -(2**32 - 1), 2**62, -(2**62),

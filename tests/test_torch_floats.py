@@ -46,6 +46,9 @@ from datafusion_comet_tpu_torch.exec import evaluator as PEV
 from datafusion_comet_tpu_torch.exec.engine import Session
 from datafusion_comet_tpu_torch.ir import expr as PE
 from datafusion_comet_tpu_torch.ir import plan as PP
+from _torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 PKG = {"jax": (JT, JB, JE, JP, JEV), "port": (PT, PB, PE, PP, PEV)}
 N = 1536

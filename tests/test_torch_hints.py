@@ -41,6 +41,9 @@ from datafusion_comet_tpu_torch.ir import plan as PP
 from datafusion_comet_tpu_torch.ir import pruning as PPRUNE
 from datafusion_comet_tpu_torch.models import tpch
 from test_torch_join import _stage
+from _torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SF = 0.01
 NAMES = ("lineitem", "orders", "customer", "supplier", "nation", "region")

@@ -26,6 +26,9 @@ from datafusion_comet_tpu_torch.exec.operators import join as PJ
 from datafusion_comet_tpu_torch.ir import expr as PE
 from datafusion_comet_tpu_torch.ir import plan as PP
 from datafusion_comet_tpu_torch.ir import pruning as PPRUNE
+from _torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _tables(seed: int, dup: int = 3):

@@ -17,6 +17,9 @@ import torch
 
 from datafusion_comet_tpu.exec import pallas_kernels as PK
 from datafusion_comet_tpu_torch.exec import kernels as K
+from _torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @contextlib.contextmanager

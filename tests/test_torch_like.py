@@ -34,6 +34,9 @@ from datafusion_comet_tpu_torch.exec import batch as PB
 from datafusion_comet_tpu_torch.exec import evaluator as PEV
 from datafusion_comet_tpu_torch.exec import host_filter as PHF
 from datafusion_comet_tpu_torch.ir import expr as PE
+from _torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N = 300
 PATTERNS = ["ab%", "%ab", "%ab%", "a%b%c", "a%b", "%a%b%c%", "a_c", "_b%", "%a_b%", "a__",

@@ -36,6 +36,9 @@ from datafusion_comet_tpu_torch.exec.operators import join as PJ
 from datafusion_comet_tpu_torch.ir import expr as PE
 from datafusion_comet_tpu_torch.ir import plan as PP
 from datafusion_comet_tpu_torch.models import tpch
+from _torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 PKG = {"jax": (JT, JB, JE, JP, JAGG, JCtx), "port": (PT, PB, PE, PP, PAGG, PCtx)}
 VALUES = ("i", "l", "d", "v", "ws", "w")

@@ -33,6 +33,9 @@ from datafusion_comet_tpu_torch.exec import grace as PG
 from datafusion_comet_tpu_torch.exec import kernels as KN
 from datafusion_comet_tpu_torch.exec.operators import basic as PBASIC
 from datafusion_comet_tpu_torch.ir import expr as PE
+from _torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ROOT = Path(__file__).resolve().parent.parent
 

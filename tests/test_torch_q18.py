@@ -45,6 +45,9 @@ from datafusion_comet_tpu_torch.ir import plan as PP
 from datafusion_comet_tpu_torch.models import tpch
 from test_torch_grace import jax_fraction, jax_spy  # noqa: F401 (a fixture)
 from test_torch_hints import jax_attempts, stage_hints  # noqa: F401 (a fixture)
+from _torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 NAMES = ("lineitem", "orders", "customer", "nation")
 STAGING = {"default": 1 << 16, "padded": 0}

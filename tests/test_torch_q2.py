@@ -18,6 +18,9 @@ from test_torch_grace import jax_spy  # noqa: F401 (a fixture)
 from test_torch_hints import jax_attempts  # noqa: F401 (a fixture)
 from test_torch_q9 import (QUERIES, STAGING, check_direct, check_grace, direct,  # noqa: F401
                                sessions, tables)
+from _torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.mark.parametrize("staging", list(STAGING))

@@ -29,6 +29,9 @@ from datafusion_comet_tpu_torch.exec import batch as PB
 from datafusion_comet_tpu_torch.exec.engine import Session
 from datafusion_comet_tpu_torch.models import tpch
 from test_torch_grace import jax_fraction, jax_spy  # noqa: F401 (jax_spy: a fixture)
+from _torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 NAMES = ("lineitem", "orders", "customer", "supplier", "nation", "region")
 

@@ -15,7 +15,7 @@ checks the card with:
 
 Q9 (78 rows) runs at SF 0.01, where no runtime filter fires
 (test_torch_runtime_filter.py runs it where one does). The helpers serve
-Q2, Q19, Q7, Q8, Q11, Q14, Q17, Q13, Q16 and Q20 too (test_torch_q2.py and
+Q2, Q19, Q7, Q8, Q11, Q14, Q17, Q13, Q16, Q20, Q21 and Q22 too (test_torch_q2.py and
 the others; a plan variant registers its two builders in ``VARIANTS``);
 every comparison is exact but that of a FLOAT64 column, held to the other
 package's and to the oracle's within ``chip_smoke.FLOAT_SUM_RTOL``."""
@@ -24,7 +24,6 @@ import warnings
 
 import numpy as np
 import pytest
-import torch
 
 import chip_smoke
 from datafusion_comet_tpu.exec import batch as JB
@@ -38,6 +37,7 @@ from datafusion_comet_tpu_torch.ir import plan as PP
 from datafusion_comet_tpu_torch.models import tpch
 from test_torch_grace import jax_fraction, jax_spy  # noqa: F401 (a fixture)
 from test_torch_hints import jax_attempts, stage_hints  # noqa: F401 (a fixture)
+from _torch_threads import one_torch_thread  # noqa: F401 (a fixture, for the other files)
 
 STAGING = {"default": 1 << 16, "padded": 0}
 GRACE_K = 16
@@ -79,25 +79,18 @@ QUERIES = {
     "q16": (("part", "partsupp", "supplier"), 0.01,
             lambda d: chip_smoke.oracle_q16(d["part"], d["partsupp"], d["supplier"]),
             chip_smoke.check_q16),
+    "q21": (("lineitem", "orders", "supplier", "nation"), 0.01,
+            lambda d: chip_smoke.oracle_q21(d["lineitem"], d["orders"], d["supplier"],
+                                            d["nation"]), chip_smoke.check_q21),
+    "q22": (("customer", "orders"), 0.01,
+            lambda d: chip_smoke.oracle_q22(d["customer"], d["orders"]), chip_smoke.check_q22),
 }
 # the rows of each query's answer at its scale
 ROWS = {"q2": 3, "q9": 78, "q19": 1, "q7": 4, "q8": 2, "q11": 152, "q14": 1, "q17": 1,
-        "q13": 25, "q16": 306}
+        "q13": 25, "q16": 306, "q21": 3, "q22": 7}
 # a query that is a variant of one of the packages' plans: its (port plan,
 # JAX plan) builders (the others are the packages' ``tpch.<name>``)
 VARIANTS = {}
-
-
-@pytest.fixture(scope="module")
-def one_torch_thread():
-    """The port's CPU ops at these sizes gain nothing from intra-op threads,
-    and test workers that each start a thread per core oversubscribe the
-    CPU (the Q20 variant's file: 122 s with the default threads and 39 s
-    with one, under a six-worker run). Restored after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def plans(q):
@@ -122,7 +115,8 @@ def tables():
 
 
 def rf_hints(stages, P):
-    """``stage_hints`` plus each join's runtime-filter fields."""
+    """``stage_hints`` plus each join's runtime-filter fields and
+    condition-column ranges."""
     def joins(p):
         out = [p] if isinstance(p, P.HashJoin) else []
         for c in p.children():
@@ -130,8 +124,9 @@ def rf_hints(stages, P):
         return out
 
     return [(stage_hints([(name, sub)], P),
-             [(getattr(j, "rf_dense_range", None), bool(getattr(j, "rf_injected", False)))
-              for j in joins(sub)]) for name, sub in stages]
+             [(getattr(j, "rf_dense_range", None), bool(getattr(j, "rf_injected", False)),
+               getattr(j, "cond_col_ranges", None)) for j in joins(sub)])
+            for name, sub in stages]
 
 
 def sessions(data, staging, fraction=None):

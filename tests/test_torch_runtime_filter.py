@@ -43,6 +43,9 @@ from datafusion_comet_tpu_torch.models import tpch
 from test_torch_grace import jax_fraction, jax_spy  # noqa: F401 (a fixture)
 from test_torch_hints import jax_attempts  # noqa: F401 (a fixture)
 from test_torch_q9 import rf_hints, same
+from _torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 GRACE_K = 16
 BIG = ("lineitem", "orders", "customer", "supplier", "nation", "region", "part", "partsupp")

@@ -41,6 +41,9 @@ from datafusion_comet_tpu_torch.ir import expr as PE
 from datafusion_comet_tpu_torch.ir import plan as PP
 from datafusion_comet_tpu_torch.models import tpch
 from test_torch_grace import jax_fraction, jax_spy  # noqa: F401 (jax_spy: a fixture)
+from _torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SF = 0.01
 PKG = {"jax": (JT, JB, JE, JP, JJ), "port": (PT, PB, PE, PP, PJ)}
@@ -165,15 +168,18 @@ def test_bitmap_range_wider_than_the_keys_and_null_probe_keys():
 
 
 def test_semi_like_refusals():
-    """A condition, a left build side and the null-aware anti join raise."""
+    """A left build side and the null-aware anti join raise; a condition
+    no longer does (test_torch_semi_cond.py holds those joins to JAX)."""
     fact, dim, fvalid, dvalid, (fmask, dmask) = _tables(3, 2)
     fs, ds = _schemas(PT)
     left, right = _batch("port", fact, fs, fvalid, fmask), _batch("port", dim, ds, dvalid, dmask)
     lk, rk = [PE.bind(PE.col("fk"), fs)], [PE.bind(PE.col("pk"), ds)]
     cond = PE.bind(PE.col("fk2") < PE.col("pk2"),
                    PT.Schema(list(fs.fields) + list(ds.fields)))
-    with pytest.raises(NotImplementedError, match="condition"):
-        PJ.hash_join(left, right, lk, rk, "left_semi", "right", fs, cond)
+    before = PJ.hash_join.semi_paths["minmax_sorted"]
+    out, ovf = PJ.hash_join(left, right, lk, rk, "left_semi", "right", fs, cond)
+    assert out.capacity == left.capacity and not bool(ovf)
+    assert PJ.hash_join.semi_paths["minmax_sorted"] == before + 1
     with pytest.raises(AssertionError):
         PJ.hash_join(left, right, lk, rk, "left_anti", "left", fs)
     with pytest.raises(NotImplementedError):

@@ -27,6 +27,9 @@ from datafusion_comet_tpu_torch.exec.evaluator import EvalContext as PCtx
 from datafusion_comet_tpu_torch.exec.operators import aggregate as PAGG
 from datafusion_comet_tpu_torch.ir import expr as PE
 from datafusion_comet_tpu_torch.ir import plan as PP
+from _torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 PKG = {"jax": (JT, JB, JE, JP, JAGG, JCtx), "port": (PT, PB, PE, PP, PAGG, PCtx)}
 WORDS = [f"w{i:03d}" for i in range(100)]  # a 100-value dictionary: past the dense domain

@@ -29,6 +29,9 @@ from datafusion_comet_tpu_torch.exec.stats import collect_stats
 from datafusion_comet_tpu_torch.ir import expr as PE
 from datafusion_comet_tpu_torch.ir import plan as PP
 from datafusion_comet_tpu_torch.models import tpch
+from _torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SF = 0.01
 TABLES = ("lineitem", "orders", "customer")

@@ -40,6 +40,9 @@ from datafusion_comet_tpu_torch.ir import expr as PE
 from datafusion_comet_tpu_torch.ir import plan as PP
 from datafusion_comet_tpu_torch.models import tpch
 from test_torch_grace import jax_fraction, jax_spy  # noqa: F401 (jax_spy: a fixture)
+from _torch_threads import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N = 400
 ALPHABET = [b"", b"a", b"ab", b"abc", b"abcd", b"abcde", b"b", b"\x80", b"\xff\x00",

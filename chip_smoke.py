@@ -3,11 +3,12 @@
 
 On a machine with one NVIDIA card, from the root of a checkout:
 
-    python3 chip_smoke.py            # TPC-H SF1
-    python3 chip_smoke.py --sf 10    # another scale
+    python3 chip_smoke.py            # TPC-H SF1, TPC-DS SF10
+    python3 chip_smoke.py --sf 10    # another scale (TPC-DS at ten times it)
     python3 chip_smoke.py --profile  # add torch.profiler breakdowns of Q1, Q12 grace, Q3, Q4,
                                      # Q15, Q5, Q10, Q18, Q2, Q9, Q19, Q7, Q8, Q11, Q14, Q17,
-                                     # Q13, Q16, Q20, Q21, Q22
+                                     # Q13, Q16, Q20, Q21, Q22, and TPC-DS q3, q27, q33, q64,
+                                     # q96
 
 Phases, one JSON line each:
   1. device: the card's name, count, and nvidia-smi's name and power limit;
@@ -85,7 +86,16 @@ Phases, one JSON line each:
      distinct suppliers per order, not by min/max);
   padded (at SF1, or the smaller --sf): Q1, Q3, Q4, Q5 and Q12 over tables
      staged with every string padded (no dictionary codes), against the
-     same oracles.
+     same oracles;
+  tpcds: the 24 TPC-DS tables at ten times --sf (``tpcds_stage``: rows,
+     capacities, staged GB), every ported TPC-DS query directly (one line
+     each: warm ms, peak GB, launches, hints, retries, rows, planning ms;
+     q22's line the sort limbs of its rollup aggregate), q3, q52, q55, q43,
+     q96, q7, q73, q33 and q27 against exact numpy oracles
+     (``TPCDS_ORACLES``), q3, q7, q27, q33, q65, q73, q95 and q96 also
+     through the grace join (K = 16; partition sizes with the largest
+     beside the mean), the same answer as directly; then every ported
+     query at TPC-DS SF1 on the card against the port's CPU run of it.
      Every query line carries its joins' ``hints`` (per INNER join: build
      side, K, unique build, key packing, compacted-list rows and the path
      taken: dense_unique, sorted_unique, pair_list or block), its
@@ -103,8 +113,8 @@ Phases, one JSON line each:
   5. partition: holds B3 against its plain versions, exactly: the
      payload-moving partition_columns at every distinct B3 call of Q12's,
      Q3's, Q4's, Q15's, Q6's, Q5's, Q10's, Q18's, Q2's, Q9's, Q19's, Q7's,
-     Q8's, Q11's, Q14's, Q17's, Q13's, Q16's, Q20's, Q21's, Q22's and the
-     padded phase's runs (Q18's grace
+     Q8's, Q11's, Q14's, Q17's, Q13's, Q16's, Q20's, Q21's, Q22's, the
+     padded phase's and the TPC-DS grace queries' runs (Q18's grace
      calls move c_name's 25-byte rows; the
      grace runs' input shrinks, sides and per-pair shrinks, the filter
      shrinks, the semi outputs' compactions, the runtime filters' among
@@ -130,6 +140,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import gc
 import json
 import re
 import statistics
@@ -137,6 +148,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -160,7 +172,13 @@ TABLES = ("lineitem", "orders", "customer", "supplier", "nation", "region")
 PART_TABLES = ("part", "partsupp")  # Q2, Q9 and Q19's
 
 
+_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the script's seconds so far."""
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=round(time.perf_counter() - _START, 1))
     print(json.dumps(obj), flush=True)
 
 
@@ -1000,7 +1018,8 @@ def oracle_q21(li, od, su, na):
     n_ord = int(ok.max()) + 1
 
     def distinct_suppliers(m):
-        pairs = np.unique(ok[m] * span + sk[m])
+        pairs = np.sort(ok[m] * span + sk[m])  # np.unique by a sort: fast in any numpy
+        pairs = pairs[np.concatenate(([True], pairs[1:] != pairs[:-1]))]
         return np.bincount(pairs // span, minlength=n_ord)
 
     saudi = na["n_nationkey"][na["n_name"] == "SAUDI ARABIA"]
@@ -1051,6 +1070,374 @@ def check_q22(out, expect, what: str) -> None:
            for i in range(len(out["numcust"]))]
     if got != expect or not all(out[c + "__valid"].all() for c in cols):
         raise AssertionError(f"{what}: got {got}, expected {expect}")
+
+
+# ---- TPC-DS: numpy oracles of one query of each shape ---------------------------------
+
+
+def _where(table, mask):
+    """The rows of a table dict where ``mask`` holds."""
+    return {k: v[mask] for k, v in table.items()}
+
+
+def _codes(values):
+    """(sorted distinct values, each row's rank among them): a string
+    column of a small table coded once, its codes gathered through joins."""
+    uniq, inv = np.unique(np.asarray(values), return_inverse=True)
+    return uniq, inv.ravel()
+
+
+def _group_by(*parts):
+    """Rows grouped by key columns, each an int array or a (distinct
+    values, codes) pair from ``_codes``: (group key tuples in ascending key
+    order, each row's group)."""
+    cols, lookups = [], []
+    for p in parts:
+        if isinstance(p, tuple):
+            lookups.append(p[0])
+            cols.append(p[1])
+        else:
+            lookups.append(None)
+            cols.append(np.asarray(p))
+    n = len(cols[0])
+    if not n:
+        return [], np.zeros(0, np.int64)
+    order = np.lexsort(cols[::-1])  # the first key most significant
+    ranked = [c[order] for c in cols]
+    first = np.zeros(n, bool)
+    first[0] = True
+    for c in ranked:
+        first[1:] |= c[1:] != c[:-1]
+    inv = np.empty(n, np.int64)
+    inv[order] = np.cumsum(first) - 1
+    heads = np.flatnonzero(first)
+    keys = [tuple(v.item() if lk is None else lk[v] for v, lk in zip(row, lookups))
+            for row in zip(*(c[heads] for c in ranked))]
+    return keys, inv
+
+
+def _group_sums(inv, n: int, values) -> list:
+    """Each group's exact integer sum."""
+    out = np.zeros(n, np.int64)
+    np.add.at(out, inv, np.asarray(values, np.int64))
+    return [int(v) for v in out]
+
+
+def _avg_half_up(total: int, count: int, k: int) -> int:
+    """total / count at k more decimal places, rounded HALF_UP (the decimal
+    AVG's result scale is its input's plus 4)."""
+    num, sign = abs(total) * 10**k, -1 if total < 0 else 1
+    return sign * ((2 * num + count) // (2 * count))
+
+
+def _decimal_avgs(inv, n: int, cols) -> list:
+    """Per group: each column's decimal AVG (the input scale plus 4)."""
+    cnt = np.bincount(inv, minlength=n)
+    sums = [_group_sums(inv, n, c) for c in cols]
+    return [[_avg_half_up(s[g], int(cnt[g]), 4) for s in sums] for g in range(n)]
+
+
+def _int_avgs(inv, n: int, col) -> list:
+    """Per group: an integer column's AVG, a DOUBLE (its exact sum over the
+    count, one float64 division)."""
+    cnt = np.bincount(inv, minlength=n)
+    return [float(np.float64(s) / np.float64(c)) for s, c in zip(_group_sums(inv, n, col), cnt)]
+
+
+def _ordered(rows, key, fetch=None):
+    """Rows (in the aggregate's key order) stably sorted by ``key``, the
+    first ``fetch`` of them."""
+    out = sorted(rows, key=key)
+    return out if fetch is None else out[:fetch]
+
+
+def _ds_star(fact, joins):
+    """A fact table's rows that find their key in each dimension: joins is
+    [(fact key column, sorted unique dimension keys)]; (row mask, each
+    join's position into its dimension)."""
+    m = np.ones(len(fact[joins[0][0]]), bool)
+    pos = []
+    for fk, keys in joins:
+        p, found = _lookup(keys, fact[fk])
+        m &= found
+        pos.append(p)
+    return m, pos
+
+
+def oracle_ds_q3(d):
+    """TPC-DS q3: store_sales joined to November dates and manufacturer
+    128's items, SUM(ss_ext_sales_price) per (d_year, i_brand_id, i_brand),
+    by year, the sum descending, brand id; the first 100."""
+    dt, it, ss = d["date_dim"], d["item"], d["store_sales"]
+    dk, year = _by_key(_where(dt, dt["d_moy"] == 11), "d_date_sk", "d_year")
+    ik, bid, brand = _by_key(_where(it, it["i_manufact_id"] == 128), "i_item_sk", "i_brand_id",
+                             "i_brand")
+    return _brand_rows(ss, dk, year, ik, bid, brand)
+
+
+def _brand_rows(ss, dk, year, ik, bid, brand):
+    m, (dp, ip) = _ds_star(ss, [("ss_sold_date_sk", dk), ("ss_item_sk", ik)])
+    bcodes = _codes(brand)
+    keys, inv = _group_by(year[dp[m]], bid[ip[m]], (bcodes[0], bcodes[1][ip[m]]))
+    sums = _group_sums(inv, len(keys), ss["ss_ext_sales_price"][m])
+    rows = [k + (s,) for k, s in zip(keys, sums)]
+    return _ordered(rows, lambda r: (r[0], -r[3], r[1]), 100)
+
+
+def oracle_ds_brand_month(d, manager: int, moy: int, year: int):
+    """``_brand_month_query`` (q52, q55): store_sales of one month and year
+    joined to one manager's items, SUM(ss_ext_sales_price) per (d_year,
+    i_brand_id, i_brand), by year, the sum descending, brand id; 100."""
+    dt, it, ss = d["date_dim"], d["item"], d["store_sales"]
+    dk, yr = _by_key(_where(dt, (dt["d_moy"] == moy) & (dt["d_year"] == year)), "d_date_sk",
+                     "d_year")
+    ik, bid, brand = _by_key(_where(it, it["i_manager_id"] == manager), "i_item_sk",
+                             "i_brand_id", "i_brand")
+    return _brand_rows(ss, dk, yr, ik, bid, brand)
+
+
+TPCDS_DAYS = ("Sunday", "Monday", "Tuesday", "Wednesday", "Thursday", "Friday", "Saturday")
+
+
+def oracle_ds_q43(d):
+    """TPC-DS q43: store_sales of 2000 joined to store, per (s_store_name,
+    s_store_id) the SUM of ss_sales_price on each day name (null where the
+    store sold nothing that day), by name and id; 100."""
+    dt, st, ss = d["date_dim"], d["store"], d["store_sales"]
+    dk, day = _by_key(_where(dt, dt["d_year"] == 2000), "d_date_sk", "d_day_name")
+    sk, name, sid = _by_key(st, "s_store_sk", "s_store_name", "s_store_id")
+    m, (dp, sp) = _ds_star(ss, [("ss_sold_date_sk", dk), ("ss_store_sk", sk)])
+    ncodes, icodes = _codes(name), _codes(sid)
+    keys, inv = _group_by((ncodes[0], ncodes[1][sp[m]]), (icodes[0], icodes[1][sp[m]]))
+    price, days = ss["ss_sales_price"][m], day[dp[m]]
+    cols = []
+    for dn in TPCDS_DAYS:
+        hit = days == dn
+        sums = _group_sums(inv[hit], len(keys), price[hit])
+        seen = np.bincount(inv[hit], minlength=len(keys)) > 0
+        cols.append([s if h else None for s, h in zip(sums, seen)])
+    rows = [k + tuple(c[g] for c in cols) for g, k in enumerate(keys)]
+    return _ordered(rows, lambda r: (r[0], r[1]), 100)
+
+
+def oracle_ds_q96(d):
+    """TPC-DS q96: COUNT(*) of store_sales at 20:30-20:59 by households of
+    5 dependents at store_0."""
+    hd, td, st, ss = d["household_demographics"], d["time_dim"], d["store"], d["store_sales"]
+    hk = np.sort(hd["hd_demo_sk"][hd["hd_dep_count"] == 5])
+    tk = np.sort(td["t_time_sk"][(td["t_hour"] == 20) & (td["t_minute"] >= 30)])
+    sk = np.sort(st["s_store_sk"][st["s_store_name"] == "store_0"])
+    m, _ = _ds_star(ss, [("ss_hdemo_sk", hk), ("ss_sold_time_sk", tk), ("ss_store_sk", sk)])
+    return [(int(m.sum()),)]
+
+
+def oracle_ds_q7(d):
+    """TPC-DS q7: store_sales of single male college customers in 2000 under
+    a promotion off email or events, per i_item_id the AVG of ss_quantity (a
+    DOUBLE) and of three prices (decimals, HALF_UP at scale 6), by
+    i_item_id; 100."""
+    cd, dt, pr, it, ss = (d[t] for t in ("customer_demographics", "date_dim", "promotion",
+                                         "item", "store_sales"))
+    ck = np.sort(cd["cd_demo_sk"][(cd["cd_gender"] == "M") & (cd["cd_marital_status"] == "S")
+                                  & (cd["cd_education_status"] == "College")])
+    dk = np.sort(dt["d_date_sk"][dt["d_year"] == 2000])
+    pk = np.sort(pr["p_promo_sk"][(pr["p_channel_email"] == "N")
+                                  | (pr["p_channel_event"] == "N")])
+    ik, iid = _by_key(it, "i_item_sk", "i_item_id")
+    m, (_, _, _, ip) = _ds_star(ss, [("ss_cdemo_sk", ck), ("ss_sold_date_sk", dk),
+                                     ("ss_promo_sk", pk), ("ss_item_sk", ik)])
+    icodes = _codes(iid)
+    keys, inv = _group_by((icodes[0], icodes[1][ip[m]]))
+    qty = _int_avgs(inv, len(keys), ss["ss_quantity"][m])
+    decs = _decimal_avgs(inv, len(keys), [ss[c][m] for c in ("ss_list_price", "ss_coupon_amt",
+                                                             "ss_sales_price")])
+    rows = [k + (q,) + tuple(v) for k, q, v in zip(keys, qty, decs)]
+    return _ordered(rows, lambda r: r[0], 100)
+
+
+def oracle_ds_q73(d):
+    """TPC-DS q73: tickets (per ss_ticket_number and ss_customer_sk) of the
+    first two days of the months of 1999-2001, at any store, by households
+    of high or unknown buying potential with more dependents than vehicles
+    (a DOUBLE ratio over 1.0), with 1-5 items, joined to their customer; by
+    count descending, last name, ticket; (c_last_name, c_first_name,
+    c_salutation, c_preferred_cust_flag, ss_ticket_number, cnt)."""
+    dt, st, hd, cu, ss = (d[t] for t in ("date_dim", "store", "household_demographics",
+                                         "customer", "store_sales"))
+    dk = np.sort(dt["d_date_sk"][(dt["d_dom"] >= 1) & (dt["d_dom"] <= 2)
+                                 & np.isin(dt["d_year"], (1999, 2000, 2001))])
+    veh = hd["hd_vehicle_count"]
+    ratio = hd["hd_dep_count"].astype(np.float64) / np.where(veh > 0, veh, 1).astype(np.float64)
+    hk = np.sort(hd["hd_demo_sk"][np.isin(hd["hd_buy_potential"], (">10000", "Unknown"))
+                                  & (veh > 0) & (ratio > 1.0)])
+    m, _ = _ds_star(ss, [("ss_sold_date_sk", dk), ("ss_store_sk", np.sort(st["s_store_sk"])),
+                         ("ss_hdemo_sk", hk)])
+    keys, inv = _group_by(ss["ss_ticket_number"][m], ss["ss_customer_sk"][m])
+    cnt = np.bincount(inv, minlength=len(keys))
+    ticket = np.array([k[0] for k in keys], np.int64)
+    cust = np.array([k[1] for k in keys], np.int64)
+    ck, last, first, sal, flag = _by_key(cu, "c_customer_sk", "c_last_name", "c_first_name",
+                                         "c_salutation", "c_preferred_cust_flag")
+    p, found = _lookup(ck, cust)
+    keep = np.flatnonzero((cnt >= 1) & (cnt <= 5) & found)
+    rows = [(last[p[g]], first[p[g]], sal[p[g]], flag[p[g]], int(ticket[g]), int(cnt[g]))
+            for g in keep]
+    return _ordered(rows, lambda r: (-r[5], r[0], r[4]))
+
+
+def _ds_channel(d, fact: str, date_col: str, item_col: str, addr_col: str, price_col: str):
+    """One channel of q33: sales of May 1998 shipped to GMT-5 addresses of
+    Electronics items, SUM(price) per i_manufact_id: {manufact: sum}."""
+    dt, ca, it, f = d["date_dim"], d["customer_address"], d["item"], d[fact]
+    dk = np.sort(dt["d_date_sk"][(dt["d_year"] == 1998) & (dt["d_moy"] == 5)])
+    ak = np.sort(ca["ca_address_sk"][ca["ca_gmt_offset"] == -5])
+    ik, manu = _by_key(_where(it, it["i_category"] == "Electronics"), "i_item_sk",
+                       "i_manufact_id")
+    m, (_, _, ip) = _ds_star(f, [(date_col, dk), (addr_col, ak), (item_col, ik)])
+    keys, inv = _group_by(manu[ip[m]])
+    return dict(zip((k[0] for k in keys), _group_sums(inv, len(keys), f[price_col][m])))
+
+
+def oracle_ds_q33(d):
+    """TPC-DS q33: the three channels' ``_ds_channel`` sums under a UNION
+    ALL, summed per i_manufact_id, by the total, then the id; 100."""
+    total = {}
+    for args in (("store_sales", "ss_sold_date_sk", "ss_item_sk", "ss_addr_sk",
+                  "ss_ext_sales_price"),
+                 ("catalog_sales", "cs_sold_date_sk", "cs_item_sk", "cs_ship_addr_sk",
+                  "cs_ext_sales_price"),
+                 ("web_sales", "ws_sold_date_sk", "ws_item_sk", "ws_ship_addr_sk",
+                  "ws_ext_sales_price")):
+        for k, v in _ds_channel(d, *args).items():
+            total[k] = total.get(k, 0) + v
+    return _ordered(sorted(total.items()), lambda r: (r[1], r[0]), 100)
+
+
+def oracle_ds_q27(d):
+    """TPC-DS q27: store_sales of single male college customers in 2000 at
+    stores in TN or CA, under ROLLUP(i_item_id, s_state): per (item, state)
+    (lochierarchy 0), per item (1, state null) and in all (2, both null)
+    the AVG of ss_quantity (a DOUBLE) and of three prices (decimals); by
+    item, then state, nulls first; 100."""
+    cd, dt, st, it, ss = (d[t] for t in ("customer_demographics", "date_dim", "store", "item",
+                                         "store_sales"))
+    ck = np.sort(cd["cd_demo_sk"][(cd["cd_gender"] == "M") & (cd["cd_marital_status"] == "S")
+                                  & (cd["cd_education_status"] == "College")])
+    dk = np.sort(dt["d_date_sk"][dt["d_year"] == 2000])
+    sk, state = _by_key(_where(st, np.isin(st["s_state"], ("TN", "CA"))), "s_store_sk",
+                        "s_state")
+    ik, iid = _by_key(it, "i_item_sk", "i_item_id")
+    m, (_, sp, _, ip) = _ds_star(ss, [("ss_sold_date_sk", dk), ("ss_store_sk", sk),
+                                      ("ss_cdemo_sk", ck), ("ss_item_sk", ik)])
+    icodes, scodes = _codes(iid), _codes(state)
+    item_part, state_part = (icodes[0], icodes[1][ip[m]]), (scodes[0], scodes[1][sp[m]])
+    decs = [ss[c][m] for c in ("ss_list_price", "ss_coupon_amt", "ss_sales_price")]
+    rows = []
+    for level, parts in ((0, (item_part, state_part)), (1, (item_part,)),
+                         (2, (np.zeros(int(m.sum()), np.int64),))):
+        keys, inv = _group_by(*parts)
+        qty = _int_avgs(inv, len(keys), ss["ss_quantity"][m])
+        avgs = _decimal_avgs(inv, len(keys), decs)
+        for k, q, v in zip(keys, qty, avgs):
+            key = (k + (None,) * 2)[:2] if level < 2 else (None, None)
+            rows.append(key + (level, q) + tuple(v))
+
+    def nulls_first(v):
+        return (v is not None, v or "")
+
+    return _ordered(rows, lambda r: (nulls_first(r[0]), nulls_first(r[1])), 100)
+
+
+# per oracle query: its oracle, its output columns and the sort keys that
+# order its rows (rows tied on them may come in any order)
+TPCDS_ORACLES = {
+    "q3": (oracle_ds_q3, ("d_year", "i_brand_id", "i_brand", "sum_agg"),
+           ("d_year", "sum_agg", "i_brand_id")),
+    "q52": (lambda d: oracle_ds_brand_month(d, 1, 12, 2000),
+            ("d_year", "i_brand_id", "i_brand", "ext_price"), ("d_year", "ext_price", "i_brand_id")),
+    "q55": (lambda d: oracle_ds_brand_month(d, 28, 11, 1999),
+            ("d_year", "i_brand_id", "i_brand", "ext_price"), ("d_year", "ext_price", "i_brand_id")),
+    "q43": (oracle_ds_q43, ("s_store_name", "s_store_id")
+            + tuple(f"{dn[:3].lower()}_sales" for dn in TPCDS_DAYS),
+            ("s_store_name", "s_store_id")),
+    "q96": (oracle_ds_q96, ("cnt",), ()),
+    "q7": (oracle_ds_q7, ("i_item_id", "agg1", "agg2", "agg3", "agg4"), ("i_item_id",)),
+    "q73": (oracle_ds_q73, ("c_last_name", "c_first_name", "c_salutation",
+                            "c_preferred_cust_flag", "ss_ticket_number", "cnt"),
+            ("cnt", "c_last_name", "ss_ticket_number")),
+    "q33": (oracle_ds_q33, ("i_manufact_id", "total_sales"), ("total_sales", "i_manufact_id")),
+    "q27": (oracle_ds_q27, ("i_item_id", "s_state", "lochierarchy", "agg1", "agg2", "agg3",
+                            "agg4"), ("i_item_id", "s_state")),
+}
+
+
+def out_rows(out, cols):
+    """A collected answer's rows as tuples, None where a value is null."""
+    n = len(out[cols[0]])
+
+    def val(c, i):
+        if not out[c + "__valid"][i]:
+            return None
+        v = out[c][i]
+        return v if isinstance(v, (str, bytes)) else v.item() if hasattr(v, "item") else v
+
+    return [tuple(val(c, i) for c in cols) for i in range(n)]
+
+
+def same_ties(got, want, key_idx) -> bool:
+    """Row lists equal in the order of their sort keys (the columns at
+    ``key_idx``), and as multisets within each run of tied keys."""
+    if len(got) != len(want):
+        return False
+    if [tuple(r[i] for i in key_idx) for r in got] != [tuple(r[i] for i in key_idx)
+                                                         for r in want]:
+        return False
+    i = 0
+    while i < len(got):
+        j = i
+        while j < len(got) and tuple(got[j][k] for k in key_idx) == tuple(
+                got[i][k] for k in key_idx):
+            j += 1
+        if sorted(got[i:j], key=repr) != sorted(want[i:j], key=repr):
+            return False
+        i = j
+    return True
+
+
+def check_tpcds(q: str, out, expect, what: str) -> None:
+    """A TPC-DS answer against its oracle's rows: values exact (the DOUBLE
+    averages bit-equal), order exact up to ties in the sort keys."""
+    _, cols, keys = TPCDS_ORACLES[q]
+    got = out_rows(out, cols)
+    if not same_ties(got, expect, [cols.index(k) for k in keys]):
+        raise AssertionError(f"{what}: got {got[:5]}... ({len(got)} rows), expected "
+                             f"{expect[:5]}... ({len(expect)} rows)")
+
+
+# the ported TPC-DS queries whose sort keys tie at the scales run (q65:
+# stores 1 and 7 are both named store_0): their answers compare as multisets
+# of rows between runs
+TPCDS_TIED_ORDER = ("q65",)
+
+
+def _close(x, y) -> bool:
+    """Equal values; two floats within ``FLOAT_SUM_RTOL`` (a float sum adds
+    in another order on another device), NaN equal to NaN."""
+    if isinstance(x, float) and isinstance(y, float):
+        return x == y or (x != x and y != y) or abs(x - y) <= FLOAT_SUM_RTOL * max(abs(x), abs(y))
+    return x == y
+
+
+def same_rows(a, b, ordered: bool = True) -> bool:
+    """Two collected answers equal (``_close``): every column in order, or
+    (``ordered`` false) the rows as multisets."""
+    if list(a) != list(b):
+        return False
+    cols = [c for c in a if not c.endswith("__valid")]
+    ra, rb = out_rows(a, cols), out_rows(b, cols)
+    if not ordered:
+        ra, rb = sorted(ra, key=repr), sorted(rb, key=repr)
+    return len(ra) == len(rb) and all(all(map(_close, x, y)) for x, y in zip(ra, rb))
 
 
 def grace_fraction(sess, plan, K: int = GRACE_K):
@@ -1124,10 +1511,11 @@ def check_rf(q: str, sf: float, run: str, record: dict) -> None:
                              f"rf compactions; expected {want or 'none'}")
 
 
-def run_query(sess, plan, reps: int):
+def run_query(sess, plan, reps: int, log_b3: bool = True):
     """One run with the launch counts zeroed just before it and read just
-    after, ``reps`` warm runs, then one run that logs each B3 call with a
-    copy of its codes (apart, so that the copies touch no measured run).
+    after, ``reps`` warm runs, then (``log_b3``) one run that logs each B3
+    call with a copy of its codes (apart, so that the copies touch no
+    measured run; else the log is empty).
     Returns (first output, launches, first-run s, warm ms list, peak bytes,
     the B3 log, the semi-like joins of the first run by membership path,
     ``_plan_stages``' host ms: the first run's and the warm runs' median).
@@ -1154,11 +1542,16 @@ def run_query(sess, plan, reps: int):
         sess.collect(plan)
         times.append((time.perf_counter() - t0) * 1e3)
         plans.append(sess.plan_ms)
-    K.partition_columns.log = []
-    sess.collect(plan)
-    log, K.partition_columns.log = K.partition_columns.log, None
+    log = []
+    if log_b3:
+        K.partition_columns.log = []
+        sess.collect(plan)
+        log, K.partition_columns.log = K.partition_columns.log, None
     for c in log:
         c["rf"] = c["tag"] == "rf"
+        # held on the host until the partition phase: the copies of every
+        # query's codes would otherwise crowd the card's memory
+        c["code_values"] = c["code_values"].cpu()
     return out, launches, first_s, times, peak, log, semi, {"first": plan_first,
                                                           "warm": statistics.median(plans)}
 
@@ -1258,6 +1651,172 @@ def query_phase(sf: float, reps: int, profile: bool):
               "q20_variant", "q21", "q22"):
         part_phase(q, sess, data, sf, reps, profile, launches, b3_calls)
     return launches, sizes, b3_calls
+
+
+# ---- the TPC-DS phase -----------------------------------------------------------------
+
+TPCDS_SCALE = 10  # the TPC-DS generator runs at ten times --sf
+TPCDS_REF_SF = 1.0  # the scale at which the card is held to the port's CPU run
+TPCDS_GRACE = ("q3", "q7", "q27", "q33", "q65", "q73", "q95", "q96")
+TPCDS_PROFILE = ("q3", "q27", "q33", "q64", "q96")
+
+
+def staged_bytes(sess) -> int:
+    """Device bytes of every buffer of the session's registered tables."""
+    return sum(t.numel() * t.element_size() for b in sess.tables.values()
+               for c in b.columns for t in (c.data, c.validity, c.lengths) if t is not None)
+
+
+def tpcds_tables(sess, sf: float):
+    """All 24 TPC-DS tables generated at ``sf`` and registered in ``sess``:
+    (data, generate s, stage s)."""
+    import torch
+    from datafusion_comet_tpu_torch.models import tpcds
+
+    data, gen_s, stage_s = {}, 0.0, 0.0
+    for t in tpcds.SCHEMAS:
+        t0 = time.perf_counter()
+        data[t] = tpcds.generate_table(t, sf)
+        t1 = time.perf_counter()
+        sess.register_numpy(t, data[t], tpcds.SCHEMAS[t])
+        if sess.device.type == "cuda":
+            torch.cuda.synchronize()
+        gen_s += t1 - t0
+        stage_s += time.perf_counter() - t1
+    return data, gen_s, stage_s
+
+
+def tpcds_phase(sf: float, reps: int, profile: bool, launches, b3_calls) -> None:
+    """TPC-DS at generator scale ``TPCDS_SCALE * sf``: every ported query
+    run directly on the card (warm ms, peak memory, retries, launches, rows,
+    planning ms); q3, q52, q55, q43, q96, q7, q73, q33 and q27 against their
+    numpy oracles (``TPCDS_ORACLES``), exactly; ``TPCDS_GRACE`` directly and
+    under the budget that splits a join into K = 16 pairs, the same answer
+    (q65's as multisets of rows, ``TPCDS_TIED_ORDER``), with K, mode,
+    partition sizes (largest and mean) and pair retries; then every ported
+    query at ``TPCDS_REF_SF`` on the card against the port's own CPU run of
+    it (``same_rows``: exact, FLOAT64 within ``FLOAT_SUM_RTOL``). B1, B2 and
+    B3 must each launch in the phase's runs. A direct run that runs out of
+    the card's memory or of overflow retries is reported (``failed``),
+    unless its query has an oracle or a grace run here."""
+    import torch
+    from datafusion_comet_tpu_torch.exec.engine import JoinOverflowError, Session
+    from datafusion_comet_tpu_torch.models import tpcds
+
+    ds_sf = TPCDS_SCALE * sf
+    gc.collect()  # a session and its grace runners hold each other: free the TPC-H tables
+    torch.cuda.empty_cache()
+    sess = Session()
+    data, gen_s, stage_s = tpcds_tables(sess, ds_sf)
+    emit({"phase": "tpcds_stage", "sf": ds_sf,
+          "rows": {t: len(next(iter(d.values()))) for t, d in data.items()},
+          "capacity": {t: b.capacity for t, b in sess.tables.items()},
+          "staged_gb": staged_bytes(sess) / 1e9, "generate_s": gen_s, "stage_s": stage_s,
+          "padded_strings": sorted(f"{t}.{f.name}" for t, b in sess.tables.items()
+                                   for f, c in zip(b.schema.fields, b.columns)
+                                   if f.dtype.is_binary and not c.is_dict)})
+    total = {k: 0 for k in WRAPPERS}
+    oracle_s, failed = 0.0, []
+    for q, plan in tpcds.QUERIES.items():
+        key = f"ds_{q}"
+        grace_q = q in TPCDS_GRACE
+        try:
+            out, launches[key], first_s, times, peak, log, semi, plan_ms = run_query(
+                sess, plan(), reps, log_b3=grace_q)
+        except (torch.OutOfMemoryError, JoinOverflowError) as err:
+            # a plan whose capacities outgrow the card, or the retries (its
+            # overflow re-runs grow them 4x a time; the memory budget reads
+            # the first run's estimate), is reported; an oracle or grace
+            # query must run
+            if q in TPCDS_ORACLES or grace_q:
+                raise
+            failed.append(q)
+            emit({"phase": f"tpcds_{q}", "sf": ds_sf, "failed": type(err).__name__,
+                  "error": str(err).split(". ")[0], "attempts": [
+                      [r["scale"], r["unique_join_ok"], r["overflowed"]] for r in sess.runs]})
+            launches.pop(key, None)
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        if grace_q:
+            b3_calls[key] = log
+        rec = {"phase": f"tpcds_{q}", "sf": ds_sf, "rows": len(next(iter(out.values()))),
+               "first_run_s": first_s, "warm_ms": statistics.median(times),
+               "peak_gb": peak / 1e9, "launches": launches[key], "plan_ms": plan_ms,
+               "stages": len(sess.stages), "runtime_filters": plan_record(sess, plan_ms)[
+                   "runtime_filters"], **run_record(sess)}
+        if q in TPCDS_ORACLES:
+            t0 = time.perf_counter()
+            check_tpcds(q, out, TPCDS_ORACLES[q][0](data), key)
+            oracle_s += time.perf_counter() - t0
+            rec["oracle"] = True
+        if q == "q22":
+            rec["sort_limbs"] = agg_sort_limbs(sess, plan(), "lochierarchy")
+        for k in total:
+            total[k] += launches[key][k]
+        emit(rec)
+        if grace_q:
+            tpcds_grace(q, sess, plan, out, reps, profile, launches, b3_calls, total)
+        if profile and q in TPCDS_PROFILE:
+            emit(profile_run(sess, plan(), f"profile_tpcds_{q}"))
+    if min(total.values()) == 0:
+        raise AssertionError(f"the TPC-DS runs did not launch every kernel: {total}")
+    del sess, data
+    torch.cuda.empty_cache()
+    emit({"phase": "tpcds", "sf": ds_sf, "queries": len(tpcds.QUERIES), "failed": failed,
+          "launches": total, "oracles_checked": sorted(TPCDS_ORACLES), "oracle_s": oracle_s,
+          "against_cpu": tpcds_against_cpu(TPCDS_REF_SF)})
+
+
+def tpcds_grace(q, sess, plan, direct, reps, profile, launches, b3_calls, total) -> None:
+    """``q`` under the budget that splits its first stage's top join into
+    K = 16 pairs: its answer is the direct one."""
+    fraction, jpeak = grace_fraction(sess, plan())
+    grace = grace_session(sess, fraction)
+    key = f"ds_{q}_grace"
+    out, launches[key], first_s, times, peak, b3_calls[key], _, plan_ms = run_query(
+        grace, plan(), reps)
+    if not same_rows(direct, out, ordered=q not in TPCDS_TIED_ORDER):
+        raise AssertionError(f"{key}: the grace answer is not the direct one")
+    if sess.grace_runners or not any(r.K == GRACE_K for r in grace.grace_runners):
+        raise AssertionError(f"{key}: the direct run partitioned, or no grace join of "
+                             f"K={GRACE_K}: {_grace_record(grace)['grace_runners']}")
+    for k in total:
+        total[k] += launches[key][k]
+    emit({"phase": f"tpcds_{q}_grace", "correct": True, "memory_fraction": fraction,
+          "join_peak_estimate_bytes": jpeak, "first_run_s": first_s,
+          "warm_ms": statistics.median(times), "peak_gb": peak / 1e9,
+          "launches": launches[key], "plan_ms": plan_ms, **_grace_record(grace),
+          **run_record(grace)})
+    if profile and q in TPCDS_PROFILE:
+        emit(profile_run(grace, plan(), f"profile_tpcds_{q}_grace"))
+
+
+def tpcds_against_cpu(sf: float):
+    """Every ported query at ``sf`` on the card and through the port on the
+    CPU, the same answer (``same_rows``; ``TPCDS_TIED_ORDER``'s as
+    multisets): the number of queries and of answer rows compared, and the
+    CPU's seconds."""
+    import torch
+    from datafusion_comet_tpu_torch.exec.engine import Session
+    from datafusion_comet_tpu_torch.models import tpcds
+
+    card, cpu = Session(), Session(device="cpu")
+    data, _, _ = tpcds_tables(card, sf)
+    for t, d in data.items():
+        cpu.register_numpy(t, d, tpcds.SCHEMAS[t])
+    rows, cpu_s = 0, 0.0
+    for q, plan in tpcds.QUERIES.items():
+        got = card.collect(plan())
+        t0 = time.perf_counter()
+        want = cpu.collect(plan())
+        cpu_s += time.perf_counter() - t0
+        if not same_rows(want, got, ordered=q not in TPCDS_TIED_ORDER):
+            raise AssertionError(f"tpcds {q} at SF{sf:g}: the card's answer is not the CPU's")
+        rows += len(next(iter(got.values())))
+    del card
+    torch.cuda.empty_cache()
+    return {"sf": sf, "queries": len(tpcds.QUERIES), "rows": rows, "cpu_s": cpu_s}
 
 
 def grace_session(sess, fraction: float):
@@ -1496,23 +2055,25 @@ def _grace_record(s):
     return {"grace_runners": [
         {"K": r.K, "mode": r.downstream and r.downstream[0], "pair_retries": r.retries,
          "capacities": list(r.capacities),
-         "sizes": [{"rows": int(sz.sum()), "min": int(sz.min()), "max": int(sz.max())}
-                   for sz in r.sizes]} for r in s.grace_runners],
+         "sizes": [{"rows": int(sz.sum()), "min": int(sz.min()), "max": int(sz.max()),
+                    "mean": float(sz.mean())} for sz in r.sizes]} for r in s.grace_runners],
         "tiled": [list(t) for t in s.tiled],
         "tiled_attempts": [[r["scale"], r["overflowed"]] for r in s.runs
                            if r["where"] == "tiled"]}
 
 
-def agg_sort_limbs(sess, plan) -> dict:
-    """The sort limbs the root stage's grouping aggregate takes, rebuilt as
-    ``aggregate.hash_aggregate`` picks them (one packed int32 limb, packed
+def agg_sort_limbs(sess, plan, key: Optional[str] = None) -> dict:
+    """The sort limbs the root stage's grouping aggregate (with ``key``: the
+    grouping aggregate, in any stage, that groups by ``key``) takes, rebuilt
+    as ``aggregate.hash_aggregate`` picks them (one packed int32 limb, packed
     int64 limbs, or a null flag and the value limbs per key) from its key
     columns as the query's output holds them (the storage of its input):
     {"keys", "limbs", "limb_dtypes"}."""
     from datafusion_comet_tpu_torch.exec import sortkeys
     from datafusion_comet_tpu_torch.exec.operators import aggregate as AGG
 
-    (agg,) = [a for a in _plan_nodes(sess.stages[-1:], "HashAggregate") if a.group_exprs]
+    (agg,) = [a for a in _plan_nodes(sess.stages if key else sess.stages[-1:], "HashAggregate")
+              if a.group_exprs and (key is None or key in [g.name for g in a.group_exprs])]
     out = sess.execute(plan)
     keys = [out.columns[out.schema.index_of(g.name)] for g in agg.group_exprs]
     packed = AGG._try_pack_keys(keys)
@@ -1600,13 +2161,15 @@ def part_phase(q: str, sess, data, sf: float, reps: int, profile: bool, launches
     sums of the direct runs of Q19, Q11, Q14 and Q17, B3 in every grace
     run), B3 calls, runtime filters, planning host ms, stages, hints,
     attempts, grace joins, outer joins (path and output capacity) and
-    semi-like joins with a condition (path) reported; Q11's lines add the nested-loop join's two input capacities,
+    semi-like joins with a condition (path) reported, with the host seconds
+    of the oracle, the budget search and each run (``phase_s``); Q11's lines add the nested-loop join's two input capacities,
     whose product must stay under
     ``join.BNLJ_MAX_PRODUCT_ROWS``."""
     from datafusion_comet_tpu_torch.exec.operators.join import BNLJ_MAX_PRODUCT_ROWS
     from datafusion_comet_tpu_torch.models import tpch
 
     d, day = data, tpch._d
+    t0 = time.perf_counter()
     scalar = (lambda col: lambda out, e, what: check_scalar_f64(out, col, e, what))
     expect, check = {
         "q2": lambda: (oracle_q2(d["part"], d["supplier"], d["partsupp"], d["nation"],
@@ -1640,13 +2203,18 @@ def part_phase(q: str, sess, data, sf: float, reps: int, profile: bool, launches
     # Q11 at TPC-H's FRACTION for the scale factor (the plan's default is SF1's)
     plan = {"q11": lambda: tpch.q11(Q11_FRACTION / sf),
             "q20_variant": lambda: tpch.q20(**Q20_VARIANT)}.get(q) or getattr(tpch, q)
+    seconds = {"oracle": time.perf_counter() - t0}
+    t0 = time.perf_counter()
     fraction, jpeak = grace_fraction(sess, plan())
     grace = grace_session(sess, fraction)
+    seconds["grace_fraction"] = time.perf_counter() - t0
     runs = {}
     for run, s in (("direct", sess), ("grace", grace)):
         key = f"{q}_{run}"
+        t0 = time.perf_counter()
         out, launches[key], first_s, times, peak, b3_calls[key], semi, plan_ms = run_query(
             s, plan(), reps)
+        seconds[run] = time.perf_counter() - t0
         check(out, expect, key)
         need = ("partition_sort",) if run == "grace" else {
             "q19": ("bucket_sum",), "q11": ("bucket_count", "bucket_sum"),
@@ -1681,7 +2249,8 @@ def part_phase(q: str, sess, data, sf: float, reps: int, profile: bool, launches
           "p_name_padded": not p_name.is_dict,
           "c_phone_padded": not sess.tables["customer"].column("c_phone").is_dict,
           "memory_fraction": fraction,
-          "grace_budget_bytes": grace.budget_bytes(), "join_peak_estimate_bytes": jpeak, **runs})
+          "grace_budget_bytes": grace.budget_bytes(), "join_peak_estimate_bytes": jpeak,
+          "phase_s": seconds, **runs})
     if profile:
         emit(profile_run(sess, plan(), f"profile_{q}_direct"))
         emit(profile_run(grace, plan(), f"profile_{q}_grace"))
@@ -1843,8 +2412,8 @@ def call_inputs(call, gen, dev):
     the call's tensors' dtype and row shape (the kernel's work does not
     depend on the payload's values)."""
     n = call["n"]
-    return call["code_values"], [random_tensor(dt, (n,) + tuple(row), gen, dev)
-                                 for dt, row in call["tensors"]]
+    return call["code_values"].to(dev), [random_tensor(dt, (n,) + tuple(row), gen, dev)
+                                         for dt, row in call["tensors"]]
 
 
 def random_tensor(dtype: str, shape, gen, dev):
@@ -1960,7 +2529,8 @@ def b3_call_names(calls):
 def partition_phase(sizes, calls, reps: int, seed: int):
     """B3 against its plain versions, exactly, then timed. Payload-moving
     (partition_columns): every distinct B3 call of the queries' runs
-    (``b3_call_names``), on the codes the query gave it, the TPU kernel's probe shape in tile-local
+    (``b3_call_names``; the TPC-DS runs' untimed), on the codes the query
+    gave it, the TPU kernel's probe shape in tile-local
     mode, and every row width on misaligned inputs. Permutation-only
     (partition_sort): the grace sides' shapes (each side's capacity, its
     live rows spread over K = 16 codes), the probe shape and edge shapes.
@@ -1989,8 +2559,9 @@ def partition_phase(sizes, calls, reps: int, seed: int):
                                  call["limit"])
         checked.append(rec)
         max_err = max(max_err, err)
-        timing[name] = time_payload(K, codes, call["K"], tensors, call["local"], call["limit"],
-                                    reps, flush)
+        if not name.startswith("ds_"):  # the TPC-DS runs' calls are checked, not timed
+            timing[name] = time_payload(K, codes, call["K"], tensors, call["local"],
+                                        call["limit"], reps, flush)
         del codes, tensors, call["code_values"]
         torch.cuda.empty_cache()
     probe_n = 1 << 23  # pallas_scatter_probe.py's default N, K = 16, tile 512
@@ -2089,8 +2660,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="add profiled runs of Q1, of Q12's grace run, of Q3's, Q4's, Q5's, "
                          "Q10's, Q18's, Q2's, Q9's, Q19's, Q7's, Q8's, Q11's, Q14's, Q17's, "
-                         "Q13's, Q16's, Q20's, Q20's variant's, Q21's and Q22's two runs and "
-                         "of Q15")
+                         "Q13's, Q16's, Q20's, Q20's variant's, Q21's and Q22's two runs, "
+                         "of Q15, and of TPC-DS q3's, q27's, q33's and q96's two runs and "
+                         "q64's")
     args = ap.parse_args(argv)
 
     import torch
@@ -2123,6 +2695,7 @@ def main(argv=None) -> int:
     launches, sizes, b3_calls = query_phase(args.sf, max(3, args.reps // 5), args.profile)
     if args.sf <= 1:  # the padded phase runs at SF1 (or the smaller scale asked for)
         padded_phase(args.sf, max(3, args.reps // 5), launches, b3_calls)
+    tpcds_phase(args.sf, max(3, args.reps // 8), args.profile, launches, b3_calls)
     pair = pair_phase(sizes, args.reps, args.seed)
     emit({"phase": "grace_pair_kernels", "timing": pair})
     timing["bucket_count"]["other_shapes"] = {"grace_pair": pair["bucket_count"]}

@@ -1,7 +1,8 @@
 """Query engine: a bound plan tree executed operator by operator over
 device-resident tables (port of the ``Session`` subset of
-``datafusion_comet_tpu/exec/engine.py`` that the ported TPC-H queries
-reach).
+``datafusion_comet_tpu/exec/engine.py`` that the ported TPC-H and TPC-DS
+queries reach: a ``Union`` runs as one row concatenation of its inputs, an
+``Expand`` as ``basic.expand_op``).
 
 PyTorch runs eagerly, so there is no whole-plan compile. ``execute`` prunes
 the plan, injects the runtime filters (exec/runtime_filter.py), binds it,
@@ -65,7 +66,8 @@ from torch.profiler import record_function
 from datafusion_comet_tpu_torch import types as T
 from datafusion_comet_tpu_torch.conf import Config
 from datafusion_comet_tpu_torch.exec import grace as G
-from datafusion_comet_tpu_torch.exec.batch import Batch, from_numpy, pad_capacity, to_numpy
+from datafusion_comet_tpu_torch.exec.batch import (Batch, concat_batches, from_numpy, pad_capacity,
+                                                  to_numpy)
 from datafusion_comet_tpu_torch.exec.evaluator import EvalContext
 from datafusion_comet_tpu_torch.exec.host_filter import HostColumns
 from datafusion_comet_tpu_torch.exec.memory import (device_budget_bytes, plan_peak_bytes,
@@ -110,6 +112,11 @@ def run_plan(plan: P.PlanNode, tables: Dict[str, Batch], ctx: EvalContext, conf:
         return b
     if isinstance(plan, P.HashJoin):
         return _exec_hash_join(plan, tables, ctx, conf, fanout)
+    if isinstance(plan, P.Union):
+        # JAX ``engine.py:270-330``: dictionaries unified, mixed decimal
+        # storage widened, strings padded to the widest input
+        return concat_batches([run_plan(c, tables, ctx, conf, fanout) for c in plan.inputs],
+                              plan.schema)
     if isinstance(plan, P.BroadcastNestedLoopJoin):
         left = run_plan(plan.left, tables, ctx, conf, fanout)
         right = run_plan(plan.right, tables, ctx, conf, fanout)
@@ -142,6 +149,8 @@ def run_plan(plan: P.PlanNode, tables: Dict[str, Batch], ctx: EvalContext, conf:
         return B.sort_op(child, plan.orders, plan.fetch, plan.skip, ctx)
     if isinstance(plan, P.Limit):
         return B.limit_op(child, plan.limit, plan.offset)
+    if isinstance(plan, P.Expand):
+        return B.expand_op(child, plan.projections, plan.schema, ctx)
     raise NotImplementedError(f"run_plan: {type(plan).__name__}")
 
 
@@ -270,24 +279,24 @@ def _count_joins(plan: P.PlanNode) -> int:
 
 
 def _count_heavy(plan: P.PlanNode) -> int:
-    """Joins (but a runtime filter's), sorts and grouping aggregates in a
-    subtree."""
-    own = _is_counted_join(plan) or isinstance(plan, P.Sort) or (
+    """Joins (but a runtime filter's), sorts, expands and grouping
+    aggregates in a subtree (JAX ``engine.py:1283``)."""
+    own = _is_counted_join(plan) or isinstance(plan, (P.Sort, P.Expand)) or (
         isinstance(plan, P.HashAggregate) and bool(plan.group_exprs))
     return int(own) + sum(_count_heavy(c) for c in plan.children())
 
 
 def find_stream_agg(plan: P.PlanNode, tables) -> Optional[Tuple[P.HashAggregate, str]]:
     """The aggregate the JAX package would run tiled over the budget
-    (JAX ``engine.py:1455``): a SINGLE HashAggregate over filters and
-    projections of one resident table, the one over the largest table;
-    (aggregate, table) or None."""
+    (JAX ``engine.py:1455``): a SINGLE HashAggregate over filters,
+    projections and expands of one resident table, the one over the
+    largest table; (aggregate, table) or None."""
     best = None
 
     def subtree_scan(p) -> Optional[str]:
         if isinstance(p, P.Scan):
             return p.table
-        if not isinstance(p, (P.Filter, P.Projection)):
+        if not isinstance(p, (P.Filter, P.Projection, P.Expand)):
             return None
         return subtree_scan(p.children()[0])
 

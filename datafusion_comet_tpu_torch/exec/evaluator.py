@@ -1,6 +1,7 @@
 """Expression evaluator: bound expression IR -> tensor ops over a Batch
 (port of ``datafusion_comet_tpu/exec/evaluator.py``, the subset the ported
-TPC-H queries reach: LIKE, ``substring``, the fields of a DATE and floats among them, and
+TPC-H and TPC-DS queries reach: LIKE, ``substring``, the fields of a DATE,
+floats, NOT and the null tests, the decimal to integer cast among them, and
 Spark's murmur3 over integer, float and string columns for hash
 partitioning).
 
@@ -241,8 +242,16 @@ def _binary(e: E.BinaryOp, b: Batch, ctx: EvalContext) -> ColumnVector:
 
 
 def _unary(e: E.UnaryOp, b: Batch, ctx: EvalContext) -> ColumnVector:
-    """isnan: true on a valid NaN, never null (JAX ``evaluator.py:930``)."""
+    """JAX ``evaluator.py:922-931``: isnull and isnotnull read the validity
+    and are never null; NOT of a null is null; isnan is true on a valid NaN,
+    never null."""
     c = _ev(e.child, b, ctx)
+    if e.op == "isnull":
+        return ColumnVector(~c.validity, torch.ones_like(c.validity), None, T.BOOL)
+    if e.op == "isnotnull":
+        return ColumnVector(c.validity, torch.ones_like(c.validity), None, T.BOOL)
+    if e.op == "not":
+        return ColumnVector(~c.data.bool(), c.validity, None, T.BOOL)
     if e.op != "isnan":
         raise NotImplementedError(f"UnaryOp {e.op!r} is not ported yet")
     nan = torch.isnan(c.data) if c.dtype.is_floating else torch.zeros_like(c.validity)
@@ -569,7 +578,40 @@ def _cast(cv: ColumnVector, frm: T.DataType, to: T.DataType, mode: str,
         else:
             data = cv.data.long() * 10**to.scale
         return _with_bound(ColumnVector(data, validity, None, to), nb)
+    if frm.is_decimal and to.is_integer:
+        # the fraction truncated toward zero (JAX ``evaluator.py:1018-1029``)
+        if cv.is_wide_storage:
+            p = int128.div_pow10_i128_trunc(DW.pair(cv.data), frm.scale)
+            fits = DW.fits_i64(p)
+            if mode == E.EvalMode.ANSI:
+                ctx.record_error(~fits & validity, "CAST_OVERFLOW")
+            return _int_narrow(p[1], validity & fits, to, mode, ctx)
+        return _int_narrow(_decimal_truncate_i64(cv.data.long(), frm.scale), validity, to,
+                           mode, ctx)
     raise NotImplementedError(f"cast {frm!r} -> {to!r}")
+
+
+def _decimal_truncate_i64(data: torch.Tensor, scale: int) -> torch.Tensor:
+    """An unscaled decimal's integer part, truncated toward zero."""
+    if scale == 0:
+        return data
+    d = 10**scale
+    q = torch.div(data, d, rounding_mode="floor")
+    return torch.where((data < 0) & (data - q * d != 0), q + 1, q)
+
+
+def _int_narrow(data: torch.Tensor, validity: torch.Tensor, to: T.DataType, mode: str,
+                ctx: EvalContext) -> ColumnVector:
+    """An int64 as the integer type ``to``: wrapped as Java narrows
+    (LEGACY), null out of range (TRY), or recorded as CAST_OVERFLOW
+    (ANSI)."""
+    lo, hi = to.int_bounds()
+    in_range = (data >= lo) & (data <= hi)
+    if mode == E.EvalMode.ANSI:
+        ctx.record_error(~in_range & validity, "CAST_OVERFLOW")
+    elif mode == E.EvalMode.TRY:
+        validity = validity & in_range
+    return ColumnVector(data.to(_torch_dtype(to)), validity, None, to)
 
 
 def _cast_float(cv: ColumnVector, frm: T.DataType, to: T.DataType, mode: str,

@@ -13,10 +13,10 @@ one conjunct ran (the injector skips the filter otherwise).
 
 Conjuncts understood (vectorized numpy): comparisons of integers, dates and
 narrow decimals with literals, string equality, LIKE (prefix, suffix,
-contains, exact, and any other pattern by a regex per row), IN lists, and
-AND / OR, looking through aliases and integer, date and decimal casts. The
-port's IR has no NOT or IS NULL node, so those branches of the JAX module
-are left out.
+contains, exact, and any other pattern by a regex per row), IN lists,
+IS [NOT] NULL of a column, NOT where every column under it is free of
+nulls, and AND / OR, looking through aliases and integer, date and decimal
+casts.
 """
 
 from __future__ import annotations
@@ -236,6 +236,23 @@ _CMP = {"eq": np.equal, "ne": np.not_equal, "lt": np.less, "le": np.less_equal,
 def _eval_conjunct(c: E.Expr, cols: HostColumns) -> Optional[np.ndarray]:
     """A conjunct's rows under SQL semantics with a null comparison false
     (sound for a filter); None where it is not understood."""
+    if isinstance(c, E.UnaryOp) and c.op == "not":
+        # the child reads a null as false, so its negation is sound only
+        # where no column under it holds a null
+        inner = _eval_conjunct(c.child, cols)
+        if inner is None:
+            return None
+        for nm in _expr_columns(c.child):
+            hc = cols.get(nm)
+            if hc is None or not hc.valid.all():
+                return None
+        return ~inner
+    if isinstance(c, E.UnaryOp) and c.op in ("isnull", "isnotnull"):
+        nm = _col_name(c.child)
+        hc = cols.get(nm) if nm else None
+        if hc is None:
+            return None
+        return ~hc.valid if c.op == "isnull" else hc.valid.copy()
     if isinstance(c, E.BinaryOp) and c.op in ("or", "and"):
         a = _eval_conjunct(c.left, cols)
         b = _eval_conjunct(c.right, cols)
@@ -301,6 +318,13 @@ def _eval_conjunct(c: E.Expr, cols: HostColumns) -> Optional[np.ndarray]:
                 return _CMP[op](hc.vals, v) & hc.valid
         return None
     return None
+
+
+def _expr_columns(e: E.Expr) -> List[str]:
+    """Every column an expression reads."""
+    if isinstance(e, (E.ColumnRef, E.BoundRef)):
+        return [e.col_name]
+    return [nm for k in e.children() for nm in _expr_columns(k)]
 
 
 def eval_dim_filter(batch: Batch, predicates: List[E.Expr],

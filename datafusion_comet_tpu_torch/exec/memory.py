@@ -41,8 +41,9 @@ def batch_bytes(schema: T.Schema, capacity: int) -> int:
 def plan_peak_bytes(plan: P.PlanNode, capacity: int) -> int:
     """Upper bound on resident bytes while running ``plan`` over inputs of
     ``capacity`` rows: the sum of every operator's output batch. An
-    aggregate counts its ``max_groups`` (2^16 where statistics gave none)
-    and a join its first fan-out's rows per input row."""
+    aggregate counts its ``max_groups`` (2^16 where statistics gave none),
+    an expand its projections' rows per input row and a join its first
+    fan-out's rows per input row."""
     total = 0
     stack = [plan]
     while stack:
@@ -51,6 +52,8 @@ def plan_peak_bytes(plan: P.PlanNode, capacity: int) -> int:
         cap = capacity
         if isinstance(node, P.HashAggregate):
             cap = min(node.max_groups or DEFAULT_MAX_GROUPS, capacity)
+        elif isinstance(node, P.Expand):
+            cap = capacity * len(node.projections)
         elif isinstance(node, P.HashJoin):
             cap = capacity * JOIN_FANOUT
         if node.schema is not None:

@@ -1,6 +1,6 @@
-"""Row-preserving operators: filter, project, sort (with top-K), limit, and
-the compaction that packs live rows into a smaller capacity (port of
-``datafusion_comet_tpu/exec/operators/basic.py:37-145``).
+"""Row-preserving operators: filter, project, sort (with top-K), limit,
+expand, and the compaction that packs live rows into a smaller capacity
+(port of ``datafusion_comet_tpu/exec/operators/basic.py:37-177``).
 
 A filter flips mask bits (no dynamic shapes); a sort is one stable
 multi-limb lexsort with dead rows last, after which live rows are
@@ -18,11 +18,11 @@ import torch
 from datafusion_comet_tpu_torch import types as T
 from datafusion_comet_tpu_torch.exec import kernels as KN
 from datafusion_comet_tpu_torch.exec import sortkeys
-from datafusion_comet_tpu_torch.exec.batch import Batch, pad_capacity
+from datafusion_comet_tpu_torch.exec.batch import Batch, ColumnVector, pad_capacity
 from datafusion_comet_tpu_torch.exec.evaluator import EvalContext, evaluate, evaluate_predicate
 from datafusion_comet_tpu_torch.ir import expr as E
 
-__all__ = ["filter_op", "project_op", "sort_op", "limit_op", "partition_batch",
+__all__ = ["filter_op", "project_op", "sort_op", "limit_op", "expand_op", "partition_batch",
            "compact_batch"]
 
 
@@ -67,20 +67,51 @@ def limit_op(batch: Batch, limit: int, offset: int = 0) -> Batch:
     return batch.with_mask(batch.row_mask & (rank >= offset) & (rank < offset + limit))
 
 
+def expand_op(batch: Batch, projections: Sequence[Sequence[E.Expr]], out_schema: T.Schema,
+              ctx: Optional[EvalContext] = None) -> Batch:
+    """Each input row gives one row per projection (ROLLUP, CUBE; JAX
+    ``basic.py:147``): output row ``i * n_proj + j`` is projection ``j`` of
+    input row ``i``, so the capacity is ``n_proj`` times the input's and
+    the row mask is each input row's repeated. A column's branches keep
+    dictionary codes only where all share one dictionary
+    (``unify_encoding``: a typed null literal beside a dictionary column
+    decodes it), padded strings pad to the widest branch, and no bound
+    carries over, as in the JAX package."""
+    n_proj = len(projections)
+    pieces = [[evaluate(x, batch, ctx) for x in proj] for proj in projections]
+    cols = []
+    for ci, f in enumerate(out_schema.fields):
+        branch = pieces[0][ci].unify_encoding(*[p[ci] for p in pieces[1:]])
+        datas = [c.data for c in branch]
+        if datas[0].dim() == 2 and f.dtype.is_binary:
+            w = max(d.shape[1] for d in datas)
+            datas = [torch.nn.functional.pad(d, (0, w - d.shape[1])) for d in datas]
+        lengths = None if branch[0].lengths is None else \
+            torch.stack([c.lengths for c in branch], 1).reshape(-1)
+        cols.append(ColumnVector(torch.stack(datas, 1).reshape((-1,) + datas[0].shape[1:]),
+                                 torch.stack([c.validity for c in branch], 1).reshape(-1),
+                                 lengths, f.dtype, branch[0].dictionary))
+    return Batch(tuple(cols), batch.row_mask.repeat_interleave(n_proj), out_schema)
+
+
 def partition_batch(batch: Batch, codes: torch.Tensor, num_parts: int,
                     limit: Optional[int] = None, keep_bounds: bool = False,
                     errors: Optional[List[Tuple[torch.Tensor, str]]] = None,
                     tag: Optional[str] = None) -> Tuple[Batch, torch.Tensor]:
     """The row mask and every column buffer of ``batch`` moved into the
-    stable partition order of ``codes`` by one call of the partition kernel
-    (``kernels.partition_columns``, global mode, its log's ``tag``):
-    (batch, the int64 rows of each code). Bounds do not carry over, as in
-    the JAX package, unless ``keep_bounds``."""
+    stable partition order of ``codes`` by a call of the partition kernel
+    (``kernels.partition_columns``, global mode, its log's ``tag``; a batch
+    of more than ``kernels.MAX_COLUMNS`` buffers takes one call for each
+    group of that many): (batch, the int64 rows of each code). Bounds do not
+    carry over, as in the JAX package, unless ``keep_bounds``."""
     tensors = [batch.row_mask]
     for c in batch.columns:
         tensors += [c.data, c.validity] + ([] if c.lengths is None else [c.lengths])
-    outs, sizes = KN.partition_columns(codes, num_parts, tensors, limit=limit, errors=errors,
-                                       tag=tag)
+    outs = []
+    for lo in range(0, len(tensors), KN.MAX_COLUMNS):
+        part, sizes = KN.partition_columns(codes, num_parts, tensors[lo:lo + KN.MAX_COLUMNS],
+                                           limit=limit, errors=errors, tag=tag)
+        outs += part
     moved = iter(outs[1:])
     cols = []
     for c in batch.columns:

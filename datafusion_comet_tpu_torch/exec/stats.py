@@ -1,8 +1,9 @@
 """Table statistics and the group capacities derived from them (port of the
-subset of ``datafusion_comet_tpu/exec/stats.py`` that the ported TPC-H
-queries reach: ``collect_stats`` :42,
+subset of ``datafusion_comet_tpu/exec/stats.py`` that the ported TPC-H and
+TPC-DS queries reach: ``collect_stats`` :42,
 ``derive_capacities`` :129, ``_walk`` :220 over Scan, Filter, Projection,
-HashJoin, BroadcastNestedLoopJoin, HashAggregate, Sort and Limit, ``_column_range`` :167,
+HashJoin, BroadcastNestedLoopJoin, Union, Expand, HashAggregate, Sort and
+Limit, ``_column_range`` :167,
 ``_source_column`` :480, ``_pad`` :490).
 
 ``collect_stats`` sketches each registered table on the host: its rows, a
@@ -289,6 +290,21 @@ def _walk(plan: P.PlanNode, stats: Dict[str, TableStats]) -> Tuple[int, Dict[str
     if isinstance(plan, P.BroadcastNestedLoopJoin):  # every pair (JAX :406)
         (lr, ln), (rr, rn) = kids
         return max(lr * rr, 1), {**rn, **ln}
+
+    if isinstance(plan, P.Union):  # JAX :411
+        rows = sum(r for r, _ in kids)
+        ndv = {}
+        for _, n in kids:
+            for k, v in n.items():
+                ndv[k] = ndv.get(k, 0) + v
+        return rows, {k: min(v, rows) for k, v in ndv.items()}
+
+    if isinstance(plan, P.Expand):  # JAX :419; a tag or literal column: n_proj values
+        rows, ndv = kids[0]
+        n_proj = len(plan.projections)
+        out = {name: min(ndv[name] + n_proj, rows * n_proj) if name in ndv else n_proj
+               for name in plan.names}
+        return rows * n_proj, out
 
     if isinstance(plan, P.HashAggregate):
         rows, ndv = kids[0]

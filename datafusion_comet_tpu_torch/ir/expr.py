@@ -1,7 +1,8 @@
 """Expression IR and Spark type inference (port of
 ``datafusion_comet_tpu/ir/expr.py``, the subset the ported TPC-H queries
 reach: LIKE, the date fields of ``TemporalFunc``, ``substring``, float
-literals and arithmetic, and the NaN test among them).
+literals and arithmetic, and the NOT, null and NaN tests among them, with
+``if_`` and ``coalesce`` built on ``CaseWhen``).
 
 Expressions are built unbound (column names); ``bind(expr, schema)`` resolves
 references to column indices and computes result types, including Spark's
@@ -19,7 +20,7 @@ from datafusion_comet_tpu_torch import types as T
 __all__ = [
     "Expr", "EvalMode", "ColumnRef", "BoundRef", "Literal", "Alias", "BinaryOp", "UnaryOp",
     "Cast", "CaseWhen", "InList", "Like", "StringFunc", "TemporalFunc", "DATE_FIELDS", "SortOrder",
-    "AggFunc", "AggExpr", "col", "lit", "bind",
+    "AggFunc", "AggExpr", "col", "lit", "if_", "coalesce", "bind",
 ]
 
 # the TemporalFunc functions the port evaluates: fields of a DATE, each INT32
@@ -48,6 +49,12 @@ class Expr:
 
     def cast(self, to: T.DataType, mode: str = EvalMode.LEGACY) -> "Cast":
         return Cast(self, to, mode)
+
+    def is_null(self) -> "UnaryOp":
+        return UnaryOp("isnull", self)
+
+    def is_not_null(self) -> "UnaryOp":
+        return UnaryOp("isnotnull", self)
 
     def __add__(self, o):
         return BinaryOp("add", self, _e(o))
@@ -93,6 +100,9 @@ class Expr:
 
     def __or__(self, o):
         return BinaryOp("or", self, _e(o))
+
+    def __invert__(self):
+        return UnaryOp("not", self)
 
     def __hash__(self):
         return object.__hash__(self)
@@ -173,7 +183,8 @@ class BinaryOp(Expr):
 
 @_node
 class UnaryOp(Expr):
-    """isnan, BOOL (the JAX package's other unary ops are not ported)."""
+    """not, isnull, isnotnull and isnan, each BOOL (the JAX package's
+    negate and abs are not ported)."""
 
     op: str
     child: Expr
@@ -314,6 +325,18 @@ def col(name: str) -> ColumnRef:
     return ColumnRef(name)
 
 
+def if_(cond: Expr, then: Any, otherwise: Any = None) -> CaseWhen:
+    """Spark's If: a CaseWhen with one branch (no else: null)."""
+    return CaseWhen(((cond, _e(then)),), _e(otherwise) if otherwise is not None else None)
+
+
+def coalesce(*args: Any) -> CaseWhen:
+    """COALESCE(a, b, ...): the first argument that is not null."""
+    exprs = [_e(a) for a in args]
+    branches = tuple((UnaryOp("isnotnull", a), a) for a in exprs[:-1])
+    return CaseWhen(branches, exprs[-1])
+
+
 def lit(value: Any, dtype: Optional[T.DataType] = None) -> Literal:
     if dtype is None:
         dtype = _infer_literal_type(value)
@@ -343,7 +366,7 @@ def _infer_literal_type(v: Any) -> T.DataType:
 _CMP_OPS = {"eq", "ne", "lt", "le", "gt", "ge", "eqns"}
 _LOGIC_OPS = {"and", "or"}
 _ARITH_OPS = {"add", "sub", "mul", "div", "mod", "pmod"}
-_UNARY_OPS = ("isnan",)
+_UNARY_OPS = ("not", "isnull", "isnotnull", "isnan")
 
 
 def _decimal_arith_type(op: str, a: T.DataType, b: T.DataType) -> T.DataType:

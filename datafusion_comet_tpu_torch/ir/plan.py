@@ -1,6 +1,7 @@
 """Operator plan IR (port of ``datafusion_comet_tpu/ir/plan.py``: the Scan,
-Filter, Projection, HashAggregate, Sort, Limit, HashJoin and
-BroadcastNestedLoopJoin nodes the ported TPC-H queries use).
+Filter, Projection, HashAggregate, Sort, Limit, Expand, HashJoin,
+BroadcastNestedLoopJoin and Union nodes the ported TPC-H and TPC-DS queries
+use).
 
 Plans are built unbound; ``bind_plan`` binds expressions bottom-up against
 child schemas and computes each node's output schema, and rewrites a
@@ -18,8 +19,8 @@ from datafusion_comet_tpu_torch import types as T
 from datafusion_comet_tpu_torch.ir import expr as E
 
 __all__ = ["PlanNode", "Scan", "Filter", "Projection", "HashAggregate", "AggMode",
-           "Sort", "Limit", "HashJoin", "BroadcastNestedLoopJoin", "JoinType", "bind_plan",
-           "scan_tables"]
+           "Sort", "Limit", "Expand", "HashJoin", "BroadcastNestedLoopJoin", "Union",
+           "JoinType", "bind_plan", "scan_tables"]
 
 
 class JoinType:
@@ -158,6 +159,19 @@ class Limit(PlanNode):
 
 
 @dataclasses.dataclass
+class Expand(PlanNode):
+    """Each input row gives one output row per projection (ROLLUP, CUBE and
+    grouping sets); ``names`` names the output columns."""
+
+    child: PlanNode
+    projections: Tuple[Tuple[E.Expr, ...], ...]
+    names: Tuple[str, ...]
+
+    def children(self):
+        return (self.child,)
+
+
+@dataclasses.dataclass
 class HashJoin(PlanNode):
     """Equi-join; ``build_side`` names the input that is sorted and searched,
     the other is probed. Output schema: left fields then right fields (the
@@ -217,6 +231,17 @@ class BroadcastNestedLoopJoin(PlanNode):
 
     def children(self):
         return (self.left, self.right)
+
+
+@dataclasses.dataclass
+class Union(PlanNode):
+    """UNION ALL: the inputs' rows, one input after another; the schema is
+    the first input's."""
+
+    inputs: Tuple[PlanNode, ...] = ()
+
+    def children(self):
+        return self.inputs
 
 
 def _join_out_schema(ls: T.Schema, rs: T.Schema, join_type: str) -> T.Schema:
@@ -292,6 +317,18 @@ def bind_plan(plan: PlanNode) -> PlanNode:
         return out
     if isinstance(plan, Limit):
         out = Limit(kids[0], plan.limit, plan.offset)
+        out.schema = kids[0].schema
+        return out
+    if isinstance(plan, Expand):
+        # the first projection types the output, as in the JAX package
+        child = kids[0]
+        projections = tuple(tuple(E.bind(x, child.schema) for x in proj)
+                            for proj in plan.projections)
+        out = Expand(child, projections, plan.names)
+        out.schema = T.Schema([T.Field(n, x.dtype) for n, x in zip(plan.names, projections[0])])
+        return out
+    if isinstance(plan, Union):
+        out = Union(tuple(kids))
         out.schema = kids[0].schema
         return out
     if isinstance(plan, HashJoin):

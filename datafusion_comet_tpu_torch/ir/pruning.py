@@ -90,11 +90,17 @@ def prune_columns(plan: P.PlanNode, required: Optional[Set[str]] = ALL) -> P.Pla
                           plan.condition, plan.build_key_range, plan.out_rows_hint,
                           plan.fanout_hint, plan.unique_build_hint, plan.key_pack,
                           plan.rf_dense_range, plan.rf_injected, plan.cond_col_ranges)
+    # as the JAX package's default branch, the children keep every column:
+    # both sides of a nested-loop join, a Union's inputs (pruning through it
+    # would map columns by position) and an Expand's child
     if isinstance(plan, P.BroadcastNestedLoopJoin):
-        # as the JAX package's default branch: both sides keep every column
         return P.BroadcastNestedLoopJoin(prune_columns(plan.left, ALL),
                                          prune_columns(plan.right, ALL), plan.join_type,
                                          plan.condition)
+    if isinstance(plan, P.Union):
+        return P.Union(tuple(prune_columns(c, ALL) for c in plan.inputs))
+    if isinstance(plan, P.Expand):
+        return P.Expand(prune_columns(plan.child, ALL), plan.projections, plan.names)
     raise NotImplementedError(f"prune_columns: {type(plan).__name__}")
 
 

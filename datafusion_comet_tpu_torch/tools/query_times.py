@@ -6,11 +6,15 @@ Q13, Q16, Q20, Q21 and Q22 (all but Q1, Q6 and Q15 directly, and through
 the grace join at K = 16, the budget ``grace_fraction`` finds) for the port
 in any checkout; a checkout whose port lacks Q3, Q4 and Q15, Q5, Q10 and
 Q18, Q2, Q9 and Q19, Q13, Q16 and Q20, or Q21 and Q22, runs the others.
+``--suite tpcds`` runs the checkout's ported TPC-DS queries instead
+(``models.tpcds.QUERIES``, all 24 tables at ``--sf``, the TPC-DS generator's
+scale), each directly and, where it holds a hash join, under the budget
+``grace_fraction`` finds for it.
 Each checkout runs in its own process, so two of them can be compared in
 turns on one card:
 
     python3 datafusion_comet_tpu_torch/tools/query_times.py [--tree DIR] [--sf 1] [--profile]
-        [--queries q3,q5,q10]
+        [--queries q3,q5,q10] [--suite tpch|tpcds]
 
 DIR (default: the checkout holding this file) goes first on sys.path, and
 only the port's public entry points are called (``Session``, ``Config``,
@@ -88,9 +92,11 @@ def grace_fraction(sess, plan, K: int = GRACE_K):
     from datafusion_comet_tpu_torch.ir import plan as P
 
     def top_join(node):
-        while node is not None and not isinstance(node, P.HashJoin):
-            node = node.children()[0] if node.children() else None
-        return node
+        """The first HashJoin in pre-order, as the engine's find_grace_join
+        walks (a Union's first input first)."""
+        if isinstance(node, P.HashJoin):
+            return node
+        return next((j for j in map(top_join, node.children()) if j), None)
 
     def below_filters(node):
         while isinstance(node, (P.Filter, P.Projection)):
@@ -124,6 +130,13 @@ def grace_fraction(sess, plan, K: int = GRACE_K):
 
 
 WRAPPERS = ("bucket_count", "bucket_sum", "partition_columns", "partition_sort")
+
+
+def hash_joins(plan) -> int:
+    """The HashJoin nodes of a plan."""
+    from datafusion_comet_tpu_torch.ir import plan as P
+
+    return int(isinstance(plan, P.HashJoin)) + sum(map(hash_joins, plan.children()))
 
 
 def launches_and_retries(sess, plan):
@@ -226,13 +239,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", type=Path, default=Path(__file__).resolve().parents[2],
                     help="the checkout whose port is timed (default: this one)")
-    ap.add_argument("--sf", type=float, default=1.0, help="TPC-H scale factor")
+    ap.add_argument("--sf", type=float, default=1.0, help="the suite's scale factor")
     ap.add_argument("--reps", type=int, default=7, help="warm runs per query")
     ap.add_argument("--profile", action="store_true",
                     help="add a profile of every run")
     ap.add_argument("--queries", default="",
                     help="comma-separated queries to run (q3 runs q3_direct and q3_grace); "
                          "default every one the tree has")
+    ap.add_argument("--suite", choices=("tpch", "tpcds"), default="tpch",
+                    help="TPC-H (default) or the ported TPC-DS queries")
     args = ap.parse_args(argv)
     tree = args.tree.resolve()
     sys.path.insert(0, str(tree))
@@ -249,7 +264,24 @@ def main(argv=None) -> int:
         raise RuntimeError(f"imported {tpch.__file__}, not the port in {tree}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    print(json.dumps({"tree": str(tree), "sf": args.sf, "nvidia_smi": smi}), flush=True)
+    print(json.dumps({"tree": str(tree), "suite": args.suite, "sf": args.sf, "nvidia_smi": smi}),
+          flush=True)
+
+    def grace(plan):
+        return grace_session(sess, grace_fraction(sess, plan)[0])
+
+    if args.suite == "tpcds":
+        from datafusion_comet_tpu_torch.models import tpcds
+
+        sess = Session()
+        for t in tpcds.SCHEMAS:
+            sess.register_numpy(t, tpcds.generate_table(t, args.sf), tpcds.SCHEMAS[t])
+        runs = []
+        for q, build in tpcds.QUERIES.items():
+            runs.append((f"{q}_direct", sess, build()))
+            if hash_joins(build()):  # a plan of nested-loop joins alone has none to split
+                runs.append((f"{q}_grace", grace(build()), build()))
+        return _report(runs, args)
     has_q3, has_q4, has_q5 = hasattr(tpch, "q3"), hasattr(tpch, "q4"), hasattr(tpch, "q5")
     has_q18, has_q9, has_q13 = hasattr(tpch, "q18"), hasattr(tpch, "q9"), hasattr(tpch, "q13")
     has_q21 = hasattr(tpch, "q21")
@@ -258,9 +290,6 @@ def main(argv=None) -> int:
               + (("supplier",) if has_q4 else ()) + (("nation", "region") if has_q5 else ())
               + (("part", "partsupp") if has_q9 else ())):
         sess.register_numpy(t, tpch.generate_table(t, args.sf), tpch.SCHEMAS[t])
-
-    def grace(plan):
-        return grace_session(sess, grace_fraction(sess, plan)[0])
 
     runs = [("q1", sess, tpch.q1()), ("q6", sess, tpch.q6()), ("q12_direct", sess, tpch.q12()),
             ("q12_grace", grace(tpch.q12()), tpch.q12())]
@@ -275,6 +304,12 @@ def main(argv=None) -> int:
               + (("q13", "q16", "q20") if has_q13 else ()) + (("q21", "q22") if has_q21 else ())):
         plan = getattr(tpch, q)()
         runs += [(f"{q}_direct", sess, plan), (f"{q}_grace", grace(plan), plan)]
+    return _report(runs, args)
+
+
+def _report(runs, args) -> int:
+    """One line per run of ``runs`` ((name, session, plan) each, those
+    ``--queries`` keeps), then its profile with ``--profile``."""
     if args.queries:
         keep = set(args.queries.split(","))
         runs = [r for r in runs if r[0].split("_")[0] in keep]
@@ -284,7 +319,7 @@ def main(argv=None) -> int:
         line = {"query": name, "warm_ms": ms, "warm_ms_all": times, "peak_mem_bytes": peak,
                 "launches": launches, "retries": retries, "runtime_filters": runtime_filters(s),
                 "plan_ms": plan_ms}
-        if name.endswith("_grace"):
+        if name.endswith("_grace") and s.grace_runners:
             # the first runner to finish, and every runner's K and mode
             r = s.grace_runners[0]
             line.update(K=r.K, mode=r.downstream and r.downstream[0],

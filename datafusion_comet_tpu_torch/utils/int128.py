@@ -250,6 +250,18 @@ def div_pow10_i128_half_up(a: Pair, k: int) -> Pair:
     return select(sign_neg, neg(q), q)
 
 
+def div_pow10_i128_trunc(a: Pair, k: int) -> Pair:
+    """i128 / 10^k truncated toward zero (the decimal to integer cast)."""
+    sign_neg = is_negative(a)
+    ua = abs_(a)
+    if k <= 18:
+        den = torch.full_like(ua[1], POW10_I64[k])
+        q, _ = divmod_u128_u64(ua[0], ua[1], den, den_bound=POW10_I64[k])
+    else:
+        q, _ = divmod_u128_u128(ua, const_u128(10**k, ua[1]))
+    return select(sign_neg, neg(q), q)
+
+
 def _u128_digits32(p: Pair) -> list:
     """Nonnegative u128 -> four 32-bit digits, little-endian, in int64s."""
     hi, lo = p

@@ -1,0 +1,117 @@
+"""Helpers of the TPC-DS parity tests (``tests/test_torch_tpcds_*.py``): the
+port's ``Session`` on the CPU against the JAX ``Session`` on the same
+generated tables, query by query.
+
+``SCALES`` gives each ported query the smallest of SF 0.02, 0.1 and 1 at
+which its answer has rows (q34 is empty at every scale, ROADMAP C18: it
+runs at SF 0.02 and its answer is held empty). Tables come from the port's
+generator, which the generator test holds bit-equal to the JAX one's, and
+are made once per (table, scale) in a process."""
+
+import warnings
+
+import numpy as np
+
+import chip_smoke
+from datafusion_comet_tpu.exec import batch as JB
+from datafusion_comet_tpu.exec.engine import Session as JaxSession
+from datafusion_comet_tpu.ir import plan as JP
+from datafusion_comet_tpu.models import tpcds as JTPCDS
+from datafusion_comet_tpu_torch.conf import Config
+from datafusion_comet_tpu_torch.exec import batch as PB
+from datafusion_comet_tpu_torch.exec.engine import Session
+from datafusion_comet_tpu_torch.ir import plan as PP
+from datafusion_comet_tpu_torch.models import tpcds
+from test_torch_grace import jax_fraction
+from test_torch_q9 import STAGING, rf_hints, same
+
+# the queries whose answer is empty at SF 0.02 and has rows at SF 0.1
+_AT_01 = ("q8", "q31", "q50", "q64", "q91")
+# the queries whose answer is empty at SF 0.02 and SF 0.1 and has rows at SF 1
+_AT_1 = ("q3", "q19", "q25")
+SCALES = {q: 1.0 if q in _AT_1 else 0.1 if q in _AT_01 else 0.02 for q in tpcds.QUERIES}
+EMPTY = ("q34",)
+
+_TABLES = {}
+
+
+def tables(q, sf=None):
+    """The generated tables ``q`` reads, at its scale or at ``sf``."""
+    sf = sf or SCALES[q]
+    out = {}
+    for t in PP.scan_tables(tpcds.QUERIES[q]()):
+        if (t, sf) not in _TABLES:
+            _TABLES[(t, sf)] = tpcds.generate_table(t, sf)
+        out[t] = _TABLES[(t, sf)]
+    return out
+
+
+def sessions(data, staging="default", fraction=None):
+    """(JAX Session, port Session on the CPU) with ``data`` registered in
+    the staging's string layout, under ``fraction`` of the memory where
+    given (the port's; the JAX one's is set by ``jax_fraction``)."""
+    js = JaxSession()
+    ps = Session(device="cpu", conf=Config(scan_dictionary_max_size=STAGING[staging],
+                                           **({"memory_fraction": fraction} if fraction else {})))
+    for t, d in data.items():
+        js.register_numpy(t, d, JTPCDS.SCHEMAS[t], dict_max_size=STAGING[staging])
+        ps.register_numpy(t, d, tpcds.SCHEMAS[t])
+    return js, ps
+
+
+def check_direct(q, jax_attempts, staging="default", sf=None):
+    """``q`` run directly in both packages: hints stage by stage with the
+    runtime filters' fields, values, order, storage, bounds and attempts.
+    Returns the port's answer."""
+    js, ps = sessions(tables(q, sf), staging)
+    port_plan, jax_plan = tpcds.QUERIES[q], getattr(JTPCDS, q)
+    assert rf_hints(ps._plan_stages(port_plan()), PP) == rf_hints(js._plan_stages(jax_plan()), JP)
+    jax_attempts.clear()
+    jb, pb = js.execute(jax_plan()), ps.execute(port_plan())
+    want, got = JB.to_numpy(jb), PB.to_numpy(pb)
+    same(want, got)
+    for jc, pc, f in zip(jb.columns, pb.columns, pb.schema.fields):
+        assert np.asarray(jc.data).ndim == pc.data.dim(), f.name
+        assert jc.mag_bound == pc.mag_bound, f.name
+        assert (jc.lengths is None) == (pc.lengths is None), f.name
+    assert [(r["scale"], r["unique_join_ok"]) for r in ps.runs] == jax_attempts
+    rows = len(next(iter(got.values())))
+    assert (rows == 0) == (q in EMPTY), (q, rows)
+    if q in chip_smoke.TPCDS_ORACLES:  # the port, and so JAX, equal chip_smoke's oracle
+        chip_smoke.check_tpcds(q, got, chip_smoke.TPCDS_ORACLES[q][0](tables(q, sf)), q)
+    return got
+
+
+def share(i: int, n: int = 5):
+    """The ``i``-th of ``n`` shares of the ported queries, for a test file
+    each (the tests run a file to a worker)."""
+    return list(tpcds.QUERIES)[i::n]
+
+
+def check_grace(q, jax_spy, staging="default"):
+    """``q`` under the budget that partitions its first stage's top join
+    into K = 16, in both packages: the same K and modes, partition sizes
+    and pair retries, and the same answer, which is the port's direct one
+    (as multisets of rows where ``chip_smoke.TPCDS_TIED_ORDER`` names the
+    query: its sort keys tie)."""
+    data = tables(q)
+    port_plan, jax_plan = tpcds.QUERIES[q], getattr(JTPCDS, q)
+    _, direct_s = sessions(data, staging)
+    direct = direct_s.collect(port_plan())
+    fraction, _ = chip_smoke.grace_fraction(direct_s, port_plan(), chip_smoke.GRACE_K)
+    js, grace = sessions(data, staging, fraction)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        got = grace.collect(port_plan())
+    with jax_fraction(fraction):
+        want = js.collect(jax_plan())
+    same(want, got)
+    assert chip_smoke.same_rows(direct, got, ordered=q not in chip_smoke.TPCDS_TIED_ORDER), q
+    ports = sorted(grace.grace_runners, key=lambda r: int(r.tmp[len("__grace"):]))
+    assert [(r.K, r.downstream and r.downstream[0]) for r in ports] == list(jax_spy)
+    assert chip_smoke.GRACE_K in [r.K for r in ports] and len(ports) == len(jax_spy.sizes)
+    for r, sizes in zip(grace.grace_runners, jax_spy.sizes):
+        for got_sizes, want_sizes in zip(r.sizes, sizes):
+            np.testing.assert_array_equal(got_sizes, want_sizes)
+    assert jax_spy.pair_retries() == [r.retries for r in ports]
+    return grace

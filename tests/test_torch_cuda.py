@@ -10,7 +10,8 @@ CASE WHEN, murmur3, LIKE) and the fields of a date, and the float
 operations (order limbs, expressions, SUM/AVG/MIN/MAX) and the
 nested-loop join, the outer hash joins on every path, Q13, Q16, Q20
 and Q20's variant, the semi-like joins with a condition on each path,
-``substring``, and Q21 and Q22 directly and through the grace join on the
+``substring``, Q21 and Q22 directly and through the grace join, the 81
+ported TPC-DS queries, and Union, Expand, NOT and the null tests on the
 card against the CPU. Marked ``cuda``;
 without a card every test here skips. This file imports no JAX, so it runs
 on a machine without it (tests/conftest.py imports JAX, hence --noconftest):
@@ -30,6 +31,7 @@ from datafusion_comet_tpu_torch import types as PT
 from datafusion_comet_tpu_torch.conf import Config
 from datafusion_comet_tpu_torch.exec import kernels as K
 from datafusion_comet_tpu_torch.exec.engine import Session
+from datafusion_comet_tpu_torch.ir import plan as PP
 from datafusion_comet_tpu_torch.models import tpch
 
 pytestmark = pytest.mark.cuda
@@ -319,6 +321,20 @@ def test_query_times_script_on_card(dev, capsys):
     assert all(profiles[q]["partition_calls"] > 0 for q in runs
                if q.endswith("_grace") or q in ("q12_direct", "q10_direct", "q18_direct"))
     assert all(profiles[q]["aggregate_sort_calls"] > 0 for q in ("q3_direct", "q3_grace"))
+    # the TPC-DS suite: every ported query directly and (but q9 and q28, of
+    # nested-loop joins alone) under its grace budget
+    from datafusion_comet_tpu_torch.models import tpcds
+
+    assert QT.main(["--suite", "tpcds", "--sf", "0.02", "--reps", "1"]) == 0
+    head, *rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert head["suite"] == "tpcds"
+    assert [r["query"] for r in rows] == [
+        f"{q}_{run}" for q, build in tpcds.QUERIES.items()
+        for run in (("direct", "grace") if QT.hash_joins(build()) else ("direct",))]
+    assert all(r["warm_ms"] > 0 for r in rows)
+    # chip_smoke's grace queries partition a join at K = 16 here too
+    assert set(chip_smoke.TPCDS_GRACE) <= {r["query"][:-len("_grace")] for r in rows
+                                           if 16 in [g["K"] for g in r.get("grace", [])]}
 
 
 def _sessions(dev, tables, conf=None):
@@ -1061,3 +1077,118 @@ def test_q21_q22_on_card_equal_cpu_direct_and_grace(dev, q, staging):
             joins = chip_smoke.semi_cond_joins(gpu)
             assert {j["path"] for j in joins} == {"minmax_dense"}
             assert {j["type"] for j in joins} == {"left_semi", "left_anti"}
+
+
+# ---- TPC-DS: the 81 ported queries, Union, Expand, NOT and the null tests -------------
+
+TPCDS_CARD_SF = 0.1
+
+
+@pytest.fixture(scope="module")
+def tpcds_sessions():
+    """(CPU session, card session) over all 24 TPC-DS tables at SF 0.1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from datafusion_comet_tpu_torch.models import tpcds
+
+    cpu, gpu = Session(device="cpu"), Session()
+    for t in tpcds.SCHEMAS:
+        d = tpcds.generate_table(t, TPCDS_CARD_SF)
+        for s in (cpu, gpu):
+            s.register_numpy(t, d, tpcds.SCHEMAS[t])
+    return cpu, gpu
+
+
+def _tpcds_names():
+    from datafusion_comet_tpu_torch.models import tpcds
+
+    return list(tpcds.QUERIES)
+
+
+@pytest.mark.parametrize("q", _tpcds_names())
+def test_tpcds_on_card_equals_cpu(tpcds_sessions, q):
+    """Each ported TPC-DS query at SF 0.1 on the card equals its CPU run
+    (``chip_smoke.same_rows``: FLOAT64 within ``FLOAT_SUM_RTOL``, a float
+    sum adding in another order on the card; q65's rows as a multiset: its
+    sort keys tie), and an oracle query equals chip_smoke's numpy
+    oracle."""
+    from datafusion_comet_tpu_torch.models import tpcds
+
+    cpu, gpu = tpcds_sessions
+    want, got = cpu.collect(tpcds.QUERIES[q]()), gpu.collect(tpcds.QUERIES[q]())
+    cols = [c for c in want if not c.endswith("__valid")]
+    assert chip_smoke.same_rows(want, got, ordered=q not in chip_smoke.TPCDS_TIED_ORDER), (
+        chip_smoke.out_rows(want, cols)[:3], chip_smoke.out_rows(got, cols)[:3])
+    if q in chip_smoke.TPCDS_ORACLES:
+        data = {t: tpcds.generate_table(t, TPCDS_CARD_SF)
+                for t in PP.scan_tables(tpcds.QUERIES[q]())}
+        chip_smoke.check_tpcds(q, got, chip_smoke.TPCDS_ORACLES[q][0](data), f"{q} card")
+
+
+def _union_expand_tables():
+    """Two seeded tables of one schema: a dictionary string, a nullable
+    int and bool, a decimal(38, 2) narrow in ``a`` and two-limb in ``b``."""
+    rng = np.random.default_rng(9)
+    schema = PT.Schema([PT.Field("k", PT.INT32, False), PT.Field("s", PT.string(6), False),
+                        PT.Field("n", PT.INT64), PT.Field("f", PT.BOOL),
+                        PT.Field("d", PT.decimal(38, 2), False)])
+    out = {}
+    for name, big in (("a", False), ("b", True)):
+        k = rng.integers(-50, 50, 3000)
+        dec = rng.integers(-10**6, 10**6, 3000).astype(object)
+        if big:
+            dec[::7] = [int(v) * 10**22 for v in dec[::7]]
+        out[name] = ({"k": k.astype(np.int32),
+                      "s": np.array([f"{name}{v % 13}" for v in k], object),
+                      "n": rng.integers(0, 9, 3000).astype(np.int64),
+                      "f": rng.integers(0, 2, 3000).astype(bool), "d": dec},
+                     {"n": rng.random(3000) > 0.3, "f": rng.random(3000) > 0.3})
+    return schema, out
+
+
+@pytest.mark.parametrize("dms", [1 << 16, 0])
+@pytest.mark.parametrize("case", ["union", "union_agg", "rollup", "not_null"])
+def test_union_expand_not_on_card_equal_cpu(dev, case, dms):
+    """Union (two dictionaries, mixed decimal storage), Expand (a ROLLUP
+    with typed null literals beside dictionary and padded strings, under an
+    aggregate and a sort), NOT, IS [NOT] NULL, ``if_`` and ``coalesce`` on
+    the card equal the CPU, with the default staging and every string
+    padded."""
+    from datafusion_comet_tpu_torch.ir import expr as PE
+
+    schema, tables = _union_expand_tables()
+    sessions = [Session(device=d, conf=Config(scan_dictionary_max_size=dms))
+                for d in ("cpu", None)]
+    for s in sessions:
+        for name, (data, valid) in tables.items():
+            s.register_numpy(name, data, schema, validity=valid)
+
+    def scan(name):
+        return PP.Scan(name, schema)
+
+    def plan():
+        u = PP.Union((scan("a").filter(PE.col("k") > 0), scan("b")))
+        if case == "union":
+            return u
+        if case == "union_agg":
+            return u.aggregate([PE.col("s")], [PE.AggExpr("sum", PE.col("d"), "sd")]).sort(
+                [PE.SortOrder(PE.col("sd"), ascending=False), PE.SortOrder(PE.col("s"))])
+        if case == "rollup":
+            projs = ((PE.col("s"), PE.col("k"), PE.lit(0), PE.col("d")),
+                     (PE.col("s"), PE.lit(None, PT.INT32), PE.lit(1), PE.col("d")),
+                     (PE.lit(None, PT.string(6)), PE.lit(None, PT.INT32), PE.lit(2),
+                      PE.col("d")))
+            r = PP.Expand(scan("b").filter(PE.col("k") > -20), projs, ("s", "k", "tag", "d"))
+            agg = r.aggregate([PE.col("s"), PE.col("k"), PE.col("tag")],
+                              [PE.AggExpr("avg", PE.col("d"), "ad"),
+                               PE.AggExpr("count", None, "c")])
+            return agg.sort([PE.SortOrder(PE.col("s")), PE.SortOrder(PE.col("k"))], fetch=50)
+        n, f = PE.col("n"), PE.col("f")
+        return scan("a").filter(~(f & (n > 6)) | n.is_null()).project([
+            PE.col("k"), (~f).alias("not_f"), n.is_null().alias("nn"),
+            f.is_not_null().alias("fnn"), PE.if_(~(n > 4), PE.lit(1), PE.lit(0)).alias("i"),
+            PE.coalesce(n, PE.col("k").cast(PT.INT64), 0).alias("co"),
+            PE.col("d").cast(PT.INT32).alias("di")])
+
+    want, got = (s.collect(plan()) for s in sessions)
+    _same(got, want)

@@ -91,9 +91,11 @@ Phases, one JSON line each:
      capacities, staged GB), every ported TPC-DS query directly (one line
      each: warm ms, peak GB, launches, hints, retries, rows, planning ms;
      q22's line the sort limbs of its rollup aggregate), q3, q52, q55, q43,
-     q96, q7, q73, q33 and q27 against exact numpy oracles
-     (``TPCDS_ORACLES``), q3, q7, q27, q33, q65, q73, q95 and q96 also
-     through the grace join (K = 16; partition sizes with the largest
+     q96, q7, q73, q33, q27, q98 (window class sums and ratios) and q51
+     (running sums and maxima through a FULL join) against exact numpy
+     oracles and q39 (stddev_samp) within ``FLOAT_SUM_RTOL``
+     (``TPCDS_ORACLES``), q3, q7, q27, q33, q65, q73, q95, q96, q98 and q47
+     also through the grace join (K = 16; partition sizes with the largest
      beside the mean), the same answer as directly; then every ported
      query at TPC-DS SF1 on the card against the port's CPU run of it.
      Every query line carries its joins' ``hints`` (per INNER join: build
@@ -1348,6 +1350,110 @@ def oracle_ds_q27(d):
     return _ordered(rows, lambda r: (nulls_first(r[0]), nulls_first(r[1])), 100)
 
 
+def oracle_ds_q98(d):
+    """TPC-DS q98: store_sales of February-March 1999 joined to items of
+    Sports, Books or Home, SUM(ss_ext_sales_price) per (i_item_id,
+    i_item_desc, i_category, i_class, i_current_price), each sum's share
+    of its class's total as a DOUBLE (itemrevenue * 100 / class revenue,
+    both cast as the plan casts them); by category, class, item id,
+    description and ratio; 100."""
+    dt, it, ss = d["date_dim"], d["item"], d["store_sales"]
+    dk = np.sort(dt["d_date_sk"][(dt["d_year"] == 1999) & (dt["d_moy"] >= 2)
+                                 & (dt["d_moy"] <= 3)])
+    ik, *attrs = _by_key(_where(it, np.isin(it["i_category"], ("Sports", "Books", "Home"))),
+                         "i_item_sk", "i_item_id", "i_item_desc", "i_category", "i_class",
+                         "i_current_price")
+    m, (_, ip) = _ds_star(ss, [("ss_sold_date_sk", dk), ("ss_item_sk", ik)])
+    p = ip[m]
+    parts = [(c[0], c[1][p]) for c in map(_codes, attrs[:4])] + [attrs[4][p]]
+    keys, inv = _group_by(*parts)
+    revenue = _group_sums(inv, len(keys), ss["ss_ext_sales_price"][m])
+    class_total = {}
+    for k, r in zip(keys, revenue):
+        class_total[k[3]] = class_total.get(k[3], 0) + r
+    rows = [k + (r, r / 100.0 * 100.0 / (class_total[k[3]] / 100.0))
+            for k, r in zip(keys, revenue)]
+    return _ordered(rows, lambda r: (r[2], r[3], r[0], r[1], r[6]), 100)
+
+
+def oracle_ds_q51(d):
+    """TPC-DS q51: per item, the running sum over dates of its daily web and
+    store sales (ws/ss_sales_price) in month_seq 12-23; the two channels'
+    (item, date) rows FULL-joined, a missing side's running sum 0; per item
+    over dates the running maxima of both; the rows where the web's maximum
+    is above the store's, by item and date; 100. Exact integers: each
+    (item, date) key packs into one int64, and a running maximum restarts
+    at each item by an offset of the item's rank times a bound over the
+    values (the running sums are never negative)."""
+    dt = d["date_dim"]
+    dk = np.sort(dt["d_date_sk"][(dt["d_month_seq"] >= 12) & (dt["d_month_seq"] <= 23)])
+
+    def restarts(keys):
+        """Each position's first index of its item's run of keys."""
+        item = keys >> 32
+        start = np.r_[True, item[1:] != item[:-1]] if len(keys) else np.zeros(0, bool)
+        return np.maximum.accumulate(np.where(start, np.arange(len(keys)), 0)), start
+
+    def cumulative(fact, item_col, date_col, price_col):
+        f = d[fact]
+        m, _ = _ds_star(f, [(date_col, dk)])
+        comb = (f[item_col][m].astype(np.int64) << 32) | f[date_col][m].astype(np.int64)
+        order = np.argsort(comb, kind="stable")
+        cs = comb[order]
+        heads = np.flatnonzero(np.r_[True, cs[1:] != cs[:-1]]) if len(cs) else np.zeros(0, int)
+        sums = np.add.reduceat(f[price_col][m][order].astype(np.int64), heads) \
+            if len(cs) else np.zeros(0, np.int64)
+        total = np.cumsum(sums)
+        first, _ = restarts(cs[heads])
+        return cs[heads], total - (total - sums)[first]
+
+    (wk, wrun), (sk, srun) = (cumulative(*a) for a in (
+        ("web_sales", "ws_item_sk", "ws_sold_date_sk", "ws_sales_price"),
+        ("store_sales", "ss_item_sk", "ss_sold_date_sk", "ss_sales_price")))
+    keys = np.union1d(wk, sk)
+    w, s = np.zeros(len(keys), np.int64), np.zeros(len(keys), np.int64)
+    w[np.searchsorted(keys, wk)], s[np.searchsorted(keys, sk)] = wrun, srun
+    _, start = restarts(keys)
+    rank = np.cumsum(start) - 1
+    big = int(max(w.max(initial=0), s.max(initial=0))) + 1
+    assert min(w.min(initial=0), s.min(initial=0)) >= 0 and int(rank.max(initial=0)) * big < 2**62
+    wmax = np.maximum.accumulate(w + rank * big) - rank * big
+    smax = np.maximum.accumulate(s + rank * big) - rank * big
+    keep = np.flatnonzero(wmax > smax)[:100]
+    return [(int(keys[i] >> 32), int(keys[i] & 0xFFFFFFFF), int(w[i]), int(s[i]), int(wmax[i]),
+             int(smax[i])) for i in keep]
+
+
+def oracle_ds_q39(d):
+    """TPC-DS q39: inventory of 2000 per (warehouse, item, month): the mean
+    of inv_quantity_on_hand and its sample standard deviation (two-pass:
+    the squared deviations from the mean; NaN for one row), kept where
+    stdev / mean > 1 or is NaN (a zero mean: null, dropped); each kept month joined
+    to the same warehouse and item's next kept month; by warehouse, item,
+    month and cov; 100. (w1, i1, m1, mean1, cov1, w2, i2, m2_off, mean2,
+    cov2)."""
+    inv, dt = d["inventory"], d["date_dim"]
+    dk, moy = _by_key(_where(dt, dt["d_year"] == 2000), "d_date_sk", "d_moy")
+    m, (dp, _, _) = _ds_star(inv, [("inv_date_sk", dk),
+                                   ("inv_item_sk", np.sort(d["item"]["i_item_sk"])),
+                                   ("inv_warehouse_sk",
+                                    np.sort(d["warehouse"]["w_warehouse_sk"]))])
+    keys, g = _group_by(inv["inv_warehouse_sk"][m], inv["inv_item_sk"][m], moy[dp[m]])
+    q = inv["inv_quantity_on_hand"][m].astype(np.float64)
+    n = np.bincount(g, minlength=len(keys)).astype(np.float64)
+    mean = np.bincount(g, weights=q, minlength=len(keys)) / n
+    m2 = np.bincount(g, weights=(q - mean[g]) ** 2, minlength=len(keys))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        std = np.where(n > 1, np.sqrt(m2 / np.maximum(n - 1, 1)), np.nan)
+        cov = std / mean
+    # NaN (one row) is above every number in Spark's order: it passes
+    kept = {k: (float(mean[i]), float(cov[i])) for i, k in enumerate(keys)
+            if mean[i] != 0 and (cov[i] > 1.0 or np.isnan(cov[i]))}
+    rows = [(w, i, mo, mn, cv, w, i, mo, *kept[(w, i, mo + 1)])
+            for (w, i, mo), (mn, cv) in kept.items() if (w, i, mo + 1) in kept]
+    return _ordered(rows, lambda r: r[:3], 100)  # (w, i, month) is unique
+
+
 # per oracle query: its oracle, its output columns and the sort keys that
 # order its rows (rows tied on them may come in any order)
 TPCDS_ORACLES = {
@@ -1368,7 +1474,17 @@ TPCDS_ORACLES = {
     "q33": (oracle_ds_q33, ("i_manufact_id", "total_sales"), ("total_sales", "i_manufact_id")),
     "q27": (oracle_ds_q27, ("i_item_id", "s_state", "lochierarchy", "agg1", "agg2", "agg3",
                             "agg4"), ("i_item_id", "s_state")),
+    "q98": (oracle_ds_q98, ("i_item_id", "i_item_desc", "i_category", "i_class",
+                            "i_current_price", "itemrevenue", "revenueratio"),
+            ("i_category", "i_class", "i_item_id", "i_item_desc", "revenueratio")),
+    "q51": (oracle_ds_q51, ("item_sk", "d_date_sk", "web_cumulative", "store_cumulative",
+                            "web_max", "store_max"), ("item_sk", "d_date_sk")),
+    "q39": (oracle_ds_q39, ("w1", "i1", "m1", "mean1", "cov1", "w2", "i2", "m2_off", "mean2",
+                            "cov2"), ("w1", "i1", "m1")),
 }
+# the oracle queries whose DOUBLE columns are held within ``FLOAT_SUM_RTOL``
+# (q39's standard deviations: the port sums x and x^2, the oracle two-pass)
+TPCDS_FLOAT_ORACLES = ("q39",)
 
 
 def out_rows(out, cols):
@@ -1384,11 +1500,14 @@ def out_rows(out, cols):
     return [tuple(val(c, i) for c in cols) for i in range(n)]
 
 
-def same_ties(got, want, key_idx) -> bool:
+def same_ties(got, want, key_idx, close: bool = False) -> bool:
     """Row lists equal in the order of their sort keys (the columns at
-    ``key_idx``), and as multisets within each run of tied keys."""
+    ``key_idx``), and as multisets within each run of tied keys; with
+    ``close`` the keys untied and the other values equal by ``_close``."""
     if len(got) != len(want):
         return False
+    if close:
+        return all(all(map(_close, g, w)) for g, w in zip(got, want))
     if [tuple(r[i] for i in key_idx) for r in got] != [tuple(r[i] for i in key_idx)
                                                          for r in want]:
         return False
@@ -1406,10 +1525,11 @@ def same_ties(got, want, key_idx) -> bool:
 
 def check_tpcds(q: str, out, expect, what: str) -> None:
     """A TPC-DS answer against its oracle's rows: values exact (the DOUBLE
-    averages bit-equal), order exact up to ties in the sort keys."""
+    averages bit-equal; ``TPCDS_FLOAT_ORACLES``' within ``FLOAT_SUM_RTOL``),
+    order exact up to ties in the sort keys."""
     _, cols, keys = TPCDS_ORACLES[q]
     got = out_rows(out, cols)
-    if not same_ties(got, expect, [cols.index(k) for k in keys]):
+    if not same_ties(got, expect, [cols.index(k) for k in keys], q in TPCDS_FLOAT_ORACLES):
         raise AssertionError(f"{what}: got {got[:5]}... ({len(got)} rows), expected "
                              f"{expect[:5]}... ({len(expect)} rows)")
 
@@ -1657,7 +1777,13 @@ def query_phase(sf: float, reps: int, profile: bool):
 
 TPCDS_SCALE = 10  # the TPC-DS generator runs at ten times --sf
 TPCDS_REF_SF = 1.0  # the scale at which the card is held to the port's CPU run
-TPCDS_GRACE = ("q3", "q7", "q27", "q33", "q65", "q73", "q95", "q96")
+TPCDS_GRACE = ("q3", "q7", "q27", "q33", "q65", "q73", "q95", "q96", "q98", "q47")
+# oracle and grace queries that may outgrow the card at TPC-DS SF100 through
+# their overflow re-runs (ROADMAP C19): there they are reported (``failed``)
+# as the others are, and their oracle and grace checks are made at every
+# scale where their direct run fits (q47 re-runs its per-month aggregate at
+# scales 4 and 16; q51 its per-(item, date) aggregates)
+TPCDS_MAY_OUTGROW = ("q47", "q51")
 TPCDS_PROFILE = ("q3", "q27", "q33", "q64", "q96")
 
 
@@ -1689,8 +1815,9 @@ def tpcds_tables(sess, sf: float):
 def tpcds_phase(sf: float, reps: int, profile: bool, launches, b3_calls) -> None:
     """TPC-DS at generator scale ``TPCDS_SCALE * sf``: every ported query
     run directly on the card (warm ms, peak memory, retries, launches, rows,
-    planning ms); q3, q52, q55, q43, q96, q7, q73, q33 and q27 against their
-    numpy oracles (``TPCDS_ORACLES``), exactly; ``TPCDS_GRACE`` directly and
+    planning ms); q3, q52, q55, q43, q96, q7, q73, q33, q27, q98, q51 and
+    q39 against their numpy oracles (``TPCDS_ORACLES``; q39 within
+    ``FLOAT_SUM_RTOL``); ``TPCDS_GRACE`` directly and
     under the budget that splits a join into K = 16 pairs, the same answer
     (q65's as multisets of rows, ``TPCDS_TIED_ORDER``), with K, mode,
     partition sizes (largest and mean) and pair retries; then every ported
@@ -1698,7 +1825,8 @@ def tpcds_phase(sf: float, reps: int, profile: bool, launches, b3_calls) -> None
     it (``same_rows``: exact, FLOAT64 within ``FLOAT_SUM_RTOL``). B1, B2 and
     B3 must each launch in the phase's runs. A direct run that runs out of
     the card's memory or of overflow retries is reported (``failed``),
-    unless its query has an oracle or a grace run here."""
+    unless its query has an oracle or a grace run here and is not in
+    ``TPCDS_MAY_OUTGROW``."""
     import torch
     from datafusion_comet_tpu_torch.exec.engine import JoinOverflowError, Session
     from datafusion_comet_tpu_torch.models import tpcds
@@ -1716,7 +1844,7 @@ def tpcds_phase(sf: float, reps: int, profile: bool, launches, b3_calls) -> None
                                    for f, c in zip(b.schema.fields, b.columns)
                                    if f.dtype.is_binary and not c.is_dict)})
     total = {k: 0 for k in WRAPPERS}
-    oracle_s, failed = 0.0, []
+    oracle_s, failed, oracles, graces = 0.0, [], [], []
     for q, plan in tpcds.QUERIES.items():
         key = f"ds_{q}"
         grace_q = q in TPCDS_GRACE
@@ -1727,8 +1855,8 @@ def tpcds_phase(sf: float, reps: int, profile: bool, launches, b3_calls) -> None
             # a plan whose capacities outgrow the card, or the retries (its
             # overflow re-runs grow them 4x a time; the memory budget reads
             # the first run's estimate), is reported; an oracle or grace
-            # query must run
-            if q in TPCDS_ORACLES or grace_q:
+            # query must run (but TPCDS_MAY_OUTGROW's)
+            if (q in TPCDS_ORACLES or grace_q) and q not in TPCDS_MAY_OUTGROW:
                 raise
             failed.append(q)
             emit({"phase": f"tpcds_{q}", "sf": ds_sf, "failed": type(err).__name__,
@@ -1750,6 +1878,7 @@ def tpcds_phase(sf: float, reps: int, profile: bool, launches, b3_calls) -> None
             check_tpcds(q, out, TPCDS_ORACLES[q][0](data), key)
             oracle_s += time.perf_counter() - t0
             rec["oracle"] = True
+            oracles.append(q)
         if q == "q22":
             rec["sort_limbs"] = agg_sort_limbs(sess, plan(), "lochierarchy")
         for k in total:
@@ -1757,6 +1886,7 @@ def tpcds_phase(sf: float, reps: int, profile: bool, launches, b3_calls) -> None
         emit(rec)
         if grace_q:
             tpcds_grace(q, sess, plan, out, reps, profile, launches, b3_calls, total)
+            graces.append(q)
         if profile and q in TPCDS_PROFILE:
             emit(profile_run(sess, plan(), f"profile_tpcds_{q}"))
     if min(total.values()) == 0:
@@ -1764,7 +1894,8 @@ def tpcds_phase(sf: float, reps: int, profile: bool, launches, b3_calls) -> None
     del sess, data
     torch.cuda.empty_cache()
     emit({"phase": "tpcds", "sf": ds_sf, "queries": len(tpcds.QUERIES), "failed": failed,
-          "launches": total, "oracles_checked": sorted(TPCDS_ORACLES), "oracle_s": oracle_s,
+          "launches": total, "oracles_checked": sorted(oracles),
+          "grace_checked": sorted(graces), "oracle_s": oracle_s,
           "against_cpu": tpcds_against_cpu(TPCDS_REF_SF)})
 
 

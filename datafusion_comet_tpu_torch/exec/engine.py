@@ -2,7 +2,7 @@
 device-resident tables (port of the ``Session`` subset of
 ``datafusion_comet_tpu/exec/engine.py`` that the ported TPC-H and TPC-DS
 queries reach: a ``Union`` runs as one row concatenation of its inputs, an
-``Expand`` as ``basic.expand_op``).
+``Expand`` as ``basic.expand_op``, a ``Window`` as ``window.window_op``).
 
 PyTorch runs eagerly, so there is no whole-plan compile. ``execute`` prunes
 the plan, injects the runtime filters (exec/runtime_filter.py), binds it,
@@ -14,10 +14,10 @@ once at ``collect``; everything between stays on the session's device.
 Stages (``_plan_stages``, as the JAX package splits them): a plan with more
 joins than ``Config.stage_max_joins`` puts its join-heaviest children into
 stages of their own (``_split_stages``), and a stage with more heavy
-operators (joins, sorts, grouping aggregates) than
-``Config.stage_max_heavy_ops`` is cut below a Sort or grouping aggregate
-(``_split_heavy``). Each named stage's result is compacted to its live rows
-(``_aqe_shrink``) and read by the next stage as a temporary table: so Q3's
+operators (joins, sorts, expands, windows, grouping aggregates) than
+``Config.stage_max_heavy_ops`` is cut below a Window, Sort or grouping
+aggregate (``_split_heavy``). Each named stage's result is compacted to its
+live rows (``_aqe_shrink``) and read by the next stage as a temporary table: so Q3's
 top-K sorts the aggregate's live groups, not its input's capacity. The JAX
 package splits to bound compile time; here the split changes which
 capacities the later operators run at. Before the split, a Sort over an
@@ -75,6 +75,7 @@ from datafusion_comet_tpu_torch.exec.memory import (device_budget_bytes, plan_pe
 from datafusion_comet_tpu_torch.exec.operators import aggregate as AGG
 from datafusion_comet_tpu_torch.exec.operators import basic as B
 from datafusion_comet_tpu_torch.exec.operators import join as J
+from datafusion_comet_tpu_torch.exec.operators import window as W
 from datafusion_comet_tpu_torch.exec.runtime_filter import inject_runtime_filters
 from datafusion_comet_tpu_torch.exec.stats import (DEFAULT_MAX_GROUPS, TableStats, collect_stats,
                                                   derive_capacities)
@@ -151,6 +152,8 @@ def run_plan(plan: P.PlanNode, tables: Dict[str, Batch], ctx: EvalContext, conf:
         return B.limit_op(child, plan.limit, plan.offset)
     if isinstance(plan, P.Expand):
         return B.expand_op(child, plan.projections, plan.schema, ctx)
+    if isinstance(plan, P.Window):
+        return W.window_op(child, plan.window_exprs, plan.schema, ctx)
     raise NotImplementedError(f"run_plan: {type(plan).__name__}")
 
 
@@ -279,9 +282,9 @@ def _count_joins(plan: P.PlanNode) -> int:
 
 
 def _count_heavy(plan: P.PlanNode) -> int:
-    """Joins (but a runtime filter's), sorts, expands and grouping
+    """Joins (but a runtime filter's), windows, sorts, expands and grouping
     aggregates in a subtree (JAX ``engine.py:1283``)."""
-    own = _is_counted_join(plan) or isinstance(plan, (P.Sort, P.Expand)) or (
+    own = _is_counted_join(plan) or isinstance(plan, (P.Window, P.Sort, P.Expand)) or (
         isinstance(plan, P.HashAggregate) and bool(plan.group_exprs))
     return int(own) + sum(_count_heavy(c) for c in plan.children())
 
@@ -463,13 +466,14 @@ class Session:
 
     def _split_heavy(self, plan: P.PlanNode, max_heavy: int, stages) -> P.PlanNode:
         """Bottom-up: while a stage holds more than ``max_heavy`` heavy
-        operators, the child of a Sort or grouping aggregate that holds one
-        becomes a stage of its own."""
+        operators, the child of a Window, Sort or aggregate that holds one
+        becomes a stage of its own (JAX ``engine.py:906-930``)."""
         for old in plan.children():
             new = self._split_heavy(old, max_heavy, stages)
             if new is not old:
                 plan = replace_child_pure(plan, old, new)
-        if _count_heavy(plan) > max_heavy and isinstance(plan, (P.Sort, P.HashAggregate)):
+        if _count_heavy(plan) > max_heavy and isinstance(plan,
+                                                         (P.Window, P.Sort, P.HashAggregate)):
             child = plan.children()[0]
             if not isinstance(child, P.Scan) and _count_heavy(child) >= 1:
                 plan = replace_child_pure(plan, child, self._stage(child, stages))

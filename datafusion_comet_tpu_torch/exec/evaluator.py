@@ -1,9 +1,9 @@
 """Expression evaluator: bound expression IR -> tensor ops over a Batch
 (port of ``datafusion_comet_tpu/exec/evaluator.py``, the subset the ported
 TPC-H and TPC-DS queries reach: LIKE, ``substring``, the fields of a DATE,
-floats, NOT and the null tests, the decimal to integer cast among them, and
-Spark's murmur3 over integer, float and string columns for hash
-partitioning).
+floats, NOT and the null tests, ``negate`` and ``abs``, the math functions
+(``_math_func``), the decimal to integer cast among them, and Spark's
+murmur3 over integer, float and string columns for hash partitioning).
 
 Spark semantics kept from the JAX package:
 - three-valued logic through validity vectors, Kleene AND/OR;
@@ -28,6 +28,7 @@ as the JAX package, so both packages hold the same buffers for each node.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -112,6 +113,8 @@ def _ev(e: E.Expr, b: Batch, ctx: EvalContext) -> ColumnVector:
         return _string_func(e, b, ctx)
     if isinstance(e, E.TemporalFunc):
         return _temporal_func(e, b, ctx)
+    if isinstance(e, E.MathFunc):
+        return _math_func(e, b, ctx)
     raise NotImplementedError(f"evaluate: {type(e).__name__}")
 
 
@@ -242,10 +245,19 @@ def _binary(e: E.BinaryOp, b: Batch, ctx: EvalContext) -> ColumnVector:
 
 
 def _unary(e: E.UnaryOp, b: Batch, ctx: EvalContext) -> ColumnVector:
-    """JAX ``evaluator.py:922-931``: isnull and isnotnull read the validity
+    """JAX ``evaluator.py:922-943``: isnull and isnotnull read the validity
     and are never null; NOT of a null is null; isnan is true on a valid NaN,
-    never null."""
+    never null; negate and abs keep the input's type and storage (a
+    two-limb decimal through i128, a narrow one with its bound; an integer
+    wraps at its minimum, as Java's does)."""
     c = _ev(e.child, b, ctx)
+    if e.op in ("negate", "abs"):
+        if c.is_wide_storage:
+            p = DW.pair(c.data)
+            res = int128.neg(p) if e.op == "negate" else int128.abs_(p)
+            return ColumnVector(DW.pack(res), c.validity, None, c.dtype)
+        data = -c.data if e.op == "negate" else c.data.abs()
+        return ColumnVector(data, c.validity, None, c.dtype, mag_bound=c.mag_bound)
     if e.op == "isnull":
         return ColumnVector(~c.validity, torch.ones_like(c.validity), None, T.BOOL)
     if e.op == "isnotnull":
@@ -688,6 +700,174 @@ def _cast_wide_decimal(cv: ColumnVector, frm: T.DataType, to: T.DataType, mode: 
     if to.is_wide_decimal and eff >= _NARROW_LIMIT:
         return ColumnVector(DW.pack(p), validity, None, to)
     return _with_bound(ColumnVector(p[1], validity, None, to), eff)
+
+
+# -------------------------------------------------------------------------------------
+# math
+# -------------------------------------------------------------------------------------
+
+def _sign(x: torch.Tensor) -> torch.Tensor:
+    """-1.0, 0.0 or 1.0, NaN of a NaN (``torch.sign`` gives 0.0 there)."""
+    return torch.where(torch.isnan(x), x, torch.sign(x))
+
+
+_FLOAT_FUNCS = {
+    "sqrt": torch.sqrt, "exp": torch.exp, "ln": torch.log, "log10": torch.log10,
+    "log2": torch.log2, "sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
+    "asin": torch.asin, "acos": torch.acos, "atan": torch.atan,
+    "cbrt": lambda v: torch.sign(v) * v.abs().pow(1.0 / 3.0),
+    "expm1": torch.expm1, "log1p": torch.log1p, "sinh": torch.sinh, "cosh": torch.cosh,
+    "tanh": torch.tanh, "degrees": torch.rad2deg, "radians": torch.deg2rad,
+    "signum": _sign, "acosh": torch.acosh, "asinh": torch.asinh, "atanh": torch.atanh,
+    "cot": lambda v: 1.0 / torch.tan(v), "csc": lambda v: 1.0 / torch.sin(v),
+    "sec": lambda v: 1.0 / torch.cos(v), "rint": torch.round,  # half to even, as rint
+}
+_FACTORIALS = [math.factorial(i) for i in range(21)]  # factorial's 0..20
+
+
+def _popcount64(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int64 (SWAR; the masks drop the sign extension of
+    the arithmetic shifts)."""
+    x = x - ((x >> 1) & 0x5555555555555555)
+    x = (x & 0x3333333333333333) + ((x >> 2) & 0x3333333333333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F0F0F0F0F
+    return (x * 0x0101010101010101) >> 56
+
+
+def _math_func(e: E.MathFunc, b: Batch, ctx: EvalContext) -> ColumnVector:
+    """JAX ``evaluator.py:2430-2629``, branch by branch. Decimal ROUND,
+    FLOOR and CEIL take narrow storage, as there; a two-limb decimal raises
+    NotImplementedError (ROADMAP A.8)."""
+    f, out = e.func, e.dtype
+    args = [_ev(a, b, ctx) for a in e.args]
+    cv = args[0]
+
+    def f64(c: ColumnVector) -> torch.Tensor:
+        return _coerce(c, T.FLOAT64).data
+
+    if f in ("round", "bround", "floor", "ceil") and cv.is_wide_storage:
+        raise NotImplementedError(f"{f} of a two-limb decimal is not ported yet")
+    if f == "round":
+        d = int(e.args[1].value) if len(e.args) > 1 else 0
+        if cv.dtype.is_decimal:
+            k = cv.dtype.scale - out.scale
+            x = cv.data.long()
+            data = _decimal_downscale_half_up_i64(x, k) if k > 0 else _rescale_up_i64(x, -k)
+            return ColumnVector(data, cv.validity, None, out)
+        if cv.dtype.is_integer:
+            if d >= 0:
+                return cv
+            p = 10 ** (-d)
+            data = torch.div(cv.data + torch.sign(cv.data) * (p // 2), p,
+                             rounding_mode="floor") * p
+            return ColumnVector(data.to(cv.data.dtype), cv.validity, None, out)
+        # HALF_UP on the scaled value, as the JAX package rounds a float
+        factor = 10.0**d
+        x = cv.data * factor
+        return ColumnVector(torch.sign(x) * torch.floor(x.abs() + 0.5) / factor, cv.validity,
+                            None, out)
+    if f == "width_bucket":
+        # Spark WidthBucket.computeBucketNumber: null for a bucket count <= 0
+        # or Long.MaxValue, a NaN value, equal bounds or a bound NaN or
+        # infinite; below the range 0, at or above it n + 1; a descending
+        # range counts down
+        v, lo, hi = f64(args[0]), f64(args[1]), f64(args[2])
+        n = _coerce(args[3], T.INT64).data.long()
+        valid = args[0].validity & args[1].validity & args[2].validity & args[3].validity
+        bad = ((n <= 0) | (n == (1 << 63) - 1) | torch.isnan(v) | (lo == hi) | torch.isnan(lo)
+               | torch.isinf(lo) | torch.isnan(hi) | torch.isinf(hi))
+        lower, upper = torch.minimum(lo, hi), torch.maximum(lo, hi)
+        nf = n.double()
+        span = torch.where(upper - lower == 0, 1.0, upper - lower)
+        asc = (nf * (v - lower) / span).long() + 1
+        desc = (nf * (upper - v) / span).long() + 1
+        up_is_max = lo < hi
+        below = torch.where(up_is_max, v < lower, v > upper)
+        above = torch.where(up_is_max, v >= upper, v <= lower)
+        bucket = torch.where(below, 0, torch.where(above, n + 1,
+                                                   torch.where(up_is_max, asc, desc)))
+        return ColumnVector(bucket, valid & ~bad, None, T.INT64)
+    if f in ("floor", "ceil"):
+        if cv.dtype.is_decimal:
+            dnum = 10**cv.dtype.scale
+            q = torch.div(cv.data, dnum, rounding_mode="floor")
+            data = q if f == "floor" else q + (cv.data - q * dnum != 0).long()
+            return ColumnVector(data.long(), cv.validity, None, out)
+        if cv.dtype.is_integer:
+            return cv
+        fn = torch.floor if f == "floor" else torch.ceil
+        return ColumnVector(fn(cv.data).long(), cv.validity, None, out)
+    if f in _FLOAT_FUNCS:
+        x = f64(cv)
+        valid = cv.validity
+        if f in ("ln", "log10", "log2"):
+            valid = valid & (x > 0.0)  # Spark: the log of a value <= 0 is null
+        if f == "log1p":
+            valid = valid & (x > -1.0)
+        return ColumnVector(_FLOAT_FUNCS[f](x), valid, None, T.FLOAT64)
+    if f == "factorial":  # defined on 0..20, null elsewhere
+        n = cv.data.int()
+        table = torch.tensor(_FACTORIALS, dtype=torch.int64, device=n.device)
+        return ColumnVector(table[n.clamp(0, 20).long()], cv.validity & (n >= 0) & (n <= 20),
+                            None, T.INT64)
+    if f == "bit_count":
+        return ColumnVector(_popcount64(cv.data.long()).int(), cv.validity, None, T.INT32)
+    if f == "getbit":
+        x = _coerce(cv, T.INT64).data
+        pos = _coerce(args[1], T.INT32).data.long()
+        bit = (x >> pos.clamp(0, 63)) & 1
+        both = cv.validity & args[1].validity
+        bad = (pos < 0) | (pos >= 64)
+        if e.eval_mode == E.EvalMode.ANSI:
+            ctx.record_error(both & bad, "INVALID_PARAMETER_VALUE")
+        return ColumnVector(bit.to(torch.int8), both & ~bad, None, T.INT8)
+    if f == "shiftrightunsigned":
+        x = cv.data
+        bits = 64 if x.dtype == torch.int64 else 32
+        s = _coerce(args[1], T.INT32).data.long() % bits  # Java: the count mod the width
+        if bits == 32:
+            val = ((x.long() & 0xFFFFFFFF) >> s).to(x.dtype)
+        else:
+            val = torch.where(s == 0, x, (x >> s) & ((torch.ones_like(x) << (64 - s)) - 1))
+        return ColumnVector(val, cv.validity & args[1].validity, None, out)
+    if f == "nanvl":
+        a, c = _coerce(args[0], T.FLOAT64), _coerce(args[1], T.FLOAT64)
+        nan = torch.isnan(a.data)
+        return ColumnVector(torch.where(nan, c.data, a.data),
+                            a.validity & torch.where(nan, c.validity, True), None, T.FLOAT64)
+    if f == "bround":  # HALF_EVEN at scale d (Spark BRound), doubles and integers
+        d = (int(e.args[1].value) if len(e.args) > 1 and isinstance(e.args[1], E.Literal)
+             else 0)
+        if cv.dtype.is_integer:
+            if d >= 0:
+                return cv
+            m = 10 ** (-d)
+            r = torch.round(cv.data.long().double() / m).long() * m
+            return ColumnVector(r.to(cv.data.dtype), cv.validity, None, cv.dtype)
+        if cv.dtype.is_decimal:
+            raise NotImplementedError("bround over decimal")
+        scale = 10.0**d
+        return ColumnVector(torch.round(f64(cv) * scale) / scale, cv.validity, None, T.FLOAT64)
+    if f == "log" and len(args) == 2:  # Logarithm(base, x): null for x <= 0 or base <= 0
+        base, x = f64(args[0]), f64(args[1])
+        ok = args[0].validity & args[1].validity & (x > 0.0) & (base > 0.0)
+        return ColumnVector(torch.log(x) / torch.log(base), ok, None, T.FLOAT64)
+    if f in ("pow", "atan2", "hypot"):
+        fn = {"pow": torch.pow, "atan2": torch.atan2, "hypot": torch.hypot}[f]
+        return ColumnVector(fn(f64(args[0]), f64(args[1])), args[0].validity & args[1].validity,
+                            None, T.FLOAT64)
+    if f == "sign":
+        return ColumnVector(_sign(f64(cv)), cv.validity, None, T.FLOAT64)
+    if f in ("greatest", "least"):  # nulls skipped
+        acc = _coerce(args[0], out)
+        for a in args[1:]:
+            a = _coerce(a, out)
+            beats = a.data > acc.data if f == "greatest" else a.data < acc.data
+            take = a.validity & (~acc.validity | beats)
+            acc = ColumnVector(torch.where(take, a.data, acc.data), acc.validity | a.validity,
+                               None, out)
+        return acc
+    raise NotImplementedError(f"math func {f}")
 
 
 # -------------------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Hash aggregate: SUM, COUNT, AVG, MIN and MAX in every mode (port of
+"""Hash aggregate: SUM, COUNT, AVG, MIN, MAX and the variance family
+(VAR_SAMP, VAR_POP, STDDEV_SAMP, STDDEV_POP) in every mode (port of
 ``datafusion_comet_tpu/exec/operators/aggregate.py``: _try_pack_keys,
 _pack_sort_limbs, _segments, _seg_bounds, _seg_sum, hash_aggregate,
 _sorted_aggregate, _compact_groups, _bucket_aggregate, _input_agg,
@@ -58,6 +59,15 @@ groups of large magnitude loses its precision (ROADMAP C12). Never on
 ``bucket_sum``, which adds int64 lanes. A sum that is -0.0 comes out 0.0,
 as the JAX package's does.
 
+The variance family keeps (n, avg, m2) states, as the JAX package's
+(``aggregate.py:112-117``, ``:734-746``, ``:948-965``, ``:1042-1058``): a
+group's count, and float64 sums of x and x^2 each summed on their own group
+(``fsum``, never the JAX sorted path's prefix difference), give avg and
+m2 = max(sum x^2 - (sum x)^2 / n, 0); a merge adds the states' n, n x avg and
+m2 + n x avg^2. VAR_SAMP and STDDEV_SAMP of one row are NaN, not null. The
+input is read as a DOUBLE, a decimal by its value (the JAX package reads a
+decimal's unscaled integer: ROADMAP C20).
+
 MIN and MAX of a one-limb value fill invalid rows with the type's identity
 and reduce per group (``_minmax_reduce``): a scatter-min or -max, spread
 over up to 1024 lanes a group (row i updates lane i mod lanes) so that no
@@ -83,7 +93,8 @@ from datafusion_comet_tpu_torch.exec import decimal_wide as DW
 from datafusion_comet_tpu_torch.exec import kernels as K
 from datafusion_comet_tpu_torch.exec import sortkeys
 from datafusion_comet_tpu_torch.exec.batch import Batch, ColumnVector, quantize_bound
-from datafusion_comet_tpu_torch.exec.evaluator import EvalContext, _NARROW_LIMIT, _dec_bound, evaluate
+from datafusion_comet_tpu_torch.exec.evaluator import (EvalContext, _NARROW_LIMIT, _coerce,
+                                                      _dec_bound, evaluate)
 from datafusion_comet_tpu_torch.exec.operators.basic import compact_batch
 from datafusion_comet_tpu_torch.exec.stats import DEFAULT_MAX_GROUPS
 from datafusion_comet_tpu_torch.ir import expr as E
@@ -120,6 +131,8 @@ def state_fields(a: E.AggExpr) -> List[T.Field]:
                 T.Field(f"{o}__count", T.INT64, nullable=False)]
     if a.func in _MINMAX:
         return [T.Field(f"{o}__val", a.child.dtype)]
+    if a.func in E.WELFORD_FUNCS:
+        return [T.Field(f"{o}__{s}", T.FLOAT64, nullable=False) for s in ("n", "avg", "m2")]
     raise NotImplementedError(f"state_fields: {a.func}")
 
 
@@ -548,6 +561,13 @@ def _input_agg(a: E.AggExpr, batch: Batch, red, group_mask: torch.Tensor,
         return [ColumnVector(red.count(valid), group_mask, None, T.INT64)]
     if a.func in _MINMAX:
         return [_minmax(a.func == E.AggFunc.MIN, cv, valid, red, group_mask)]
+    if a.func in E.WELFORD_FUNCS:
+        xd = torch.where(valid, _coerce(cv, T.FLOAT64).data, 0.0)
+        n = red.count(valid).double()
+        s1 = red.fsum(xd)
+        safe_n = n.clamp(min=1.0)
+        m2 = (red.fsum(xd * xd) - s1 * s1 / safe_n).clamp(min=0.0)
+        return [ColumnVector(t, group_mask, None, T.FLOAT64) for t in (n, s1 / safe_n, m2)]
     if a.func not in (E.AggFunc.SUM, E.AggFunc.AVG):
         raise NotImplementedError(f"aggregate {a.func} is not ported yet")
     st = _sum_state_dtype(a)
@@ -613,6 +633,13 @@ def _merge_agg(a: E.AggExpr, batch: Batch, red, group_mask: torch.Tensor,
     if a.func in _MINMAX:
         return [_minmax(a.func == E.AggFunc.MIN, sts[0], sts[0].validity & live, red,
                         group_mask)]
+    if a.func in E.WELFORD_FUNCS:
+        n, avg, m2 = (torch.where(live, c.data, 0.0) for c in sts)
+        ntot = red.fsum(n)
+        avgt = red.fsum(n * avg) / ntot.clamp(min=1.0)
+        # m2 of the union: sum of m2_i + n_i avg_i^2, less n avg^2 of the whole
+        m2t = (red.fsum(m2 + n * avg * avg) - ntot * avgt * avgt).clamp(min=0.0)
+        return [ColumnVector(t, group_mask, None, T.FLOAT64) for t in (ntot, avgt, m2t)]
 
     def added(cv: ColumnVector) -> torch.Tensor:
         return red.sum(torch.where(cv.validity & live, cv.data, 0).long())
@@ -645,6 +672,15 @@ def _finalize(a: E.AggExpr, vals: List[ColumnVector], rows: Optional[int]) -> Co
     rt = a.result_dtype()
     if a.func in (E.AggFunc.COUNT, E.AggFunc.SUM) + _MINMAX:
         return vals[0]
+    if a.func in E.WELFORD_FUNCS:
+        n, _, m2 = (v.data for v in vals)
+        samp = a.func in (E.AggFunc.VAR_SAMP, E.AggFunc.STDDEV_SAMP)
+        d = m2 / ((n - 1.0) if samp else n).clamp(min=1.0)
+        if a.func in (E.AggFunc.STDDEV_SAMP, E.AggFunc.STDDEV_POP):
+            d = d.sqrt()
+        if samp:  # Spark: of one row NaN, not null
+            d = torch.where(n == 1.0, float("nan"), d)
+        return ColumnVector(d, (n >= 1) & vals[0].validity, None, T.FLOAT64)
     s, cnt = vals
     if not rt.is_decimal:  # a float or integer sum over the count, in float64
         return ColumnVector(s.data.double() / cnt.data.clamp(min=1).double(),

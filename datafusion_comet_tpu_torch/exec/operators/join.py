@@ -93,6 +93,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from datafusion_comet_tpu_torch import types as T
+from datafusion_comet_tpu_torch.exec import decimal_wide as DW
 from datafusion_comet_tpu_torch.exec import sortkeys
 from datafusion_comet_tpu_torch.exec.batch import Batch, ColumnVector, _concat_column
 from datafusion_comet_tpu_torch.exec.dictionary import union_ranks
@@ -130,10 +131,15 @@ def _harmonize_keys(build_keys: List[ColumnVector], probe_keys: List[ColumnVecto
                     ) -> Tuple[List[ColumnVector], List[ColumnVector]]:
     """Dictionary keys from different tables: remap both sides' codes to
     ranks in the union of the two dictionaries so they compare as int32. A
-    dictionary key against a padded one: both decoded (JAX ``join.py:72``)."""
+    dictionary key against a padded one: both decoded (JAX ``join.py:72``).
+    A narrow decimal key against a two-limb one: the narrow side lifted to
+    two limbs, so equal values compare equal (the JAX package compares the
+    storages as they are and finds no match, ROADMAP C5)."""
     out_b, out_p = [], []
     for b, p in zip(build_keys, probe_keys):
-        if b.is_dict and p.is_dict and b.dictionary != p.dictionary:
+        if b.dtype.is_decimal and p.dtype.is_decimal and b.is_wide_storage != p.is_wide_storage:
+            b, p = _two_limb(b), _two_limb(p)
+        elif b.is_dict and p.is_dict and b.dictionary != p.dictionary:
             ra, rb = union_ranks(b.dictionary, p.dictionary)
             ra, rb = torch.from_numpy(ra).to(b.data.device), torch.from_numpy(rb).to(p.data.device)
             b = ColumnVector(ra[b.data.clamp(0, len(ra) - 1).long()], b.validity, None, T.INT32)
@@ -145,15 +151,17 @@ def _harmonize_keys(build_keys: List[ColumnVector], probe_keys: List[ColumnVecto
     return out_b, out_p
 
 
+def _two_limb(cv: ColumnVector) -> ColumnVector:
+    """A decimal key in two-limb storage."""
+    if cv.is_wide_storage:
+        return cv
+    return ColumnVector(DW.pack(DW.lift(cv)), cv.validity, None, cv.dtype)
+
+
 def _one_limb(blimbs: List[torch.Tensor], plimbs: List[torch.Tensor]
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Collapse multi-limb keys into one int64 limb of the same order: the
     dense rank of each key tuple among both sides' tuples."""
-    if len(blimbs) != len(plimbs):
-        # a narrow decimal key against a two-limb one: neither package lifts
-        # one side to the other's storage
-        raise NotImplementedError("join keys of different storage (narrow int64 against "
-                                  "two-limb decimal) are not supported")
     if len(blimbs) == 1:
         return blimbs[0], plimbs[0]
     nb = blimbs[0].shape[0]

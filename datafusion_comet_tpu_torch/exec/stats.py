@@ -345,6 +345,8 @@ def _walk(plan: P.PlanNode, stats: Dict[str, TableStats]) -> Tuple[int, Dict[str
             rows = min(rows, cut)
         return rows, {k: min(v, rows) for k, v in ndv.items()}
 
+    if isinstance(plan, P.Window):  # the JAX walk's default branch: the child's
+        return kids[0]
     raise NotImplementedError(f"derive_capacities: {type(plan).__name__}")
 
 

@@ -1,8 +1,9 @@
 """Expression IR and Spark type inference (port of
 ``datafusion_comet_tpu/ir/expr.py``, the subset the ported TPC-H queries
 reach: LIKE, the date fields of ``TemporalFunc``, ``substring``, float
-literals and arithmetic, and the NOT, null and NaN tests among them, with
-``if_`` and ``coalesce`` built on ``CaseWhen``).
+literals and arithmetic, ``MathFunc``, ``negate`` and ``abs``, and the NOT,
+null and NaN tests among them, with ``if_`` and ``coalesce`` built on
+``CaseWhen``; the window specs ``WindowFrame`` and ``WindowExpr``).
 
 Expressions are built unbound (column names); ``bind(expr, schema)`` resolves
 references to column indices and computes result types, including Spark's
@@ -19,8 +20,9 @@ from datafusion_comet_tpu_torch import types as T
 
 __all__ = [
     "Expr", "EvalMode", "ColumnRef", "BoundRef", "Literal", "Alias", "BinaryOp", "UnaryOp",
-    "Cast", "CaseWhen", "InList", "Like", "StringFunc", "TemporalFunc", "DATE_FIELDS", "SortOrder",
-    "AggFunc", "AggExpr", "col", "lit", "if_", "coalesce", "bind",
+    "Cast", "CaseWhen", "InList", "Like", "StringFunc", "TemporalFunc", "MathFunc", "DATE_FIELDS",
+    "SortOrder", "AggFunc", "AggExpr", "WindowFrame", "WindowExpr", "col", "lit", "if_",
+    "coalesce", "bind",
 ]
 
 # the TemporalFunc functions the port evaluates: fields of a DATE, each INT32
@@ -183,8 +185,8 @@ class BinaryOp(Expr):
 
 @_node
 class UnaryOp(Expr):
-    """not, isnull, isnotnull and isnan, each BOOL (the JAX package's
-    negate and abs are not ported)."""
+    """not, isnull, isnotnull and isnan, each BOOL; negate and abs, of
+    their input's type."""
 
     op: str
     child: Expr
@@ -274,6 +276,21 @@ class TemporalFunc(Expr):
         return self.args
 
 
+@_node
+class MathFunc(Expr):
+    """A math function by name over ``args`` (JAX ``ir/expr.py:345``):
+    round, bround, floor, ceil, the float functions (sqrt, exp, ln, ...),
+    log, pow, atan2, hypot, sign, greatest, least, nanvl, width_bucket,
+    factorial and the bit functions."""
+
+    func: str
+    args: Tuple[Expr, ...]
+    eval_mode: str = EvalMode.LEGACY
+
+    def children(self):
+        return self.args
+
+
 @dataclasses.dataclass(frozen=True)
 class SortOrder:
     child: Expr
@@ -290,8 +307,16 @@ class AggFunc:
     AVG = "avg"
     MIN = "min"
     MAX = "max"
+    VAR_SAMP = "var_samp"
+    VAR_POP = "var_pop"
+    STDDEV_SAMP = "stddev_samp"
+    STDDEV_POP = "stddev_pop"
     # a plan-level rewrite (ir/plan.py::_rewrite_distinct), never evaluated
     COUNT_DISTINCT = "count_distinct"
+
+
+# the variance family: (n, avg, m2) states, a DOUBLE result
+WELFORD_FUNCS = (AggFunc.VAR_SAMP, AggFunc.VAR_POP, AggFunc.STDDEV_SAMP, AggFunc.STDDEV_POP)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -318,7 +343,39 @@ class AggExpr:
             return T.FLOAT64
         if self.func in (AggFunc.MIN, AggFunc.MAX):
             return cd
+        if self.func in WELFORD_FUNCS:
+            return T.FLOAT64
         raise NotImplementedError(f"aggregate {self.func}")
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowFrame:
+    """A ROWS or RANGE frame: ``lower`` None is UNBOUNDED PRECEDING,
+    ``upper`` 0 CURRENT ROW and None UNBOUNDED FOLLOWING; other bounds are
+    row offsets (ROWS) or value offsets of the one order key (RANGE),
+    negative preceding."""
+
+    frame_type: str = "rows"  # rows | range
+    lower: Optional[int] = None
+    upper: Optional[int] = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowExpr:
+    """One window function (JAX ``ir/expr.py:793``): ranking (row_number,
+    rank, dense_rank, percent_rank, cume_dist, ntile with its bucket count
+    in ``offset``), lag and lead (``offset`` rows, a literal ``default``),
+    nth_value, or an aggregate (count, sum, avg, min, max, first, last) over
+    ``frame``, within ``partition_by`` in ``order_by`` order."""
+
+    func: str
+    child: Optional[Expr]
+    out_name: str
+    partition_by: Tuple[Expr, ...] = ()
+    order_by: Tuple[SortOrder, ...] = ()
+    frame: WindowFrame = WindowFrame()
+    offset: int = 1
+    default: Optional[Expr] = None
 
 
 def col(name: str) -> ColumnRef:
@@ -367,6 +424,7 @@ _CMP_OPS = {"eq", "ne", "lt", "le", "gt", "ge", "eqns"}
 _LOGIC_OPS = {"and", "or"}
 _ARITH_OPS = {"add", "sub", "mul", "div", "mod", "pmod"}
 _UNARY_OPS = ("not", "isnull", "isnotnull", "isnan")
+_SIGNED_OPS = ("negate", "abs")  # UnaryOps of their input's type
 
 
 def _decimal_arith_type(op: str, a: T.DataType, b: T.DataType) -> T.DataType:
@@ -421,10 +479,11 @@ def bind(expr: Expr, schema: T.Schema) -> Expr:
         object.__setattr__(out, "dtype", _binary_result_type(e.op, l, r))
         return out
     if isinstance(e, UnaryOp):
-        if e.op not in _UNARY_OPS:
+        if e.op not in _UNARY_OPS + _SIGNED_OPS:
             raise NotImplementedError(f"UnaryOp {e.op!r} is not ported yet")
-        out = UnaryOp(e.op, bind(e.child, schema), e.eval_mode)
-        object.__setattr__(out, "dtype", T.BOOL)
+        c = bind(e.child, schema)
+        out = UnaryOp(e.op, c, e.eval_mode)
+        object.__setattr__(out, "dtype", c.dtype if e.op in _SIGNED_OPS else T.BOOL)
         return out
     if isinstance(e, Cast):
         c = bind(e.child, schema)
@@ -463,7 +522,41 @@ def bind(expr: Expr, schema: T.Schema) -> Expr:
         out = TemporalFunc(e.func, tuple(bind(a, schema) for a in e.args), e.tz, e.unit)
         object.__setattr__(out, "dtype", T.INT32)
         return out
+    if isinstance(e, MathFunc):
+        args = tuple(bind(a, schema) for a in e.args)
+        out = MathFunc(e.func, args, e.eval_mode)
+        object.__setattr__(out, "dtype", _math_result_type(e.func, args))
+        return out
     raise NotImplementedError(f"bind: {type(e).__name__}")
+
+
+def _math_result_type(func: str, args: Tuple[Expr, ...]) -> T.DataType:
+    """JAX ``ir/expr.py:1020-1056``."""
+    a0 = args[0].dtype
+    if func in ("round", "bround"):
+        if a0.is_decimal:
+            # Spark round(decimal(p, s), d): decimal(p - s + d + 1, d), bounded
+            d = args[1].value if len(args) > 1 else 0
+            return _adjust_precision_scale(a0.precision - a0.scale + max(d, 0) + 1, max(d, 0))
+        return a0
+    if func in ("floor", "ceil"):
+        if a0.is_decimal:
+            return _adjust_precision_scale(a0.precision - a0.scale + 1, 0)
+        return a0 if a0.is_integer else T.INT64
+    if func in ("width_bucket", "factorial"):
+        return T.INT64
+    if func == "bit_count":
+        return T.INT32
+    if func == "getbit":
+        return T.INT8
+    if func == "shiftrightunsigned":
+        return a0 if a0.is_integer else T.INT64
+    if func in ("greatest", "least"):
+        dt = a0
+        for a in args[1:]:
+            dt = T.common_type(dt, a.dtype)
+        return dt
+    return T.FLOAT64  # sign and the float functions
 
 
 def _binary_result_type(op: str, l: Expr, r: Expr) -> T.DataType:

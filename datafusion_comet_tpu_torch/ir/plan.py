@@ -1,7 +1,7 @@
 """Operator plan IR (port of ``datafusion_comet_tpu/ir/plan.py``: the Scan,
 Filter, Projection, HashAggregate, Sort, Limit, Expand, HashJoin,
-BroadcastNestedLoopJoin and Union nodes the ported TPC-H and TPC-DS queries
-use).
+BroadcastNestedLoopJoin, Union and Window nodes the ported TPC-H and TPC-DS
+queries use).
 
 Plans are built unbound; ``bind_plan`` binds expressions bottom-up against
 child schemas and computes each node's output schema, and rewrites a
@@ -20,7 +20,7 @@ from datafusion_comet_tpu_torch.ir import expr as E
 
 __all__ = ["PlanNode", "Scan", "Filter", "Projection", "HashAggregate", "AggMode",
            "Sort", "Limit", "Expand", "HashJoin", "BroadcastNestedLoopJoin", "Union",
-           "JoinType", "bind_plan", "scan_tables"]
+           "Window", "JoinType", "bind_plan", "scan_tables"]
 
 
 class JoinType:
@@ -244,6 +244,18 @@ class Union(PlanNode):
         return self.inputs
 
 
+@dataclasses.dataclass
+class Window(PlanNode):
+    """Window functions over the child's rows (exec/operators/window.py):
+    the output is the child's columns, then one per window expression."""
+
+    child: PlanNode
+    window_exprs: Tuple[E.WindowExpr, ...]
+
+    def children(self):
+        return (self.child,)
+
+
 def _join_out_schema(ls: T.Schema, rs: T.Schema, join_type: str) -> T.Schema:
     if join_type in (JoinType.LEFT_SEMI, JoinType.LEFT_ANTI, JoinType.LEFT_ANTI_NULL_AWARE):
         return ls
@@ -349,6 +361,23 @@ def bind_plan(plan: PlanNode) -> PlanNode:
         cond = E.bind(plan.condition, pair) if plan.condition is not None else None
         out = BroadcastNestedLoopJoin(left, right, plan.join_type, cond)
         out.schema = _join_out_schema(left.schema, right.schema, plan.join_type)
+        return out
+    if isinstance(plan, Window):
+        child = kids[0]
+
+        def b(x):
+            return E.bind(x, child.schema) if x is not None else None
+
+        wexprs = tuple(dataclasses.replace(
+            w, child=b(w.child), default=b(w.default),
+            partition_by=tuple(b(p) for p in w.partition_by),
+            order_by=tuple(dataclasses.replace(o, child=b(o.child)) for o in w.order_by))
+            for w in plan.window_exprs)
+        from datafusion_comet_tpu_torch.exec.operators import window as W
+
+        out = Window(child, wexprs)
+        out.schema = T.Schema(list(child.schema.fields)
+                              + [T.Field(w.out_name, W.result_dtype(w)) for w in wexprs])
         return out
     raise NotImplementedError(f"bind_plan: {type(plan).__name__}")
 

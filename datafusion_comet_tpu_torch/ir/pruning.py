@@ -90,6 +90,18 @@ def prune_columns(plan: P.PlanNode, required: Optional[Set[str]] = ALL) -> P.Pla
                           plan.condition, plan.build_key_range, plan.out_rows_hint,
                           plan.fanout_hint, plan.unique_build_hint, plan.key_pack,
                           plan.rf_dense_range, plan.rf_injected, plan.cond_col_ranges)
+    if isinstance(plan, P.Window):  # JAX ``pruning.py:138-148``
+        need = None if required is ALL else set(required)
+        if need is not None:
+            for w in plan.window_exprs:
+                _expr_refs(w.child, need)
+                _expr_refs(w.default, need)
+                for pb in w.partition_by:
+                    _expr_refs(pb, need)
+                for o in w.order_by:
+                    _expr_refs(o.child, need)
+                need.discard(w.out_name)
+        return P.Window(prune_columns(plan.child, need), plan.window_exprs)
     # as the JAX package's default branch, the children keep every column:
     # both sides of a nested-loop join, a Union's inputs (pruning through it
     # would map columns by position) and an Expand's child
@@ -114,7 +126,9 @@ def _subtree_columns(plan: P.PlanNode) -> Set[str]:
         # partial modes emit state columns prefixed by the output name
         return ({g.name for g in plan.group_exprs} | {a.out_name for a in plan.agg_exprs}
                 | {f"{a.out_name}__{s}" for a in plan.agg_exprs
-                   for s in ("sum", "count", "val")})
+                   for s in ("sum", "count", "val", "n", "avg", "m2")})
+    if isinstance(plan, P.Window):  # JAX ``pruning.py:196``
+        return _subtree_columns(plan.child) | {w.out_name for w in plan.window_exprs}
     out: Set[str] = set()
     for c in plan.children():
         out |= _subtree_columns(c)

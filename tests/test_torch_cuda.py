@@ -10,9 +10,9 @@ CASE WHEN, murmur3, LIKE) and the fields of a date, and the float
 operations (order limbs, expressions, SUM/AVG/MIN/MAX) and the
 nested-loop join, the outer hash joins on every path, Q13, Q16, Q20
 and Q20's variant, the semi-like joins with a condition on each path,
-``substring``, Q21 and Q22 directly and through the grace join, the 81
-ported TPC-DS queries, and Union, Expand, NOT and the null tests on the
-card against the CPU. Marked ``cuda``;
+``substring``, Q21 and Q22 directly and through the grace join, the 98
+ported TPC-DS queries, Union, Expand, NOT and the null tests, and every
+window function and frame on the card against the CPU. Marked ``cuda``;
 without a card every test here skips. This file imports no JAX, so it runs
 on a machine without it (tests/conftest.py imports JAX, hence --noconftest):
 
@@ -1192,3 +1192,76 @@ def test_union_expand_not_on_card_equal_cpu(dev, case, dms):
 
     want, got = (s.collect(plan()) for s in sessions)
     _same(got, want)
+
+
+def _window_table(n: int = 20_000):
+    """A seeded table for the window functions: nullable partition and
+    order keys (ties), int64, DOUBLE and decimal values with nulls, a
+    dictionary string, and a bool the filter under the window keeps (its
+    dead rows)."""
+    rng = np.random.default_rng(14)
+    schema = PT.Schema([PT.Field("keep", PT.BOOL), PT.Field("g", PT.INT32),
+                        PT.Field("k", PT.INT32), PT.Field("x", PT.INT64),
+                        PT.Field("f", PT.FLOAT64), PT.Field("d", PT.decimal(7, 2)),
+                        PT.Field("s", PT.string(4))])
+    data = {"keep": rng.random(n) > 0.15, "g": rng.integers(0, 40, n).astype(np.int32),
+            "k": rng.integers(0, 300, n).astype(np.int32),
+            "x": rng.integers(-1000, 1000, n).astype(np.int64),
+            "f": rng.normal(0, 100, n), "d": rng.integers(-99999, 99999, n).astype(np.int64),
+            "s": np.array(["a", "bb", "ccc", "dddd"], object)[rng.integers(0, 4, n)]}
+    valid = {c: rng.random(n) > 0.1 for c in ("g", "k", "x", "f", "d")}
+    return schema, data, valid
+
+
+_WINDOW_CASES = {
+    "ranking": [(f, None, None, 3 if f == "ntile" else 1) for f in
+                ("row_number", "rank", "dense_rank", "percent_rank", "cume_dist", "ntile")],
+    "lag_lead": [("lag", "x", None, 1), ("lead", "x", None, 2), ("lag", "d", None, 1),
+                 ("lead", "f", None, 1), ("lag", "s", None, 1), ("nth_value", "x", None, 2)],
+    "running_rows": [(f, c, ("rows", None, 0), 1) for f, c in
+                     (("count", None), ("sum", "x"), ("avg", "x"), ("min", "x"), ("max", "x"),
+                      ("sum", "f"), ("avg", "f"), ("min", "f"), ("max", "f"), ("sum", "d"),
+                      ("first", "x"), ("last", "x"))],
+    "running_range": [(f, c, ("range", None, 0), 1) for f, c in
+                      (("count", "x"), ("sum", "x"), ("avg", "f"), ("max", "d"),
+                       ("first", "x"), ("last", "x"))],
+    "whole": [(f, c, ("rows", None, None), 1) for f, c in
+              (("count", None), ("sum", "x"), ("avg", "f"), ("sum", "f"), ("min", "f"),
+               ("max", "x"), ("avg", "d"), ("sum", "d"))],
+    "sliding_rows": [(f, c, fr, 1) for fr in (("rows", -2, 1), ("rows", None, 3),
+                                               ("rows", -1, None))
+                     for f, c in (("sum", "x"), ("avg", "f"), ("count", "x"))]
+    + [(f, "x", ("rows", -3, 2), 1) for f in ("min", "max")],
+    "range_offsets": [(f, "x", fr, 1) for fr in (("range", 5, 5), ("range", None, 2),
+                                                  ("range", 7, None))
+                      for f in ("sum", "count", "avg")],
+}
+
+
+@pytest.mark.parametrize("case", sorted(_WINDOW_CASES))
+def test_window_functions_on_card_equal_cpu(dev, case):
+    """``window_op`` for every function and frame of the module on the card
+    equals the CPU: exact, but a float sum or average within
+    ``FLOAT_SUM_RTOL`` (the doubling scan's rows add alike; a float
+    division on the card may differ in the last bit)."""
+    from datafusion_comet_tpu_torch.ir import expr as PE
+
+    schema, data, valid = _window_table()
+    sessions = [Session(device=d) for d in ("cpu", None)]
+    for s in sessions:
+        s.register_numpy("t", data, schema, validity=valid)
+    kw = dict(partition_by=(PE.col("g"),), order_by=(PE.SortOrder(PE.col("k")),))
+    if case == "range_offsets":
+        kw["order_by"] = (PE.SortOrder(PE.col("k"), ascending=False),)
+    wexprs = tuple(PE.WindowExpr(f, None if c is None else PE.col(c), f"w{i}", offset=off,
+                                 frame=PE.WindowFrame(*fr) if fr else PE.WindowFrame(), **kw)
+                   for i, (f, c, fr, off) in enumerate(_WINDOW_CASES[case]))
+    plan = PP.Window(PP.Scan("t", schema).filter(PE.col("keep")), wexprs)
+    want, got = (s.collect(plan) for s in sessions)
+    assert list(got) == list(want)
+    for k in want:
+        if want[k].dtype == np.float64:
+            np.testing.assert_allclose(got[k], want[k], rtol=chip_smoke.FLOAT_SUM_RTOL, atol=0,
+                                       err_msg=k)
+        else:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)

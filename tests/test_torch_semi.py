@@ -186,23 +186,45 @@ def test_semi_like_refusals():
         PJ.hash_join(left, right, lk, rk, "left_anti_null_aware", "right", fs)
 
 
-@pytest.mark.parametrize("join_type", ["left_semi", "inner"])
-def test_decimal_keys_of_different_storage_raise(join_type):
-    """A narrow-stored decimal(30,2) key against a two-limb one: neither
-    package lifts one side to the other's storage. The JAX package then
-    finds no match at all (ROADMAP C5); the port refuses the join."""
+@pytest.mark.parametrize("join_type", ["left_semi", "inner", "left"])
+def test_decimal_keys_of_different_storage_match(join_type):
+    """A narrow-stored decimal(30,2) key against a two-limb one: the port
+    lifts the narrow side to two limbs and finds the numpy oracle's rows.
+    The JAX package compares the storages as they are and finds no match
+    (ROADMAP C5, a reference-side fault): its answer stays empty (no key
+    matched)."""
     sa = PT.Schema([PT.Field("a", PT.decimal(30, 2)), PT.Field("x", PT.INT64)])
     sb = PT.Schema([PT.Field("b", PT.decimal(30, 2))])
+    a, x, b = [1, 5, 7], [0, 1, 2], [5, 10**25, 7]
     ps = Session(device="cpu")
-    ps.register_numpy("ta", {"a": np.array([1, 5, 7], object),
-                             "x": np.arange(3, dtype=np.int64)}, sa)
-    ps.register_numpy("tb", {"b": np.array([5, 10**25, 7], object)}, sb)
+    ps.register_numpy("ta", {"a": np.array(a, object), "x": np.array(x, np.int64)}, sa)
+    ps.register_numpy("tb", {"b": np.array(b, object)}, sb)
     assert ps.tables["ta"].column("a").data.dim() == 1
     assert ps.tables["tb"].column("b").data.dim() == 2
     q = PP.HashJoin(PP.Scan("ta", sa), PP.Scan("tb", sb), (PE.col("a"),), (PE.col("b"),),
                     join_type, "right")
-    with pytest.raises(NotImplementedError, match="different storage"):
-        ps.collect(q)
+    got = ps.collect(q)
+    # the numpy oracle: (a, x, b) per matching pair, each unmatched row of a
+    # LEFT join with b null; a semi join's (a, x)
+    want = []
+    for av, xv in zip(a, x):
+        hits = [bv for bv in b if bv == av] or ([None] if join_type == "left" else [])
+        want += [(av, xv, bv) for bv in hits]
+    if join_type == "left_semi":
+        assert sorted(zip(got["a"], got["x"])) == sorted({(w[0], w[1]) for w in want})
+    else:
+        bs = [v if ok else None for v, ok in zip(got["b"], got["b__valid"])]
+        assert sorted(zip(got["a"], got["x"], bs), key=str) == sorted(want, key=str)
+    js = JaxSession()
+    ja = JT.Schema([JT.Field("a", JT.decimal(30, 2)), JT.Field("x", JT.INT64)])
+    jb = JT.Schema([JT.Field("b", JT.decimal(30, 2))])
+    js.register_numpy("ta", {"a": np.array(a, object), "x": np.array(x, np.int64)}, ja)
+    js.register_numpy("tb", {"b": np.array(b, object)}, jb)
+    jq = JP.HashJoin(JP.Scan("ta", ja), JP.Scan("tb", jb), (JE.col("a"),), (JE.col("b"),),
+                     join_type, "right")
+    jout = js.collect(jq)
+    matched = jout["b__valid"] if "b__valid" in jout else np.ones(len(jout["a"]), bool)
+    assert not matched.any() if join_type == "left" else len(jout["a"]) == 0
 
 
 # ---- TPC-H Q4 through the Session -----------------------------------------------------

@@ -48,6 +48,18 @@ Two loops wrap a stage's run, as in the JAX package:
   (exec/streaming.py, under the overflow retry too), else an over-budget
   join runs hash-partitioned (exec/grace.py), and its result, the aggregate
   above it, or the whole stage comes back as a temporary table.
+
+Scalar subqueries (``Session.scalar_subquery``, JAX ``engine.py:535-580``):
+a subquery's plan is bound when it is registered, without pruning (so no
+runtime filter is injected into it), and structurally equal subqueries
+(the same ``ir/serde.py`` JSON and column) share one id. Before a plan's
+stages run, ``execute`` runs each subquery the plan holds, once, through
+``execute`` itself (the same memory budget, so a subquery may take the
+grace join), on a fresh copy of its bound plan, and keeps its one value
+for the evaluator (``EvalContext.subquery_values``). The values live for
+one top-level ``execute``, as Spark evaluates a scalar subquery once per
+query execution; the JAX package keeps them for the session's life, so a
+table registered again leaves a stale value there (ROADMAP C21).
 """
 
 from __future__ import annotations
@@ -80,9 +92,11 @@ from datafusion_comet_tpu_torch.exec.runtime_filter import inject_runtime_filter
 from datafusion_comet_tpu_torch.exec.stats import (DEFAULT_MAX_GROUPS, TableStats, collect_stats,
                                                   derive_capacities)
 from datafusion_comet_tpu_torch.exec.streaming import TiledAggregator, pseudo_scan, slice_tiles
+from datafusion_comet_tpu_torch.ir import expr as E
 from datafusion_comet_tpu_torch.ir import plan as P
 from datafusion_comet_tpu_torch.ir.ordering import order_key_name, ordering_satisfies, out_ordering
 from datafusion_comet_tpu_torch.ir.pruning import prune_columns
+from datafusion_comet_tpu_torch.ir.serde import plan_to_json
 
 __all__ = ["Session", "run_plan", "QueryExecutionError", "JoinOverflowError"]
 
@@ -267,6 +281,22 @@ def apply_orderings(plan: P.PlanNode) -> P.PlanNode:
     return out
 
 
+def subquery_ids(v, out: Optional[set] = None) -> set:
+    """The ids of every ``ScalarSubquery`` in a plan, an expression or a
+    spec (their dataclass fields walked)."""
+    out = set() if out is None else out
+    if isinstance(v, E.ScalarSubquery):
+        out.add(v.subquery_id)
+    elif isinstance(v, (P.PlanNode, E.Expr, E.AggExpr, E.WindowExpr, E.SortOrder)):
+        for f in dataclasses.fields(v):
+            if f.init:
+                subquery_ids(getattr(v, f.name), out)
+    elif isinstance(v, tuple):
+        for x in v:
+            subquery_ids(x, out)
+    return out
+
+
 def _is_join(plan: P.PlanNode) -> bool:
     return isinstance(plan, (P.HashJoin, P.BroadcastNestedLoopJoin))
 
@@ -333,8 +363,11 @@ class Session:
     Of the last ``execute``: ``stages`` holds its (temporary table name or
     None, bound subplan) stages in run order, ``grace_runners`` its grace
     joins (K, mode, partition sizes), ``tiled`` its tiled aggregates
-    (table, tiles), ``plan_ms`` the host ms ``_plan_stages`` took. The
-    runtime filters' key tables (``__rf_*``) stay registered."""
+    (table, tiles), ``plan_ms`` the host ms ``_plan_stages`` took, and
+    ``subqueries`` each scalar subquery it ran, in run order: its ``id``,
+    ``value`` and ``valid``, and its own run's ``stages``, ``runs``,
+    ``grace_runners``, ``tiled`` and ``plan_ms``. The runtime filters' key
+    tables (``__rf_*``) stay registered."""
 
     def __init__(self, device: Union[str, torch.device, None] = None,
                  conf: Optional[Config] = None):
@@ -358,8 +391,14 @@ class Session:
         # input capacities
         self.runs: List[dict] = []
         self.plan_ms: Optional[float] = None
+        self.subqueries: List[dict] = []
         self._ids = itertools.count()
         self._host_cols: Dict[str, HostColumns] = {}
+        # registered scalar subqueries: (bound plan, column) by id, the id
+        # of each (JSON, column), and, during a top-level execute, the values
+        self._subquery_plans: List[Tuple[P.PlanNode, int]] = []
+        self._subquery_keys: Dict[Tuple[str, int], int] = {}
+        self._subquery_values: Optional[Dict[int, Tuple[object, bool]]] = None
 
     def register_batch(self, name: str, batch: Batch) -> None:
         if batch.device != self.device:
@@ -387,12 +426,58 @@ class Session:
     def budget_bytes(self) -> int:
         return device_budget_bytes(self.device, self.conf.memory_fraction)
 
+    def scalar_subquery(self, plan: P.PlanNode, column: int = 0) -> E.ScalarSubquery:
+        """Register an uncorrelated scalar subquery: the value of ``column``
+        in its plan's first row, null where there is none (JAX
+        ``engine.py:535``). Bound without pruning; structurally equal
+        subqueries share one id, and so one run an ``execute``."""
+        bound = plan if plan.schema is not None else P.bind_plan(plan)
+        key = (plan_to_json(bound), column)
+        sid = self._subquery_keys.get(key)
+        if sid is None:
+            sid = self._subquery_keys[key] = len(self._subquery_plans)
+            self._subquery_plans.append((bound, column))
+        return E.ScalarSubquery(sid, bound.schema.fields[column].dtype)
+
+    def subquery_plan(self, sid: int) -> P.PlanNode:
+        """The bound plan of the registered subquery ``sid``."""
+        return self._subquery_plans[sid][0]
+
+    def _materialize_subqueries(self, plan: P.PlanNode) -> None:
+        """Run each subquery ``plan`` holds that this top-level execute has
+        not run yet, in id order (a subquery holds only earlier ones), and
+        keep its value and its run's records (``subqueries``)."""
+        for sid in sorted(subquery_ids(plan) - set(self._subquery_values)):
+            sub, column = self._subquery_plans[sid]
+            field = sub.schema.fields[column]
+            # a fresh copy: the planner fills its hints in place
+            out = self.execute(copy.deepcopy(sub))
+            host = to_numpy(out.select([column], T.Schema([field])))
+            rows = host[field.name]
+            value = (rows[0], bool(host[field.name + "__valid"][0])) if len(rows) else (None, False)
+            self._subquery_values[sid] = value
+            self.subqueries.append({"id": sid, "value": value[0], "valid": value[1],
+                                    "stages": self.stages, "runs": self.runs,
+                                    "grace_runners": self.grace_runners, "tiled": self.tiled,
+                                    "plan_ms": self.plan_ms})
+
     def execute(self, plan: P.PlanNode) -> Batch:
-        """Plan the stages (``_plan_stages``) and run them in order, each
+        """Run the plan's scalar subqueries (``_materialize_subqueries``),
+        plan the stages (``_plan_stages``) and run them in order, each
         fitted to the memory budget and run with the overflow retry; a named
         stage's result, compacted, is the temporary table the next stages
         read. Raises QueryExecutionError when a flag of the error side
         channel fired: an ANSI error, or a kernel's code out of range."""
+        if self._subquery_values is not None:  # a subquery's run inside an execute
+            return self._execute_stages(plan)
+        self._subquery_values, self.subqueries = {}, []
+        try:
+            return self._execute_stages(plan)
+        finally:
+            self._subquery_values = None
+
+    def _execute_stages(self, plan: P.PlanNode) -> Batch:
+        self._materialize_subqueries(plan)
         t0 = time.perf_counter()
         self.stages = self._plan_stages(plan)
         self.plan_ms = (time.perf_counter() - t0) * 1e3
@@ -510,7 +595,8 @@ class Session:
         the run is recorded in ``runs``."""
         errs: List[Tuple[torch.Tensor, str]] = []
         ctx = EvalContext(errors=errs, overflow_flags=[], agg_scale=scale,
-                          unique_join_ok=unique_join_ok, join_log=[])
+                          unique_join_ok=unique_join_ok, join_log=[],
+                          subquery_values=self._subquery_values)
         out = (plan(ctx) if callable(plan) else
                run_plan(plan, self.tables if tables is None else tables, ctx, self.conf, fanout))
         flags = [f for f, _ in errs] + ctx.overflow_flags

@@ -2,8 +2,11 @@
 (port of ``datafusion_comet_tpu/exec/evaluator.py``, the subset the ported
 TPC-H and TPC-DS queries reach: LIKE, ``substring``, the fields of a DATE,
 floats, NOT and the null tests, ``negate`` and ``abs``, the math functions
-(``_math_func``), the decimal to integer cast among them, and Spark's
-murmur3 over integer, float and string columns for hash partitioning).
+(``_math_func``), the decimal to integer cast among them, a session's
+scalar subqueries (a literal of the value the session materialized before
+the plan ran, ``EvalContext.subquery_values``), the bloom-filter probe
+(exec/operators/agg_special.py), and Spark's murmur3 over integer, float
+and string columns for hash partitioning and bloom filters).
 
 Spark semantics kept from the JAX package:
 - three-valued logic through validity vectors, Kleene AND/OR;
@@ -29,7 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,6 +66,8 @@ class EvalContext:
     # where a list: each INNER join's path and hints, and each nested-loop
     # join's input capacities, in run order
     join_log: Optional[list] = None
+    # the session's scalar subqueries' values by id: (value, valid)
+    subquery_values: Optional[Dict[int, Tuple[object, bool]]] = None
 
     def record_error(self, flags: torch.Tensor, message: str) -> None:
         if self.errors is not None:
@@ -115,7 +120,30 @@ def _ev(e: E.Expr, b: Batch, ctx: EvalContext) -> ColumnVector:
         return _temporal_func(e, b, ctx)
     if isinstance(e, E.MathFunc):
         return _math_func(e, b, ctx)
+    if isinstance(e, E.ScalarSubquery):
+        value, valid = _subquery_value(e, ctx)
+        return _literal(E.Literal(value if valid else None, e.dtype), b.capacity, b.device)
+    if isinstance(e, E.BloomMightContain):
+        from datafusion_comet_tpu_torch.exec.operators.agg_special import bloom_might_contain
+
+        if isinstance(e.filter, E.Literal):
+            fb = e.filter.value
+        elif isinstance(e.filter, E.ScalarSubquery):
+            value, valid = _subquery_value(e.filter, ctx)
+            fb = value if valid else None
+        else:
+            raise NotImplementedError("a bloom filter must be a literal or a scalar subquery")
+        return bloom_might_contain(fb, _ev(e.child, b, ctx))
     raise NotImplementedError(f"evaluate: {type(e).__name__}")
+
+
+def _subquery_value(e: E.ScalarSubquery, ctx: EvalContext):
+    """(value, valid) of a materialized subquery (JAX ``evaluator.py:422``)."""
+    vals = ctx.subquery_values
+    if vals is None or e.subquery_id not in vals:
+        raise RuntimeError(f"scalar subquery {e.subquery_id} is not materialized: run the "
+                           "plan through the session that registered it")
+    return vals[e.subquery_id]
 
 
 def _torch_dtype(dt: T.DataType) -> torch.dtype:

@@ -16,7 +16,9 @@ narrow decimals with literals, string equality, LIKE (prefix, suffix,
 contains, exact, and any other pattern by a regex per row), IN lists,
 IS [NOT] NULL of a column, NOT where every column under it is free of
 nulls, and AND / OR, looking through aliases and integer, date and decimal
-casts.
+casts. A comparison with a scalar subquery (its value is known only when
+the plan runs) and a bloom-filter probe are not understood: skipped, as in
+the JAX package.
 """
 
 from __future__ import annotations

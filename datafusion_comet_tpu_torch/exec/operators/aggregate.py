@@ -1,14 +1,17 @@
-"""Hash aggregate: SUM, COUNT, AVG, MIN, MAX and the variance family
-(VAR_SAMP, VAR_POP, STDDEV_SAMP, STDDEV_POP) in every mode (port of
+"""Hash aggregate: SUM, COUNT, AVG, MIN, MAX, FIRST, LAST, the variance
+family (VAR_SAMP, VAR_POP, STDDEV_SAMP, STDDEV_POP), the covariance family
+(COVAR_SAMP, COVAR_POP, CORR), BIT_AND, BIT_OR, BIT_XOR, BOOL_AND and
+BOOL_OR in every mode, and BLOOM_FILTER in SINGLE mode (port of
 ``datafusion_comet_tpu/exec/operators/aggregate.py``: _try_pack_keys,
 _pack_sort_limbs, _segments, _seg_bounds, _seg_sum, hash_aggregate,
 _sorted_aggregate, _compact_groups, _bucket_aggregate, _input_agg,
 _limb_minmax, _merge_agg, _decimal_sum, _finalize). SINGLE and PARTIAL
 aggregate input rows; FINAL and PARTIAL_MERGE merge the state columns
 PARTIAL emits (``state_fields``). MIN and MAX take integers, dates,
-decimals (narrow and two-limb) and floats; strings and bools, and the
-other aggregate functions (FIRST, LAST and the rest), are not ported and
-raise NotImplementedError.
+decimals (narrow and two-limb), floats, strings (both layouts) and bools.
+A BLOOM_FILTER has no partial state (exec/operators/agg_special.py), so
+any other mode raises, as in the JAX package; a grouped one takes the
+sorted path, as the JAX package's special aggregates do.
 
 Two paths, chosen as the JAX package chooses them:
 
@@ -68,6 +71,20 @@ m2 + n x avg^2. VAR_SAMP and STDDEV_SAMP of one row are NaN, not null. The
 input is read as a DOUBLE, a decimal by its value (the JAX package reads a
 decimal's unscaled integer: ROADMAP C20).
 
+The covariance family keeps (n, xavg, yavg, ck, xm2, ym2) states, as the
+JAX package's (``aggregate.py:118-126``, ``:748-768``, ``:967-986``,
+``:1059``), each sum taken per group on its own (``fsum``), the inputs read
+as DOUBLEs by value, as the variance family's. COVAR_SAMP of one row is
+NaN, and CORR is NaN where either input has no spread, as in the JAX
+package.
+
+FIRST and LAST take each group's first (last) row in input order, its
+valid rows only unless nulls are respected; a merge takes the first (last)
+valid state. BIT_AND, BIT_OR and BIT_XOR count each bit plane's set rows
+per group (``_bitwise``), BOOL_AND and BOOL_OR the false and the true rows
+(``_bool_agg``, which is also MIN and MAX of a bool): on the dense path
+these counts run on ``bucket_count``.
+
 MIN and MAX of a one-limb value fill invalid rows with the type's identity
 and reduce per group (``_minmax_reduce``): a scatter-min or -max, spread
 over up to 1024 lanes a group (row i updates lane i mod lanes) so that no
@@ -77,7 +94,9 @@ limb, keep the rows that reach it, reduce the low limb among them, and
 gather the lowest such row. A float runs the same tournament on its
 one order limb (sortkeys._float_limb, as the JAX package runs its four
 float limbs): NaN is the greatest value, and the row gathered gives the
-group's -0.0 or 0.0, and its NaN's bits, as the JAX package's does.
+group's -0.0 or 0.0, and its NaN's bits, as the JAX package's does. A
+string runs it on its limbs (sortkeys.column_limbs: the dictionary code,
+or 8 padded bytes a limb).
 """
 
 from __future__ import annotations
@@ -110,6 +129,10 @@ _DEAD_BIT = 62  # _pack_sort_limbs fills bits 0..61 of a limb; bit 62 marks dead
 _MINMAX_LANES = 1024  # lanes a group of _minmax_reduce, at most
 _MINMAX_SLOTS = 1 << 22  # partial results of _minmax_reduce, at most
 _MINMAX = (E.AggFunc.MIN, E.AggFunc.MAX)
+_FIRST_LAST = (E.AggFunc.FIRST, E.AggFunc.LAST)
+# one state column of the input's type (BOOL_*: a BOOL), merged as the input is
+_ONE_VALUE = _MINMAX + _FIRST_LAST + E.BIT_FUNCS + E.BOOL_FUNCS
+_COVAR_STATES = ("n", "xavg", "yavg", "ck", "xm2", "ym2")
 
 
 def _sum_state_dtype(a: E.AggExpr) -> T.DataType:
@@ -129,10 +152,17 @@ def state_fields(a: E.AggExpr) -> List[T.Field]:
     if a.func == E.AggFunc.AVG:
         return [T.Field(f"{o}__sum", _sum_state_dtype(a)),
                 T.Field(f"{o}__count", T.INT64, nullable=False)]
-    if a.func in _MINMAX:
+    if a.func in E.BOOL_FUNCS:
+        return [T.Field(f"{o}__val", T.BOOL)]
+    if a.func in _ONE_VALUE:
         return [T.Field(f"{o}__val", a.child.dtype)]
     if a.func in E.WELFORD_FUNCS:
         return [T.Field(f"{o}__{s}", T.FLOAT64, nullable=False) for s in ("n", "avg", "m2")]
+    if a.func in E.COVAR_FUNCS:
+        return [T.Field(f"{o}__{s}", T.FLOAT64, nullable=False) for s in _COVAR_STATES]
+    if a.func == E.AggFunc.BLOOM_FILTER:
+        raise NotImplementedError("BLOOM_FILTER has no partial state: it runs in SINGLE mode "
+                                  "only, as in the JAX package")
     raise NotImplementedError(f"state_fields: {a.func}")
 
 
@@ -321,6 +351,10 @@ def hash_aggregate(
     ``merge_rows``: a merge's host-known bound on the rows behind one
     group's states, or None."""
     ctx = ctx or EvalContext()
+    bloom = any(a.func == E.AggFunc.BLOOM_FILTER for a in agg_exprs)
+    if bloom and mode != AggMode.SINGLE:
+        raise NotImplementedError(f"BLOOM_FILTER in {mode} mode: it has no partial state, "
+                                  "as in the JAX package")
     max_groups = min(max_groups * max(ctx.agg_scale, 1), batch.capacity)
     key_cols = [evaluate(g, batch, ctx) for g in group_exprs]
     if not key_cols:
@@ -328,7 +362,9 @@ def hash_aggregate(
         return _dead_rows_to(_bucket_aggregate(batch, key_cols, agg_exprs, mode, (seg, 1),
                                                out_schema, ctx, merge_rows), min(max_groups, 8))
     packed = _try_pack_keys(key_cols)
-    if packed is not None and packed[1] <= max(dense_max_domain, 0):
+    # a grouped bloom filter takes the sorted path, as the JAX package's
+    # special aggregates do
+    if packed is not None and packed[1] <= max(dense_max_domain, 0) and not bloom:
         out = _bucket_aggregate(batch, key_cols, agg_exprs, mode, packed, out_schema, ctx,
                                 merge_rows)
         if out.capacity > max_groups:
@@ -439,7 +475,8 @@ def _sorted_aggregate(batch: Batch, key_cols, key_limbs, agg_exprs, mode: str,
                     add(E.BoundRef(i, fld.name, batch.schema.fields[i].dtype), fld.name)
     else:
         for a in agg_exprs:
-            add(a.child)
+            for x in (a.child,) + a.extra:
+                add(x)
     with record_function("aggregate.sort"):
         perm, sorted_mask, changed = _sort_groups(key_cols, key_limbs, batch.row_mask)
         synth_cols = tuple(dataclasses.replace(cv.take(perm), mag_bound=cv.mag_bound)
@@ -469,8 +506,9 @@ def _sorted_aggregate(batch: Batch, key_cols, key_limbs, agg_exprs, mode: str,
         if merging:
             vals = _merge_agg(a, synth, red, group_mask, ctx)
         else:
-            vals = _input_agg(dataclasses.replace(a, child=ref(a.child)), synth, red,
-                              group_mask, ctx)
+            vals = _input_agg(dataclasses.replace(a, child=ref(a.child),
+                                                  extra=tuple(ref(x) for x in a.extra)),
+                              synth, red, group_mask, ctx)
         if mode in (AggMode.SINGLE, AggMode.FINAL):
             out_cols.append(_finalize(a, vals, rows))
         else:
@@ -561,6 +599,19 @@ def _input_agg(a: E.AggExpr, batch: Batch, red, group_mask: torch.Tensor,
         return [ColumnVector(red.count(valid), group_mask, None, T.INT64)]
     if a.func in _MINMAX:
         return [_minmax(a.func == E.AggFunc.MIN, cv, valid, red, group_mask)]
+    if a.func in _FIRST_LAST:
+        # with nulls respected, a group's first (last) live row, null or not
+        consider = valid if a.ignore_nulls else active
+        return [_first_last(a.func == E.AggFunc.FIRST, cv, consider, red, group_mask,
+                            a.ignore_nulls)]
+    if a.func in E.BIT_FUNCS:
+        return [_bitwise(a.func, cv, valid, red, group_mask)]
+    if a.func in E.BOOL_FUNCS:
+        return [_bool_agg(a.func == E.AggFunc.BOOL_AND, cv, valid, red, group_mask)]
+    if a.func == E.AggFunc.BLOOM_FILTER:
+        from datafusion_comet_tpu_torch.exec.operators.agg_special import bloom_agg
+
+        return [bloom_agg(a, cv, valid, red.seg, red.m, (red.count(valid) > 0) & group_mask)]
     if a.func in E.WELFORD_FUNCS:
         xd = torch.where(valid, _coerce(cv, T.FLOAT64).data, 0.0)
         n = red.count(valid).double()
@@ -568,6 +619,19 @@ def _input_agg(a: E.AggExpr, batch: Batch, red, group_mask: torch.Tensor,
         safe_n = n.clamp(min=1.0)
         m2 = (red.fsum(xd * xd) - s1 * s1 / safe_n).clamp(min=0.0)
         return [ColumnVector(t, group_mask, None, T.FLOAT64) for t in (n, s1 / safe_n, m2)]
+    if a.func in E.COVAR_FUNCS:
+        ycv = evaluate(a.extra[0], batch, ctx)
+        both = valid & ycv.validity
+        xd = torch.where(both, _coerce(cv, T.FLOAT64).data, 0.0)
+        yd = torch.where(both, _coerce(ycv, T.FLOAT64).data, 0.0)
+        n = red.count(both).double()
+        sx, sy = red.fsum(xd), red.fsum(yd)
+        safe_n = n.clamp(min=1.0)
+        ck = red.fsum(xd * yd) - sx * sy / safe_n
+        xm2 = (red.fsum(xd * xd) - sx * sx / safe_n).clamp(min=0.0)
+        ym2 = (red.fsum(yd * yd) - sy * sy / safe_n).clamp(min=0.0)
+        return [ColumnVector(t, group_mask, None, T.FLOAT64)
+                for t in (n, sx / safe_n, sy / safe_n, ck, xm2, ym2)]
     if a.func not in (E.AggFunc.SUM, E.AggFunc.AVG):
         raise NotImplementedError(f"aggregate {a.func} is not ported yet")
     st = _sum_state_dtype(a)
@@ -591,10 +655,10 @@ def _minmax(is_min: bool, cv: ColumnVector, valid: torch.Tensor, red,
     reduced per group; the result is one of the inputs, so the input's
     bound carries over. Two limbs: the limb tournament (``_limb_minmax``)."""
     dt = cv.dtype
-    if dt.is_binary or dt.is_boolean:
-        raise NotImplementedError(f"MIN/MAX of {dt.type_id} is not ported yet")
+    if dt.is_boolean:  # MIN is AND, MAX is OR
+        return _bool_agg(is_min, cv, valid, red, group_mask)
     has = (red.count(valid) > 0) & group_mask
-    if cv.is_wide_storage or dt.is_floating:
+    if cv.is_wide_storage or dt.is_floating or dt.is_binary:
         return _limb_minmax(is_min, cv, valid, red, has)
     info = torch.iinfo(cv.data.dtype)
     x = torch.where(valid, cv.data, info.max if is_min else info.min)
@@ -604,12 +668,14 @@ def _minmax(is_min: bool, cv: ColumnVector, valid: torch.Tensor, red,
 
 def _limb_minmax(is_min: bool, cv: ColumnVector, valid: torch.Tensor, red,
                  has: torch.Tensor) -> ColumnVector:
-    """MIN or MAX over two-limb decimals or floats: reduce the first limb
-    (for a decimal the high limb, signed), keep the rows that reach their
+    """MIN or MAX over two-limb decimals, floats or strings: reduce the
+    first limb (for a decimal the high limb, signed; for a string its first
+    8 bytes, or its dictionary code), keep the rows that reach their
     group's best, reduce the next limb (the low limb, sign bit flipped, so
-    signed order is unsigned order) among those, and gather each group's
-    lowest row that is still in (row n - 1 for an empty group). No bound
-    carries over, as in the JAX package."""
+    signed order is unsigned order; the next 8 bytes) among those, and
+    gather each group's lowest row that is still in (row n - 1 for an empty
+    group), its lengths and dictionary with it. No bound carries over, as
+    in the JAX package."""
     n = valid.shape[0]
     ident = (1 << 63) - 1 if is_min else -(1 << 63)
     alive = valid
@@ -620,7 +686,52 @@ def _limb_minmax(is_min: bool, cv: ColumnVector, valid: torch.Tensor, red,
         alive = alive & (limb == per_row)
     rows = torch.arange(n, device=valid.device)
     win = red.minmax(torch.where(alive, rows, n), True).clamp(0, max(n - 1, 0))
-    return ColumnVector(cv.take(win).data, has, None, cv.dtype)
+    taken = cv.take(win)
+    return ColumnVector(taken.data, has, taken.lengths, cv.dtype, cv.dictionary)
+
+
+def _first_last(is_first: bool, cv: ColumnVector, consider: torch.Tensor, red,
+                group_mask: torch.Tensor, ignore_nulls: bool) -> ColumnVector:
+    """FIRST or LAST: each group's lowest (highest) row of ``consider`` in
+    the reduction's row order (the input order within a group on either
+    path), gathered with its lengths and dictionary; null where the group
+    has no such row, or (nulls respected) where that row's value is null.
+    No bound carries over, as in the JAX package."""
+    n = consider.shape[0]
+    rows = torch.arange(n, device=consider.device)
+    win = red.minmax(torch.where(consider, rows, n if is_first else -1), is_first)
+    taken = cv.take(win.clamp(0, max(n - 1, 0)))
+    has = (red.count(consider) > 0) & group_mask
+    return ColumnVector(taken.data, has if ignore_nulls else has & taken.validity,
+                        taken.lengths, cv.dtype, cv.dictionary)
+
+
+def _bitwise(func: str, cv: ColumnVector, valid: torch.Tensor, red,
+             group_mask: torch.Tensor) -> ColumnVector:
+    """BIT_AND, BIT_OR or BIT_XOR of an integer column per group, a bit
+    plane at a time: the rows with the bit set are counted (on the bucket
+    kernel where the path is dense), and the group's bit is set where
+    every valid row has it (AND), any has it (OR) or an odd number has it
+    (XOR). The planes of the storage width are assembled and cast back,
+    which keeps a negative result's sign."""
+    x = cv.data.long()
+    n_valid = red.count(valid)
+    out = torch.zeros_like(n_valid)
+    for b in range(8 * cv.data.element_size()):
+        c = red.count(valid & (((x >> b) & 1) == 1))
+        bit = (c == n_valid) if func == E.AggFunc.BIT_AND else (
+            (c > 0) if func == E.AggFunc.BIT_OR else (c & 1) == 1)
+        out |= bit.long() << b
+    return ColumnVector(out.to(cv.data.dtype), (n_valid > 0) & group_mask, None, cv.dtype)
+
+
+def _bool_agg(is_and: bool, cv: ColumnVector, valid: torch.Tensor, red,
+              group_mask: torch.Tensor) -> ColumnVector:
+    """BOOL_AND (MIN of a bool) or BOOL_OR (MAX): whether no valid row is
+    false, or some valid row is true; null where a group has no valid row."""
+    x = cv.data.bool()
+    data = (red.count(valid & ~x) == 0) if is_and else (red.count(valid & x) > 0)
+    return ColumnVector(data, (red.count(valid) > 0) & group_mask, None, cv.dtype)
 
 
 def _merge_agg(a: E.AggExpr, batch: Batch, red, group_mask: torch.Tensor,
@@ -633,6 +744,27 @@ def _merge_agg(a: E.AggExpr, batch: Batch, red, group_mask: torch.Tensor,
     if a.func in _MINMAX:
         return [_minmax(a.func == E.AggFunc.MIN, sts[0], sts[0].validity & live, red,
                         group_mask)]
+    if a.func in _FIRST_LAST:
+        # the first (last) valid state, nulls respected or not (JAX
+        # ``aggregate.py:937``: its merge always ignores nulls)
+        return [_first_last(a.func == E.AggFunc.FIRST, sts[0], sts[0].validity & live, red,
+                            group_mask, True)]
+    if a.func in E.BIT_FUNCS:
+        return [_bitwise(a.func, sts[0], sts[0].validity & live, red, group_mask)]
+    if a.func in E.BOOL_FUNCS:
+        return [_bool_agg(a.func == E.AggFunc.BOOL_AND, sts[0], sts[0].validity & live, red,
+                          group_mask)]
+    if a.func in E.COVAR_FUNCS:
+        n, xavg, yavg, ck, xm2, ym2 = (torch.where(live, c.data, 0.0) for c in sts)
+        ntot = red.fsum(n)
+        safe = ntot.clamp(min=1.0)
+        xat, yat = red.fsum(n * xavg) / safe, red.fsum(n * yavg) / safe
+        # co-moments of the union: each part's own plus n_i (its mean - the whole's)^2
+        ckt = red.fsum(ck + n * xavg * yavg) - ntot * xat * yat
+        xm2t = (red.fsum(xm2 + n * xavg * xavg) - ntot * xat * xat).clamp(min=0.0)
+        ym2t = (red.fsum(ym2 + n * yavg * yavg) - ntot * yat * yat).clamp(min=0.0)
+        return [ColumnVector(t, group_mask, None, T.FLOAT64)
+                for t in (ntot, xat, yat, ckt, xm2t, ym2t)]
     if a.func in E.WELFORD_FUNCS:
         n, avg, m2 = (torch.where(live, c.data, 0.0) for c in sts)
         ntot = red.fsum(n)
@@ -670,8 +802,18 @@ def _finalize(a: E.AggExpr, vals: List[ColumnVector], rows: Optional[int]) -> Co
     """State columns -> result column. ``rows``: a bound on every count (the
     input capacity when aggregating rows), or None."""
     rt = a.result_dtype()
-    if a.func in (E.AggFunc.COUNT, E.AggFunc.SUM) + _MINMAX:
+    if a.func in (E.AggFunc.COUNT, E.AggFunc.SUM, E.AggFunc.BLOOM_FILTER) + _ONE_VALUE:
         return vals[0]
+    if a.func in E.COVAR_FUNCS:
+        n, _, _, ck, xm2, ym2 = (v.data for v in vals)
+        if a.func == E.AggFunc.COVAR_POP:
+            d = ck / n.clamp(min=1.0)
+        elif a.func == E.AggFunc.COVAR_SAMP:  # of one row NaN, not null, as VAR_SAMP
+            d = torch.where(n == 1.0, float("nan"), ck / (n - 1.0).clamp(min=1.0))
+        else:  # CORR: NaN where either side has no spread
+            denom = (xm2 * ym2).sqrt()
+            d = torch.where(denom == 0.0, float("nan"), ck / denom.clamp(min=1e-300))
+        return ColumnVector(d, (n >= 1) & vals[0].validity, None, T.FLOAT64)
     if a.func in E.WELFORD_FUNCS:
         n, _, m2 = (v.data for v in vals)
         samp = a.func in (E.AggFunc.VAR_SAMP, E.AggFunc.STDDEV_SAMP)

@@ -3,7 +3,9 @@
 reach: LIKE, the date fields of ``TemporalFunc``, ``substring``, float
 literals and arithmetic, ``MathFunc``, ``negate`` and ``abs``, and the NOT,
 null and NaN tests among them, with ``if_`` and ``coalesce`` built on
-``CaseWhen``; the window specs ``WindowFrame`` and ``WindowExpr``).
+``CaseWhen``; a session's scalar subqueries (``ScalarSubquery``) and the
+bloom-filter probe (``BloomMightContain``); the window specs
+``WindowFrame`` and ``WindowExpr``).
 
 Expressions are built unbound (column names); ``bind(expr, schema)`` resolves
 references to column indices and computes result types, including Spark's
@@ -21,8 +23,8 @@ from datafusion_comet_tpu_torch import types as T
 __all__ = [
     "Expr", "EvalMode", "ColumnRef", "BoundRef", "Literal", "Alias", "BinaryOp", "UnaryOp",
     "Cast", "CaseWhen", "InList", "Like", "StringFunc", "TemporalFunc", "MathFunc", "DATE_FIELDS",
-    "SortOrder", "AggFunc", "AggExpr", "WindowFrame", "WindowExpr", "col", "lit", "if_",
-    "coalesce", "bind",
+    "BloomMightContain", "ScalarSubquery", "SortOrder", "AggFunc", "AggExpr", "WindowFrame",
+    "WindowExpr", "col", "lit", "if_", "coalesce", "bind",
 ]
 
 # the TemporalFunc functions the port evaluates: fields of a DATE, each INT32
@@ -291,6 +293,35 @@ class MathFunc(Expr):
         return self.args
 
 
+@_node
+class BloomMightContain(Expr):
+    """Whether ``child`` may be in a Spark bloom filter (Spark's
+    BloomFilterMightContain): ``filter`` is a literal of the serialized
+    filter's bytes or a ``ScalarSubquery`` of a BLOOM_FILTER aggregate,
+    known on the host before the plan runs; the probe is k gathers a row
+    (exec/operators/agg_special.py). A null filter gives null."""
+
+    filter: Expr
+    child: Expr
+
+    def children(self):
+        return (self.filter, self.child)
+
+
+@_node
+class ScalarSubquery(Expr):
+    """The one value of a session's uncorrelated scalar subquery
+    (``Session.scalar_subquery``), which the session runs before the plan
+    that holds it: null where the subquery gave no row or a null. A leaf,
+    like a literal, of the subquery column's type."""
+
+    subquery_id: int
+    sub_dtype: T.DataType
+
+    def __post_init__(self):
+        object.__setattr__(self, "dtype", self.sub_dtype)
+
+
 @dataclasses.dataclass(frozen=True)
 class SortOrder:
     child: Expr
@@ -311,21 +342,44 @@ class AggFunc:
     VAR_POP = "var_pop"
     STDDEV_SAMP = "stddev_samp"
     STDDEV_POP = "stddev_pop"
+    FIRST = "first"
+    LAST = "last"
+    COVAR_SAMP = "covar_samp"
+    COVAR_POP = "covar_pop"
+    CORR = "corr"
+    BIT_AND = "bit_and"
+    BIT_OR = "bit_or"
+    BIT_XOR = "bit_xor"
+    BOOL_AND = "bool_and"
+    BOOL_OR = "bool_or"
+    BLOOM_FILTER = "bloom_filter"  # Spark's BloomFilterAggregate
     # a plan-level rewrite (ir/plan.py::_rewrite_distinct), never evaluated
     COUNT_DISTINCT = "count_distinct"
 
 
 # the variance family: (n, avg, m2) states, a DOUBLE result
 WELFORD_FUNCS = (AggFunc.VAR_SAMP, AggFunc.VAR_POP, AggFunc.STDDEV_SAMP, AggFunc.STDDEV_POP)
+# the covariance family: (n, xavg, yavg, ck, xm2, ym2) states, a DOUBLE result
+COVAR_FUNCS = (AggFunc.COVAR_SAMP, AggFunc.COVAR_POP, AggFunc.CORR)
+BIT_FUNCS = (AggFunc.BIT_AND, AggFunc.BIT_OR, AggFunc.BIT_XOR)
+BOOL_FUNCS = (AggFunc.BOOL_AND, AggFunc.BOOL_OR)
 
 
 @dataclasses.dataclass(frozen=True)
 class AggExpr:
-    """One aggregate: function + input (None for COUNT(*))."""
+    """One aggregate: function + input (None for COUNT(*)). ``ignore_nulls``:
+    FIRST and LAST skip null inputs; ``extra``: the second input of the
+    covariance family, or a BLOOM_FILTER's expected item count (a literal,
+    1,000,000 when absent), which gives its number of hash functions;
+    ``num_bits``: a BLOOM_FILTER's size in bits (Spark's numBits, a
+    multiple of 64)."""
 
     func: str
     child: Optional[Expr]
     out_name: str
+    ignore_nulls: bool = True
+    extra: Tuple[Expr, ...] = ()
+    num_bits: int = 4096
 
     def result_dtype(self) -> T.DataType:
         cd = self.child.dtype if self.child is not None else None
@@ -341,9 +395,14 @@ class AggExpr:
                 return T.decimal(min(cd.precision + 4, T.MAX_DECIMAL_PRECISION),
                                  min(cd.scale + 4, T.MAX_DECIMAL_PRECISION))
             return T.FLOAT64
-        if self.func in (AggFunc.MIN, AggFunc.MAX):
+        if self.func in (AggFunc.MIN, AggFunc.MAX, AggFunc.FIRST, AggFunc.LAST) + BIT_FUNCS:
             return cd
-        if self.func in WELFORD_FUNCS:
+        if self.func in BOOL_FUNCS:
+            return T.BOOL
+        if self.func == AggFunc.BLOOM_FILTER:
+            # Spark's BloomFilterImpl.writeTo: three big-endian ints, then the longs
+            return T.binary(12 + (self.num_bits // 64) * 8)
+        if self.func in WELFORD_FUNCS + COVAR_FUNCS:
             return T.FLOAT64
         raise NotImplementedError(f"aggregate {self.func}")
 
@@ -463,7 +522,7 @@ def bind(expr: Expr, schema: T.Schema) -> Expr:
     """Resolve column refs against ``schema`` and compute result dtypes.
     Returns a new tree of bound nodes; the original is untouched."""
     e = expr
-    if isinstance(e, (BoundRef, Literal)):
+    if isinstance(e, (BoundRef, Literal, ScalarSubquery)):
         return e
     if isinstance(e, ColumnRef):
         i = schema.index_of(e.col_name)
@@ -526,6 +585,10 @@ def bind(expr: Expr, schema: T.Schema) -> Expr:
         args = tuple(bind(a, schema) for a in e.args)
         out = MathFunc(e.func, args, e.eval_mode)
         object.__setattr__(out, "dtype", _math_result_type(e.func, args))
+        return out
+    if isinstance(e, BloomMightContain):
+        out = BloomMightContain(bind(e.filter, schema), bind(e.child, schema))
+        object.__setattr__(out, "dtype", T.BOOL)
         return out
     raise NotImplementedError(f"bind: {type(e).__name__}")
 

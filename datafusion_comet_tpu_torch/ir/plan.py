@@ -306,7 +306,8 @@ def bind_plan(plan: PlanNode) -> PlanNode:
         else:
             aggs = tuple(
                 dataclasses.replace(
-                    a, child=E.bind(a.child, child.schema) if a.child is not None else None)
+                    a, child=E.bind(a.child, child.schema) if a.child is not None else None,
+                    extra=tuple(E.bind(x, child.schema) for x in a.extra))
                 for a in plan.agg_exprs)
         out = HashAggregate(child, groups, aggs, plan.mode, plan.max_groups,
                             plan.group_key_ranges)

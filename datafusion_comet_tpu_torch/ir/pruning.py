@@ -57,7 +57,8 @@ def prune_columns(plan: P.PlanNode, required: Optional[Set[str]] = ALL) -> P.Pla
         for g in plan.group_exprs:
             _expr_refs(g, need)
         for a in plan.agg_exprs:
-            _expr_refs(a.child, need)
+            for x in (a.child,) + a.extra:  # a covariance's second input too
+                _expr_refs(x, need)
         return P.HashAggregate(prune_columns(plan.child, need), plan.group_exprs,
                                plan.agg_exprs, plan.mode, plan.max_groups,
                                plan.group_key_ranges)
@@ -126,7 +127,8 @@ def _subtree_columns(plan: P.PlanNode) -> Set[str]:
         # partial modes emit state columns prefixed by the output name
         return ({g.name for g in plan.group_exprs} | {a.out_name for a in plan.agg_exprs}
                 | {f"{a.out_name}__{s}" for a in plan.agg_exprs
-                   for s in ("sum", "count", "val", "n", "avg", "m2")})
+                   for s in ("sum", "count", "val", "n", "avg", "m2", "xavg", "yavg", "ck",
+                             "xm2", "ym2")})
     if isinstance(plan, P.Window):  # JAX ``pruning.py:196``
         return _subtree_columns(plan.child) | {w.out_name for w in plan.window_exprs}
     out: Set[str] = set()

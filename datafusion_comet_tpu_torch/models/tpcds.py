@@ -1,6 +1,6 @@
 """TPC-DS (port of ``datafusion_comet_tpu/models/tpcds.py``): the 24
-tables' schemas and skewed-key generator, bit for bit, and 98 of the 99
-queries: every one but q88.
+tables' schemas and skewed-key generator, bit for bit, and all 99 queries,
+with q90's scalar-subquery form (``q90_scalar``) beside them.
 
 The generator draws fact-table join keys from a Zipf-like distribution
 (``_zipf_keys``, a = 1.3), so the joins fan out unevenly and a grace
@@ -19,8 +19,11 @@ ratios (q12, q20, q98), ranks within a ROLLUP's parent (q36, q70, q86),
 top-100 ranks (q67, q44, q49), deviation from a partition's average (q53,
 q63, q89), lag and lead around monthly outliers (q47, q57) and running sums
 and maxima through a FULL join (q51); q17 takes ``MathFunc`` sqrt and q39
-``stddev_samp``. ``QUERIES`` lists them. q88 needs a scalar subquery run by
-the session and is not ported yet.
+``stddev_samp``; q88's eight counts are scalar subqueries. ``QUERIES``
+lists them. A query of ``NEEDS_SESSION`` registers its scalar subqueries in
+the session that will run it: build every plan with ``plan(q, session)``,
+and take the tables a query reads, its subqueries' included, from
+``tables(q)``.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ from datafusion_comet_tpu_torch import types as T
 from datafusion_comet_tpu_torch.ir import expr as E
 from datafusion_comet_tpu_torch.ir import plan as P
 
-__all__ = ["SCHEMAS", "generate_table", "generate_tables", "QUERIES"]
+__all__ = ["SCHEMAS", "generate_table", "generate_tables", "QUERIES", "NEEDS_SESSION", "plan",
+           "tables", "q90_scalar"]
 
 _dec = T.decimal
 
@@ -3044,6 +3048,44 @@ def q90() -> P.PlanNode:
     ])
 
 
+def q90_scalar(session) -> P.PlanNode:
+    """AM/PM web sales ratio through two scalar subqueries (JAX
+    ``tpcds.py:1143``): the scalar-subquery form of q90, which joins its two
+    counts instead."""
+    def band(lo, hi):
+        td = _scan("time_dim").filter(E.col("t_hour").between(lo, hi))
+        j = _j(_scan("web_sales"), td, ["ws_sold_time_sk"], ["t_time_sk"])
+        agg = j.aggregate([], [E.AggExpr("count", None, "cnt")])
+        agg.max_groups = 8
+        return agg
+
+    am = session.scalar_subquery(band(8, 9))
+    pm = session.scalar_subquery(band(19, 20))
+    one = _scan("time_dim").limit(1)
+    return one.project([(am.cast(T.FLOAT64) / pm.cast(T.FLOAT64)).alias("am_pm_ratio")])
+
+
+def q88(session) -> P.PlanNode:
+    """Eight half-hour-band store-sales counts as scalar subqueries, one row
+    (JAX ``tpcds.py:1330``, q88's cross join of counts)."""
+    def band(h, mlo, mhi):
+        td = _scan("time_dim").filter(
+            (E.col("t_hour") == E.lit(h)) & (E.col("t_minute").between(mlo, mhi)))
+        hd = _scan("household_demographics").filter(E.col("hd_dep_count") == E.lit(5))
+        st = _scan("store").filter(E.col("s_store_name") == E.lit("store_0"))
+        j = _j(_scan("store_sales"), hd, ["ss_hdemo_sk"], ["hd_demo_sk"])
+        j = _j(j, td, ["ss_sold_time_sk"], ["t_time_sk"])
+        j = _j(j, st, ["ss_store_sk"], ["s_store_sk"])
+        agg = j.aggregate([], [E.AggExpr("count", None, "cnt")])
+        agg.max_groups = 8
+        return agg
+
+    subs = [session.scalar_subquery(band(h, 30 * half, 30 * half + 29))
+            for h in (8, 9, 10, 11) for half in (0, 1)]
+    one = _scan("time_dim").limit(1)
+    return one.project([s_.alias(f"h{i}") for i, s_ in enumerate(subs)])
+
+
 def q46(max_groups: int = 1 << 14) -> P.PlanNode:
     """Weekend ticket totals for dep-4/vehicle-3 households where the
     customer's current city differs from the city bought in."""
@@ -4107,8 +4149,8 @@ def q49(max_groups: int = 1 << 12) -> P.PlanNode:
         fetch=100)
 
 
-# the 98 ported queries: by number, then those that need a window, MathFunc or
-# stddev_samp
+# the 99 queries: by number, then those that need a window, MathFunc or
+# stddev_samp, then q88
 QUERIES = {
     "q1": q1, "q2": q2, "q3": q3, "q4": q4, "q5": q5, "q6": q6, "q7": q7, "q8": q8, "q9": q9,
     "q10": q10, "q11": q11, "q13": q13, "q14": q14, "q15": q15, "q16": q16, "q18": q18,
@@ -4127,4 +4169,28 @@ QUERIES = {
     "q12": q12, "q17": q17, "q20": q20, "q36": q36, "q39": q39, "q44": q44, "q47": q47,
     "q49": q49, "q51": q51, "q53": q53, "q57": q57, "q63": q63, "q67": q67, "q70": q70,
     "q86": q86, "q89": q89, "q98": q98,
+    # scalar subqueries, last again
+    "q88": q88,
 }
+
+# the queries whose plan function takes the session that will run the plan:
+# their scalar subqueries are registered there
+NEEDS_SESSION = frozenset({"q88"})
+
+
+def plan(q: str, session=None) -> P.PlanNode:
+    """The plan of query ``q``, built for ``session`` where the query
+    registers scalar subqueries (``NEEDS_SESSION``)."""
+    return QUERIES[q](session) if q in NEEDS_SESSION else QUERIES[q]()
+
+
+def tables(q: str):
+    """The tables query ``q`` reads, its scalar subqueries' included, each
+    once, in plan order."""
+    from datafusion_comet_tpu_torch.exec.engine import Session, subquery_ids
+
+    s = Session(device="cpu")  # holds the subqueries the plan registers
+    root = plan(q, s)
+    plans = [root] + [s.subquery_plan(i) for i in sorted(subquery_ids(root))]
+    return list(dict.fromkeys(t for p in plans for t in P.scan_tables(p)))
+

@@ -37,6 +37,7 @@ the host and device ms of the sorted aggregate's ``aggregate.sort`` span
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import statistics
 import subprocess
@@ -58,7 +59,9 @@ SPANS = ("grace.", "aggregate.", "tiled.")  # the port's record_function spans
 
 def grace_session(sess, fraction: float):
     """A session over ``sess``'s device tables and statistics whose memory
-    budget is ``fraction`` of the card."""
+    budget is ``fraction`` of the card. A plan that holds scalar subqueries
+    is built for the session that runs it (``tpcds.plan(q, session)``): its
+    subqueries then run under that session's budget."""
     from datafusion_comet_tpu_torch.conf import Config
     from datafusion_comet_tpu_torch.exec.engine import Session
 
@@ -86,7 +89,9 @@ def grace_fraction(sess, plan, K: int = GRACE_K):
     groups overflow). Then grace runs read the K taken and scale the
     fraction by K taken / K wanted (K doubles as the budget halves), or
     halve it where no join was partitioned, until a run takes K;
-    RuntimeError after four runs."""
+    RuntimeError after four runs. The first stage is the plan's, or, where
+    its stages join nothing (q88's one-row projection), its first scalar
+    subquery's."""
     from datafusion_comet_tpu_torch.exec import engine
     from datafusion_comet_tpu_torch.exec.memory import device_budget_bytes, plan_peak_bytes
     from datafusion_comet_tpu_torch.ir import plan as P
@@ -103,7 +108,11 @@ def grace_fraction(sess, plan, K: int = GRACE_K):
             node = node.child
         return node
 
-    node = next(j for j in (top_join(sub) for _, sub in sess._plan_stages(plan)) if j)
+    stages = sess._plan_stages(plan)
+    # a checkout from before the scalar subqueries has no subquery_ids
+    for sid in sorted(getattr(engine, "subquery_ids", lambda p: ())(plan)):
+        stages += sess._plan_stages(copy.deepcopy(sess.subquery_plan(sid)))
+    node = next(j for j in (top_join(sub) for _, sub in stages) if j)
     read = P.scan_tables(node)
     cap = max(sess.tables[t].capacity for t in read)
     jpeak = plan_peak_bytes(node, cap)
@@ -132,11 +141,16 @@ def grace_fraction(sess, plan, K: int = GRACE_K):
 WRAPPERS = ("bucket_count", "bucket_sum", "partition_columns", "partition_sort")
 
 
-def hash_joins(plan) -> int:
-    """The HashJoin nodes of a plan."""
+def hash_joins(plan, sess=None) -> int:
+    """The HashJoin nodes of a plan, and with ``sess`` those of the scalar
+    subqueries it holds there."""
+    from datafusion_comet_tpu_torch.exec import engine
     from datafusion_comet_tpu_torch.ir import plan as P
 
-    return int(isinstance(plan, P.HashJoin)) + sum(map(hash_joins, plan.children()))
+    subs = ([sess.subquery_plan(i) for i in getattr(engine, "subquery_ids", lambda p: ())(plan)]
+            if sess is not None else [])
+    return (int(isinstance(plan, P.HashJoin)) + sum(map(hash_joins, plan.children()))
+            + sum(map(hash_joins, subs)))
 
 
 def launches_and_retries(sess, plan):
@@ -277,10 +291,15 @@ def main(argv=None) -> int:
         for t in tpcds.SCHEMAS:
             sess.register_numpy(t, tpcds.generate_table(t, args.sf), tpcds.SCHEMAS[t])
         runs = []
-        for q, build in tpcds.QUERIES.items():
-            runs.append((f"{q}_direct", sess, build()))
-            if hash_joins(build()):  # a plan of nested-loop joins alone has none to split
-                runs.append((f"{q}_grace", grace(build()), build()))
+        # a checkout from before the scalar subqueries has no tpcds.plan
+        build = getattr(tpcds, "plan", lambda q, s: tpcds.QUERIES[q]())
+        for q in tpcds.QUERIES:
+            runs.append((f"{q}_direct", sess, build(q, sess)))
+            # a plan of nested-loop joins alone has no join to split; q88's
+            # joins are its subqueries', and its plan is built for each session
+            if hash_joins(build(q, sess), sess):
+                g = grace(build(q, sess))
+                runs.append((f"{q}_grace", g, build(q, g)))
         return _report(runs, args)
     has_q3, has_q4, has_q5 = hasattr(tpch, "q3"), hasattr(tpch, "q4"), hasattr(tpch, "q5")
     has_q18, has_q9, has_q13 = hasattr(tpch, "q18"), hasattr(tpch, "q9"), hasattr(tpch, "q13")
@@ -319,13 +338,16 @@ def _report(runs, args) -> int:
         line = {"query": name, "warm_ms": ms, "warm_ms_all": times, "peak_mem_bytes": peak,
                 "launches": launches, "retries": retries, "runtime_filters": runtime_filters(s),
                 "plan_ms": plan_ms}
-        if name.endswith("_grace") and s.grace_runners:
+        # a run's grace joins, its scalar subqueries' first
+        runners = [r for sq in getattr(s, "subqueries", []) for r in sq["grace_runners"]]
+        runners += s.grace_runners
+        if name.endswith("_grace") and runners:
             # the first runner to finish, and every runner's K and mode
-            r = s.grace_runners[0]
+            r = runners[0]
             line.update(K=r.K, mode=r.downstream and r.downstream[0],
                         sizes=[x.tolist() for x in r.sizes],
                         grace=[{"K": g.K, "mode": g.downstream and g.downstream[0]}
-                               for g in s.grace_runners], tiled=getattr(s, "tiled", []),
+                               for g in runners], tiled=getattr(s, "tiled", []),
                         tiled_attempts=[[r["scale"], r["overflowed"]] for r in
                                         getattr(s, "runs", []) if r["where"] == "tiled"])
         print(json.dumps(line), flush=True)

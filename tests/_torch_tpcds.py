@@ -6,8 +6,12 @@ generated tables, query by query.
 which its answer has rows (q34 is empty at every scale, ROADMAP C18: it
 runs at SF 0.02 and its answer is held empty). Tables come from the port's
 generator, which the generator test holds bit-equal to the JAX one's, and
-are made once per (table, scale) in a process."""
+are made once per (table, scale) in a process. A query of
+``tpcds.NEEDS_SESSION`` (q88) builds its plan for the session that runs it
+(``plans``), and its scalar subqueries' runs count among its attempts in
+the JAX package's order (``attempts``)."""
 
+import copy
 import warnings
 
 import numpy as np
@@ -39,7 +43,7 @@ def tables(q, sf=None):
     """The generated tables ``q`` reads, at its scale or at ``sf``."""
     sf = sf or SCALES[q]
     out = {}
-    for t in PP.scan_tables(tpcds.QUERIES[q]()):
+    for t in tpcds.tables(q):
         if (t, sf) not in _TABLES:
             _TABLES[(t, sf)] = tpcds.generate_table(t, sf)
         out[t] = _TABLES[(t, sf)]
@@ -59,13 +63,43 @@ def sessions(data, staging="default", fraction=None):
     return js, ps
 
 
+def plans(q, js, ps):
+    """(port plan, JAX plan) functions of ``q``, each built for its
+    package's session where the query registers scalar subqueries."""
+    jax_q = getattr(JTPCDS, q)
+    if q in tpcds.NEEDS_SESSION:
+        return (lambda: tpcds.plan(q, ps)), (lambda: jax_q(js))
+    return tpcds.QUERIES[q], jax_q
+
+
+def attempts(ps):
+    """(growth scale, unique_join_ok) of the port's last run, in the order
+    the JAX package compiles them: it runs the scalar subqueries inside the
+    compile of the plan's first attempt."""
+    runs = [(r["scale"], r["unique_join_ok"]) for r in ps.runs]
+    subs = [(r["scale"], r["unique_join_ok"]) for s in ps.subqueries for r in s["runs"]]
+    return runs[:1] + subs + runs[1:]
+
+
+def subquery_hints(js, ps):
+    """Each registered subquery's stage hints in both packages (the port's
+    on a fresh copy of its plan, as its runs take)."""
+    assert len(js._subqueries) == len(ps._subquery_plans)
+    return ([rf_hints(ps._plan_stages(copy.deepcopy(ps.subquery_plan(i))), PP)
+             for i in range(len(ps._subquery_plans))],
+            [rf_hints(js._plan_stages(js._subqueries[i][0]), JP)
+             for i in range(len(js._subqueries))])
+
+
 def check_direct(q, jax_attempts, staging="default", sf=None):
     """``q`` run directly in both packages: hints stage by stage with the
-    runtime filters' fields, values, order, storage, bounds and attempts.
-    Returns the port's answer."""
+    runtime filters' fields (its subqueries' too), values, order, storage,
+    bounds and attempts. Returns the port's answer."""
     js, ps = sessions(tables(q, sf), staging)
-    port_plan, jax_plan = tpcds.QUERIES[q], getattr(JTPCDS, q)
+    port_plan, jax_plan = plans(q, js, ps)
     assert rf_hints(ps._plan_stages(port_plan()), PP) == rf_hints(js._plan_stages(jax_plan()), JP)
+    got_hints, want_hints = subquery_hints(js, ps)
+    assert got_hints == want_hints
     jax_attempts.clear()
     jb, pb = js.execute(jax_plan()), ps.execute(port_plan())
     want, got = JB.to_numpy(jb), PB.to_numpy(pb)
@@ -74,7 +108,7 @@ def check_direct(q, jax_attempts, staging="default", sf=None):
         assert np.asarray(jc.data).ndim == pc.data.dim(), f.name
         assert jc.mag_bound == pc.mag_bound, f.name
         assert (jc.lengths is None) == (pc.lengths is None), f.name
-    assert [(r["scale"], r["unique_join_ok"]) for r in ps.runs] == jax_attempts
+    assert attempts(ps) == jax_attempts
     rows = len(next(iter(got.values())))
     assert (rows == 0) == (q in EMPTY), (q, rows)
     if q in chip_smoke.TPCDS_ORACLES:  # the port, and so JAX, equal chip_smoke's oracle
@@ -83,9 +117,10 @@ def check_direct(q, jax_attempts, staging="default", sf=None):
 
 
 def share(i: int, n: int = 5):
-    """The ``i``-th of ``n`` shares of the ported queries, for a test file
-    each (the tests run a file to a worker)."""
-    return list(tpcds.QUERIES)[i::n]
+    """The ``i``-th of ``n`` shares of the queries but q88, which has a test
+    file of its own, for a test file each (the tests run a file to a
+    worker)."""
+    return [q for q in tpcds.QUERIES if q not in tpcds.NEEDS_SESSION][i::n]
 
 
 def check_grace(q, jax_spy, staging="default"):
@@ -95,11 +130,12 @@ def check_grace(q, jax_spy, staging="default"):
     (as multisets of rows where ``chip_smoke.TPCDS_TIED_ORDER`` names the
     query: its sort keys tie)."""
     data = tables(q)
-    port_plan, jax_plan = tpcds.QUERIES[q], getattr(JTPCDS, q)
     _, direct_s = sessions(data, staging)
-    direct = direct_s.collect(port_plan())
-    fraction, _ = chip_smoke.grace_fraction(direct_s, port_plan(), chip_smoke.GRACE_K)
+    direct_plan = plans(q, None, direct_s)[0]
+    direct = direct_s.collect(direct_plan())
+    fraction, _ = chip_smoke.grace_fraction(direct_s, direct_plan(), chip_smoke.GRACE_K)
     js, grace = sessions(data, staging, fraction)
+    port_plan, jax_plan = plans(q, js, grace)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         got = grace.collect(port_plan())
@@ -107,10 +143,11 @@ def check_grace(q, jax_spy, staging="default"):
         want = js.collect(jax_plan())
     same(want, got)
     assert chip_smoke.same_rows(direct, got, ordered=q not in chip_smoke.TPCDS_TIED_ORDER), q
-    ports = sorted(grace.grace_runners, key=lambda r: int(r.tmp[len("__grace"):]))
+    runners = [r for s in grace.subqueries for r in s["grace_runners"]] + grace.grace_runners
+    ports = sorted(runners, key=lambda r: int(r.tmp[len("__grace"):]))
     assert [(r.K, r.downstream and r.downstream[0]) for r in ports] == list(jax_spy)
     assert chip_smoke.GRACE_K in [r.K for r in ports] and len(ports) == len(jax_spy.sizes)
-    for r, sizes in zip(grace.grace_runners, jax_spy.sizes):
+    for r, sizes in zip(runners, jax_spy.sizes):
         for got_sizes, want_sizes in zip(r.sizes, sizes):
             np.testing.assert_array_equal(got_sizes, want_sizes)
     assert jax_spy.pair_retries() == [r.retries for r in ports]

@@ -10,9 +10,14 @@ CASE WHEN, murmur3, LIKE) and the fields of a date, and the float
 operations (order limbs, expressions, SUM/AVG/MIN/MAX) and the
 nested-loop join, the outer hash joins on every path, Q13, Q16, Q20
 and Q20's variant, the semi-like joins with a condition on each path,
-``substring``, Q21 and Q22 directly and through the grace join, the 98
-ported TPC-DS queries, Union, Expand, NOT and the null tests, and every
-window function and frame on the card against the CPU. Marked ``cuda``;
+``substring``, Q21 and Q22 directly and through the grace join, the 99
+TPC-DS queries, Union, Expand, NOT and the null tests, every window
+function and frame, the other scalar aggregates (FIRST, LAST, the bit,
+bool and covariance families, MIN and MAX of strings and bools) on the
+dense and sorted paths and under the grace join's partial mode, the bloom
+filter and its probe through a scalar subquery, and q88 and q90_scalar
+directly and under the grace join, on the card against the CPU. Marked
+``cuda``;
 without a card every test here skips. This file imports no JAX, so it runs
 on a machine without it (tests/conftest.py imports JAX, hence --noconftest):
 
@@ -321,16 +326,19 @@ def test_query_times_script_on_card(dev, capsys):
     assert all(profiles[q]["partition_calls"] > 0 for q in runs
                if q.endswith("_grace") or q in ("q12_direct", "q10_direct", "q18_direct"))
     assert all(profiles[q]["aggregate_sort_calls"] > 0 for q in ("q3_direct", "q3_grace"))
-    # the TPC-DS suite: every ported query directly and (but q9 and q28, of
-    # nested-loop joins alone) under its grace budget
+    # the TPC-DS suite: every query directly and (but q9 and q28, of
+    # nested-loop joins alone) under its grace budget; q88's are its
+    # subqueries' joins
     from datafusion_comet_tpu_torch.models import tpcds
 
     assert QT.main(["--suite", "tpcds", "--sf", "0.02", "--reps", "1"]) == 0
     head, *rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
     assert head["suite"] == "tpcds"
+    s = Session(device="cpu")  # holds the subqueries the plans register
     assert [r["query"] for r in rows] == [
-        f"{q}_{run}" for q, build in tpcds.QUERIES.items()
-        for run in (("direct", "grace") if QT.hash_joins(build()) else ("direct",))]
+        f"{q}_{run}" for q in tpcds.QUERIES
+        for run in (("direct", "grace") if QT.hash_joins(tpcds.plan(q, s), s)
+                    else ("direct",))]
     assert all(r["warm_ms"] > 0 for r in rows)
     # chip_smoke's grace queries partition a join at K = 16 here too
     assert set(chip_smoke.TPCDS_GRACE) <= {r["query"][:-len("_grace")] for r in rows
@@ -1115,13 +1123,12 @@ def test_tpcds_on_card_equals_cpu(tpcds_sessions, q):
     from datafusion_comet_tpu_torch.models import tpcds
 
     cpu, gpu = tpcds_sessions
-    want, got = cpu.collect(tpcds.QUERIES[q]()), gpu.collect(tpcds.QUERIES[q]())
+    want, got = cpu.collect(tpcds.plan(q, cpu)), gpu.collect(tpcds.plan(q, gpu))
     cols = [c for c in want if not c.endswith("__valid")]
     assert chip_smoke.same_rows(want, got, ordered=q not in chip_smoke.TPCDS_TIED_ORDER), (
         chip_smoke.out_rows(want, cols)[:3], chip_smoke.out_rows(got, cols)[:3])
     if q in chip_smoke.TPCDS_ORACLES:
-        data = {t: tpcds.generate_table(t, TPCDS_CARD_SF)
-                for t in PP.scan_tables(tpcds.QUERIES[q]())}
+        data = {t: tpcds.generate_table(t, TPCDS_CARD_SF) for t in tpcds.tables(q)}
         chip_smoke.check_tpcds(q, got, chip_smoke.TPCDS_ORACLES[q][0](data), f"{q} card")
 
 
@@ -1265,3 +1272,148 @@ def test_window_functions_on_card_equal_cpu(dev, case):
                                        err_msg=k)
         else:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+# ---- the other scalar aggregates, the bloom filter, scalar subqueries -----------------
+
+
+def _scalar_agg_table(n: int = 50_000):
+    """Keys k (dictionary, 5 words) and a (int64, 3,000 values); values i
+    int32, l int64, b bool, s string, f and y DOUBLE, each with nulls."""
+    rng = np.random.default_rng(15)
+    schema = PT.Schema([PT.Field("k", PT.string(2)), PT.Field("a", PT.INT64),
+                        PT.Field("i", PT.INT32), PT.Field("l", PT.INT64), PT.Field("b", PT.BOOL),
+                        PT.Field("s", PT.string(8)), PT.Field("f", PT.FLOAT64),
+                        PT.Field("y", PT.FLOAT64)])
+    f = rng.normal(0.0, 10.0, n)
+    data = {"k": np.array(["x", "yy", "zz", "q", "rr"], object)[rng.integers(0, 5, n)],
+            "a": rng.integers(0, 3000, n).astype(np.int64),
+            "i": rng.integers(-1000, 1000, n).astype(np.int32),
+            "l": rng.integers(-2**62, 2**62, n).astype(np.int64), "b": rng.random(n) > 0.3,
+            "s": np.array([f"w{v}" for v in range(500)], object)[rng.integers(0, 500, n)],
+            "f": f, "y": 0.5 * f + rng.normal(0.0, 3.0, n)}
+    valid = {c: rng.random(n) > 0.1 for c in ("i", "l", "b", "s", "f", "y")}
+    return schema, data, valid
+
+
+def _scalar_aggs():
+    from datafusion_comet_tpu_torch.ir import expr as PE
+
+    out = [PE.AggExpr(f, PE.col(c), f"{f}_{c}") for f in ("first", "last") for c in ("i", "s")]
+    out += [PE.AggExpr("first", PE.col("l"), "first_l_nulls", ignore_nulls=False)]
+    out += [PE.AggExpr(f, PE.col("l"), f"{f}_l") for f in ("bit_and", "bit_or", "bit_xor")]
+    out += [PE.AggExpr(f, PE.col("b"), f"{f}_b") for f in ("bool_and", "bool_or", "min", "max")]
+    out += [PE.AggExpr(f, PE.col("s"), f"{f}_s") for f in ("min", "max")]
+    out += [PE.AggExpr(f, PE.col("f"), f"{f}_fy", extra=(PE.col("y"),))
+            for f in ("covar_samp", "covar_pop", "corr")]
+    return out
+
+
+@pytest.mark.parametrize("staging", ["default", "padded"])
+@pytest.mark.parametrize("key", ["k", "a", None])
+def test_scalar_aggregates_on_card_equal_cpu(dev, key, staging):
+    """The new aggregate functions on the dense path (k), the sorted path
+    (a) and ungrouped, strings dictionary-coded or padded: the card equals
+    the CPU (the covariance family within ``FLOAT_SUM_RTOL``: a float sum
+    adds in another order on the card)."""
+    from datafusion_comet_tpu_torch.ir import expr as PE
+
+    schema, data, valid = _scalar_agg_table()
+    dms = 1 << 16 if staging == "default" else 0
+    sessions = [Session(device=d, conf=Config(scan_dictionary_max_size=dms))
+                for d in ("cpu", None)]
+    for s in sessions:
+        s.register_numpy("t", data, schema, validity=valid)
+    plan = PP.Scan("t", schema).aggregate([PE.col(key)] if key else [], _scalar_aggs())
+    if key:
+        plan = plan.sort([PE.SortOrder(PE.col(key))])
+    want, got = (s.collect(plan) for s in sessions)
+    _bit_same(got, want, rtol=chip_smoke.FLOAT_SUM_RTOL)
+
+
+def test_scalar_aggregates_under_grace_on_card_equal_cpu(dev):
+    """The order-free new aggregates over a grace join of K = 16 in partial
+    mode (each pair's PARTIAL states, one FINAL) on the card: the CPU's
+    direct answer."""
+    from datafusion_comet_tpu_torch.ir import expr as PE
+
+    schema, data, valid = _scalar_agg_table()
+    dim_schema = PT.Schema([PT.Field("pk", PT.INT64), PT.Field("g", PT.string(6))])
+    dim = {"pk": np.arange(3000, dtype=np.int64),
+           "g": np.array(["east", "north", "south", "west"], object)[np.arange(3000) % 4]}
+
+    def session(device, fraction=None):
+        s = Session(device=device, conf=Config(memory_fraction=fraction) if fraction else None)
+        s.register_numpy("t", data, schema, validity=valid)
+        s.register_numpy("dim", dim, dim_schema)
+        return s
+
+    aggs = [a for a in _scalar_aggs() if a.func not in ("first", "last")]
+    plan = PP.HashJoin(PP.Scan("t", schema), PP.Scan("dim", dim_schema), (PE.col("a"),),
+                       (PE.col("pk"),)).aggregate([PE.col("g")], aggs).sort(
+        [PE.SortOrder(PE.col("g"))])
+    cpu = session("cpu")
+    want = cpu.collect(plan)
+    fraction, _ = chip_smoke.grace_fraction(cpu, plan, 16)
+    gpu = session(None, fraction * 4 * 2**30 / torch.cuda.get_device_properties(dev).total_memory)
+    got = gpu.collect(plan)
+    assert [(r.K, r.downstream[0]) for r in gpu.grace_runners] == [(16, "partial")]
+    _bit_same(got, want, rtol=chip_smoke.FLOAT_SUM_RTOL)
+
+
+def test_bloom_filter_and_probe_on_card_equal_cpu_and_oracle(dev):
+    """A BLOOM_FILTER of Spark's default size (8,388,608 bits, 1,000,000
+    expected items: k = 6) over 5% of 200,000 keys, through a scalar
+    subquery, probed over 2,000,000 rows: the filter's bytes equal the CPU's
+    and chip_smoke's numpy oracle, no key is a false negative, and the rows
+    kept are the oracle's."""
+    from datafusion_comet_tpu_torch.ir import expr as PE
+
+    rng = np.random.default_rng(16)
+    keys = np.arange(1, 200_001, dtype=np.int64)
+    pick = rng.random(len(keys)) < 0.05
+    probe = rng.integers(1, 200_001, 2_000_000).astype(np.int64)
+    bsch = PT.Schema([PT.Field("k", PT.INT64), PT.Field("pick", PT.BOOL)])
+    psch = PT.Schema([PT.Field("x", PT.INT64)])
+    outs = []
+    for device in ("cpu", None):
+        s = Session(device=device)
+        s.register_numpy("build", {"k": keys, "pick": pick}, bsch)
+        s.register_numpy("probe", {"x": probe}, psch)
+        sub = s.scalar_subquery(PP.Scan("build", bsch).filter(PE.col("pick")).aggregate(
+            [], [PE.AggExpr("bloom_filter", PE.col("k"), "f", num_bits=chip_smoke.BLOOM_BITS,
+                            extra=(PE.lit(chip_smoke.BLOOM_ITEMS),))]))
+        kept = s.collect(PP.Scan("probe", psch).filter(PE.BloomMightContain(sub, PE.col("x"))))
+        outs.append((s.subqueries[0]["value"], kept["x"]))
+    want = chip_smoke.bloom_oracle(keys[pick], 6, chip_smoke.BLOOM_BITS)
+    assert outs[0][0] == outs[1][0] == want
+    hit = chip_smoke.bloom_probe_oracle(want, probe)
+    assert hit[np.isin(probe, keys[pick])].all()
+    for _, kept in outs:
+        np.testing.assert_array_equal(kept, probe[hit])
+
+
+@pytest.mark.parametrize("q", ["q88", "q90_scalar"])
+def test_scalar_subquery_queries_on_card_equal_cpu_direct_and_grace(tpcds_sessions, q):
+    """q88 (eight subqueries) and q90_scalar (two) on the card equal the CPU
+    and chip_smoke's numpy oracle, directly and, for q88, with each
+    subquery's top join partitioned into K = 16 pairs; every execute runs
+    each subquery once."""
+    from datafusion_comet_tpu_torch.models import tpcds
+    from datafusion_comet_tpu_torch.tools import query_times as QT
+
+    cpu, gpu = tpcds_sessions
+    build = (lambda s: tpcds.plan(q, s)) if q == "q88" else tpcds.q90_scalar
+    want, got = cpu.collect(build(cpu)), gpu.collect(build(gpu))
+    assert chip_smoke.same_rows(want, got)
+    assert len(gpu.subqueries) == (8 if q == "q88" else 2)
+    data = {t: tpcds.generate_table(t, TPCDS_CARD_SF)
+            for t in ("time_dim", "web_sales", "store_sales", "household_demographics", "store")}
+    oracle = chip_smoke.oracle_ds_q88 if q == "q88" else chip_smoke.oracle_ds_q90_scalar
+    cols = [c for c in want if not c.endswith("__valid")]
+    assert chip_smoke.out_rows(got, cols) == oracle(data)
+    if q == "q88":
+        fraction, _ = chip_smoke.grace_fraction(gpu, build(gpu), 16)
+        grace = QT.grace_session(gpu, fraction)
+        assert chip_smoke.same_rows(want, grace.collect(build(grace)))
+        assert all(16 in [r.K for r in sq["grace_runners"]] for sq in grace.subqueries)

@@ -204,21 +204,19 @@ def test_ungrouped_over_no_rows_is_one_null_row():
 
 
 def test_floats_strings_and_bools_still_raise():
-    """MIN/MAX of strings and bools raise; of floats (ported since, and held
-    to the JAX package in test_torch_floats.py) they give the value."""
+    """(Named when MIN/MAX of strings and bools raised.) MIN and MAX of
+    floats, strings and bools give the value, each held to the JAX package
+    in test_torch_floats.py and test_torch_scalar_aggs.py; here to Python."""
     schema = PT.Schema([PT.Field("f", PT.FLOAT64), PT.Field("s", PT.string(2)),
                         PT.Field("b", PT.BOOL)])
     b = PB.from_numpy({"f": np.arange(4.0), "s": np.array(["a", "b", "a", "c"], object),
                        "b": np.array([True, False] * 2)}, schema, "cpu")
-    for c in ("f", "s", "b"):
+    for c, func, want in (("f", "max", 3.0), ("s", "max", "c"), ("s", "min", "a"),
+                          ("b", "max", True), ("b", "min", False)):
         node = PP.bind_plan(PP.HashAggregate(PP.Scan("t", schema), (),
-                                             (PE.AggExpr("max", PE.col(c), "m"),)))
-        if c == "f":
-            out = PAGG.hash_aggregate(b, node.group_exprs, node.agg_exprs, "single", node.schema)
-            assert PB.to_numpy(out)["m"].tolist() == [3.0]
-            continue
-        with pytest.raises(NotImplementedError, match="MIN/MAX"):
-            PAGG.hash_aggregate(b, node.group_exprs, node.agg_exprs, "single", node.schema)
+                                             (PE.AggExpr(func, PE.col(c), "m"),)))
+        out = PAGG.hash_aggregate(b, node.group_exprs, node.agg_exprs, "single", node.schema)
+        assert PB.to_numpy(out)["m"].tolist() == [want], (c, func)
 
 
 def test_lane_reduction_with_many_groups_and_one_heavy_group():

@@ -1,4 +1,4 @@
-"""PyTorch port, TPC-DS: share 4 of 5 of the 98 ported queries, each run
+"""PyTorch port, TPC-DS: share 4 of 5 of the 99 queries but q88 (its own file), each run
 directly through the port's ``Session`` on the CPU and the JAX ``Session``
 at the smallest scale where its answer has rows, and held equal: hints
 stage by stage with the runtime filters' fields, values, order, storage,

@@ -41,3 +41,6 @@ class Config:
     # constant table, and a LEFT_SEMI join against it is pushed down the
     # fact side of an equi-join.
     runtime_filter_enabled: bool = True
+    # comet.exec.agg.approxPercentile.sketchSize: the samples an approx_percentile
+    # PARTIAL state keeps per group (its sketch is 8 bytes a sample).
+    approx_percentile_sketch: int = 512

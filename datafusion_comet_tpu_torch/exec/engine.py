@@ -25,8 +25,10 @@ aggregate already ordered by its keys is dropped (``apply_orderings``, the
 Sort branch of the JAX package's ``_apply_orderings``): Q1, Q4 and Q12 end
 in their aggregate, which keeps its outputs' magnitude bounds as the JAX
 package's does. A runtime filter's semi join does not count toward the
-split (``_count_joins``, ``_count_heavy``), as in the JAX package. The
-merge-join half of the JAX package's ``_apply_orderings`` is not ported.
+split (``_count_joins``, ``_count_heavy``), as in the JAX package. A
+SortMergeJoin whose build child is sorted on its keys takes the merge path
+(``_mark_presorted``, the merge half of the JAX package's
+``_apply_orderings``).
 
 The operators read the planner's hints (exec/stats.py) as the JAX package
 does: a filter estimated to keep under an eighth of its capacity is
@@ -66,6 +68,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 import itertools
 import time
 import warnings
@@ -88,6 +91,7 @@ from datafusion_comet_tpu_torch.exec.operators import aggregate as AGG
 from datafusion_comet_tpu_torch.exec.operators import basic as B
 from datafusion_comet_tpu_torch.exec.operators import join as J
 from datafusion_comet_tpu_torch.exec.operators import window as W
+from datafusion_comet_tpu_torch.exec.operators.agg_special import sketch_scope
 from datafusion_comet_tpu_torch.exec.runtime_filter import inject_runtime_filters
 from datafusion_comet_tpu_torch.exec.stats import (DEFAULT_MAX_GROUPS, TableStats, collect_stats,
                                                   derive_capacities)
@@ -101,6 +105,10 @@ from datafusion_comet_tpu_torch.ir.serde import plan_to_json
 __all__ = ["Session", "run_plan", "QueryExecutionError", "JoinOverflowError"]
 
 
+# the times a stage attempt that ran out of the card's memory is planned
+# again under a smaller budget before the error stands
+_OOM_REPLANS = 3
+
 # a semi or anti join's output is compacted to this many times its row
 # estimate (the JAX package's margin for estimates from statistics; 2 for a
 # runtime filter's)
@@ -109,6 +117,19 @@ _SEMI_MARGIN = 4
 
 class QueryExecutionError(RuntimeError):
     """An ANSI-mode runtime error raised by the query (Spark's SparkError)."""
+
+
+@dataclasses.dataclass
+class _Prepared:
+    """What ``Session.prepare``'s warm-up keeps of one plan: its scalar
+    subqueries' prepared runs ((id, column, _Prepared) in run order), each
+    stage's (name, bound stage, budget presteps), and the run's records
+    (stages, temporary table names, grace runners, tiled aggregates,
+    planning ms)."""
+
+    subqueries: list = dataclasses.field(default_factory=list)
+    stages: list = dataclasses.field(default_factory=list)
+    record: Optional[tuple] = None
 
 
 class JoinOverflowError(RuntimeError):
@@ -125,8 +146,10 @@ def run_plan(plan: P.PlanNode, tables: Dict[str, Batch], ctx: EvalContext, conf:
         if plan.projection is not None:
             b = b.select([b.schema.index_of(n) for n in plan.projection], plan.schema)
         return b
-    if isinstance(plan, P.HashJoin):
+    if isinstance(plan, P.EQUI_JOINS):
         return _exec_hash_join(plan, tables, ctx, conf, fanout)
+    if isinstance(plan, P.ShuffleExchange):  # one device: the identity (JAX :262)
+        return run_plan(plan.child, tables, ctx, conf, fanout)
     if isinstance(plan, P.Union):
         # JAX ``engine.py:270-330``: dictionaries unified, mixed decimal
         # storage widened, strings padded to the widest input
@@ -148,10 +171,12 @@ def run_plan(plan: P.PlanNode, tables: Dict[str, Batch], ctx: EvalContext, conf:
         # operators above run at the estimate (JAX ``engine.py:103-119``)
         est = plan.out_rows_hint
         if est:
-            target = pad_capacity(max(4 * est, 1024) * ctx.agg_scale)
+            key = (id(plan), "rows")
+            target = pad_capacity(max(max(4 * est, 1024) * ctx.agg_scale, ctx.floor(key)))
             if target * 8 <= out.capacity:
+                live = out.row_mask.sum()
                 out, covf = B.compact_batch(out, target)
-                ctx.overflow_flags.append(covf)
+                ctx.flag_overflow(covf, "filter_shrink", live, key)
         return out
     if isinstance(plan, P.Projection):
         return B.project_op(child, plan.exprs, plan.schema, ctx)
@@ -159,7 +184,7 @@ def run_plan(plan: P.PlanNode, tables: Dict[str, Batch], ctx: EvalContext, conf:
         return AGG.hash_aggregate(child, plan.group_exprs, plan.agg_exprs, plan.mode,
                                   plan.schema, ctx, conf.agg_dense_max_domain,
                                   plan.max_groups or DEFAULT_MAX_GROUPS,
-                                  plan.group_key_ranges, plan.merge_rows)
+                                  plan.group_key_ranges, plan.merge_rows, grow_key=id(plan))
     if isinstance(plan, P.Sort):
         return B.sort_op(child, plan.orders, plan.fetch, plan.skip, ctx)
     if isinstance(plan, P.Limit):
@@ -171,7 +196,15 @@ def run_plan(plan: P.PlanNode, tables: Dict[str, Batch], ctx: EvalContext, conf:
     raise NotImplementedError(f"run_plan: {type(plan).__name__}")
 
 
-def _exec_hash_join(plan: P.HashJoin, tables, ctx, conf, fanout) -> Batch:
+def _join_label(plan) -> str:
+    """A join's name in ``Session.runs[...]["overflow_ops"]``: its type and
+    its first key pair."""
+    names = [getattr(k, "col_name", None) or getattr(k, "name", "?")
+             for k in (plan.left_keys[:1] + plan.right_keys[:1])]
+    return f"{type(plan).__name__} {plan.join_type} {'='.join(names)}"
+
+
+def _exec_hash_join(plan, tables, ctx, conf, fanout) -> Batch:
     """A join with its planner hints (JAX ``engine.py:185-247``): K is the
     join's ``fanout_hint`` times the growth scale (at most 256), else the
     session's fan-out; an INNER or outer join with a row estimate lays its
@@ -187,17 +220,23 @@ def _exec_hash_join(plan: P.HashJoin, tables, ctx, conf, fanout) -> Batch:
     estimate it is compacted to a margin over the estimate (4x, grown by the
     retry loop; 2x where a runtime filter's exact key set gave the
     estimate) when that cuts its capacity at least 8x, so the operators
-    above run at the post-join size."""
+    above run at the post-join size. A SortMergeJoin runs here too, its
+    build side fixed by its join type and its build-side sort skipped where
+    ``presorted_build`` is set (JAX ``engine.py:173-212``)."""
     left = run_plan(plan.left, tables, ctx, conf, fanout)
     right = run_plan(plan.right, tables, ctx, conf, fanout)
     hint = plan.fanout_hint
     k = min(hint * ctx.agg_scale, 256) if hint else fanout
+    # an earlier attempt's largest match count (a probe row with more than
+    # 256 matches grows K past the hinted cap)
+    k = max(k, pad_capacity(ctx.floor((id(plan), "K")), 1))
     compact_rows = None
     if plan.out_rows_hint and plan.join_type not in J.SEMI_LIKE:
         # the scale multiplies outside the floor, so a tiny wrong estimate
         # still grows on every retry
         lim = max(left.capacity, right.capacity) * 64
-        compact_rows = pad_capacity(min(max(2 * plan.out_rows_hint, 4096) * ctx.agg_scale, lim))
+        compact_rows = pad_capacity(max(min(max(2 * plan.out_rows_hint, 4096) * ctx.agg_scale,
+                                            lim), ctx.floor((id(plan), "rows"))))
     out, ovf = J.hash_join(left, right, plan.left_keys, plan.right_keys, plan.join_type,
                            plan.build_side, plan.schema, plan.condition,
                            max_build_matches=k, ctx=ctx,
@@ -205,22 +244,30 @@ def _exec_hash_join(plan: P.HashJoin, tables, ctx, conf, fanout) -> Batch:
                            unique_build=bool(plan.unique_build_hint) and ctx.unique_join_ok,
                            key_pack=plan.key_pack if ctx.unique_join_ok else None,
                            compact_rows=compact_rows, dense_range=plan.rf_dense_range,
-                           cond_col_ranges=plan.cond_col_ranges)
-    ctx.overflow_flags.append(ovf)
+                           cond_col_ranges=plan.cond_col_ranges,
+                           presorted_build=getattr(plan, "presorted_build", False))
+    label = _join_label(plan)
+    need, ctx.join_need = ctx.join_need, None
+    ctx.flag_overflow(ovf, label, *((need[1], (id(plan), need[0])) if need else ()))
     if plan.join_type in J.SEMI_LIKE:
         est = plan.out_rows_hint
         if est and plan.join_type != P.JoinType.EXISTENCE:
             rf = plan.rf_dense_range is not None  # a runtime filter's exact key set
-            target = pad_capacity(max((2 if rf else _SEMI_MARGIN) * est, 1024) * ctx.agg_scale)
+            key = (id(plan), "out")
+            target = pad_capacity(max(max((2 if rf else _SEMI_MARGIN) * est, 1024)
+                                      * ctx.agg_scale, ctx.floor(key)))
             if target * 8 <= out.capacity:
+                live = out.row_mask.sum()
                 out, covf = B.compact_batch(out, target, tag="rf" if rf else None)
-                ctx.overflow_flags.append(covf)
+                ctx.flag_overflow(covf, label + " output", live, key)
         return out
     grow = max(2, k // 2) * (1 if hint else ctx.agg_scale)
-    target = pad_capacity(max(left.capacity, right.capacity) * grow)
+    key = (id(plan), "out")
+    target = pad_capacity(max(max(left.capacity, right.capacity) * grow, ctx.floor(key)))
     if target < out.capacity:
+        live = out.row_mask.sum()
         out, covf = B.compact_batch(out, target)
-        ctx.overflow_flags.append(covf)
+        ctx.flag_overflow(covf, label + " output", live, key)
     return out
 
 
@@ -254,15 +301,49 @@ def replace_child_pure_deep(plan: P.PlanNode, old: P.PlanNode, new: P.PlanNode) 
     return out
 
 
+def _sort_below(p: P.PlanNode) -> bool:
+    """Whether ``p``'s rows come straight from a Sort through projections
+    and limits only: its dead rows and null keys are then its last rows, as
+    the merge path needs (a Filter keeps the order but kills rows in the
+    middle)."""
+    while isinstance(p, (P.Projection, P.Limit)):
+        p = p.child
+    return isinstance(p, P.Sort)
+
+
+def _mark_presorted(plan: P.SortMergeJoin) -> P.PlanNode:
+    """The merge half of JAX ``_apply_orderings`` (:1414-1427): a copy of
+    the SortMergeJoin with ``presorted_build`` set where its build child is
+    ordered ascending on the build keys with nulls last (non-nullable keys
+    satisfy either placement), and comes from a Sort (``_sort_below``)."""
+    left = plan.build_side == "left"
+    bchild = plan.left if left else plan.right
+    want = []
+    for k in plan.left_keys if left else plan.right_keys:
+        name = order_key_name(k, bchild.schema)
+        if name is None:
+            return plan
+        want.append((name, True, False))
+    if not (ordering_satisfies(out_ordering(bchild), want) and _sort_below(bchild)):
+        return plan
+    out = copy.copy(plan)
+    out.presorted_build = True
+    return out
+
+
 def apply_orderings(plan: P.PlanNode) -> P.PlanNode:
     """A copy of the bound plan in which every Sort whose child already
     delivers its order (ir/ordering.py) is gone: replaced by its child, or
     by a Limit where it has a fetch or a skip (JAX ``engine.py:1386``, its
-    Sort branch). The caller's tree is not changed."""
+    Sort branch), and every SortMergeJoin whose build child is sorted on its
+    keys takes the merge path (``_mark_presorted``). The caller's tree is
+    not changed."""
     for old in plan.children():
         new = apply_orderings(old)
         if new is not old:
             plan = replace_child_pure(plan, old, new)
+    if isinstance(plan, P.SortMergeJoin):
+        return _mark_presorted(plan)
     if not isinstance(plan, P.Sort):
         return plan
     child = plan.child
@@ -298,7 +379,7 @@ def subquery_ids(v, out: Optional[set] = None) -> set:
 
 
 def _is_join(plan: P.PlanNode) -> bool:
-    return isinstance(plan, (P.HashJoin, P.BroadcastNestedLoopJoin))
+    return isinstance(plan, (P.HashJoin, P.SortMergeJoin, P.BroadcastNestedLoopJoin))
 
 
 def _is_counted_join(plan: P.PlanNode) -> bool:
@@ -390,6 +471,9 @@ class Session:
         # capacities (semi-like joins apart) and its nested-loop joins'
         # input capacities
         self.runs: List[dict] = []
+        # the re-runs of the last execute held to the budget (``_rebudget``):
+        # their scale, estimates before and after, and grace joins and tiles
+        self.rebudgets: List[dict] = []
         self.plan_ms: Optional[float] = None
         self.subqueries: List[dict] = []
         self._ids = itertools.count()
@@ -399,6 +483,13 @@ class Session:
         self._subquery_plans: List[Tuple[P.PlanNode, int]] = []
         self._subquery_keys: Dict[Tuple[str, int], int] = {}
         self._subquery_values: Optional[Dict[int, Tuple[object, bool]]] = None
+        # under ``prepare``: each settled attempt by id of its key, and
+        # whether a prepared call is running (then the attempts replay)
+        self._attempts: Optional[Dict[int, tuple]] = None
+        self._replay = False
+        # a budget below the card's, while a stage that ran out of memory is
+        # planned again (``_oom_rebudget``)
+        self._budget_cap: Optional[int] = None
 
     def register_batch(self, name: str, batch: Batch) -> None:
         if batch.device != self.device:
@@ -424,14 +515,16 @@ class Session:
         return hit
 
     def budget_bytes(self) -> int:
-        return device_budget_bytes(self.device, self.conf.memory_fraction)
+        budget = device_budget_bytes(self.device, self.conf.memory_fraction)
+        return budget if self._budget_cap is None else min(budget, self._budget_cap)
 
     def scalar_subquery(self, plan: P.PlanNode, column: int = 0) -> E.ScalarSubquery:
         """Register an uncorrelated scalar subquery: the value of ``column``
         in its plan's first row, null where there is none (JAX
         ``engine.py:535``). Bound without pruning; structurally equal
         subqueries share one id, and so one run an ``execute``."""
-        bound = plan if plan.schema is not None else P.bind_plan(plan)
+        with sketch_scope(self.conf.approx_percentile_sketch):
+            bound = plan if plan.schema is not None else P.bind_plan(plan)
         key = (plan_to_json(bound), column)
         sid = self._subquery_keys.get(key)
         if sid is None:
@@ -443,23 +536,39 @@ class Session:
         """The bound plan of the registered subquery ``sid``."""
         return self._subquery_plans[sid][0]
 
-    def _materialize_subqueries(self, plan: P.PlanNode) -> None:
+    def _materialize_subqueries(self, plan: P.PlanNode,
+                                prep: Optional["_Prepared"] = None) -> None:
         """Run each subquery ``plan`` holds that this top-level execute has
         not run yet, in id order (a subquery holds only earlier ones), and
-        keep its value and its run's records (``subqueries``)."""
+        keep its value and its run's records (``subqueries``); under
+        ``prepare`` (``prep``), keep each subquery's own prepared run."""
         for sid in sorted(subquery_ids(plan) - set(self._subquery_values)):
             sub, column = self._subquery_plans[sid]
-            field = sub.schema.fields[column]
+            sub_prep = None if prep is None else _Prepared()
             # a fresh copy: the planner fills its hints in place
-            out = self.execute(copy.deepcopy(sub))
-            host = to_numpy(out.select([column], T.Schema([field])))
-            rows = host[field.name]
-            value = (rows[0], bool(host[field.name + "__valid"][0])) if len(rows) else (None, False)
-            self._subquery_values[sid] = value
-            self.subqueries.append({"id": sid, "value": value[0], "valid": value[1],
-                                    "stages": self.stages, "runs": self.runs,
-                                    "grace_runners": self.grace_runners, "tiled": self.tiled,
-                                    "plan_ms": self.plan_ms})
+            out = self._execute_stages(copy.deepcopy(sub), sub_prep)
+            if prep is not None:
+                prep.subqueries.append((sid, column, sub_prep))
+            self._keep_value(sid, out, column)
+
+    def _keep_value(self, sid: int, out: Batch, column: int) -> None:
+        """A scalar subquery's value from its result: the column's value in
+        its one live row, null where it has none; more than one live row
+        raises QueryExecutionError, as Spark's SCALAR_SUBQUERY_TOO_MANY_ROWS
+        does (the JAX package takes the first row, ROADMAP C22)."""
+        field = self._subquery_plans[sid][0].schema.fields[column]
+        host = to_numpy(out.select([column], T.Schema([field])))
+        rows = host[field.name]
+        if len(rows) > 1:
+            raise QueryExecutionError(
+                f"[SCALAR_SUBQUERY_TOO_MANY_ROWS] scalar subquery {sid} returned {len(rows)} "
+                "rows; more than one row returned by a subquery used as an expression")
+        value = (rows[0], bool(host[field.name + "__valid"][0])) if len(rows) else (None, False)
+        self._subquery_values[sid] = value
+        self.subqueries.append({"id": sid, "value": value[0], "valid": value[1],
+                                "stages": self.stages, "runs": self.runs,
+                                "grace_runners": self.grace_runners, "tiled": self.tiled,
+                                "rebudgets": self.rebudgets, "plan_ms": self.plan_ms})
 
     def execute(self, plan: P.PlanNode) -> Batch:
         """Run the plan's scalar subqueries (``_materialize_subqueries``),
@@ -476,24 +585,85 @@ class Session:
         finally:
             self._subquery_values = None
 
-    def _execute_stages(self, plan: P.PlanNode) -> Batch:
-        self._materialize_subqueries(plan)
+    def _execute_stages(self, plan: P.PlanNode, prep: Optional["_Prepared"] = None) -> Batch:
+        """``execute``'s run of one plan; under ``prepare`` (``prep``), each
+        stage's budget presteps (its grace runners and tiled aggregates) are
+        kept, and its settled attempt is in ``_attempts``."""
+        self._materialize_subqueries(plan, prep)
         t0 = time.perf_counter()
         self.stages = self._plan_stages(plan)
         self.plan_ms = (time.perf_counter() - t0) * 1e3
         self.grace_runners = []
         self.tiled = []
         self.runs = []
+        self.rebudgets = []
         temp_names: List[str] = [n for n, _ in self.stages if n]
         out = None
         try:
             for name, sub in self.stages:
-                out = self._run_subtree(sub, temp_names)
+                presteps = None if prep is None else []
+                out = self._run_subtree(sub, temp_names, presteps)
+                if prep is not None:
+                    prep.stages.append((name, sub, presteps))
                 if name:
                     self.tables[name] = self._aqe_shrink(out)
             return out
         finally:
             for n in temp_names:  # free the temporary tables
+                self.tables.pop(n, None)
+            if prep is not None:
+                prep.record = (self.stages, temp_names, self.grace_runners, self.tiled,
+                               self.plan_ms)
+
+    def prepare(self, plan: P.PlanNode) -> Callable[[], Batch]:
+        """A reusable runner of ``plan``, the benchmarking and serving entry
+        point (JAX ``engine.py:812-849``): one warm-up run plans the stages
+        (runtime filters and hints included) and settles each stage's
+        attempt (fan-out, growth scale, whether the unique-build and packing
+        hints hold) and its budget presteps (grace joins and tiled
+        aggregates); each call re-runs the presteps and the settled stages
+        with no planning and records ``runs``. ``plan_ms`` on the runner is
+        the warm-up's planning. Unlike the JAX package's runner, a call
+        reads the stages' error and overflow flags in its one device-to-host
+        copy and raises JoinOverflowError where a settled capacity
+        overflows (the tables changed; ROADMAP divergence a), and re-runs
+        the plan's scalar subqueries, each prepared too (divergence b)."""
+        prep = _Prepared()
+        self._attempts, self._subquery_values, self.subqueries = {}, {}, []
+        try:
+            self._execute_stages(plan, prep)
+        finally:
+            attempts, self._attempts, self._subquery_values = self._attempts, None, None
+
+        def run() -> Batch:
+            self._attempts, self._replay = attempts, True
+            self._subquery_values, self.subqueries = {}, []
+            try:
+                return self._replay_stages(prep)
+            finally:
+                self._attempts, self._replay, self._subquery_values = None, False, None
+
+        run.plan_ms = prep.record[4]
+        return run
+
+    def _replay_stages(self, prep: "_Prepared") -> Batch:
+        """One call of a prepared plan: its subqueries' prepared runs, then
+        each stage's presteps and its settled attempt."""
+        for sid, column, sub_prep in prep.subqueries:
+            self._keep_value(sid, self._replay_stages(sub_prep), column)
+        self.stages, temp_names, self.grace_runners, self.tiled, _ = prep.record
+        self.plan_ms, self.runs, self.rebudgets = 0.0, [], []
+        out = None
+        try:
+            for name, sub, presteps in prep.stages:
+                for step in presteps:
+                    step()
+                out = self._execute_retry(sub, key=sub)
+                if name:
+                    self.tables[name] = self._aqe_shrink(out)
+            return out
+        finally:
+            for n in temp_names:
                 self.tables.pop(n, None)
 
     def collect(self, plan: P.PlanNode) -> Dict[str, np.ndarray]:
@@ -507,8 +677,9 @@ class Session:
         input already satisfies (``apply_orderings``), and split:
         [(temporary table name, subplan)] in run order, the last one (None,
         the query's root)."""
-        bound = plan if plan.schema is not None else P.bind_plan(
-            inject_runtime_filters(prune_columns(plan), self))
+        with sketch_scope(self.conf.approx_percentile_sketch):
+            bound = plan if plan.schema is not None else P.bind_plan(
+                inject_runtime_filters(prune_columns(plan), self))
         derive_capacities(bound, self.stats)
         bound = apply_orderings(bound)
         stages: List[Tuple[Optional[str], P.PlanNode]] = []
@@ -565,49 +736,197 @@ class Session:
         return plan
 
     # -- running -------------------------------------------------------------------
-    def _run_subtree(self, plan: P.PlanNode, temp_names: List[str]) -> Batch:
-        return self._execute_retry(self._budget_plan(plan, temp_names))
+    def _run_subtree(self, plan: P.PlanNode, temp_names: List[str],
+                     presteps: Optional[list] = None) -> Batch:
+        """A stage fitted to the budget (``_budget_plan``) and run with the
+        overflow retry; ``presteps`` collects its grace runners and tiled
+        fills for ``prepare``."""
+        return self._execute_retry(self._budget_plan(plan, temp_names, presteps=presteps),
+                                   temp_names=temp_names, key=plan, presteps=presteps)
 
     def _execute_retry(self, plan: Union[P.PlanNode, Callable[[EvalContext], Batch]],
-                       tables: Optional[Dict[str, Batch]] = None, where: str = "stage") -> Batch:
+                       tables: Optional[Dict[str, Batch]] = None, where: str = "stage",
+                       temp_names: Optional[List[str]] = None, key=None,
+                       presteps: Optional[list] = None) -> Batch:
         """Run ``plan``, again with the joins' fan-out and the growth scale
         four times larger while a capacity overflows; the joins' unique-build
         and key-packing hints hold on the first attempt only. ``plan`` is a
         bound plan, or a function that runs one attempt in the context it is
-        given (the tiled aggregate's tiles, ``where="tiled"``)."""
+        given (the tiled aggregate's tiles, ``where="tiled"``). With
+        ``temp_names`` (a stage of the session's tables), each re-run is
+        first held to the memory budget at its scale (``_rebudget``).
+
+        Under ``prepare`` the attempt that succeeds is kept by ``key`` (the
+        plan where None); a prepared call runs that attempt once, and raises
+        where it overflows."""
+        key = plan if key is None else key
+        hit = self._attempts.get(id(key)) if self._attempts is not None else None
+        if hit is not None and self._replay:
+            _, kept, fanout, scale, attempt, grown = hit
+            run = plan if callable(plan) or kept is None else kept
+            out, overflowed = self._run_once(run, fanout, scale, tables,
+                                             unique_join_ok=attempt == 0, where=where,
+                                             grown=grown, floors=True)
+            if overflowed:
+                raise JoinOverflowError(
+                    f"a prepared run overflowed its settled capacities (scale {scale}): "
+                    f"{self.runs[-1]['overflow_ops']}; the tables changed since prepare")
+            return out
         fanout, scale = J.JOIN_FANOUT, 1
+        grown: Dict[tuple, int] = {}  # the capacities the attempts proved needed
         for attempt in range(J.MAX_JOIN_RETRIES):
-            out, overflowed = self._run_once(plan, fanout, scale, tables,
-                                             unique_join_ok=attempt == 0, where=where)
+            # the counted capacities hold where the JAX package's growth has
+            # run out: on the last attempt, a re-run held to the budget, and
+            # after running out of memory (C24); elsewhere the attempts are
+            # the JAX package's
+            floors = attempt == J.MAX_JOIN_RETRIES - 1
+            if attempt and temp_names is not None and not callable(plan):
+                rebudgeted = self._rebudget(plan, temp_names, scale, presteps)
+                floors = floors or rebudgeted is not plan
+                plan = rebudgeted
+            for cut in range(_OOM_REPLANS + 1):
+                try:
+                    if cut:
+                        plan, floors = self._oom_rebudget(plan, temp_names, scale, presteps,
+                                                          cut), True
+                    out, overflowed = self._run_once(plan, fanout, scale, tables,
+                                                     unique_join_ok=attempt == 0, where=where,
+                                                     grown=grown, floors=floors)
+                    break
+                except torch.OutOfMemoryError:
+                    if cut == _OOM_REPLANS or temp_names is None or callable(plan):
+                        raise
+                # out of the handler, whose traceback holds the failed
+                # attempt's tensors: free them before planning again
+                gc.collect()
+                torch.cuda.empty_cache()
             if not overflowed:
+                if self._attempts is not None:
+                    # a stage's plan is kept with its presteps, which fill
+                    # the temporary tables it reads again; any other run
+                    # replays the plan its caller plans again
+                    kept = plan if presteps is not None and not callable(plan) else None
+                    self._attempts[id(key)] = (key, kept, fanout, scale, attempt,
+                                               grown if floors else {})
                 return out
             fanout *= 4
             scale *= 4
         raise JoinOverflowError(
-            f"a join's fan-out or an aggregate's groups exceeded after {J.MAX_JOIN_RETRIES} retries")
+            f"a join's fan-out or an aggregate's groups exceeded after {J.MAX_JOIN_RETRIES} "
+            f"retries: {self.runs[-1]['overflow_ops']}")
+
+    def _settled(self, key) -> Optional[Tuple[int, int, int]]:
+        """Under ``prepare``: (fan-out, scale, attempt) kept for ``key``."""
+        hit = self._attempts.get(id(key)) if self._attempts is not None else None
+        return None if hit is None else hit[2:5]
+
+    def _settle(self, key, fanout: int, scale: int, attempt: int) -> None:
+        if self._attempts is not None:
+            self._attempts[id(key)] = (key, None, fanout, scale, attempt, {})
+
+    def _oom_rebudget(self, plan: P.PlanNode, temp_names: List[str], scale: int,
+                      presteps: Optional[list], cut: int = 1) -> P.PlanNode:
+        """A stage attempt that ran out of the card's memory for the
+        ``cut``-th time: its estimate undercounts what the run allocates
+        (sort limbs, gathers and other intermediates the estimate leaves
+        out), so the stage is planned again under a budget of its estimate
+        over 4^cut (``_budget_plan``: a tiled aggregate or a grace join) and
+        run again at the same attempt; here a join under the stage's
+        aggregate is partitioned whatever its share of the estimate (the
+        estimate's error is what ran out). Each is a ``rebudgets`` entry
+        (``oom``); where nothing can be cut, the error stands."""
+        peak = self._stage_peak(plan, scale) or 0
+        cap = max(peak // 4 ** cut, 1)
+        prev, self._budget_cap = self._budget_cap, cap
+        try:
+            out = self._record_rebudget(plan, temp_names, scale, presteps, peak, oom=True,
+                                        budget=cap, grace_margin=0)
+        finally:
+            self._budget_cap = prev
+        if out is plan:
+            raise torch.OutOfMemoryError(
+                f"a stage ran out of device memory at growth scale {scale} and has no aggregate "
+                f"to tile or join to partition under a budget of {cap >> 20} MiB")
+        return out
+
+    def _rebudget(self, plan: P.PlanNode, temp_names: List[str], scale: int,
+                  presteps: Optional[list] = None) -> P.PlanNode:
+        """A re-run at growth ``scale`` held to the memory budget: where the
+        stage's estimate at that scale (memory.plan_peak_bytes) is over the
+        budget, it goes back through ``_budget_plan`` at that scale, so an
+        aggregate runs tiled or a join grace-partitioned (its pairs with
+        their own retry) instead of the whole x4 plan being allocated; where
+        it fits, the attempt is the JAX package's. Each such re-budget is a
+        ``rebudgets`` entry."""
+        peak = self._stage_peak(plan, scale)
+        if peak is None or peak <= self.budget_bytes():
+            return plan
+        return self._record_rebudget(plan, temp_names, scale, presteps, peak)
+
+    def _record_rebudget(self, plan: P.PlanNode, temp_names: List[str], scale: int,
+                         presteps: Optional[list], peak: int, grace_margin: float = 2,
+                         **extra) -> P.PlanNode:
+        """``_budget_plan`` at ``scale``, recorded in ``rebudgets``; each
+        grace runner it made is marked ``rebudget``."""
+        grace, tiled = len(self.grace_runners), len(self.tiled)
+        out = self._budget_plan(plan, temp_names, scale, presteps, grace_margin)
+        for r in self.grace_runners[grace:]:
+            r.rebudget = True
+        self.rebudgets.append({"scale": scale, "peak_estimate": peak, **extra,
+                               "grace": [(r.K, r.downstream and r.downstream[0])
+                                         for r in self.grace_runners[grace:]],
+                               "tiled": self.tiled[tiled:],
+                               "after": self._stage_peak(out, scale)})
+        return out
+
+    def _stage_peak(self, plan: P.PlanNode, scale: int) -> Optional[int]:
+        """The stage's resident-bytes estimate at growth ``scale`` over its
+        largest registered input, or None where it reads none."""
+        caps = [self.tables[t].capacity for t in P.scan_tables(plan) if t in self.tables]
+        return plan_peak_bytes(plan, max(caps), scale) if caps else None
 
     def _run_once(self, plan: Union[P.PlanNode, Callable[[EvalContext], Batch]], fanout: int,
                   scale: int, tables: Optional[Dict[str, Batch]] = None,
-                  unique_join_ok: bool = True, where: str = "stage") -> Tuple[Batch, bool]:
+                  unique_join_ok: bool = True, where: str = "stage",
+                  grown: Optional[Dict[tuple, int]] = None,
+                  floors: bool = False) -> Tuple[Batch, bool]:
         """One run of a bound plan (or of a function of the run's context):
         (result, whether a capacity overflowed). Every error and overflow
-        flag of the run is read in one device-to-host copy at its end, and
-        the run is recorded in ``runs``."""
+        flag of the run, and the capacity each overflowed operator would have
+        needed, is read in one device-to-host copy at its end; the needs go
+        to ``grown``, which an attempt with ``floors`` gives its operators as
+        the least capacities they take (``EvalContext.grown``). The run is
+        recorded in ``runs`` with the operators whose overflow flags fired
+        and, for a stage, its resident-bytes estimate."""
         errs: List[Tuple[torch.Tensor, str]] = []
-        ctx = EvalContext(errors=errs, overflow_flags=[], agg_scale=scale,
+        grown = {} if grown is None else grown
+        ctx = EvalContext(errors=errs, overflow_flags=[], overflow_ops=[], overflow_needs=[],
+                          grown=grown if floors else None, agg_scale=scale,
                           unique_join_ok=unique_join_ok, join_log=[],
                           subquery_values=self._subquery_values)
         out = (plan(ctx) if callable(plan) else
                run_plan(plan, self.tables if tables is None else tables, ctx, self.conf, fanout))
         flags = [f for f, _ in errs] + ctx.overflow_flags
-        hit = torch.stack([f.any() for f in flags]).tolist() if flags else []
+        needs = [n for n in ctx.overflow_needs if n is not None]
+        vals = (torch.stack([f.any().long() for f in flags]
+                            + [n.reshape(()).long() for _, n in needs]).tolist()
+                if flags else [])
+        hit, counts = vals[:len(flags)], iter(vals[len(flags):])
         fired = [m for (_, m), h in zip(errs, hit) if h]
         if fired:
             raise QueryExecutionError("; ".join(dict.fromkeys(fired)))
-        overflowed = any(hit[len(errs):])
+        for need, h in zip(ctx.overflow_needs, hit[len(errs):]):
+            if need is not None:
+                count = next(counts)
+                if h:
+                    grown[need[0]] = max(grown.get(need[0], 0), count)
+        ops = [op for op, h in zip(ctx.overflow_ops, hit[len(errs):]) if h]
+        estimate = (self._stage_peak(plan, scale)
+                    if where == "stage" and tables is None and not callable(plan) else None)
         self.runs.append({"where": where, "scale": scale, "unique_join_ok": unique_join_ok,
-                          "overflowed": overflowed, "joins": ctx.join_log})
-        return out, overflowed
+                          "overflowed": bool(ops), "overflow_ops": ops, "estimate": estimate,
+                          "joins": ctx.join_log})
+        return out, bool(ops)
 
     def _aqe_shrink(self, b: Batch) -> Batch:
         """Compact a batch to twice its live rows (at least 1024, a power of
@@ -622,52 +941,65 @@ class Session:
 
     # -- the memory budget ---------------------------------------------------------
     def _tiled_rewrite(self, stage: P.PlanNode, agg: P.HashAggregate, table: str,
-                       budget: int, temp_names: List[str]) -> P.PlanNode:
+                       budget: int, temp_names: List[str], scale: int = 1,
+                       presteps: Optional[list] = None) -> P.PlanNode:
         """Run ``agg`` tiled over ``table`` (exec/streaming.py), at the
         JAX package's tile count (``plan_tiles`` snapped to a power of two,
         at most an eighth of the capacity), with the overflow retry (each
         attempt a ``runs`` entry where "tiled"), register its result as a
-        temporary table and put a scan of it in the aggregate's place."""
+        temporary table and put a scan of it in the aggregate's place. The
+        fill is a prestep of ``prepare``."""
         batch = self.tables[table]
-        tiles = max(plan_tiles(agg, batch.capacity, budget), 1)
+        tiles = max(plan_tiles(agg, batch.capacity, budget, scale), 1)
         tiles = min(1 << max(int(tiles - 1).bit_length(), 0), max(batch.capacity // 8, 1))
         tmp = f"__budget{next(self._ids)}"
         temp_names.append(tmp)
         tiled = TiledAggregator(agg, table, self.conf)
-        pieces = list(slice_tiles(batch, max(batch.capacity // tiles, 8)))
-        with record_function("tiled.aggregate"):
-            self.tables[tmp] = self._execute_retry(lambda ctx: tiled.run(pieces, ctx),
-                                                   where="tiled")
+
+        def fill() -> None:
+            b = self.tables[table]
+            pieces = list(slice_tiles(b, max(b.capacity // tiles, 8)))
+            with record_function("tiled.aggregate"):
+                self.tables[tmp] = self._execute_retry(lambda ctx: tiled.run(pieces, ctx),
+                                                       where="tiled", key=tiled)
+
+        fill()
+        if presteps is not None:
+            presteps.append(fill)
         self.tiled.append((table, tiles))
         scan = pseudo_scan(tmp, self.tables[tmp].schema)
         return scan if agg is stage else replace_child_pure_deep(stage, agg, scan)
 
-    def _budget_plan(self, stage: P.PlanNode, temp_names: List[str]) -> P.PlanNode:
-        """While the stage's peak estimate is over the budget, run a
-        SINGLE aggregate over one table tiled (``_tiled_rewrite``), else an
-        over-budget join hash-partitioned (GraceJoinRunner), and splice its
-        result back in as a temporary-table scan, in the JAX package's
-        order. A stage over budget with neither proceeds with a warning
-        (the estimate is conservative)."""
+    def _budget_plan(self, stage: P.PlanNode, temp_names: List[str],
+                     scale: int = 1, presteps: Optional[list] = None,
+                     grace_margin: float = 2) -> P.PlanNode:
+        """While the stage's peak estimate at growth ``scale`` is over the
+        budget, run a SINGLE aggregate over one table tiled
+        (``_tiled_rewrite``), else an over-budget join hash-partitioned
+        (GraceJoinRunner), and splice its result back in as a
+        temporary-table scan, in the JAX package's order. A stage over
+        budget with neither proceeds with a warning (the estimate is
+        conservative). ``presteps`` collects each grace runner and tiled
+        fill, which ``prepare`` runs again on each call; ``grace_margin``:
+        how many budgets a join's own estimate must exceed to be
+        partitioned."""
         for _ in range(16):  # each pass peels one over-budget subtree
-            caps = [self.tables[t].capacity for t in P.scan_tables(stage) if t in self.tables]
-            if not caps:
+            peak = self._stage_peak(stage, scale)
+            if peak is None:
                 break
             budget = self.budget_bytes()
-            peak = plan_peak_bytes(stage, max(caps))
             if peak <= budget:
                 break
             target = find_stream_agg(stage, self.tables)
             if target is not None:
-                stage = self._tiled_rewrite(stage, *target, budget, temp_names)
+                stage = self._tiled_rewrite(stage, *target, budget, temp_names, scale, presteps)
                 continue
-            gj = G.find_grace_join(stage, self.tables, budget)
+            gj = G.find_grace_join(stage, self.tables, budget, scale, grace_margin)
             if gj is None:
                 warnings.warn(f"stage peak estimate {peak >> 20} MiB exceeds the memory budget "
                               f"{budget >> 20} MiB and has no partitionable join; proceeding")
                 break
-            jpeak = plan_peak_bytes(gj, max(self.tables[t].capacity for t in P.scan_tables(gj)
-                                            if t in self.tables))
+            jpeak = self._stage_peak(gj, scale)
             K = 2
             while K * (budget // 2) < jpeak and K < G.GRACE_MAX_PARTITIONS:
                 K *= 2
@@ -675,6 +1007,8 @@ class Session:
             runner = G.GraceJoinRunner(self, gj, K, temp_names, stage=stage, downstream=ds)
             temp_names.append(runner.tmp)
             runner()
+            if presteps is not None:
+                presteps.append(runner)
             self.grace_runners.append(runner)
             scan = pseudo_scan(runner.tmp, runner.out_schema)
             if ds is None:

@@ -5,8 +5,9 @@ floats, NOT and the null tests, ``negate`` and ``abs``, the math functions
 (``_math_func``), the decimal to integer cast among them, a session's
 scalar subqueries (a literal of the value the session materialized before
 the plan ran, ``EvalContext.subquery_values``), the bloom-filter probe
-(exec/operators/agg_special.py), and Spark's murmur3 over integer, float
-and string columns for hash partitioning and bloom filters).
+(exec/operators/agg_special.py), Spark's murmur3 over integer, float
+and string columns for hash partitioning and bloom filters, and Spark's
+xxhash64 for the HyperLogLog sketch of ``approx_count_distinct``).
 
 Spark semantics kept from the JAX package:
 - three-valued logic through validity vectors, Kleene AND/OR;
@@ -44,7 +45,8 @@ from datafusion_comet_tpu_torch.ir import expr as E
 from datafusion_comet_tpu_torch.utils import int128
 
 __all__ = ["EvalContext", "evaluate", "evaluate_predicate", "murmur3_hash_i32",
-           "murmur3_hash_i64", "murmur3_hash_bytes", "murmur3_column"]
+           "murmur3_hash_i64", "murmur3_hash_bytes", "murmur3_column", "xxhash64_i32",
+           "xxhash64_i64", "xxhash64_bytes", "xxhash64_column"]
 
 
 @dataclasses.dataclass
@@ -57,6 +59,18 @@ class EvalContext:
     # capacity-overflow flags (a join's fan-out, a compaction), read by the
     # session's re-plan loop; None outside a query
     overflow_flags: Optional[List[torch.Tensor]] = None
+    # where a list: the name of the operator that raised each flag, in step
+    # with ``overflow_flags`` (``flag_overflow``), and the capacity it would
+    # have needed, where it knows it ((key, count tensor) or None)
+    overflow_ops: Optional[List[str]] = None
+    overflow_needs: Optional[list] = None
+    # the capacities earlier attempts of this run proved needed, by (id of
+    # the plan node, kind): the operator takes at least that much
+    grown: Optional[Dict[tuple, int]] = None
+    # what the last hash join would have needed where it overflowed: ("K",
+    # the largest match count) on the block path, ("rows", the pairs) on the
+    # compacted list
+    join_need: Optional[Tuple[str, torch.Tensor]] = None
     # the re-plan loop's growth factor for capacities chosen from estimates
     agg_scale: int = 1
     # whether the joins may take their statistics' unique-build and
@@ -68,6 +82,21 @@ class EvalContext:
     join_log: Optional[list] = None
     # the session's scalar subqueries' values by id: (value, valid)
     subquery_values: Optional[Dict[int, Tuple[object, bool]]] = None
+
+    def flag_overflow(self, flag: torch.Tensor, op: str, need: Optional[torch.Tensor] = None,
+                      key: Optional[tuple] = None) -> None:
+        """Record a capacity-overflow flag raised by the operator ``op``,
+        and (``need``) the capacity that would have held it, under ``key``
+        (``grown``)."""
+        if self.overflow_flags is not None:
+            self.overflow_flags.append(flag)
+            if self.overflow_ops is not None:
+                self.overflow_ops.append(op)
+                self.overflow_needs.append(None if need is None else (key, need))
+
+    def floor(self, key: tuple) -> int:
+        """The capacity earlier attempts proved ``key`` needs (0: none)."""
+        return (self.grown or {}).get(key, 0)
 
     def record_error(self, flags: torch.Tensor, message: str) -> None:
         if self.errors is not None:
@@ -1222,4 +1251,132 @@ def murmur3_column(cv: ColumnVector, seed: torch.Tensor) -> torch.Tensor:
             h = murmur3_hash_i64(bits, seed)
     else:
         raise NotImplementedError(f"murmur3 for {dt!r} is not ported yet")
+    return torch.where(cv.validity, h, seed)
+
+
+# -------------------------------------------------------------------------------------
+# Spark xxhash64 (XXH64 hashInt / hashLong / hashUnsafeBytes, JAX
+# ``evaluator.py:2717-2858``)
+# -------------------------------------------------------------------------------------
+# int64 arithmetic wraps mod 2^64 as Java's longs do; a right shift of a
+# long is logical (``>>>``), so the sign bits the arithmetic shift copies in
+# are masked off.
+
+
+def _s64(c: int) -> int:
+    return c - (1 << 64) if c >= (1 << 63) else c
+
+
+_XXP1 = _s64(0x9E3779B185EBCA87)
+_XXP2 = _s64(0xC2B2AE3D27D4EB4F)
+_XXP3 = _s64(0x165667B19E3779F9)
+_XXP4 = _s64(0x85EBCA77C2B2AE63)
+_XXP5 = _s64(0x27D4EB2F165667C5)
+
+
+def _lsr64(x: torch.Tensor, r: int) -> torch.Tensor:
+    return (x >> r) & ((1 << (64 - r)) - 1)
+
+
+def _rotl64(x: torch.Tensor, r: int) -> torch.Tensor:
+    return (x << r) | _lsr64(x, 64 - r)
+
+
+def _xx_fmix(h: torch.Tensor) -> torch.Tensor:
+    h = (h ^ _lsr64(h, 33)) * _XXP2
+    h = (h ^ _lsr64(h, 29)) * _XXP3
+    return h ^ _lsr64(h, 32)
+
+
+def _xx_round(acc: torch.Tensor, inp: torch.Tensor) -> torch.Tensor:
+    return _rotl64(acc + inp * _XXP2, 31) * _XXP1
+
+
+def xxhash64_i32(value: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """Spark XXH64.hashInt: int64 hashes of int32 values under int64 seeds."""
+    h = (seed + _XXP5 + 4) ^ ((value.long() & 0xFFFFFFFF) * _XXP1)
+    return _xx_fmix(_rotl64(h, 23) * _XXP2 + _XXP3)
+
+
+def xxhash64_i64(value: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """Spark XXH64.hashLong."""
+    h = (seed + _XXP5 + 8) ^ (_rotl64(value.long() * _XXP2, 31) * _XXP1)
+    return _xx_fmix(_rotl64(h, 27) * _XXP1 + _XXP4)
+
+
+def xxhash64_bytes(mat: torch.Tensor, lens: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """Spark XXH64.hashUnsafeBytes of each row's first ``lens`` bytes of
+    ``mat`` (cap, w): 32-byte stripes into four accumulators where the row
+    has 32 bytes or more, then its 8-byte words, one 4-byte word and its
+    tail bytes, little-endian."""
+    cap, w = mat.shape
+    m = mat.long()
+    lens = lens.long()
+    seed = seed.long().expand(cap)
+    zero = torch.zeros(cap, dtype=torch.int64, device=mat.device)
+
+    def word(j: int, n: int) -> torch.Tensor:  # n bytes from byte j, padding past w
+        out = zero
+        for k in range(n):
+            if j + k < w:
+                out = out | (m[:, j + k] << (8 * k))
+        return out
+
+    v = [seed + _XXP1 + _XXP2, seed + _XXP2, seed.clone(), seed - _XXP1]
+    stripes = zero
+    for s in range(w // 32):
+        active = (s + 1) * 32 <= lens
+        v = [torch.where(active, _xx_round(acc, word(32 * s + 8 * k, 8)), acc)
+             for k, acc in enumerate(v)]
+        stripes = stripes + active.long()
+    h_long = _rotl64(v[0], 1) + _rotl64(v[1], 7) + _rotl64(v[2], 12) + _rotl64(v[3], 18)
+    for acc in v:
+        h_long = (h_long ^ _xx_round(zero, acc)) * _XXP1 + _XXP4
+    long_input = lens >= 32
+    h = torch.where(long_input, h_long, seed + _XXP5) + lens
+    consumed = torch.where(long_input, stripes * 32, 0)
+    for j in range(w // 8):
+        active = (8 * j >= consumed) & (8 * j + 8 <= lens)
+        h = torch.where(active, _rotl64(h ^ _xx_round(zero, word(8 * j, 8)), 27) * _XXP1 + _XXP4,
+                        h)
+    consumed = (lens // 8) * 8
+    for j in range(w // 4 + 1):
+        active = (4 * j == consumed) & (4 * j + 4 <= lens)
+        w4 = word(4 * j, 4) if 4 * j + 4 <= w else zero
+        h = torch.where(active, _rotl64(h ^ (w4 * _XXP1), 23) * _XXP2 + _XXP3, h)
+    consumed = (lens // 4) * 4
+    for j in range(w):
+        active = (j >= consumed) & (j < lens)
+        h = torch.where(active, _rotl64(h ^ (m[:, j] * _XXP5), 11) * _XXP1, h)
+    return _xx_fmix(h)
+
+
+def xxhash64_column(cv: ColumnVector, seed: torch.Tensor) -> torch.Tensor:
+    """Hash one column into the running int64 seed (JAX
+    ``_xxhash64_column``); a null leaves the seed unchanged. Strings hash
+    their bytes (a dictionary column decoded first), ints, dates and bools
+    as an int, INT64 and narrow decimals as a long, a FLOAT's bits as an
+    int and a DOUBLE's as a long, -0.0 as 0.0 and a DOUBLE NaN as Java's
+    canonical NaN (a FLOAT NaN keeps its bits, as in the JAX package); any
+    other type raises NotImplementedError, as there."""
+    dt = cv.dtype
+    seed = seed.long()
+    if dt.is_binary:
+        cv = _dedict(cv)
+        h = xxhash64_bytes(cv.data, cv.lengths, seed)
+    elif dt.type_id in ("INT8", "INT16", "INT32", "DATE") or dt.is_boolean:
+        h = xxhash64_i32(cv.data.int(), seed)
+    elif dt.type_id in ("INT64", "TIMESTAMP", "TIMESTAMP_NTZ"):
+        h = xxhash64_i64(cv.data, seed)
+    elif dt.type_id == "FLOAT":
+        d = torch.where(cv.data == 0.0, torch.zeros_like(cv.data), cv.data)
+        h = xxhash64_i32(d.view(torch.int32), seed)
+    elif dt.type_id == "DOUBLE":
+        d = torch.where(cv.data == 0.0, torch.zeros_like(cv.data), cv.data)
+        h = xxhash64_i64(torch.where(torch.isnan(d), 0x7FF8000000000000, d.view(torch.int64)),
+                         seed)
+    elif dt.is_decimal and dt.precision <= 18:
+        h = xxhash64_i64(cv.data, seed)
+    else:
+        raise NotImplementedError(f"xxhash64 for {dt!r}")
     return torch.where(cv.validity, h, seed)

@@ -107,15 +107,18 @@ def _extract(b: Batch, start: int, end: int, cap: int) -> Batch:
     return Batch(cols, torch.arange(cap, device=b.device) < end - start, b.schema)
 
 
-def find_grace_join(stage: P.PlanNode, tables, budget: int) -> Optional[P.HashJoin]:
-    """Topmost HashJoin whose subtree estimate exceeds twice the budget (the
-    estimate sums every operator's output, so a margin keeps estimate noise
-    from partitioning) and whose keys hash alike on both sides."""
+def find_grace_join(stage: P.PlanNode, tables, budget: int, scale: int = 1,
+                    margin: float = 2) -> Optional[P.HashJoin]:
+    """Topmost HashJoin whose subtree estimate at growth ``scale`` exceeds
+    ``margin`` times the budget (the estimate sums every operator's output,
+    so a margin of two keeps estimate noise from partitioning) and whose
+    keys hash alike on both sides. A SortMergeJoin is never taken, as in
+    the JAX package (its ``grace.py:146``)."""
 
     def walk(p) -> Optional[P.HashJoin]:
         if isinstance(p, P.HashJoin) and p.join_type != P.JoinType.LEFT_ANTI_NULL_AWARE:
             caps = [tables[t].capacity for t in P.scan_tables(p) if t in tables]
-            if caps and plan_peak_bytes(p, max(caps)) > 2 * budget:
+            if caps and plan_peak_bytes(p, max(caps), scale) > margin * budget:
                 try:
                     for lk, rk in zip(p.left_keys, p.right_keys):
                         grace_key_cast(lk.dtype, rk.dtype)
@@ -239,6 +242,8 @@ class GraceJoinRunner:
         self.sizes: Optional[Tuple[np.ndarray, np.ndarray]] = None
         self.retries = 0
         self.pair_rows = 0
+        self._finish_key = object()  # the FINAL merge's attempt under Session.prepare
+        self.rebudget = False  # made for a re-run held to the budget (Session._rebudget)
 
     def _mini_plan(self) -> P.HashJoin:
         """The join over two temporary tables holding one pair, with the
@@ -297,7 +302,7 @@ class GraceJoinRunner:
                                P.AggMode.FINAL, A.max_groups, A.group_key_ranges,
                                merge_rows=self.pair_rows)
         node.schema = A.schema
-        return self.session._execute_retry(node, {"__acc": union})
+        return self.session._execute_retry(node, {"__acc": union}, key=self._finish_key)
 
     def __call__(self) -> None:
         # the spans name the runner's phases in a torch.profiler trace; with
@@ -358,13 +363,17 @@ class GraceJoinRunner:
         s, K = self.session, self.K
         sizes_l, sizes_r = self.sizes
         outs: List[Optional[Batch]] = [None] * K
-        fanout, scale = J.JOIN_FANOUT, 1
+        # under Session.prepare a call starts at the warm-up's settled
+        # attempt, and an overflow there raises
+        settled = s._settled(self)
+        fanout, scale, first = settled or (J.JOIN_FANOUT, 1, 0)
         # partial mode always runs pair 0, so an ungrouped aggregate still
         # emits its one row
         force_k0 = self.downstream is not None and self.downstream[0] == "partial"
-        self.retries = 0
+        self.retries = first
         self.pair_rows = 0
-        for _ in range(J.MAX_JOIN_RETRIES):
+        grown: dict = {}  # the capacities the pairs' attempts counted
+        for attempt in range(first, J.MAX_JOIN_RETRIES):
             overflowed = False
             for k in range(K):
                 if outs[k] is not None or (sizes_l[k] == 0 and sizes_r[k] == 0
@@ -374,8 +383,16 @@ class GraceJoinRunner:
                 cap_r = pad_capacity(max(int(sizes_r[k]), 8))
                 s.tables[self.gl] = _extract(left, int(sl[k]), int(sl[k + 1]), cap_l)
                 s.tables[self.gr] = _extract(right, int(sr[k]), int(sr[k + 1]), cap_r)
+                # the last attempt takes the counted capacities (ROADMAP C24)
                 out, ovf = s._run_once(self.template, fanout, scale,
-                                       unique_join_ok=scale == 1, where="pair")
+                                       unique_join_ok=scale == 1, where="pair", grown=grown,
+                                       floors=attempt == J.MAX_JOIN_RETRIES - 1)
+                if ovf and settled and s._replay:
+                    from datafusion_comet_tpu_torch.exec.engine import JoinOverflowError
+
+                    raise JoinOverflowError(
+                        f"a prepared grace pair overflowed its settled capacities (scale "
+                        f"{scale}); the tables changed since prepare")
                 if ovf:
                     overflowed = True
                     continue
@@ -392,6 +409,7 @@ class GraceJoinRunner:
 
             raise JoinOverflowError(
                 f"grace join fan-out exceeded after {J.MAX_JOIN_RETRIES} retries")
+        s._settle(self, fanout, scale, self.retries)
         s.tables.pop(self.gl, None)
         s.tables.pop(self.gr, None)
         return outs

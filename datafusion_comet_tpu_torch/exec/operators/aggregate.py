@@ -1,7 +1,9 @@
 """Hash aggregate: SUM, COUNT, AVG, MIN, MAX, FIRST, LAST, the variance
 family (VAR_SAMP, VAR_POP, STDDEV_SAMP, STDDEV_POP), the covariance family
 (COVAR_SAMP, COVAR_POP, CORR), BIT_AND, BIT_OR, BIT_XOR, BOOL_AND and
-BOOL_OR in every mode, and BLOOM_FILTER in SINGLE mode (port of
+BOOL_OR in every mode, BLOOM_FILTER, PERCENTILE, MEDIAN and
+APPROX_COUNT_DISTINCT in SINGLE mode, and APPROX_PERCENTILE in every mode
+(port of
 ``datafusion_comet_tpu/exec/operators/aggregate.py``: _try_pack_keys,
 _pack_sort_limbs, _segments, _seg_bounds, _seg_sum, hash_aggregate,
 _sorted_aggregate, _compact_groups, _bucket_aggregate, _input_agg,
@@ -9,9 +11,14 @@ _limb_minmax, _merge_agg, _decimal_sum, _finalize). SINGLE and PARTIAL
 aggregate input rows; FINAL and PARTIAL_MERGE merge the state columns
 PARTIAL emits (``state_fields``). MIN and MAX take integers, dates,
 decimals (narrow and two-limb), floats, strings (both layouts) and bools.
-A BLOOM_FILTER has no partial state (exec/operators/agg_special.py), so
-any other mode raises, as in the JAX package; a grouped one takes the
-sorted path, as the JAX package's special aggregates do.
+A BLOOM_FILTER, PERCENTILE, MEDIAN or APPROX_COUNT_DISTINCT has no partial
+state (exec/operators/agg_special.py), so any other mode raises, naming
+the mode, as in the JAX package (its ``state_fields``); APPROX_PERCENTILE's
+PARTIAL state is a sketch and its count, merged by PARTIAL_MERGE and FINAL.
+A grouped bloom filter takes the sorted path; the other special aggregates
+take either path, as the keys choose (the JAX package sends every special
+aggregate down its sorted path, and the groups come out the same but for
+the null group, which the dense path puts first).
 
 Two paths, chosen as the JAX package chooses them:
 
@@ -111,7 +118,8 @@ from datafusion_comet_tpu_torch import types as T
 from datafusion_comet_tpu_torch.exec import decimal_wide as DW
 from datafusion_comet_tpu_torch.exec import kernels as K
 from datafusion_comet_tpu_torch.exec import sortkeys
-from datafusion_comet_tpu_torch.exec.batch import Batch, ColumnVector, quantize_bound
+from datafusion_comet_tpu_torch.exec.batch import (Batch, ColumnVector, pad_capacity,
+                                                  quantize_bound)
 from datafusion_comet_tpu_torch.exec.evaluator import (EvalContext, _NARROW_LIMIT, _coerce,
                                                       _dec_bound, evaluate)
 from datafusion_comet_tpu_torch.exec.operators.basic import compact_batch
@@ -160,9 +168,14 @@ def state_fields(a: E.AggExpr) -> List[T.Field]:
         return [T.Field(f"{o}__{s}", T.FLOAT64, nullable=False) for s in ("n", "avg", "m2")]
     if a.func in E.COVAR_FUNCS:
         return [T.Field(f"{o}__{s}", T.FLOAT64, nullable=False) for s in _COVAR_STATES]
-    if a.func == E.AggFunc.BLOOM_FILTER:
-        raise NotImplementedError("BLOOM_FILTER has no partial state: it runs in SINGLE mode "
-                                  "only, as in the JAX package")
+    if a.func == E.AggFunc.APPROX_PERCENTILE:
+        from datafusion_comet_tpu_torch.exec.operators.agg_special import sketch_size
+
+        return [T.Field(f"{o}__sketch", T.binary(8 * sketch_size()), nullable=False),
+                T.Field(f"{o}__count", T.INT64, nullable=False)]
+    if a.func in E.SPECIAL_FUNCS:
+        raise NotImplementedError(f"{a.func.upper()} has no partial state: it runs in SINGLE "
+                                  "mode only, as in the JAX package")
     raise NotImplementedError(f"state_fields: {a.func}")
 
 
@@ -344,18 +357,25 @@ def hash_aggregate(
     max_groups: int = DEFAULT_MAX_GROUPS,
     key_ranges=None,
     merge_rows: Optional[int] = None,
+    grow_key: Optional[int] = None,
 ) -> Batch:
     """Group ``batch`` by ``group_exprs``. ``max_groups``: the output's group
-    capacity, times the session's growth scale and at most the input
-    capacity; ``key_ranges``: per key an exact (min, max) or None;
-    ``merge_rows``: a merge's host-known bound on the rows behind one
-    group's states, or None."""
+    capacity, times the session's growth scale, at least the groups an
+    earlier attempt counted (``ctx.grown`` under ``grow_key``, the plan
+    node's id) and at most the input capacity; ``key_ranges``: per key an
+    exact (min, max) or None; ``merge_rows``: a merge's host-known bound on
+    the rows behind one group's states, or None. Where the groups overflow
+    the capacity, their count goes with the flag."""
     ctx = ctx or EvalContext()
     bloom = any(a.func == E.AggFunc.BLOOM_FILTER for a in agg_exprs)
-    if bloom and mode != AggMode.SINGLE:
-        raise NotImplementedError(f"BLOOM_FILTER in {mode} mode: it has no partial state, "
-                                  "as in the JAX package")
-    max_groups = min(max_groups * max(ctx.agg_scale, 1), batch.capacity)
+    for a in agg_exprs:
+        if a.func in E.SPECIAL_FUNCS and a.func != E.AggFunc.APPROX_PERCENTILE and (
+                mode != AggMode.SINGLE):
+            raise NotImplementedError(f"{a.func.upper()} in {mode} mode: it has no partial "
+                                      "state, as in the JAX package")
+    gkey = (grow_key, "groups")
+    max_groups = min(max(max_groups * max(ctx.agg_scale, 1), pad_capacity(ctx.floor(gkey))),
+                     batch.capacity)
     key_cols = [evaluate(g, batch, ctx) for g in group_exprs]
     if not key_cols:
         seg = torch.where(batch.row_mask, 0, 1).int()
@@ -369,9 +389,9 @@ def hash_aggregate(
                                 merge_rows)
         if out.capacity > max_groups:
             # the live buckets, in key order, packed into max_groups rows
+            live = out.row_mask.sum()
             out, ovf = compact_batch(out, max_groups)
-            if ctx.overflow_flags is not None:
-                ctx.overflow_flags.append(ovf)
+            ctx.flag_overflow(ovf, _label(group_exprs), live, gkey)
         return out
     # a packed dictionary key too wide for the dense path still sorts as
     # one int32 limb
@@ -383,7 +403,13 @@ def hash_aggregate(
     keep_bounds = (packed is not None and packed[1] <= _BUCKET_DOMAIN
                    and batch.capacity <= _BUCKET_ROWS)
     return _sorted_aggregate(batch, key_cols, key_limbs, agg_exprs, mode, max_groups,
-                             out_schema, ctx, keep_bounds, merge_rows)
+                             out_schema, ctx, keep_bounds, merge_rows, _label(group_exprs),
+                             gkey)
+
+
+def _label(group_exprs) -> str:
+    """The aggregate's name among a run's overflowed operators."""
+    return "HashAggregate " + ",".join(getattr(g, "name", "?") for g in group_exprs)
 
 
 def _dead_rows_to(b: Batch, cap: int) -> Batch:
@@ -444,7 +470,8 @@ def _seg_bounds(seg: torch.Tensor, changed: torch.Tensor, num_groups: torch.Tens
 
 def _sorted_aggregate(batch: Batch, key_cols, key_limbs, agg_exprs, mode: str,
                       max_groups: int, out_schema: T.Schema, ctx: EvalContext,
-                      keep_bounds: bool = False, merge_rows: Optional[int] = None) -> Batch:
+                      keep_bounds: bool = False, merge_rows: Optional[int] = None,
+                      label: str = "HashAggregate", gkey: Optional[tuple] = None) -> Batch:
     """The sorted path: see the module docstring. Output capacity
     ``max_groups``, groups in key order. The sorted inputs drop their
     magnitude bounds, as the JAX package's sorted payloads do, unless
@@ -488,8 +515,8 @@ def _sorted_aggregate(batch: Batch, key_cols, key_limbs, agg_exprs, mode: str,
     # rows of groups past the capacity go with the dead rows: the overflow
     # flag re-runs the query, and seg stays sorted meanwhile
     seg = torch.where(sorted_mask, seg.clamp(max=max_groups), max_groups)
-    if ctx.overflow_flags is not None and max_groups < cap:
-        ctx.overflow_flags.append(num_groups > max_groups)
+    if max_groups < cap:
+        ctx.flag_overflow(num_groups > max_groups, label, num_groups, gkey)
     group_mask = torch.arange(max_groups, device=batch.device) < num_groups
     starts, ends = _seg_bounds(seg, changed, num_groups, sorted_mask.sum(), max_groups)
     red = _Segments(starts, ends, seg)
@@ -504,11 +531,11 @@ def _sorted_aggregate(batch: Batch, key_cols, key_limbs, agg_exprs, mode: str,
 
     for a in agg_exprs:
         if merging:
-            vals = _merge_agg(a, synth, red, group_mask, ctx)
+            vals = _merge_agg(a, synth, red, group_mask, ctx, mode)
         else:
             vals = _input_agg(dataclasses.replace(a, child=ref(a.child),
                                                   extra=tuple(ref(x) for x in a.extra)),
-                              synth, red, group_mask, ctx)
+                              synth, red, group_mask, ctx, mode, out_schema)
         if mode in (AggMode.SINGLE, AggMode.FINAL):
             out_cols.append(_finalize(a, vals, rows))
         else:
@@ -536,9 +563,9 @@ def _bucket_aggregate(batch: Batch, key_cols, agg_exprs, mode: str, packed,
     red = _Buckets(seg, n_buckets, ctx.errors, keep_bounds=bool(key_cols))
     for a in agg_exprs:
         if merging:
-            vals = _merge_agg(a, batch, red, group_mask, ctx)
+            vals = _merge_agg(a, batch, red, group_mask, ctx, mode)
         else:
-            vals = _input_agg(a, batch, red, group_mask, ctx)
+            vals = _input_agg(a, batch, red, group_mask, ctx, mode, out_schema)
         if mode in (AggMode.SINGLE, AggMode.FINAL):
             # merged counts are sums of counts: the input capacity bounds
             # them only when rows are aggregated directly
@@ -589,7 +616,8 @@ def _unbounded_storage(s: torch.Tensor, sb: Optional[int], cv: ColumnVector,
 
 
 def _input_agg(a: E.AggExpr, batch: Batch, red, group_mask: torch.Tensor,
-               ctx: EvalContext) -> List[ColumnVector]:
+               ctx: EvalContext, mode: str = AggMode.SINGLE,
+               out_schema: Optional[T.Schema] = None) -> List[ColumnVector]:
     active = batch.row_mask
     if a.func == E.AggFunc.COUNT and a.child is None:  # COUNT(*)
         return [ColumnVector(red.count(active), group_mask, None, T.INT64)]
@@ -612,6 +640,17 @@ def _input_agg(a: E.AggExpr, batch: Batch, red, group_mask: torch.Tensor,
         from datafusion_comet_tpu_torch.exec.operators.agg_special import bloom_agg
 
         return [bloom_agg(a, cv, valid, red.seg, red.m, (red.count(valid) > 0) & group_mask)]
+    if a.func in E.SPECIAL_FUNCS:
+        from datafusion_comet_tpu_torch.exec.operators import agg_special as SP
+
+        if a.func == E.AggFunc.APPROX_PERCENTILE and mode == AggMode.PARTIAL:
+            # K: the width of the state binding gave the sketch
+            k = out_schema.field(f"{a.out_name}__sketch").dtype.byte_width // 8
+            return SP.approx_percentile_partial(a, cv, valid, red.seg, red.m, group_mask, k)
+        fn = {E.AggFunc.PERCENTILE: SP.percentile_agg, E.AggFunc.MEDIAN: SP.percentile_agg,
+              E.AggFunc.APPROX_COUNT_DISTINCT: SP.hll_agg,
+              E.AggFunc.APPROX_PERCENTILE: SP.approx_percentile_exact}[a.func]
+        return [fn(a, cv, valid, red.seg, red.m, group_mask)]
     if a.func in E.WELFORD_FUNCS:
         xd = torch.where(valid, _coerce(cv, T.FLOAT64).data, 0.0)
         n = red.count(valid).double()
@@ -735,12 +774,19 @@ def _bool_agg(is_and: bool, cv: ColumnVector, valid: torch.Tensor, red,
 
 
 def _merge_agg(a: E.AggExpr, batch: Batch, red, group_mask: torch.Tensor,
-               ctx: EvalContext) -> List[ColumnVector]:
+               ctx: EvalContext, mode: str = AggMode.FINAL) -> List[ColumnVector]:
     """Merge PARTIAL state columns per group into the same states: counts
     and sums add; a sum state is null where no input state of its group was
-    valid; MIN and MAX reduce their states as they reduce input rows."""
+    valid; MIN and MAX reduce their states as they reduce input rows; an
+    approx_percentile's sketches merge into its result (FINAL) or a sketch
+    (PARTIAL_MERGE)."""
     sts = [batch.column(f.name) for f in state_fields(a)]
     live = batch.row_mask
+    if a.func == E.AggFunc.APPROX_PERCENTILE:
+        from datafusion_comet_tpu_torch.exec.operators.agg_special import approx_percentile_merge
+
+        return approx_percentile_merge(a, sts[0], sts[1], live, red.seg, red.m, group_mask,
+                                       finalize=mode == AggMode.FINAL)
     if a.func in _MINMAX:
         return [_minmax(a.func == E.AggFunc.MIN, sts[0], sts[0].validity & live, red,
                         group_mask)]
@@ -802,7 +848,7 @@ def _finalize(a: E.AggExpr, vals: List[ColumnVector], rows: Optional[int]) -> Co
     """State columns -> result column. ``rows``: a bound on every count (the
     input capacity when aggregating rows), or None."""
     rt = a.result_dtype()
-    if a.func in (E.AggFunc.COUNT, E.AggFunc.SUM, E.AggFunc.BLOOM_FILTER) + _ONE_VALUE:
+    if a.func in (E.AggFunc.COUNT, E.AggFunc.SUM) + E.SPECIAL_FUNCS + _ONE_VALUE:
         return vals[0]
     if a.func in E.COVAR_FUNCS:
         n, _, _, ck, xm2, ym2 = (v.data for v in vals)

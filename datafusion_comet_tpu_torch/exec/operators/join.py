@@ -80,10 +80,25 @@ associative scan). Null keys and null condition values are left out. Any
 other condition runs on the pairs of the INNER paths and is folded back per
 probe row (``pairs``), with the INNER paths' overflow flag and retry.
 
+The null-aware anti join (LEFT_ANTI_NULL_AWARE, Spark's plan of ``NOT IN
+(subquery)``, JAX ``join.py:749-755``) takes every path of the other
+semi-like joins and keeps the probe rows with no match, as LEFT_ANTI does,
+but for NOT IN's nulls: no probe row passes where any live build row has a
+null key, and a probe row with a null key never passes.
+
+The merge path (``presorted_build``, a SortMergeJoin whose build child is
+sorted ascending on its keys, nulls last: JAX ``join.py:628-634``) searches
+the build rows in the order they come, without sorting them, where the one
+search key is monotone in that order: a single integer, date or narrow
+decimal key, not dictionary codes, and not lifted to two limbs (C5). Its
+rows with no valid key, dead rows included, are the last ones there, as the
+Sort below the join leaves them. Any other key sorts the build side, the
+path the JAX package takes where the flag is not set; ``join_log`` says
+which (``merge``).
+
 The JAX package runs these paths outside any Pallas kernel. Its carry-range
 probe (a concatenated sort of both sides) is replaced here by the binary
-searches, which give each probe row the same run in the same order; its
-null-aware anti joins are not ported.
+searches, which give each probe row the same run in the same order.
 """
 
 from __future__ import annotations
@@ -113,7 +128,8 @@ MAX_JOIN_RETRIES = 4
 
 _I64_MAX = (1 << 63) - 1
 _BITMAP_SPAN = 1 << 24  # the largest build-key span the membership bitmap covers
-SEMI_LIKE = (JoinType.LEFT_SEMI, JoinType.LEFT_ANTI, JoinType.EXISTENCE)
+SEMI_LIKE = (JoinType.LEFT_SEMI, JoinType.LEFT_ANTI, JoinType.LEFT_ANTI_NULL_AWARE,
+             JoinType.EXISTENCE)
 OUTER = (JoinType.LEFT, JoinType.RIGHT, JoinType.FULL)
 
 
@@ -252,14 +268,26 @@ def _dense_unique(bkey: torch.Tensor, bvalid: torch.Tensor, pkey: torch.Tensor,
     return (hit - 1).clamp(0, max(bcap - 1, 0)), matched, dup
 
 
-def _sorted_build(bkey: torch.Tensor, bvalid: torch.Tensor
+def _sorted_build(bkey: torch.Tensor, bvalid: torch.Tensor, presorted: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(build permutation, sorted keys, valid build rows): rows with a
     valid key first, by key; the rest get the largest key so the sorted
-    sequence stays ordered."""
+    sequence stays ordered. ``presorted``: the rows come in that order
+    already (the merge path), and the permutation is the identity."""
+    if presorted:
+        bperm = torch.arange(bkey.shape[0], device=bkey.device)
+        return bperm, torch.where(bvalid, bkey, _I64_MAX).contiguous(), bvalid.sum()
     bperm = sortkeys.lexsort([(~bvalid).int(), bkey])
     sorted_key = torch.where(bvalid[bperm], bkey[bperm], _I64_MAX).contiguous()
     return bperm, sorted_key, bvalid.sum()
+
+
+def _merge_ok(cv: ColumnVector) -> bool:
+    """Whether a build key's one search limb keeps the order its column
+    sorts in: an integer, date or narrow decimal, not dictionary codes."""
+    dt = cv.dtype
+    return (not cv.is_dict and not cv.is_wide_storage and cv.data.dim() == 1
+            and (dt.is_integer or dt.type_id == "DATE" or dt.is_decimal))
 
 
 def _sorted_matches(bkey: torch.Tensor, bvalid: torch.Tensor, pkey: torch.Tensor,
@@ -350,13 +378,14 @@ def _dense_minmax(bkey: torch.Tensor, bvalid: torch.Tensor, bpay: torch.Tensor,
 
 
 def _sorted_minmax(bkey: torch.Tensor, bvalid: torch.Tensor, bpay: torch.Tensor,
-                   bpay_valid: torch.Tensor, pkey: torch.Tensor, pvalid: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                   bpay_valid: torch.Tensor, pkey: torch.Tensor, pvalid: torch.Tensor,
+                   sb=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(any, min, max) of the payload over each probe row's run of equal
     keys in the sorted build: each run's min and max over its rows with a
     valid payload (one ``amin`` and one ``amax`` scatter by run), read at
-    the probe row's run start. ``any``: the run has such a row."""
-    sb = _sorted_build(bkey, bvalid)
+    the probe row's run start. ``any``: the run has such a row. ``sb``: the
+    sorted build, where made already."""
+    sb = sb or _sorted_build(bkey, bvalid)
     bperm, sorted_key, _ = sb
     bcap = bkey.shape[0]
     dev = bkey.device
@@ -376,11 +405,12 @@ def _sorted_minmax(bkey: torch.Tensor, bvalid: torch.Tensor, bpay: torch.Tensor,
 
 
 def _sorted_unique(bkey: torch.Tensor, bvalid: torch.Tensor, pkey: torch.Tensor,
-                   pvalid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                   pvalid: torch.Tensor, sb=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(build row of each probe row, matched, duplicate flag) on the sorted
     build: each probe row takes the first row of its run; two equal valid
     keys next to each other in the sorted build are a duplicate."""
-    sb = _sorted_build(bkey, bvalid)
+    sb = sb or _sorted_build(bkey, bvalid)
     bperm, sorted_key, n_build = sb
     vs = torch.arange(bkey.shape[0], device=bkey.device) < n_build
     dup = ((sorted_key[1:] == sorted_key[:-1]) & vs[1:]).any()
@@ -426,7 +456,8 @@ def hash_join(left: Batch, right: Batch, left_keys: Sequence[E.Expr],
               key_pack: Optional[Tuple[Tuple[int, int], ...]] = None,
               compact_rows: Optional[int] = None,
               dense_range: Optional[Tuple[int, int]] = None,
-              cond_col_ranges: Optional[dict] = None) -> Tuple[Batch, torch.Tensor]:
+              cond_col_ranges: Optional[dict] = None,
+              presorted_build: bool = False) -> Tuple[Batch, torch.Tensor]:
     """Returns (joined batch, overflow flag). INNER: the pairs on the path
     the arguments select (module docstring), and the flag set where the
     result is incomplete (a probe row with more than K =
@@ -446,9 +477,12 @@ def hash_join(left: Batch, right: Batch, left_keys: Sequence[E.Expr],
     dense min/max table) and a unique build the dense table;
     ``dense_range``, a runtime filter's exact key range, takes its place for
     the semi-like bitmap (JAX ``join.py:429``); ``cond_col_ranges``: the
-    exact (min, max) of the condition's columns by name. Each run but a
-    semi-like one without a condition appends its type, arguments, path
-    and output capacity to ``ctx.join_log`` where that is a list."""
+    exact (min, max) of the condition's columns by name;
+    ``presorted_build``: the build rows come sorted ascending on the keys,
+    nulls and dead rows last (the merge path, module docstring). Each run
+    but a semi-like one without a condition appends its type, arguments,
+    path, output capacity and whether it merged to ``ctx.join_log`` where
+    that is a list."""
     semi = join_type in SEMI_LIKE
     outer = join_type in OUTER
     if join_type != JoinType.INNER and not semi and not outer:
@@ -477,7 +511,15 @@ def hash_join(left: Batch, right: Batch, left_keys: Sequence[E.Expr],
     else:
         blimbs, bvalid = _key_limbs(bcols)
         plimbs, pvalid = _key_limbs(pcols)
+    # NOT IN: a live build row with a null key lets no probe row pass
+    build_null = ((build.row_mask & ~bvalid).any()
+                  if join_type == JoinType.LEFT_ANTI_NULL_AWARE else None)
     bvalid = bvalid & build.row_mask
+    # the merge path: one monotone search key (module docstring)
+    merge = presorted_build and len(bcols) == 1 and _merge_ok(bcols[0])
+
+    def sorted_build(bkey):
+        return _sorted_build(bkey, bvalid, merge)
     pvalid = pvalid & probe.row_mask
     # a semi-like join's flag: only a packed key out of its range raises it
     semi_flag = (pack_oor if pack_oor is not None
@@ -492,6 +534,8 @@ def hash_join(left: Batch, right: Batch, left_keys: Sequence[E.Expr],
             out = Batch(probe.columns, probe.row_mask & hit, out_schema)
         elif join_type == JoinType.LEFT_ANTI:
             out = Batch(probe.columns, probe.row_mask & ~hit, out_schema)
+        elif join_type == JoinType.LEFT_ANTI_NULL_AWARE:
+            out = Batch(probe.columns, probe.row_mask & ~hit & pvalid & ~build_null, out_schema)
         else:
             exists = ColumnVector(hit, torch.ones(pcap, dtype=torch.bool, device=dev), None,
                                   T.BOOL)
@@ -502,7 +546,7 @@ def hash_join(left: Batch, right: Batch, left_keys: Sequence[E.Expr],
                 ctx.join_log.append({"type": join_type, "build": build_side, "K": K,
                                      "unique": unique_build, "pack": pack_oor is not None,
                                      "compact_rows": compact_rows, "path": path,
-                                     "out_capacity": out.capacity})
+                                     "out_capacity": out.capacity, "merge": merge})
         return out
 
     fast = None
@@ -522,7 +566,7 @@ def hash_join(left: Batch, right: Batch, left_keys: Sequence[E.Expr],
                 path = "minmax_sorted"
                 bkey, pkey = _one_limb(blimbs, plimbs)
                 anyv, minv, maxv = _sorted_minmax(bkey, bvalid, bcv.data, bcv.validity, pkey,
-                                                  pvalid)
+                                                  pvalid, sorted_build(bkey))
             pe = pcv.data.long()
             if op == "ne":
                 exists = (minv != pe) | (maxv != pe)
@@ -537,7 +581,10 @@ def hash_join(left: Batch, right: Batch, left_keys: Sequence[E.Expr],
         else:
             hash_join.semi_paths["sorted"] += 1
             bkey, pkey = _one_limb(blimbs, plimbs)
-            hit = _sorted_matches(bkey, bvalid, pkey, pvalid)[2] > 0
+            hit = _sorted_matches(bkey, bvalid, pkey, pvalid, sorted_build(bkey))[2] > 0
+        if merge and ctx.join_log is not None:
+            ctx.join_log.append({"type": join_type, "build": build_side, "path": "sorted",
+                                 "merge": True})
         return semi_out(hit), semi_flag
 
     bkey, pkey = _one_limb(blimbs, plimbs)
@@ -553,13 +600,14 @@ def hash_join(left: Batch, right: Batch, left_keys: Sequence[E.Expr],
                                                         pvalid, build_key_range)
         else:
             path = "sorted_unique"
-            b_idx, pair_valid, overflow = _sorted_unique(bkey, bvalid, pkey, pvalid)
+            b_idx, pair_valid, overflow = _sorted_unique(bkey, bvalid, pkey, pvalid,
+                                                         sorted_build(bkey))
         has_match = pair_valid
         probe_cols = list(probe.columns)
         per_probe = (lambda x: x)
         any_pair = (lambda v: v)
     else:
-        bperm, lo, count = _sorted_matches(bkey, bvalid, pkey, pvalid)
+        bperm, lo, count = _sorted_matches(bkey, bvalid, pkey, pvalid, sorted_build(bkey))
         has_match = count > 0
         if compact_rows is not None:
             path = "pair_list"
@@ -567,6 +615,7 @@ def hash_join(left: Batch, right: Batch, left_keys: Sequence[E.Expr],
             slots = torch.where(probe.row_mask, count.clamp(min=1), count) if outer else None
             p_idx, b_idx, j, slot_live, pair_valid, overflow = _pair_list(
                 bperm, lo, count, compact_rows, slots)
+            ctx.join_need = ("rows", (count if slots is None else slots).sum())
             probe_cols = [c.take(p_idx) for c in probe.columns]
             per_probe = (lambda x: x[p_idx] & slot_live)
             any_pair = (lambda v: torch.zeros(pcap, dtype=torch.int32, device=dev).index_add_(
@@ -575,6 +624,7 @@ def hash_join(left: Batch, right: Batch, left_keys: Sequence[E.Expr],
             path = "block"
             b_idx, pair_valid, j = _pair_block(bperm, lo, count, K)
             overflow = (count > K).any()
+            ctx.join_need = ("K", count.max() if count.numel() else count.new_zeros(()))
             probe_cols = [_repeat(c, K) for c in probe.columns]
             per_probe = (lambda x: x.repeat_interleave(K))
             any_pair = (lambda v: v.view(pcap, K).any(1))
@@ -602,7 +652,8 @@ def hash_join(left: Batch, right: Batch, left_keys: Sequence[E.Expr],
         ctx.join_log.append({"type": join_type, "build": build_side, "K": K,
                              "unique": unique_build, "pack": pack_oor is not None,
                              "compact_rows": compact_rows, "path": path,
-                             "out_capacity": out.capacity})
+                             "out_capacity": out.capacity,
+                             "merge": merge and path != "dense_unique"})
     return out, overflow
 
 

@@ -205,13 +205,13 @@ def _out_names(p: P.PlanNode) -> Optional[Set[str]]:
         return {f.name for f in p.schema.fields}
     if isinstance(p, P.Scan):
         return {f.name for f in p.out_schema().fields}
-    if isinstance(p, (P.Filter, P.Sort, P.Limit)):
+    if isinstance(p, (P.Filter, P.Sort, P.Limit, P.ShuffleExchange)):  # JAX :208
         return _out_names(p.children()[0])
     if isinstance(p, P.Projection):
         return {e.name for e in p.exprs}
     if isinstance(p, P.HashAggregate):
         return {g.name for g in p.group_exprs} | {a.out_name for a in p.agg_exprs}
-    if isinstance(p, P.HashJoin):
+    if isinstance(p, P.EQUI_JOINS):  # JAX :220
         if p.join_type in _SEMI_ANTI:
             return _out_names(p.left)
         l, r = _out_names(p.left), _out_names(p.right)
@@ -237,7 +237,7 @@ def _dim_sources(p: P.PlanNode, col: str, out: List[Tuple[P.PlanNode, str]],
                 if src:
                     _dim_sources(p.child, src, out, depth + 1)
                 break
-    elif isinstance(p, P.HashJoin):
+    elif isinstance(p, P.EQUI_JOINS):  # JAX :252
         sides = [(p.left, p.left_keys, p.right, p.right_keys)]
         if p.join_type not in _SEMI_ANTI + (P.JoinType.EXISTENCE,):
             sides.append((p.right, p.right_keys, p.left, p.left_keys))
@@ -468,7 +468,7 @@ def _push_semi(p: P.PlanNode, col: str, rf: _RF, session) -> Optional[P.PlanNode
                     if sub is not None:
                         return _swap_child(p, p.child, sub)
         return _attach(p, col, rf, session)
-    if isinstance(p, P.HashJoin):
+    if isinstance(p, P.EQUI_JOINS):  # JAX :484
         semi_like = p.join_type in _SEMI_ANTI + (P.JoinType.EXISTENCE,)
         for side in ((p.left,) if semi_like else (p.left, p.right)):
             names = _out_names(side)

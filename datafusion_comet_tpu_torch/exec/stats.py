@@ -2,8 +2,8 @@
 subset of ``datafusion_comet_tpu/exec/stats.py`` that the ported TPC-H and
 TPC-DS queries reach: ``collect_stats`` :42,
 ``derive_capacities`` :129, ``_walk`` :220 over Scan, Filter, Projection,
-HashJoin, BroadcastNestedLoopJoin, Union, Expand, HashAggregate, Sort and
-Limit, ``_column_range`` :167,
+HashJoin, SortMergeJoin, BroadcastNestedLoopJoin, Union, Expand,
+HashAggregate, Sort, Limit, Window and ShuffleExchange, ``_column_range`` :167,
 ``_source_column`` :480, ``_pad`` :490).
 
 ``collect_stats`` sketches each registered table on the host: its rows, a
@@ -228,7 +228,7 @@ def _walk(plan: P.PlanNode, stats: Dict[str, TableStats]) -> Tuple[int, Dict[str
                 out[e.name] = ndv[src]
         return rows, out
 
-    if isinstance(plan, P.HashJoin):
+    if isinstance(plan, P.EQUI_JOINS):  # a SortMergeJoin as a HashJoin (JAX :247)
         (lr, ln), (rr, rn) = kids
         if plan.join_type in _SEMI_LIKE:
             _set_build_range(plan, stats)
@@ -256,8 +256,11 @@ def _walk(plan: P.PlanNode, stats: Dict[str, TableStats]) -> Tuple[int, Dict[str
         lk = [_source_column(k) for k in plan.left_keys]
         rk = [_source_column(k) for k in plan.right_keys]
         # an INNER join's build goes to the smaller input, with a 2x margin
-        # against noisy estimates; an outer join probes its preserved side
-        if plan.join_type == P.JoinType.INNER and plan.build_side == "right" and lr * 2 <= rr:
+        # against noisy estimates; an outer join probes its preserved side.
+        # A SortMergeJoin's build side is its join type's (JAX: only a
+        # HashJoin swaps)
+        if (isinstance(plan, P.HashJoin) and plan.join_type == P.JoinType.INNER
+                and plan.build_side == "right" and lr * 2 <= rr):
             plan.build_side = "left"
         _set_build_range(plan, stats)
         _set_inner_hints(plan, stats, (lr, ln, lk), (rr, rn, rk))
@@ -345,7 +348,7 @@ def _walk(plan: P.PlanNode, stats: Dict[str, TableStats]) -> Tuple[int, Dict[str
             rows = min(rows, cut)
         return rows, {k: min(v, rows) for k, v in ndv.items()}
 
-    if isinstance(plan, P.Window):  # the JAX walk's default branch: the child's
+    if isinstance(plan, (P.Window, P.ShuffleExchange)):  # the JAX walk's default branch
         return kids[0]
     raise NotImplementedError(f"derive_capacities: {type(plan).__name__}")
 

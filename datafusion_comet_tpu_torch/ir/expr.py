@@ -353,10 +353,21 @@ class AggFunc:
     BOOL_AND = "bool_and"
     BOOL_OR = "bool_or"
     BLOOM_FILTER = "bloom_filter"  # Spark's BloomFilterAggregate
+    # exact; extra[0] the percentage literal
+    PERCENTILE = "percentile"
+    MEDIAN = "median"
+    # extra = (percentage literal, optional accuracy literal): an element of
+    # the input at rank ceil(p x n), within the sketch's rank error
+    APPROX_PERCENTILE = "approx_percentile"
+    APPROX_COUNT_DISTINCT = "approx_count_distinct"  # HyperLogLog
     # a plan-level rewrite (ir/plan.py::_rewrite_distinct), never evaluated
     COUNT_DISTINCT = "count_distinct"
 
 
+# the special aggregates (exec/operators/agg_special.py); all but
+# APPROX_PERCENTILE and BLOOM_FILTER run in SINGLE mode only
+SPECIAL_FUNCS = (AggFunc.PERCENTILE, AggFunc.MEDIAN, AggFunc.APPROX_PERCENTILE,
+                 AggFunc.APPROX_COUNT_DISTINCT, AggFunc.BLOOM_FILTER)
 # the variance family: (n, avg, m2) states, a DOUBLE result
 WELFORD_FUNCS = (AggFunc.VAR_SAMP, AggFunc.VAR_POP, AggFunc.STDDEV_SAMP, AggFunc.STDDEV_POP)
 # the covariance family: (n, xavg, yavg, ck, xm2, ym2) states, a DOUBLE result
@@ -369,8 +380,10 @@ BOOL_FUNCS = (AggFunc.BOOL_AND, AggFunc.BOOL_OR)
 class AggExpr:
     """One aggregate: function + input (None for COUNT(*)). ``ignore_nulls``:
     FIRST and LAST skip null inputs; ``extra``: the second input of the
-    covariance family, or a BLOOM_FILTER's expected item count (a literal,
-    1,000,000 when absent), which gives its number of hash functions;
+    covariance family, a BLOOM_FILTER's expected item count (a literal,
+    1,000,000 when absent), which gives its number of hash functions, a
+    PERCENTILE's percentage, or an APPROX_PERCENTILE's percentage and
+    accuracy (literals);
     ``num_bits``: a BLOOM_FILTER's size in bits (Spark's numBits, a
     multiple of 64)."""
 
@@ -402,8 +415,12 @@ class AggExpr:
         if self.func == AggFunc.BLOOM_FILTER:
             # Spark's BloomFilterImpl.writeTo: three big-endian ints, then the longs
             return T.binary(12 + (self.num_bits // 64) * 8)
-        if self.func in WELFORD_FUNCS + COVAR_FUNCS:
+        if self.func in WELFORD_FUNCS + COVAR_FUNCS + (AggFunc.PERCENTILE, AggFunc.MEDIAN):
             return T.FLOAT64
+        if self.func == AggFunc.APPROX_COUNT_DISTINCT:
+            return T.INT64
+        if self.func == AggFunc.APPROX_PERCENTILE:  # an element of the input
+            return cd
         raise NotImplementedError(f"aggregate {self.func}")
 
 

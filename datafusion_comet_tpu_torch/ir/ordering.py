@@ -13,7 +13,9 @@ child already delivers it (``engine._apply_orderings``):
   Sort asking for nulls last over a nullable key is elided in both
   packages alike);
 - Filter and Limit keep their child's order; a Projection keeps it through
-  passthrough and alias columns; a Sort establishes its own.
+  passthrough and alias columns; a Sort establishes its own; a
+  ShuffleExchange delivers none (the JAX module has no branch for it), so
+  the Sort above an exchange in Spark's sort-merge-join shape stays.
 """
 
 from __future__ import annotations

@@ -1,13 +1,18 @@
 """Operator plan IR (port of ``datafusion_comet_tpu/ir/plan.py``: the Scan,
 Filter, Projection, HashAggregate, Sort, Limit, Expand, HashJoin,
-BroadcastNestedLoopJoin, Union and Window nodes the ported TPC-H and TPC-DS
-queries use).
+SortMergeJoin, BroadcastNestedLoopJoin, Union, Window and ShuffleExchange
+nodes, and the two sinks CollectLimit and TakeOrderedAndProject).
 
 Plans are built unbound; ``bind_plan`` binds expressions bottom-up against
 child schemas and computes each node's output schema, and rewrites a
 COUNT(DISTINCT) aggregate into two plain ones (``_rewrite_distinct``). An
 outer join's output keeps each input field's nullability, as the JAX
-package's does: the join itself nulls the side it did not match.
+package's does: the join itself nulls the side it did not match. As in the
+JAX package, a CollectLimit binds to a Limit and a TakeOrderedAndProject to
+a Sort with its fetch and skip under a Projection; a SortMergeJoin stays
+itself (the engine runs it as a hash join whose build side its join type
+fixes, ``SortMergeJoin.build_side``), and a ShuffleExchange is the identity
+on one device.
 """
 
 from __future__ import annotations
@@ -19,14 +24,14 @@ from datafusion_comet_tpu_torch import types as T
 from datafusion_comet_tpu_torch.ir import expr as E
 
 __all__ = ["PlanNode", "Scan", "Filter", "Projection", "HashAggregate", "AggMode",
-           "Sort", "Limit", "Expand", "HashJoin", "BroadcastNestedLoopJoin", "Union",
-           "Window", "JoinType", "bind_plan", "scan_tables"]
+           "Sort", "Limit", "CollectLimit", "TakeOrderedAndProject", "Expand", "HashJoin",
+           "SortMergeJoin", "EQUI_JOINS", "BroadcastNestedLoopJoin", "Union", "Window",
+           "ShuffleExchange", "JoinType", "bind_plan", "scan_tables"]
 
 
 class JoinType:
-    """Join types of the IR. The hash join runs every type but the
-    null-aware anti; the nested-loop join every type but the null-aware anti
-    and EXISTENCE."""
+    """Join types of the IR. The hash join runs every type; the nested-loop
+    join every type but the null-aware anti (NOT IN) and EXISTENCE."""
 
     INNER = "inner"
     LEFT = "left"
@@ -159,6 +164,36 @@ class Limit(PlanNode):
 
 
 @dataclasses.dataclass
+class CollectLimit(PlanNode):
+    """The sink of a Spark ``LIMIT`` query (CometCollectLimitExec): the
+    first ``limit`` live rows after ``offset``; binds to a Limit."""
+
+    child: PlanNode
+    limit: int
+    offset: int = 0
+
+    def children(self):
+        return (self.child,)
+
+
+@dataclasses.dataclass
+class TakeOrderedAndProject(PlanNode):
+    """The sink of a Spark ``ORDER BY ... LIMIT`` query
+    (CometTakeOrderedAndProjectExec): sort by ``orders``, keep ``limit``
+    rows after ``offset``, project ``exprs`` (none: every column); binds to
+    a Sort with that fetch and skip under a Projection."""
+
+    child: PlanNode
+    orders: Tuple[E.SortOrder, ...]
+    limit: int
+    exprs: Tuple[E.Expr, ...] = ()
+    offset: int = 0
+
+    def children(self):
+        return (self.child,)
+
+
+@dataclasses.dataclass
 class Expand(PlanNode):
     """Each input row gives one output row per projection (ROLLUP, CUBE and
     grouping sets); ``names`` names the output columns."""
@@ -217,6 +252,53 @@ class HashJoin(PlanNode):
         return (self.left, self.right)
 
 
+def smj_build_side(join_type: str) -> str:
+    """The build side of a SortMergeJoin run as a hash join (JAX
+    ``engine.py:275``): an outer join probes its preserved side, so RIGHT
+    builds the left input; every other type builds the right one."""
+    return "left" if join_type == JoinType.RIGHT else "right"
+
+
+@dataclasses.dataclass
+class SortMergeJoin(PlanNode):
+    """The equi-join Spark plans where both sides exceed the broadcast
+    threshold, over sorted, hash-exchanged inputs. JAX's fields, then the
+    planner hints a HashJoin carries (exec/stats.py fills them alike) and
+    ``presorted_build``: the build child delivers its rows ordered
+    ascending on the keys with nulls last (``engine.apply_orderings``), so
+    the join may search them without sorting them (the merge path,
+    exec/operators/join.py). The JAX package's grace join takes a HashJoin
+    only, and so does the port's."""
+
+    left: PlanNode
+    right: PlanNode
+    left_keys: Tuple[E.Expr, ...]
+    right_keys: Tuple[E.Expr, ...]
+    join_type: str = JoinType.INNER
+    condition: Optional[E.Expr] = None
+    build_key_range: Optional[Tuple[int, int]] = None
+    out_rows_hint: Optional[int] = None
+    fanout_hint: Optional[int] = None
+    unique_build_hint: Optional[bool] = None
+    key_pack: Optional[Tuple[Tuple[int, int], ...]] = None
+    rf_dense_range: Optional[Tuple[int, int]] = None
+    rf_injected: bool = False
+    cond_col_ranges: Optional[Dict[str, Tuple[int, int]]] = None
+    presorted_build: bool = False
+
+    @property
+    def build_side(self) -> str:
+        return smj_build_side(self.join_type)
+
+    def children(self):
+        return (self.left, self.right)
+
+
+# the equi-joins: the stats walk, the runtime filters, pruning and the
+# memory estimate treat both alike
+EQUI_JOINS = (HashJoin, SortMergeJoin)
+
+
 @dataclasses.dataclass
 class BroadcastNestedLoopJoin(PlanNode):
     """Every left row paired with every right row, kept where ``condition``
@@ -251,6 +333,22 @@ class Window(PlanNode):
 
     child: PlanNode
     window_exprs: Tuple[E.WindowExpr, ...]
+
+    def children(self):
+        return (self.child,)
+
+
+@dataclasses.dataclass
+class ShuffleExchange(PlanNode):
+    """Repartition by ``partitioning`` (hash, range, round_robin or
+    single) on ``keys`` or ``sort_orders``: on one device the identity, and
+    it delivers no ordering (ir/ordering.py)."""
+
+    child: PlanNode
+    partitioning: str
+    keys: Tuple[E.Expr, ...] = ()
+    num_partitions: int = 0
+    sort_orders: Tuple[E.SortOrder, ...] = ()
 
     def children(self):
         return (self.child,)
@@ -328,9 +426,21 @@ def bind_plan(plan: PlanNode) -> PlanNode:
         out = Sort(child, orders, plan.fetch, plan.skip)
         out.schema = child.schema
         return out
-    if isinstance(plan, Limit):
+    if isinstance(plan, (Limit, CollectLimit)):
         out = Limit(kids[0], plan.limit, plan.offset)
         out.schema = kids[0].schema
+        return out
+    if isinstance(plan, TakeOrderedAndProject):
+        srt = bind_plan(Sort(kids[0], plan.orders, plan.limit, plan.offset))
+        return bind_plan(Projection(srt, plan.exprs)) if plan.exprs else srt
+    if isinstance(plan, ShuffleExchange):
+        child = kids[0]
+        out = ShuffleExchange(child, plan.partitioning,
+                              tuple(E.bind(k, child.schema) for k in plan.keys),
+                              plan.num_partitions,
+                              tuple(dataclasses.replace(o, child=E.bind(o.child, child.schema))
+                                    for o in plan.sort_orders))
+        out.schema = child.schema
         return out
     if isinstance(plan, Expand):
         # the first projection types the output, as in the JAX package
@@ -344,16 +454,14 @@ def bind_plan(plan: PlanNode) -> PlanNode:
         out = Union(tuple(kids))
         out.schema = kids[0].schema
         return out
-    if isinstance(plan, HashJoin):
+    if isinstance(plan, EQUI_JOINS):
         left, right = kids
-        lkeys = tuple(E.bind(k, left.schema) for k in plan.left_keys)
-        rkeys = tuple(E.bind(k, right.schema) for k in plan.right_keys)
         pair = T.Schema(list(left.schema.fields) + list(right.schema.fields))
-        cond = E.bind(plan.condition, pair) if plan.condition is not None else None
-        out = HashJoin(left, right, lkeys, rkeys, plan.join_type, plan.build_side, cond,
-                       plan.build_key_range, plan.out_rows_hint, plan.fanout_hint,
-                       plan.unique_build_hint, plan.key_pack, plan.rf_dense_range,
-                       plan.rf_injected, plan.cond_col_ranges)
+        out = dataclasses.replace(
+            plan, left=left, right=right,
+            left_keys=tuple(E.bind(k, left.schema) for k in plan.left_keys),
+            right_keys=tuple(E.bind(k, right.schema) for k in plan.right_keys),
+            condition=E.bind(plan.condition, pair) if plan.condition is not None else None)
         out.schema = _join_out_schema(left.schema, right.schema, plan.join_type)
         return out
     if isinstance(plan, BroadcastNestedLoopJoin):

@@ -5,6 +5,7 @@ each node must produce and narrow every Scan to the columns it must read.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Set
 
 from datafusion_comet_tpu_torch.ir import expr as E
@@ -70,7 +71,7 @@ def prune_columns(plan: P.PlanNode, required: Optional[Set[str]] = ALL) -> P.Pla
         return P.Sort(prune_columns(plan.child, need), plan.orders, plan.fetch, plan.skip)
     if isinstance(plan, P.Limit):
         return P.Limit(prune_columns(plan.child, required), plan.limit, plan.offset)
-    if isinstance(plan, P.HashJoin):
+    if isinstance(plan, P.EQUI_JOINS):  # JAX ``pruning.py:108-136``
         lneed: Optional[Set[str]] = None if required is ALL else set()
         rneed: Optional[Set[str]] = None if required is ALL else set()
         if required is not ALL:
@@ -86,11 +87,18 @@ def prune_columns(plan: P.PlanNode, required: Optional[Set[str]] = ALL) -> P.Pla
                 _expr_refs(plan.condition, cond)
                 lneed |= cond & lnames
                 rneed |= cond & rnames
-        return P.HashJoin(prune_columns(plan.left, lneed), prune_columns(plan.right, rneed),
-                          plan.left_keys, plan.right_keys, plan.join_type, plan.build_side,
-                          plan.condition, plan.build_key_range, plan.out_rows_hint,
-                          plan.fanout_hint, plan.unique_build_hint, plan.key_pack,
-                          plan.rf_dense_range, plan.rf_injected, plan.cond_col_ranges)
+        # every hint field carries over
+        return dataclasses.replace(plan, left=prune_columns(plan.left, lneed),
+                                   right=prune_columns(plan.right, rneed))
+    if isinstance(plan, P.ShuffleExchange):  # JAX ``pruning.py:157-166``
+        need = None if required is ALL else set(required)
+        if need is not None:
+            for k in plan.keys:
+                _expr_refs(k, need)
+            for o in plan.sort_orders:
+                _expr_refs(o.child, need)
+        return P.ShuffleExchange(prune_columns(plan.child, need), plan.partitioning,
+                                 plan.keys, plan.num_partitions, plan.sort_orders)
     if isinstance(plan, P.Window):  # JAX ``pruning.py:138-148``
         need = None if required is ALL else set(required)
         if need is not None:
@@ -114,6 +122,8 @@ def prune_columns(plan: P.PlanNode, required: Optional[Set[str]] = ALL) -> P.Pla
         return P.Union(tuple(prune_columns(c, ALL) for c in plan.inputs))
     if isinstance(plan, P.Expand):
         return P.Expand(prune_columns(plan.child, ALL), plan.projections, plan.names)
+    if isinstance(plan, (P.CollectLimit, P.TakeOrderedAndProject)):
+        return dataclasses.replace(plan, child=prune_columns(plan.child, ALL))
     raise NotImplementedError(f"prune_columns: {type(plan).__name__}")
 
 
@@ -128,7 +138,7 @@ def _subtree_columns(plan: P.PlanNode) -> Set[str]:
         return ({g.name for g in plan.group_exprs} | {a.out_name for a in plan.agg_exprs}
                 | {f"{a.out_name}__{s}" for a in plan.agg_exprs
                    for s in ("sum", "count", "val", "n", "avg", "m2", "xavg", "yavg", "ck",
-                             "xm2", "ym2")})
+                             "xm2", "ym2", "sketch")})
     if isinstance(plan, P.Window):  # JAX ``pruning.py:196``
         return _subtree_columns(plan.child) | {w.out_name for w in plan.window_exprs}
     out: Set[str] = set()

@@ -338,8 +338,25 @@ def q6() -> P.PlanNode:
         [], [E.AggExpr("sum", E.col("l_extendedprice") * E.col("l_discount"), "revenue")])
 
 
-def q3() -> P.PlanNode:
-    """Shipping priority: 3-way join, group, top-10 by revenue."""
+def smj(left: P.PlanNode, right: P.PlanNode, lkeys, rkeys,
+        join_type: str = P.JoinType.INNER) -> P.SortMergeJoin:
+    """An equi-join in Spark's shape for inputs above the broadcast
+    threshold: SortMergeJoin(Sort(ShuffleExchange(left, hash, keys)),
+    Sort(ShuffleExchange(right, hash, keys))), each side sorted on its keys
+    ascending (Spark's default, nulls first)."""
+    def side(p, keys):
+        cols = tuple(E.col(k) for k in keys)
+        return P.Sort(P.ShuffleExchange(p, "hash", cols), tuple(E.SortOrder(c) for c in cols))
+
+    return P.SortMergeJoin(side(left, lkeys), side(right, rkeys),
+                           tuple(E.col(k) for k in lkeys), tuple(E.col(k) for k in rkeys),
+                           join_type)
+
+
+def q3(sort_merge: bool = False) -> P.PlanNode:
+    """Shipping priority: 3-way join, group, top-10 by revenue. With
+    ``sort_merge``, Spark's plan at scale: both joins SortMergeJoins
+    (``smj``) and the top 10 a TakeOrderedAndProject."""
     c = P.Scan("customer", SCHEMAS["customer"]).filter(
         E.col("c_mktsegment") == E.lit("BUILDING")
     )
@@ -349,20 +366,24 @@ def q3() -> P.PlanNode:
     l = P.Scan("lineitem", SCHEMAS["lineitem"]).filter(
         E.col("l_shipdate") > _date_lit("1995-03-15")
     )
-    co = P.HashJoin(o, c, (E.col("o_custkey"),), (E.col("c_custkey"),), P.JoinType.INNER, "right")
-    col_ = P.HashJoin(l, co, (E.col("l_orderkey"),), (E.col("o_orderkey"),), P.JoinType.INNER,
-                      "right")
+    if sort_merge:
+        co = smj(o, c, ("o_custkey",), ("c_custkey",))
+        col_ = smj(l, co, ("l_orderkey",), ("o_orderkey",))
+    else:
+        co = P.HashJoin(o, c, (E.col("o_custkey"),), (E.col("c_custkey"),), P.JoinType.INNER,
+                        "right")
+        col_ = P.HashJoin(l, co, (E.col("l_orderkey"),), (E.col("o_orderkey"),),
+                          P.JoinType.INNER, "right")
     revenue = E.col("l_extendedprice") * (E.lit(1).cast(_dec(10, 0)) - E.col("l_discount"))
     agg = col_.aggregate(
         [E.col("l_orderkey"), E.col("o_orderdate"), E.col("o_shippriority")],
         [E.AggExpr("sum", revenue, "revenue")],
     )
-    return agg.sort(
-        [E.SortOrder(E.col("revenue"), ascending=False), E.SortOrder(E.col("o_orderdate"))],
-        fetch=10,
-    ).project(
-        [E.col("l_orderkey"), E.col("revenue"), E.col("o_orderdate"), E.col("o_shippriority")]
-    )
+    orders = [E.SortOrder(E.col("revenue"), ascending=False), E.SortOrder(E.col("o_orderdate"))]
+    out = [E.col("l_orderkey"), E.col("revenue"), E.col("o_orderdate"), E.col("o_shippriority")]
+    if sort_merge:
+        return P.TakeOrderedAndProject(agg, tuple(orders), 10, tuple(out))
+    return agg.sort(orders, fetch=10).project(out)
 
 
 def q5() -> P.PlanNode:
@@ -432,8 +453,9 @@ def q15() -> P.PlanNode:
     )
 
 
-def q12() -> P.PlanNode:
-    """Shipping modes and order priority: join + conditional counts."""
+def q12(sort_merge: bool = False) -> P.PlanNode:
+    """Shipping modes and order priority: join + conditional counts. With
+    ``sort_merge``, the join is Spark's SortMergeJoin shape (``smj``)."""
     o = P.Scan("orders", SCHEMAS["orders"])
     l = P.Scan("lineitem", SCHEMAS["lineitem"]).filter(
         (E.col("l_shipmode").isin("MAIL", "SHIP"))
@@ -442,8 +464,9 @@ def q12() -> P.PlanNode:
         & (E.col("l_receiptdate") >= _date_lit("1994-01-01"))
         & (E.col("l_receiptdate") < _date_lit("1995-01-01"))
     )
-    j = P.HashJoin(l, o, (E.col("l_orderkey"),), (E.col("o_orderkey"),), P.JoinType.INNER,
-                   "right")
+    j = (smj(l, o, ("l_orderkey",), ("o_orderkey",)) if sort_merge else
+         P.HashJoin(l, o, (E.col("l_orderkey"),), (E.col("o_orderkey"),), P.JoinType.INNER,
+                    "right"))
     urgent = (E.col("o_orderpriority") == E.lit("1-URGENT")) | (
         E.col("o_orderpriority") == E.lit("2-HIGH"))
     other = (E.col("o_orderpriority") != E.lit("1-URGENT")) & (
@@ -746,11 +769,13 @@ def q13() -> P.PlanNode:
                       E.SortOrder(E.col("c_count"), ascending=False)])
 
 
-def q16() -> P.PlanNode:
+def q16(null_aware: bool = False) -> P.PlanNode:
     """Parts/supplier relationship: partsupp joined to the parts that pass
     three filters, the suppliers with complaints removed by a LEFT ANTI
-    join (s_suppkey is never null, so NOT IN needs no null-aware join), and
-    COUNT(DISTINCT ps_suppkey) per brand, type and size."""
+    join (s_suppkey is never null, so NOT IN needs no null-aware join; the
+    JAX package plans it so), and COUNT(DISTINCT ps_suppkey) per brand, type
+    and size. With ``null_aware``, the NOT IN is Spark's plan of it, a
+    LEFT_ANTI_NULL_AWARE join: the same rows."""
     p = P.Scan("part", SCHEMAS["part"]).filter(
         (E.col("p_brand") != E.lit("Brand#45"))
         & E.Like(E.col("p_type"), "MEDIUM POLISHED%", negated=True)
@@ -761,7 +786,8 @@ def q16() -> P.PlanNode:
     bad = P.Scan("supplier", SCHEMAS["supplier"]).filter(
         E.col("s_comment").like("%Customer%Complaints%")).project([E.col("s_suppkey")])
     good = P.HashJoin(psp, bad, (E.col("ps_suppkey"),), (E.col("s_suppkey"),),
-                      P.JoinType.LEFT_ANTI, "right")
+                      P.JoinType.LEFT_ANTI_NULL_AWARE if null_aware else P.JoinType.LEFT_ANTI,
+                      "right")
     agg = good.aggregate([E.col("p_brand"), E.col("p_type"), E.col("p_size")],
                          [E.AggExpr("count_distinct", E.col("ps_suppkey"), "supplier_cnt")])
     return agg.sort([E.SortOrder(E.col("supplier_cnt"), ascending=False),

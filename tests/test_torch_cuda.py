@@ -15,8 +15,12 @@ TPC-DS queries, Union, Expand, NOT and the null tests, every window
 function and frame, the other scalar aggregates (FIRST, LAST, the bit,
 bool and covariance families, MIN and MAX of strings and bools) on the
 dense and sorted paths and under the grace join's partial mode, the bloom
-filter and its probe through a scalar subquery, and q88 and q90_scalar
-directly and under the grace join, on the card against the CPU. Marked
+filter and its probe through a scalar subquery, q88 and q90_scalar
+directly and under the grace join, the special aggregates (median,
+percentile, approx_count_distinct, approx_percentile; SINGLE and tiled),
+TPC-H Q12 and Q3 in the SortMergeJoin shape on the merge path, Q16 with
+NOT IN, and Session.prepare directly and under the grace join, on the card
+against the CPU. Marked
 ``cuda``;
 without a card every test here skips. This file imports no JAX, so it runs
 on a machine without it (tests/conftest.py imports JAX, hence --noconftest):
@@ -1417,3 +1421,101 @@ def test_scalar_subquery_queries_on_card_equal_cpu_direct_and_grace(tpcds_sessio
         grace = QT.grace_session(gpu, fraction)
         assert chip_smoke.same_rows(want, grace.collect(build(grace)))
         assert all(16 in [r.K for r in sq["grace_runners"]] for sq in grace.subqueries)
+
+
+# ---- the special aggregates, SortMergeJoin's merge path, NOT IN, prepare -------------
+
+
+def _special_table():
+    rng = np.random.default_rng(61)
+    n = 200_000
+    g = rng.integers(0, 5, n)
+    data = {"k": np.array(["v", "w", "x", "y", "z"], object)[g],
+            "a": rng.integers(0, 3000, n).astype(np.int64),
+            "x": rng.integers(-10**6, 10**6, n).astype(np.int64),
+            "f": rng.normal(size=n) * 1e3, "d": rng.integers(-10**8, 10**8, n).astype(object)}
+    schema = PT.Schema([PT.Field("k", PT.string(4)), PT.Field("a", PT.INT64),
+                        PT.Field("x", PT.INT64), PT.Field("f", PT.FLOAT64),
+                        PT.Field("d", PT.decimal(12, 2))])
+    valid = {c: rng.random(n) > 0.1 for c in ("x", "f", "d")}
+    return data, schema, valid
+
+
+@pytest.mark.parametrize("key", [None, "k", "a"], ids=["ungrouped", "dense", "sorted"])
+def test_special_aggregates_on_card_equal_cpu(dev, key):
+    """median, percentile, approx_count_distinct and approx_percentile
+    (SINGLE, and under a budget that tiles the aggregate: PARTIAL states
+    merged by a FINAL) on the card equal the CPU exactly."""
+    from datafusion_comet_tpu_torch.ir import expr as PE
+
+    data, schema, valid = _special_table()
+    aggs = [PE.AggExpr("median", PE.col("d"), "m"),
+            PE.AggExpr("percentile", PE.col("f"), "p", extra=(PE.lit(0.25),)),
+            PE.AggExpr("approx_count_distinct", PE.col("x"), "h"),
+            PE.AggExpr("approx_percentile", PE.col("x"), "q", extra=(PE.lit(0.5),))]
+    one = [PE.AggExpr("approx_percentile", PE.col("f"), "q", extra=(PE.lit(0.7),))]
+
+    def plan(a):
+        return PP.Scan("t", schema).aggregate([PE.col(key)] if key else [], a)
+
+    from datafusion_comet_tpu_torch.exec.memory import device_budget_bytes, plan_peak_bytes
+
+    outs = []
+    for device, tiled in (("cpu", False), (None, False), ("cpu", True), (None, True)):
+        s = Session(device=device)
+        s.register_numpy("t", data, schema, validity=valid)
+        if tiled:  # a budget two tiles fit: PARTIAL states merged by a FINAL
+            peak = plan_peak_bytes(s._plan_stages(plan(one))[-1][1], s.tables["t"].capacity)
+            s.conf = Config(memory_fraction=peak / 1.5 / device_budget_bytes(s.device, 1.0))
+        outs.append(s.collect(plan(one if tiled else aggs)))
+        assert bool(s.tiled) == tiled
+    assert chip_smoke.same_rows(outs[0], outs[1]) and chip_smoke.same_rows(outs[2], outs[3])
+
+
+def test_smj_merge_path_and_not_in_on_card_equal_cpu(dev):
+    """TPC-H Q12 and Q3 in Spark's SortMergeJoin shape (orders without
+    statistics: the sorted builds, which merge) and Q16 with its NOT IN a
+    null-aware anti join, at SF 0.1, on the card equal the CPU and the hash
+    plans; every sort-merge join merged."""
+    names = ("lineitem", "orders", "customer", "part", "partsupp", "supplier")
+    data = {t: tpch.generate_table(t, 0.1) for t in names}
+    sessions = []
+    for device in ("cpu", None):
+        s = Session(device=device)
+        for t in names:
+            s.register_numpy(t, data[t], tpch.SCHEMAS[t])
+        del s.stats["orders"], s.stats["customer"]
+        sessions.append(s)
+    for plan, ref in ((lambda: tpch.q12(sort_merge=True), tpch.q12),
+                      (lambda: tpch.q3(sort_merge=True), tpch.q3),
+                      (lambda: tpch.q16(null_aware=True), tpch.q16)):
+        cpu, card = (s.collect(plan()) for s in sessions)
+        assert chip_smoke.same_rows(cpu, card)
+        assert chip_smoke.same_rows(card, sessions[1].collect(ref()))
+    card = sessions[1]
+    card.collect(tpch.q3(sort_merge=True))
+    merged = [j.get("merge") for r in card.runs if not r["overflowed"] for j in r["joins"]]
+    assert merged and all(merged)
+
+
+def test_prepare_on_card_equals_collect(dev):
+    """Q12 through Session.prepare, directly and under the budget that
+    splits its join into K = 16 pairs, at SF 0.1: three calls each equal the
+    CPU's collect, and none re-runs."""
+    from datafusion_comet_tpu_torch.exec.batch import to_numpy
+    from datafusion_comet_tpu_torch.tools.query_times import grace_session
+
+    names = ("lineitem", "orders")
+    data = {t: tpch.generate_table(t, 0.1) for t in names}
+    cpu, card = Session(device="cpu"), Session()
+    for s in (cpu, card):
+        for t in names:
+            s.register_numpy(t, data[t], tpch.SCHEMAS[t])
+    want = cpu.collect(tpch.q12())
+    grace = grace_session(card, chip_smoke.grace_fraction(card, tpch.q12())[0])
+    for s in (card, grace):
+        run = s.prepare(tpch.q12())
+        for _ in range(3):
+            assert chip_smoke.same_rows(want, to_numpy(run()))
+            assert not any(r["overflowed"] for r in s.runs)
+    assert [r.K for r in grace.grace_runners] == [chip_smoke.GRACE_K]

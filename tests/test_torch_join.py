@@ -178,13 +178,15 @@ def test_aqe_shrink_matches_jax_shrink():
 
 
 def test_other_join_types_raise():
-    """The hash join type still not ported (LEFT, RIGHT and FULL run:
-    tests/test_torch_outer.py)."""
+    """Every hash join type runs now (LEFT, RIGHT and FULL:
+    tests/test_torch_outer.py; the null-aware anti join:
+    tests/test_torch_null_aware.py); an outer join that builds its
+    preserved side still raises, as in the JAX package."""
     _, _, pl, pr = _stage(3)
     with pytest.raises(NotImplementedError):
         PJ.hash_join(pl, pr, [PE.bind(PE.col("fk"), pl.schema)],
-                     [PE.bind(PE.col("pk"), pr.schema)], "left_anti_null_aware", "right",
-                     pl.schema)
+                     [PE.bind(PE.col("pk"), pr.schema)], "right", "right",
+                     PP._join_out_schema(pl.schema, pr.schema, "right"))
 
 
 def _session_plan(M, P, E, fact_schema, dim_schema):

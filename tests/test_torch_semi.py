@@ -168,8 +168,10 @@ def test_bitmap_range_wider_than_the_keys_and_null_probe_keys():
 
 
 def test_semi_like_refusals():
-    """A left build side and the null-aware anti join raise; a condition
-    no longer does (test_torch_semi_cond.py holds those joins to JAX)."""
+    """A left build side raises, for the null-aware anti join too; a
+    condition no longer does (test_torch_semi_cond.py holds those joins to
+    JAX), nor does the null-aware anti join itself
+    (test_torch_null_aware.py)."""
     fact, dim, fvalid, dvalid, (fmask, dmask) = _tables(3, 2)
     fs, ds = _schemas(PT)
     left, right = _batch("port", fact, fs, fvalid, fmask), _batch("port", dim, ds, dvalid, dmask)
@@ -182,8 +184,8 @@ def test_semi_like_refusals():
     assert PJ.hash_join.semi_paths["minmax_sorted"] == before + 1
     with pytest.raises(AssertionError):
         PJ.hash_join(left, right, lk, rk, "left_anti", "left", fs)
-    with pytest.raises(NotImplementedError):
-        PJ.hash_join(left, right, lk, rk, "left_anti_null_aware", "right", fs)
+    with pytest.raises(AssertionError):
+        PJ.hash_join(left, right, lk, rk, "left_anti_null_aware", "left", fs)
 
 
 @pytest.mark.parametrize("join_type", ["left_semi", "inner", "left"])

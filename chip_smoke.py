@@ -6,7 +6,8 @@ On a machine with one NVIDIA card, from the root of a checkout:
     python3 chip_smoke.py            # TPC-H SF1, TPC-DS SF10
     python3 chip_smoke.py --sf 10    # another scale (TPC-DS at ten times it)
     python3 chip_smoke.py --profile  # add torch.profiler breakdowns of Q1, Q2 grace, Q20's
-                                     # variant, Q21, and TPC-DS q3, q27, q33, q64, q96, q88
+                                     # variant, Q21, TPC-DS q3, q27, q33, q64, q96, q88,
+                                     # and the four expr_* plans
 
 Phases, one JSON line each:
   1. device: the card's name, count, and nvidia-smi's name and power limit;
@@ -133,6 +134,28 @@ Phases, one JSON line each:
      and ``plan_ms``, the host ms of
      ``Session._plan_stages`` (the first run's, with the host copies of the
      dimension tables, and the warm runs' median);
+  expr_time, expr_strings, expr_casts, expr_sample (the ``expr`` phase,
+     ``expr_phase``, over the staged TPC-DS tables): the scalar evaluator at
+     scale through Session.collect, each against its oracle (the TPC-DS
+     oracle worker's): expr_time (store_sales joined to date_dim and
+     time_dim; make_date, unix_date, timestamp_seconds, from_utc_timestamp
+     in America/New_York where the machine has its tzdata, else -05:00,
+     date_trunc, hour, add_months and the truncated timestamp as a string,
+     COUNT and SUM per local month and hour; zoneinfo's offsets),
+     expr_strings (customer: concat_ws, initcap, lower, upper, trim, lpad
+     of a cast, instr, replace, substring_index, format_number, translate
+     and soundex; COUNT, MAX(length), SUM(xxhash64), MIN/MAX of strings per
+     soundex; Python string code), expr_casts (store_sales:
+     cast(cast(ss_net_paid as string) as decimal(7,2)) and the Ryu string
+     of ss_net_paid / 3 cast back to a double, both counts of rows that do
+     not round-trip 0; hash and xxhash64 of that string summed per store,
+     against numpy's hashes of the device's strings, a seeded sample of
+     them against Java's Double.toString) and expr_sample (a 1% Bernoulli
+     Sample, then rand, randn and monotonically_increasing_id: the sampled
+     ids, SUM(ss_net_paid) and every rand value exactly, the first 1,000
+     randn values within ``EXPR_RANDN_RTOL``, against a numpy XORShiftRandom
+     held to a sequential Python one); warm ms, peak memory, rows and
+     launches each;
   grace_pair_kernels: times both bucket kernels at the grace run's pair
      shape (a pair's block, B = 16, its mean live rows);
   5. partition: holds B3 against its plain versions, exactly: the
@@ -1953,6 +1976,7 @@ def tpcds_oracles(d) -> dict:
     out["q90_scalar"] = lambda: oracle_ds_q90_scalar(d)
     out["agg_state"] = lambda: agg_oracle(d, "state")
     out["agg_item"] = lambda: agg_oracle(d, "item")
+    out.update(expr_oracles(d))
     return out
 
 
@@ -2290,6 +2314,7 @@ def tpcds_phase(sf: float, reps: int, profile: bool, launches, b3_calls) -> None
     agg_phase(sess, data, ds_sf, reps, launches, total)
     q90_scalar_phase(sess, data, ds_sf, reps, launches, total)
     bloom_phase(sess, data, ds_sf, reps, launches, total)
+    expr_phase(sess, data, ds_sf, reps, profile, launches, total)
     if min(total.values()) == 0:
         raise AssertionError(f"the TPC-DS runs did not launch every kernel: {total}")
     del sess, data
@@ -2578,6 +2603,636 @@ def agg_phase(sess, data, ds_sf: float, reps: int, launches, total) -> None:
               "memory_fraction": fraction, "first_run_s": first_s,
               "warm_ms": statistics.median(times), "peak_gb": peak / 1e9,
               "launches": launches[pkey], **run_record(g)})
+
+
+# ---- the expression query set: the scalar evaluator at scale ----------------------------
+
+EXPR_SEED, EXPR_SEED2 = 17, 23  # Sample's seed, then rand's and randn's
+EXPR_FRACTION = 0.01  # Sample(store_sales, 0.0, 0.01, false, EXPR_SEED)
+EXPR_RANDN_HEAD = 1000  # the randn values reported and checked
+EXPR_FORMAT_SAMPLE = 1_000_000  # the rows of cast(d as string) checked as Java prints them
+EXPR_ZONE = "America/New_York"
+
+
+def expr_zone() -> str:
+    """The session zone of expr_time: America/New_York where the machine's
+    tzdata has it (utils/tz.py reads TZDIR, else /usr/share/zoneinfo), else
+    its standard offset, -05:00 (no DST)."""
+    import os
+
+    tzdir = os.environ.get("TZDIR", "/usr/share/zoneinfo")
+    return EXPR_ZONE if os.path.exists(os.path.join(tzdir, EXPR_ZONE)) else "-05:00"
+
+
+def expr_plans(E, P, T, schemas, zone: str) -> dict:
+    """The four plans of the expr phase, built from either package's IR
+    (the tests build the JAX package's twins): expr_time, expr_strings,
+    expr_casts and expr_sample."""
+    def scan(t):
+        return P.Scan(t, schemas[t])
+
+    def tf(f, *args, **kw):
+        return E.TemporalFunc(f, tuple(args), **kw)
+
+    def sf(f, *args):
+        return E.StringFunc(f, tuple(args))
+
+    c = E.col
+    # expr_time: each sale's instant, on the zone's wall clock by month and hour
+    j = P.HashJoin(scan("store_sales"), scan("date_dim"), (c("ss_sold_date_sk"),),
+                   (c("d_date_sk"),), P.JoinType.INNER, "right")
+    j = P.HashJoin(j, scan("time_dim"), (c("ss_sold_time_sk"),), (c("t_time_sk"),),
+                   P.JoinType.INNER, "right")
+    day = E.Cast(tf("unix_date", tf("make_date", c("d_year"), c("d_moy"), c("d_dom"))), T.INT64)
+    ts = tf("timestamp_seconds", day * E.lit(86400) + c("t_hour") * E.lit(3600)
+            + c("t_minute") * E.lit(60))
+    local = tf("from_utc_timestamp", ts, E.lit(zone))
+    month = tf("date_trunc", E.lit("MONTH"), local)
+    time_plan = j.project([E.Alias(E.Cast(month, T.string(26)), "month"),
+                           E.Alias(tf("hour", local), "hour"),
+                           E.Alias(tf("add_months", E.Cast(month, T.DATE), E.lit(1)), "next_month"),
+                           c("ss_net_paid")]).aggregate(
+        [c("month"), c("hour"), c("next_month")],
+        [E.AggExpr("count", None, "n"), E.AggExpr("sum", c("ss_net_paid"), "paid")]).sort(
+        [E.SortOrder(c("month")), E.SortOrder(c("hour"))])
+    # expr_strings: names cleaned, padded, searched, hashed, by soundex
+    full = sf("concat_ws", E.lit(" "), sf("initcap", sf("lower", c("c_first_name"))),
+              sf("upper", sf("trim", c("c_last_name"))))
+    strings_plan = scan("customer").project([
+        E.Alias(E.Soundex(sf("translate", c("c_last_name"), E.lit("0123456789"),
+                             E.lit("bcdlmrfgjk"))), "code"),
+        E.Alias(full, "full"),
+        E.Alias(sf("lpad", E.Cast(c("c_birth_year"), T.string(12)), E.lit(6), E.lit("0")), "by"),
+        E.Alias(sf("instr", full, E.lit("A")), "at"),
+        E.Alias(sf("replace", c("c_last_name"), E.lit("a"), E.lit("4")), "rep"),
+        E.Alias(E.SubstringIndex(full, " ", 1), "first"),
+        E.Alias(E.FormatNumber(c("c_customer_sk") * E.lit(37), 2), "fmt")]).aggregate(
+        [c("code")],
+        [E.AggExpr("count", None, "n"), E.AggExpr("max", sf("length", c("full")), "max_len"),
+         E.AggExpr("sum", E.HashFunc("xxhash64", (c("full"),)), "hash"),
+         E.AggExpr("sum", c("at"), "at"), E.AggExpr("max", c("by"), "by"),
+         E.AggExpr("max", c("rep"), "rep"), E.AggExpr("min", c("first"), "first"),
+         E.AggExpr("max", c("fmt"), "fmt")]).sort([E.SortOrder(c("code"))])
+    # expr_casts: decimals and doubles through their strings and back, the strings
+    # hashed (s computed once, in a projection of its own)
+    paid = c("ss_net_paid")
+    d = E.Cast(paid, T.FLOAT64) / E.lit(3)
+    s = E.Cast(d, T.string(24))
+
+    def bad(cond):
+        return E.if_(E.coalesce(cond, E.lit(True)), E.lit(1), E.lit(0))
+
+    casts_plan = scan("store_sales").project(
+        [c("ss_store_sk"), paid, E.Alias(d, "d"), E.Alias(s, "s")]).project([
+        c("ss_store_sk"),
+        E.Alias(bad(E.Cast(E.Cast(paid, T.string(12)), T.decimal(7, 2)) != paid), "bad_dec"),
+        E.Alias(bad(E.Cast(c("s"), T.FLOAT64) != c("d")), "bad_double"),
+        E.Alias(E.HashFunc("murmur3", (c("s"),)), "mm3"),
+        E.Alias(E.HashFunc("xxhash64", (c("s"),)), "xx")]).aggregate(
+        [c("ss_store_sk")],
+        [E.AggExpr("count", None, "n"), E.AggExpr("sum", c("bad_dec"), "bad_dec"),
+         E.AggExpr("sum", c("bad_double"), "bad_double"), E.AggExpr("sum", c("mm3"), "mm3"),
+         E.AggExpr("sum", c("xx"), "xx")]).sort([E.SortOrder(c("ss_store_sk"))])
+    # expr_sample: a 1% Bernoulli sample, then rand, randn and the row ids
+    sample_plan = P.Sample(scan("store_sales"), 0.0, EXPR_FRACTION, False, EXPR_SEED).project([
+        c("ss_net_paid"), E.Alias(E.RandExpr("rand", EXPR_SEED2), "r"),
+        E.Alias(E.RandExpr("randn", EXPR_SEED2), "g"),
+        E.Alias(E.MonotonicallyIncreasingId(), "id")])
+    return {"expr_time": time_plan, "expr_strings": strings_plan, "expr_casts": casts_plan,
+            "expr_sample": sample_plan}
+
+
+def expr_s_plan(E, P, T, schemas):
+    """cast(cast(ss_net_paid as double) / 3 as string) with its store, the
+    column the expr_casts hashes read, for the host's check of it."""
+    d = E.Cast(E.col("ss_net_paid"), T.FLOAT64) / E.lit(3)
+    return P.Scan("store_sales", schemas["store_sales"]).project(
+        [E.col("ss_store_sk"), E.Alias(E.Cast(d, T.string(24)), "s")])
+
+
+# -- the oracles: numpy, zoneinfo and Python strings
+
+def _zone_offsets(instants: np.ndarray, zone: str) -> np.ndarray:
+    """UTC offset (s) of each distinct instant (s), from zoneinfo (a fixed
+    offset from its text): read at each UTC hour's start and end, and per
+    instant only in an hour where the two differ."""
+    import datetime
+    import zoneinfo
+
+    if zone.startswith(("+", "-")):
+        sign = -1 if zone[0] == "-" else 1
+        hh, mm = zone[1:].split(":")
+        return np.full(len(instants), sign * (int(hh) * 3600 + int(mm) * 60), np.int64)
+    zi = zoneinfo.ZoneInfo(zone)
+
+    def off(t):
+        return int(datetime.datetime.fromtimestamp(int(t), zi).utcoffset().total_seconds())
+
+    hours, inv = np.unique(instants // 3600, return_inverse=True)
+    start = np.array([off(h * 3600) for h in hours], np.int64)
+    end = np.array([off(h * 3600 + 3599) for h in hours], np.int64)
+    out = start[inv]
+    mixed = (start != end)[inv]
+    out[mixed] = [off(t) for t in instants[mixed]]
+    return out
+
+
+def oracle_expr_time(d, zone: str):
+    """expr_time's rows: (month text, hour, next month's first day, count,
+    paid), sorted by month and hour; a date_dim row that is no date (Feb
+    30) makes a null instant, whose sales are the null group, first. The
+    zone offsets come from zoneinfo over the date_dim x time_dim grid."""
+    import datetime
+
+    ss, dd, td = d["store_sales"], d["date_dim"], d["time_dim"]
+    di, dfound = _lookup(dd["d_date_sk"], ss["ss_sold_date_sk"])
+    ti, tfound = _lookup(td["t_time_sk"], ss["ss_sold_time_sk"])
+    keep = dfound & tfound
+    di, ti, paid = di[keep], ti[keep], ss["ss_net_paid"][keep]
+    epoch = datetime.date(1970, 1, 1)
+    days = np.zeros(len(dd["d_year"]), np.int64)
+    real = np.zeros(len(days), bool)
+    for i, (y, m, dm) in enumerate(zip(dd["d_year"], dd["d_moy"], dd["d_dom"])):
+        try:
+            days[i], real[i] = (datetime.date(int(y), int(m), int(dm)) - epoch).days, True
+        except ValueError:
+            pass
+    grid = days[:, None] * 86400 + (td["t_hour"].astype(np.int64) * 3600
+                                     + td["t_minute"].astype(np.int64) * 60)[None, :]
+    local = grid + _zone_offsets(grid.ravel(), zone).reshape(grid.shape)
+    month = local.astype("datetime64[s]").astype("datetime64[M]").astype(np.int64)
+    m0 = month[real].min()
+    key = (month - m0) * 24 + (local % 86400) // 3600  # per grid cell
+    ok = real[di]
+    rows = []
+    if not ok.all():
+        rows.append((None, None, None, int((~ok).sum()), int(paid[~ok].sum())))
+    k = key[di[ok], ti[ok]]
+    counts = np.bincount(k)
+    sums = np.bincount(k, weights=paid[ok].astype(np.float64))  # exact: under 2^53
+    for g in np.nonzero(counts)[0]:
+        first = np.datetime64(int(m0 + g // 24), "M")
+        rows.append((str(first.astype("datetime64[D]")) + " 00:00:00", int(g % 24),
+                     int((first + 1).astype("datetime64[D]").astype(np.int64)),
+                     int(counts[g]), int(sums[g])))
+    return rows
+
+
+def _initcap(s: str) -> str:
+    """The first byte and each byte after a space upper, the rest lower
+    (ASCII letters only)."""
+    return "".join(ch.upper() if i == 0 or s[i - 1] == " " else ch.lower()
+                   for i, ch in enumerate(s))
+
+
+_SOUNDEX = {ch: str(v) for chars, v in (("BFPV", 1), ("CGJKQSXZ", 2), ("DT", 3), ("L", 4),
+                                        ("MN", 5), ("R", 6)) for ch in chars}
+
+
+def _soundex(s: str) -> str:
+    """American Soundex as the port and the JAX package have it (H and W
+    transparent, other non-letters resetting the previous code)."""
+    if not s or not ("A" <= s[0].upper() <= "Z"):
+        return s
+    up = s.upper()
+    out, prev = up[0], _SOUNDEX.get(up[0], "0")
+    for ch in up[1:]:
+        code = _SOUNDEX.get(ch, "0")
+        if code != "0" and code != prev and len(out) < 4:
+            out += code
+        if ch not in "HW":
+            prev = code
+    return out.ljust(4, "0")
+
+
+def _to_matrix(strs, w: int):
+    """Python bytes -> ((n, w) uint8, lengths)."""
+    mat = np.zeros((len(strs), w), np.uint8)
+    lens = np.zeros(len(strs), np.int64)
+    for i, b in enumerate(strs):
+        mat[i, : len(b)] = np.frombuffer(b, np.uint8)
+        lens[i] = len(b)
+    return mat, lens
+
+
+def xxhash64_bytes_np(mat: np.ndarray, lens: np.ndarray, seed: int = 42) -> np.ndarray:
+    """Spark's XXH64.hashUnsafeBytes of each row's first ``lens`` bytes, in
+    numpy uint64 (wrapping): 32-byte stripes, 8-byte words, one 4-byte
+    word, then single bytes, little-endian."""
+    p1, p2, p3, p4, p5 = (np.uint64(c) for c in (
+        0x9E3779B185EBCA87, 0xC2B2AE3D27D4EB4F, 0x165667B19E3779F9, 0x85EBCA77C2B2AE63,
+        0x27D4EB2F165667C5))
+    n, w = mat.shape
+    m = mat.astype(np.uint64)
+    lens = lens.astype(np.int64)
+
+    def rotl(x, r):
+        return (x << np.uint64(r)) | (x >> np.uint64(64 - r))
+
+    def word(j, k):
+        out = np.zeros(n, np.uint64)
+        for b in range(k):
+            if j + b < w:
+                out |= m[:, j + b] << np.uint64(8 * b)
+        return out
+
+    def rnd(acc, x):
+        return rotl(acc + x * p2, 31) * p1
+
+    with np.errstate(over="ignore"):
+        s = np.uint64(seed)
+        v = [np.full(n, s + p1 + p2), np.full(n, s + p2), np.full(n, s), np.full(n, s - p1)]
+        stripes = np.zeros(n, np.int64)
+        for st in range(w // 32):
+            act = (st + 1) * 32 <= lens
+            v = [np.where(act, rnd(acc, word(32 * st + 8 * k, 8)), acc) for k, acc in enumerate(v)]
+            stripes += act
+        hl = rotl(v[0], 1) + rotl(v[1], 7) + rotl(v[2], 12) + rotl(v[3], 18)
+        for acc in v:
+            hl = (hl ^ rnd(np.uint64(0), acc)) * p1 + p4
+        h = np.where(lens >= 32, hl, np.full(n, s + p5)) + lens.astype(np.uint64)
+        done = np.where(lens >= 32, stripes * 32, 0)
+        for j in range(w // 8):
+            act = (8 * j >= done) & (8 * j + 8 <= lens)
+            h = np.where(act, rotl(h ^ rnd(np.uint64(0), word(8 * j, 8)), 27) * p1 + p4, h)
+        done = (lens // 8) * 8
+        for j in range(w // 4 + 1):
+            act = (4 * j == done) & (4 * j + 4 <= lens)
+            h = np.where(act, rotl(h ^ (word(4 * j, 4) * p1), 23) * p2 + p3, h)
+        done = (lens // 4) * 4
+        for j in range(w):
+            act = (j >= done) & (j < lens)
+            h = np.where(act, rotl(h ^ (m[:, j] * p5), 11) * p1, h)
+        h ^= h >> np.uint64(33)
+        h *= p2
+        h ^= h >> np.uint64(29)
+        h *= p3
+        h ^= h >> np.uint64(32)
+    return h.view(np.int64)
+
+
+def mm3_hash_bytes_np(mat: np.ndarray, lens: np.ndarray, seed: int = 42) -> np.ndarray:
+    """Spark's Murmur3_x86_32.hashUnsafeBytes: the 4-byte little-endian
+    words, then each tail byte as a signed int, then fmix with the length.
+    int32 hashes."""
+    n, w = mat.shape
+    m = mat.astype(np.uint64)
+    lens = lens.astype(np.int64)
+
+    def mix_k1(k):
+        return _mul32(_rotl32(_mul32(k, 0xCC9E2D51), 15), 0x1B873593)
+
+    def mix_h1(h, k):
+        return (_mul32(_rotl32(h ^ k, 13), 5) + np.uint64(0xE6546B64)) & _U32
+
+    h = np.full(n, np.uint64(seed) & _U32)
+    for i in range(w // 4):
+        wd = m[:, 4 * i] | (m[:, 4 * i + 1] << np.uint64(8)) | (m[:, 4 * i + 2] << np.uint64(16)) \
+            | (m[:, 4 * i + 3] << np.uint64(24))
+        h = np.where(4 * (i + 1) <= lens, mix_h1(h, mix_k1(wd)), h)
+    for j in range(w):
+        signed = mat[:, j].astype(np.int8).astype(np.int64).astype(np.uint64) & _U32
+        h = np.where((j >= (lens // 4) * 4) & (j < lens), mix_h1(h, mix_k1(signed)), h)
+    h ^= lens.astype(np.uint64)
+    h = _mul32(h ^ (h >> np.uint64(16)), 0x85EBCA6B)
+    h = _mul32(h ^ (h >> np.uint64(13)), 0xC2B2AE35)
+    h ^= h >> np.uint64(16)
+    return h.astype(np.uint32).view(np.int32)
+
+
+def oracle_expr_strings(d):
+    """expr_strings' rows: (code, n, max_len, hash, at, by, rep, first,
+    fmt), sorted by code; Python string code over the customers."""
+    cu = d["customer"]
+    table = str.maketrans("0123456789", "bcdlmrfgjk")
+    groups = {}
+    full_cache = {}
+    for sk, first, last, year in zip(cu["c_customer_sk"], cu["c_first_name"], cu["c_last_name"],
+                                     cu["c_birth_year"]):
+        key = (first, last)
+        if key not in full_cache:
+            full = _initcap(first.lower()) + " " + last.strip(" ").upper()
+            full_cache[key] = (full, _soundex(last.translate(table)), full.find("A") + 1,
+                               last.replace("a", "4"), full.split(" ")[0])
+        full, code, at, rep, head = full_cache[key]
+        g = groups.setdefault(code, [0, 0, [], 0, "", "", None, ""])
+        g[0] += 1
+        g[1] = max(g[1], len(full))
+        g[2].append(full)
+        g[3] += at
+        g[4] = max(g[4], str(int(year)).rjust(6, "0")[:6])
+        g[5] = max(g[5], rep)
+        g[6] = head if g[6] is None else min(g[6], head)
+        g[7] = max(g[7], f"{int(sk) * 37:,.2f}")
+    rows = []
+    for code in sorted(groups):
+        n, mx, fulls, at, by, rep, head, fmt = groups[code]
+        uniq, counts = np.unique(np.array(fulls, object), return_counts=True)
+        mat, lens = _to_matrix([u.encode() for u in uniq], 64)
+        h = xxhash64_bytes_np(mat, lens).astype(np.uint64) * counts.astype(np.uint64)
+        total = int(np.sum(h, dtype=np.uint64).view(np.int64))
+        rows.append((code.encode(), n, mx, total, at, by.encode(), rep.encode(), head.encode(),
+                     fmt.encode()))
+    return rows
+
+
+def java_double(v: float) -> str:
+    """Java's Double.toString: the shortest round-trip digits (Python's
+    repr), plainly for 1e-3 <= |v| < 1e7, else d.dddE±x."""
+    import math
+    from decimal import Decimal
+
+    if v != v:
+        return "NaN"
+    if math.isinf(v):
+        return "Infinity" if v > 0 else "-Infinity"
+    if v == 0:
+        return "-0.0" if math.copysign(1.0, v) < 0 else "0.0"
+    _, digs, exp = Decimal(repr(abs(v))).as_tuple()
+    s = "".join(map(str, digs)).rstrip("0") or "0"
+    sci = exp + len(digs) - 1
+    if -3 <= sci < 7:
+        body = (s[: sci + 1].ljust(sci + 1, "0") + "." + (s[sci + 1:] or "0") if sci >= 0
+                else "0." + "0" * (-sci - 1) + s)
+    else:
+        body = s[0] + "." + (s[1:] or "0") + "E" + str(sci)
+    return ("-" if v < 0 else "") + body
+
+
+def oracle_expr_casts_base(d):
+    """expr_casts' rows but the hash sums: (store, count, 0, 0) per store;
+    every cast must round-trip."""
+    ss = d["store_sales"]
+    stores, counts = np.unique(ss["ss_store_sk"], return_counts=True)
+    return [(int(k), int(n), 0, 0) for k, n in zip(stores, counts)]
+
+
+# -- xorshift, apart from the port's: the state's powers as 64 column images
+# (Python ints), lanes of a block each stepped in numpy
+
+_M64_INT = (1 << 64) - 1
+
+
+def _xs_step_int(s: int) -> int:
+    s ^= (s << 21) & _M64_INT
+    s ^= s >> 35
+    return s ^ ((s << 4) & _M64_INT)
+
+
+def _xs_apply(cols, x: int) -> int:
+    out = 0
+    for i in range(64):
+        if (x >> i) & 1:
+            out ^= cols[i]
+    return out
+
+
+def xorshift_seed(seed: int) -> int:
+    """XORShiftRandom.hashSeed(seed) (partition 0), unsigned: murmur3 of the
+    8 big-endian bytes, twice."""
+    def mm3(data: bytes, h: int) -> int:
+        for off in (0, 4):
+            k = int.from_bytes(data[off:off + 4], "little")
+            k = (k * 0xCC9E2D51) & 0xFFFFFFFF
+            k = ((k << 15) | (k >> 17)) & 0xFFFFFFFF
+            k = (k * 0x1B873593) & 0xFFFFFFFF
+            h ^= k
+            h = ((h << 13) | (h >> 19)) & 0xFFFFFFFF
+            h = (h * 5 + 0xE6546B64) & 0xFFFFFFFF
+        h ^= 8
+        h ^= h >> 16
+        h = (h * 0x85EBCA6B) & 0xFFFFFFFF
+        h ^= h >> 13
+        h = (h * 0xC2B2AE35) & 0xFFFFFFFF
+        return h ^ (h >> 16)
+
+    b = (seed & _M64_INT).to_bytes(8, "big")
+    lo = mm3(b, 0x3C074A61)
+    return ((mm3(b, lo) << 32) | lo) & _M64_INT
+
+
+def xorshift_doubles(seed: int, n: int, lanes: int = 4096) -> np.ndarray:
+    """The first n nextDouble draws of XORShiftRandom(seed): each of
+    ``lanes`` lanes starts a block of draws by a jump and steps it in
+    numpy."""
+    per = max(-(-n // lanes), 1)
+    lanes = -(-n // per)
+    starts, s = [], xorshift_seed(seed)
+    stride = _xs_jump_cols(2 * per)
+    for _ in range(lanes):
+        starts.append(s)
+        s = _xs_apply(stride, s)
+    x = np.array(starts, np.uint64)
+    out = np.zeros((lanes, per), np.float64)
+    with np.errstate(over="ignore"):
+        for j in range(per):
+            x = _np_step(x)
+            a = x & np.uint64((1 << 26) - 1)
+            x = _np_step(x)
+            out[:, j] = ((a << np.uint64(27)) | (x & np.uint64((1 << 27) - 1))).astype(
+                np.float64) * 2.0**-53
+    return out.reshape(-1)[:n]
+
+
+def _xs_jump_cols(n: int):
+    """The column images of M^n."""
+    cols = [_xs_step_int(1 << i) for i in range(64)]
+    out = [1 << i for i in range(64)]
+    while n:
+        if n & 1:
+            out = [_xs_apply(cols, c) for c in out]
+        cols = [_xs_apply(cols, c) for c in cols]
+        n >>= 1
+    return out
+
+
+def _np_step(x):
+    x = x ^ (x << np.uint64(21))
+    x = x ^ (x >> np.uint64(35))
+    return x ^ (x << np.uint64(4))
+
+
+def xorshift_sequential(seed: int, n: int) -> list:
+    """The first n nextDouble draws, one step at a time in Python."""
+    s, out = xorshift_seed(seed), []
+    for _ in range(n):
+        s = _xs_step_int(s)
+        a = s & ((1 << 26) - 1)
+        s = _xs_step_int(s)
+        out.append(((a << 27) + (s & ((1 << 27) - 1))) * 2.0**-53)
+    return out
+
+
+def gaussians(draws, n: int) -> list:
+    """Java's nextGaussian over a stream of nextDouble draws: the polar
+    method, the second value cached."""
+    import math
+
+    out, i = [], 0
+    while len(out) < n:
+        v1, v2 = 2 * draws[i] - 1, 2 * draws[i + 1] - 1
+        i += 2
+        s = v1 * v1 + v2 * v2
+        if s < 1 and s != 0:
+            mult = math.sqrt(-2 * math.log(s) / s)
+            out += [v1 * mult, v2 * mult]
+    return out[:n]
+
+
+def oracle_expr_sample(d):
+    """The sampled rows' ids, sum(ss_net_paid), their rand values and the
+    first randn values; the lanes generator held to the sequential one over
+    the first 100,000 draws."""
+    ss = d["store_sales"]
+    n = len(ss["ss_net_paid"])
+    u = xorshift_doubles(EXPR_SEED, max(n, 100_000))
+    head = xorshift_sequential(EXPR_SEED, 100_000)
+    if not np.array_equal(u[:100_000], np.array(head)):
+        raise AssertionError("expr_sample oracle: the lanes generator is not the sequential one")
+    u = u[:n]
+    ids = np.nonzero((u >= 0.0) & (u < EXPR_FRACTION))[0]
+    r = xorshift_doubles(EXPR_SEED2, len(ids))
+    g = gaussians(xorshift_sequential(EXPR_SEED2, 4 * EXPR_RANDN_HEAD), EXPR_RANDN_HEAD)
+    return {"ids": ids, "paid": int(ss["ss_net_paid"][ids].sum()), "rand": r, "randn": g}
+
+
+def expr_oracles(d) -> dict:
+    zone = expr_zone()
+    return {"expr_time": lambda: oracle_expr_time(d, zone),
+            "expr_strings": lambda: oracle_expr_strings(d),
+            "expr_casts": lambda: oracle_expr_casts_base(d),
+            "expr_sample": lambda: oracle_expr_sample(d)}
+
+
+EXPR_RANDN_RTOL = 1e-12  # randn: torch's log and sqrt against libm's
+
+
+def check_expr(name: str, out, expect, what: str, sess=None, data=None) -> dict:
+    """An expr_* answer against its oracle; returns the line's checked
+    figures."""
+    if name == "expr_time":
+        got = out_rows(out, ("month", "hour", "next_month", "n", "paid"))
+        got = [(r[0].decode() if isinstance(r[0], bytes) else r[0],) + r[1:] for r in got]
+        if got != expect:
+            raise AssertionError(f"{what}: {got[:3]}... ({len(got)} rows), expected "
+                                 f"{expect[:3]}... ({len(expect)} rows)")
+        return {"groups": len(got), "rows_joined": sum(r[3] for r in got)}
+    if name == "expr_strings":
+        cols = ("code", "n", "max_len", "hash", "at", "by", "rep", "first", "fmt")
+        got = [tuple(v.encode() if isinstance(v, str) else v for v in r)
+               for r in out_rows(out, cols)]
+        if got != expect:
+            raise AssertionError(f"{what}: {got[:2]}, expected {expect[:2]}")
+        return {"groups": len(got), "customers": sum(r[1] for r in got)}
+    if name == "expr_casts":
+        got = out_rows(out, ("ss_store_sk", "n", "bad_dec", "bad_double"))
+        if got != expect:
+            raise AssertionError(f"{what}: {got[:3]}, expected {expect[:3]} (a cast that "
+                                 "does not round-trip counts in bad_dec or bad_double)")
+        return expr_hash_check(out, sess, data, what)
+    ids = out["id"]
+    if not np.array_equal(ids, expect["ids"]):
+        raise AssertionError(f"{what}: {len(ids)} rows sampled, expected {len(expect['ids'])}")
+    paid = int(out["ss_net_paid"].sum())
+    if paid != expect["paid"]:
+        raise AssertionError(f"{what}: sum(ss_net_paid) {paid}, expected {expect['paid']}")
+    if not np.array_equal(out["r"], expect["rand"]):
+        raise AssertionError(f"{what}: rand differs from XORShiftRandom's draws")
+    head = out["g"][:EXPR_RANDN_HEAD]
+    np.testing.assert_allclose(head, expect["randn"][: len(head)], rtol=EXPR_RANDN_RTOL, atol=0,
+                               err_msg=f"{what}: randn")
+    return {"rows": len(ids), "sum_net_paid": paid, "sum_rand": float(out["r"].sum()),
+            "randn_head": [float(x) for x in head]}
+
+
+def expr_hash_check(out, sess, data, what: str) -> dict:
+    """expr_casts' hash sums against numpy's hashes of the device's own
+    strings (gathered to the host; every row of one ss_net_paid value holds
+    the same string, so each distinct value is hashed once), and the
+    values of a seeded sample of ``EXPR_FORMAT_SAMPLE`` rows against Java's
+    Double.toString of the same doubles."""
+    from datafusion_comet_tpu_torch import types as T
+    from datafusion_comet_tpu_torch.ir import expr as E
+    from datafusion_comet_tpu_torch.ir import plan as P
+    from datafusion_comet_tpu_torch.models import tpcds
+
+    b = sess.execute(expr_s_plan(E, P, T, tpcds.SCHEMAS))
+    live = b.row_mask.cpu().numpy()
+    store = b.columns[0].data.cpu().numpy()[live]
+    mat, lens = b.columns[1].data.cpu().numpy()[live], b.columns[1].lengths.cpu().numpy()[live]
+    del b
+    paid = data["store_sales"]["ss_net_paid"]
+    # the distinct values and each row's, by their range (no sort)
+    lo = int(paid.min())
+    inv = paid - lo
+    first = np.full(int(paid.max()) - lo + 1, -1, np.int64)
+    first[inv[::-1]] = np.arange(len(paid) - 1, -1, -1)
+    present = np.nonzero(first >= 0)[0]
+    ids = np.zeros(len(first), np.int64)
+    ids[present] = np.arange(len(present))
+    inv, first = ids[inv], first[present]
+    rep_mat, rep_lens = mat[first], lens[first]
+    if not (np.array_equal(lens, rep_lens[inv]) and (mat == rep_mat[inv]).all()):
+        raise AssertionError(f"{what}: one ss_net_paid value cast to two strings")
+    dbl = (present + lo).astype(np.float64) / 100.0 / 3.0
+    rng = np.random.default_rng(EXPR_SEED)
+    pick = np.unique(inv[rng.integers(0, len(paid), min(EXPR_FORMAT_SAMPLE, len(paid)))])
+    java = np.array([java_double(float(x)).encode() for x in dbl[pick]], f"S{mat.shape[1]}")
+    wrong = np.nonzero(np.ascontiguousarray(rep_mat[pick]).view(java.dtype)[:, 0] != java)[0]
+    if len(wrong):
+        i = pick[wrong[0]]
+        raise AssertionError(f"{what}: cast({dbl[i]!r} as string) gave "
+                             f"{bytes(rep_mat[i, : rep_lens[i]])!r}, Java prints "
+                             f"{java_double(float(dbl[i]))}")
+    h32 = mm3_hash_bytes_np(rep_mat, rep_lens).astype(np.int64)[inv]
+    h64 = xxhash64_bytes_np(rep_mat, rep_lens).view(np.uint64)[inv]
+    want = []
+    with np.errstate(over="ignore"):
+        for k in np.unique(store):
+            sel = store == k
+            want.append((int(k), int(h32[sel].sum()),
+                         int(np.sum(h64[sel], dtype=np.uint64).view(np.int64))))
+    got = out_rows(out, ("ss_store_sk", "mm3", "xx"))
+    if got != want:
+        raise AssertionError(f"{what}: hash sums {got[:2]}, numpy's {want[:2]}")
+    return {"stores": len(got), "distinct_strings": len(present), "format_checked": len(pick),
+            "bad_dec": 0, "bad_double": 0}
+
+
+def expr_phase(sess, data, ds_sf: float, reps: int, profile: bool, launches, total) -> None:
+    """The expression query set over the staged TPC-DS tables (SF100 with
+    --sf 10): expr_time, expr_strings, expr_casts and expr_sample
+    (``expr_plans``), each through Session.collect against its oracle (the
+    TPC-DS oracle worker's, but expr_casts' hash sums, which numpy checks
+    here over the device's own strings): warm ms, peak device memory, rows
+    and the launches of B1, B2 and B3."""
+    from datafusion_comet_tpu_torch import types as T
+    from datafusion_comet_tpu_torch.ir import expr as E
+    from datafusion_comet_tpu_torch.ir import plan as P
+    from datafusion_comet_tpu_torch.models import tpcds
+
+    zone = expr_zone()
+    t_phase = time.perf_counter()
+    for name, plan in expr_plans(E, P, T, tpcds.SCHEMAS, zone).items():
+        key = f"ds_{name}"
+        out, launches[key], first_s, times, peak, _, _, _ = run_query(sess, plan, reps,
+                                                                      log_b3=False)
+        for k in total:
+            total[k] += launches[key][k]
+        t0 = time.perf_counter()
+        expect = memo_oracle(("tpcds", name, ds_sf), expr_oracles(data)[name])
+        t1 = time.perf_counter()
+        rec = {"phase": name, "sf": ds_sf, "first_run_s": first_s,
+               "warm_ms": statistics.median(times), "peak_gb": peak / 1e9,
+               "rows": len(next(iter(out.values()))), "launches": launches[key],
+               **check_expr(name, out, expect, key, sess, data),
+               "oracle_wait_s": t1 - t0, "check_s": time.perf_counter() - t1}
+        if name == "expr_time":
+            rec["zone"] = zone
+        emit(rec)
+        if profile:
+            emit(profile_run(sess, plan, f"profile_{name}"))
+    emit({"phase": "expr", "sf": ds_sf, "phase_s": time.perf_counter() - t_phase})
 
 
 def device_memory(sess) -> int:
@@ -3526,8 +4181,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=7, help="seed of the kernel-phase inputs")
     ap.add_argument("--profile", action="store_true",
                     help="add profiled runs of Q1, of Q2's grace run, of Q20's variant "
-                         "directly, of Q21's two runs (TPCH_PROFILE), and of TPC-DS q3's, "
-                         "q27's, q33's, q96's and q88's two runs and q64's")
+                         "directly, of Q21's two runs (TPCH_PROFILE), of TPC-DS q3's, "
+                         "q27's, q33's, q96's and q88's two runs and q64's, and of the "
+                         "four expr_* plans")
     args = ap.parse_args(argv)
 
     import torch

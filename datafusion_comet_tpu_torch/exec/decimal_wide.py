@@ -88,8 +88,9 @@ def overflow_check(p: Pair, precision: int) -> torch.Tensor:
 
 def arith(op: str, l: ColumnVector, r: ColumnVector, lt: T.DataType, rt: T.DataType,
           out: T.DataType) -> Tuple[Pair, torch.Tensor]:
-    """add/sub/mul/div over i128; returns (value pair, invalid mask) where
-    invalid marks division-by-zero rows (the caller owns ANSI handling)."""
+    """add/sub/mul/div/mod/pmod over i128; returns (value pair, invalid
+    mask) where invalid marks division-by-zero rows (the caller owns ANSI
+    handling)."""
     s1, s2, so = lt.scale, rt.scale, out.scale
     zero_div = torch.zeros(l.capacity, dtype=torch.bool, device=l.data.device)
     if op in ("add", "sub"):
@@ -111,15 +112,30 @@ def arith(op: str, l: ColumnVector, r: ColumnVector, lt: T.DataType, rt: T.DataT
                 up = i128.mul_pow10_i128(res, so - raw)
                 res = i128.select(over_m | big, i128.const_u128(10**38, res[1]), up)
     elif op == "div":
-        if r.is_wide_storage:
-            raise NotImplementedError("division by a two-limb decimal is not ported yet")
         k = so - s1 + s2
         num = lift(l, max(k, 0))
         if k < 0:
             num = rescale(num, k)
-        den = r.data.long()
-        zero_div = den == 0
-        res = _div_i128_i64_full(num, torch.where(zero_div, torch.ones_like(den), den))
+        if r.is_wide_storage:
+            den = lift(r)
+            zero_div = (den[0] == 0) & (den[1] == 0)
+            res = i128.div_i128_i128_half_up(
+                num, (den[0], torch.where(zero_div, torch.ones_like(den[1]), den[1])))
+        else:
+            den = r.data.long()
+            zero_div = den == 0
+            res = _div_i128_i64_full(num, torch.where(zero_div, torch.ones_like(den), den))
+    elif op in ("mod", "pmod"):
+        # truncated remainder at the common scale (JAX ``decimal_wide.py:181-197``)
+        s = max(s1, s2)
+        a, b = lift(l, s - s1), lift(r, s - s2)
+        zero_div = (b[0] == 0) & (b[1] == 0)
+        safe = (b[0], torch.where(zero_div, torch.ones_like(b[1]), b[1]))
+        _, rem = i128.divmod_u128_u128(i128.abs_(a), i128.abs_(safe))
+        m = i128.select(a[0] < 0, i128.neg(rem), rem)
+        if op == "pmod":
+            m = i128.select(i128.is_negative(m), i128.add(m, i128.abs_(safe)), m)
+        res = rescale(m, so - s)
     else:
         raise NotImplementedError(op)
     return res, zero_div
@@ -135,6 +151,22 @@ def _div_i128_i64_full(num: Pair, den: torch.Tensor, den_bound=None) -> Pair:
     round_up = ~i128._u64_lt(r * 2, uden)
     q = i128.add(q, (torch.zeros_like(q[0]), round_up.long()))
     return i128.select(sign_neg, i128.neg(q), q)
+
+
+def digits_39(p: Pair) -> Tuple[torch.Tensor, torch.Tensor]:
+    """|i128| -> (its 39 decimal digits little-endian, (rows, 39) int64,
+    negative mask): two 128 / 10^18 divisions cut the magnitude into three
+    chunks."""
+    ua = i128.abs_(p)
+    p18 = torch.full_like(ua[1], 10**18)
+    q1, r1 = i128.divmod_u128_u64(ua[0], ua[1], p18)
+    q2, r2 = i128.divmod_u128_u64(q1[0], q1[1], p18)
+    digs = []
+    for x, n in ((r1, 18), (r2, 18), (q2[1], 3)):
+        for _ in range(n):
+            digs.append(x % 10)
+            x = x // 10
+    return torch.stack(digs, dim=1), i128.is_negative(p)
 
 
 def decompose4(p: Pair) -> Tuple[torch.Tensor, ...]:

@@ -193,6 +193,9 @@ def run_plan(plan: P.PlanNode, tables: Dict[str, Batch], ctx: EvalContext, conf:
         return B.expand_op(child, plan.projections, plan.schema, ctx)
     if isinstance(plan, P.Window):
         return W.window_op(child, plan.window_exprs, plan.schema, ctx)
+    if isinstance(plan, P.Sample):
+        return B.sample_op(child, plan.lower_bound, plan.upper_bound, plan.with_replacement,
+                           plan.seed, ctx.partition_id)
     raise NotImplementedError(f"run_plan: {type(plan).__name__}")
 
 
@@ -400,17 +403,20 @@ def _count_heavy(plan: P.PlanNode) -> int:
     return int(own) + sum(_count_heavy(c) for c in plan.children())
 
 
+_ROW_PRESERVING = (P.Filter, P.Projection, P.Expand, P.Sample)  # JAX ``engine.py:1452``
+
+
 def find_stream_agg(plan: P.PlanNode, tables) -> Optional[Tuple[P.HashAggregate, str]]:
     """The aggregate the JAX package would run tiled over the budget
     (JAX ``engine.py:1455``): a SINGLE HashAggregate over filters,
-    projections and expands of one resident table, the one over the
+    projections, expands and samples of one resident table, the one over the
     largest table; (aggregate, table) or None."""
     best = None
 
     def subtree_scan(p) -> Optional[str]:
         if isinstance(p, P.Scan):
             return p.table
-        if not isinstance(p, (P.Filter, P.Projection, P.Expand)):
+        if not isinstance(p, _ROW_PRESERVING):
             return None
         return subtree_scan(p.children()[0])
 

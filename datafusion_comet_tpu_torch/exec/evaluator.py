@@ -1,13 +1,15 @@
 """Expression evaluator: bound expression IR -> tensor ops over a Batch
-(port of ``datafusion_comet_tpu/exec/evaluator.py``, the subset the ported
-TPC-H and TPC-DS queries reach: LIKE, ``substring``, the fields of a DATE,
-floats, NOT and the null tests, ``negate`` and ``abs``, the math functions
-(``_math_func``), the decimal to integer cast among them, a session's
-scalar subqueries (a literal of the value the session materialized before
-the plan ran, ``EvalContext.subquery_values``), the bloom-filter probe
-(exec/operators/agg_special.py), Spark's murmur3 over integer, float
-and string columns for hash partitioning and bloom filters, and Spark's
-xxhash64 for the HyperLogLog sketch of ``approx_count_distinct``).
+(port of ``datafusion_comet_tpu/exec/evaluator.py``: every scalar
+expression of ``ir/expr.py``). Families apart: casts to and from strings
+(exec/casts.py, Ryu in exec/ryu.py), dates and timestamps in a session
+zone (exec/temporal.py), the string functions (exec/string_funcs.py),
+rand and randn (exec/random_xorshift.py); here the literals, arithmetic
+and comparisons, the numeric cast matrix, LIKE, CASE and IN, the math
+functions, a session's scalar subqueries (a literal of the value the
+session materialized before the plan ran, ``EvalContext.subquery_values``),
+the bloom-filter probe (exec/operators/agg_special.py), and Spark's
+murmur3 and xxhash64 (``HashFunc``, hash partitioning, bloom filters and
+the HyperLogLog sketch).
 
 Spark semantics kept from the JAX package:
 - three-valued logic through validity vectors, Kleene AND/OR;
@@ -21,9 +23,10 @@ Spark semantics kept from the JAX package:
 - floats as Spark (Java) has them: NaN equals NaN and ranks above +Inf,
   -0.0 equals 0.0, x / 0.0 is +-Inf or NaN; subnormals kept (XLA on the CPU
   flushes them, ROADMAP C13);
-- a function of a dictionary column's strings runs over the dictionary's
-  entries and is gathered back by code (``_eval_on_dict``): LIKE over
-  ``p_type``'s 150 entries instead of its rows.
+- a function of a dictionary column's strings (LIKE, a cast, a string
+  function with literal arguments) runs over the dictionary's entries and
+  is gathered back by code (``_eval_on_dict``): LIKE over ``p_type``'s 150
+  entries instead of its rows.
 
 The storage choice (narrow int64 or two-limb i128) follows the same bounds
 as the JAX package, so both packages hold the same buffers for each node.
@@ -39,7 +42,11 @@ import numpy as np
 import torch
 
 from datafusion_comet_tpu_torch import types as T
+from datafusion_comet_tpu_torch.exec import casts as CS
 from datafusion_comet_tpu_torch.exec import decimal_wide as DW
+from datafusion_comet_tpu_torch.exec import random_xorshift as RX
+from datafusion_comet_tpu_torch.exec import string_funcs as SF
+from datafusion_comet_tpu_torch.exec import temporal as TM
 from datafusion_comet_tpu_torch.exec.batch import Batch, ColumnVector, quantize_bound
 from datafusion_comet_tpu_torch.ir import expr as E
 from datafusion_comet_tpu_torch.utils import int128
@@ -51,6 +58,11 @@ __all__ = ["EvalContext", "evaluate", "evaluate_predicate", "murmur3_hash_i32",
 
 @dataclasses.dataclass
 class EvalContext:
+    # the partition this batch belongs to, of how many, and the index of its
+    # first row in the partition (rand's seed, monotonically_increasing_id)
+    partition_id: int = 0
+    num_partitions: int = 1
+    batch_row_offset: int = 0
     # error side channel: (flag tensor, message) pairs, read once at the end
     # of the query; ANSI errors per row, kernel code-range checks per launch
     errors: Optional[List[Tuple[torch.Tensor, str]]] = None
@@ -136,7 +148,7 @@ def _ev(e: E.Expr, b: Batch, ctx: EvalContext) -> ColumnVector:
     if isinstance(e, E.UnaryOp):
         return _unary(e, b, ctx)
     if isinstance(e, E.Cast):
-        return _cast(_ev(e.child, b, ctx), e.child.dtype, e.to, e.eval_mode, ctx)
+        return _cast(_ev(e.child, b, ctx), e.child.dtype, e.to, e.eval_mode, ctx, e.timezone)
     if isinstance(e, E.CaseWhen):
         return _case_when(e, b, ctx)
     if isinstance(e, E.InList):
@@ -149,6 +161,22 @@ def _ev(e: E.Expr, b: Batch, ctx: EvalContext) -> ColumnVector:
         return _temporal_func(e, b, ctx)
     if isinstance(e, E.MathFunc):
         return _math_func(e, b, ctx)
+    if isinstance(e, E.HashFunc):
+        return _hash_func(e, b, ctx)
+    if isinstance(e, (E.SplitPart, E.SubstringIndex, E.Soundex, E.FormatNumber)):
+        return _split_like(e, b, ctx)
+    if isinstance(e, E.RandExpr):
+        fn = RX.rand_column if e.func == "rand" else RX.randn_column
+        return fn(RX.init_seed_host(e.seed, ctx.partition_id), b.row_mask)
+    if isinstance(e, E.MonotonicallyIncreasingId):
+        # Spark: the partition id above bit 33, the row's index in it below
+        idx = torch.arange(b.capacity, dtype=torch.int64, device=b.device) + ctx.batch_row_offset
+        return ColumnVector((ctx.partition_id << 33) | idx, torch.ones_like(b.row_mask), None,
+                            T.INT64)
+    if isinstance(e, E.SparkPartitionId):
+        return ColumnVector(torch.full((b.capacity,), ctx.partition_id, dtype=torch.int32,
+                                       device=b.device), torch.ones_like(b.row_mask), None,
+                            T.INT32)
     if isinstance(e, E.ScalarSubquery):
         value, valid = _subquery_value(e, ctx)
         return _literal(E.Literal(value if valid else None, e.dtype), b.capacity, b.device)
@@ -396,8 +424,39 @@ def _eval_on_dict(cv: ColumnVector, fn, ctx: EvalContext) -> ColumnVector:
                         res.dictionary)
 
 
-def _pad_width(mat: torch.Tensor, w: int) -> torch.Tensor:
-    return mat if mat.shape[1] == w else torch.nn.functional.pad(mat, (0, w - mat.shape[1]))
+# A cast to or from a string runs over blocks of this many rows: its
+# per-byte intermediates (Ryu's layout, the parse's digit planes) take
+# about 4 KB a row, so a whole 30M-row column at once would not fit the card.
+CAST_CHUNK_ROWS = 1 << 22
+
+
+def _by_chunks(cv: ColumnVector, fn, ctx: EvalContext) -> ColumnVector:
+    """``fn`` over consecutive blocks of ``CAST_CHUNK_ROWS`` rows of ``cv``,
+    the results concatenated; the error flags ``fn`` records per block are
+    joined back into whole-column flags (same messages, same order in every
+    block) and recorded under the live-row mask."""
+    outer_errors, outer_mask = ctx.errors, ctx.row_mask
+    parts, errs = [], []
+    try:
+        for i in range(0, cv.capacity, CAST_CHUNK_ROWS):
+            sl = slice(i, i + CAST_CHUNK_ROWS)
+            ctx.errors = [] if outer_errors is not None else None
+            ctx.row_mask = None
+            parts.append(fn(ColumnVector(cv.data[sl], cv.validity[sl],
+                                         None if cv.lengths is None else cv.lengths[sl],
+                                         cv.dtype, None, cv.mag_bound)))
+            errs.append(ctx.errors or [])
+    finally:
+        ctx.errors, ctx.row_mask = outer_errors, outer_mask
+    for k, (_, msg) in enumerate(errs[0]):
+        ctx.record_error(torch.cat([e[k][0] for e in errs]), msg)
+    first = parts[0]
+    lengths = None if first.lengths is None else torch.cat([p.lengths for p in parts])
+    return ColumnVector(torch.cat([p.data for p in parts]), torch.cat([p.validity for p in parts]),
+                        lengths, first.dtype, None, first.mag_bound)
+
+
+_pad_width = SF.pad_width
 
 
 def _string_eq(l: ColumnVector, r: ColumnVector) -> torch.Tensor:
@@ -486,8 +545,6 @@ def _arith(e: E.BinaryOp, l: ColumnVector, r: ColumnVector, ctx: EvalContext) ->
     op, out = e.op, e.dtype
     validity = l.validity & r.validity
     if out.is_decimal:
-        if op in ("mod", "pmod"):
-            raise NotImplementedError("decimal mod is not ported yet")
         return _decimal_arith(e, l, r, validity, ctx)
     # JAX ``evaluator.py:731-770``: division runs in DOUBLE; floats follow
     # Java (x / 0.0 is +-Inf or NaN, x % 0.0 NaN, never null); integer mod
@@ -537,6 +594,12 @@ def _arith_bound(op: str, lb: int, rb: int, s1: int, s2: int, so: int, prec: int
         nb = lb * 10**k  # |quotient| <= |scaled numerator| since |den| >= 1
         ob = min(nb + 1, 10**prec - 1)
         return ob, nb + 1 < _NARROW_LIMIT or (nb < 2**126 and ob < _NARROW_LIMIT)
+    if op in ("mod", "pmod"):
+        s = max(s1, s2)
+        ab, cb = lb * 10 ** (s - s1), rb * 10 ** (s - s2)
+        mb = cb if op == "pmod" else min(ab, cb)
+        ob = mb * 10 ** (so - s) if so >= s else mb // 10 ** (s - so) + 1
+        return ob, ab < _NARROW_LIMIT and cb < _NARROW_LIMIT
     return 10**38, False
 
 
@@ -550,7 +613,7 @@ def _decimal_arith(e: E.BinaryOp, l: ColumnVector, r: ColumnVector, validity,
     ob, narrow_ok = _arith_bound(op, lb, rb, s1, s2, so, out.precision)
     if l.is_wide_storage or r.is_wide_storage or not narrow_ok:
         res, zero_div = DW.arith(op, l, r, lt_, rt_, out)
-        if op == "div":
+        if op in ("div", "mod", "pmod"):
             if e.eval_mode == E.EvalMode.ANSI:
                 ctx.record_error(zero_div & validity, "DIVIDE_BY_ZERO")
             validity = validity & ~zero_div
@@ -580,6 +643,19 @@ def _decimal_arith(e: E.BinaryOp, l: ColumnVector, r: ColumnVector, validity,
             else:
                 data = int128.div_i128_i64_half_up(
                     prod, torch.full_like(ld, 10 ** (raw_scale - so)))
+    elif op in ("mod", "pmod"):
+        # JAX ``evaluator.py:889-900``: the truncated remainder at the common
+        # scale (through a double quotient, as there), never an error
+        s = max(s1, s2)
+        a, c = _rescale_up_i64(ld, s - s1), _rescale_up_i64(rd, s - s2)
+        is_zero = c == 0
+        safe = torch.where(is_zero, torch.ones_like(c), c)
+        m = a - (a.double() / safe.double()).trunc().long() * safe
+        if op == "pmod":
+            m = torch.where(m < 0, m + safe.abs(), m)
+        data = (_rescale_up_i64(m, so - s) if so >= s
+                else _decimal_downscale_half_up_i64(m, s - so))
+        validity = validity & ~is_zero
     else:  # div
         k = so - s1 + s2
         is_zero = rd == 0
@@ -616,22 +692,44 @@ def _cast_bound(cv: ColumnVector, frm: T.DataType, to: T.DataType) -> int:
     return max(abs(int(lo)), int(hi)) * 10**to.scale
 
 
-def _cast(cv: ColumnVector, frm: T.DataType, to: T.DataType, mode: str,
-          ctx: EvalContext) -> ColumnVector:
-    """Integer, decimal, float and string-to-string subset of the Spark
-    cast matrix."""
+def _cast(cv: ColumnVector, frm: T.DataType, to: T.DataType, mode: str, ctx: EvalContext,
+          tz: Optional[str] = None) -> ColumnVector:
+    """The Spark cast matrix as the JAX package has it (``evaluator.py:951``,
+    exec/cast_matrix.py lists it): a dictionary column's entries cast once
+    and gathered back by code; strings to and from every scalar type
+    (exec/casts.py); timestamps to and from dates and numbers (seconds),
+    in the session zone ``tz`` where a timestamp meets a string or a date;
+    integers, decimals, floats and booleans among themselves."""
     if frm == to:
         return cv
+    if cv.is_dict:
+        return _eval_on_dict(cv, lambda s: _cast(s, frm, to, mode, ctx, tz), ctx)
     if frm.type_id == "NULL":
         return _literal(E.Literal(None, to), cv.capacity, cv.data.device)
+    if (to.is_binary != frm.is_binary) and cv.capacity > CAST_CHUNK_ROWS:
+        return _by_chunks(cv, lambda s: _cast(s, frm, to, mode, ctx, tz), ctx)
     validity = cv.validity
-    if to.is_binary and frm.is_binary:
-        # to another width: cut or zero-padded bytes, lengths capped (the
-        # JAX package casts a dictionary's entries and gathers them back,
-        # which gives the decoded rows cast)
-        cv, w = _dedict(cv), to.byte_width
-        data = cv.data[:, :w] if cv.data.shape[1] >= w else _pad_width(cv.data, w)
-        return ColumnVector(data, validity, cv.lengths.clamp(max=w), to)
+    ts_ids = ("TIMESTAMP", "TIMESTAMP_NTZ")
+    if to.is_binary:
+        if frm.is_binary:  # to another width: cut or zero-padded bytes, lengths capped
+            w = to.byte_width
+            data = cv.data[:, :w] if cv.data.shape[1] >= w else _pad_width(cv.data, w)
+            return ColumnVector(data, validity, cv.lengths.clamp(max=w), to)
+        if frm.is_integer or frm.is_decimal or frm.type_id == "DATE" or frm.is_boolean:
+            return CS.cast_to_string(cv, frm, to)
+        if frm.is_floating:
+            return CS.float_to_string(cv, frm, to)
+        if frm.type_id in ts_ids:
+            micros = cv.data.long()
+            if tz and frm.type_id == "TIMESTAMP":  # rendered on the session's wall clock
+                micros = micros + TM.tz_offset_micros(micros, tz, local=False)
+            return CS.timestamp_to_string(micros, validity, to)
+        raise NotImplementedError(f"cast {frm!r} -> string")
+    if frm.is_binary:
+        return CS.cast_string_to(cv, to, mode, ctx, tz)
+    if frm.type_id in ts_ids or to.type_id in ts_ids or frm.type_id == "DATE" \
+            or to.type_id == "DATE":
+        return _cast_temporal(cv, frm, to, mode, ctx, tz)
     if frm.is_floating or to.is_floating:
         return _cast_float(cv, frm, to, mode, ctx)
     if to.is_integer and frm.is_integer and T.common_type(frm, to) == to:  # widening
@@ -657,6 +755,52 @@ def _cast(cv: ColumnVector, frm: T.DataType, to: T.DataType, mode: str,
             return _int_narrow(p[1], validity & fits, to, mode, ctx)
         return _int_narrow(_decimal_truncate_i64(cv.data.long(), frm.scale), validity, to,
                            mode, ctx)
+    if to.is_integer and (frm.is_integer or frm.is_boolean):  # Java narrowing
+        return _int_narrow(cv.data.long(), validity, to, mode, ctx)
+    if to.is_boolean and frm.is_integer:
+        return ColumnVector(cv.data != 0, validity, None, to)
+    raise NotImplementedError(f"cast {frm!r} -> {to!r}")
+
+
+def _cast_temporal(cv: ColumnVector, frm: T.DataType, to: T.DataType, mode: str,
+                   ctx: EvalContext, tz: Optional[str]) -> ColumnVector:
+    """The date and timestamp rows of the matrix (JAX ``evaluator.py:
+    1037-1089``): a timestamp to a number is its seconds (floored for an
+    integer), a number to a timestamp seconds (a float's fraction kept to
+    the microsecond, NaN, infinities and overflow null), a timestamp to a
+    date its day (on the session's wall clock), a date to a timestamp its
+    midnight; a date to an integer or a float its day number, a date or a
+    timestamp to a boolean whether it is not the epoch."""
+    validity = cv.validity
+    ts_ids = ("TIMESTAMP", "TIMESTAMP_NTZ")
+    x = cv.data
+    if frm.type_id in ts_ids and (to.is_integer or to.is_floating):
+        if to.is_integer:
+            return _int_narrow(x.long() // 1_000_000, validity, to, mode, ctx)
+        return ColumnVector((x.double() / 1e6).to(_torch_dtype(to)), validity, None, to)
+    if to.type_id == "DATE" and frm.type_id in ts_ids:
+        micros = x.long()
+        if tz and frm.type_id == "TIMESTAMP":
+            micros = micros + TM.tz_offset_micros(micros, tz, local=False)
+        return ColumnVector((micros // TM.MU_DAY).int(), validity, None, to)
+    if to.type_id in ts_ids and frm.type_id == "DATE":
+        micros = x.long() * TM.MU_DAY
+        if tz and to.type_id == "TIMESTAMP":  # local midnight; a DST gap takes the earlier offset
+            micros = micros - TM.tz_offset_micros(micros, tz, local=True)
+        return ColumnVector(micros, validity, None, to)
+    if to.type_id in ts_ids and (frm.is_integer or frm.is_floating or frm.is_boolean):
+        if frm.is_floating:
+            sec = x.double()
+            ok = torch.isfinite(sec) & (sec.abs() < 9.3e12)
+            micros = torch.where(ok, sec * 1e6, 0.0).long()
+            return ColumnVector(micros, validity & ok, None, to)
+        return ColumnVector(x.long() * 1_000_000, validity, None, to)
+    if frm.type_id == "DATE" and to.is_integer:
+        return _int_narrow(x.long(), validity, to, mode, ctx)
+    if frm.type_id == "DATE" and to.is_floating:
+        return ColumnVector(x.to(_torch_dtype(to)), validity, None, to)
+    if frm.is_temporal and to.is_boolean:
+        return ColumnVector(x != 0, validity, None, to)
     raise NotImplementedError(f"cast {frm!r} -> {to!r}")
 
 
@@ -1051,7 +1195,7 @@ def _like_cv(e: E.Like, cv: ColumnVector) -> ColumnVector:
 
 
 # -------------------------------------------------------------------------------------
-# substring (JAX ``evaluator.py:1614`` ``_string_func``, :1766-1780)
+# string functions (exec/string_funcs.py; JAX ``evaluator.py:1614``)
 # -------------------------------------------------------------------------------------
 
 
@@ -1059,95 +1203,46 @@ def _string_func(e: E.StringFunc, b: Batch, ctx: EvalContext) -> ColumnVector:
     """A dictionary column with literal arguments: the function over the
     entries, gathered back by code; anything else over the padded bytes."""
     args = [_ev(a, b, ctx) for a in e.args]
-    if args[0].is_dict and all(isinstance(a, E.Literal) for a in e.args[1:]):
+    if args and args[0].is_dict and all(isinstance(a, E.Literal) for a in e.args[1:]):
         lits = e.args[1:]
         return _eval_on_dict(
-            args[0], lambda s: _substring(s, [_literal(a, s.capacity, s.data.device)
-                                              for a in lits], e.dtype), ctx)
-    return _substring(_dedict(args[0]), [_dedict(a) for a in args[1:]], e.dtype)
+            args[0], lambda s: SF.string_func(e, [s] + [_literal(a, s.capacity, s.data.device)
+                                                        for a in lits]), ctx)
+    return SF.string_func(e, [_dedict(a) for a in args])
 
 
-def _substring(cv: ColumnVector, args: List[ColumnVector], dt: T.DataType) -> ColumnVector:
-    """Spark's substring(str, pos[, len]) over padded bytes: 1-based, pos 0
-    acts as 1, a negative pos counts from the end, a negative len is 0, a
-    slice past the end is cut; the bytes past the new length are zero and
-    the input's validity is kept."""
-    mat, lens = cv.data, cv.lengths.long()
-    cap, w = mat.shape
-    p = args[0].data.long()
-    n = args[1].data.long().clamp(min=0) if len(args) > 1 else torch.full_like(lens, w)
-    start = torch.where(p > 0, p - 1, torch.where(p == 0, 0, (lens + p).clamp(min=0)))
-    out_len = (torch.minimum(start + n, lens) - start).clamp(min=0)
-    pos = torch.arange(w, device=mat.device)[None, :]
-    data = mat.gather(1, (start[:, None] + pos).clamp(0, max(w - 1, 0)))
-    data = torch.where(pos < out_len[:, None], data, torch.zeros((), dtype=mat.dtype,
-                                                                  device=mat.device))
-    return ColumnVector(data, cv.validity, out_len.int(), dt)
+def _split_like(e, b: Batch, ctx: EvalContext) -> ColumnVector:
+    """SplitPart, SubstringIndex, Soundex and FormatNumber (JAX
+    ``evaluator.py:314-385``), a dictionary column over its entries."""
+    cv = _ev(e.child, b, ctx)
+    if isinstance(e, E.FormatNumber):
+        out, bad = SF.format_number(_dedict(cv), e.decimals, e.dtype)
+        ctx.record_error(bad, f"format_number: value does not fit (out_len={e.dtype.byte_width}"
+                              " or scaled magnitude beyond int64)")
+        return out
+    parts = 0 if isinstance(e, E.Soundex) else (e.max_parts or 16)
+
+    def small(s: ColumnVector) -> ColumnVector:
+        if isinstance(e, E.Soundex):
+            return SF.soundex(s, e.dtype)
+        if isinstance(e, E.SplitPart):
+            out, ovf, zp = SF.split_part(s, e.delim.encode("utf-8"), e.part, parts, e.dtype)
+            ctx.record_error(zp & s.validity, "split_part: part must not be 0")
+        else:
+            out, ovf = SF.substring_index(s, e.delim.encode("utf-8"), e.count, parts, e.dtype)
+        ctx.record_error(ovf, f"{type(e).__name__}: more than {parts} fields (raise max_parts)")
+        return out
+
+    return _eval_on_dict(cv, small, ctx) if cv.is_dict else small(cv)
 
 
 # -------------------------------------------------------------------------------------
-# temporal: the fields of a DATE (JAX ``evaluator.py:2089-2160``)
+# temporal (exec/temporal.py)
 # -------------------------------------------------------------------------------------
-
-
-def _civil_from_days(days: torch.Tensor):
-    """Days since 1970-01-01 -> (year, month, day), Hinnant's algorithm in
-    floor division."""
-    z = days.long() + 719468
-    era = torch.where(z >= 0, z, z - 146096) // 146097
-    doe = z - era * 146097
-    yoe = (doe - doe // 1460 + doe // 36524 - doe // 146096) // 365
-    y = yoe + era * 400
-    doy = doe - (365 * yoe + yoe // 4 - yoe // 100)
-    mp = (5 * doy + 2) // 153
-    d = doy - (153 * mp + 2) // 5 + 1
-    m = torch.where(mp < 10, mp + 3, mp - 9)
-    y = torch.where(m <= 2, y + 1, y)
-    return y.int(), m.int(), d.int()
-
-
-def _days_from_civil(y: torch.Tensor, m: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
-    y, m, d = y.long(), m.long(), d.long()
-    y_adj = torch.where(m <= 2, y - 1, y)
-    era = torch.where(y_adj >= 0, y_adj, y_adj - 399) // 400
-    yoe = y_adj - era * 400
-    mp = torch.where(m > 2, m - 3, m + 9)
-    doy = (153 * mp + 2) // 5 + d - 1
-    doe = yoe * 365 + yoe // 4 - yoe // 100 + doy
-    return era * 146097 + doe - 719468
 
 
 def _temporal_func(e: E.TemporalFunc, b: Batch, ctx: EvalContext) -> ColumnVector:
-    """year, month, day, quarter, dayofweek (1 = Sunday), dayofyear and ISO
-    weekofyear of a DATE, as INT32. Timestamps and time zones are not
-    ported yet."""
-    f = e.func
-    cv = _ev(e.args[0], b, ctx)
-    if cv.dtype.type_id != "DATE" or e.tz:
-        raise NotImplementedError(f"{f} of {cv.dtype.type_id}"
-                                  f"{' in a time zone' if e.tz else ''} is not ported yet")
-    if f not in E.DATE_FIELDS:
-        raise NotImplementedError(f"TemporalFunc {f!r} is not ported yet")
-    days = cv.data.long()
-    y, m, d = _civil_from_days(days)
-    if f == "year":
-        data = y
-    elif f == "month":
-        data = m
-    elif f == "day":
-        data = d
-    elif f == "quarter":
-        data = (m - 1) // 3 + 1
-    elif f == "dayofweek":  # 1970-01-01 was a Thursday (5)
-        data = (days + 4) % 7 + 1
-    elif f == "dayofyear":
-        data = days - _days_from_civil(y, torch.ones_like(m), torch.ones_like(d)) + 1
-    else:  # weekofyear (ISO 8601): the week of this week's Thursday
-        thursday = days - (days + 3) % 7 + 3
-        ty, _, _ = _civil_from_days(thursday)
-        jan1 = _days_from_civil(ty, torch.ones_like(ty), torch.ones_like(ty))
-        data = (thursday - jan1) // 7 + 1
-    return ColumnVector(data.int(), cv.validity, None, T.INT32)
+    return TM.temporal_func(e, [_dedict(_ev(a, b, ctx)) for a in e.args])
 
 
 # -------------------------------------------------------------------------------------
@@ -1228,13 +1323,31 @@ def murmur3_hash_bytes(mat: torch.Tensor, lens: torch.Tensor, seed: torch.Tensor
     return _i32(_fmix(h1, lens))
 
 
+def _hash_func(e: E.HashFunc, b: Batch, ctx: EvalContext) -> ColumnVector:
+    """Spark's hash (murmur3, INT32) or xxhash64 (INT64) of the arguments,
+    each hashed into the running seed; never null (JAX ``evaluator.py:2702``)."""
+    murmur = e.func == "murmur3"
+    if not murmur and e.func != "xxhash64":
+        raise NotImplementedError(f"hash {e.func}")
+    h = torch.full((b.capacity,), e.seed, dtype=torch.int32 if murmur else torch.int64,
+                   device=b.device)
+    for a in e.args:
+        cv = _ev(a, b, ctx)
+        h = murmur3_column(cv, h) if murmur else xxhash64_column(cv, h)
+    return ColumnVector(h, torch.ones_like(b.row_mask), None, T.INT32 if murmur else T.INT64)
+
+
 def murmur3_column(cv: ColumnVector, seed: torch.Tensor) -> torch.Tensor:
     """Hash one column into the running int32 seed; a null leaves the seed
-    unchanged (Spark)."""
+    unchanged (Spark). Ints, dates and bools hash as an int, longs,
+    timestamps and decimals of at most 18 digits as a long, strings their
+    bytes, floats their bits (JAX ``_murmur3_column``); a wider decimal
+    raises NotImplementedError, as there."""
     dt = cv.dtype
     if dt.type_id in ("INT8", "INT16", "INT32", "DATE") or dt.is_boolean:
         h = murmur3_hash_i32(cv.data.int(), seed)
-    elif dt.type_id in ("INT64", "TIMESTAMP"):
+    elif dt.type_id in ("INT64", "TIMESTAMP", "TIMESTAMP_NTZ") or (
+            dt.is_decimal and dt.precision <= 18):
         h = murmur3_hash_i64(cv.data, seed)
     elif dt.is_binary:
         cv = _dedict(cv)
@@ -1250,7 +1363,7 @@ def murmur3_column(cv: ColumnVector, seed: torch.Tensor) -> torch.Tensor:
             bits = torch.where(torch.isnan(d), 0x7FF8000000000000, d.view(torch.int64))
             h = murmur3_hash_i64(bits, seed)
     else:
-        raise NotImplementedError(f"murmur3 for {dt!r} is not ported yet")
+        raise NotImplementedError(f"murmur3 for {dt!r}")
     return torch.where(cv.validity, h, seed)
 
 

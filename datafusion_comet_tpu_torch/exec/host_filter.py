@@ -112,16 +112,23 @@ def _strip(e: E.Expr) -> E.Expr:
     return e
 
 
-def _col_name(e: E.Expr) -> Optional[str]:
+def _col_name(e: E.Expr, cols: Optional["HostColumns"] = None) -> Optional[str]:
     e = _strip(e)
-    # integer-width, date and decimal casts keep the values the comparisons
-    # read; a string cast does not
+    # integer-width, date and decimal casts of an integer, date or decimal
+    # column keep the values the comparisons read; a string cast does not,
+    # nor does a cast of a string, float or timestamp column (a parse, a
+    # rounding, a day of an instant), which the device evaluates
+    cast = False
     while isinstance(e, E.Cast) and (e.to.is_integer or e.to.type_id == "DATE"
                                      or e.to.is_decimal):
-        e = _strip(e.child)
-    if isinstance(e, (E.ColumnRef, E.BoundRef)):
-        return e.col_name
-    return None
+        e, cast = _strip(e.child), True
+    if not isinstance(e, (E.ColumnRef, E.BoundRef)):
+        return None
+    if cast:
+        dt = cols.dtype(e.col_name) if cols is not None and cols.get(e.col_name) else None
+        if dt is None or not (dt.is_integer or dt.is_decimal or dt.type_id == "DATE"):
+            return None
+    return e.col_name
 
 
 def _lit_value(e: E.Expr):
@@ -250,7 +257,7 @@ def _eval_conjunct(c: E.Expr, cols: HostColumns) -> Optional[np.ndarray]:
                 return None
         return ~inner
     if isinstance(c, E.UnaryOp) and c.op in ("isnull", "isnotnull"):
-        nm = _col_name(c.child)
+        nm = _col_name(c.child, cols)
         hc = cols.get(nm) if nm else None
         if hc is None:
             return None
@@ -262,14 +269,14 @@ def _eval_conjunct(c: E.Expr, cols: HostColumns) -> Optional[np.ndarray]:
             return None
         return a | b if c.op == "or" else a & b
     if isinstance(c, E.Like):
-        nm = _col_name(c.child)
+        nm = _col_name(c.child, cols)
         hc = cols.get(nm) if nm else None
         if hc is None or not hc.is_string:
             return None
         m = _like_mask(hc, c.pattern) & hc.valid
         return (~m & hc.valid) if c.negated else m
     if isinstance(c, E.InList):
-        nm = _col_name(c.child)
+        nm = _col_name(c.child, cols)
         hc = cols.get(nm) if nm else None
         if hc is None:
             return None
@@ -294,7 +301,7 @@ def _eval_conjunct(c: E.Expr, cols: HostColumns) -> Optional[np.ndarray]:
         return (~m & hc.valid) if c.negated else m
     if isinstance(c, E.BinaryOp) and c.op in _CMP:
         for a, b, flip in ((c.left, c.right, False), (c.right, c.left, True)):
-            nm = _col_name(a)
+            nm = _col_name(a, cols)
             lit = _lit_value(b)
             if nm is None or lit is None:
                 continue

@@ -11,6 +11,7 @@ narrow the mask.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -22,8 +23,8 @@ from datafusion_comet_tpu_torch.exec.batch import Batch, ColumnVector, pad_capac
 from datafusion_comet_tpu_torch.exec.evaluator import EvalContext, evaluate, evaluate_predicate
 from datafusion_comet_tpu_torch.ir import expr as E
 
-__all__ = ["filter_op", "project_op", "sort_op", "limit_op", "expand_op", "partition_batch",
-           "compact_batch"]
+__all__ = ["filter_op", "project_op", "sort_op", "limit_op", "expand_op", "sample_op",
+           "partition_batch", "compact_batch"]
 
 
 def filter_op(batch: Batch, predicate: E.Expr, ctx: Optional[EvalContext] = None) -> Batch:
@@ -92,6 +93,37 @@ def expand_op(batch: Batch, projections: Sequence[Sequence[E.Expr]], out_schema:
                                  torch.stack([c.validity for c in branch], 1).reshape(-1),
                                  lengths, f.dtype, branch[0].dictionary))
     return Batch(tuple(cols), batch.row_mask.repeat_interleave(n_proj), out_schema)
+
+
+def sample_op(batch: Batch, lower_bound: float, upper_bound: float, with_replacement: bool,
+              seed: int, partition_id: int = 0) -> Batch:
+    """Spark's Sample (JAX ``operators/basic.py:235``). Without replacement
+    Spark-exact: one XORShiftRandom nextDouble per live row, seeded
+    hashSeed(seed + partition), kept where lower <= x < upper (the
+    BernoulliCellSampler: complementary ranges split the rows); an empty
+    range keeps nothing and draws nothing. With replacement each live row
+    is copied Poisson(upper - lower) times, at most K = ceil(fraction) + 3
+    (a static expansion, as in the JAX package); the counts come from a
+    ``torch.Generator`` seeded from seed and partition, so they follow the
+    same distribution as Spark's and the JAX package's but not their draws
+    (ROADMAP C28)."""
+    from datafusion_comet_tpu_torch.exec import random_xorshift as RX
+
+    if not with_replacement:
+        if upper_bound - lower_bound <= 0.0:
+            return batch.with_mask(torch.zeros_like(batch.row_mask))
+        u = RX.rand_column(RX.init_seed_host(seed, partition_id), batch.row_mask).data
+        return batch.with_mask(batch.row_mask & (u >= lower_bound) & (u < upper_bound))
+    fraction = upper_bound - lower_bound
+    cap = batch.capacity
+    K = max(1, math.ceil(fraction) + 3)
+    gen = torch.Generator(device="cpu").manual_seed((seed + partition_id) & ((1 << 63) - 1))
+    counts = torch.poisson(torch.full((cap,), fraction, dtype=torch.float64), generator=gen)
+    counts = counts.to(batch.device).long().clamp(max=K)
+    copy = torch.arange(K, device=batch.device)[None, :]
+    live = (copy < counts[:, None]) & batch.row_mask[:, None]
+    src = torch.arange(cap, device=batch.device).repeat_interleave(K)
+    return batch.take(src, live.reshape(cap * K))
 
 
 def partition_batch(batch: Batch, codes: torch.Tensor, num_parts: int,

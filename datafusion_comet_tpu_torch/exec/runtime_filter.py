@@ -205,7 +205,7 @@ def _out_names(p: P.PlanNode) -> Optional[Set[str]]:
         return {f.name for f in p.schema.fields}
     if isinstance(p, P.Scan):
         return {f.name for f in p.out_schema().fields}
-    if isinstance(p, (P.Filter, P.Sort, P.Limit, P.ShuffleExchange)):  # JAX :208
+    if isinstance(p, (P.Filter, P.Sort, P.Limit, P.Sample, P.ShuffleExchange)):  # JAX :208
         return _out_names(p.children()[0])
     if isinstance(p, P.Projection):
         return {e.name for e in p.exprs}
@@ -441,9 +441,24 @@ def _register_keys(session, name: str, keys: np.ndarray, dtype: T.DataType) -> N
 # -- push-down -------------------------------------------------------------------
 
 
+def _nondeterministic(e: Optional[E.Expr]) -> bool:
+    """Whether an expression draws rand()/randn() or reads a row's
+    position, which a filter below it would change."""
+    if e is None:
+        return False
+    if isinstance(e, (E.RandExpr, E.MonotonicallyIncreasingId)):
+        return True
+    return any(_nondeterministic(c) for c in e.children())
+
+
 def _push_semi(p: P.PlanNode, col: str, rf: _RF, session) -> Optional[P.PlanNode]:
     """The semi join against the key table inserted as low as ``col`` flows
-    unchanged: a new tree, shared nodes untouched."""
+    unchanged: a new tree, shared nodes untouched. It stays above a Filter
+    or Projection that draws rand() or reads row positions (their values
+    follow the live rows below them)."""
+    if (isinstance(p, P.Filter) and _nondeterministic(p.predicate)) or (
+            isinstance(p, P.Projection) and any(_nondeterministic(x) for x in p.exprs)):
+        return None
     if isinstance(p, (P.Filter, P.Sort, P.Limit)):
         sub = _push_semi(p.children()[0], col, rf, session)
         if sub is None:

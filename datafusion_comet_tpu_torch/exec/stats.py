@@ -348,7 +348,7 @@ def _walk(plan: P.PlanNode, stats: Dict[str, TableStats]) -> Tuple[int, Dict[str
             rows = min(rows, cut)
         return rows, {k: min(v, rows) for k, v in ndv.items()}
 
-    if isinstance(plan, (P.Window, P.ShuffleExchange)):  # the JAX walk's default branch
+    if isinstance(plan, (P.Window, P.ShuffleExchange, P.Sample)):  # the JAX walk's default
         return kids[0]
     raise NotImplementedError(f"derive_capacities: {type(plan).__name__}")
 

@@ -1,11 +1,14 @@
 """Expression IR and Spark type inference (port of
-``datafusion_comet_tpu/ir/expr.py``, the subset the ported TPC-H queries
-reach: LIKE, the date fields of ``TemporalFunc``, ``substring``, float
-literals and arithmetic, ``MathFunc``, ``negate`` and ``abs``, and the NOT,
-null and NaN tests among them, with ``if_`` and ``coalesce`` built on
-``CaseWhen``; a session's scalar subqueries (``ScalarSubquery``) and the
-bloom-filter probe (``BloomMightContain``); the window specs
-``WindowFrame`` and ``WindowExpr``).
+``datafusion_comet_tpu/ir/expr.py``: its scalar expressions, with ``if_``
+and ``coalesce`` built on ``CaseWhen``; casts with their session time zone,
+every ``TemporalFunc`` and ``StringFunc`` but the bytes and JSON family,
+``SplitPart``, ``SubstringIndex``, ``Soundex``, ``FormatNumber``,
+``HashFunc``, the nondeterministic ``RandExpr``,
+``MonotonicallyIncreasingId`` and ``SparkPartitionId``, a session's scalar
+subqueries (``ScalarSubquery``), the bloom-filter probe
+(``BloomMightContain``) and the window specs ``WindowFrame`` and
+``WindowExpr``. Not ported: the regex, nested-type, lambda and Python UDF
+nodes and ``Split``, which returns an array).
 
 Expressions are built unbound (column names); ``bind(expr, schema)`` resolves
 references to column indices and computes result types, including Spark's
@@ -23,12 +26,32 @@ from datafusion_comet_tpu_torch import types as T
 __all__ = [
     "Expr", "EvalMode", "ColumnRef", "BoundRef", "Literal", "Alias", "BinaryOp", "UnaryOp",
     "Cast", "CaseWhen", "InList", "Like", "StringFunc", "TemporalFunc", "MathFunc", "DATE_FIELDS",
-    "BloomMightContain", "ScalarSubquery", "SortOrder", "AggFunc", "AggExpr", "WindowFrame",
+    "HashFunc", "SplitPart", "SubstringIndex", "Soundex", "FormatNumber", "RandExpr",
+    "MonotonicallyIncreasingId", "SparkPartitionId", "BloomMightContain", "ScalarSubquery",
+    "SortOrder", "AggFunc", "AggExpr", "WindowFrame",
     "WindowExpr", "col", "lit", "if_", "coalesce", "bind",
 ]
 
-# the TemporalFunc functions the port evaluates: fields of a DATE, each INT32
+# the TemporalFunc fields of a date, each INT32
 DATE_FIELDS = ("year", "month", "day", "quarter", "dayofweek", "dayofyear", "weekofyear")
+
+# each TemporalFunc's result type (JAX ``ir/expr.py:_bind``)
+TEMPORAL_TYPES = {
+    **{f: T.INT32 for f in DATE_FIELDS + ("hour", "minute", "second", "unix_date", "weekday",
+                                          "datediff")},
+    "unix_seconds": T.INT64, "timestampadd": T.TIMESTAMP, "timestampdiff": T.INT64,
+    "convert_timezone": T.TIMESTAMP_NTZ, "date_add": T.DATE, "date_sub": T.DATE,
+    "last_day": T.DATE, "trunc_date": T.DATE, "from_utc_timestamp": T.TIMESTAMP_NTZ,
+    "to_utc_timestamp": T.TIMESTAMP, "date_trunc": T.TIMESTAMP, "unix_timestamp": T.INT64,
+    "unix_micros": T.INT64, "unix_millis": T.INT64, "timestamp_seconds": T.TIMESTAMP,
+    "timestamp_millis": T.TIMESTAMP, "timestamp_micros": T.TIMESTAMP, "add_months": T.DATE,
+    "next_day": T.DATE, "make_date": T.DATE, "months_between": T.FLOAT64,
+    "from_unixtime": T.string(19),
+}
+
+# the bytes and JSON string functions, not ported (ROADMAP A.4)
+BYTES_JSON_FUNCS = ("hex", "unhex", "base64", "unbase64", "encode", "decode", "bin", "conv",
+                    "md5", "sha1", "sha2", "crc32", "get_json_object", "json_array_length")
 
 
 class EvalMode:
@@ -200,9 +223,14 @@ class UnaryOp(Expr):
 
 @_node
 class Cast(Expr):
+    """``timezone``: the session zone of a timestamp's cast to or from a
+    string or a date (Spark's Cast.timeZoneId); None renders and parses
+    in UTC."""
+
     child: Expr
     to: T.DataType
     eval_mode: str = EvalMode.LEGACY
+    timezone: Optional[str] = None
 
     def children(self):
         return (self.child,)
@@ -252,9 +280,8 @@ class Like(Expr):
 
 @_node
 class StringFunc(Expr):
-    """A string function by name over ``args`` (JAX ``ir/expr.py:312``).
-    The port binds and evaluates ``substring(str, pos[, len])``, whose
-    result has its input's string type."""
+    """A string function by name over ``args`` (JAX ``ir/expr.py:312``),
+    typed by ``_string_func_type``."""
 
     func: str
     args: Tuple[Expr, ...]
@@ -265,9 +292,11 @@ class StringFunc(Expr):
 
 @_node
 class TemporalFunc(Expr):
-    """A date/time function by name over ``args``; ``tz`` names the session
-    time zone, ``unit`` a calendar unit (as in the JAX package). The port
-    binds and evaluates the fields of a DATE (``DATE_FIELDS``)."""
+    """A date/time function by name over ``args`` (``TEMPORAL_TYPES``);
+    ``tz`` names the session time zone, applied to a timestamp before its
+    fields are read, ``unit`` the calendar unit of timestampadd and
+    timestampdiff (convert_timezone carries its source zone in ``tz`` and
+    its target in ``unit``), as in the JAX package."""
 
     func: str
     args: Tuple[Expr, ...]
@@ -291,6 +320,91 @@ class MathFunc(Expr):
 
     def children(self):
         return self.args
+
+
+@_node
+class HashFunc(Expr):
+    """Spark's murmur3 hash (``hash``, INT32) or ``xxhash64`` (INT64) of
+    its arguments, each hashed into the running seed."""
+
+    func: str
+    args: Tuple[Expr, ...]
+    seed: int = 42
+
+    def children(self):
+        return self.args
+
+
+@_node
+class SplitPart(Expr):
+    """split_part(str, literal delim, part): 1-based, a negative part
+    counts from the end, part 0 an error, a part out of range ''."""
+
+    child: Expr
+    delim: str
+    part: int = 1
+    max_parts: int = 0
+
+    def children(self):
+        return (self.child,)
+
+
+@_node
+class FormatNumber(Expr):
+    """format_number(v, d): HALF_EVEN to d decimals, the integer part
+    comma-grouped (exec/format_number.py), at most ``out_len`` bytes."""
+
+    child: Expr
+    decimals: int = 0
+    out_len: int = 32
+
+    def children(self):
+        return (self.child,)
+
+
+@_node
+class Soundex(Expr):
+    """American Soundex of an ASCII string; a row whose first byte is not
+    a letter passes through unchanged."""
+
+    child: Expr
+
+    def children(self):
+        return (self.child,)
+
+
+@_node
+class SubstringIndex(Expr):
+    """substring_index(str, literal delim, n): before the n-th occurrence
+    from the left (n > 0), after the |n|-th from the right (n < 0, a
+    one-byte delimiter), '' for n = 0."""
+
+    child: Expr
+    delim: str
+    count: int = 1
+    max_parts: int = 0
+
+    def children(self):
+        return (self.child,)
+
+
+@_node
+class RandExpr(Expr):
+    """rand() or randn() (``func``) with a seed: Spark's XORShiftRandom,
+    seeded per partition, one draw per live row (exec/random_xorshift.py)."""
+
+    func: str
+    seed: int
+
+
+@_node
+class MonotonicallyIncreasingId(Expr):
+    pass
+
+
+@_node
+class SparkPartitionId(Expr):
+    pass
 
 
 @_node
@@ -563,7 +677,7 @@ def bind(expr: Expr, schema: T.Schema) -> Expr:
         return out
     if isinstance(e, Cast):
         c = bind(e.child, schema)
-        out = Cast(c, e.to, e.eval_mode)
+        out = Cast(c, e.to, e.eval_mode, e.timezone)
         object.__setattr__(out, "dtype", e.to)
         return out
     if isinstance(e, CaseWhen):
@@ -586,17 +700,34 @@ def bind(expr: Expr, schema: T.Schema) -> Expr:
         object.__setattr__(out, "dtype", T.BOOL)
         return out
     if isinstance(e, StringFunc):
-        if e.func != "substring":
-            raise NotImplementedError(f"StringFunc {e.func!r} is not ported yet")
         args = tuple(bind(a, schema) for a in e.args)
         out = StringFunc(e.func, args)
-        object.__setattr__(out, "dtype", args[0].dtype)
+        object.__setattr__(out, "dtype", _string_func_type(e.func, args))
         return out
     if isinstance(e, TemporalFunc):
-        if e.func not in DATE_FIELDS:
-            raise NotImplementedError(f"TemporalFunc {e.func!r} is not ported yet")
         out = TemporalFunc(e.func, tuple(bind(a, schema) for a in e.args), e.tz, e.unit)
-        object.__setattr__(out, "dtype", T.INT32)
+        object.__setattr__(out, "dtype", TEMPORAL_TYPES[e.func])
+        return out
+    if isinstance(e, HashFunc):
+        out = HashFunc(e.func, tuple(bind(a, schema) for a in e.args), e.seed)
+        object.__setattr__(out, "dtype", T.INT32 if e.func == "murmur3" else T.INT64)
+        return out
+    if isinstance(e, (SplitPart, SubstringIndex, Soundex, FormatNumber)):
+        c = bind(e.child, schema)
+        width = c.dtype.byte_width if c.dtype.is_binary else T.DEFAULT_STRING_LEN
+        if isinstance(e, Soundex):
+            out, width = Soundex(c), max(width, 4)
+        elif isinstance(e, FormatNumber):
+            out, width = FormatNumber(c, e.decimals, e.out_len), e.out_len or 32
+        else:
+            out = type(e)(c, e.delim, e.part if isinstance(e, SplitPart) else e.count,
+                          e.max_parts)
+        object.__setattr__(out, "dtype", T.string(width))
+        return out
+    if isinstance(e, (RandExpr, MonotonicallyIncreasingId, SparkPartitionId)):
+        out = dataclasses.replace(e)
+        object.__setattr__(out, "dtype", {RandExpr: T.FLOAT64, SparkPartitionId: T.INT32}
+                           .get(type(e), T.INT64))
         return out
     if isinstance(e, MathFunc):
         args = tuple(bind(a, schema) for a in e.args)
@@ -608,6 +739,34 @@ def bind(expr: Expr, schema: T.Schema) -> Expr:
         object.__setattr__(out, "dtype", T.BOOL)
         return out
     raise NotImplementedError(f"bind: {type(e).__name__}")
+
+
+def _string_func_type(func: str, args: Tuple[Expr, ...]) -> T.DataType:
+    """JAX ``ir/expr.py:1364-1385``: concat and concat_ws are as wide as
+    their string inputs together, lpad, rpad and repeat four times their
+    input."""
+    a0 = args[0].dtype if args else None
+    if func in BYTES_JSON_FUNCS:
+        raise NotImplementedError(f"StringFunc {func!r} is not ported yet (ROADMAP A.4)")
+    if func in ("length", "ascii", "instr", "locate", "char_length", "bit_length",
+                "octet_length", "levenshtein"):
+        return T.INT32
+    if func in ("substring", "upper", "lower", "trim", "ltrim", "rtrim", "reverse", "replace",
+                "translate", "initcap", "left", "right", "btrim"):
+        return a0
+    if func in ("startswith", "endswith", "contains"):
+        return T.BOOL
+    if func in ("concat", "concat_ws"):
+        return T.string(max(sum(a.dtype.byte_width for a in args if a.dtype.is_binary), 1))
+    if func in ("lpad", "rpad", "repeat"):
+        return T.string(a0.byte_width * 4)
+    if func == "chr":
+        return T.string(1)
+    if func == "space":
+        n = args[0]
+        cap = int(n.value) if isinstance(n, Literal) and n.value is not None else 64
+        return T.string(max(min(cap, 1 << 15), 1))
+    raise NotImplementedError(f"string func {func}")
 
 
 def _math_result_type(func: str, args: Tuple[Expr, ...]) -> T.DataType:

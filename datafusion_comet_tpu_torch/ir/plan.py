@@ -1,7 +1,7 @@
 """Operator plan IR (port of ``datafusion_comet_tpu/ir/plan.py``: the Scan,
 Filter, Projection, HashAggregate, Sort, Limit, Expand, HashJoin,
-SortMergeJoin, BroadcastNestedLoopJoin, Union, Window and ShuffleExchange
-nodes, and the two sinks CollectLimit and TakeOrderedAndProject).
+SortMergeJoin, BroadcastNestedLoopJoin, Union, Window, ShuffleExchange and
+Sample nodes, and the two sinks CollectLimit and TakeOrderedAndProject).
 
 Plans are built unbound; ``bind_plan`` binds expressions bottom-up against
 child schemas and computes each node's output schema, and rewrites a
@@ -26,7 +26,7 @@ from datafusion_comet_tpu_torch.ir import expr as E
 __all__ = ["PlanNode", "Scan", "Filter", "Projection", "HashAggregate", "AggMode",
            "Sort", "Limit", "CollectLimit", "TakeOrderedAndProject", "Expand", "HashJoin",
            "SortMergeJoin", "EQUI_JOINS", "BroadcastNestedLoopJoin", "Union", "Window",
-           "ShuffleExchange", "JoinType", "bind_plan", "scan_tables"]
+           "ShuffleExchange", "Sample", "JoinType", "bind_plan", "scan_tables"]
 
 
 class JoinType:
@@ -354,6 +354,22 @@ class ShuffleExchange(PlanNode):
         return (self.child,)
 
 
+@dataclasses.dataclass
+class Sample(PlanNode):
+    """Spark's Sample: the rows whose draw falls in [lower_bound,
+    upper_bound) (without replacement), or Poisson copies of each
+    (exec/operators/basic.py ``sample_op``)."""
+
+    child: PlanNode
+    lower_bound: float
+    upper_bound: float
+    with_replacement: bool
+    seed: int
+
+    def children(self):
+        return (self.child,)
+
+
 def _join_out_schema(ls: T.Schema, rs: T.Schema, join_type: str) -> T.Schema:
     if join_type in (JoinType.LEFT_SEMI, JoinType.LEFT_ANTI, JoinType.LEFT_ANTI_NULL_AWARE):
         return ls
@@ -452,6 +468,11 @@ def bind_plan(plan: PlanNode) -> PlanNode:
         return out
     if isinstance(plan, Union):
         out = Union(tuple(kids))
+        out.schema = kids[0].schema
+        return out
+    if isinstance(plan, Sample):
+        out = Sample(kids[0], plan.lower_bound, plan.upper_bound, plan.with_replacement,
+                     plan.seed)
         out.schema = kids[0].schema
         return out
     if isinstance(plan, EQUI_JOINS):

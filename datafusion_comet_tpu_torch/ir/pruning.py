@@ -122,6 +122,8 @@ def prune_columns(plan: P.PlanNode, required: Optional[Set[str]] = ALL) -> P.Pla
         return P.Union(tuple(prune_columns(c, ALL) for c in plan.inputs))
     if isinstance(plan, P.Expand):
         return P.Expand(prune_columns(plan.child, ALL), plan.projections, plan.names)
+    if isinstance(plan, P.Sample):
+        return dataclasses.replace(plan, child=prune_columns(plan.child, ALL))
     if isinstance(plan, (P.CollectLimit, P.TakeOrderedAndProject)):
         return dataclasses.replace(plan, child=prune_columns(plan.child, ALL))
     raise NotImplementedError(f"prune_columns: {type(plan).__name__}")

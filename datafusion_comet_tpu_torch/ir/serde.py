@@ -46,12 +46,14 @@ def _dtype_to_dict(dt: T.DataType) -> Dict[str, Any]:
         out["scale"] = dt.scale
     if dt.is_binary:
         out["max_len"] = dt.max_len
+    if dt.tz:
+        out["tz"] = dt.tz
     return out
 
 
 def _dtype_from_dict(d: Dict[str, Any]) -> T.DataType:
     return T.DataType(d["id"], precision=d.get("precision", 0), scale=d.get("scale", 0),
-                      max_len=d.get("max_len", 0))
+                      max_len=d.get("max_len", 0), tz=d.get("tz"))
 
 
 def _schema_to_dict(s: T.Schema):

@@ -1,5 +1,5 @@
-"""Logical type system (port of ``datafusion_comet_tpu/types.py``, the subset
-the TPC-H Q1/Q6 slice reaches).
+"""Logical type system (port of ``datafusion_comet_tpu/types.py``, its
+scalar types: the nested LIST, MAP and STRUCT are not ported).
 
 Physical mapping, the same as the JAX package so both hold identical buffers:
 
@@ -7,8 +7,9 @@ Physical mapping, the same as the JAX package so both hold identical buffers:
 - DECIMAL(p<=18, s) is a scaled int64; wider decimals are a scaled int64
   while their values provably fit ("narrow storage") and a (rows, 2) int64
   [hi, lo] two's-complement i128 otherwise (``is_wide_decimal``);
-- DATE is int32 days since the Unix epoch, TIMESTAMP int64 microseconds
-  since it (UTC);
+- DATE is int32 days since the Unix epoch, TIMESTAMP and TIMESTAMP_NTZ
+  int64 microseconds since it: a TIMESTAMP is an instant and carries its
+  session zone (``tz``, "UTC" by default), a TIMESTAMP_NTZ a wall clock;
 - STRING/BYTES are fixed-capacity padded uint8 matrices plus int32 lengths,
   or int32 codes into a sorted host dictionary (exec/dictionary.py).
 
@@ -18,14 +19,14 @@ Pure metadata: nothing here touches torch.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
 __all__ = [
     "DataType", "BOOL", "INT8", "INT16", "INT32", "INT64", "FLOAT32", "FLOAT64",
-    "DATE", "TIMESTAMP", "NULLTYPE", "string", "binary", "decimal", "Field", "Schema",
-    "common_type", "MAX_DECIMAL_PRECISION",
+    "DATE", "TIMESTAMP", "TIMESTAMP_NTZ", "NULLTYPE", "string", "binary", "decimal", "Field",
+    "Schema", "common_type", "MAX_DECIMAL_PRECISION",
 ]
 
 # Default padded width for STRING columns when nothing tighter is known.
@@ -38,8 +39,8 @@ MAX_INT64_DECIMAL_PRECISION = 18
 _NP_DTYPES = {
     "BOOL": np.bool_, "INT8": np.int8, "INT16": np.int16, "INT32": np.int32,
     "INT64": np.int64, "FLOAT": np.float32, "DOUBLE": np.float64,
-    "DATE": np.int32, "TIMESTAMP": np.int64, "NULL": np.int8, "DECIMAL": np.int64,
-    "STRING": np.uint8, "BYTES": np.uint8,
+    "DATE": np.int32, "TIMESTAMP": np.int64, "TIMESTAMP_NTZ": np.int64, "NULL": np.int8,
+    "DECIMAL": np.int64, "STRING": np.uint8, "BYTES": np.uint8,
 }
 
 
@@ -51,6 +52,7 @@ class DataType:
     precision: int = 0  # decimal only
     scale: int = 0  # decimal only
     max_len: int = 0  # string/binary only: padded byte width
+    tz: Optional[str] = None  # timestamp only
 
     @property
     def is_integer(self) -> bool:
@@ -78,6 +80,10 @@ class DataType:
         return self.type_id in ("STRING", "BYTES")
 
     @property
+    def is_temporal(self) -> bool:
+        return self.type_id in ("DATE", "TIMESTAMP", "TIMESTAMP_NTZ")
+
+    @property
     def is_boolean(self) -> bool:
         return self.type_id == "BOOL"
 
@@ -103,6 +109,8 @@ class DataType:
             return f"decimal({self.precision},{self.scale})"
         if self.type_id == "STRING":
             return f"string({self.max_len})" if self.max_len else "string"
+        if self.type_id == "TIMESTAMP" and self.tz:
+            return f"timestamp<{self.tz}>"
         return self.type_id.lower()
 
 
@@ -114,7 +122,8 @@ INT64 = DataType("INT64")
 FLOAT32 = DataType("FLOAT")
 FLOAT64 = DataType("DOUBLE")
 DATE = DataType("DATE")
-TIMESTAMP = DataType("TIMESTAMP")
+TIMESTAMP = DataType("TIMESTAMP", tz="UTC")
+TIMESTAMP_NTZ = DataType("TIMESTAMP_NTZ")
 NULLTYPE = DataType("NULL")
 
 
@@ -200,6 +209,8 @@ def common_type(a: DataType, b: DataType) -> DataType:
         return decimal(min(ints + s, MAX_DECIMAL_PRECISION), s)
     if a.is_string and b.is_string:
         return string(max(a.max_len, b.max_len))
+    if a.type_id == "DATE" and b.type_id == "DATE":
+        return a
     raise TypeError(f"no common type for {a!r} and {b!r}")
 
 

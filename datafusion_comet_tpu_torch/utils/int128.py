@@ -153,6 +153,16 @@ def divmod_u128_u128(num: Pair, den: Pair):
     return q, r
 
 
+def div_i128_i128_half_up(a: Pair, b: Pair) -> Pair:
+    """Signed i128 / i128 with HALF_UP rounding -> i128."""
+    sign_neg = is_negative(a) ^ is_negative(b)
+    ua, ub = abs_(a), abs_(b)
+    q, r = divmod_u128_u128(ua, ub)
+    round_up = cmp_ge_u(shl1(r), ub)
+    q = add(q, (torch.zeros_like(q[0]), round_up.long()))
+    return select(sign_neg, neg(q), q)
+
+
 def div_i128_i64_half_up(a: Pair, den: torch.Tensor) -> torch.Tensor:
     """Signed i128 / i64 with HALF_UP rounding, truncated to i64 (den < 2^62)."""
     sign_neg = is_negative(a) ^ (den < 0)

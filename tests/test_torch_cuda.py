@@ -19,8 +19,10 @@ filter and its probe through a scalar subquery, q88 and q90_scalar
 directly and under the grace join, the special aggregates (median,
 percentile, approx_count_distinct, approx_percentile; SINGLE and tiled),
 TPC-H Q12 and Q3 in the SortMergeJoin shape on the merge path, Q16 with
-NOT IN, and Session.prepare directly and under the grace join, on the card
-against the CPU. Marked
+NOT IN, Session.prepare directly and under the grace join, and each family
+of the scalar evaluator (temporal functions in named zones, the string
+casts with Ryu, the string functions, the hashes, rand and randn) on the
+card against the CPU. Marked
 ``cuda``;
 without a card every test here skips. This file imports no JAX, so it runs
 on a machine without it (tests/conftest.py imports JAX, hence --noconftest):
@@ -1519,3 +1521,104 @@ def test_prepare_on_card_equals_collect(dev):
             assert chip_smoke.same_rows(want, to_numpy(run()))
             assert not any(r["overflowed"] for r in s.runs)
     assert [r.K for r in grace.grace_runners] == [chip_smoke.GRACE_K]
+
+
+def _expr_batches(dev, rng, dms):
+    """A CPU and a card batch of the scalar evaluator's columns: instants
+    around DST changes and far dates, strings (dictionary-coded where
+    ``dms``), integers, narrow and two-limb decimals, doubles, dates."""
+    from datafusion_comet_tpu_torch.exec import batch as PB
+
+    n = 3000
+    words = np.array(["Hello World", "  pad me ", "", "a.b.c.d", "Robert", "Tymczak",
+                      "ab,cd,,ef", "12.5", "-7", "2024-03-10 02:30:00", "1999-12-31", "t",
+                      "1110.92", "0.30000000000000004", "UPPER lower"], object)
+    strs = words[rng.integers(0, len(words), n)]
+    data = {"t": rng.integers(-2_000_000_000, 4_000_000_000, n) * 1_000_000
+            + rng.integers(0, 1_000_000, n),
+            "s": strs, "i": rng.integers(-40, 40, n).astype(np.int32),
+            "dec": rng.integers(-10**9, 10**9, n), "w": np.array(
+                [int(x) * 10**20 + 7 for x in rng.integers(-10**6, 10**6, n)], object),
+            "g": rng.standard_normal(n) * 10.0 ** rng.integers(-12, 14, n),
+            "d": rng.integers(-30000, 30000, n).astype(np.int32)}
+    data["g"][:4] = [0.0, -0.0, 5e-324, np.nan]
+    schema = PT.Schema([PT.Field("t", PT.TIMESTAMP), PT.Field("s", PT.string(20)),
+                        PT.Field("i", PT.INT32), PT.Field("dec", PT.decimal(12, 3)),
+                        PT.Field("w", PT.decimal(38, 4)), PT.Field("g", PT.FLOAT64),
+                        PT.Field("d", PT.DATE)])
+    valid = {"s": rng.random(n) > 0.05, "t": rng.random(n) > 0.05}
+    return schema, [PB.from_numpy(data, schema, d, validity=valid, dict_max_size=dms)
+                    for d in ("cpu", dev)]
+
+
+def _scalar_family(E, T, family):
+    c = E.col
+    if family == "temporal":
+        out = [E.TemporalFunc(f, (c("t"),), tz) for f in ("year", "hour", "weekofyear",
+                                                         "last_day", "unix_seconds")
+               for tz in (None, "America/New_York", "+05:30")]
+        out += [E.TemporalFunc("date_trunc", (E.lit(u), c("t")), "Europe/Berlin")
+                for u in ("hour", "week", "month", "year")]
+        out += [E.TemporalFunc("from_utc_timestamp", (c("t"), E.lit("America/New_York"))),
+                E.TemporalFunc("to_utc_timestamp", (c("t"), E.lit("Europe/Berlin"))),
+                E.TemporalFunc("add_months", (c("d"), c("i"))),
+                E.TemporalFunc("months_between", (c("t"), c("d"))),
+                E.TemporalFunc("timestampdiff", (c("t"), c("t")), unit="MONTH"),
+                E.TemporalFunc("make_date", (c("i") + E.lit(2000), c("i"), c("i"))),
+                E.TemporalFunc("from_unixtime", (c("i"),), "America/New_York")]
+        return out
+    if family == "casts":
+        out = [E.Cast(c(x), T.string(48)) for x in ("i", "dec", "w", "g", "d")]
+        out += [E.Cast(c("t"), T.string(32), E.EvalMode.LEGACY, "America/New_York"),
+                E.Cast(c("t"), T.DATE, E.EvalMode.LEGACY, "Europe/Berlin")]
+        out += [E.Cast(c("s"), to, mode) for to in (T.INT32, T.decimal(10, 2), T.DATE, T.BOOL,
+                                                    T.FLOAT64, T.TIMESTAMP)
+                for mode in ("LEGACY", "TRY")]
+        out.append(E.Cast(E.Cast(c("g"), T.string(32)), T.FLOAT64))
+        return out
+    if family == "strings":
+        fns = [("upper", ()), ("initcap", ()), ("reverse", ()), ("trim", ()),
+               ("lpad", (E.lit(12), E.lit("0"))), ("rpad", (E.lit(25), E.lit("xy"))),
+               ("repeat", (E.lit(2),)), ("instr", (E.lit("o"),)),
+               ("replace", (E.lit("a"), E.lit("4"))), ("translate", (E.lit("lo"), E.lit("L"))),
+               ("contains", (E.lit("er"),)), ("levenshtein", (E.lit("Robert"),)),
+               ("left", (c("i"),)), ("length", ())]
+        out = [E.StringFunc(f, (c("s"),) + a) for f, a in fns]
+        out += [E.StringFunc("concat_ws", (E.lit(" "), c("s"), c("s"))),
+                E.Soundex(c("s")), E.SubstringIndex(c("s"), ".", 2),
+                E.SubstringIndex(c("s"), ".", -1), E.SplitPart(c("s"), ",", -1),
+                E.FormatNumber(c("dec"), 2), E.FormatNumber(c("g"), 3, 40)]
+        return out
+    if family == "hashes":
+        return [E.HashFunc(f, (c(x),)) for f in ("murmur3", "xxhash64")
+                for x in ("t", "s", "i", "dec", "g", "d")]
+    return [E.RandExpr("rand", 5), E.RandExpr("randn", 5), E.MonotonicallyIncreasingId()]
+
+
+@pytest.mark.parametrize("dms", [1 << 16, 0])
+@pytest.mark.parametrize("family", ["temporal", "casts", "strings", "hashes", "rand"])
+def test_scalar_evaluator_on_card_equals_cpu(dev, family, dms):
+    """Each family of the scalar evaluator on CUDA tensors equals the port's
+    CPU run: exactly, but randn (torch's log and sqrt on the card against
+    the CPU's) and the doubles of months_between within 1e-13."""
+    from datafusion_comet_tpu_torch.exec.evaluator import EvalContext, evaluate
+    from datafusion_comet_tpu_torch.ir import expr as E
+
+    schema, (cpu, card) = _expr_batches(dev, np.random.default_rng(31), dms)
+    mask = torch.from_numpy(np.random.default_rng(32).random(cpu.capacity) < 0.9)
+    cpu, card = cpu.with_mask(cpu.row_mask & mask), card.with_mask(card.row_mask & mask.to(dev))
+    for e in _scalar_family(E, PT, family):
+        b = E.bind(e, schema)
+        want, got = (evaluate(b, x, EvalContext(errors=[])) for x in (cpu, card))
+        if want.dictionary is not None:
+            want, got = want.decode(), got.decode()
+        live = cpu.row_mask & want.validity
+        assert torch.equal(want.validity, got.validity.cpu()), e
+        if want.lengths is not None:
+            assert torch.equal(want.lengths[live], got.lengths.cpu()[live]), e
+        w, g = want.data[live], got.data.cpu()[live]
+        if w.dtype == torch.float64 and not torch.equal(w, g):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-13, atol=0,
+                                       err_msg=repr(e))
+        else:
+            assert torch.equal(w, g), e

@@ -208,18 +208,49 @@ def _expr(E, T, shape):
         "cmp_wide": (d("w") < d("a")) & (d("b") >= E.lit(0.05, T.decimal(15, 2))),
         "cast_down": d("w").cast(T.decimal(20, 1)),
         "cast_int": E.lit(7).cast(T.decimal(20, 3)),
+        "mod": E.BinaryOp("mod", d("a"), d("b")),
+        "pmod": E.BinaryOp("pmod", d("a"), d("b")),
+        "wide_mod": E.BinaryOp("mod", d("w"), d("s")),
+        "wide_pmod": E.BinaryOp("pmod", d("w"), d("a")),
+        "div_by_wide": d("a") / d("w"),
+        "wide_div_wide": d("w") / d("s"),
     }[shape]
 
 
 @pytest.mark.parametrize("shape", ["disc_price", "charge", "wide_add", "wide_mul",
                                    "narrow_sum_typed", "div", "wide_div", "cmp_wide",
-                                   "cast_down", "cast_int"])
+                                   "cast_down", "cast_int", "mod", "pmod", "wide_mod",
+                                   "wide_pmod", "div_by_wide", "wide_div_wide"])
 def test_decimal_expressions_match_jax(shape):
     jb, pb = _batches(_COLS)
     je = JE.bind(_expr(JE, JT, shape), jb.schema)
     pe = PE.bind(_expr(PE, PT, shape), pb.schema)
     assert repr(je.dtype) == repr(pe.dtype)
     _same_cv(JEV.evaluate(je, jb), PEV.evaluate(pe, pb))
+
+
+def test_div_i128_i128_half_up():
+    a = I128_EDGES + [int(v) << 50 for v in _rand_i64(5, 18, 60)]
+    b = [x if x else 3 for x in a[::-1]]
+    b = [7, -7, 2**64 + 1, 10**19] + b[4:]
+    ja, pa = _pairs(a)
+    jb, pb = _pairs(b)
+    _eq(J128.div_i128_i128_half_up(ja, jb), P128.div_i128_i128_half_up(pa, pb))
+
+
+@pytest.mark.parametrize("mode", ["ANSI", "TRY"])
+def test_decimal_mod_by_zero_modes(mode):
+    """A zero divisor: null in every mode, an error only on the two-limb
+    path under ANSI (the narrow path records none, as in the JAX package)."""
+    jb, pb = _batches(_COLS)
+    for l, r in (("a", "b"), ("w", "b")):
+        je = JE.bind(JE.BinaryOp("mod", JE.col(l), JE.col(r), mode), jb.schema)
+        pe = PE.bind(PE.BinaryOp("mod", PE.col(l), PE.col(r), mode), pb.schema)
+        jctx, pctx = JEV.EvalContext(errors=[]), PEV.EvalContext(errors=[])
+        _same_cv(JEV.evaluate(je, jb, jctx), PEV.evaluate(pe, pb, pctx))
+        assert [m for _, m in jctx.errors] == [m for _, m in pctx.errors]
+        for (jf, _), (pf, _) in zip(jctx.errors, pctx.errors):
+            np.testing.assert_array_equal(np.asarray(jf), pf.numpy())
 
 
 def test_q1_expression_storage_is_two_limb():

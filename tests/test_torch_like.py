@@ -15,7 +15,8 @@ package on the same seeded inputs:
 - year, month, day, quarter, dayofweek, dayofyear and weekofyear of dates
   from 1600 to 2400 (1970-01-01, and Feb 28 / 29 / Mar 1 of 1900, 2000,
   2004 and 2100 among them), held to the JAX evaluator and to Python's
-  ``datetime``; a timestamp input still raises."""
+  ``datetime``; the fields of a timestamp too (every temporal function:
+  tests/test_torch_temporal.py), and an unknown unit raises in both."""
 
 import datetime
 import re
@@ -181,9 +182,16 @@ def test_date_field_matches_jax_and_datetime(f):
 
 
 def test_timestamps_and_other_temporal_funcs_raise():
-    pb = PB.from_numpy({"t": np.array([0, 86_400_000_000], np.int64)},
-                       PT.Schema([PT.Field("t", PT.TIMESTAMP)]), "cpu")
-    with pytest.raises(NotImplementedError):
-        PEV.evaluate(PE.bind(PE.TemporalFunc("year", (PE.col("t"),)), pb.schema), pb)
-    with pytest.raises(NotImplementedError):
-        PE.bind(PE.TemporalFunc("hour", (PE.col("t"),)), pb.schema)
+    """A timestamp's year and hour now equal the JAX package's; a unit
+    neither package knows raises in both."""
+    t = np.array([0, 86_400_000_000, -1, 1_700_000_000_123_456], np.int64)
+    jb = JB.from_numpy({"t": t}, JT.Schema([JT.Field("t", JT.TIMESTAMP)]))
+    pb = PB.from_numpy({"t": t}, PT.Schema([PT.Field("t", PT.TIMESTAMP)]), "cpu")
+    for f in ("year", "hour"):
+        want = JEV.evaluate(JE.bind(JE.TemporalFunc(f, (JE.col("t"),)), jb.schema), jb)
+        got = PEV.evaluate(PE.bind(PE.TemporalFunc(f, (PE.col("t"),)), pb.schema), pb)
+        np.testing.assert_array_equal(got.data.numpy(), np.asarray(want.data))
+    for E, EV, b in ((JE, JEV, jb), (PE, PEV, pb)):
+        with pytest.raises(NotImplementedError):
+            EV.evaluate(E.bind(E.TemporalFunc("date_trunc", (E.lit("fortnight"), E.col("t"))),
+                               b.schema), b)

@@ -6,9 +6,11 @@ outer plan's and each bound subquery's JSON equal the JAX package's for
 the same query, compared as parsed dicts. Fields that one package has and
 the other has not are named in ``PORT_ONLY`` and ``JAX_ONLY`` and left
 out of that comparison: the port keeps its planner hints as node fields
-(the JAX package as attributes outside its JSON), and the JAX Cast's time
-zone and the JAX AggExpr's FILTER clause and collect capacity are not
-ported."""
+(the JAX package as attributes outside its JSON), and the JAX AggExpr's
+FILTER clause and collect capacity are not ported. The scalar evaluator's
+nodes (a cast in a session zone, the temporal, string, split, soundex,
+format_number and hash nodes, rand, randn, the row ids and Sample) and the
+zoned timestamp types write the JAX package's JSON too."""
 
 import json
 
@@ -29,7 +31,7 @@ PORT_ONLY = {"Filter": {"out_rows_hint"},
              "HashAggregate": {"group_key_ranges", "merge_rows"},
              "HashJoin": {"build_key_range", "out_rows_hint", "fanout_hint", "unique_build_hint",
                           "key_pack", "rf_dense_range", "rf_injected", "cond_col_ranges"}}
-JAX_ONLY = {"AggExpr": {"filter", "max_elems"}, "Cast": {"timezone"}}
+JAX_ONLY = {"AggExpr": {"filter", "max_elems"}}
 
 
 def _round_trip(plan):
@@ -89,3 +91,39 @@ def test_json_equals_the_jax_packages(q):
         pairs.append((serde.plan_to_json(bound), JS.plan_to_json(js._subqueries[i][0])))
     for got, want in pairs:
         assert _drop(json.loads(got), PORT_ONLY) == _drop(json.loads(want), JAX_ONLY)
+
+
+def _scalar_nodes_plan(E, P, T):
+    """One plan holding each scalar-evaluator node and Sample."""
+    sch = T.Schema([T.Field("t", T.TIMESTAMP), T.Field("n", T.TIMESTAMP_NTZ),
+                    T.Field("s", T.string(12)), T.Field("x", T.INT64)])
+    c = E.col
+    exprs = [
+        E.Alias(E.Cast(c("t"), T.string(26), E.EvalMode.ANSI, "Europe/Berlin"), "a"),
+        E.Alias(E.Cast(c("s"), T.TIMESTAMP_NTZ), "b"),
+        E.Alias(E.TemporalFunc("hour", (c("t"),), "America/New_York"), "h"),
+        E.Alias(E.TemporalFunc("timestampdiff", (c("t"), c("t")), None, "MONTH"), "d"),
+        E.Alias(E.StringFunc("lpad", (c("s"), E.lit(5), E.lit("0"))), "p"),
+        E.Alias(E.HashFunc("xxhash64", (c("s"), c("x")), 7), "hx"),
+        E.Alias(E.SplitPart(c("s"), ",", -1), "sp"),
+        E.Alias(E.SubstringIndex(c("s"), ".", 2), "si"),
+        E.Alias(E.Soundex(c("s")), "sx"),
+        E.Alias(E.FormatNumber(c("x"), 2, 20), "fn"),
+        E.Alias(E.RandExpr("randn", 3), "r"),
+        E.Alias(E.MonotonicallyIncreasingId(), "id"),
+        E.Alias(E.SparkPartitionId(), "pid")]
+    return P.Sample(P.Scan("z", sch), 0.1, 0.4, False, 5).project(exprs)
+
+
+def test_scalar_evaluator_nodes_json_equals_the_jax_packages():
+    from datafusion_comet_tpu import types as JT
+    from datafusion_comet_tpu.ir import expr as JE
+    from datafusion_comet_tpu.ir import plan as JP
+    from datafusion_comet_tpu_torch import types as PT
+    from datafusion_comet_tpu_torch.ir import expr as PE
+
+    port = _scalar_nodes_plan(PE, P, PT)
+    got = serde.plan_to_json(port)
+    assert json.loads(got) == json.loads(JS.plan_to_json(_scalar_nodes_plan(JE, JP, JT)))
+    back = _round_trip(port)
+    assert P.bind_plan(back).schema == P.bind_plan(_scalar_nodes_plan(PE, P, PT)).schema

@@ -5,9 +5,9 @@ On a machine with one NVIDIA card, from the root of a checkout:
 
     python3 chip_smoke.py            # TPC-H SF1, TPC-DS SF10
     python3 chip_smoke.py --sf 10    # another scale (TPC-DS at ten times it)
-    python3 chip_smoke.py --profile  # add torch.profiler breakdowns of Q1, Q2 grace, Q20's
-                                     # variant, Q21, TPC-DS q3, q27, q33, q64, q96, q88,
-                                     # and the four expr_* plans
+    python3 chip_smoke.py --profile  # add torch.profiler breakdowns of Q1, Q20's
+                                     # variant, Q21 direct, TPC-DS q3, q27, q33, q64, q96, q88,
+                                     # three expr_* plans and the five nested_* plans
 
 Phases, one JSON line each:
   1. device: the card's name, count, and nvidia-smi's name and power limit;
@@ -156,6 +156,23 @@ Phases, one JSON line each:
      randn values within ``EXPR_RANDN_RTOL``, against a numpy XORShiftRandom
      held to a sequential Python one); warm ms, peak memory, rows and
      launches each;
+  nested_basket, nested_explode, nested_struct_map, nested_split,
+     nested_percentile (the ``nested`` phase, ``nested_phase``, after the
+     expr phase on the same TPC-DS session): collect_list / collect_set of
+     each ticket's items and stores (``NESTED_CAP`` 32) with size,
+     array_contains, sort_array, array_distinct, element_at, transform,
+     filter and aggregate over them, counted per basket size; posexplode of
+     the lists joined to item, COUNT and SUMs per category (equal to the
+     direct join's); a named_struct and a map_from_arrays with colliding
+     keys over customer; split(i_item_desc, ' ') exploded and counted per
+     word; percentile(ss_net_paid, array(0.25, 0.5, 0.75)) per store. Each
+     against its numpy oracle (the TPC-DS worker's; the percentiles within
+     ``NESTED_PCT_RTOL``), with warm ms, peak GB, launches and
+     ``truncated_groups`` (ROADMAP C31); nested_explode adds the package's
+     ``device_profile`` (device events above 0) and the stage estimates
+     beside the peak (ROADMAP C32);
+  explain: Session.explain(tpch.q3(), with_metrics=True) at TPC-H SF 0.1
+     on the card equals the CPU's tree, operator by operator;
   grace_pair_kernels: times both bucket kernels at the grace run's pair
      shape (a pair's block, B = 16, its mean live rows);
   5. partition: holds B3 against its plain versions, exactly: the
@@ -175,7 +192,9 @@ Phases, one JSON line each:
      edge shapes. Times the wrapper (device ms and host µs a call), its
      plain version and the library composition (torch.sort + one
      index_select a column) at the query and probe shapes, with L2 flushed,
-     beside the byte bound. The query lines list every B3 call's n;
+     beside the byte bound; nested rows too: nested_explode's compaction
+     and a list's (32,) int64 and (16, 40) string element blocks at K = 16.
+     The query lines list every B3 call's n;
   dense_minmax: the dense aggregate's MIN/MAX reduction at Q1's shape
      against one scatter into a slot a group, equal, both timed.
 Then a {"kernels": [...]} line, nvidia-smi's line, and last
@@ -1977,6 +1996,7 @@ def tpcds_oracles(d) -> dict:
     out["agg_state"] = lambda: agg_oracle(d, "state")
     out["agg_item"] = lambda: agg_oracle(d, "item")
     out.update(expr_oracles(d))
+    out.update(nested_oracles(d))
     return out
 
 
@@ -2164,6 +2184,8 @@ TPCDS_GRACE = ("q3", "q7", "q27", "q33", "q65", "q73", "q95", "q96", "q98", "q47
 TPCDS_C19 = ("q4", "q5", "q16", "q23", "q47", "q51", "q58", "q67", "q75", "q80", "q93")
 TPCDS_PREPARE = ("q3", "q64", "q88")  # run through Session.prepare as well
 TPCDS_PROFILE = ("q3", "q27", "q33", "q64", "q96", "q88")
+# the grace runs profiled (not q88's: 17 s at SF100, cut to hold the run's time)
+TPCDS_GRACE_PROFILE = ("q3", "q27", "q33", "q96")
 
 
 # Spark's runtime bloom filter defaults (spark.sql.optimizer.runtime.bloomFilter.
@@ -2315,6 +2337,7 @@ def tpcds_phase(sf: float, reps: int, profile: bool, launches, b3_calls) -> None
     q90_scalar_phase(sess, data, ds_sf, reps, launches, total)
     bloom_phase(sess, data, ds_sf, reps, launches, total)
     expr_phase(sess, data, ds_sf, reps, profile, launches, total)
+    nested_phase(sess, data, ds_sf, reps, profile, launches, total, b3_calls)
     if min(total.values()) == 0:
         raise AssertionError(f"the TPC-DS runs did not launch every kernel: {total}")
     del sess, data
@@ -2362,7 +2385,7 @@ def tpcds_grace(q, sess, plan, direct, reps, profile, launches, b3_calls, total)
           "warm_ms": statistics.median(times), "peak_gb": peak / 1e9,
           "launches": launches[key], "plan_ms": plan_ms, **_grace_record(grace),
           **run_record(grace), **(subquery_record(grace) if grace.subqueries else {})})
-    if profile and q in TPCDS_PROFILE:
+    if profile and q in TPCDS_GRACE_PROFILE:
         emit(profile_run(grace, plan(grace), f"profile_tpcds_{q}_grace"))
 
 
@@ -3199,6 +3222,11 @@ def expr_hash_check(out, sess, data, what: str) -> dict:
             "bad_dec": 0, "bad_double": 0}
 
 
+# the expr plans profiled under --profile (not expr_casts': 20 s at SF100, cut
+# to hold the run's time)
+EXPR_PROFILE = ("expr_time", "expr_strings", "expr_sample")
+
+
 def expr_phase(sess, data, ds_sf: float, reps: int, profile: bool, launches, total) -> None:
     """The expression query set over the staged TPC-DS tables (SF100 with
     --sf 10): expr_time, expr_strings, expr_casts and expr_sample
@@ -3230,9 +3258,354 @@ def expr_phase(sess, data, ds_sf: float, reps: int, profile: bool, launches, tot
         if name == "expr_time":
             rec["zone"] = zone
         emit(rec)
-        if profile:
+        if profile and name in EXPR_PROFILE:
             emit(profile_run(sess, plan, f"profile_{name}"))
     emit({"phase": "expr", "sf": ds_sf, "phase_s": time.perf_counter() - t_phase})
+
+
+NESTED_CAP = 32  # the collects' max_elems (ROADMAP C31: values past it are dropped)
+NESTED_ITEM = 7  # array_contains(items, NESTED_ITEM)
+NESTED_FILTER = 100  # filter(items, x -> x > NESTED_FILTER)
+NESTED_PCTS = (0.25, 0.5, 0.75)
+NESTED_SPLIT_PARTS = 8
+NESTED_PROFILE = "nested_explode"
+
+
+def nested_plans(E, P, T, schemas) -> dict:
+    """The nested query set over the TPC-DS tables (ROADMAP A.3):
+    nested_basket (store_sales grouped by ticket: collect_list and
+    collect_set, then size, array_contains, sort_array, array_distinct,
+    element_at, transform, filter and aggregate over the lists, the
+    baskets counted per size), nested_explode (posexplode of each ticket's
+    items joined to item, COUNT and SUMs per category), nested_struct_map
+    (customer: named_struct read back by GetStructField, map_from_arrays
+    with colliding keys, element_at, map_contains_key, size),
+    nested_split (split(i_item_desc, ' ') exploded, a count per word) and
+    nested_percentile (percentile(ss_net_paid, array(0.25, 0.5, 0.75)) per
+    store)."""
+    A = lambda f, *a: E.ArrayExpr(f, tuple(a))  # noqa: E731
+    x, acc = E.LambdaVar("x"), E.LambdaVar("acc")
+    ss = P.Scan("store_sales", schemas["store_sales"])
+    tk = E.col("ss_ticket_number")
+
+    def collect(f, c, name):
+        return E.AggExpr(f, E.col(c), name, max_elems=NESTED_CAP)
+
+    items = E.col("items")
+    basket = ss.aggregate([tk], [collect("collect_list", "ss_item_sk", "items"),
+                                 collect("collect_set", "ss_store_sk", "stores"),
+                                 collect("collect_list", "ss_quantity", "qtys"),
+                                 E.AggExpr("sum", E.col("ss_quantity"), "sq")])
+
+    def fold(arr):
+        return E.HigherOrderFunc("aggregate", (arr, E.lit(0, T.INT64)), ("acc", "x"), acc + x)
+
+    per_basket = basket.project([
+        E.Alias(A("size", items), "n_items"),
+        E.Alias(E.if_(A("array_contains", items, E.lit(NESTED_ITEM, T.INT64)), 1, 0), "has"),
+        E.Alias(A("element_at", A("sort_array", items), E.lit(1)), "min_item"),
+        E.Alias(A("size", A("array_distinct", items)), "n_distinct"),
+        E.Alias(A("element_at", items, E.lit(1)), "first"),
+        E.Alias(fold(E.HigherOrderFunc("transform", (items,), ("x",),
+                                       E.BinaryOp("mod", x, E.lit(7)))), "mod7"),
+        E.Alias(A("size", E.HigherOrderFunc("filter", (items,), ("x",),
+                                            x > E.lit(NESTED_FILTER, T.INT64))), "n_filter"),
+        E.Alias(fold(E.col("qtys")), "hof_sum"), E.col("sq"),
+        E.Alias(A("size", E.col("stores")), "n_stores")])
+    sums = ("has", "min_item", "n_distinct", "first", "mod7", "n_filter", "hof_sum", "sq",
+            "n_stores")
+    plans = {"nested_basket": per_basket.aggregate(
+        [E.col("n_items")], [E.AggExpr("count", None, "baskets")]
+        + [E.AggExpr("sum", E.col(c), f"s_{c}") for c in sums]).sort(
+        [E.SortOrder(E.col("n_items"))])}
+
+    lists = ss.aggregate([tk], [collect("collect_list", "ss_item_sk", "items")])
+    exploded = P.Explode(lists, items, False, True)
+    joined = P.HashJoin(exploded, P.Scan("item", schemas["item"]), (E.col("col"),),
+                        (E.col("i_item_sk"),), "inner")
+    plans["nested_explode"] = joined.aggregate(
+        [E.col("i_category")], [E.AggExpr("count", None, "n"),
+                                E.AggExpr("sum", E.col("col"), "s_item"),
+                                E.AggExpr("sum", E.col("pos"), "s_pos")]).sort(
+        [E.SortOrder(E.col("i_category"))])
+
+    names = ("c_first_name", "c_last_name", "c_birth_year")
+    st = E.col("s")
+    m = E.col("m")
+    cu = P.Scan("customer", schemas["customer"]).project([
+        E.Alias(E.StructExpr(tuple(E.col(n) for n in names), names), "s"),
+        E.Alias(E.MapExpr("map_from_arrays", (
+            A("array", E.lit(1930), E.col("c_birth_year"), E.lit(1990)),
+            A("array", E.col("c_customer_sk"), E.col("c_current_cdemo_sk"),
+              E.col("c_current_hdemo_sk")))), "m")])
+    year = E.GetStructField(st, "c_birth_year")
+    fields = cu.project([
+        E.Alias(year, "year"),
+        E.Alias(E.StringFunc("length", (E.GetStructField(st, "c_last_name"),)), "last_len"),
+        E.Alias(E.if_(E.GetStructField(st, "c_first_name") == E.lit("First000"), 1, 0),
+                "first0"),
+        E.Alias(E.MapExpr("element_at", (m, E.lit(1930))), "v1930"),
+        E.Alias(E.MapExpr("element_at", (m, year)), "vyear"),
+        E.Alias(E.if_(E.MapExpr("map_contains_key", (m, E.lit(1960))), 1, 0), "has1960"),
+        E.Alias(E.MapExpr("size", (m,)), "msize")])
+    plans["nested_struct_map"] = fields.aggregate(
+        [E.col("year")], [E.AggExpr("count", None, "n")]
+        + [E.AggExpr("sum", E.col(c), f"s_{c}")
+           for c in ("last_len", "first0", "v1930", "vyear", "has1960", "msize")]).sort(
+        [E.SortOrder(E.col("year"))])
+
+    words = P.Scan("item", schemas["item"]).project([
+        E.Alias(E.Split(E.col("i_item_desc"), " ", NESTED_SPLIT_PARTS), "words")])
+    plans["nested_split"] = P.Explode(words, E.col("words")).aggregate(
+        [E.col("col")], [E.AggExpr("count", None, "n")])
+
+    plans["nested_percentile"] = ss.aggregate([E.col("ss_store_sk")], [E.AggExpr(
+        "percentile", E.col("ss_net_paid"), "p",
+        extra=(E.lit(NESTED_PCTS, T.list_(T.FLOAT64, len(NESTED_PCTS))),))]).sort(
+        [E.SortOrder(E.col("ss_store_sk"))])
+    return plans
+
+
+def _tickets(ss):
+    """store_sales by ticket in input order: (order, group id of each sorted
+    row, each group's first sorted row, group sizes, rank in the group)."""
+    order = np.argsort(ss["ss_ticket_number"], kind="stable")
+    t = ss["ss_ticket_number"][order]
+    starts = np.flatnonzero(np.r_[True, t[1:] != t[:-1]])
+    sizes = np.diff(np.r_[starts, len(t)])
+    g = np.repeat(np.arange(len(starts)), sizes)
+    return order, g, starts, sizes, np.arange(len(t)) - starts[g]
+
+
+def _distinct_per_group(g, v, keep, n):
+    """Distinct ``v`` per group among the ``keep`` rows."""
+    o = np.lexsort((v[keep], g[keep]))
+    gs, vs = g[keep][o], v[keep][o]
+    first = np.r_[True, (gs[1:] != gs[:-1]) | (vs[1:] != vs[:-1])]
+    return np.bincount(gs[first], minlength=n)
+
+
+def oracle_nested_basket(d):
+    """Per basket size: the baskets and the sums the plan takes, over each
+    ticket's first ``NESTED_CAP`` items in input order (C31's cut), and the
+    groups over the cap."""
+    ss = d["store_sales"]
+    order, g, starts, sizes, rank = _tickets(ss)
+    n = len(starts)
+    keep = rank < NESTED_CAP
+    it = ss["ss_item_sk"][order]
+    q = ss["ss_quantity"][order].astype(np.int64)
+    st = ss["ss_store_sk"][order]
+
+    def gsum(v):
+        return np.bincount(g[keep], weights=v[keep].astype(np.float64), minlength=n).astype(
+            np.int64) if len(v) else np.zeros(n, np.int64)
+
+    big = np.iinfo(np.int64).max
+    mins = np.minimum.reduceat(np.where(keep, it, big), starts)
+    per = {"n_items": np.minimum(sizes, NESTED_CAP),
+           "has": (np.bincount(g[keep & (it == NESTED_ITEM)], minlength=n) > 0).astype(np.int64),
+           "min_item": mins, "n_distinct": _distinct_per_group(g, it, keep, n),
+           "first": it[starts], "mod7": gsum(it % 7),
+           "n_filter": np.bincount(g[keep & (it > NESTED_FILTER)], minlength=n),
+           "hof_sum": gsum(q), "sq": np.add.reduceat(q, starts),
+           "n_stores": np.minimum(_distinct_per_group(g, st, np.ones(len(g), bool), n),
+                                  NESTED_CAP)}
+    out = {}
+    for size in np.unique(per["n_items"]):
+        sel = per["n_items"] == size
+        out[int(size)] = [int(sel.sum())] + [int(per[c][sel].sum()) for c in
+                                             ("has", "min_item", "n_distinct", "first", "mod7",
+                                              "n_filter", "hof_sum", "sq", "n_stores")]
+    return {"rows": out, "truncated_groups": int((sizes > NESTED_CAP).sum())}
+
+
+def oracle_nested_explode(d):
+    """Per category: the rows, the items' sum and the positions' sum over
+    each ticket's first ``NESTED_CAP`` items; the direct store_sales x item
+    COUNT and SUM beside them."""
+    ss, it = d["store_sales"], d["item"]
+    order, g, starts, sizes, rank = _tickets(ss)
+    keep = rank < NESTED_CAP
+    items = ss["ss_item_sk"][order]
+    cat_of = dict(zip(it["i_item_sk"].tolist(), it["i_category"].tolist()))
+    cats = sorted(set(cat_of.values()))
+    code = {c: i for i, c in enumerate(cats)}
+    lut = np.full(int(it["i_item_sk"].max()) + 1, -1, np.int64)
+    lut[it["i_item_sk"]] = [code[c] for c in it["i_category"]]
+    ci = lut[items]
+    hit = keep & (ci >= 0)
+    n = np.bincount(ci[hit], minlength=len(cats))
+    s_item = np.bincount(ci[hit], weights=items[hit].astype(np.float64), minlength=len(cats))
+    s_pos = np.bincount(ci[hit], weights=rank[hit].astype(np.float64), minlength=len(cats))
+    di = lut[ss["ss_item_sk"]]
+    direct_n = np.bincount(di[di >= 0], minlength=len(cats))
+    return {"rows": {c: [int(n[i]), int(s_item[i]), int(s_pos[i])]
+                     for i, c in enumerate(cats) if n[i]},
+            "direct_n": {c: int(direct_n[i]) for i, c in enumerate(cats) if direct_n[i]},
+            "truncated_groups": int((sizes > NESTED_CAP).sum())}
+
+
+def oracle_nested_struct_map(d):
+    cu = d["customer"]
+    year = cu["c_birth_year"].astype(np.int64)
+    v1930 = np.where(year == 1930, cu["c_current_cdemo_sk"], cu["c_customer_sk"])
+    vyear = np.where(year == 1990, cu["c_current_hdemo_sk"], cu["c_current_cdemo_sk"])
+    cols = {"last_len": np.array([len(s) for s in cu["c_last_name"]], np.int64),
+            "first0": (cu["c_first_name"] == "First000").astype(np.int64),
+            "v1930": v1930, "vyear": vyear, "has1960": (year == 1960).astype(np.int64),
+            "msize": 3 - (year == 1930) - (year == 1990)}
+    out = {}
+    for y in np.unique(year):
+        sel = year == y
+        out[int(y)] = [int(sel.sum())] + [int(cols[c][sel].sum()) for c in cols]
+    return {"rows": out, "truncated_groups": 0}
+
+
+def oracle_nested_split(d):
+    import collections
+
+    words = collections.Counter(w for s in d["item"]["i_item_desc"] for w in s.split(" "))
+    return {"rows": dict(words), "truncated_groups": 0,
+            "max_fields": max(len(s.split(" ")) for s in d["item"]["i_item_desc"])}
+
+
+def oracle_nested_percentile(d):
+    """Per store, Spark's exact percentile at each of ``NESTED_PCTS``: the
+    linear interpolation at rank (n - 1) p of the sorted values."""
+    ss = d["store_sales"]
+    out = {}
+    store, paid = ss["ss_store_sk"], ss["ss_net_paid"]
+    order = np.lexsort((paid, store))
+    s, x = store[order], paid[order] / 100.0
+    starts = np.flatnonzero(np.r_[True, s[1:] != s[:-1]])
+    ends = np.r_[starts[1:], len(s)]
+    for a, b in zip(starts, ends):
+        n, vals = b - a, []
+        for p in NESTED_PCTS:
+            t = (n - 1.0) * p
+            lo, hi = int(np.floor(t)), int(np.ceil(t))
+            vals.append(float(x[a + lo] + (x[a + hi] - x[a + lo]) * (t - lo)))
+        out[int(s[a])] = vals
+    return {"rows": out, "truncated_groups": 0}
+
+
+def nested_oracles(d) -> dict:
+    return {"nested_basket": lambda: oracle_nested_basket(d),
+            "nested_explode": lambda: oracle_nested_explode(d),
+            "nested_struct_map": lambda: oracle_nested_struct_map(d),
+            "nested_split": lambda: oracle_nested_split(d),
+            "nested_percentile": lambda: oracle_nested_percentile(d)}
+
+
+NESTED_PCT_RTOL = 1e-12
+
+
+def check_nested(name: str, out, expect, what: str) -> None:
+    """A nested_* answer against its oracle: every value exact, the
+    percentile lists within ``NESTED_PCT_RTOL``."""
+    keys = next(iter(out))
+    want = expect["rows"]
+    if name == "nested_percentile":
+        got = dict(zip(out["ss_store_sk"].tolist(), out["p"]))
+        ok = set(got) == set(want) and all(
+            len(got[k]) == len(want[k]) and all(abs(a - b) <= NESTED_PCT_RTOL * abs(b)
+                                                for a, b in zip(got[k], want[k])) for k in want)
+    elif name == "nested_split":
+        got = dict(zip(out["col"], out["n"].tolist()))
+        ok = got == want
+    else:
+        cols = [c for c in out if not c.endswith("__valid")]
+        got = {(k.item() if isinstance(k, np.generic) else k):
+               [int(out[c][i]) for c in cols[1:]] for i, k in enumerate(out[keys])}
+        ok = got == want
+    if not ok:
+        raise AssertionError(f"{what}: differs from its oracle")
+    if name == "nested_explode" and {c: v[0] for c, v in want.items()} != expect["direct_n"]:
+        raise AssertionError(f"{what}: the oracle's rows differ from the direct join's")
+
+
+def nested_phase(sess, data, ds_sf: float, reps: int, profile: bool, launches, total,
+                 b3_calls) -> None:
+    """The nested query set (``nested_plans``) through Session.collect on
+    the TPC-DS session, each against its numpy oracle (the TPC-DS oracle
+    worker's): warm ms, peak memory, rows, B1/B2/B3 launches and
+    ``truncated_groups`` (the groups a collect's cap cut: ROADMAP C31);
+    nested_explode's B3 calls are logged for the partition phase, and its
+    ``device_profile`` report (the package's torch.profiler API) must hold
+    device events (ROADMAP P2)."""
+    from datafusion_comet_tpu_torch import types as T
+    from datafusion_comet_tpu_torch.ir import expr as E
+    from datafusion_comet_tpu_torch.ir import plan as P
+    from datafusion_comet_tpu_torch.models import tpcds
+    from datafusion_comet_tpu_torch.observability.profile import device_profile
+
+    t_phase = time.perf_counter()
+    for name, plan in nested_plans(E, P, T, tpcds.SCHEMAS).items():
+        out, launches[name], first_s, times, peak, log, _, _ = run_query(
+            sess, plan, reps, log_b3=name == "nested_explode")
+        if log:
+            b3_calls[name] = log
+        for k in total:
+            total[k] += launches[name][k]
+        t0 = time.perf_counter()
+        expect = memo_oracle(("tpcds", name, ds_sf), nested_oracles(data)[name])
+        t1 = time.perf_counter()
+        check_nested(name, out, expect, name)
+        rec = {"phase": name, "sf": ds_sf, "correct": True, "first_run_s": first_s,
+               "warm_ms": statistics.median(times), "peak_gb": peak / 1e9,
+               "rows": len(next(iter(out.values()))), "launches": launches[name],
+               "truncated_groups": expect["truncated_groups"], "cap": NESTED_CAP,
+               "oracle_wait_s": t1 - t0, "check_s": time.perf_counter() - t1,
+               **run_record(sess)}
+        if name == NESTED_PROFILE:
+            rep = device_profile(lambda p=plan: sess.collect(p))
+            if not rep["device_events"]:
+                raise AssertionError(f"device_profile recorded no device event for {name}")
+            rec["device_profile"] = {"device_events": rep["device_events"],
+                                     "host_events": rep["host_events"],
+                                     "top_device_ops": [(op[:80], us) for op, us in
+                                                        rep["top_device_ops"][:8]]}
+        # ROADMAP C32: the stage estimates the budget saw, beside the peak
+        rec["stage_estimates_gb"] = [r["estimate"] / 1e9 for r in sess.runs
+                                     if r["where"] == "stage" and r["estimate"]]
+        emit(rec)
+        if profile:
+            emit(profile_run(sess, plan, f"profile_{name}"))
+    emit({"phase": "nested", "sf": ds_sf, "phase_s": time.perf_counter() - t_phase})
+
+
+EXPLAIN_SF = 0.1  # TPC-H Q3's Session.explain, on the card and on the CPU
+
+
+def explain_phase() -> None:
+    """Session.explain(tpch.q3(), with_metrics=True, as_tree=True) at TPC-H
+    SF 0.1 on the card equals the same call on the CPU, operator by
+    operator (op, detail, live rows, capacity, bytes); prints the card's
+    rendering."""
+    from datafusion_comet_tpu_torch.exec.engine import Session
+    from datafusion_comet_tpu_torch.models import tpch
+
+    names = ("lineitem", "orders", "customer")
+    data = tpch.generate_tables(names, EXPLAIN_SF)
+    trees = {}
+    for dev in ("cuda", "cpu"):
+        s = Session(device=dev)
+        for t in names:
+            s.register_numpy(t, data[t], tpch.SCHEMAS[t])
+        trees[dev] = s.explain(tpch.q3(), with_metrics=True, as_tree=True)
+
+    def flat(node, out):
+        out.append((node.op, node.detail, node.output_rows, node.capacity, node.output_bytes))
+        for c in node.children:
+            flat(c, out)
+        return out
+
+    card, cpu = flat(trees["cuda"], []), flat(trees["cpu"], [])
+    if card != cpu:
+        raise AssertionError(f"explain: the card's tree {card} differs from the CPU's {cpu}")
+    emit({"phase": "explain", "sf": EXPLAIN_SF, "operators": len(card), "equal_to_cpu": True,
+          "render": trees["cuda"].render().splitlines()})
 
 
 def device_memory(sess) -> int:
@@ -3900,8 +4273,9 @@ def minmax_phase(sf: float, reps: int, seed: int):
 # variant; Q21's min/max scatters and its grace run's idle share). The
 # other TPC-H runs were profiled in earlier PRs (PERF.md) and are no longer
 # cited; cut to keep `--sf 10 --profile` inside its time limit
-TPCH_PROFILE = ("profile_q1", "profile_q2_grace", "profile_q20_variant_direct",
-                "profile_q21_direct", "profile_q21_grace")
+# (not Q2's and Q21's grace profiles: 28 and 22 s of a --sf 10 run, cut to
+# hold the run's time with the nested phase added)
+TPCH_PROFILE = ("profile_q1", "profile_q20_variant_direct", "profile_q21_direct")
 
 
 def profile_tpch(profile: bool, sess, plan, phase: str) -> None:
@@ -4082,8 +4456,12 @@ def partition_phase(sizes, calls, reps: int, seed: int):
         checked.append(rec)
         max_err = max(max_err, err)
         if not name.startswith("ds_"):  # the TPC-DS runs' calls are checked, not timed
+            # the nested explode's compaction spans the E-fold capacity (its
+            # plain and library versions take seconds): fewer runs
             timing[name] = time_payload(K, codes, call["K"], tensors, call["local"],
-                                        call["limit"], reps, flush)
+                                        call["limit"],
+                                        max(3, reps // 5) if name.startswith("nested_") else reps,
+                                        flush)
         del codes, tensors, call["code_values"]
         torch.cuda.empty_cache()
     probe_n = 1 << 23  # pallas_scatter_probe.py's default N, K = 16, tile 512
@@ -4106,6 +4484,23 @@ def partition_phase(sizes, calls, reps: int, seed: int):
         rec, err = check_payload(K, name, torch.from_numpy(c).to(dev)[1:], k, off, limit=limit)
         checked.append(rec)
         max_err = max(max_err, err)
+    # nested rows: a list's (E,) int64 element block (32 elements, 256
+    # bytes) and a list of padded strings' (16, 40) byte block, with their
+    # counts and validity, partitioned at K = 16 as a grace side is
+    for name, n, rows in (("nested_int64x32", 1 << 22, [("int32", ()), ("bool", (32,)),
+                                                       ("int64", (32,))]),
+                          ("nested_strings16x40", 1 << 20, [("int32", ()), ("bool", (16,)),
+                                                           ("uint8", (16, 40)),
+                                                           ("int32", (16,))])):
+        c = np.where(rng.random(n) < 0.2, 16, rng.integers(0, 16, n)).astype(np.int32)
+        ncodes = torch.from_numpy(c).to(dev)
+        tensors = [random_tensor(dt, (n,) + row, gen, dev) for dt, row in rows]
+        rec, err = check_payload(K, name, ncodes, 16, tensors)
+        checked.append(rec)
+        max_err = max(max_err, err)
+        timing[name] = time_payload(K, ncodes, 16, tensors, False, None, reps, flush)
+        del ncodes, tensors
+        torch.cuda.empty_cache()
     mask = (torch.rand(odd + 1, device=dev, generator=gen) < 0.3)[1:]
     dead = torch.full((65_537,), 16, dtype=torch.int32, device=dev)
     for rec, err in (
@@ -4180,10 +4575,10 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=25, help="timed warm runs per measurement")
     ap.add_argument("--seed", type=int, default=7, help="seed of the kernel-phase inputs")
     ap.add_argument("--profile", action="store_true",
-                    help="add profiled runs of Q1, of Q2's grace run, of Q20's variant "
-                         "directly, of Q21's two runs (TPCH_PROFILE), of TPC-DS q3's, "
-                         "q27's, q33's, q96's and q88's two runs and q64's, and of the "
-                         "four expr_* plans")
+                    help="add profiled runs of Q1, of Q20's variant and Q21 directly "
+                         "(TPCH_PROFILE), of TPC-DS q3's, q27's, q33's and "
+                         "q96's two runs and q64's and q88's, of EXPR_PROFILE's plans "
+                         "and of the nested_* plans")
     args = ap.parse_args(argv)
 
     import torch
@@ -4227,6 +4622,7 @@ def run_phases(args, kind: str, smi: str) -> int:
     if args.sf <= 1:  # the padded phase runs at SF1 (or the smaller scale asked for)
         padded_phase(args.sf, max(3, args.reps // 5), launches, b3_calls)
     tpcds_phase(args.sf, max(3, args.reps // 8), args.profile, launches, b3_calls)
+    explain_phase()
     pair = pair_phase(sizes, args.reps, args.seed)
     emit({"phase": "grace_pair_kernels", "timing": pair})
     timing["bucket_count"]["other_shapes"] = {"grace_pair": pair["bucket_count"]}

@@ -44,3 +44,9 @@ class Config:
     # comet.exec.agg.approxPercentile.sketchSize: the samples an approx_percentile
     # PARTIAL state keeps per group (its sketch is 8 bytes a sample).
     approx_percentile_sketch: int = 512
+    # comet.tracing.enabled: append the engine's spans to the Chrome-trace
+    # file (observability/trace.py; COMET_TPU_TRACING=1 turns it on too)
+    tracing_enabled: bool = False
+    # comet.debug.validateBatches: check every operator's output batch
+    # (exec/debug.py ``check_batch``), at a host copy per check
+    debug_validate_batches: bool = False

@@ -9,7 +9,11 @@ The layout is the JAX package's, so the two can be compared field by field:
 - strings are int32 codes into a sorted host ``StringDict``, or padded uint8
   matrices plus int32 ``lengths`` when the dictionary would be too large;
 - a DECIMAL(p>18) column is a 1-D int64 while a recorded ``mag_bound``
-  proves its values fit, and a (cap, 2) int64 [hi, lo] i128 otherwise.
+  proves its values fit, and a (cap, 2) int64 [hi, lo] i128 otherwise;
+- a LIST or MAP column's ``data`` holds each row's element count and its
+  one child the elements, whose buffers carry the element axis after the
+  row axis ((cap, E), (cap, E, L) for strings); a STRUCT's ``data`` is an
+  int8 placeholder and each field is a row-shaped child.
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ from datafusion_comet_tpu_torch import types as T
 from datafusion_comet_tpu_torch.exec.dictionary import StringDict, encode_objects, encode_padded
 
 __all__ = ["ColumnVector", "Batch", "pad_capacity", "quantize_bound", "from_numpy",
-           "to_numpy", "from_arrays", "to_arrays", "concat_batches"]
+           "to_numpy", "from_arrays", "to_arrays", "concat_batches", "nested_from_py",
+           "nested_to_py", "map_buffers"]
 
 _M64 = (1 << 64) - 1
 
@@ -50,9 +55,12 @@ def pad_capacity(n: int, minimum: int = 8) -> int:
 class ColumnVector:
     """One column. ``data``: (cap,) fixed-width values, (cap,) int32 codes
     when ``dictionary`` is set, (cap, w) uint8 for padded strings, or
-    (cap, 2) int64 for two-limb decimals. ``validity``: (cap,) bool.
+    (cap, 2) int64 for two-limb decimals, (cap,) int32 element counts for a
+    LIST or MAP, (cap,) int8 for a STRUCT. ``validity``: (cap,) bool.
     ``lengths``: (cap,) int32 for padded strings, else None. ``mag_bound``:
-    for decimals, a sound host-side bound on max |unscaled value|."""
+    for decimals, a sound host-side bound on max |unscaled value|.
+    ``children``: a LIST's or MAP's element column (its buffers (cap, E,
+    ...)), a STRUCT's field columns (row-shaped)."""
 
     data: torch.Tensor
     validity: torch.Tensor
@@ -60,6 +68,7 @@ class ColumnVector:
     dtype: T.DataType
     dictionary: Optional[StringDict] = None
     mag_bound: Optional[int] = None
+    children: Tuple["ColumnVector", ...] = ()
 
     @property
     def capacity(self) -> int:
@@ -73,6 +82,9 @@ class ColumnVector:
     @property
     def is_dict(self) -> bool:
         return self.dictionary is not None
+
+    def with_validity(self, validity: torch.Tensor) -> "ColumnVector":
+        return dataclasses.replace(self, validity=validity)
 
     def decode(self) -> "ColumnVector":
         """A dictionary column in the padded layout ((cap, w) bytes at the
@@ -94,10 +106,20 @@ class ColumnVector:
         return [cv.decode() for cv in cvs]
 
     def take(self, indices: torch.Tensor) -> "ColumnVector":
-        """Gather rows by in-range index (the bound does not carry over)."""
+        """Gather rows by in-range index (the bound does not carry over;
+        the children come along)."""
         lengths = None if self.lengths is None else self.lengths[indices]
         return ColumnVector(_take_rows(self.data, indices), self.validity[indices], lengths,
-                            self.dtype, self.dictionary)
+                            self.dtype, self.dictionary,
+                            children=tuple(c.take(indices) for c in self.children))
+
+
+def map_buffers(cv: ColumnVector, g) -> ColumnVector:
+    """``g`` over every buffer of ``cv`` and of its children, recursively
+    (None stays None); the dictionary is kept, the bound dropped."""
+    return ColumnVector(g(cv.data), g(cv.validity), None if cv.lengths is None else g(cv.lengths),
+                        cv.dtype, cv.dictionary,
+                        children=tuple(map_buffers(c, g) for c in cv.children))
 
 
 def _take_rows(data: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
@@ -156,6 +178,8 @@ def _concat_column(cvs: Sequence[ColumnVector], dtype: T.DataType) -> ColumnVect
     (``unify_encoding``); decimals of mixed storage widen to two limbs;
     padded strings pad to the widest. Bounds are dropped, as in the JAX
     package's union."""
+    if dtype.is_nested:
+        return _concat_nested(cvs, dtype)
     cvs = cvs[0].unify_encoding(*cvs[1:])
     if cvs[0].is_dict:
         return ColumnVector(torch.cat([c.data for c in cvs]), torch.cat([c.validity for c in cvs]),
@@ -165,11 +189,20 @@ def _concat_column(cvs: Sequence[ColumnVector], dtype: T.DataType) -> ColumnVect
         from datafusion_comet_tpu_torch.exec import decimal_wide as DW
 
         datas = [d if d.dim() == 2 else DW.pack(DW.lift(c)) for d, c in zip(datas, cvs)]
-    if dtype.is_binary:
-        w = max(d.shape[1] for d in datas)
-        datas = [torch.nn.functional.pad(d, (0, w - d.shape[1])) for d in datas]
+    if dtype.is_binary:  # (rows, w), or (rows, E, w) for a list's elements
+        w = max(d.shape[-1] for d in datas)
+        datas = [torch.nn.functional.pad(d, (0, w - d.shape[-1])) for d in datas]
     lengths = None if cvs[0].lengths is None else torch.cat([c.lengths for c in cvs])
     return ColumnVector(torch.cat(datas), torch.cat([c.validity for c in cvs]), lengths, dtype)
+
+
+def _concat_nested(cvs: Sequence[ColumnVector], dtype: T.DataType) -> ColumnVector:
+    """Row-concatenate a nested column: its own buffers, then each child's
+    (element buffers of one type share their element axis)."""
+    kids = tuple(_concat_column([c.children[i] for c in cvs], cvs[0].children[i].dtype)
+                 for i in range(len(cvs[0].children)))
+    return ColumnVector(torch.cat([c.data for c in cvs]), torch.cat([c.validity for c in cvs]),
+                        None, dtype, children=kids)
 
 
 def concat_batches(batches: Sequence[Batch], schema: T.Schema) -> Batch:
@@ -207,6 +240,111 @@ def _pad_strings_np(values: np.ndarray, max_len: int) -> Tuple[np.ndarray, np.nd
     return mat, lens
 
 
+def nested_from_py(values, dtype: T.DataType, cap: int,
+                   device: Union[str, torch.device]) -> ColumnVector:
+    """A (possibly nested) column from a sequence of Python values, padded
+    to ``cap`` rows (JAX ``batch.py:212``): None is a null, a list a LIST,
+    a dict a MAP (its entries sorted by key) or a STRUCT by field name, a
+    tuple a STRUCT by position. More items than ``max_elems`` raise."""
+    n = len(values)
+    valid = np.zeros(cap, bool)
+    valid[:n] = [v is not None for v in values]
+    if dtype.is_list or dtype.is_map:
+        e_cap = dtype.max_elems
+        lens = np.zeros(cap, np.int32)
+        flat = []
+        for i, v in enumerate(values):
+            if dtype.is_map and isinstance(v, dict):
+                v = sorted(v.items())
+            items = list(v) if v is not None else []
+            if len(items) > e_cap:
+                raise ValueError(f"list of {len(items)} items exceeds max_elems={e_cap}")
+            lens[i] = len(items)
+            flat.extend(items + [None] * (e_cap - len(items)))
+        flat.extend([None] * ((cap - n) * e_cap))
+        elem = map_buffers(nested_from_py(flat, dtype.element, cap * e_cap, device),
+                           lambda a: a.reshape((cap, e_cap) + a.shape[1:]))
+        return ColumnVector(_to(lens, device), _to(valid, device), None, dtype, children=(elem,))
+    if dtype.is_struct:
+        kids = tuple(
+            nested_from_py([None if v is None else (v.get(f.name) if isinstance(v, dict)
+                                                    else v[j]) for v in values],
+                           f.dtype, cap, device)
+            for j, f in enumerate(dtype.struct_fields))
+        return ColumnVector(_to(np.zeros(cap, np.int8), device), _to(valid, device), None,
+                            dtype, children=kids)
+    if dtype.is_binary:
+        mat, lens = _pad_strings_np(np.array(values, dtype=object), dtype.byte_width)
+        mat_pad = np.zeros((cap, dtype.byte_width), np.uint8)
+        mat_pad[:n] = mat
+        return ColumnVector(_to(mat_pad, device), _to(valid, device), _to(_padded(lens, cap),
+                                                                          device), dtype)
+    buf = np.zeros(cap, dtype.np_dtype())
+    scale = 10 ** dtype.scale if dtype.is_decimal else 1
+    for i, v in enumerate(values):
+        if v is not None:
+            buf[i] = round(v * scale) if dtype.is_decimal and isinstance(v, float) else v
+    return ColumnVector(_to(buf, device), _to(valid, device), None, dtype)
+
+
+def nested_to_py(cv: ColumnVector, idx=None) -> list:
+    """A (possibly nested) column's rows ``idx`` (all by default) as
+    Python values (JAX ``batch.py:263``): a LIST a list, a MAP a dict, a
+    STRUCT a dict by field name, a null None."""
+    return _to_py(_host(cv), cv, idx)
+
+
+def _host(cv: ColumnVector):
+    """Host numpy copies of a column's buffers, recursively."""
+    return (cv.data.cpu().numpy(), cv.validity.cpu().numpy(),
+            None if cv.lengths is None else cv.lengths.cpu().numpy(),
+            [_host(c) for c in cv.children])
+
+
+def _to_py(h, cv: ColumnVector, idx, dt: Optional[T.DataType] = None) -> list:
+    """``dt``: the type to read the column as (a list's element type)."""
+    data, valid, lens, kids = h
+    if idx is None:
+        idx = np.arange(valid.shape[0])
+    dt = dt or cv.dtype
+    if dt.is_list or dt.is_map:
+        ecv = cv.children[0]
+        out = []
+        for i in idx:
+            if not valid[i]:
+                out.append(None)
+                continue
+            items = _to_py(_index_host(kids[0], i), ecv, np.arange(int(data[i])), dt.element)
+            out.append({it["key"]: it["value"] for it in items} if dt.is_map else items)
+        return out
+    if dt.is_struct:
+        cols = [_to_py(k, c, idx, f.dtype)
+                for k, c, f in zip(kids, cv.children, dt.struct_fields)]
+        names = [f.name for f in dt.struct_fields]
+        return [({nm: col[j] for nm, col in zip(names, cols)} if valid[i] else None)
+                for j, i in enumerate(idx)]
+    if dt.is_binary:
+        raw = dt.type_id == "BYTES"
+        if cv.is_dict:
+            d = cv.dictionary
+            codes = np.clip(data, 0, max(d.size - 1, 0))
+            return [((d.value_of(int(codes[i])) if raw
+                      else d.value_of(int(codes[i])).decode("utf-8", "replace"))
+                     if valid[i] and d.size else None) for i in idx]
+        return [((bytes(data[i, : lens[i]]) if raw
+                  else bytes(data[i, : lens[i]]).decode("utf-8", "replace"))
+                 if valid[i] else None) for i in idx]
+    if dt.is_decimal and dt.scale:
+        return [int(data[i]) / 10 ** dt.scale if valid[i] else None for i in idx]
+    return [data[i].item() if valid[i] else None for i in idx]
+
+
+def _index_host(h, i):
+    data, valid, lens, kids = h
+    return (data[i], valid[i], None if lens is None else lens[i],
+            [_index_host(k, i) for k in kids])
+
+
 def _padded(a: np.ndarray, cap: int) -> np.ndarray:
     out = np.zeros((cap,) + a.shape[1:], a.dtype)
     out[: len(a)] = a
@@ -239,7 +377,12 @@ def from_numpy(
     cap = pad_capacity(n)
     validity = validity or {}
     host = []  # (data, validity, lengths, dtype, dictionary, mag_bound) per column
+    nested = {}
     for f in schema.fields:
+        if f.dtype.is_nested:
+            nested[f.name] = nested_from_py(list(data[f.name]), f.dtype, cap, device)
+            host.append(None)
+            continue
         v = np.asarray(data[f.name])
         valid_np = validity.get(f.name)
         if valid_np is None:
@@ -278,9 +421,10 @@ def from_numpy(
                 bound = quantize_bound(int(np.abs(buf[:n]).max()) if n else 0)
             host.append((buf, valid_pad, None, f.dtype, None, bound))
     cols = tuple(
-        ColumnVector(_to(d, device), _to(vd, device), None if ln is None else _to(ln, device),
-                     dt, sd, mb)
-        for d, vd, ln, dt, sd, mb in host)
+        nested[f.name] if h is None else
+        ColumnVector(_to(h[0], device), _to(h[1], device),
+                     None if h[2] is None else _to(h[2], device), *h[3:])
+        for f, h in zip(schema.fields, host))
     mask = np.zeros(cap, bool)
     mask[:n] = True
     return Batch(cols, _to(mask, device), schema)
@@ -304,6 +448,13 @@ def to_numpy(batch: Batch) -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
     for f, col in zip(batch.schema.fields, batch.columns):
         valid = col.validity[live].cpu().numpy()
+        if f.dtype.is_nested:
+            vals = np.empty(len(valid), dtype=object)
+            for j, v in enumerate(nested_to_py(col.take(live))):
+                vals[j] = v
+            out[f.name] = vals
+            out[f.name + "__valid"] = valid
+            continue
         data = col.data[live].cpu().numpy()
         if f.dtype.is_binary:
             raw = f.dtype.type_id == "BYTES"

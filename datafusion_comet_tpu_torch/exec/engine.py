@@ -2,7 +2,8 @@
 device-resident tables (port of the ``Session`` subset of
 ``datafusion_comet_tpu/exec/engine.py`` that the ported TPC-H and TPC-DS
 queries reach: a ``Union`` runs as one row concatenation of its inputs, an
-``Expand`` as ``basic.expand_op``, a ``Window`` as ``window.window_op``).
+``Expand`` as ``basic.expand_op``, a ``Window`` as ``window.window_op``, an
+``Explode`` as ``basic.explode_op``; and ``Session.explain``).
 
 PyTorch runs eagerly, so there is no whole-plan compile. ``execute`` prunes
 the plan, injects the runtime filters (exec/runtime_filter.py), binds it,
@@ -76,7 +77,6 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from datafusion_comet_tpu_torch import types as T
 from datafusion_comet_tpu_torch.conf import Config
@@ -101,6 +101,7 @@ from datafusion_comet_tpu_torch.ir import plan as P
 from datafusion_comet_tpu_torch.ir.ordering import order_key_name, ordering_satisfies, out_ordering
 from datafusion_comet_tpu_torch.ir.pruning import prune_columns
 from datafusion_comet_tpu_torch.ir.serde import plan_to_json
+from datafusion_comet_tpu_torch.observability.trace import tracer, with_trace
 
 __all__ = ["Session", "run_plan", "QueryExecutionError", "JoinOverflowError"]
 
@@ -140,7 +141,22 @@ class JoinOverflowError(RuntimeError):
 def run_plan(plan: P.PlanNode, tables: Dict[str, Batch], ctx: EvalContext, conf: Config,
              fanout: int) -> Batch:
     """Execute a bound plan over registered tables. ``fanout`` is the
-    joins' K; their overflow flags go to ``ctx.overflow_flags``."""
+    joins' K; their overflow flags go to ``ctx.overflow_flags``. Each
+    operator's output goes to ``ctx.metrics`` where it is set, and through
+    ``debug.check_batch`` under ``Config.debug_validate_batches`` (JAX
+    ``engine.py:60-85``)."""
+    out = _run_node(plan, tables, ctx, conf, fanout)
+    if ctx.metrics is not None:
+        ctx.metrics.record(plan, out)
+    if conf.debug_validate_batches:
+        from datafusion_comet_tpu_torch.exec.debug import check_batch
+
+        check_batch(out, type(plan).__name__)
+    return out
+
+
+def _run_node(plan: P.PlanNode, tables: Dict[str, Batch], ctx: EvalContext, conf: Config,
+              fanout: int) -> Batch:
     if isinstance(plan, P.Scan):
         b = tables[plan.table]
         if plan.projection is not None:
@@ -196,6 +212,15 @@ def run_plan(plan: P.PlanNode, tables: Dict[str, Batch], ctx: EvalContext, conf:
     if isinstance(plan, P.Sample):
         return B.sample_op(child, plan.lower_bound, plan.upper_bound, plan.with_replacement,
                            plan.seed, ctx.partition_id)
+    if isinstance(plan, P.Explode):
+        out = B.explode_op(child, plan.expr, plan.schema, plan.outer, plan.pos, ctx)
+        # the E-fold output is sparse: where its live rows fit in half of
+        # it, it is compacted to them (one host read of the count; the JAX
+        # package keeps the E-fold capacity)
+        target = pad_capacity(int(out.num_rows()))
+        if target * 2 <= out.capacity:
+            out = B.compact_batch(out, target, tag="explode")[0]
+        return out
     raise NotImplementedError(f"run_plan: {type(plan).__name__}")
 
 
@@ -466,6 +491,8 @@ class Session:
             if self.device.index is None:
                 self.device = torch.device("cuda", torch.cuda.current_device())
         self.conf = conf or Config()
+        if self.conf.tracing_enabled:
+            tracer.enabled = True
         self.tables: Dict[str, Batch] = {}
         self.stats: Dict[str, TableStats] = {}
         self.stages: List[Tuple[Optional[str], P.PlanNode]] = []
@@ -674,6 +701,78 @@ class Session:
 
     def collect(self, plan: P.PlanNode) -> Dict[str, np.ndarray]:
         return to_numpy(self.execute(plan))
+
+    # -- observability -------------------------------------------------------------
+    def explain(self, plan: P.PlanNode, with_metrics: bool = False, profile_ops: bool = False,
+                as_tree: bool = False):
+        """The bound plan as a tree of operators (JAX ``engine.py:1149``);
+        ``with_metrics`` runs it once as it stands (no stage split, no
+        statistics, no retry, as the JAX package's ``run_plan`` does) and
+        fills in each operator's live output rows, capacity and bytes: the
+        row counts stay on the device until one copy at the end.
+        ``profile_ops`` times each subtree on its own (warm, best of two;
+        CUDA events on the card) and keeps each operator's marginal ms (its
+        subtree's less its children's). ``as_tree`` returns the
+        ``MetricsNode`` instead of its rendering. ``collect`` is untouched."""
+        from datafusion_comet_tpu_torch.observability.metrics import (MetricsCollector,
+                                                                      build_metrics_tree)
+
+        with sketch_scope(self.conf.approx_percentile_sketch):
+            bound = plan if plan.schema is not None else P.bind_plan(plan)
+        tree = build_metrics_tree(bound, self.device.type)
+        if not with_metrics:
+            return tree if as_tree else tree.render()
+        mc = MetricsCollector()
+        self._subquery_values, self.subqueries = {}, []
+        try:
+            self._materialize_subqueries(bound)
+            with with_trace("explain_execute"):
+                t0 = time.perf_counter()
+                self._bare_run(bound, mc)
+                resolved = mc.resolved()
+                tree.elapsed_ms = (time.perf_counter() - t0) * 1e3
+            mc.fill(tree, bound, resolved)
+            if profile_ops:
+                self._profile_subtrees(tree, bound)
+        finally:
+            self._subquery_values = None
+        return tree if as_tree else tree.render()
+
+    def _bare_run(self, plan: P.PlanNode, metrics=None) -> Batch:
+        ctx = EvalContext(errors=[], overflow_flags=[], join_log=[],
+                          subquery_values=self._subquery_values, metrics=metrics)
+        return run_plan(plan, self.tables, ctx, self.conf, J.JOIN_FANOUT)
+
+    def _profile_subtrees(self, tree, plan: P.PlanNode) -> None:
+        """Each operator's marginal ms: its subtree timed alone (a warm run,
+        then the best of two), less its children's subtrees (JAX
+        ``engine.py:1196``)."""
+        cuda = self.device.type == "cuda"
+
+        def subtree_ms(node: P.PlanNode) -> float:
+            self._bare_run(node)
+            best = float("inf")
+            for _ in range(2):
+                if cuda:
+                    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    start.record()
+                    self._bare_run(node)
+                    end.record()
+                    end.synchronize()
+                    best = min(best, start.elapsed_time(end))
+                else:
+                    t0 = time.perf_counter()
+                    self._bare_run(node)
+                    best = min(best, (time.perf_counter() - t0) * 1e3)
+            return best
+
+        def walk(t, node) -> float:
+            mine = subtree_ms(node)
+            kids = sum(walk(sub, child) for sub, child in zip(t.children, node.children()))
+            t.elapsed_ms = max(mine - kids, 0.0)
+            return mine
+
+        walk(tree, plan)
 
     # -- stages --------------------------------------------------------------------
     def _plan_stages(self, plan: P.PlanNode) -> List[Tuple[Optional[str], P.PlanNode]]:
@@ -965,7 +1064,7 @@ class Session:
         def fill() -> None:
             b = self.tables[table]
             pieces = list(slice_tiles(b, max(b.capacity // tiles, 8)))
-            with record_function("tiled.aggregate"):
+            with with_trace("tiled.aggregate"):
                 self.tables[tmp] = self._execute_retry(lambda ctx: tiled.run(pieces, ctx),
                                                        where="tiled", key=tiled)
 

@@ -44,6 +44,7 @@ import torch
 from datafusion_comet_tpu_torch import types as T
 from datafusion_comet_tpu_torch.exec import casts as CS
 from datafusion_comet_tpu_torch.exec import decimal_wide as DW
+from datafusion_comet_tpu_torch.exec import nested as NESTED
 from datafusion_comet_tpu_torch.exec import random_xorshift as RX
 from datafusion_comet_tpu_torch.exec import string_funcs as SF
 from datafusion_comet_tpu_torch.exec import temporal as TM
@@ -94,6 +95,11 @@ class EvalContext:
     join_log: Optional[list] = None
     # the session's scalar subqueries' values by id: (value, valid)
     subquery_values: Optional[Dict[int, Tuple[object, bool]]] = None
+    # inside a higher-order function's body: each lambda variable's column
+    lambda_env: Optional[Dict[str, ColumnVector]] = None
+    # where set (``Session.explain``), a MetricsCollector that records
+    # every operator's output (observability/metrics.py)
+    metrics: Optional[object] = None
 
     def flag_overflow(self, flag: torch.Tensor, op: str, need: Optional[torch.Tensor] = None,
                       key: Optional[tuple] = None) -> None:
@@ -165,6 +171,16 @@ def _ev(e: E.Expr, b: Batch, ctx: EvalContext) -> ColumnVector:
         return _hash_func(e, b, ctx)
     if isinstance(e, (E.SplitPart, E.SubstringIndex, E.Soundex, E.FormatNumber)):
         return _split_like(e, b, ctx)
+    if isinstance(e, E.LambdaVar):  # JAX ``evaluator.py:200-211``
+        assert ctx.lambda_env is not None and e.var_name in ctx.lambda_env, (
+            f"lambda variable {e.var_name!r} evaluated outside its lambda")
+        return ctx.lambda_env[e.var_name]
+    if isinstance(e, E.HigherOrderFunc):
+        return NESTED.ev_hof(e, b, ctx, _ev)
+    if isinstance(e, (E.ArrayExpr, E.StructExpr, E.GetStructField, E.MapExpr)):
+        return NESTED.ev_nested(e, b, ctx, _ev)
+    if isinstance(e, E.Split):
+        return NESTED.ev_split(e, _ev(e.child, b, ctx), ctx)
     if isinstance(e, E.RandExpr):
         fn = RX.rand_column if e.func == "rand" else RX.randn_column
         return fn(RX.init_seed_host(e.seed, ctx.partition_id), b.row_mask)
@@ -421,7 +437,7 @@ def _eval_on_dict(cv: ColumnVector, fn, ctx: EvalContext) -> ColumnVector:
             outer_errors.append((row_flags, msg))
     lengths = None if res.lengths is None else res.lengths[idx]
     return ColumnVector(res.data[idx], cv.validity & res.validity[idx], lengths, res.dtype,
-                        res.dictionary)
+                        res.dictionary, children=tuple(c.take(idx) for c in res.children))
 
 
 # A cast to or from a string runs over blocks of this many rows: its

@@ -27,10 +27,10 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from datafusion_comet_tpu_torch import types as T
-from datafusion_comet_tpu_torch.exec.batch import Batch, ColumnVector, concat_batches, pad_capacity
+from datafusion_comet_tpu_torch.exec.batch import (Batch, ColumnVector, concat_batches, map_buffers,
+                                                  pad_capacity)
 from datafusion_comet_tpu_torch.exec.evaluator import EvalContext, evaluate, murmur3_column
 from datafusion_comet_tpu_torch.exec.memory import plan_peak_bytes
 from datafusion_comet_tpu_torch.exec.operators import basic as BASIC
@@ -39,6 +39,7 @@ from datafusion_comet_tpu_torch.exec.stats import DEFAULT_MAX_GROUPS
 from datafusion_comet_tpu_torch.exec.streaming import dead_batch, partial_schema, pseudo_scan
 from datafusion_comet_tpu_torch.ir import expr as E
 from datafusion_comet_tpu_torch.ir import plan as P
+from datafusion_comet_tpu_torch.observability.trace import with_trace
 
 __all__ = ["GraceJoinRunner", "find_grace_join", "plan_grace_downstream", "partition_sort",
            "hash_pids", "grace_key_cast", "GRACE_MAX_PARTITIONS"]
@@ -101,8 +102,7 @@ def _extract(b: Batch, start: int, end: int, cap: int) -> Batch:
         t = t[start:stop]
         return torch.cat([t, t.new_zeros((pad,) + tuple(t.shape[1:]))]) if pad else t
 
-    cols = tuple(dataclasses.replace(c, data=cut(c.data), validity=cut(c.validity),
-                                     lengths=None if c.lengths is None else cut(c.lengths))
+    cols = tuple(dataclasses.replace(map_buffers(c, cut), mag_bound=c.mag_bound)
                  for c in b.columns)
     return Batch(cols, torch.arange(cap, device=b.device) < end - start, b.schema)
 
@@ -310,18 +310,18 @@ class GraceJoinRunner:
         s = self.session
         j = self.join
         K = self.K
-        with record_function("grace.inputs"):
+        with with_trace("grace.inputs"):
             sides = [s._aqe_shrink(s._run_subtree(side, self.temp_names))
                      for side in (j.left, j.right)]
         self.capacities = (sides[0].capacity, sides[1].capacity)
-        with record_function("grace.partition"):
+        with with_trace("grace.partition"):
             left, right, sl, sr = self._partition(sides)
         self.sizes = (np.diff(sl), np.diff(sr))
         self.template = self._build_template(pad_capacity(
             2 * max(int(self.sizes[0].max(initial=0)), int(self.sizes[1].max(initial=0)), 8)))
-        with record_function("grace.pairs"):
+        with with_trace("grace.pairs"):
             outs = self._run_pairs(left, right, sl, sr)
-        with record_function("grace.finish"):
+        with with_trace("grace.finish"):
             live = [o for o in outs if o is not None]
             if not live:
                 s.tables[self.tmp] = dead_batch(self.out_schema, 8, s.device)

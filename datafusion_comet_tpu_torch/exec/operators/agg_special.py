@@ -1,8 +1,8 @@
 """The special aggregates (port of
-``datafusion_comet_tpu/exec/operators/agg_special.py`` but collect_list and
-collect_set, which wait for the list type): Spark's runtime bloom filter
-and its probe, the exact percentile and median, approx_count_distinct (a
-HyperLogLog sketch) and approx_percentile.
+``datafusion_comet_tpu/exec/operators/agg_special.py``): Spark's runtime
+bloom filter and its probe, collect_list and collect_set, the exact
+percentile (of one percentage or a list of them) and median,
+approx_count_distinct (a HyperLogLog sketch) and approx_percentile.
 
 Each takes its input column ``cv``, the rows that count (``valid``) and
 each row's group (``seg``, ``m`` on the rest) in one row order: the
@@ -10,11 +10,19 @@ original rows on the aggregate's dense path, the group-sorted rows on its
 sorted path. Neither order matters to them: each sorts its rows by (group,
 value) itself where it needs an order.
 
+**collect_list / collect_set** (JAX :69-140): each group's valid values,
+in input order (the set: its distinct values, in value order, as the JAX
+package gives them), scattered into a (groups, E) element block, E =
+``AggExpr.max_elems``. A group's values past E are dropped, as in the JAX
+package (ROADMAP C31; Spark's lists are unbounded). A PARTIAL state is the
+list itself; a merge collects the states' elements again, in state order
+(``collect_merge``). A dictionary-coded string is decoded first.
+
 **percentile / median** (JAX :142-210): Spark's exact percentile, linear
 interpolation at rank (n - 1) x p among a group's valid values sorted
 ascending: ``value(lo) + (value(hi) - value(lo)) x frac``, op for op as the
 JAX package computes it (a -0.0 value reads as 0.0 there, and here). One
-literal percentage; a list of them waits for the list type and raises. The
+literal percentage gives a DOUBLE, a list of them an ARRAY<DOUBLE>. The
 value is read as a DOUBLE, a decimal by its value (the JAX package reads a
 decimal's unscaled integer, as its variance does: ROADMAP C20).
 
@@ -58,7 +66,7 @@ import numpy as np
 import torch
 
 from datafusion_comet_tpu_torch import types as T
-from datafusion_comet_tpu_torch.exec.batch import ColumnVector
+from datafusion_comet_tpu_torch.exec.batch import ColumnVector, map_buffers
 from datafusion_comet_tpu_torch.conf import Config
 from datafusion_comet_tpu_torch.exec import sortkeys
 from datafusion_comet_tpu_torch.exec.evaluator import (_coerce, _i32, murmur3_hash_bytes,
@@ -68,7 +76,7 @@ from datafusion_comet_tpu_torch.ir import expr as E
 __all__ = ["bloom_num_hash_functions", "bloom_bit_indices", "bloom_agg", "parse_bloom_bytes",
            "bloom_might_contain", "DEFAULT_EXPECTED_ITEMS", "percentile_agg", "hll_agg",
            "approx_percentile_exact", "approx_percentile_partial", "approx_percentile_merge",
-           "sketch_size", "HLL_P"]
+           "sketch_size", "HLL_P", "collect_agg", "collect_merge"]
 
 # Spark's spark.sql.optimizer.runtime.bloomFilter.expectedNumItems default
 DEFAULT_EXPECTED_ITEMS = 1_000_000
@@ -196,34 +204,102 @@ def _at(x: torch.Tensor, start: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 # -------------------------------------------------------------------------------------
 
 
-def _percentage(a: E.AggExpr) -> float:
+def _percentages(a: E.AggExpr) -> Tuple[List[float], bool]:
+    """(the percentages, whether they are a list)."""
     if a.func == E.AggFunc.MEDIAN:
-        return 0.5
+        return [0.5], False
     lit = a.extra[0] if a.extra else None
     if not isinstance(lit, E.Literal):
         raise ValueError("percentile: the percentage must be a literal")
     if isinstance(lit.value, (list, tuple)):
-        raise NotImplementedError("percentile of a list of percentages returns an array: it "
-                                  "waits for the list type")
-    return float(lit.value)
+        return [float(v) for v in lit.value], True
+    return [float(lit.value)], False
 
 
 def percentile_agg(a: E.AggExpr, cv: ColumnVector, valid: torch.Tensor, seg: torch.Tensor,
                    m: int, group_mask: torch.Tensor) -> ColumnVector:
-    """PERCENTILE (one literal percentage) or MEDIAN of each group's valid
-    values, a DOUBLE, null where a group has none."""
-    p = _percentage(a)
+    """PERCENTILE or MEDIAN of each group's valid values: a DOUBLE, or for
+    a list of k percentages an ARRAY<DOUBLE> of k (JAX :201); null where a
+    group has none."""
+    ps, is_list = _percentages(a)
     perm, _, _, n, start = _group_sorted(cv, valid, seg, m)
     x = _coerce(cv, T.FLOAT64).data[perm]
-    target = (n.double() - 1.0) * p
-    lo, hi = target.floor(), target.ceil()
-    frac = target - lo
-    # + 0.0: a -0.0 value reads as 0.0, as the JAX package's segment sum reads it
-    v_lo = _at(x, start, lo.long()) + 0.0
-    v_hi = _at(x, start, hi.long()) + 0.0
     has = (n > 0) & group_mask
-    return ColumnVector(torch.where(has, v_lo + (v_hi - v_lo) * frac, 0.0), has, None,
+    per_p = []
+    for p in ps:
+        target = (n.double() - 1.0) * p
+        lo, hi = target.floor(), target.ceil()
+        frac = target - lo
+        # + 0.0: a -0.0 value reads as 0.0, as the JAX package's segment sum reads it
+        v_lo = _at(x, start, lo.long()) + 0.0
+        v_hi = _at(x, start, hi.long()) + 0.0
+        per_p.append(torch.where(has, v_lo + (v_hi - v_lo) * frac, 0.0))
+    if not is_list:
+        return ColumnVector(per_p[0], has, None, T.FLOAT64)
+    k = len(ps)
+    elem = ColumnVector(torch.stack(per_p, 1), has[:, None].expand(m, k).clone(), None,
                         T.FLOAT64)
+    return ColumnVector(torch.full((m,), k, dtype=torch.int32, device=has.device), has, None,
+                        T.list_(T.FLOAT64, k), children=(elem,))
+
+
+# -------------------------------------------------------------------------------------
+# collect_list / collect_set
+# -------------------------------------------------------------------------------------
+
+
+def collect_agg(a: E.AggExpr, cv: ColumnVector, valid: torch.Tensor, seg: torch.Tensor,
+                m: int, group_mask: torch.Tensor) -> ColumnVector:
+    """COLLECT_LIST or COLLECT_SET of each group's ``valid`` rows of ``cv``
+    (rows in input order within a group): a LIST of at most ``a.max_elems``
+    elements; a group's values past that are dropped (ROADMAP C31)."""
+    cv = cv.decode()
+    e_cap = a.max_elems
+    g = torch.where(valid, seg.long(), m)
+    if a.func == E.AggFunc.COLLECT_SET:  # the first row of each (group, value) run
+        limbs = [g] + sortkeys.column_limbs(cv)
+        perm = sortkeys.lexsort(limbs)
+        changed = torch.zeros_like(valid)
+        changed[0] = True
+        for lb in limbs:
+            s = lb[perm]
+            changed[1:] |= s[1:] != s[:-1]
+        keep = valid[perm] & changed
+    else:
+        perm = torch.sort(g, stable=True).indices
+        keep = valid[perm]
+    g2 = g[perm]
+    # each kept row's slot: its rank among its group's kept rows
+    cnt = keep.long().cumsum(0)
+    start = torch.searchsorted(g2, g2)
+    pos = cnt - 1 - torch.where(start > 0, cnt[(start - 1).clamp(min=0)], 0)
+    slot_ok = keep & (pos < e_cap) & (g2 < m)
+    flat = torch.where(slot_ok, g2 * e_cap + pos, m * e_cap)
+
+    def scatter(x: torch.Tensor) -> torch.Tensor:
+        out = x.new_zeros((m * e_cap + 1,) + tuple(x.shape[1:]))
+        out[flat] = x[perm]
+        return out[: m * e_cap].reshape((m, e_cap) + tuple(x.shape[1:]))
+
+    elem = map_buffers(cv, scatter)
+    lens = torch.zeros(m + 1, dtype=torch.int64, device=g.device).index_add_(
+        0, torch.where(slot_ok, g2, m), slot_ok.long())[:m]
+    return ColumnVector(lens.int(), group_mask, None, T.list_(cv.dtype, e_cap),
+                        children=(elem,))
+
+
+def collect_merge(a: E.AggExpr, st: ColumnVector, live: torch.Tensor, seg: torch.Tensor,
+                  m: int, group_mask: torch.Tensor) -> ColumnVector:
+    """Merge collect states (lists, one a row, ``live`` rows only) per
+    group: their elements, row by row and in each list's order, collected
+    again (the set: de-duplicated again)."""
+    elem = st.children[0]
+    n, e_cap = elem.validity.shape
+    from datafusion_comet_tpu_torch.exec.nested import present
+
+    ok = (present(st) & elem.validity & (live & st.validity)[:, None]).reshape(-1)
+    flat = map_buffers(elem, lambda x: x.reshape((n * e_cap,) + tuple(x.shape[2:])))
+    return collect_agg(a, flat, ok, seg.repeat_interleave(e_cap), m, group_mask)
 
 
 # -------------------------------------------------------------------------------------

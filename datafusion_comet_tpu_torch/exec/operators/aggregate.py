@@ -2,7 +2,8 @@
 family (VAR_SAMP, VAR_POP, STDDEV_SAMP, STDDEV_POP), the covariance family
 (COVAR_SAMP, COVAR_POP, CORR), BIT_AND, BIT_OR, BIT_XOR, BOOL_AND and
 BOOL_OR in every mode, BLOOM_FILTER, PERCENTILE, MEDIAN and
-APPROX_COUNT_DISTINCT in SINGLE mode, and APPROX_PERCENTILE in every mode
+APPROX_COUNT_DISTINCT in SINGLE mode, and APPROX_PERCENTILE, COLLECT_LIST
+and COLLECT_SET in every mode
 (port of
 ``datafusion_comet_tpu/exec/operators/aggregate.py``: _try_pack_keys,
 _pack_sort_limbs, _segments, _seg_bounds, _seg_sum, hash_aggregate,
@@ -14,7 +15,10 @@ decimals (narrow and two-limb), floats, strings (both layouts) and bools.
 A BLOOM_FILTER, PERCENTILE, MEDIAN or APPROX_COUNT_DISTINCT has no partial
 state (exec/operators/agg_special.py), so any other mode raises, naming
 the mode, as in the JAX package (its ``state_fields``); APPROX_PERCENTILE's
-PARTIAL state is a sketch and its count, merged by PARTIAL_MERGE and FINAL.
+PARTIAL state is a sketch and its count, merged by PARTIAL_MERGE and FINAL;
+a collect's PARTIAL state is its list, whose elements a merge collects
+again (the JAX package has no collect state and raises in those modes:
+ROADMAP C31 lists the divergence).
 A grouped bloom filter takes the sorted path; the other special aggregates
 take either path, as the keys choose (the JAX package sends every special
 aggregate down its sorted path, and the groups come out the same but for
@@ -112,7 +116,6 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from datafusion_comet_tpu_torch import types as T
 from datafusion_comet_tpu_torch.exec import decimal_wide as DW
@@ -126,6 +129,7 @@ from datafusion_comet_tpu_torch.exec.operators.basic import compact_batch
 from datafusion_comet_tpu_torch.exec.stats import DEFAULT_MAX_GROUPS
 from datafusion_comet_tpu_torch.ir import expr as E
 from datafusion_comet_tpu_torch.ir.plan import AggMode
+from datafusion_comet_tpu_torch.observability.trace import with_trace
 from datafusion_comet_tpu_torch.utils import int128
 
 __all__ = ["state_fields", "hash_aggregate"]
@@ -173,6 +177,8 @@ def state_fields(a: E.AggExpr) -> List[T.Field]:
 
         return [T.Field(f"{o}__sketch", T.binary(8 * sketch_size()), nullable=False),
                 T.Field(f"{o}__count", T.INT64, nullable=False)]
+    if a.func in E.COLLECT_FUNCS:
+        return [T.Field(f"{o}__val", a.result_dtype())]
     if a.func in E.SPECIAL_FUNCS:
         raise NotImplementedError(f"{a.func.upper()} has no partial state: it runs in SINGLE "
                                   "mode only, as in the JAX package")
@@ -369,7 +375,8 @@ def hash_aggregate(
     ctx = ctx or EvalContext()
     bloom = any(a.func == E.AggFunc.BLOOM_FILTER for a in agg_exprs)
     for a in agg_exprs:
-        if a.func in E.SPECIAL_FUNCS and a.func != E.AggFunc.APPROX_PERCENTILE and (
+        if a.func in E.SPECIAL_FUNCS and a.func not in (E.AggFunc.APPROX_PERCENTILE,
+                                                        *E.COLLECT_FUNCS) and (
                 mode != AggMode.SINGLE):
             raise NotImplementedError(f"{a.func.upper()} in {mode} mode: it has no partial "
                                       "state, as in the JAX package")
@@ -504,7 +511,7 @@ def _sorted_aggregate(batch: Batch, key_cols, key_limbs, agg_exprs, mode: str,
         for a in agg_exprs:
             for x in (a.child,) + a.extra:
                 add(x)
-    with record_function("aggregate.sort"):
+    with with_trace("aggregate.sort"):
         perm, sorted_mask, changed = _sort_groups(key_cols, key_limbs, batch.row_mask)
         synth_cols = tuple(dataclasses.replace(cv.take(perm), mag_bound=cv.mag_bound)
                            if keep_bounds else cv.take(perm) for cv in pre)
@@ -648,7 +655,8 @@ def _input_agg(a: E.AggExpr, batch: Batch, red, group_mask: torch.Tensor,
             k = out_schema.field(f"{a.out_name}__sketch").dtype.byte_width // 8
             return SP.approx_percentile_partial(a, cv, valid, red.seg, red.m, group_mask, k)
         fn = {E.AggFunc.PERCENTILE: SP.percentile_agg, E.AggFunc.MEDIAN: SP.percentile_agg,
-              E.AggFunc.APPROX_COUNT_DISTINCT: SP.hll_agg,
+              E.AggFunc.APPROX_COUNT_DISTINCT: SP.hll_agg, E.AggFunc.COLLECT_LIST: SP.collect_agg,
+              E.AggFunc.COLLECT_SET: SP.collect_agg,
               E.AggFunc.APPROX_PERCENTILE: SP.approx_percentile_exact}[a.func]
         return [fn(a, cv, valid, red.seg, red.m, group_mask)]
     if a.func in E.WELFORD_FUNCS:
@@ -787,6 +795,10 @@ def _merge_agg(a: E.AggExpr, batch: Batch, red, group_mask: torch.Tensor,
 
         return approx_percentile_merge(a, sts[0], sts[1], live, red.seg, red.m, group_mask,
                                        finalize=mode == AggMode.FINAL)
+    if a.func in E.COLLECT_FUNCS:
+        from datafusion_comet_tpu_torch.exec.operators.agg_special import collect_merge
+
+        return [collect_merge(a, sts[0], live, red.seg, red.m, group_mask)]
     if a.func in _MINMAX:
         return [_minmax(a.func == E.AggFunc.MIN, sts[0], sts[0].validity & live, red,
                         group_mask)]

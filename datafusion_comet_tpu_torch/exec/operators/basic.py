@@ -1,6 +1,6 @@
 """Row-preserving operators: filter, project, sort (with top-K), limit,
-expand, and the compaction that packs live rows into a smaller capacity
-(port of ``datafusion_comet_tpu/exec/operators/basic.py:37-177``).
+expand, explode, and the compaction that packs live rows into a smaller
+capacity (port of ``datafusion_comet_tpu/exec/operators/basic.py:37-232``).
 
 A filter flips mask bits (no dynamic shapes); a sort is one stable
 multi-limb lexsort with dead rows last, after which live rows are
@@ -23,8 +23,8 @@ from datafusion_comet_tpu_torch.exec.batch import Batch, ColumnVector, pad_capac
 from datafusion_comet_tpu_torch.exec.evaluator import EvalContext, evaluate, evaluate_predicate
 from datafusion_comet_tpu_torch.ir import expr as E
 
-__all__ = ["filter_op", "project_op", "sort_op", "limit_op", "expand_op", "sample_op",
-           "partition_batch", "compact_batch"]
+__all__ = ["filter_op", "project_op", "sort_op", "limit_op", "expand_op", "explode_op",
+           "sample_op", "partition_batch", "compact_batch"]
 
 
 def filter_op(batch: Batch, predicate: E.Expr, ctx: Optional[EvalContext] = None) -> Batch:
@@ -95,6 +95,44 @@ def expand_op(batch: Batch, projections: Sequence[Sequence[E.Expr]], out_schema:
     return Batch(tuple(cols), batch.row_mask.repeat_interleave(n_proj), out_schema)
 
 
+def explode_op(batch: Batch, expr: E.Expr, out_schema: T.Schema, outer: bool = False,
+               pos: bool = False, ctx: Optional[EvalContext] = None) -> Batch:
+    """explode / posexplode (``_outer``) of a LIST or MAP (JAX
+    ``basic.py:183``): output row r * E + e is element e of input row r,
+    live where e is below the row's length; ``outer`` keeps slot 0, with a
+    null element, of a null or empty input; ``pos`` adds the element's
+    0-based position. The input's columns that ``out_schema`` names are
+    gathered E times."""
+    from datafusion_comet_tpu_torch.exec.batch import map_buffers
+
+    arr = evaluate(expr, batch, ctx)
+    cap, dev = batch.capacity, batch.device
+    elem = arr.children[0]
+    e_cap = elem.validity.shape[1]
+    pos_mat = torch.arange(e_cap, dtype=torch.int32, device=dev)[None, :].expand(cap, e_cap)
+    lens = torch.where(arr.validity, arr.data, 0)
+    live = pos_mat < lens[:, None]
+    gen_valid = torch.ones((cap, e_cap), dtype=torch.bool, device=dev)
+    if outer:
+        empty = lens == 0
+        live = live | (empty[:, None] & (pos_mat == 0))
+        gen_valid = gen_valid & ~empty[:, None]
+    row_live = (live & batch.row_mask[:, None]).reshape(-1)
+    src = torch.arange(cap, device=dev).repeat_interleave(e_cap)
+    names = set(out_schema.names)
+    cols = [c.take(src) for f, c in zip(batch.schema.fields, batch.columns) if f.name in names]
+    gv = gen_valid.reshape(-1)
+
+    def flat(cv: ColumnVector) -> ColumnVector:
+        out = map_buffers(cv, lambda a: a.reshape((cap * e_cap,) + a.shape[2:]))
+        return out.with_validity(out.validity & gv)
+
+    if pos:
+        cols.append(ColumnVector(pos_mat.reshape(-1), gv, None, T.INT32))
+    cols += [flat(c) for c in elem.children] if expr.dtype.is_map else [flat(elem)]
+    return Batch(tuple(cols), row_live, out_schema)
+
+
 def sample_op(batch: Batch, lower_bound: float, upper_bound: float, with_replacement: bool,
               seed: int, partition_id: int = 0) -> Batch:
     """Spark's Sample (JAX ``operators/basic.py:235``). Without replacement
@@ -138,20 +176,32 @@ def partition_batch(batch: Batch, codes: torch.Tensor, num_parts: int,
     carry over, as in the JAX package, unless ``keep_bounds``."""
     tensors = [batch.row_mask]
     for c in batch.columns:
-        tensors += [c.data, c.validity] + ([] if c.lengths is None else [c.lengths])
+        tensors += _buffers(c)
     outs = []
     for lo in range(0, len(tensors), KN.MAX_COLUMNS):
         part, sizes = KN.partition_columns(codes, num_parts, tensors[lo:lo + KN.MAX_COLUMNS],
                                            limit=limit, errors=errors, tag=tag)
         outs += part
     moved = iter(outs[1:])
-    cols = []
-    for c in batch.columns:
-        data, validity = next(moved), next(moved)
-        lengths = None if c.lengths is None else next(moved)
-        cols.append(dataclasses.replace(c, data=data, validity=validity, lengths=lengths,
-                                        mag_bound=c.mag_bound if keep_bounds else None))
+    cols = [_rebuilt(c, moved, keep_bounds) for c in batch.columns]
     return Batch(tuple(cols), outs[0], batch.schema), sizes
+
+
+def _buffers(c: ColumnVector) -> List[torch.Tensor]:
+    """A column's buffers, then its children's, recursively (an element
+    buffer's row is its (E,) or (E, L) block)."""
+    out = [c.data, c.validity] + ([] if c.lengths is None else [c.lengths])
+    for k in c.children:
+        out += _buffers(k)
+    return out
+
+
+def _rebuilt(c: ColumnVector, moved, keep_bounds: bool) -> ColumnVector:
+    data, validity = next(moved), next(moved)
+    lengths = None if c.lengths is None else next(moved)
+    kids = tuple(_rebuilt(k, moved, keep_bounds) for k in c.children)
+    return dataclasses.replace(c, data=data, validity=validity, lengths=lengths,
+                               mag_bound=c.mag_bound if keep_bounds else None, children=kids)
 
 
 def compact_batch(batch: Batch, new_cap: int, keep_bounds: bool = False,

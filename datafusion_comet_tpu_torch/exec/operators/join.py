@@ -110,7 +110,7 @@ import torch
 from datafusion_comet_tpu_torch import types as T
 from datafusion_comet_tpu_torch.exec import decimal_wide as DW
 from datafusion_comet_tpu_torch.exec import sortkeys
-from datafusion_comet_tpu_torch.exec.batch import Batch, ColumnVector, _concat_column
+from datafusion_comet_tpu_torch.exec.batch import Batch, ColumnVector, _concat_column, map_buffers
 from datafusion_comet_tpu_torch.exec.dictionary import union_ranks
 from datafusion_comet_tpu_torch.exec.evaluator import EvalContext, evaluate, evaluate_predicate
 from datafusion_comet_tpu_torch.ir import expr as E
@@ -212,10 +212,9 @@ def _pack(cols: Sequence[ColumnVector], key_pack
 
 
 def _repeat(cv: ColumnVector, k: int) -> ColumnVector:
-    """Each row k times in a row (probe row p fills pair rows p*K .. p*K+K-1)."""
-    rep = (lambda a: None if a is None else a.repeat_interleave(k, dim=0))
-    return ColumnVector(rep(cv.data), rep(cv.validity), rep(cv.lengths), cv.dtype,
-                        cv.dictionary)
+    """Each row k times in a row (probe row p fills pair rows p*K .. p*K+K-1;
+    a nested column's children too, JAX ``join.py:106``)."""
+    return map_buffers(cv, lambda a: a.repeat_interleave(k, dim=0))
 
 
 def _bitmap_ok(bcols: List[ColumnVector], pcols: List[ColumnVector], key_range) -> bool:
@@ -666,7 +665,7 @@ def _outer_rows(join_type, probe: Batch, build: Batch, probe_cols, build_cols, b
     un_slot = per_probe(probe.row_mask & ~has_match)
     if j is not None:
         un_slot = un_slot & (j == 0)
-    build_cols = [_with_validity(c, c.validity & ~un_slot) for c in build_cols]
+    build_cols = [c.with_validity(c.validity & ~un_slot) for c in build_cols]
     out_cols = assemble(probe_cols, build_cols)
     if join_type != JoinType.FULL:
         return Batch(tuple(out_cols), pair_valid | un_slot, out_schema)
@@ -686,17 +685,7 @@ hash_join.semi_paths = {"bitmap": 0, "sorted": 0, "minmax_dense": 0, "minmax_sor
 
 def _null_like(cv: ColumnVector, cap: int) -> ColumnVector:
     """``cap`` null rows of ``cv``'s type, storage and dictionary."""
-    dev = cv.data.device
-    return ColumnVector(torch.zeros((cap,) + tuple(cv.data.shape[1:]), dtype=cv.data.dtype,
-                                    device=dev),
-                        torch.zeros(cap, dtype=torch.bool, device=dev),
-                        None if cv.lengths is None else torch.zeros(cap, dtype=torch.int32,
-                                                                    device=dev),
-                        cv.dtype, cv.dictionary)
-
-
-def _with_validity(cv: ColumnVector, validity: torch.Tensor) -> ColumnVector:
-    return ColumnVector(cv.data, validity, cv.lengths, cv.dtype, cv.dictionary, cv.mag_bound)
+    return map_buffers(cv, lambda a: a.new_zeros((cap,) + tuple(a.shape[1:])))
 
 
 # The JAX package's comet.exec.bnlj.maxProductRows default: a nested-loop
@@ -738,7 +727,7 @@ def nested_loop_join(left: Batch, right: Batch, join_type: str, out_schema: T.Sc
         return Batch(pair.columns, cmask, out_schema)
     if join_type in (JoinType.LEFT, JoinType.FULL):
         un_l_slot = (ri == 0) & (left.row_mask & ~grid.any(1))[li]
-        rcols = [_with_validity(c, c.validity & ~un_l_slot) for c in rcols]
+        rcols = [c.with_validity(c.validity & ~un_l_slot) for c in rcols]
         if join_type == JoinType.LEFT:
             return Batch(tuple(lcols) + tuple(rcols), cmask | un_l_slot, out_schema)
         # FULL: the unmatched right rows follow in a tail of their own
@@ -752,6 +741,6 @@ def nested_loop_join(left: Batch, right: Batch, join_type: str, out_schema: T.Sc
         return Batch(left.columns, left.row_mask & ~grid.any(1), out_schema)
     if join_type == JoinType.RIGHT:
         un_slot = (li == 0) & (right.row_mask & ~grid.any(0))[ri]
-        lcols = [_with_validity(c, c.validity & ~un_slot) for c in lcols]
+        lcols = [c.with_validity(c.validity & ~un_slot) for c in lcols]
         return Batch(tuple(lcols) + tuple(rcols), cmask | un_slot, out_schema)
     raise NotImplementedError(f"nested loop join type {join_type}")

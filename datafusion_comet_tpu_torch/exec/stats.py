@@ -86,7 +86,7 @@ def collect_stats(data: Dict[str, np.ndarray], schema: T.Schema) -> TableStats:
     ranges: Dict[str, Tuple[int, int]] = {}
     for f in schema.fields:
         col = data.get(f.name)
-        if col is None or n == 0:
+        if col is None or n == 0 or f.dtype.is_nested:  # no scalar NDV (JAX ``stats.py:54``)
             continue
         arr = np.asarray(col)
         if arr.ndim != 1:
@@ -348,7 +348,8 @@ def _walk(plan: P.PlanNode, stats: Dict[str, TableStats]) -> Tuple[int, Dict[str
             rows = min(rows, cut)
         return rows, {k: min(v, rows) for k, v in ndv.items()}
 
-    if isinstance(plan, (P.Window, P.ShuffleExchange, P.Sample)):  # the JAX walk's default
+    # the JAX walk's default; an Explode's rows as its child's (ROADMAP C32)
+    if isinstance(plan, (P.Window, P.ShuffleExchange, P.Sample, P.Explode)):
         return kids[0]
     raise NotImplementedError(f"derive_capacities: {type(plan).__name__}")
 

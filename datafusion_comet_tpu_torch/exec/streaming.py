@@ -26,7 +26,8 @@ import torch
 
 from datafusion_comet_tpu_torch import types as T
 from datafusion_comet_tpu_torch.exec import decimal_wide as DW
-from datafusion_comet_tpu_torch.exec.batch import Batch, ColumnVector
+from datafusion_comet_tpu_torch.exec.batch import (Batch, ColumnVector, _concat_column, map_buffers,
+                                                  nested_from_py)
 from datafusion_comet_tpu_torch.exec.evaluator import EvalContext, _torch_dtype
 from datafusion_comet_tpu_torch.exec.operators import aggregate as AGG
 from datafusion_comet_tpu_torch.ir import expr as E
@@ -88,10 +89,8 @@ def slice_tiles(batch: Batch, tile_cap: int) -> Iterator[Batch]:
     buffers: dictionaries and bounds carry over, so every tile's states
     compare and concatenate alike."""
     for lo in range(0, batch.capacity, tile_cap):
-        cols = tuple(dataclasses.replace(
-            c, data=c.data[lo:lo + tile_cap], validity=c.validity[lo:lo + tile_cap],
-            lengths=None if c.lengths is None else c.lengths[lo:lo + tile_cap])
-            for c in batch.columns)
+        cols = tuple(dataclasses.replace(map_buffers(c, lambda a: a[lo:lo + tile_cap]),
+                                         mag_bound=c.mag_bound) for c in batch.columns)
         yield Batch(cols, batch.row_mask[lo:lo + tile_cap], batch.schema)
 
 
@@ -103,6 +102,9 @@ def concat_states(a: Batch, b: Batch) -> Batch:
     dictionary, else they are decoded."""
     cols = []
     for ca, cb, f in zip(a.columns, b.columns, a.schema.fields):
+        if f.dtype.is_nested:  # a collect's list state
+            cols.append(_concat_column([ca, cb], f.dtype))
+            continue
         if f.dtype.is_decimal and (ca.is_wide_storage or cb.is_wide_storage):
             ca, cb = (c if c.is_wide_storage else ColumnVector(DW.pack(DW.lift(c)), c.validity,
                                                                None, c.dtype) for c in (ca, cb))
@@ -142,7 +144,9 @@ def dead_batch(schema: T.Schema, capacity: int, device: Union[str, torch.device]
     cols = []
     for f in schema.fields:
         none = torch.zeros(capacity, dtype=torch.bool, device=device)
-        if f.dtype.is_binary:
+        if f.dtype.is_nested:
+            cols.append(nested_from_py([], f.dtype, capacity, device))
+        elif f.dtype.is_binary:
             cols.append(ColumnVector(
                 torch.zeros((capacity, f.dtype.byte_width), dtype=torch.uint8, device=device),
                 none, torch.zeros(capacity, dtype=torch.int32, device=device), f.dtype))

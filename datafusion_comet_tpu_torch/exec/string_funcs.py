@@ -26,8 +26,8 @@ from datafusion_comet_tpu_torch import types as T
 from datafusion_comet_tpu_torch.exec.batch import ColumnVector
 from datafusion_comet_tpu_torch.ir import expr as E
 
-__all__ = ["string_func", "soundex", "split_part", "substring_index", "format_number",
-           "pad_width"]
+__all__ = ["string_func", "soundex", "split", "split_part", "substring_index",
+           "format_number", "pad_width"]
 
 
 def pad_width(mat: torch.Tensor, w: int) -> torch.Tensor:
@@ -394,6 +394,26 @@ def _span(mat: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor, out_w: in
     flen = (ends - starts).clamp(0, out_w)
     data = _keep(_gather(mat, starts[:, None] + _arange(out_w, mat.device)), flen)
     return data, flen.int()
+
+
+def split(cv: ColumnVector, delim: bytes, max_parts: int, out_w: int):
+    """split with limit -1 over the same field scan as ``split_part`` (JAX
+    ``split_device.py:160``) -> (field counts (n,), element bytes (n, E,
+    out_w), element lengths (n, E), element validity (n, E), overflow (n,))."""
+    mat, lens, validity = cv.data, cv.lengths, cv.validity
+    n, w = mat.shape
+    dev = mat.device
+    starts, ends, n_fields, overflow = _split_fields(mat, lens, delim, max_parts)
+    flen = (ends - starts).clamp(0, out_w)
+    c = torch.arange(out_w, device=dev)
+    idx = (starts[:, :, None] + c).clamp(0, max(w - 1, 0)).reshape(n, -1)
+    got = (mat.gather(1, idx) if w else torch.zeros_like(idx, dtype=mat.dtype))
+    got = got.reshape(n, max_parts, out_w)
+    data = torch.where(c < flen[..., None], got, torch.zeros((), dtype=got.dtype, device=dev))
+    present = torch.arange(max_parts, device=dev)[None, :] < n_fields[:, None]
+    counts = torch.where(validity, n_fields.clamp(max=max_parts), 0)
+    return (counts.int(), data, torch.where(present, flen, 0).int(),
+            present & validity[:, None], overflow & validity)
 
 
 def split_part(cv: ColumnVector, delim: bytes, part: int, max_parts: int, out_t: T.DataType):

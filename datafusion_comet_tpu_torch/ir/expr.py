@@ -7,8 +7,9 @@ every ``TemporalFunc`` and ``StringFunc`` but the bytes and JSON family,
 ``MonotonicallyIncreasingId`` and ``SparkPartitionId``, a session's scalar
 subqueries (``ScalarSubquery``), the bloom-filter probe
 (``BloomMightContain``) and the window specs ``WindowFrame`` and
-``WindowExpr``. Not ported: the regex, nested-type, lambda and Python UDF
-nodes and ``Split``, which returns an array).
+``WindowExpr``, and the nested-type nodes: ``ArrayExpr``, ``MapExpr``,
+``StructExpr``, ``GetStructField``, ``HigherOrderFunc`` with its
+``LambdaVar`` and ``Split``. Not ported: the regex and Python UDF nodes).
 
 Expressions are built unbound (column names); ``bind(expr, schema)`` resolves
 references to column indices and computes result types, including Spark's
@@ -19,7 +20,7 @@ precision loss allowed). Evaluation lives in exec/evaluator.py.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from datafusion_comet_tpu_torch import types as T
 
@@ -28,7 +29,8 @@ __all__ = [
     "Cast", "CaseWhen", "InList", "Like", "StringFunc", "TemporalFunc", "MathFunc", "DATE_FIELDS",
     "HashFunc", "SplitPart", "SubstringIndex", "Soundex", "FormatNumber", "RandExpr",
     "MonotonicallyIncreasingId", "SparkPartitionId", "BloomMightContain", "ScalarSubquery",
-    "SortOrder", "AggFunc", "AggExpr", "WindowFrame",
+    "LambdaVar", "HigherOrderFunc", "Split", "ArrayExpr", "StructExpr", "GetStructField",
+    "MapExpr", "SortOrder", "AggFunc", "AggExpr", "WindowFrame",
     "WindowExpr", "col", "lit", "if_", "coalesce", "bind",
 ]
 
@@ -389,6 +391,99 @@ class SubstringIndex(Expr):
 
 
 @_node
+class Split(Expr):
+    """split(str, literal delim) with Spark's default limit -1 (trailing
+    empty fields kept): a LIST of strings of at most ``max_parts`` fields
+    (0: ``T.DEFAULT_LIST_ELEMS``); more fields raise a QueryExecutionError
+    naming the cap."""
+
+    child: Expr
+    delim: str
+    max_parts: int = 0
+
+    def children(self):
+        return (self.child,)
+
+
+@_node
+class LambdaVar(Expr):
+    """A lambda variable in a higher-order function's body; binding gives
+    it the type of what the function binds it to."""
+
+    var_name: str
+
+
+@_node
+class HigherOrderFunc(Expr):
+    """transform, filter, exists, forall, aggregate, zip_with and
+    array_sort (its default comparator, no body) over arrays, and
+    transform_keys, transform_values and map_filter over maps. ``args``: the
+    inputs (and ``aggregate``'s initial value); ``params``: the lambda's
+    variables in ``body``."""
+
+    func: str
+    args: Tuple[Expr, ...]
+    params: Tuple[str, ...] = ()
+    body: Optional[Expr] = None
+
+    def children(self):
+        return self.args + ((self.body,) if self.body is not None else ())
+
+
+@_node
+class ArrayExpr(Expr):
+    """Array functions over LIST columns: array, size, array_contains,
+    array_position, element_at, get_array_item (0-based), array_min,
+    array_max, sort_array, array_distinct, array_remove, array_append,
+    array_prepend, array_repeat, arrays_overlap, slice, array_join,
+    array_union, array_intersect, array_except, array_compact,
+    array_reverse, flatten, array_insert, arrays_zip and
+    get_array_struct_field."""
+
+    func: str
+    args: Tuple[Expr, ...]
+
+    def children(self):
+        return self.args
+
+
+@_node
+class StructExpr(Expr):
+    """struct / named_struct."""
+
+    args: Tuple[Expr, ...]
+    names: Tuple[str, ...]
+
+    def children(self):
+        return self.args
+
+
+@_node
+class GetStructField(Expr):
+    """One field of a STRUCT, by name or ordinal (an ordinal once bound)."""
+
+    child: Expr
+    field: object
+
+    def children(self):
+        return (self.child,)
+
+
+@_node
+class MapExpr(Expr):
+    """Map functions: map (k1, v1, k2, v2, ...), map_from_arrays,
+    map_from_entries, map_concat, map_keys, map_values, map_entries,
+    element_at, map_contains_key and size. Keys are de-duplicated keeping
+    the last (Spark's LAST_WIN policy)."""
+
+    func: str
+    args: Tuple[Expr, ...]
+
+    def children(self):
+        return self.args
+
+
+@_node
 class RandExpr(Expr):
     """rand() or randn() (``func``) with a seed: Spark's XORShiftRandom,
     seeded per partition, one draw per live row (exec/random_xorshift.py)."""
@@ -474,14 +569,20 @@ class AggFunc:
     # the input at rank ceil(p x n), within the sketch's rank error
     APPROX_PERCENTILE = "approx_percentile"
     APPROX_COUNT_DISTINCT = "approx_count_distinct"  # HyperLogLog
+    # a LIST of each group's values (the set: distinct, in value order) of
+    # at most ``AggExpr.max_elems`` items
+    COLLECT_LIST = "collect_list"
+    COLLECT_SET = "collect_set"
     # a plan-level rewrite (ir/plan.py::_rewrite_distinct), never evaluated
     COUNT_DISTINCT = "count_distinct"
 
 
 # the special aggregates (exec/operators/agg_special.py); all but
-# APPROX_PERCENTILE and BLOOM_FILTER run in SINGLE mode only
+# APPROX_PERCENTILE and the collects run in SINGLE mode only
 SPECIAL_FUNCS = (AggFunc.PERCENTILE, AggFunc.MEDIAN, AggFunc.APPROX_PERCENTILE,
-                 AggFunc.APPROX_COUNT_DISTINCT, AggFunc.BLOOM_FILTER)
+                 AggFunc.APPROX_COUNT_DISTINCT, AggFunc.BLOOM_FILTER, AggFunc.COLLECT_LIST,
+                 AggFunc.COLLECT_SET)
+COLLECT_FUNCS = (AggFunc.COLLECT_LIST, AggFunc.COLLECT_SET)
 # the variance family: (n, avg, m2) states, a DOUBLE result
 WELFORD_FUNCS = (AggFunc.VAR_SAMP, AggFunc.VAR_POP, AggFunc.STDDEV_SAMP, AggFunc.STDDEV_POP)
 # the covariance family: (n, xavg, yavg, ck, xm2, ym2) states, a DOUBLE result
@@ -499,7 +600,8 @@ class AggExpr:
     PERCENTILE's percentage, or an APPROX_PERCENTILE's percentage and
     accuracy (literals);
     ``num_bits``: a BLOOM_FILTER's size in bits (Spark's numBits, a
-    multiple of 64)."""
+    multiple of 64); ``max_elems``: a collect's list capacity (values past
+    it in a group are dropped, as in the JAX package: ROADMAP C31)."""
 
     func: str
     child: Optional[Expr]
@@ -507,6 +609,7 @@ class AggExpr:
     ignore_nulls: bool = True
     extra: Tuple[Expr, ...] = ()
     num_bits: int = 4096
+    max_elems: int = 16
 
     def result_dtype(self) -> T.DataType:
         cd = self.child.dtype if self.child is not None else None
@@ -529,6 +632,11 @@ class AggExpr:
         if self.func == AggFunc.BLOOM_FILTER:
             # Spark's BloomFilterImpl.writeTo: three big-endian ints, then the longs
             return T.binary(12 + (self.num_bits // 64) * 8)
+        if self.func in COLLECT_FUNCS:
+            return T.list_(cd, self.max_elems)
+        if self.func == AggFunc.PERCENTILE and self.extra and isinstance(
+                self.extra[0], Literal) and isinstance(self.extra[0].value, (list, tuple)):
+            return T.list_(T.FLOAT64, len(self.extra[0].value))
         if self.func in WELFORD_FUNCS + COVAR_FUNCS + (AggFunc.PERCENTILE, AggFunc.MEDIAN):
             return T.FLOAT64
         if self.func == AggFunc.APPROX_COUNT_DISTINCT:
@@ -738,7 +846,175 @@ def bind(expr: Expr, schema: T.Schema) -> Expr:
         out = BloomMightContain(bind(e.filter, schema), bind(e.child, schema))
         object.__setattr__(out, "dtype", T.BOOL)
         return out
+    return _bind_nested(e, schema)
+
+
+# the lambda variables' types while a higher-order function's body binds
+_LAMBDA_TYPES: List[Dict[str, T.DataType]] = []
+
+
+def _bind_body(body: Expr, params, ptypes, schema: T.Schema) -> Expr:
+    _LAMBDA_TYPES.append(dict(zip(params, ptypes)))
+    try:
+        return bind(body, schema)
+    finally:
+        _LAMBDA_TYPES.pop()
+
+
+def _typed(out: Expr, dt: T.DataType) -> Expr:
+    object.__setattr__(out, "dtype", dt)
+    return out
+
+
+def _bind_nested(e: Expr, schema: T.Schema) -> Expr:
+    """The nested-type nodes (JAX ``ir/expr.py:1059-1115``, ``:1169`` and
+    ``:1199-1226``)."""
+    if isinstance(e, LambdaVar):
+        for env in reversed(_LAMBDA_TYPES):
+            if e.var_name in env:
+                return _typed(LambdaVar(e.var_name), env[e.var_name])
+        raise KeyError(f"lambda variable {e.var_name!r} not in scope")
+    if isinstance(e, HigherOrderFunc):
+        args = tuple(bind(a, schema) for a in e.args)
+        arr, f = args[0], e.func
+        if f in ("transform_keys", "transform_values", "map_filter"):
+            assert arr.dtype.is_map, f"{f} needs a map input"
+            kt, vt = arr.dtype.key_type, arr.dtype.value_type
+            body = _bind_body(e.body, e.params, (kt, vt), schema)
+            dt = {"transform_keys": T.map_(body.dtype, vt, arr.dtype.max_elems),
+                  "transform_values": T.map_(kt, body.dtype, arr.dtype.max_elems),
+                  "map_filter": arr.dtype}[f]
+            return _typed(HigherOrderFunc(f, args, e.params, body), dt)
+        assert arr.dtype.is_list, f"{f} needs an array input"
+        elem_t = arr.dtype.element
+        if f == "zip_with":
+            ptypes = (elem_t, args[1].dtype.element)
+        elif f == "aggregate":
+            ptypes = (args[1].dtype, elem_t)  # (acc, x); the initial value is args[1]
+        elif f == "array_sort":
+            ptypes = ()
+        else:  # transform, filter, exists, forall: (x) or (x, index)
+            ptypes = (elem_t, T.INT32)[: max(len(e.params), 1)]
+        body = None if e.body is None else _bind_body(e.body, e.params, ptypes, schema)
+        ne = max(arr.dtype.max_elems, args[1].dtype.max_elems if f == "zip_with" else 0)
+        dt = {"transform": T.list_(body.dtype, ne) if body is not None else arr.dtype,
+              "filter": arr.dtype, "exists": T.BOOL, "forall": T.BOOL,
+              "aggregate": body.dtype if body is not None else elem_t,
+              "zip_with": T.list_(body.dtype, ne) if body is not None else arr.dtype,
+              "array_sort": arr.dtype}[f]
+        return _typed(HigherOrderFunc(f, args, e.params, body), dt)
+    if isinstance(e, Split):
+        c = bind(e.child, schema)
+        width = c.dtype.byte_width if c.dtype.is_binary else T.DEFAULT_STRING_LEN
+        return _typed(Split(c, e.delim, e.max_parts),
+                      T.list_(T.string(width), e.max_parts or T.DEFAULT_LIST_ELEMS))
+    if isinstance(e, ArrayExpr):
+        args = tuple(bind(a, schema) for a in e.args)
+        return _typed(ArrayExpr(e.func, args), _array_func_type(e.func, args))
+    if isinstance(e, StructExpr):
+        args = tuple(bind(a, schema) for a in e.args)
+        names = e.names or tuple(f"col{i + 1}" for i in range(len(args)))
+        return _typed(StructExpr(args, names),
+                      T.struct(*[(n, a.dtype) for n, a in zip(names, args)]))
+    if isinstance(e, GetStructField):
+        c = bind(e.child, schema)
+        st = c.dtype
+        assert st is not None and st.is_struct, f"get_struct_field on {st!r}"
+        idx = (next(i for i, f in enumerate(st.struct_fields) if f.name == e.field)
+               if isinstance(e.field, str) else int(e.field))
+        return _typed(GetStructField(c, idx), st.struct_fields[idx].dtype)
+    if isinstance(e, MapExpr):
+        args = tuple(bind(a, schema) for a in e.args)
+        return _typed(MapExpr(e.func, args), _map_func_type(e.func, args))
     raise NotImplementedError(f"bind: {type(e).__name__}")
+
+
+def _array_func_type(func: str, args: Tuple[Expr, ...]) -> T.DataType:
+    """JAX ``ir/expr.py:1260``."""
+    a0 = args[0].dtype if args else None
+    if func == "array":
+        ct = args[0].dtype
+        for a in args[1:]:
+            ct = T.common_type(ct, a.dtype)
+        return T.list_(ct, max(len(args), 1))
+    if func == "size":
+        return T.INT32
+    if func in ("array_contains", "arrays_overlap"):
+        return T.BOOL
+    if func == "array_position":
+        return T.INT64
+    if func in ("element_at", "get_array_item", "array_min", "array_max"):
+        assert a0 is not None and a0.is_list
+        return a0.element
+    if func in ("sort_array", "array_distinct", "array_remove", "array_compact",
+                "array_reverse", "slice", "array_except"):
+        assert a0 is not None and a0.is_list
+        return a0
+    if func in ("array_append", "array_prepend", "array_insert"):
+        return T.list_(a0.element, a0.max_elems + 1)
+    if func == "arrays_zip":
+        assert all(a.dtype.is_list for a in args)
+        return T.list_(T.struct(*[(str(i), a.dtype.element) for i, a in enumerate(args)]),
+                       max(a.dtype.max_elems for a in args))
+    if func == "get_array_struct_field":
+        assert a0 is not None and a0.is_list and a0.element.is_struct
+        return T.list_(a0.element.struct_fields[int(args[1].value)].dtype, a0.max_elems)
+    if func == "array_repeat":
+        n = args[1]
+        count = n.value if isinstance(n, Literal) else T.DEFAULT_LIST_ELEMS
+        return T.list_(args[0].dtype, max(int(count), 1))
+    if func == "array_union":
+        b = args[1].dtype
+        return T.list_(T.common_type(a0.element, b.element), a0.max_elems + b.max_elems)
+    if func == "array_intersect":
+        return T.list_(a0.element, min(a0.max_elems, args[1].dtype.max_elems))
+    if func == "array_join":
+        assert a0 is not None and a0.is_list and a0.element.is_string
+        sep_w = args[1].dtype.byte_width if args[1].dtype.is_binary else 4
+        return T.string(a0.max_elems * (a0.element.byte_width + sep_w))
+    if func == "flatten":
+        assert a0 is not None and a0.is_list and a0.element.is_list
+        return T.list_(a0.element.element, a0.max_elems * a0.element.max_elems)
+    raise NotImplementedError(f"array func {func}")
+
+
+def _map_func_type(func: str, args: Tuple[Expr, ...]) -> T.DataType:
+    """JAX ``ir/expr.py:1318``."""
+    a0 = args[0].dtype if args else None
+    if func == "map":
+        kt, vt = args[0].dtype, args[1].dtype
+        for i in range(2, len(args), 2):
+            kt = T.common_type(kt, args[i].dtype)
+            vt = T.common_type(vt, args[i + 1].dtype)
+        return T.map_(kt, vt, max(len(args) // 2, 1))
+    if func == "map_from_arrays":
+        ka, va = args[0].dtype, args[1].dtype
+        assert ka.is_list and va.is_list
+        return T.map_(ka.element, va.element, ka.max_elems)
+    if func in ("map_keys", "map_values", "map_entries"):
+        assert a0 is not None and a0.is_map
+        return T.list_({"map_keys": a0.key_type, "map_values": a0.value_type,
+                        "map_entries": a0.element}[func], a0.max_elems)
+    if func == "map_concat":
+        kt, vt, total = a0.key_type, a0.value_type, 0
+        for a in args:
+            assert a.dtype.is_map
+            kt = T.common_type(kt, a.dtype.key_type)
+            vt = T.common_type(vt, a.dtype.value_type)
+            total += a.dtype.max_elems
+        return T.map_(kt, vt, total)
+    if func == "map_from_entries":
+        assert a0 is not None and a0.is_list and a0.element.is_struct
+        fs = a0.element.struct_fields
+        return T.map_(fs[0].dtype, fs[1].dtype, a0.max_elems)
+    if func == "element_at":
+        assert a0 is not None and a0.is_map
+        return a0.value_type
+    if func == "map_contains_key":
+        return T.BOOL
+    if func == "size":
+        return T.INT32
+    raise NotImplementedError(f"map func {func}")
 
 
 def _string_func_type(func: str, args: Tuple[Expr, ...]) -> T.DataType:

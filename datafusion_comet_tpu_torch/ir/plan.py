@@ -1,7 +1,7 @@
 """Operator plan IR (port of ``datafusion_comet_tpu/ir/plan.py``: the Scan,
 Filter, Projection, HashAggregate, Sort, Limit, Expand, HashJoin,
-SortMergeJoin, BroadcastNestedLoopJoin, Union, Window, ShuffleExchange and
-Sample nodes, and the two sinks CollectLimit and TakeOrderedAndProject).
+SortMergeJoin, BroadcastNestedLoopJoin, Union, Window, ShuffleExchange,
+Sample and Explode nodes, and the two sinks CollectLimit and TakeOrderedAndProject).
 
 Plans are built unbound; ``bind_plan`` binds expressions bottom-up against
 child schemas and computes each node's output schema, and rewrites a
@@ -26,7 +26,7 @@ from datafusion_comet_tpu_torch.ir import expr as E
 __all__ = ["PlanNode", "Scan", "Filter", "Projection", "HashAggregate", "AggMode",
            "Sort", "Limit", "CollectLimit", "TakeOrderedAndProject", "Expand", "HashJoin",
            "SortMergeJoin", "EQUI_JOINS", "BroadcastNestedLoopJoin", "Union", "Window",
-           "ShuffleExchange", "Sample", "JoinType", "bind_plan", "scan_tables"]
+           "ShuffleExchange", "Sample", "Explode", "JoinType", "bind_plan", "scan_tables"]
 
 
 class JoinType:
@@ -370,6 +370,26 @@ class Sample(PlanNode):
         return (self.child,)
 
 
+@dataclasses.dataclass
+class Explode(PlanNode):
+    """One output row per element of a LIST or MAP (explode, posexplode and
+    their ``_outer`` forms; exec/operators/basic.py ``explode_op``): the
+    child's columns, then ``pos`` (posexplode), then ``col`` (a list) or
+    ``key`` and ``value`` (a map). ``outer`` keeps one row with a null
+    element for a null or empty input. ``keep``: where set (by pruning),
+    the child's columns the output carries, the others left out, as XLA
+    drops the JAX package's unused ones (each is repeated E times)."""
+
+    child: PlanNode
+    expr: E.Expr
+    outer: bool = False
+    pos: bool = False
+    keep: Optional[Tuple[str, ...]] = None
+
+    def children(self):
+        return (self.child,)
+
+
 def _join_out_schema(ls: T.Schema, rs: T.Schema, join_type: str) -> T.Schema:
     if join_type in (JoinType.LEFT_SEMI, JoinType.LEFT_ANTI, JoinType.LEFT_ANTI_NULL_AWARE):
         return ls
@@ -508,6 +528,19 @@ def bind_plan(plan: PlanNode) -> PlanNode:
         out = Window(child, wexprs)
         out.schema = T.Schema(list(child.schema.fields)
                               + [T.Field(w.out_name, W.result_dtype(w)) for w in wexprs])
+        return out
+    if isinstance(plan, Explode):  # JAX ``ir/plan.py:519``
+        child = kids[0]
+        ex = E.bind(plan.expr, child.schema)
+        out = Explode(child, ex, plan.outer, plan.pos, plan.keep)
+        kept = [f for f in child.schema.fields if plan.keep is None or f.name in plan.keep]
+        gen = [T.Field("pos", T.INT32)] if plan.pos else []
+        if ex.dtype.is_map:
+            gen += [T.Field("key", ex.dtype.key_type), T.Field("value", ex.dtype.value_type)]
+        else:
+            assert ex.dtype.is_list, f"explode over {ex.dtype!r}"
+            gen.append(T.Field("col", ex.dtype.element))
+        out.schema = T.Schema(kept + gen)
         return out
     raise NotImplementedError(f"bind_plan: {type(plan).__name__}")
 

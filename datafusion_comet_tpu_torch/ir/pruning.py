@@ -111,6 +111,15 @@ def prune_columns(plan: P.PlanNode, required: Optional[Set[str]] = ALL) -> P.Pla
                     _expr_refs(o.child, need)
                 need.discard(w.out_name)
         return P.Window(prune_columns(plan.child, need), plan.window_exprs)
+    if isinstance(plan, P.Explode):  # JAX ``pruning.py:150``; the port also sets ``keep``
+        if required is ALL:
+            return P.Explode(prune_columns(plan.child, ALL), plan.expr, plan.outer, plan.pos,
+                             plan.keep)
+        keep = set(required) - {"pos", "col", "key", "value"}
+        need = set(keep)
+        _expr_refs(plan.expr, need)
+        kept = tuple(n for n in sorted(_subtree_columns(plan.child)) if n in keep)
+        return P.Explode(prune_columns(plan.child, need), plan.expr, plan.outer, plan.pos, kept)
     # as the JAX package's default branch, the children keep every column:
     # both sides of a nested-loop join, a Union's inputs (pruning through it
     # would map columns by position) and an Expand's child
@@ -143,6 +152,8 @@ def _subtree_columns(plan: P.PlanNode) -> Set[str]:
                              "xm2", "ym2", "sketch")})
     if isinstance(plan, P.Window):  # JAX ``pruning.py:196``
         return _subtree_columns(plan.child) | {w.out_name for w in plan.window_exprs}
+    if isinstance(plan, P.Explode):  # JAX ``pruning.py:198``
+        return _subtree_columns(plan.child) | {"pos", "col", "key", "value"}
     out: Set[str] = set()
     for c in plan.children():
         out |= _subtree_columns(c)

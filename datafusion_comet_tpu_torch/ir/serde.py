@@ -48,17 +48,26 @@ def _dtype_to_dict(dt: T.DataType) -> Dict[str, Any]:
         out["max_len"] = dt.max_len
     if dt.tz:
         out["tz"] = dt.tz
+    if dt.element is not None:
+        out["element"] = _dtype_to_dict(dt.element)
+        out["max_elems"] = dt.max_elems
+    if dt.struct_fields:
+        out["fields"] = _schema_to_dict(dt.struct_fields)
     return out
 
 
 def _dtype_from_dict(d: Dict[str, Any]) -> T.DataType:
     return T.DataType(d["id"], precision=d.get("precision", 0), scale=d.get("scale", 0),
-                      max_len=d.get("max_len", 0), tz=d.get("tz"))
+                      max_len=d.get("max_len", 0), tz=d.get("tz"),
+                      element=_dtype_from_dict(d["element"]) if "element" in d else None,
+                      max_elems=d.get("max_elems", 0),
+                      struct_fields=tuple(_schema_from_dict(d.get("fields", [])).fields))
 
 
-def _schema_to_dict(s: T.Schema):
+def _schema_to_dict(s):
+    """A schema's (or a struct's) fields."""
     return [{"name": f.name, "dtype": _dtype_to_dict(f.dtype), "nullable": f.nullable}
-            for f in s.fields]
+            for f in (s.fields if isinstance(s, T.Schema) else s)]
 
 
 def _schema_from_dict(d) -> T.Schema:

@@ -1,5 +1,5 @@
-"""Logical type system (port of ``datafusion_comet_tpu/types.py``, its
-scalar types: the nested LIST, MAP and STRUCT are not ported).
+"""Logical type system (port of ``datafusion_comet_tpu/types.py``: its
+scalar types and the nested LIST, MAP and STRUCT).
 
 Physical mapping, the same as the JAX package so both hold identical buffers:
 
@@ -11,7 +11,12 @@ Physical mapping, the same as the JAX package so both hold identical buffers:
   int64 microseconds since it: a TIMESTAMP is an instant and carries its
   session zone (``tz``, "UTC" by default), a TIMESTAMP_NTZ a wall clock;
 - STRING/BYTES are fixed-capacity padded uint8 matrices plus int32 lengths,
-  or int32 codes into a sorted host dictionary (exec/dictionary.py).
+  or int32 codes into a sorted host dictionary (exec/dictionary.py);
+- a LIST carries a fixed per-row element capacity ``max_elems`` (E): its
+  buffer holds each row's element count and its one child the elements,
+  (cap, E) or (cap, E, L) for string elements; a MAP is a LIST of
+  STRUCT(key, value) entries; a STRUCT's buffer is an int8 placeholder and
+  its fields are its row-shaped children.
 
 Pure metadata: nothing here touches torch.
 """
@@ -26,7 +31,8 @@ import numpy as np
 __all__ = [
     "DataType", "BOOL", "INT8", "INT16", "INT32", "INT64", "FLOAT32", "FLOAT64",
     "DATE", "TIMESTAMP", "TIMESTAMP_NTZ", "NULLTYPE", "string", "binary", "decimal", "Field",
-    "Schema", "common_type", "MAX_DECIMAL_PRECISION",
+    "Schema", "common_type", "MAX_DECIMAL_PRECISION", "list_", "struct", "map_",
+    "DEFAULT_LIST_ELEMS",
 ]
 
 # Default padded width for STRING columns when nothing tighter is known.
@@ -41,6 +47,7 @@ _NP_DTYPES = {
     "INT64": np.int64, "FLOAT": np.float32, "DOUBLE": np.float64,
     "DATE": np.int32, "TIMESTAMP": np.int64, "TIMESTAMP_NTZ": np.int64, "NULL": np.int8,
     "DECIMAL": np.int64, "STRING": np.uint8, "BYTES": np.uint8,
+    "LIST": np.int32, "MAP": np.int32, "STRUCT": np.int8,
 }
 
 
@@ -53,6 +60,9 @@ class DataType:
     scale: int = 0  # decimal only
     max_len: int = 0  # string/binary only: padded byte width
     tz: Optional[str] = None  # timestamp only
+    element: Optional["DataType"] = None  # LIST: element type; MAP: the entry STRUCT
+    max_elems: int = 0  # LIST/MAP: the per-row element capacity
+    struct_fields: Tuple["Field", ...] = ()  # STRUCT only
 
     @property
     def is_integer(self) -> bool:
@@ -87,6 +97,32 @@ class DataType:
     def is_boolean(self) -> bool:
         return self.type_id == "BOOL"
 
+    @property
+    def is_list(self) -> bool:
+        return self.type_id == "LIST"
+
+    @property
+    def is_map(self) -> bool:
+        return self.type_id == "MAP"
+
+    @property
+    def is_struct(self) -> bool:
+        return self.type_id == "STRUCT"
+
+    @property
+    def is_nested(self) -> bool:
+        return self.type_id in ("LIST", "MAP", "STRUCT")
+
+    @property
+    def key_type(self) -> "DataType":
+        assert self.is_map and self.element is not None
+        return self.element.struct_fields[0].dtype
+
+    @property
+    def value_type(self) -> "DataType":
+        assert self.is_map and self.element is not None
+        return self.element.struct_fields[1].dtype
+
     def np_dtype(self) -> np.dtype:
         """numpy dtype of the primary data buffer."""
         if self.type_id not in _NP_DTYPES:
@@ -111,6 +147,13 @@ class DataType:
             return f"string({self.max_len})" if self.max_len else "string"
         if self.type_id == "TIMESTAMP" and self.tz:
             return f"timestamp<{self.tz}>"
+        if self.type_id == "LIST":
+            return f"array<{self.element!r}>[{self.max_elems}]"
+        if self.type_id == "MAP":
+            return f"map<{self.key_type!r},{self.value_type!r}>[{self.max_elems}]"
+        if self.type_id == "STRUCT":
+            inner = ",".join(f"{f.name}:{f.dtype!r}" for f in self.struct_fields)
+            return f"struct<{inner}>"
         return self.type_id.lower()
 
 
@@ -139,6 +182,26 @@ def decimal(precision: int, scale: int) -> DataType:
     if not (0 < precision <= MAX_DECIMAL_PRECISION) or scale > precision:
         raise ValueError(f"invalid decimal({precision},{scale})")
     return DataType("DECIMAL", precision=precision, scale=scale)
+
+
+# the per-row element capacity of a LIST or MAP when none is given
+DEFAULT_LIST_ELEMS = 16
+
+
+def list_(element: DataType, max_elems: int = DEFAULT_LIST_ELEMS) -> DataType:
+    """ARRAY<element> with a fixed per-row element capacity."""
+    return DataType("LIST", element=element, max_elems=max_elems)
+
+
+def struct(*fields) -> DataType:
+    """STRUCT<fields>, of Fields or (name, dtype) pairs."""
+    fs = tuple(f if isinstance(f, Field) else Field(f[0], f[1]) for f in fields)
+    return DataType("STRUCT", struct_fields=fs)
+
+
+def map_(key: DataType, value: DataType, max_elems: int = DEFAULT_LIST_ELEMS) -> DataType:
+    """MAP<key, value>: a LIST of STRUCT(key, value) entries."""
+    return DataType("MAP", element=struct(("key", key), ("value", value)), max_elems=max_elems)
 
 
 @dataclasses.dataclass(frozen=True)

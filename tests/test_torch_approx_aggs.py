@@ -331,11 +331,21 @@ def test_single_mode_only_aggregates_raise_in_other_modes(func, mode):
 
 
 def test_a_list_of_percentages_raises():
+    """A list of percentages no longer raises (it waited for the list type,
+    ported since): each group's ARRAY<DOUBLE> of the percentiles equals the
+    JAX package's."""
     data, valid = _agg_data(2)
-    with pytest.raises(NotImplementedError, match="list type"):
-        _run("port", _batch("port", data, _agg_schema, valid), ("g",),
-             lambda E: [E.AggExpr("percentile", E.col("i"), "r",
-                                  extra=(E.Literal([0.1, 0.5], PT.FLOAT64),))])
+    outs = {}
+    for pkg in ("port", "jax"):
+        M = PKG[pkg][0]
+        out, node = _run(pkg, _batch(pkg, data, _agg_schema, valid), ("g",),
+                         lambda E: [E.AggExpr("percentile", E.col("i"), "r",
+                                              extra=(E.Literal([0.1, 0.5],
+                                                               M.list_(M.FLOAT64, 2)),))])
+        assert repr(node.schema.field("r").dtype) == "array<double>[2]"
+        outs[pkg] = _by_key(out, ("g",), ["r"])
+    assert outs["port"] == outs["jax"] and all(len(v["r"]) == 2 for v in outs["port"].values()
+                                               if v["r"] is not None)
 
 
 def test_a_group_overflow_re_runs_the_special_aggregates():

@@ -19,10 +19,13 @@ filter and its probe through a scalar subquery, q88 and q90_scalar
 directly and under the grace join, the special aggregates (median,
 percentile, approx_count_distinct, approx_percentile; SINGLE and tiled),
 TPC-H Q12 and Q3 in the SortMergeJoin shape on the merge path, Q16 with
-NOT IN, Session.prepare directly and under the grace join, and each family
+NOT IN, Session.prepare directly and under the grace join, each family
 of the scalar evaluator (temporal functions in named zones, the string
-casts with Ryu, the string functions, the hashes, rand and randn) on the
-card against the CPU. Marked
+casts with Ryu, the string functions, the hashes, rand and randn), the
+nested expressions (arrays, maps, structs, higher-order functions,
+split), Explode, collect_list/collect_set in every mode, the percentile
+list and Session.explain on the card against the CPU, and the partition
+kernel at nested row shapes against its plain version. Marked
 ``cuda``;
 without a card every test here skips. This file imports no JAX, so it runs
 on a machine without it (tests/conftest.py imports JAX, hence --noconftest):
@@ -1622,3 +1625,149 @@ def test_scalar_evaluator_on_card_equals_cpu(dev, family, dms):
                                        err_msg=repr(e))
         else:
             assert torch.equal(w, g), e
+
+
+def _canon(v):
+    """A collected value with every float as its bits (NaN equal to NaN)."""
+    if isinstance(v, float):
+        return ("f", np.float64(v).tobytes())
+    if isinstance(v, list):
+        return [_canon(x) for x in v]
+    if isinstance(v, dict):
+        return {k: _canon(x) for k, x in v.items()}
+    return v.item() if isinstance(v, np.generic) else v
+
+
+def _same_nested(got, want):
+    assert list(got) == list(want)
+    for k in want:
+        assert [_canon(v) for v in got[k]] == [_canon(v) for v in want[k]], k
+
+
+def _nested_table():
+    rng = np.random.default_rng(5)
+    n = 3000
+    lists = [None if i % 29 == 3 else
+             [None if rng.random() < 0.1 else int(x) for x in rng.integers(0, 40, i % 7)]
+             for i in range(n)]
+    floats = [None if i % 31 == 1 else [float(x) if x > -1.5 else float("nan")
+                                        for x in rng.normal(size=i % 4)] for i in range(n)]
+    maps = [None if i % 23 == 2 else {f"k{int(x)}": int(x) for x in rng.integers(0, 9, i % 4)}
+            for i in range(n)]
+    data = {"id": np.arange(n, dtype=np.int64), "a": lists, "f": floats, "m": maps,
+            "x": rng.integers(0, 40, n).astype(np.int64),
+            "t": np.array([",".join("w%d" % (j % 5) for j in range(i % 6)) for i in range(n)],
+                          dtype=object)}
+    schema = PT.Schema([PT.Field("id", PT.INT64), PT.Field("a", PT.list_(PT.INT64, 6)),
+                        PT.Field("f", PT.list_(PT.FLOAT64, 3)),
+                        PT.Field("m", PT.map_(PT.string(3), PT.INT64, 3)),
+                        PT.Field("x", PT.INT64), PT.Field("t", PT.string(20))])
+    return data, schema
+
+
+def _nested_exprs(E):
+    A = lambda f, *a: E.ArrayExpr(f, tuple(a))  # noqa: E731
+    a, f, m, x = E.col("a"), E.col("f"), E.col("m"), E.col("x")
+    v, acc = E.LambdaVar("v"), E.LambdaVar("acc")
+    return [
+        A("size", a), A("array_contains", a, x), A("array_position", a, x),
+        A("element_at", a, E.lit(-1)), A("array_min", f), A("array_max", a), A("sort_array", f),
+        A("sort_array", a, E.lit(False)), A("array_distinct", a), A("array_distinct", f),
+        A("array_remove", a, x), A("array_append", a, x), A("slice", a, E.lit(2), E.lit(3)),
+        A("array_union", a, A("array", x, E.lit(3, PT.INT64))), A("array_except", a, a),
+        A("array_reverse", a), A("array_compact", a),
+        E.MapExpr("map_keys", (m,)), E.MapExpr("element_at", (m, E.lit("k3"))),
+        E.MapExpr("map_from_arrays", (A("array", x, E.lit(1, PT.INT64)), A("array", x, x))),
+        E.GetStructField(E.StructExpr((x, a), ("p", "q")), "q"),
+        E.HigherOrderFunc("transform", (a,), ("v",), v * 3),
+        E.HigherOrderFunc("filter", (a,), ("v",), v > x),
+        E.HigherOrderFunc("exists", (a,), ("v",), v > 30),
+        E.HigherOrderFunc("aggregate", (a, E.lit(0, PT.INT64)), ("acc", "v"), acc + v),
+        E.HigherOrderFunc("array_sort", (f,)),
+        E.Split(E.col("t"), ",", 8)]
+
+
+def test_nested_expressions_on_card_equal_cpu(dev):
+    from datafusion_comet_tpu_torch.ir import expr as PE
+
+    data, schema = _nested_table()
+    plan = PP.Scan("t", schema).project(
+        [PE.Alias(e, f"e{i}") for i, e in enumerate(_nested_exprs(PE))])
+    outs = []
+    for device in ("cpu", None):
+        s = Session(device=device, conf=Config(scan_dictionary_max_size=0))
+        s.register_numpy("t", data, schema)
+        outs.append(s.collect(plan))
+    _same_nested(outs[1], outs[0])
+
+
+def test_explode_collect_and_percentile_list_on_card_equal_cpu(dev):
+    """The four Explode forms over a list and a map, collect_list and
+    collect_set (SINGLE, and PARTIAL states merged by a FINAL) and the
+    percentile list on the card equal the CPU."""
+    from datafusion_comet_tpu_torch.ir import expr as PE
+
+    data, schema = _nested_table()
+    scan = PP.Scan("t", schema)
+    plans = [PP.Explode(scan.project([PE.col("id"), PE.col(c)]), PE.col(c), o, p)
+             for c in ("a", "m") for o in (False, True) for p in (False, True)]
+    aggs = [PE.AggExpr("collect_list", PE.col("x"), "cl", max_elems=64),
+            PE.AggExpr("collect_set", PE.col("x"), "cs", max_elems=64),
+            PE.AggExpr("percentile", PE.col("x"), "p",
+                       extra=(PE.lit((0.1, 0.5), PT.list_(PT.FLOAT64, 2)),))]
+    key = [PE.Alias(PE.BinaryOp("mod", PE.col("id"), PE.lit(37)), "g")]
+    plans.append(scan.project(key + [PE.col("x")]).aggregate([PE.col("g")], aggs).sort(
+        [PE.SortOrder(PE.col("g"))]))
+    half = PE.col("x") < 20
+    parts = [scan.filter(c).project(key + [PE.col("x")]).aggregate(
+        [PE.col("g")], aggs[:2], PP.AggMode.PARTIAL) for c in (half, ~half)]
+    plans.append(PP.Union(tuple(parts)).aggregate([PE.col("g")], aggs[:2],
+                                                  PP.AggMode.FINAL).sort([PE.SortOrder(PE.col("g"))]))
+    for plan in plans:
+        outs = []
+        for device in ("cpu", None):
+            s = Session(device=device)
+            s.register_numpy("t", data, schema)
+            out = s.collect(plan)
+            if isinstance(plan, PP.Explode):  # rows as a sorted multiset
+                keys = sorted(range(len(out["id"])), key=lambda i: repr(
+                    [_canon(out[k][i]) for k in out]))
+                out = {k: v[keys] for k, v in out.items()}
+            outs.append(out)
+        _same_nested(outs[1], outs[0])
+
+
+def test_explain_on_card_equals_cpu(dev):
+    """Session.explain of TPC-H Q3 gives the same operators, live rows,
+    capacities and bytes on the card and on the CPU."""
+    names = ("lineitem", "orders", "customer")
+    data = {t: tpch.generate_table(t, 0.01) for t in names}
+    dicts = []
+    for device in ("cpu", None):
+        s = Session(device=device)
+        for t in names:
+            s.register_numpy(t, data[t], tpch.SCHEMAS[t])
+        d = s.explain(tpch.q3(), with_metrics=True, as_tree=True).to_dict()
+        d.pop("elapsed_ms", None)
+        dicts.append(d)
+    assert dicts[0] == dicts[1]
+
+
+@pytest.mark.parametrize("rows", [((32,), "int64"), ((16, 40), "uint8")],
+                         ids=["int64x32", "strings16x40"])
+def test_partition_columns_at_nested_rows_equal_plain(dev, rows):
+    """B3 moves (E,) element blocks and (E, L) string element blocks, with
+    their counts and validity, exactly as its plain version does, at K = 16
+    and as a compaction."""
+    shape, dt = rows
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    n = 100_003
+    tensors = [chip_smoke.random_tensor("int32", (n,), gen, dev),
+               chip_smoke.random_tensor("bool", (n, shape[0]), gen, dev),
+               chip_smoke.random_tensor(dt, (n,) + shape, gen, dev)]
+    codes = torch.randint(0, 17, (n,), dtype=torch.int32, device=dev, generator=gen)
+    mask = torch.rand(n, device=dev, generator=gen) < 0.4
+    for c, k, limit in ((codes, 16, None), (mask, 1, 65_536)):
+        _, err = chip_smoke.check_payload(K, "nested", c, k, tensors, limit=limit)
+        assert err == 0

@@ -5,7 +5,9 @@ dense aggregate, exactly against the JAX package:
   the port under grace and the JAX ``Session`` all agree, and under the same
   ``comet.memory.fraction`` both packages pick the same K and mode;
 - fact/dim joins with an aggregate above (partial and local modes, no
-  aggregate, duplicate build keys past the fan-out, no match at all);
+  aggregate, duplicate build keys past the fan-out: in
+  ``test_torch_grace2.py``, a file running on a worker of its own; no
+  match at all);
 - FINAL and PARTIAL_MERGE of the dense aggregate against JAX
   ``hash_aggregate``."""
 
@@ -348,45 +350,6 @@ def _rows(out):
     names = [k for k in out if not k.endswith("__valid")]
     return sorted(tuple(out[c][i] if out[c + "__valid"][i] else None for c in names)
                   for i in range(len(out[names[0]])))
-
-
-@pytest.mark.parametrize("how,dup,key_type,mode", [
-    ("agg", 1, "INT64", "partial"),
-    ("agg", 6, "INT64", "partial"),  # K = 16 from the statistics: no pair re-runs
-    ("ungrouped", 1, "INT64", "partial"),
-    ("local", 1, "INT8", "local"),
-    ("agg", 1, "TIMESTAMP", "partial"),
-    ("plain", 3, "INT64", None),
-])
-def test_fact_dim_grace_matches_jax(jax_spy, how, dup, key_type, mode):
-    ptables = _fact_dim(PT, dup=dup, key_type=key_type)
-    jtables = _fact_dim(JT, dup=dup, key_type=key_type)
-    js = _jax_session(jtables)
-    want = js.collect(_join(JT, JP, JE, jtables, how))
-    # the port's dense aggregate takes the INT8 key's 512 buckets
-    conf = {"agg_dense_max_domain": 1024} if key_type == "INT8" else {}
-    direct = _port_session(ptables, **conf)
-    plan = _join(PT, PP, PE, ptables, how)
-    fraction, _ = chip_smoke.grace_fraction(direct, plan, 16)
-    grace = _port_session(ptables, fraction, **conf)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        got = grace.collect(plan)
-    (runner,) = grace.grace_runners
-    assert (runner.K, runner.downstream and runner.downstream[0]) == (16, mode)
-    with jax_fraction(fraction):
-        got_jax = js.collect(_join(JT, JP, JE, jtables, how))
-    assert jax_spy == [(16, mode)]
-    assert jax_spy.pair_retries() == [runner.retries] == [0]
-    if how in ("plain", "local"):  # no sort: the union keeps partition order
-        assert _rows(got) == _rows(want) == _rows(got_jax)
-        assert _rows(direct.collect(plan)) == _rows(want)
-        if how == "local":
-            _assert_same(got_jax, got)
-    else:
-        _assert_same(want, got)
-        _assert_same(want, got_jax)
-        _assert_same(want, direct.collect(plan))
 
 
 def test_grace_with_a_fully_live_side_pads_its_last_pairs(jax_spy):

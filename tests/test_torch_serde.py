@@ -6,11 +6,14 @@ outer plan's and each bound subquery's JSON equal the JAX package's for
 the same query, compared as parsed dicts. Fields that one package has and
 the other has not are named in ``PORT_ONLY`` and ``JAX_ONLY`` and left
 out of that comparison: the port keeps its planner hints as node fields
-(the JAX package as attributes outside its JSON), and the JAX AggExpr's
-FILTER clause and collect capacity are not ported. The scalar evaluator's
+(the JAX package as attributes outside its JSON) and an Explode the child
+columns pruning keeps (``keep``; XLA drops the JAX package's), and the JAX AggExpr's
+FILTER clause is not ported. The scalar evaluator's
 nodes (a cast in a session zone, the temporal, string, split, soundex,
 format_number and hash nodes, rand, randn, the row ids and Sample) and the
-zoned timestamp types write the JAX package's JSON too."""
+zoned timestamp types write the JAX package's JSON too, as do the nested
+nodes (arrays, maps, structs, lambdas, split, explode, collects and the
+percentile list) and the LIST, MAP and STRUCT types."""
 
 import json
 
@@ -30,8 +33,9 @@ pytestmark = pytest.mark.usefixtures("one_torch_thread")
 PORT_ONLY = {"Filter": {"out_rows_hint"},
              "HashAggregate": {"group_key_ranges", "merge_rows"},
              "HashJoin": {"build_key_range", "out_rows_hint", "fanout_hint", "unique_build_hint",
-                          "key_pack", "rf_dense_range", "rf_injected", "cond_col_ranges"}}
-JAX_ONLY = {"AggExpr": {"filter", "max_elems"}}
+                          "key_pack", "rf_dense_range", "rf_injected", "cond_col_ranges"},
+             "Explode": {"keep"}}
+JAX_ONLY = {"AggExpr": {"filter"}}
 
 
 def _round_trip(plan):
@@ -127,3 +131,39 @@ def test_scalar_evaluator_nodes_json_equals_the_jax_packages():
     assert json.loads(got) == json.loads(JS.plan_to_json(_scalar_nodes_plan(JE, JP, JT)))
     back = _round_trip(port)
     assert P.bind_plan(back).schema == P.bind_plan(_scalar_nodes_plan(PE, P, PT)).schema
+
+
+def _nested_nodes_plan(E, P, T):
+    """One plan holding each nested node, an Explode and the nested aggregates."""
+    sch = T.Schema([T.Field("a", T.list_(T.INT64, 4)), T.Field("m", T.map_(T.string(3), T.INT32, 2)),
+                    T.Field("s", T.string(12)), T.Field("x", T.INT64)])
+    c, v = E.col, E.LambdaVar
+    exprs = [
+        E.Alias(E.ArrayExpr("array_contains", (c("a"), c("x"))), "ac"),
+        E.Alias(E.MapExpr("element_at", (c("m"), E.lit("k"))), "me"),
+        E.Alias(E.GetStructField(E.StructExpr((c("x"), c("s")), ("p", "q")), "q"), "gf"),
+        E.Alias(E.HigherOrderFunc("transform", (c("a"),), ("y",), v("y") + 1), "tr"),
+        E.Alias(E.HigherOrderFunc("aggregate", (c("a"), E.lit(0, T.INT64)), ("acc", "y"),
+                                  v("acc") + v("y")), "ag"),
+        E.Alias(E.Split(c("s"), ",", 6), "sp"), c("a"), c("x")]
+    exploded = P.Explode(P.Scan("z", sch).project(exprs), c("a"), True, True)
+    return exploded.aggregate([c("x")], [
+        E.AggExpr("collect_list", c("col"), "cl", max_elems=8),
+        E.AggExpr("collect_set", c("pos"), "cs", max_elems=4),
+        E.AggExpr("percentile", c("col"), "pc", extra=(E.lit((0.5, 0.9),
+                                                            T.list_(T.FLOAT64, 2)),))])
+
+
+def test_nested_nodes_json_equals_the_jax_packages():
+    from datafusion_comet_tpu import types as JT
+    from datafusion_comet_tpu.ir import expr as JE
+    from datafusion_comet_tpu.ir import plan as JP
+    from datafusion_comet_tpu_torch import types as PT
+    from datafusion_comet_tpu_torch.ir import expr as PE
+
+    port = _nested_nodes_plan(PE, P, PT)
+    got = serde.plan_to_json(port)
+    want = JS.plan_to_json(_nested_nodes_plan(JE, JP, JT))
+    assert _drop(json.loads(got), PORT_ONLY) == _drop(json.loads(want), JAX_ONLY)
+    back = _round_trip(port)
+    assert P.bind_plan(back).schema == P.bind_plan(_nested_nodes_plan(PE, P, PT)).schema

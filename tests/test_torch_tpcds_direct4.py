@@ -1,4 +1,6 @@
-"""PyTorch port, TPC-DS: share 4 of 5 of the 99 queries but q88 (its own file), each run
+"""PyTorch port, TPC-DS: the first half of share 4 of 5 of the 99 queries but q88 (its own
+file; the other half is in ``test_torch_tpcds_direct4b.py``: a file runs
+on one worker), each run
 directly through the port's ``Session`` on the CPU and the JAX ``Session``
 at the smallest scale where its answer has rows, and held equal: hints
 stage by stage with the runtime filters' fields, values, order, storage,
@@ -14,6 +16,6 @@ from _torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
-@pytest.mark.parametrize("q", H.share(3))
+@pytest.mark.parametrize("q", H.share(3)[0::2])
 def test_direct_matches_jax(jax_attempts, q):
     H.check_direct(q, jax_attempts)

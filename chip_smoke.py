@@ -171,6 +171,23 @@ Phases, one JSON line each:
      ``truncated_groups`` (ROADMAP C31); nested_explode adds the package's
      ``device_profile`` (device events above 0) and the stage estimates
      beside the peak (ROADMAP C32);
+  text_rlike, text_regexp, text_digest, text_json, text_udf,
+     text_udf_staged (the ``text`` phase, ``text_phase``, after the nested
+     phase on the same TPC-DS session): RLIKE over item's descriptions (one
+     automaton within the JAX package's select-tree thresholds, one over
+     them) in FILTER clauses of an aggregate over store_sales joined to
+     item; regexp_extract, regexp_replace and regexp_extract_all over every
+     customer; md5, sha1, sha2 at 224/256/384/512, crc32, hex, base64,
+     unbase64, conv and bin of every customer's name; a JSON document built
+     on the card for every store_sales row, three get_json_object paths and
+     json_array_length summed per store; Python UDFs over item and
+     parse_url, from_json, to_json and format_string over a seeded
+     10,000-row table. Each against Python oracles (``re``, ``hashlib``,
+     ``zlib``, ``base64``, ``json``, ``urllib``) from the TPC-DS worker,
+     strings by a sha256 of their buffers; warm ms, peak, rows; then each
+     digest's kernels and ms alone (``text_digest_kernels``) and
+     Session.validate over the TPC-H and TPC-DS plans on the card and the
+     CPU (``text_validate``), and the phase's seconds;
   explain: Session.explain(tpch.q3(), with_metrics=True) at TPC-H SF 0.1
      on the card equals the CPU's tree, operator by operator;
   grace_pair_kernels: times both bucket kernels at the grace run's pair
@@ -1997,6 +2014,7 @@ def tpcds_oracles(d) -> dict:
     out["agg_item"] = lambda: agg_oracle(d, "item")
     out.update(expr_oracles(d))
     out.update(nested_oracles(d))
+    out.update(text_oracles(d))
     return out
 
 
@@ -2338,6 +2356,7 @@ def tpcds_phase(sf: float, reps: int, profile: bool, launches, b3_calls) -> None
     bloom_phase(sess, data, ds_sf, reps, launches, total)
     expr_phase(sess, data, ds_sf, reps, profile, launches, total)
     nested_phase(sess, data, ds_sf, reps, profile, launches, total, b3_calls)
+    text_phase(sess, data, ds_sf, reps, launches, total)
     if min(total.values()) == 0:
         raise AssertionError(f"the TPC-DS runs did not launch every kernel: {total}")
     del sess, data
@@ -3573,6 +3592,516 @@ def nested_phase(sess, data, ds_sf: float, reps: int, profile: bool, launches, t
         if profile:
             emit(profile_run(sess, plan, f"profile_{name}"))
     emit({"phase": "nested", "sf": ds_sf, "phase_s": time.perf_counter() - t_phase})
+
+
+# ---- the text phase: regex, bytes, JSON and Python UDFs over TPC-DS -----------------
+
+# RLIKE patterns: the first's automaton within the JAX package's select-tree
+# thresholds (at most 64 states and 24 byte classes), the second's over both
+TEXT_P1 = "item [0-9]*7$"
+TEXT_P2 = "desc of item 1|abcdefghijklmnopqrstuvwxyz"
+TEXT_UDF_ROWS = 10_000  # the staged table of the host-bridge functions
+TEXT_SEED = 41
+TEXT_DIGESTS = ("md5", "sha1", "sha2_224", "sha2_256", "sha2_384", "sha2_512", "hex",
+                "base64", "unbase64")
+
+
+def _brand_prefix(b):
+    return None if b is None else b[:7]
+
+
+def _price_over_50(p):
+    return None if p is None else p >= 50.0
+
+
+def text_staged_table(n: int = TEXT_UDF_ROWS):
+    """The host-bridge functions' table: a URL and a JSON document a row,
+    from ``TEXT_SEED``."""
+    rng = np.random.default_rng(TEXT_SEED)
+    host = rng.integers(0, 37, n)
+    k = rng.integers(0, 11, n)
+    url = np.array([f"http://host{h}.example.com/p/{i}?k={kk}&z=1" if i % 13 else None
+                    for i, (h, kk) in enumerate(zip(host, k))], dtype=object)
+    doc = np.array([('{"a": %d, "b": "w%d"}' % (i, i % 5)) if i % 17 else "oops"
+                    for i in range(n)], dtype=object)
+    return {"url": url, "doc": doc}
+
+
+def text_plans(E, P, T, F, schemas) -> dict:
+    """The text phase's plans over the TPC-DS tables and the staged one
+    (``text_staged``)."""
+    c = E.col
+    item = P.Scan("item", schemas["item"])
+    flags = item.project([c("i_item_sk"), c("i_category"),
+                          E.RLike(c("i_item_desc"), TEXT_P1).alias("m1"),
+                          E.RLike(c("i_item_desc"), TEXT_P2, True).alias("m2")])
+    sales = P.Scan("store_sales", schemas["store_sales"])
+    rlike = P.HashJoin(sales, flags, (c("ss_item_sk"),), (c("i_item_sk"),), P.JoinType.INNER,
+                       "right").aggregate([c("i_category")], [
+        E.AggExpr("count", None, "n"),
+        E.AggExpr("count", None, "n_p1", filter=c("m1")),
+        E.AggExpr("sum", c("ss_net_paid"), "paid_not_p2", filter=c("m2"))]).sort(
+        [E.SortOrder(c("i_category"))])
+    cust = P.Scan("customer", schemas["customer"])
+    regexp = cust.project([
+        E.RegexpExtract(c("c_customer_id"), "^CUST(0+)([1-9])", 2).alias("x_id"),
+        E.RegexpExtract(c("c_last_name"), r"([a-z]+)(\d+)", 1).alias("x_last"),
+        E.RegexpReplace(c("c_customer_id"), "0+", "-").alias("r_id"),
+        E.RegexpReplace(c("c_last_name"), "[aeiou]", "**").alias("r_last"),
+        E.RegexpExtractAll(c("c_customer_id"), "[1-9]0*", 0, 16).alias("all_id")])
+    name = E.StringFunc("concat", (c("c_first_name"), E.lit(" "), c("c_last_name")))
+    digest = cust.project([
+        E.StringFunc("md5", (name,)).alias("md5"), E.StringFunc("sha1", (name,)).alias("sha1"),
+        *[E.StringFunc("sha2", (name, E.lit(b))).alias(f"sha2_{b}") for b in (224, 256, 384, 512)],
+        E.StringFunc("crc32", (name,)).alias("crc32"), E.StringFunc("hex", (name,)).alias("hex"),
+        E.StringFunc("base64", (name,)).alias("base64"),
+        E.StringFunc("unbase64", (E.StringFunc("base64", (name,)),)).alias("unbase64"),
+        E.StringFunc("conv", (E.Cast(c("c_customer_sk"), T.string(20)), E.lit(10),
+                              E.lit(16))).alias("conv"),
+        E.StringFunc("bin", (c("c_customer_sk"),)).alias("bin")])
+    doc = E.StringFunc("concat", (
+        E.lit('{"store":'), E.Cast(c("ss_store_sk"), T.string(20)), E.lit(',"item":'),
+        E.Cast(c("ss_item_sk"), T.string(20)), E.lit(',"paid":'),
+        E.Cast(c("ss_net_paid"), T.string(12)), E.lit(',"tags":["t'),
+        E.Cast(E.BinaryOp("mod", c("ss_quantity"), E.lit(4)), T.string(2)), E.lit('","q'),
+        E.Cast(c("ss_quantity"), T.string(11)), E.lit('"]}')))
+    docs = sales.project([c("ss_store_sk"), doc.alias("doc")])
+    parsed = docs.project([
+        c("ss_store_sk"),
+        E.Cast(F.get_json_object(c("doc"), "$.paid"), T.decimal(7, 2)).alias("paid"),
+        F.get_json_object(c("doc"), "$.tags[1]").alias("tag1"),
+        F.json_array_length(F.get_json_object(c("doc"), "$.tags")).alias("ntags")])
+    json_plan = parsed.aggregate([c("ss_store_sk")], [
+        E.AggExpr("sum", c("paid"), "paid"), E.AggExpr("count", c("tag1"), "tag1"),
+        E.AggExpr("sum", c("ntags"), "ntags")]).sort([E.SortOrder(c("ss_store_sk"))])
+    udf_group = item.filter(F.python_udf(_price_over_50, [c("i_current_price")], T.BOOL)).project(
+        [F.python_udf(_brand_prefix, [c("i_brand")], T.string(7)).alias("bp"),
+         c("i_current_price")]).aggregate(
+        [c("bp")], [E.AggExpr("count", None, "n"),
+                    E.AggExpr("sum", c("i_current_price"), "price")]).sort(
+        [E.SortOrder(c("bp"))])
+    staged = T.Schema([T.Field("url", T.string(48)), T.Field("doc", T.string(32))])
+    st = T.struct(("a", T.INT64), ("b", T.string(8)))
+    udf_staged = P.Scan("text_staged", staged).project([
+        F.parse_url(c("url"), "HOST").alias("host"),
+        F.parse_url(c("url"), "QUERY", "k").alias("k"),
+        F.to_json(F.from_json(c("doc"), st)).alias("tj"),
+        F.format_string("%s/%s", F.parse_url(c("url"), "HOST"),
+                        F.parse_url(c("url"), "PATH")).alias("fs")])
+    return {"text_rlike": rlike, "text_regexp": regexp, "text_digest": digest,
+            "text_json": json_plan, "text_udf": udf_group, "text_udf_staged": udf_staged}
+
+
+def fingerprint(lens, valid, blob: bytes, counts=None) -> str:
+    """sha256 of a string column: its lengths (0 for a null), validity and
+    the live bytes in row order (a list column's element counts first)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    if counts is not None:
+        h.update(np.asarray(counts, np.int64).tobytes())
+    h.update(np.asarray(lens, np.int64).tobytes())
+    h.update(np.asarray(valid, bool).tobytes())
+    h.update(blob)
+    return h.hexdigest()
+
+
+def fingerprint_values(values) -> str:
+    """``fingerprint`` of Python values (str, bytes or None; a list of them
+    for a list column)."""
+    if any(isinstance(v, list) for v in values):
+        counts = [len(v) if v is not None else 0 for v in values]
+        flat = [x.encode() if isinstance(x, str) else x for v in values if v for x in v]
+        return fingerprint([len(x) for x in flat], [True] * len(flat), b"".join(flat), counts)
+    enc = [v.encode() if isinstance(v, str) else v for v in values]
+    return fingerprint([len(v) if v is not None else 0 for v in enc],
+                       [v is not None for v in enc], b"".join(v for v in enc if v))
+
+
+def fingerprint_column(cv, live) -> str:
+    """``fingerprint`` of a port string or LIST<STRING> column's ``live``
+    rows, from its device buffers (no Python string a row)."""
+    import torch
+
+    cv = cv.decode() if cv.is_dict else cv
+    valid = cv.validity[live]
+    if cv.dtype.is_list:
+        counts = torch.where(valid, cv.data[live], 0)
+        el = cv.children[0]
+        el = el.decode() if el.is_dict else el
+        E_ = el.data.shape[1]
+        exists = torch.arange(E_, device=counts.device)[None, :] < counts[:, None]
+        lens = el.lengths[live][exists]
+        mat = el.data[live][exists]
+        keep = torch.arange(mat.shape[1], device=mat.device)[None, :] < lens[:, None]
+        return fingerprint(lens.cpu().numpy(), np.ones(len(lens), bool),
+                           mat[keep].cpu().numpy().tobytes(), counts.cpu().numpy())
+    lens = torch.where(valid, cv.lengths[live], 0)
+    mat = cv.data[live]
+    keep = torch.arange(mat.shape[1], device=mat.device)[None, :] < lens[:, None]
+    return fingerprint(lens.cpu().numpy(), valid.cpu().numpy(), mat[keep].cpu().numpy().tobytes())
+
+
+def _exact_cents(values) -> np.ndarray:
+    return np.asarray(values, dtype=np.int64)
+
+
+def text_oracles(d) -> dict:
+    """The text phase's oracles over the tables ``d``: Python ``re``,
+    ``hashlib``, ``zlib``, ``base64``, ``json`` and ``urllib``, then numpy;
+    string columns as ``fingerprint``s."""
+
+    def rlike():
+        import re as _re
+
+        it, ss = d["item"], d["store_sales"]
+        descs = it["i_item_desc"]
+        m1 = np.array([v is not None and _re.search(TEXT_P1, v) is not None for v in descs])
+        m2 = np.array([v is not None and _re.search(TEXT_P2, v) is None for v in descs])
+        v1 = np.array([v is not None for v in descs])  # RLIKE of a null: null
+        pos = np.searchsorted(it["i_item_sk"], ss["ss_item_sk"])
+        pos = np.clip(pos, 0, len(it["i_item_sk"]) - 1)
+        hit = it["i_item_sk"][pos] == ss["ss_item_sk"]
+        if "ss_item_sk__valid" in ss:
+            hit &= ss["ss_item_sk__valid"]
+        cat = it["i_category"][pos[hit]]
+        rows = pos[hit]
+        paid = ss["ss_net_paid"][hit]
+        paid_ok = ss.get("ss_net_paid__valid", np.ones(len(hit), bool))[hit]
+        out = {}
+        for key in sorted({c for c in cat if c is not None}) + ([None] if any(
+                c is None for c in cat) else []):
+            sel = np.array([c == key for c in cat]) if key is None else (cat == key)
+            n1 = sel & m1[rows] & v1[rows]
+            p2 = sel & m2[rows] & v1[rows] & paid_ok
+            out[key] = (int(sel.sum()), int(n1.sum()), int(paid[p2].sum()) if p2.any() else None)
+        return out
+
+    def regexp():
+        import re as _re
+
+        cu = d["customer"]
+        ids, lasts = cu["c_customer_id"], cu["c_last_name"]
+
+        def ext(pat, idx, vals):
+            rx = _re.compile(pat)
+            out = []
+            for v in vals:
+                if v is None:
+                    out.append(None)
+                    continue
+                m = rx.search(v)
+                out.append("" if m is None or m.group(idx) is None else m.group(idx))
+            return out
+
+        def sub(pat, repl, vals):
+            rx = _re.compile(pat)
+            return [None if v is None else rx.sub(repl, v) for v in vals]
+
+        return {"x_id": fingerprint_values(ext("^CUST(0+)([1-9])", 2, ids)),
+                "x_last": fingerprint_values(ext(r"([a-z]+)(\d+)", 1, lasts)),
+                "r_id": fingerprint_values(sub("0+", "-", ids)),
+                "r_last": fingerprint_values(sub("[aeiou]", "**", lasts)),
+                "all_id": fingerprint_values([None if v is None else _re.findall("[1-9]0*", v)
+                                              for v in ids])}
+
+    def digest():
+        import base64 as _b64
+        import hashlib
+        import zlib
+
+        cu = d["customer"]
+        names = [None if f is None or last is None else (f + " " + last).encode()
+                 for f, last in zip(cu["c_first_name"], cu["c_last_name"])]
+        fns = {"md5": lambda b: hashlib.md5(b).hexdigest(),
+               "sha1": lambda b: hashlib.sha1(b).hexdigest(),
+               "sha2_224": lambda b: hashlib.sha224(b).hexdigest(),
+               "sha2_256": lambda b: hashlib.sha256(b).hexdigest(),
+               "sha2_384": lambda b: hashlib.sha384(b).hexdigest(),
+               "sha2_512": lambda b: hashlib.sha512(b).hexdigest(),
+               "hex": lambda b: b.hex().upper(), "base64": _b64.b64encode,
+               "unbase64": lambda b: b}
+        out = {k: fingerprint_values([None if b is None else fn(b) for b in names])
+               for k, fn in fns.items()}
+        out["crc32"] = np.array([zlib.crc32(b) if b is not None else -1 for b in names])
+        sk = cu["c_customer_sk"]
+        out["conv"] = fingerprint_values([format(int(v), "X") for v in sk])
+        out["bin"] = fingerprint_values([format(int(v), "b") for v in sk])
+        return out
+
+    def json_sums():
+        ss = d["store_sales"]
+        ok = np.ones(len(ss["ss_store_sk"]), bool)
+        for col in ("ss_store_sk", "ss_item_sk", "ss_net_paid", "ss_quantity"):
+            ok &= ss.get(col + "__valid", np.ones_like(ok))
+        stores = ss["ss_store_sk"]
+        valid_store = ss.get("ss_store_sk__valid", np.ones_like(ok))
+        out = {}
+        for key in np.unique(stores[valid_store]):
+            sel = ok & valid_store & (stores == key)
+            n = int(sel.sum())
+            out[int(key)] = (int(ss["ss_net_paid"][sel].sum()) if n else None, n,
+                             2 * n if n else None)
+        nulls = ok & ~valid_store  # a null store: a null document
+        if (~valid_store).any():
+            out[None] = (None, 0, None)
+        assert not nulls.any()
+        return out
+
+    def udf():
+        import json as _json
+        from urllib.parse import parse_qs, urlparse
+
+        it = d["item"]
+        price, ok = it["i_current_price"], it.get("i_current_price__valid",
+                                                    np.ones(len(it["i_current_price"]), bool))
+        groups = {}
+        for b, p, v in zip(it["i_brand"], price, ok):
+            if not v or p < 5000:
+                continue
+            key = _brand_prefix(b)
+            n, s = groups.get(key, (0, 0))
+            groups[key] = (n + 1, s + int(p))
+        st = text_staged_table()
+        hosts, ks, tjs, fss = [], [], [], []
+        for u, doc in zip(st["url"], st["doc"]):
+            pu = urlparse(u) if u is not None else None
+            hosts.append(pu.hostname if pu else None)
+            ks.append((parse_qs(pu.query).get("k") or [None])[0] if pu else None)
+            fss.append(f"{pu.hostname}/{pu.path}" if pu else None)
+            try:
+                j = _json.loads(doc)
+                tjs.append(_json.dumps({"a": int(j["a"]), "b": str(j["b"])},
+                                       separators=(",", ":")))
+            except ValueError:
+                tjs.append(None)
+        return {"groups": groups, "host": fingerprint_values(hosts),
+                "k": fingerprint_values(ks), "tj": fingerprint_values(tjs),
+                "fs": fingerprint_values(fss)}
+
+    return {"text_rlike": rlike, "text_regexp": regexp, "text_digest": digest,
+            "text_json": json_sums, "text_udf": udf}
+
+
+def _rows_by_key(out, key, cols):
+    """A collected answer's rows as {key: tuple of cols} (None for a null)."""
+    res = {}
+    for i in range(len(out[key])):
+        k = out[key][i] if out[key + "__valid"][i] else None
+        k = k.item() if hasattr(k, "item") else k
+        res[k] = tuple((out[c][i].item() if hasattr(out[c][i], "item") else out[c][i])
+                       if out[c + "__valid"][i] else None for c in cols)
+    return res
+
+
+def check_text(name: str, b, expect) -> dict:
+    """Hold one text plan's result batch to its oracle; what the line
+    reports of it. Row-shaped results compare by ``fingerprint`` on their
+    device buffers, grouped ones as collected rows."""
+    import torch
+
+    from datafusion_comet_tpu_torch.exec.batch import to_numpy
+
+    keys = {"text_rlike": ("i_category", ("n", "n_p1", "paid_not_p2")),
+            "text_json": ("ss_store_sk", ("paid", "tag1", "ntags")),
+            "text_udf": ("bp", ("n", "price"))}
+    if name in keys:
+        got = _rows_by_key(to_numpy(b), *keys[name])
+        want = expect["groups"] if name == "text_udf" else expect
+        ok = got == want
+        info = {"groups": len(got)}
+        if name == "text_rlike":
+            info["matched_p1"] = sum(v[1] for v in got.values())
+        elif name == "text_json":
+            info["docs"] = sum(v[1] for v in got.values())
+    else:
+        live = b.row_mask.nonzero().squeeze(1)
+        ok, info = True, {}
+        for f, cv in zip(b.schema.fields, b.columns):
+            if f.dtype.is_binary or f.dtype.is_list:
+                good = fingerprint_column(cv, live) == expect[f.name]
+            else:  # crc32: its int64 values, -1 for a null
+                vals = torch.where(cv.validity, cv.data, -1)[live].cpu().numpy()
+                good = np.array_equal(vals, expect[f.name])
+            if not good:
+                info.setdefault("wrong", []).append(f.name)
+            ok &= good
+    if not ok:
+        raise AssertionError(f"{name}: differs from its oracle ({info})")
+    return info
+
+
+def run_text(sess, plan, reps: int):
+    """``run_query`` on ``Session.execute``: the result stays on the card
+    (a collect of a million rows of strings would time the host's
+    conversion). (result batch, launches, first-run s, warm ms, peak
+    bytes)."""
+    import torch
+    from datafusion_comet_tpu_torch.exec import kernels as K
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(K)
+    t0 = time.perf_counter()
+    out = sess.execute(plan)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = _counts(K)
+    peak = torch.cuda.max_memory_allocated()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        sess.execute(plan)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, launches, first_s, times, peak
+
+
+TEXT_DIGEST_PROFILED = ("md5", "sha1", "sha2_256", "sha2_512")
+TEXT_PROFILE_ROWS = 1 << 16  # the kernel count does not depend on the rows
+
+
+def digest_launches(sess, reps: int) -> dict:
+    """Each digest and bytes function alone over customer's name strings:
+    warm ms (CUDA events) and, for ``TEXT_DIGEST_PROFILED``, the device
+    kernels of one call (torch.profiler, over the first
+    ``TEXT_PROFILE_ROWS`` rows)."""
+    import torch
+
+    from datafusion_comet_tpu_torch import types as T
+    from datafusion_comet_tpu_torch.exec.evaluator import evaluate
+    from datafusion_comet_tpu_torch.ir import expr as E
+    from datafusion_comet_tpu_torch.models import tpcds
+    from datafusion_comet_tpu_torch.observability.profile import device_profile
+
+    cust = sess.tables["customer"]
+    schema = tpcds.SCHEMAS["customer"]
+    name = E.bind(E.StringFunc("concat", (E.col("c_first_name"), E.lit(" "),
+                                          E.col("c_last_name"))), schema)
+    names = evaluate(name, cust)
+    sch = T.Schema([T.Field("s", name.dtype)])
+    b = type(cust)((names,), cust.row_mask, sch)
+    out = {}
+    for f, args in (("md5", ()), ("sha1", ()), ("sha2", (256,)), ("sha2", (512,)), ("crc32", ()),
+                    ("hex", ()), ("base64", ()), ("conv", None)):
+        if f == "conv":
+            e = E.StringFunc("conv", (E.col("s"), E.lit(36), E.lit(16)))
+        else:
+            e = E.StringFunc(f, (E.col("s"),) + tuple(E.lit(a) for a in args))
+        be = E.bind(e, sch)
+        evaluate(be, b)
+        times = []
+        for _ in range(reps):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            evaluate(be, b)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        key = f + "".join(f"_{a}" for a in (args or ()))
+        out[key] = {"ms": statistics.median(times)}
+        if key in TEXT_DIGEST_PROFILED:
+            rows = torch.arange(min(TEXT_PROFILE_ROWS, b.capacity), device=b.device)
+            few = type(b)(tuple(c.take(rows) for c in b.columns), b.row_mask[rows], sch)
+            out[key]["kernels"] = device_profile(lambda: evaluate(be, few))["device_events"]
+    return out
+
+
+# the TPC-DS plans Session.validate runs on the card (every one on the
+# CPU): each tenth (121 plans took 9-17 s there, 42 took 8.3-8.8 s: a
+# few hundred tiny launches and host reads a plan)
+TEXT_VALIDATE_CARD_DS = 10
+
+
+def text_validate() -> dict:
+    """Session.validate over the 22 TPC-H and 99 TPC-DS plans on the CPU and
+    over TPC-H's and every ``TEXT_VALIDATE_CARD_DS``-th TPC-DS plan on the
+    card, each over its package's tables with no rows: every result [], TPC-H
+    Q3 with the HashJoin gate off the JAX package's reason, the card's
+    results equal to the CPU's."""
+    from datafusion_comet_tpu_torch.conf import Config
+    from datafusion_comet_tpu_torch.exec.batch import from_numpy
+    from datafusion_comet_tpu_torch.exec.engine import Session
+    from datafusion_comet_tpu_torch.models import tpcds, tpch
+
+    key = "comet.exec.operator.HashJoin.enabled"
+    results, ms = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        res = []
+        for schemas, plans, conf in ((tpch.SCHEMAS, None, None), (tpcds.SCHEMAS, None, None),
+                                     (tpch.SCHEMAS, "q3", Config(gates={key: False}))):
+            s = Session(device=dev, conf=conf)
+            for t, sch in schemas.items():
+                empty = {f.name: np.array([], dtype=object if f.dtype.is_binary
+                                          else f.dtype.np_dtype()) for f in sch.fields}
+                s.register_batch(t, from_numpy(empty, sch, s.device))
+            if plans == "q3":
+                res.append(("q3_gate", s.validate(tpch.q3())))
+            elif schemas is tpch.SCHEMAS:
+                res += [(f"h_{q}", s.validate(b())) for q, b in tpch.QUERIES.items()]
+            else:
+                step = TEXT_VALIDATE_CARD_DS if dev == "cuda" else 1
+                res += [(f"ds_{q}", s.validate(tpcds.plan(q, s)))
+                        for q in list(tpcds.QUERIES)[::step]]
+        results[dev], ms[dev] = dict(res), (time.perf_counter() - t0) * 1e3
+    want = {q: [] for q in results["cpu"]}
+    want["q3_gate"] = [f"operator HashJoin disabled by {key}"]
+    card = results["cuda"]
+    if results["cpu"] != want or card != {q: results["cpu"][q] for q in card}:
+        bad = [(q, r) for q, r in list(results["cpu"].items()) + list(card.items())
+               if r != want[q]]
+        raise AssertionError(f"validate: {bad[:4]}, or the card's results differ from the CPU's")
+    return {"phase": "text_validate", "cpu_plans": len(results["cpu"]) - 1,
+            "card_plans": len(card) - 1, "card_ms": ms["cuda"], "cpu_ms": ms["cpu"],
+            "equal_to_cpu": True, "q3_gate": card["q3_gate"]}
+
+
+def text_phase(sess, data, ds_sf: float, reps: int, launches, total) -> None:
+    """The text phase (``text_plans``) on the TPC-DS session, each plan
+    against its oracle (the TPC-DS oracle worker's ``text_oracles``): warm
+    ms, peak GB, rows and B1/B2/B3 launches a plan; then the digests'
+    kernels and ms alone (``digest_launches``) and Session.validate
+    (``text_validate``); the phase's seconds, oracles included."""
+    from datafusion_comet_tpu_torch import types as T
+    from datafusion_comet_tpu_torch.exec.regex_dfa import _byte_classes, compile_dfa
+    from datafusion_comet_tpu_torch.ir import expr as E
+    from datafusion_comet_tpu_torch.ir import functions as F
+    from datafusion_comet_tpu_torch.ir import plan as P
+    from datafusion_comet_tpu_torch.models import tpcds
+
+    t_phase = time.perf_counter()
+    for pat, small in ((TEXT_P1, True), (TEXT_P2, False)):
+        trans, _ = compile_dfa(pat)
+        if (trans.shape[0] <= 64 and _byte_classes(trans)[2] <= 24) != small:
+            raise AssertionError(f"{pat!r} is on the wrong side of the select-tree thresholds")
+    st = text_staged_table()
+    sess.register_numpy("text_staged", st, T.Schema([T.Field("url", T.string(48)),
+                                                     T.Field("doc", T.string(32))]))
+    plans = text_plans(E, P, T, F, tpcds.SCHEMAS)
+    oracle_wait = 0.0
+    for name, plan in plans.items():
+        # one warm run of the host bridges' plans (a Python call a row) and
+        # of the JSON documents over store_sales (seconds each)
+        out, launches[name], first_s, times, peak = run_text(
+            sess, plan, 1 if name.startswith("text_udf") or name == "text_json" else reps)
+        for k in total:
+            total[k] += launches[name][k]
+        key = "text_udf" if name == "text_udf_staged" else name
+        t0 = time.perf_counter()
+        expect = memo_oracle(("tpcds", key, ds_sf), text_oracles(data)[key])
+        oracle_wait += time.perf_counter() - t0
+        info = check_text("text_regexp" if name == "text_udf_staged" else name, out, expect)
+        emit({"phase": name, "sf": ds_sf, "correct": True, "first_run_s": first_s,
+              "warm_ms": statistics.median(times), "peak_gb": peak / 1e9,
+              "rows": int(out.num_rows()), "launches": launches[name], **info})
+        del out
+    emit({"phase": "text_digest_kernels", "rows": sess.tables["customer"].capacity,
+          "functions": digest_launches(sess, reps)})
+    emit(text_validate())
+    sess.tables.pop("text_staged", None)
+    emit({"phase": "text", "sf": ds_sf, "phase_s": time.perf_counter() - t_phase,
+          "oracle_wait_s": oracle_wait})
 
 
 EXPLAIN_SF = 0.1  # TPC-H Q3's Session.explain, on the card and on the CPU

@@ -3,14 +3,21 @@ Q1/Q6/Q12/Q3 slices and the runtime filters read).
 
 The JAX package keeps a process-wide mutable registry; here the settings are
 one immutable object that a ``Session`` owns and passes down, so two sessions
-in one process never see each other's values.
+in one process never see each other's values. The per-operator and
+per-expression gates (exec/registry.py) are one field, ``gates``, keyed by
+the JAX package's config strings.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Mapping, Tuple, Union
 
-__all__ = ["Config"]
+__all__ = ["Config", "CAST_ALLOW_INCOMPATIBLE", "JSON_DEVICE_ENABLED"]
+
+# the gates that are not an operator's or an expression's enable switch
+CAST_ALLOW_INCOMPATIBLE = "comet.expression.Cast.allowIncompatible"
+JSON_DEVICE_ENABLED = "comet.expr.json.deviceEnabled"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,3 +57,19 @@ class Config:
     # comet.debug.validateBatches: check every operator's output batch
     # (exec/debug.py ``check_batch``), at a host copy per check
     debug_validate_batches: bool = False
+    # the boolean gates by key (every gate is true unless set here):
+    # comet.exec.operator.<Op>.enabled and comet.expr.<name>.enabled turn a
+    # plan node or an expression off (the plan is then unsupported:
+    # exec/registry.py), comet.expression.Cast.allowIncompatible allows the
+    # cast pairs the cast matrix marks incompatible, and
+    # comet.expr.json.deviceEnabled runs get_json_object's simple paths on
+    # the device. A mapping is kept as sorted (key, value) pairs.
+    gates: Union[Mapping[str, bool], Tuple[Tuple[str, bool], ...]] = ()
+
+    def __post_init__(self):
+        object.__setattr__(self, "gates", tuple(sorted(dict(self.gates).items())))
+        object.__setattr__(self, "_gate_map", dict(self.gates))
+
+    def gate(self, key: str) -> bool:
+        """The value of a boolean gate (true where unset)."""
+        return self._gate_map.get(key, True)

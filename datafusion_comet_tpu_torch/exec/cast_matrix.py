@@ -16,7 +16,7 @@ import torch
 
 from datafusion_comet_tpu_torch import types as T
 
-__all__ = ["cast_support", "MATRIX_TYPES"]
+__all__ = ["cast_support", "support_for_types", "MATRIX_TYPES"]
 
 MATRIX_TYPES = [
     ("boolean", T.BOOL),
@@ -61,6 +61,23 @@ def cast_support(frm_name: str, to_name: str) -> Tuple[str, str]:
                 level = ("incompatible", _INCOMPATIBLE[key])
         _CACHE[key] = level
     return _CACHE[key]
+
+
+def support_for_types(frm: T.DataType, to: T.DataType) -> Tuple[str, str]:
+    """The support level of any pair of types, mapped onto the named grid
+    (JAX ``cast_matrix.py:75``); a pair outside the grid is compatible."""
+    def name_of(dt: T.DataType):
+        for n, t in MATRIX_TYPES:
+            if t.type_id == dt.type_id and not dt.is_decimal and not dt.is_binary:
+                return n
+        if dt.is_decimal:
+            return "decimal(38,10)" if dt.is_wide_decimal else "decimal(10,2)"
+        return "string" if dt.type_id == "STRING" else None
+
+    fn, tn = name_of(frm), name_of(to)
+    if fn is None or tn is None:
+        return ("compatible", "")
+    return cast_support(fn, tn)
 
 
 def _probe(frm: T.DataType, to: T.DataType) -> Tuple[str, str]:

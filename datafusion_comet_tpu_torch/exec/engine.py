@@ -3,7 +3,14 @@ device-resident tables (port of the ``Session`` subset of
 ``datafusion_comet_tpu/exec/engine.py`` that the ported TPC-H and TPC-DS
 queries reach: a ``Union`` runs as one row concatenation of its inputs, an
 ``Expand`` as ``basic.expand_op``, a ``Window`` as ``window.window_op``, an
-``Explode`` as ``basic.explode_op``; and ``Session.explain``).
+``Explode`` as ``basic.explode_op``, a ``MapInBatch`` as a host pandas step
+staged as a table; ``Session.explain`` and ``Session.validate``).
+
+``run_plan`` resolves each node's executor through the operator registry
+(exec/registry.py); every stage's operator and expression gates
+(``Config.gates``) are checked before it runs, and a gate that is off, or
+an operator or expression the port refuses, raises UnsupportedPlanError
+with the reasons ``validate`` reports.
 
 PyTorch runs eagerly, so there is no whole-plan compile. ``execute`` prunes
 the plan, injects the runtime filters (exec/runtime_filter.py), binds it,
@@ -79,7 +86,8 @@ import numpy as np
 import torch
 
 from datafusion_comet_tpu_torch import types as T
-from datafusion_comet_tpu_torch.conf import Config
+from datafusion_comet_tpu_torch.conf import JSON_DEVICE_ENABLED, Config
+from datafusion_comet_tpu_torch.exec import registry as REG
 from datafusion_comet_tpu_torch.exec import grace as G
 from datafusion_comet_tpu_torch.exec.batch import (Batch, concat_batches, from_numpy, pad_capacity,
                                                   to_numpy)
@@ -103,7 +111,10 @@ from datafusion_comet_tpu_torch.ir.pruning import prune_columns
 from datafusion_comet_tpu_torch.ir.serde import plan_to_json
 from datafusion_comet_tpu_torch.observability.trace import tracer, with_trace
 
-__all__ = ["Session", "run_plan", "QueryExecutionError", "JoinOverflowError"]
+__all__ = ["Session", "run_plan", "QueryExecutionError", "JoinOverflowError",
+           "UnsupportedPlanError"]
+
+UnsupportedPlanError = REG.UnsupportedPlanError
 
 
 # the times a stage attempt that ran out of the card's memory is planned
@@ -140,12 +151,14 @@ class JoinOverflowError(RuntimeError):
 
 def run_plan(plan: P.PlanNode, tables: Dict[str, Batch], ctx: EvalContext, conf: Config,
              fanout: int) -> Batch:
-    """Execute a bound plan over registered tables. ``fanout`` is the
-    joins' K; their overflow flags go to ``ctx.overflow_flags``. Each
-    operator's output goes to ``ctx.metrics`` where it is set, and through
-    ``debug.check_batch`` under ``Config.debug_validate_batches`` (JAX
-    ``engine.py:60-85``)."""
-    out = _run_node(plan, tables, ctx, conf, fanout)
+    """Execute a bound plan over registered tables, each node by the
+    executor ``OPERATORS`` resolves for its class (exec/registry.py).
+    ``fanout`` is the joins' K; their overflow flags go to
+    ``ctx.overflow_flags``. Each operator's output goes to ``ctx.metrics``
+    where it is set, and through ``debug.check_batch`` under
+    ``Config.debug_validate_batches`` (JAX ``engine.py:60-85``)."""
+    ctx.json_device = conf.gate(JSON_DEVICE_ENABLED)
+    out = REG.OPERATORS.resolve(type(plan))(plan, tables, ctx, conf, fanout)
     if ctx.metrics is not None:
         ctx.metrics.record(plan, out)
     if conf.debug_validate_batches:
@@ -155,73 +168,114 @@ def run_plan(plan: P.PlanNode, tables: Dict[str, Batch], ctx: EvalContext, conf:
     return out
 
 
-def _run_node(plan: P.PlanNode, tables: Dict[str, Batch], ctx: EvalContext, conf: Config,
-              fanout: int) -> Batch:
-    if isinstance(plan, P.Scan):
-        b = tables[plan.table]
-        if plan.projection is not None:
-            b = b.select([b.schema.index_of(n) for n in plan.projection], plan.schema)
-        return b
-    if isinstance(plan, P.EQUI_JOINS):
-        return _exec_hash_join(plan, tables, ctx, conf, fanout)
-    if isinstance(plan, P.ShuffleExchange):  # one device: the identity (JAX :262)
-        return run_plan(plan.child, tables, ctx, conf, fanout)
-    if isinstance(plan, P.Union):
-        # JAX ``engine.py:270-330``: dictionaries unified, mixed decimal
-        # storage widened, strings padded to the widest input
-        return concat_batches([run_plan(c, tables, ctx, conf, fanout) for c in plan.inputs],
-                              plan.schema)
-    if isinstance(plan, P.BroadcastNestedLoopJoin):
-        left = run_plan(plan.left, tables, ctx, conf, fanout)
-        right = run_plan(plan.right, tables, ctx, conf, fanout)
-        if ctx.join_log is not None:
-            ctx.join_log.append({"path": "nested_loop",
-                                 "capacities": [left.capacity, right.capacity]})
-        return J.nested_loop_join(left, right, plan.join_type, plan.schema, plan.condition,
-                                  ctx)
-    child = run_plan(plan.children()[0], tables, ctx, conf, fanout)
-    if isinstance(plan, P.Filter):
-        out = B.filter_op(child, plan.predicate, ctx)
-        # a filter estimated to keep under an eighth of its capacity is
-        # compacted to 4x its estimate (grown by the retry loop), so the
-        # operators above run at the estimate (JAX ``engine.py:103-119``)
-        est = plan.out_rows_hint
-        if est:
-            key = (id(plan), "rows")
-            target = pad_capacity(max(max(4 * est, 1024) * ctx.agg_scale, ctx.floor(key)))
-            if target * 8 <= out.capacity:
-                live = out.row_mask.sum()
-                out, covf = B.compact_batch(out, target)
-                ctx.flag_overflow(covf, "filter_shrink", live, key)
-        return out
-    if isinstance(plan, P.Projection):
-        return B.project_op(child, plan.exprs, plan.schema, ctx)
-    if isinstance(plan, P.HashAggregate):
-        return AGG.hash_aggregate(child, plan.group_exprs, plan.agg_exprs, plan.mode,
-                                  plan.schema, ctx, conf.agg_dense_max_domain,
-                                  plan.max_groups or DEFAULT_MAX_GROUPS,
-                                  plan.group_key_ranges, plan.merge_rows, grow_key=id(plan))
-    if isinstance(plan, P.Sort):
-        return B.sort_op(child, plan.orders, plan.fetch, plan.skip, ctx)
-    if isinstance(plan, P.Limit):
-        return B.limit_op(child, plan.limit, plan.offset)
-    if isinstance(plan, P.Expand):
-        return B.expand_op(child, plan.projections, plan.schema, ctx)
-    if isinstance(plan, P.Window):
-        return W.window_op(child, plan.window_exprs, plan.schema, ctx)
-    if isinstance(plan, P.Sample):
-        return B.sample_op(child, plan.lower_bound, plan.upper_bound, plan.with_replacement,
-                           plan.seed, ctx.partition_id)
-    if isinstance(plan, P.Explode):
-        out = B.explode_op(child, plan.expr, plan.schema, plan.outer, plan.pos, ctx)
-        # the E-fold output is sparse: where its live rows fit in half of
-        # it, it is compacted to them (one host read of the count; the JAX
-        # package keeps the E-fold capacity)
-        target = pad_capacity(int(out.num_rows()))
-        if target * 2 <= out.capacity:
-            out = B.compact_batch(out, target, tag="explode")[0]
-        return out
-    raise NotImplementedError(f"run_plan: {type(plan).__name__}")
+# the registered executors (JAX ``engine.py:85-270``): ``(plan, tables,
+# ctx, conf, fanout) -> Batch``, a child run through ``run_plan``
+
+
+def _child(plan, tables, ctx, conf, fanout) -> Batch:
+    return run_plan(plan.children()[0], tables, ctx, conf, fanout)
+
+
+@REG.OPERATORS.register(P.Scan)
+def _exec_scan(plan, tables, ctx, conf, fanout) -> Batch:
+    b = tables[plan.table]
+    if plan.projection is not None:
+        b = b.select([b.schema.index_of(n) for n in plan.projection], plan.schema)
+    return b
+
+
+@REG.OPERATORS.register(P.Filter)
+def _exec_filter(plan, tables, ctx, conf, fanout) -> Batch:
+    out = B.filter_op(_child(plan, tables, ctx, conf, fanout), plan.predicate, ctx)
+    # a filter estimated to keep under an eighth of its capacity is
+    # compacted to 4x its estimate (grown by the retry loop), so the
+    # operators above run at the estimate (JAX ``engine.py:103-119``)
+    est = plan.out_rows_hint
+    if est:
+        key = (id(plan), "rows")
+        target = pad_capacity(max(max(4 * est, 1024) * ctx.agg_scale, ctx.floor(key)))
+        if target * 8 <= out.capacity:
+            live = out.row_mask.sum()
+            out, covf = B.compact_batch(out, target)
+            ctx.flag_overflow(covf, "filter_shrink", live, key)
+    return out
+
+
+@REG.OPERATORS.register(P.Projection)
+def _exec_projection(plan, tables, ctx, conf, fanout) -> Batch:
+    return B.project_op(_child(plan, tables, ctx, conf, fanout), plan.exprs, plan.schema, ctx)
+
+
+@REG.OPERATORS.register(P.HashAggregate)
+def _exec_hash_aggregate(plan, tables, ctx, conf, fanout) -> Batch:
+    return AGG.hash_aggregate(_child(plan, tables, ctx, conf, fanout), plan.group_exprs,
+                              plan.agg_exprs, plan.mode, plan.schema, ctx,
+                              conf.agg_dense_max_domain, plan.max_groups or DEFAULT_MAX_GROUPS,
+                              plan.group_key_ranges, plan.merge_rows, grow_key=id(plan))
+
+
+@REG.OPERATORS.register(P.Sort)
+def _exec_sort(plan, tables, ctx, conf, fanout) -> Batch:
+    return B.sort_op(_child(plan, tables, ctx, conf, fanout), plan.orders, plan.fetch,
+                     plan.skip, ctx)
+
+
+@REG.OPERATORS.register(P.Limit)
+def _exec_limit(plan, tables, ctx, conf, fanout) -> Batch:
+    return B.limit_op(_child(plan, tables, ctx, conf, fanout), plan.limit, plan.offset)
+
+
+@REG.OPERATORS.register(P.Expand)
+def _exec_expand(plan, tables, ctx, conf, fanout) -> Batch:
+    return B.expand_op(_child(plan, tables, ctx, conf, fanout), plan.projections, plan.schema,
+                       ctx)
+
+
+@REG.OPERATORS.register(P.Explode)
+def _exec_explode(plan, tables, ctx, conf, fanout) -> Batch:
+    out = B.explode_op(_child(plan, tables, ctx, conf, fanout), plan.expr, plan.schema,
+                       plan.outer, plan.pos, ctx)
+    # the E-fold output is sparse: where its live rows fit in half of it, it
+    # is compacted to them (one host read of the count; the JAX package
+    # keeps the E-fold capacity)
+    target = pad_capacity(int(out.num_rows()))
+    if target * 2 <= out.capacity:
+        out = B.compact_batch(out, target, tag="explode")[0]
+    return out
+
+
+@REG.OPERATORS.register(P.Sample)
+def _exec_sample(plan, tables, ctx, conf, fanout) -> Batch:
+    return B.sample_op(_child(plan, tables, ctx, conf, fanout), plan.lower_bound,
+                       plan.upper_bound, plan.with_replacement, plan.seed, ctx.partition_id)
+
+
+@REG.OPERATORS.register(P.BroadcastNestedLoopJoin)
+def _exec_bnlj(plan, tables, ctx, conf, fanout) -> Batch:
+    left = run_plan(plan.left, tables, ctx, conf, fanout)
+    right = run_plan(plan.right, tables, ctx, conf, fanout)
+    if ctx.join_log is not None:
+        ctx.join_log.append({"path": "nested_loop", "capacities": [left.capacity, right.capacity]})
+    return J.nested_loop_join(left, right, plan.join_type, plan.schema, plan.condition, ctx)
+
+
+@REG.OPERATORS.register(P.Window)
+def _exec_window(plan, tables, ctx, conf, fanout) -> Batch:
+    return W.window_op(_child(plan, tables, ctx, conf, fanout), plan.window_exprs, plan.schema,
+                       ctx)
+
+
+@REG.OPERATORS.register(P.ShuffleExchange, gated=False)
+def _exec_exchange(plan, tables, ctx, conf, fanout) -> Batch:
+    return _child(plan, tables, ctx, conf, fanout)  # one device: the identity (JAX :262)
+
+
+@REG.OPERATORS.register(P.Union)
+def _exec_union(plan, tables, ctx, conf, fanout) -> Batch:
+    # JAX ``engine.py:270-330``: dictionaries unified, mixed decimal storage
+    # widened, strings padded to the widest input
+    return concat_batches([run_plan(c, tables, ctx, conf, fanout) for c in plan.inputs],
+                          plan.schema)
 
 
 def _join_label(plan) -> str:
@@ -232,6 +286,8 @@ def _join_label(plan) -> str:
     return f"{type(plan).__name__} {plan.join_type} {'='.join(names)}"
 
 
+@REG.OPERATORS.register(P.HashJoin)
+@REG.OPERATORS.register(P.SortMergeJoin)
 def _exec_hash_join(plan, tables, ctx, conf, fanout) -> Batch:
     """A join with its planner hints (JAX ``engine.py:185-247``): K is the
     join's ``fanout_hint`` times the growth scale (at most 256), else the
@@ -406,6 +462,10 @@ def subquery_ids(v, out: Optional[set] = None) -> set:
     return out
 
 
+def _contains(plan: P.PlanNode, node_type) -> bool:
+    return isinstance(plan, node_type) or any(_contains(c, node_type) for c in plan.children())
+
+
 def _is_join(plan: P.PlanNode) -> bool:
     return isinstance(plan, (P.HashJoin, P.SortMergeJoin, P.BroadcastNestedLoopJoin))
 
@@ -523,6 +583,9 @@ class Session:
         # a budget below the card's, while a stage that ran out of memory is
         # planned again (``_oom_rebudget``)
         self._budget_cap: Optional[int] = None
+        # the tables MapInBatch results were staged as, freed at the end of
+        # the execute that made them
+        self._map_tables: List[str] = []
 
     def register_batch(self, name: str, batch: Batch) -> None:
         if batch.device != self.device:
@@ -623,6 +686,16 @@ class Session:
         stage's budget presteps (its grace runners and tiled aggregates) are
         kept, and its settled attempt is in ``_attempts``."""
         self._materialize_subqueries(plan, prep)
+        n_udf = len(self._map_tables)
+        try:
+            return self._run_stages(plan, prep)
+        finally:
+            if prep is None:  # a prepared plan's stages read them again
+                for n in self._map_tables[n_udf:]:
+                    self.tables.pop(n, None)
+                del self._map_tables[n_udf:]
+
+    def _run_stages(self, plan: P.PlanNode, prep: Optional["_Prepared"]) -> Batch:
         t0 = time.perf_counter()
         self.stages = self._plan_stages(plan)
         self.plan_ms = (time.perf_counter() - t0) * 1e3
@@ -634,8 +707,19 @@ class Session:
         out = None
         try:
             for name, sub in self.stages:
+                # every stage's gates before it runs (JAX ``engine.py:792``)
+                reasons = REG.gate_reasons(sub, self.conf)
+                if reasons:
+                    raise UnsupportedPlanError(reasons)
                 presteps = None if prep is None else []
-                out = self._run_subtree(sub, temp_names, presteps)
+                try:
+                    out = self._run_subtree(sub, temp_names, presteps)
+                except UnsupportedPlanError:
+                    raise
+                except NotImplementedError as e:
+                    # the evaluator's and the operators' refusals, as the
+                    # reasons validate() reports
+                    raise UnsupportedPlanError([f"unsupported: {e}"]) from e
                 if prep is not None:
                     prep.stages.append((name, sub, presteps))
                 if name:
@@ -701,6 +785,71 @@ class Session:
 
     def collect(self, plan: P.PlanNode) -> Dict[str, np.ndarray]:
         return to_numpy(self.execute(plan))
+
+    def validate(self, plan: P.PlanNode) -> List[str]:
+        """Why the plan cannot run, [] where it can (JAX ``engine.py:
+        1117-1145``, the reference's fallback reasons): ``planning: ...``
+        where it does not bind, the gates' reasons, ``unsupported: ...``
+        where an operator or the evaluator refuses it and ``invalid: ...``
+        for any other error. The JAX package traces the plan abstractly
+        (``jax.eval_shape``); eager PyTorch has no such trace of a plan that
+        reads counts on the host, so the bound plan runs on the session's
+        device over a copy of each table with a few rows, none of them live,
+        its scalar subqueries as null placeholders and its Python UDFs
+        returning nulls without running."""
+        try:
+            with sketch_scope(self.conf.approx_percentile_sketch):
+                bound = plan if plan.schema is not None else P.bind_plan(plan)
+        except (NotImplementedError, KeyError, TypeError, AssertionError) as e:
+            return [f"planning: {type(e).__name__}: {e}"]
+        reasons = REG.gate_reasons(bound, self.conf)
+        if reasons:
+            return reasons
+        dead = {}
+        for name, b in self.tables.items():
+            rows = torch.arange(min(b.capacity, 8), device=b.device)
+            dead[name] = b.take(rows, torch.zeros_like(rows, dtype=torch.bool))
+        ctx = EvalContext(errors=[], overflow_flags=[], join_log=[], validating=True,
+                          subquery_values={i: (None, False)
+                                           for i in range(len(self._subquery_plans))})
+        try:
+            with sketch_scope(self.conf.approx_percentile_sketch):
+                run_plan(bound, dead, ctx, self.conf, J.JOIN_FANOUT)
+        except NotImplementedError as e:
+            return [f"unsupported: {e}"]
+        except Exception as e:  # a type or shape error
+            return [f"invalid: {type(e).__name__}: {e}"]
+        return []
+
+    def _stage_map_in_batch(self, plan: P.PlanNode) -> P.PlanNode:
+        """Bottom-up, each MapInBatch as a table: its child run through
+        ``execute``, the function over the live rows as a pandas DataFrame
+        on the host, the result staged on the device (JAX ``engine.py:707``,
+        which imports pandas there too) and read by a scan."""
+        for old in plan.children():
+            new = self._stage_map_in_batch(old)
+            if new is not old:
+                plan = replace_child_pure(plan, old, new)
+        if not isinstance(plan, P.MapInBatch):
+            return plan
+        import pandas as pd
+
+        host = to_numpy(self.execute(plan.child))
+        df = pd.DataFrame({k: v for k, v in host.items() if not k.endswith("__valid")})
+        for k in list(df.columns):  # nulls as None
+            valid = host[k + "__valid"]
+            if not valid.all():
+                df[k] = [v if ok else None for v, ok in zip(df[k], valid)]
+        out_df = plan.fn(df)
+        schema = T.Schema(list(plan.out_fields))
+        data = {f.name: (list(out_df[f.name]) if f.dtype.is_nested
+                         else [None if pd.isna(v) else v for v in out_df[f.name]])
+                for f in schema.fields}
+        name = f"__mapinbatch{next(self._ids)}"
+        self.tables[name] = from_numpy(data, schema, self.device,
+                                       dict_max_size=self.conf.scan_dictionary_max_size)
+        self._map_tables.append(name)
+        return pseudo_scan(name, schema)
 
     # -- observability -------------------------------------------------------------
     def explain(self, plan: P.PlanNode, with_metrics: bool = False, profile_ops: bool = False,
@@ -787,6 +936,8 @@ class Session:
                 inject_runtime_filters(prune_columns(plan), self))
         derive_capacities(bound, self.stats)
         bound = apply_orderings(bound)
+        if _contains(bound, P.MapInBatch):
+            bound = self._stage_map_in_batch(bound)
         stages: List[Tuple[Optional[str], P.PlanNode]] = []
         root = bound
         max_joins = self.conf.stage_max_joins

@@ -3,7 +3,10 @@
 expression of ``ir/expr.py``). Families apart: casts to and from strings
 (exec/casts.py, Ryu in exec/ryu.py), dates and timestamps in a session
 zone (exec/temporal.py), the string functions (exec/string_funcs.py),
-rand and randn (exec/random_xorshift.py); here the literals, arithmetic
+rand and randn (exec/random_xorshift.py), the bytes functions
+(exec/bytes_funcs.py), JSON paths (exec/json_path.py), the regex nodes
+(exec/regex_dfa.py, exec/regex_extract.py), Python UDFs on the host
+(exec/host_udf.py); here the literals, arithmetic
 and comparisons, the numeric cast matrix, LIKE, CASE and IN, the math
 functions, a session's scalar subqueries (a literal of the value the
 session materialized before the plan ran, ``EvalContext.subquery_values``),
@@ -100,6 +103,11 @@ class EvalContext:
     # where set (``Session.explain``), a MetricsCollector that records
     # every operator's output (observability/metrics.py)
     metrics: Optional[object] = None
+    # the session's comet.expr.json.deviceEnabled: get_json_object runs the
+    # device path scan, else the host bridge (ir/functions.py)
+    json_device: bool = True
+    # under ``Session.validate``: Python UDFs give nulls without running
+    validating: bool = False
 
     def flag_overflow(self, flag: torch.Tensor, op: str, need: Optional[torch.Tensor] = None,
                       key: Optional[tuple] = None) -> None:
@@ -181,6 +189,12 @@ def _ev(e: E.Expr, b: Batch, ctx: EvalContext) -> ColumnVector:
         return NESTED.ev_nested(e, b, ctx, _ev)
     if isinstance(e, E.Split):
         return NESTED.ev_split(e, _ev(e.child, b, ctx), ctx)
+    if isinstance(e, (E.RLike, E.RegexpExtract, E.RegexpExtractAll, E.RegexpReplace)):
+        return _regex(e, b, ctx)
+    if isinstance(e, E.PythonUdf):
+        from datafusion_comet_tpu_torch.exec.host_udf import eval_python_udf
+
+        return eval_python_udf(e, b, ctx, _ev)
     if isinstance(e, E.RandExpr):
         fn = RX.rand_column if e.func == "rand" else RX.randn_column
         return fn(RX.init_seed_host(e.seed, ctx.partition_id), b.row_mask)
@@ -1215,6 +1229,10 @@ def _like_cv(e: E.Like, cv: ColumnVector) -> ColumnVector:
 # -------------------------------------------------------------------------------------
 
 
+_BYTES_FUNCS = ("hex", "unhex", "base64", "unbase64", "encode", "decode", "bin", "conv",
+                "crc32", "md5", "sha1", "sha2")
+
+
 def _string_func(e: E.StringFunc, b: Batch, ctx: EvalContext) -> ColumnVector:
     """A dictionary column with literal arguments: the function over the
     entries, gathered back by code; anything else over the padded bytes."""
@@ -1222,9 +1240,180 @@ def _string_func(e: E.StringFunc, b: Batch, ctx: EvalContext) -> ColumnVector:
     if args and args[0].is_dict and all(isinstance(a, E.Literal) for a in e.args[1:]):
         lits = e.args[1:]
         return _eval_on_dict(
-            args[0], lambda s: SF.string_func(e, [s] + [_literal(a, s.capacity, s.data.device)
-                                                        for a in lits]), ctx)
-    return SF.string_func(e, [_dedict(a) for a in args])
+            args[0], lambda s: _string_impl(e, [s] + [_literal(a, s.capacity, s.data.device)
+                                                      for a in lits], ctx), ctx)
+    args = [_dedict(a) for a in args]
+    cap = args[0].capacity
+    width = max([a.data.shape[1] for a in args if a.data.dim() == 2]
+                + [e.dtype.byte_width if e.dtype.is_binary else 1])
+    rows = max(STRING_BLOCK_BYTES // (8 * width), 1)
+    if cap <= rows:
+        return _string_impl(e, args, ctx)
+    # a (rows, width) int64 gather index a byte position (concat, lpad), a
+    # dozen (width, rows) tables of the JSON scan: over blocks of rows, so
+    # that one stays near STRING_BLOCK_BYTES
+    parts = [_string_impl(e, [_slice_rows(a, i, i + rows) for a in args], ctx)
+             for i in range(0, cap, rows)]
+    lengths = None if parts[0].lengths is None else torch.cat([p.lengths for p in parts])
+    return ColumnVector(torch.cat([p.data for p in parts]), torch.cat([p.validity for p in parts]),
+                        lengths, parts[0].dtype)
+
+
+# the bytes of one (rows, width) int64 table a string function may build:
+# a column with more rows than fit runs in blocks of rows
+STRING_BLOCK_BYTES = 1 << 30
+
+
+def _slice_rows(cv: ColumnVector, lo: int, hi: int) -> ColumnVector:
+    return ColumnVector(cv.data[lo:hi], cv.validity[lo:hi],
+                        None if cv.lengths is None else cv.lengths[lo:hi], cv.dtype, None,
+                        cv.mag_bound)
+
+
+def _string_impl(e: E.StringFunc, args: List[ColumnVector], ctx: EvalContext) -> ColumnVector:
+    if e.func in _BYTES_FUNCS:
+        return _bytes_func(e, args)
+    if e.func == "json_array_length":
+        from datafusion_comet_tpu_torch.exec.json_path import device_json_array_length
+
+        return device_json_array_length(args[0])
+    if e.func == "get_json_object":
+        return _get_json_object(e, args[0], ctx)
+    return SF.string_func(e, args)
+
+
+def _null_column(cap: int, dt: T.DataType, dev) -> ColumnVector:
+    return ColumnVector(torch.zeros((cap, dt.byte_width), dtype=torch.uint8, device=dev),
+                        torch.zeros(cap, dtype=torch.bool, device=dev),
+                        torch.zeros(cap, dtype=torch.int32, device=dev), dt)
+
+
+def _bytes_func(e: E.StringFunc, args: List[ColumnVector]) -> ColumnVector:
+    """The bytes family (JAX ``evaluator.py:1634-1714``)."""
+    from datafusion_comet_tpu_torch.exec import bytes_funcs as BF
+
+    f, dt, cv = e.func, e.dtype, args[0]
+    lit = e.args[1].value if len(e.args) > 1 and isinstance(e.args[1], E.Literal) else None
+    if f == "hex":
+        data, lens = (BF.hex_of_bytes(cv.data, cv.lengths, dt) if cv.dtype.is_binary
+                      else BF.hex_of_int(cv.data, dt))
+        return ColumnVector(data, cv.validity, lens, dt)
+    if f == "unhex":
+        data, lens, invalid = BF.unhex(cv.data, cv.lengths, dt)
+        return ColumnVector(data, cv.validity & ~invalid, lens, dt)
+    if f == "base64":
+        chunk = bool(lit) if len(e.args) > 1 and isinstance(e.args[1], E.Literal) else True
+        data, lens = BF.base64_encode(cv.data, cv.lengths, dt, chunk)
+        return ColumnVector(data, cv.validity, lens, dt)
+    if f == "unbase64":
+        data, lens = BF.base64_decode(cv.data, cv.lengths, dt)
+        return ColumnVector(data, cv.validity, lens, dt)
+    if f in ("encode", "decode"):
+        charset = str(lit).lower() if lit is not None else "utf-8"
+        if charset.replace("_", "-") not in ("utf-8", "utf8"):
+            raise NotImplementedError(
+                f"{f} charset {charset!r} (only UTF-8 is byte-identity on the "
+                "padded-bytes representation)")
+        return ColumnVector(cv.data, cv.validity, cv.lengths, dt)  # UTF-8: the same bytes
+    if f == "bin":
+        data, lens = BF.bin_of_int(cv.data, dt)
+        return ColumnVector(data, cv.validity, lens, dt)
+    if f == "conv":
+        if not (isinstance(e.args[1], E.Literal) and isinstance(e.args[2], E.Literal)):
+            raise NotImplementedError("conv requires literal from/to bases")
+        fb, tb = int(e.args[1].value), int(e.args[2].value)
+        if not (2 <= fb <= 36 and 2 <= abs(tb) <= 36):
+            return _null_column(cv.capacity, dt, cv.data.device)  # Spark: NULL
+        data, lens, null_out = BF.conv(cv.data, cv.lengths, fb, tb, dt)
+        return ColumnVector(data, cv.validity & ~null_out, lens, dt)
+    if f == "crc32":
+        return ColumnVector(BF.crc32(cv.data, cv.lengths), cv.validity, None, T.INT64)
+    if f in ("md5", "sha1"):
+        data, lens = (BF.md5 if f == "md5" else BF.sha1)(cv.data, cv.lengths, dt)
+        return ColumnVector(data, cv.validity, lens, dt)
+    bits = int(lit) if lit is not None else 256
+    if bits not in (0, 224, 256, 384, 512):
+        return _null_column(cv.capacity, dt, cv.data.device)  # Spark: NULL
+    data, lens = BF.sha2(cv.data, cv.lengths, bits, dt)
+    return ColumnVector(data, cv.validity, lens, dt)
+
+
+def _get_json_object(e: E.StringFunc, cv: ColumnVector, ctx: EvalContext) -> ColumnVector:
+    """The device path scan (JAX ``evaluator.py:1720-1738``), or the host
+    bridge where the session turned comet.expr.json.deviceEnabled off."""
+    from datafusion_comet_tpu_torch.exec.json_path import device_get_json_object, parse_path
+
+    path = e.args[1]
+    assert isinstance(path, E.Literal) and path.value is not None
+    if not ctx.json_device:
+        from datafusion_comet_tpu_torch.exec.batch import nested_from_py, nested_to_py
+        from datafusion_comet_tpu_torch.ir.functions import json_path_host
+
+        fn = json_path_host(str(path.value))
+        return nested_from_py([fn(v) for v in nested_to_py(cv)], e.dtype, cv.capacity,
+                              cv.data.device)
+    steps = parse_path(str(path.value))
+    if steps is None:
+        raise NotImplementedError(
+            f"device JSON path: unsupported path {path.value!r} "
+            "(use ir.functions.get_json_object host bridge)")
+    return device_get_json_object(cv, steps, e.dtype)
+
+
+def _regex(e, b: Batch, ctx: EvalContext) -> ColumnVector:
+    """RLIKE and the three device regexp forms (JAX ``evaluator.py:212-300``),
+    a dictionary column over its entries. regexp_extract_all's and
+    regexp_replace's overflows are errors in every mode."""
+    from datafusion_comet_tpu_torch.exec import regex_extract as RE
+
+    cv = _ev(e.child, b, ctx)
+    if isinstance(e, E.RLike):
+        from datafusion_comet_tpu_torch.exec.regex_dfa import compile_dfa, dfa_match
+
+        trans, accepting = compile_dfa(e.pattern)
+
+        def small(s: ColumnVector) -> ColumnVector:
+            m = dfa_match(s.data, s.lengths, trans, accepting)
+            return ColumnVector(~m if e.negated else m, s.validity, None, T.BOOL)
+    elif isinstance(e, E.RegexpExtract):
+        lp = RE.linearize(e.pattern, e.group_idx)
+        if lp is None:
+            raise NotImplementedError(
+                f"regexp_extract pattern {e.pattern!r} needs the host bridge")
+
+        def small(s: ColumnVector) -> ColumnVector:
+            ob, ol, ov = RE.extract_device(s.data, s.lengths, s.validity, lp, e.group_idx,
+                                           e.dtype.byte_width)
+            return ColumnVector(ob, ov, ol, e.dtype)
+    elif isinstance(e, E.RegexpExtractAll):
+        lp = RE.linearize(e.pattern, e.group_idx)
+        if lp is None or RE.min_match_len(lp) == 0:
+            raise NotImplementedError(
+                f"regexp_extract_all pattern {e.pattern!r} needs the host bridge")
+        E_, w = e.dtype.max_elems, e.dtype.element.byte_width
+
+        def small(s: ColumnVector) -> ColumnVector:
+            cnt, eb, el, ev2, ovf = RE.extract_all_device(s.data, s.lengths, s.validity, lp,
+                                                          e.group_idx, E_, w)
+            ctx.record_error(ovf, f"regexp_extract_all produced more than max_parts={E_} "
+                                  "matches")
+            elem = ColumnVector(eb, ev2 & s.validity[:, None], el, e.dtype.element)
+            return ColumnVector(torch.where(s.validity, cnt, 0), s.validity, None, e.dtype,
+                                children=(elem,))
+    else:
+        lp = RE.linearize(e.pattern, 0)
+        if lp is None or RE.min_match_len(lp) == 0:
+            raise NotImplementedError(
+                f"regexp_replace pattern {e.pattern!r} needs the host bridge")
+        repl = e.replacement.encode("utf-8")
+
+        def small(s: ColumnVector) -> ColumnVector:
+            ob, ol, ovf = RE.replace_device(s.data, s.lengths, s.validity, lp, repl,
+                                            e.dtype.byte_width)
+            ctx.record_error(ovf, "regexp_replace output exceeded the declared string width "
+                                  f"{e.dtype.byte_width} (pass out_len)")
+            return ColumnVector(ob, s.validity, ol, e.dtype)
+    return _eval_on_dict(cv, small, ctx) if cv.is_dict else small(cv)
 
 
 def _split_like(e, b: Batch, ctx: EvalContext) -> ColumnVector:

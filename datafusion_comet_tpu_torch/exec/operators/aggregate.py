@@ -23,6 +23,11 @@ A grouped bloom filter takes the sorted path; the other special aggregates
 take either path, as the keys choose (the JAX package sends every special
 aggregate down its sorted path, and the groups come out the same but for
 the null group, which the dense path puts first).
+An aggregate's FILTER clause (``AggExpr.filter``) narrows the live rows it
+reads on input, on either path and in the tiled and grace partial runs
+alike; merges never read it (JAX ``aggregate.py:665``). The special
+aggregates take it too, as Spark does: the JAX package's ignore it
+(ROADMAP C33).
 
 Two paths, chosen as the JAX package chooses them:
 
@@ -509,7 +514,7 @@ def _sorted_aggregate(batch: Batch, key_cols, key_limbs, agg_exprs, mode: str,
                     add(E.BoundRef(i, fld.name, batch.schema.fields[i].dtype), fld.name)
     else:
         for a in agg_exprs:
-            for x in (a.child,) + a.extra:
+            for x in (a.child, a.filter) + a.extra:
                 add(x)
     with with_trace("aggregate.sort"):
         perm, sorted_mask, changed = _sort_groups(key_cols, key_limbs, batch.row_mask)
@@ -540,7 +545,7 @@ def _sorted_aggregate(batch: Batch, key_cols, key_limbs, agg_exprs, mode: str,
         if merging:
             vals = _merge_agg(a, synth, red, group_mask, ctx, mode)
         else:
-            vals = _input_agg(dataclasses.replace(a, child=ref(a.child),
+            vals = _input_agg(dataclasses.replace(a, child=ref(a.child), filter=ref(a.filter),
                                                   extra=tuple(ref(x) for x in a.extra)),
                               synth, red, group_mask, ctx, mode, out_schema)
         if mode in (AggMode.SINGLE, AggMode.FINAL):
@@ -626,6 +631,9 @@ def _input_agg(a: E.AggExpr, batch: Batch, red, group_mask: torch.Tensor,
                ctx: EvalContext, mode: str = AggMode.SINGLE,
                out_schema: Optional[T.Schema] = None) -> List[ColumnVector]:
     active = batch.row_mask
+    if a.filter is not None:  # FILTER (WHERE ...): the rows where it is true
+        fcv = evaluate(a.filter, batch, ctx)
+        active = active & fcv.validity & fcv.data.bool()
     if a.func == E.AggFunc.COUNT and a.child is None:  # COUNT(*)
         return [ColumnVector(red.count(active), group_mask, None, T.INT64)]
     cv = evaluate(a.child, batch, ctx)

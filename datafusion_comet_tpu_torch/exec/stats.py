@@ -348,10 +348,9 @@ def _walk(plan: P.PlanNode, stats: Dict[str, TableStats]) -> Tuple[int, Dict[str
             rows = min(rows, cut)
         return rows, {k: min(v, rows) for k, v in ndv.items()}
 
-    # the JAX walk's default; an Explode's rows as its child's (ROADMAP C32)
-    if isinstance(plan, (P.Window, P.ShuffleExchange, P.Sample, P.Explode)):
-        return kids[0]
-    raise NotImplementedError(f"derive_capacities: {type(plan).__name__}")
+    # the JAX walk's default (a Window, an exchange, a Sample, a MapInBatch,
+    # an extension's node); an Explode's rows as its child's (ROADMAP C32)
+    return kids[0] if kids else (DEFAULT_MAX_GROUPS, {})
 
 
 _SEMI_LIKE = (P.JoinType.LEFT_SEMI, P.JoinType.LEFT_ANTI, P.JoinType.LEFT_ANTI_NULL_AWARE,

@@ -1,15 +1,18 @@
 """Expression IR and Spark type inference (port of
-``datafusion_comet_tpu/ir/expr.py``: its scalar expressions, with ``if_``
-and ``coalesce`` built on ``CaseWhen``; casts with their session time zone,
-every ``TemporalFunc`` and ``StringFunc`` but the bytes and JSON family,
-``SplitPart``, ``SubstringIndex``, ``Soundex``, ``FormatNumber``,
-``HashFunc``, the nondeterministic ``RandExpr``,
+``datafusion_comet_tpu/ir/expr.py``: every expression class it has, with
+``if_`` and ``coalesce`` built on ``CaseWhen``): casts with their session
+time zone, every ``TemporalFunc`` and ``StringFunc`` (the bytes and JSON
+family too), ``SplitPart``, ``SubstringIndex``, ``Soundex``,
+``FormatNumber``, ``HashFunc``, the regex nodes (``RLike``,
+``RegexpExtract``, ``RegexpExtractAll``, ``RegexpReplace``), host Python
+UDFs (``PythonUdf``), the nondeterministic ``RandExpr``,
 ``MonotonicallyIncreasingId`` and ``SparkPartitionId``, a session's scalar
 subqueries (``ScalarSubquery``), the bloom-filter probe
-(``BloomMightContain``) and the window specs ``WindowFrame`` and
-``WindowExpr``, and the nested-type nodes: ``ArrayExpr``, ``MapExpr``,
+(``BloomMightContain``), the window specs ``WindowFrame`` and
+``WindowExpr``, the nested-type nodes (``ArrayExpr``, ``MapExpr``,
 ``StructExpr``, ``GetStructField``, ``HigherOrderFunc`` with its
-``LambdaVar`` and ``Split``. Not ported: the regex and Python UDF nodes).
+``LambdaVar``, ``Split``) and an aggregate's FILTER clause
+(``AggExpr.filter``).
 
 Expressions are built unbound (column names); ``bind(expr, schema)`` resolves
 references to column indices and computes result types, including Spark's
@@ -29,6 +32,7 @@ __all__ = [
     "Cast", "CaseWhen", "InList", "Like", "StringFunc", "TemporalFunc", "MathFunc", "DATE_FIELDS",
     "HashFunc", "SplitPart", "SubstringIndex", "Soundex", "FormatNumber", "RandExpr",
     "MonotonicallyIncreasingId", "SparkPartitionId", "BloomMightContain", "ScalarSubquery",
+    "RLike", "RegexpExtract", "RegexpExtractAll", "RegexpReplace", "PythonUdf",
     "LambdaVar", "HigherOrderFunc", "Split", "ArrayExpr", "StructExpr", "GetStructField",
     "MapExpr", "SortOrder", "AggFunc", "AggExpr", "WindowFrame",
     "WindowExpr", "col", "lit", "if_", "coalesce", "bind",
@@ -50,11 +54,6 @@ TEMPORAL_TYPES = {
     "next_day": T.DATE, "make_date": T.DATE, "months_between": T.FLOAT64,
     "from_unixtime": T.string(19),
 }
-
-# the bytes and JSON string functions, not ported (ROADMAP A.4)
-BYTES_JSON_FUNCS = ("hex", "unhex", "base64", "unbase64", "encode", "decode", "bin", "conv",
-                    "md5", "sha1", "sha2", "crc32", "get_json_object", "json_array_length")
-
 
 class EvalMode:
     """Spark evaluation modes."""
@@ -391,6 +390,83 @@ class SubstringIndex(Expr):
 
 
 @_node
+class RLike(Expr):
+    """Regex match (Spark RLIKE) against a literal pattern, compiled to a
+    DFA on the host and run over the bytes on the device
+    (exec/regex_dfa.py)."""
+
+    child: Expr
+    pattern: str
+    negated: bool = False
+
+    def children(self):
+        return (self.child,)
+
+
+@_node
+class RegexpExtract(Expr):
+    """regexp_extract for a linear, backtracking-free pattern
+    (exec/regex_extract.py); ir/functions.py builds it only where the
+    pattern linearizes, else the host bridge."""
+
+    child: Expr
+    pattern: str
+    group_idx: int = 1
+    out_len: int = 0  # 0: the child's width
+
+    def children(self):
+        return (self.child,)
+
+
+@_node
+class RegexpExtractAll(Expr):
+    """regexp_extract_all for a linear pattern that cannot match empty:
+    every non-overlapping match's group as a LIST<STRING>."""
+
+    child: Expr
+    pattern: str
+    group_idx: int = 1
+    max_parts: int = 0  # 0: DEFAULT_LIST_ELEMS
+    out_len: int = 0  # an element's width; 0: the child's
+
+    def children(self):
+        return (self.child,)
+
+
+@_node
+class RegexpReplace(Expr):
+    """regexp_replace of a linear pattern that cannot match empty by a
+    literal replacement (no $n group references)."""
+
+    child: Expr
+    pattern: str
+    replacement: str
+    out_len: int = 0  # 0: the child's width times the growth bound
+
+    def children(self):
+        return (self.child,)
+
+
+@_node
+class PythonUdf(Expr):
+    """A scalar Python UDF evaluated on the host (exec/host_udf.py):
+    ``fn(row values...)`` with None for a null, a None result a null.
+    ``batch_fn(mask, *columns)``, where set, takes the whole batch instead:
+    Python value lists (``batch_mode="py"``) or host numpy columns
+    (``"raw"``), and returns a list of values or a ColumnVector."""
+
+    fn: object
+    args: Tuple[Expr, ...]
+    out_dtype: T.DataType
+    udf_name: str = "python_udf"
+    batch_fn: object = None
+    batch_mode: str = "py"
+
+    def children(self):
+        return self.args
+
+
+@_node
 class Split(Expr):
     """split(str, literal delim) with Spark's default limit -1 (trailing
     empty fields kept): a LIST of strings of at most ``max_parts`` fields
@@ -601,7 +677,10 @@ class AggExpr:
     accuracy (literals);
     ``num_bits``: a BLOOM_FILTER's size in bits (Spark's numBits, a
     multiple of 64); ``max_elems``: a collect's list capacity (values past
-    it in a group are dropped, as in the JAX package: ROADMAP C31)."""
+    it in a group are dropped, as in the JAX package: ROADMAP C31);
+    ``filter``: the FILTER (WHERE ...) clause, a predicate over the input
+    rows: only the rows where it is true are aggregated (merges never read
+    it)."""
 
     func: str
     child: Optional[Expr]
@@ -610,6 +689,7 @@ class AggExpr:
     extra: Tuple[Expr, ...] = ()
     num_bits: int = 4096
     max_elems: int = 16
+    filter: Optional[Expr] = None
 
     def result_dtype(self) -> T.DataType:
         cd = self.child.dtype if self.child is not None else None
@@ -846,7 +926,41 @@ def bind(expr: Expr, schema: T.Schema) -> Expr:
         out = BloomMightContain(bind(e.filter, schema), bind(e.child, schema))
         object.__setattr__(out, "dtype", T.BOOL)
         return out
+    if isinstance(e, (RLike, RegexpExtract, RegexpExtractAll, RegexpReplace, PythonUdf)):
+        return _bind_regex_udf(e, schema)
     return _bind_nested(e, schema)
+
+
+def _bind_regex_udf(e: Expr, schema: T.Schema) -> Expr:
+    """The regex nodes and PythonUdf (JAX ``ir/expr.py:1129-1163``,
+    ``:1194``). A bound PythonUdf keeps its ``batch_fn`` (the JAX package's
+    binding drops it and runs the row function; the results are the
+    same)."""
+    if isinstance(e, PythonUdf):
+        return _typed(PythonUdf(e.fn, tuple(bind(a, schema) for a in e.args), e.out_dtype,
+                                e.udf_name, e.batch_fn, e.batch_mode), e.out_dtype)
+    c = bind(e.child, schema)
+    if isinstance(e, RLike):
+        return _typed(RLike(c, e.pattern, e.negated), T.BOOL)
+    width = c.dtype.byte_width if c.dtype.is_binary else T.DEFAULT_STRING_LEN
+    if isinstance(e, RegexpExtract):
+        return _typed(RegexpExtract(c, e.pattern, e.group_idx, e.out_len),
+                      T.string(e.out_len or width))
+    if isinstance(e, RegexpExtractAll):
+        return _typed(RegexpExtractAll(c, e.pattern, e.group_idx, e.max_parts, e.out_len),
+                      T.list_(T.string(e.out_len or width),
+                              e.max_parts or T.DEFAULT_LIST_ELEMS))
+    out_w = e.out_len
+    if not out_w:
+        # every shortest match may grow to the replacement's length
+        from datafusion_comet_tpu_torch.exec.regex_extract import linearize, min_match_len
+
+        lp = linearize(e.pattern, 0)
+        R = len(e.replacement.encode("utf-8"))
+        mn = min_match_len(lp) if lp is not None else 1
+        factor = -(-R // max(mn, 1)) if R > mn else 1
+        out_w = min(width * max(factor, 1), 4096)
+    return _typed(RegexpReplace(c, e.pattern, e.replacement, e.out_len), T.string(out_w))
 
 
 # the lambda variables' types while a higher-order function's body binds
@@ -1022,10 +1136,8 @@ def _string_func_type(func: str, args: Tuple[Expr, ...]) -> T.DataType:
     their string inputs together, lpad, rpad and repeat four times their
     input."""
     a0 = args[0].dtype if args else None
-    if func in BYTES_JSON_FUNCS:
-        raise NotImplementedError(f"StringFunc {func!r} is not ported yet (ROADMAP A.4)")
     if func in ("length", "ascii", "instr", "locate", "char_length", "bit_length",
-                "octet_length", "levenshtein"):
+                "octet_length", "levenshtein", "json_array_length"):
         return T.INT32
     if func in ("substring", "upper", "lower", "trim", "ltrim", "rtrim", "reverse", "replace",
                 "translate", "initcap", "left", "right", "btrim"):
@@ -1042,6 +1154,34 @@ def _string_func_type(func: str, args: Tuple[Expr, ...]) -> T.DataType:
         n = args[0]
         cap = int(n.value) if isinstance(n, Literal) and n.value is not None else 64
         return T.string(max(min(cap, 1 << 15), 1))
+    return _bytes_func_type(func, args)
+
+
+def _bytes_func_type(func: str, args: Tuple[Expr, ...]) -> T.DataType:
+    """The bytes and JSON family (JAX ``ir/expr.py:1387-1426``)."""
+    a0 = args[0].dtype if args else None
+    w = a0.byte_width if a0 is not None and a0.is_binary else T.DEFAULT_STRING_LEN
+    if func == "hex":
+        return T.string(2 * a0.byte_width) if a0 is not None and a0.is_binary else T.string(16)
+    if func == "unhex":
+        return T.binary(max((w + 1) // 2, 1))
+    if func == "base64":
+        enc = (w + 2) // 3 * 4
+        return T.string(max(enc + 2 * max((enc - 1) // 76, 0), 4))
+    if func == "unbase64":
+        return T.binary(max(w // 4 * 3 + 3, 3))
+    if func in ("encode", "decode", "get_json_object"):
+        # get_json_object: a matched span cannot outgrow its document
+        assert a0 is not None and (func != "get_json_object" or a0.is_binary)
+        return (T.binary if func == "encode" else T.string)(a0.byte_width)
+    if func in ("bin", "conv", "md5", "sha1"):
+        return T.string({"bin": 64, "conv": 65, "md5": 32, "sha1": 40}[func])
+    if func == "sha2":
+        bits = args[1]
+        b = int(bits.value) if isinstance(bits, Literal) and bits.value is not None else 256
+        return T.string({0: 64, 224: 56, 256: 64, 384: 96, 512: 128}.get(b, 64))
+    if func == "crc32":
+        return T.INT64
     raise NotImplementedError(f"string func {func}")
 
 

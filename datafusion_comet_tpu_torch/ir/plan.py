@@ -1,7 +1,8 @@
 """Operator plan IR (port of ``datafusion_comet_tpu/ir/plan.py``: the Scan,
 Filter, Projection, HashAggregate, Sort, Limit, Expand, HashJoin,
 SortMergeJoin, BroadcastNestedLoopJoin, Union, Window, ShuffleExchange,
-Sample and Explode nodes, and the two sinks CollectLimit and TakeOrderedAndProject).
+Sample, Explode and MapInBatch nodes, and the two sinks CollectLimit and
+TakeOrderedAndProject).
 
 Plans are built unbound; ``bind_plan`` binds expressions bottom-up against
 child schemas and computes each node's output schema, and rewrites a
@@ -26,7 +27,8 @@ from datafusion_comet_tpu_torch.ir import expr as E
 __all__ = ["PlanNode", "Scan", "Filter", "Projection", "HashAggregate", "AggMode",
            "Sort", "Limit", "CollectLimit", "TakeOrderedAndProject", "Expand", "HashJoin",
            "SortMergeJoin", "EQUI_JOINS", "BroadcastNestedLoopJoin", "Union", "Window",
-           "ShuffleExchange", "Sample", "Explode", "JoinType", "bind_plan", "scan_tables"]
+           "ShuffleExchange", "Sample", "Explode", "MapInBatch", "JoinType", "bind_plan",
+           "scan_tables"]
 
 
 class JoinType:
@@ -390,6 +392,22 @@ class Explode(PlanNode):
         return (self.child,)
 
 
+@dataclasses.dataclass
+class MapInBatch(PlanNode):
+    """A host Python function over the whole materialized child (Spark's
+    MapInPandas/MapInArrow, the reference's CometMapInBatchExec): ``fn``
+    takes a pandas DataFrame of the child's live rows and returns one with
+    the ``out_fields`` columns. The session runs the child, the function on
+    the host and stages the result as a table (exec/engine.py)."""
+
+    child: PlanNode
+    fn: object
+    out_fields: Tuple[T.Field, ...]
+
+    def children(self):
+        return (self.child,)
+
+
 def _join_out_schema(ls: T.Schema, rs: T.Schema, join_type: str) -> T.Schema:
     if join_type in (JoinType.LEFT_SEMI, JoinType.LEFT_ANTI, JoinType.LEFT_ANTI_NULL_AWARE):
         return ls
@@ -441,7 +459,8 @@ def bind_plan(plan: PlanNode) -> PlanNode:
             aggs = tuple(
                 dataclasses.replace(
                     a, child=E.bind(a.child, child.schema) if a.child is not None else None,
-                    extra=tuple(E.bind(x, child.schema) for x in a.extra))
+                    extra=tuple(E.bind(x, child.schema) for x in a.extra),
+                    filter=E.bind(a.filter, child.schema) if a.filter is not None else None)
                 for a in plan.agg_exprs)
         out = HashAggregate(child, groups, aggs, plan.mode, plan.max_groups,
                             plan.group_key_ranges)
@@ -541,6 +560,16 @@ def bind_plan(plan: PlanNode) -> PlanNode:
             assert ex.dtype.is_list, f"explode over {ex.dtype!r}"
             gen.append(T.Field("col", ex.dtype.element))
         out.schema = T.Schema(kept + gen)
+        return out
+    if isinstance(plan, MapInBatch):  # JAX ``ir/plan.py:536``
+        out = MapInBatch(kids[0], plan.fn, tuple(plan.out_fields))
+        out.schema = T.Schema(list(plan.out_fields))
+        return out
+    if plan.schema is not None and hasattr(plan, "with_children"):
+        # an extension's node (exec/registry.py OPERATORS) declares its own
+        # schema and rebuilds itself over its bound children (JAX :557)
+        out = plan.with_children(tuple(kids))
+        out.schema = plan.schema
         return out
     raise NotImplementedError(f"bind_plan: {type(plan).__name__}")
 

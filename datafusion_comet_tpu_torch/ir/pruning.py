@@ -58,7 +58,7 @@ def prune_columns(plan: P.PlanNode, required: Optional[Set[str]] = ALL) -> P.Pla
         for g in plan.group_exprs:
             _expr_refs(g, need)
         for a in plan.agg_exprs:
-            for x in (a.child,) + a.extra:  # a covariance's second input too
+            for x in (a.child, a.filter) + a.extra:  # a covariance's second input too
                 _expr_refs(x, need)
         return P.HashAggregate(prune_columns(plan.child, need), plan.group_exprs,
                                plan.agg_exprs, plan.mode, plan.max_groups,
@@ -131,7 +131,7 @@ def prune_columns(plan: P.PlanNode, required: Optional[Set[str]] = ALL) -> P.Pla
         return P.Union(tuple(prune_columns(c, ALL) for c in plan.inputs))
     if isinstance(plan, P.Expand):
         return P.Expand(prune_columns(plan.child, ALL), plan.projections, plan.names)
-    if isinstance(plan, P.Sample):
+    if isinstance(plan, (P.Sample, P.MapInBatch)):  # the function reads every column
         return dataclasses.replace(plan, child=prune_columns(plan.child, ALL))
     if isinstance(plan, (P.CollectLimit, P.TakeOrderedAndProject)):
         return dataclasses.replace(plan, child=prune_columns(plan.child, ALL))
@@ -154,6 +154,8 @@ def _subtree_columns(plan: P.PlanNode) -> Set[str]:
         return _subtree_columns(plan.child) | {w.out_name for w in plan.window_exprs}
     if isinstance(plan, P.Explode):  # JAX ``pruning.py:198``
         return _subtree_columns(plan.child) | {"pos", "col", "key", "value"}
+    if isinstance(plan, P.MapInBatch):
+        return {f.name for f in plan.out_fields}
     out: Set[str] = set()
     for c in plan.children():
         out |= _subtree_columns(c)

@@ -6,7 +6,8 @@ expression the port has).
 ``{"_k": <class name>, ...fields}`` object of its dataclass fields (a
 node's ``schema`` and an expression's ``dtype``, which binding computes,
 are left out); data types, schemas, sort orders, aggregates and window
-specs serialize structurally. The port's plan nodes hold their planner
+specs serialize structurally; a ``PythonUdf`` (a host callable) does not
+serialize, nor a ``MapInBatch``'s function. The port's plan nodes hold their planner
 hints as fields (``Filter.out_rows_hint``, ``HashAggregate.
 group_key_ranges`` and ``merge_rows``, the ``HashJoin`` hints), so they
 serialize too; the JAX package keeps its hints as attributes outside the
@@ -90,6 +91,8 @@ def _fields_to_dict(obj) -> Dict[str, Any]:
 
 
 def _value_to_dict(v: Any) -> Any:
+    if isinstance(v, E.PythonUdf):  # JAX ``serde.py:186``
+        raise TypeError("PythonUdf carries a host callable and does not serialize")
     if isinstance(v, (P.PlanNode, E.Expr) + tuple(_SPEC_CLASSES.values())):
         return _fields_to_dict(v)
     if isinstance(v, T.DataType):

@@ -6,7 +6,8 @@ generated tables, query by query.
 which its answer has rows (q34 is empty at every scale, ROADMAP C18: it
 runs at SF 0.02 and its answer is held empty). Tables come from the port's
 generator, which the generator test holds bit-equal to the JAX one's, and
-are made once per (table, scale) in a process. A query of
+are made once per (table, scale) in a process, and staged for the JAX
+package once per string layout (`test_torch_q9.jax_session`). A query of
 ``tpcds.NEEDS_SESSION`` (q88) builds its plan for the session that runs it
 (``plans``), and its scalar subqueries' runs count among its attempts in
 the JAX package's order (``attempts``)."""
@@ -18,7 +19,6 @@ import numpy as np
 
 import chip_smoke
 from datafusion_comet_tpu.exec import batch as JB
-from datafusion_comet_tpu.exec.engine import Session as JaxSession
 from datafusion_comet_tpu.ir import plan as JP
 from datafusion_comet_tpu.models import tpcds as JTPCDS
 from datafusion_comet_tpu_torch.conf import Config
@@ -27,7 +27,7 @@ from datafusion_comet_tpu_torch.exec.engine import Session
 from datafusion_comet_tpu_torch.ir import plan as PP
 from datafusion_comet_tpu_torch.models import tpcds
 from test_torch_grace import jax_fraction
-from test_torch_q9 import STAGING, rf_hints, same
+from test_torch_q9 import STAGING, jax_session, rf_hints, same
 
 # the queries whose answer is empty at SF 0.02 and has rows at SF 0.1
 _AT_01 = ("q8", "q31", "q50", "q64", "q91")
@@ -54,11 +54,10 @@ def sessions(data, staging="default", fraction=None):
     """(JAX Session, port Session on the CPU) with ``data`` registered in
     the staging's string layout, under ``fraction`` of the memory where
     given (the port's; the JAX one's is set by ``jax_fraction``)."""
-    js = JaxSession()
+    js = jax_session(data, JTPCDS.SCHEMAS, STAGING[staging])
     ps = Session(device="cpu", conf=Config(scan_dictionary_max_size=STAGING[staging],
                                            **({"memory_fraction": fraction} if fraction else {})))
     for t, d in data.items():
-        js.register_numpy(t, d, JTPCDS.SCHEMAS[t], dict_max_size=STAGING[staging])
         ps.register_numpy(t, d, tpcds.SCHEMAS[t])
     return js, ps
 

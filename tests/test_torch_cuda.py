@@ -24,8 +24,11 @@ of the scalar evaluator (temporal functions in named zones, the string
 casts with Ryu, the string functions, the hashes, rand and randn), the
 nested expressions (arrays, maps, structs, higher-order functions,
 split), Explode, collect_list/collect_set in every mode, the percentile
-list and Session.explain on the card against the CPU, and the partition
-kernel at nested row shapes against its plain version. Marked
+list and Session.explain on the card against the CPU, the partition
+kernel at nested row shapes against its plain version, and the text
+functions (RLIKE, the regexp forms, the bytes family and digests, JSON
+paths, a Python UDF, the aggregate FILTER clause) on the card against the
+CPU. Marked
 ``cuda``;
 without a card every test here skips. This file imports no JAX, so it runs
 on a machine without it (tests/conftest.py imports JAX, hence --noconftest):
@@ -1771,3 +1774,61 @@ def test_partition_columns_at_nested_rows_equal_plain(dev, rows):
     for c, k, limit in ((codes, 16, None), (mask, 1, 65_536)):
         _, err = chip_smoke.check_payload(K, "nested", c, k, tensors, limit=limit)
         assert err == 0
+
+
+@pytest.mark.parametrize("encoding", ["dict", "padded"])
+def test_text_functions_on_card_equal_cpu(dev, encoding):
+    """RLIKE (automata on both sides of the JAX package's select-tree
+    thresholds), the three device regexp forms, every bytes function and
+    digest, get_json_object and json_array_length, a Python UDF and the
+    aggregate FILTER clause (a special aggregate's too) on the card equal
+    the CPU run over the same seeded table."""
+    from datafusion_comet_tpu_torch.ir import expr as E
+    from datafusion_comet_tpu_torch.ir import functions as F
+
+    rng = np.random.default_rng(31)
+    n = 3000
+    words = np.array(["alpha", "beta7", "gamma42", "x@y.com", "", "a1b2c3", "zz top"], object)
+    s = np.array([words[i] + str(j) * (j % 5) for i, j in
+                  zip(rng.integers(0, len(words), n), rng.integers(0, 10**6, n))], object)
+    doc = np.array(['{"k":%d,"t":["a","b%d"],"s":"q\\"x"}' % (i, i % 7) if i % 11 else "[1,2]"
+                    for i in range(n)], object)
+    data = {"s": s, "doc": doc, "i": rng.integers(-2**40, 2**40, n),
+            "g": rng.integers(0, 6, n).astype(np.int64)}
+    schema = PT.Schema([PT.Field("s", PT.string(40)), PT.Field("doc", PT.string(48)),
+                        PT.Field("i", PT.INT64), PT.Field("g", PT.INT64)])
+    valid = {"s": rng.random(n) > 0.05, "doc": rng.random(n) > 0.05}
+    c = E.col
+    exprs = [E.RLike(c("s"), "[a-z]+\\d"), E.RLike(c("s"), "abcdefghijklmnopqrstuvwxyz", True),
+             E.RegexpExtract(c("s"), "([a-z]+)(\\d+)", 2), E.RegexpExtractAll(c("s"), "\\d", 0, 40),
+             E.RegexpReplace(c("s"), "\\d+", "#"), F.python_udf(lambda v: v and v[::-1],
+                                                              [c("s")], PT.string(40)),
+             E.StringFunc("hex", (c("s"),)), E.StringFunc("hex", (c("i"),)),
+             E.StringFunc("unhex", (E.StringFunc("hex", (c("s"),)),)),
+             E.StringFunc("base64", (c("s"),)), E.StringFunc("unbase64", (c("s"),)),
+             E.StringFunc("bin", (c("i"),)),
+             E.StringFunc("conv", (E.Cast(c("i"), PT.string(24)), E.lit(10), E.lit(-16))),
+             E.StringFunc("crc32", (c("s"),)), E.StringFunc("md5", (c("s"),)),
+             E.StringFunc("sha1", (c("s"),))]
+    exprs += [E.StringFunc("sha2", (c("s"), E.lit(b))) for b in (224, 256, 384, 512)]
+    exprs += [F.get_json_object(c("doc"), "$.t[1]"), F.get_json_object(c("doc"), "$.s"),
+              F.json_array_length(c("doc"))]
+    proj = PP.Scan("t", schema).project([x.alias(f"e{k}") for k, x in enumerate(exprs)])
+    agg = PP.Scan("t", schema).aggregate([c("g")], [
+        E.AggExpr("count", None, "n", filter=E.RLike(c("s"), "\\d{3}")),
+        E.AggExpr("sum", c("i"), "si", filter=E.RLike(c("s"), "^a")),
+        E.AggExpr("median", c("i"), "md", filter=c("i") > E.lit(0))]).sort(
+        [E.SortOrder(c("g"))])
+    dms = 1 << 16 if encoding == "dict" else 0
+    outs = []
+    for d in ("cpu", dev):
+        sess = Session(device=d, conf=Config(scan_dictionary_max_size=dms))
+        sess.register_numpy("t", data, schema, validity=valid)
+        outs.append((sess.collect(proj), sess.collect(agg)))
+    for want, got in zip(*outs):
+        assert list(want) == list(got)
+        for k in want:
+            if want[k].dtype == object:
+                assert [repr(v) for v in want[k]] == [repr(v) for v in got[k]], k
+            else:
+                np.testing.assert_array_equal(want[k], got[k], err_msg=k)

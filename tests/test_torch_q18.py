@@ -33,7 +33,6 @@ import chip_smoke
 from datafusion_comet_tpu import types as JT
 from datafusion_comet_tpu.conf import CONF
 from datafusion_comet_tpu.exec import batch as JB
-from datafusion_comet_tpu.exec.engine import Session as JaxSession
 from datafusion_comet_tpu.exec.runtime_filter import RUNTIME_FILTER_ENABLED
 from datafusion_comet_tpu.ir import expr as JE
 from datafusion_comet_tpu.ir import plan as JP
@@ -45,6 +44,7 @@ from datafusion_comet_tpu_torch.ir import plan as PP
 from datafusion_comet_tpu_torch.models import tpch
 from test_torch_grace import jax_fraction, jax_spy  # noqa: F401 (a fixture)
 from test_torch_hints import jax_attempts, stage_hints  # noqa: F401 (a fixture)
+from test_torch_q9 import jax_session
 from _torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -97,12 +97,11 @@ def tables():
 
 
 def _sessions(data, staging, fraction=None, **conf):
-    js = JaxSession()
+    js = jax_session({t: data[t] for t in NAMES}, JTPCH.SCHEMAS, STAGING[staging])
     ps = Session(device="cpu", conf=Config(scan_dictionary_max_size=STAGING[staging],
                                            **({"memory_fraction": fraction} if fraction else {}),
                                            **conf))
     for t in NAMES:
-        js.register_numpy(t, data[t], JTPCH.SCHEMAS[t], dict_max_size=STAGING[staging])
         ps.register_numpy(t, data[t], tpch.SCHEMAS[t])
     return js, ps
 

@@ -21,7 +21,6 @@ import pytest
 
 import chip_smoke
 from datafusion_comet_tpu.exec import batch as JB
-from datafusion_comet_tpu.exec.engine import Session as JaxSession
 from datafusion_comet_tpu.ir import plan as JP
 from datafusion_comet_tpu.models import tpch as JTPCH
 from datafusion_comet_tpu_torch.conf import Config
@@ -29,6 +28,7 @@ from datafusion_comet_tpu_torch.exec import batch as PB
 from datafusion_comet_tpu_torch.exec.engine import Session
 from datafusion_comet_tpu_torch.models import tpch
 from test_torch_grace import jax_fraction, jax_spy  # noqa: F401 (jax_spy: a fixture)
+from test_torch_q9 import jax_session
 from _torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -42,9 +42,9 @@ def q5_data(request):
 
 
 def _sessions(data, conf=None):
-    js, ps = JaxSession(), Session(device="cpu", conf=conf)
+    js = jax_session({t: data[t] for t in NAMES}, JTPCH.SCHEMAS, None)
+    ps = Session(device="cpu", conf=conf)
     for t in NAMES:
-        js.register_numpy(t, data[t], JTPCH.SCHEMAS[t])
         ps.register_numpy(t, data[t], tpch.SCHEMAS[t])
     return js, ps
 

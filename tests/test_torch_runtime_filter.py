@@ -35,7 +35,7 @@ from datafusion_comet_tpu_torch.ir import expr as PE
 from datafusion_comet_tpu_torch.ir import plan as PP
 from datafusion_comet_tpu_torch.models import tpch
 from test_torch_hints import jax_attempts  # noqa: F401 (a fixture)
-from test_torch_q9 import rf_hints, same
+from test_torch_q9 import jax_session, rf_hints, same
 from _torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -53,11 +53,10 @@ def data():
 
 
 def _sessions(tables, fraction=None, enabled=True):
-    js = JaxSession()
+    js = jax_session(tables, JTPCH.SCHEMAS, None)
     conf = {"memory_fraction": fraction} if fraction else {}
     ps = Session(device="cpu", conf=Config(runtime_filter_enabled=enabled, **conf))
     for t, d in tables.items():
-        js.register_numpy(t, d, JTPCH.SCHEMAS[t])
         ps.register_numpy(t, d, tpch.SCHEMAS[t])
     return js, ps
 

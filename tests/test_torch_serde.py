@@ -7,12 +7,13 @@ the same query, compared as parsed dicts. Fields that one package has and
 the other has not are named in ``PORT_ONLY`` and ``JAX_ONLY`` and left
 out of that comparison: the port keeps its planner hints as node fields
 (the JAX package as attributes outside its JSON) and an Explode the child
-columns pruning keeps (``keep``; XLA drops the JAX package's), and the JAX AggExpr's
-FILTER clause is not ported. The scalar evaluator's
-nodes (a cast in a session zone, the temporal, string, split, soundex,
-format_number and hash nodes, rand, randn, the row ids and Sample) and the
-zoned timestamp types write the JAX package's JSON too, as do the nested
-nodes (arrays, maps, structs, lambdas, split, explode, collects and the
+columns pruning keeps (``keep``; XLA drops the JAX package's); the JAX
+package has no field the port lacks (``JAX_ONLY`` is empty). The scalar
+evaluator's nodes (a cast in a session zone, the temporal, string, bytes,
+JSON, split, soundex, format_number and hash nodes, the regex nodes, rand,
+randn, the row ids and Sample) and the zoned timestamp types write the JAX
+package's JSON too, as do the nested nodes (arrays, maps, structs,
+lambdas, split, explode, collects with their FILTER clauses and the
 percentile list) and the LIST, MAP and STRUCT types."""
 
 import json
@@ -35,7 +36,7 @@ PORT_ONLY = {"Filter": {"out_rows_hint"},
              "HashJoin": {"build_key_range", "out_rows_hint", "fanout_hint", "unique_build_hint",
                           "key_pack", "rf_dense_range", "rf_injected", "cond_col_ranges"},
              "Explode": {"keep"}}
-JAX_ONLY = {"AggExpr": {"filter"}}
+JAX_ONLY = {}
 
 
 def _round_trip(plan):
@@ -113,6 +114,12 @@ def _scalar_nodes_plan(E, P, T):
         E.Alias(E.SubstringIndex(c("s"), ".", 2), "si"),
         E.Alias(E.Soundex(c("s")), "sx"),
         E.Alias(E.FormatNumber(c("x"), 2, 20), "fn"),
+        E.Alias(E.RLike(c("s"), "a.c", True), "rl"),
+        E.Alias(E.RegexpExtract(c("s"), "(\\d+)", 1, 8), "rx"),
+        E.Alias(E.RegexpExtractAll(c("s"), "\\d+", 0, 4), "rxa"),
+        E.Alias(E.RegexpReplace(c("s"), "\\d", "#"), "rr"),
+        E.Alias(E.StringFunc("sha2", (c("s"), E.lit(384))), "sh"),
+        E.Alias(E.StringFunc("get_json_object", (c("s"), E.lit("$.a"))), "gj"),
         E.Alias(E.RandExpr("randn", 3), "r"),
         E.Alias(E.MonotonicallyIncreasingId(), "id"),
         E.Alias(E.SparkPartitionId(), "pid")]
@@ -148,7 +155,7 @@ def _nested_nodes_plan(E, P, T):
         E.Alias(E.Split(c("s"), ",", 6), "sp"), c("a"), c("x")]
     exploded = P.Explode(P.Scan("z", sch).project(exprs), c("a"), True, True)
     return exploded.aggregate([c("x")], [
-        E.AggExpr("collect_list", c("col"), "cl", max_elems=8),
+        E.AggExpr("collect_list", c("col"), "cl", max_elems=8, filter=c("x") > E.lit(2)),
         E.AggExpr("collect_set", c("pos"), "cs", max_elems=4),
         E.AggExpr("percentile", c("col"), "pc", extra=(E.lit((0.5, 0.9),
                                                             T.list_(T.FLOAT64, 2)),))])

@@ -84,9 +84,15 @@ def test_substring_matches_jax(encoding, pos):
 
 
 def test_only_substring_binds():
-    """Every string function binds now but the bytes and JSON family
-    (ROADMAP A.4), which raises at binding; upper keeps its input's type."""
+    """Every string function binds, the bytes and JSON family too: upper
+    keeps its input's type, and md5 binds to the JAX package's STRING(32)
+    and gives its digests (the lengths 0-12 of this file's strings)."""
     schema = PT.Schema([PT.Field("s", PT.string(12))])
     assert PE.bind(PE.StringFunc("upper", (PE.col("s"),)), schema).dtype == PT.string(12)
-    with pytest.raises(NotImplementedError, match="md5"):
-        PE.bind(PE.StringFunc("md5", (PE.col("s"),)), schema)
+    from _torch_expr import assert_same, run_both, stage
+
+    vals = np.array(["x" * n for n in range(13)] + [None], dtype=object)
+    jb, pb = stage([("s", lambda T: T.string(12))], {"s": vals})
+    j, p = run_both(lambda E, T: E.StringFunc("md5", (E.col("s"),)), jb, pb)
+    assert p.dtype == PT.string(32)
+    assert_same(j, p, len(vals))
